@@ -1,0 +1,53 @@
+"""Streaming state across packages.
+
+A ``PconvState`` of the JAX package and of this one have the same fields
+in the same layout, so a live stream can move from one to the other
+mid-stream: the carried parameters are the IR spectra and the input ring,
+plus the overlap-add tail and the ring pointers. The exchange format is
+numpy: a mapping (or NamedTuple) of field name -> array.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Union
+
+import numpy as np
+import torch
+
+from .ops.pconv import PconvState
+
+
+def pconv_state_from_numpy(fields: Union[Mapping[str, Any], tuple],
+                           device: Union[str, torch.device]) -> PconvState:
+    """Build a PconvState on ``device`` from numpy fields (for example the
+    JAX package's ``PconvState`` mapped through ``np.asarray``)."""
+    if hasattr(fields, "_asdict"):
+        fields = fields._asdict()
+    missing = set(PconvState._fields) - set(fields)
+    if missing:
+        raise ValueError(f"missing PconvState fields: {sorted(missing)}")
+    hr = np.asarray(fields["spec_h_re"])
+    if hr.ndim != 2:
+        raise ValueError(f"spec_h_re must be (nparts, bins), got {hr.shape}")
+    nparts, bins = hr.shape
+    shapes = {"spec_x_re": (2 * nparts, bins), "spec_x_im": (2 * nparts, bins),
+              "spec_h_re": (nparts, bins), "spec_h_im": (nparts, bins),
+              "tail": (bins,)}
+    planes = {}
+    for name, shape in shapes.items():
+        a = np.asarray(fields[name], dtype=np.float32)
+        if a.shape != shape:
+            raise ValueError(f"{name} must be {shape}, got {a.shape}")
+        planes[name] = torch.tensor(a, device=device)     # a copy
+    return PconvState(**planes, wp=int(fields["wp"]) % nparts,
+                      wp2=int(fields["wp2"]) % nparts)
+
+
+def pconv_state_to_numpy(state: PconvState) -> Dict[str, np.ndarray]:
+    """The state's fields as numpy arrays (ring pointers as int32 scalars,
+    the JAX package's pointer type)."""
+    out = {name: getattr(state, name).detach().cpu().numpy()
+           for name in ("spec_x_re", "spec_x_im", "spec_h_re", "spec_h_im", "tail")}
+    out["wp"] = np.asarray(state.wp, np.int32)
+    out["wp2"] = np.asarray(state.wp2, np.int32)
+    return out

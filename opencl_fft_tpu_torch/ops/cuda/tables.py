@@ -1,0 +1,120 @@
+"""Fused transform tables of the streaming engine, built in float64 numpy
+and rounded once to float32 — copies of the JAX package's builders in
+``ops/pallas/blockstep.py`` (bit for bit: the tests compare them).
+
+``_wfwd_np(pts)``: block @ W == the whole forward rFFT of the zero-padded
+frame (deinterleave + half-size DFT + pack), split [re | im].
+``_wpost_np(bins)``: [accr | acci] @ W == [time[:bins] | time[bins:]], the
+whole inverse half (unpack + inverse DFT + deinterleave).
+
+The ``*_table`` functions cache the float32 tensors per (size, device).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_matrix_np(m: int, forward: bool) -> np.ndarray:
+    """(2m, 2m) matrix U with [re | im] @ U == the pack_forward
+    (forward=True) or unpack_inverse (False) of the split spectrum: both
+    passes are linear in (re, im), so each folds into one matrix."""
+    i = np.arange(m, dtype=np.float64)
+    sign = -1.0 if forward else +1.0
+    w = np.exp(sign * 1j * np.pi * i / m)
+    dr, di = np.diag(w.real), np.diag(w.imag)
+    eye = np.eye(m)
+    p = np.zeros((m, m))
+    p[(-np.arange(m)) % m, np.arange(m)] = 1.0
+    if forward:
+        a_rr = 0.5 * (eye + p) - 0.5 * (p - eye) @ di
+        a_ir = 0.5 * (p + eye) @ dr
+        a_ri = 0.5 * (p - eye) @ dr
+        a_ii = 0.5 * (eye - p) + 0.5 * (p + eye) @ di
+    else:
+        a_rr = 0.5 * (eye + p) - 0.5 * (eye - p) @ di
+        a_ir = -0.5 * (eye + p) @ dr
+        a_ri = 0.5 * (eye - p) @ dr
+        a_ii = 0.5 * (eye - p) - 0.5 * (eye + p) @ di
+    u = np.block([[a_rr, a_ri], [a_ir, a_ii]])
+    # special output bins are column replacements
+    b0 = 0.5 if forward else 1.0
+    u[:, 0] = 0.0
+    u[:, m] = 0.0
+    u[0, 0] = b0                          # outr[0] = b0*(re0 + im0)
+    u[m, 0] = b0
+    u[0, m] = b0                          # outi[0] = b0*(re0 - im0)
+    u[m, m] = -b0
+    u[:, m // 2] = 0.0
+    u[:, m + m // 2] = 0.0
+    u[m // 2, m // 2] = 1.0               # untouched conjugate bin
+    u[m + m // 2, m + m // 2] = 1.0
+    return u
+
+
+@functools.lru_cache(maxsize=None)
+def _wfwd_np(pts: int) -> np.ndarray:
+    """(pts, 2m) forward table: row-selected DFT @ pack matrix, in f64."""
+    m = pts
+    jk = np.outer(np.arange(m, dtype=np.float64), np.arange(m, dtype=np.float64))
+    w = np.exp(-2j * np.pi * jk / m)
+    blockm = np.block([[w.real, w.imag], [-w.imag, w.real]])   # (2m, 2m) f64
+    f = np.zeros((pts, 2 * m))
+    k = np.arange(pts)
+    f[k % 2 == 0] = blockm[(k[k % 2 == 0]) // 2]
+    f[k % 2 == 1] = blockm[m + (k[k % 2 == 1] - 1) // 2]
+    return (f @ _pack_matrix_np(m, True)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _wpost_np(bins: int) -> np.ndarray:
+    """(2m, 2m) inverse table: unpack @ inverse DFT @ deinterleave, in f64."""
+    m = bins
+    jk = np.outer(np.arange(m, dtype=np.float64), np.arange(m, dtype=np.float64))
+    w = np.exp(+2j * np.pi * jk / m)
+    winv = np.block([[w.real, w.imag], [-w.imag, w.real]])     # (2m, 2m) f64
+    m1, m2 = _deinterleave_np(m)
+    sel = np.concatenate([m1, m2], axis=1).astype(np.float64)  # (2m, 2m)
+    return (_pack_matrix_np(m, False) @ winv @ sel).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _deinterleave_np(b: int):
+    """One-hot (2b, b) matrices M1/M2 with [Yre Yim] @ M1 = time[:b] and
+    @ M2 = time[b:], where time[2i] = Yre[i], time[2i+1] = Yim[i]."""
+    m1 = np.zeros((2 * b, b), np.float32)
+    m2 = np.zeros((2 * b, b), np.float32)
+    for i in range(b // 2):
+        m1[i, 2 * i] = 1.0
+        m1[b + i, 2 * i + 1] = 1.0
+    for i in range(b // 2, b):
+        m2[i, 2 * (i - b // 2)] = 1.0
+        m2[b + i, 2 * (i - b // 2) + 1] = 1.0
+    return m1, m2
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_table(pts: int, device: torch.device) -> torch.Tensor:
+    """``_wfwd_np(pts)`` as a float32 tensor on ``device``."""
+    return torch.from_numpy(_wfwd_np(pts)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def post_table(bins: int, device: torch.device) -> torch.Tensor:
+    """``_wpost_np(bins)`` as a float32 tensor on ``device``."""
+    return torch.from_numpy(_wpost_np(bins)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def post_ola_table(bins: int, device: torch.device) -> torch.Tensor:
+    """(4b, b) re-layout of ``_wpost_np`` for the CUDA stream kernel:
+    [wpost[:, b:] ; wpost[:, :b]]. Row t of [acc[t-1] | acc[t]] @ this
+    table is y[t-1, b:] + y[t, :b], the overlap-added block before /pts."""
+    w = _wpost_np(bins)
+    return torch.from_numpy(
+        np.ascontiguousarray(np.concatenate([w[:, bins:], w[:, :bins]]))
+    ).to(device)

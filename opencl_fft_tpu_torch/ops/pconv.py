@@ -1,0 +1,262 @@
+"""Uniform partitioned fast convolution (frequency-delay line), LTI path.
+
+Counterpart of ``opencl_fft_tpu/ops/pconv.py`` (parity with ``Clpconv``,
+``cl_conv.h:124-188``): a length-``cvs`` convolution split into
+``nparts = cvs/pts`` spectral partitions with one-partition latency.
+
+Normalization follows the reference: unnormalized transforms both ways and
+one division by ``pts`` in the overlap-add. ``bin0_mode="exact"`` restores
+the factor 2 that the packed (DC/2, Nyq/2) bin loses in the componentwise
+product; ``"compat"`` reproduces the reference artifact.
+
+State keeps the JAX package's field layout so that a stream can cross
+packages (see ``interop.py``): a doubled input ring, an IR ring stored
+reversed, the overlap-add tail and the two ring pointers. Functions return
+new state and do not modify the state they are given.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple, Union
+
+import torch
+
+from ..utils.numerics import is_pow2
+from .cplx import Cplx
+from .cuda.streamstep import stream_steps_fused
+from .cuda.tables import fwd_table
+from .fft import _IMPLS
+from .rfft import irfft_split, rfft_split
+
+# Largest partition size whose (pts, 2*pts) forward table (and the
+# (2*pts, 2*pts) inverse table of the stream kernel) the engine builds;
+# larger partitions take the split-table kernel, ROADMAP queue 2 item 5.
+_FWD_MM_MAX_PTS = 2048
+
+
+@dataclasses.dataclass(frozen=True)
+class PconvConfig:
+    """Static configuration (the ctor args of Clpconv, cl_conv.cpp:140-143).
+
+    pts:    partition size in samples (FFT size is 2*pts; bins = pts).
+    nparts: number of partitions (= cvs / pts).
+    bin0_mode: "exact" (true convolution) or "compat" (reference artifact).
+    impl:   FFT implementation (see ops/fft.py).
+    ring_dtype, dtype: "f32" only so far.
+    """
+
+    pts: int
+    nparts: int
+    bin0_mode: str = "exact"
+    impl: str = "auto"
+    ring_dtype: str = "f32"
+    dtype: str = "f32"
+
+    def __post_init__(self):
+        if not is_pow2(self.pts) or self.pts < 2:
+            raise ValueError(f"partition size must be a power of two >= 2, got {self.pts}")
+        if self.nparts < 1:
+            raise ValueError(f"need at least one partition, got {self.nparts}")
+        if self.bin0_mode not in ("exact", "compat"):
+            raise ValueError(f"bin0_mode must be 'exact' or 'compat', got {self.bin0_mode}")
+        if self.impl not in _IMPLS:
+            raise ValueError(f"unknown impl {self.impl!r}, expected one of {_IMPLS}")
+        if self.ring_dtype not in ("f32", "bf16"):
+            raise ValueError(f"ring_dtype must be 'f32'|'bf16', got {self.ring_dtype}")
+        if self.dtype not in ("f32", "f64"):
+            raise ValueError(f"dtype must be 'f32'|'f64', got {self.dtype}")
+        if self.ring_dtype == "bf16":
+            raise NotImplementedError(
+                "ring_dtype='bf16' is not ported yet (ROADMAP queue 1 item 8)")
+        if self.dtype == "f64":
+            raise NotImplementedError(
+                "dtype='f64' is not ported yet (ROADMAP queue 1 item 7)")
+
+    @property
+    def bins(self) -> int:
+        return self.pts
+
+    @property
+    def cvs(self) -> int:
+        return self.pts * self.nparts
+
+    @property
+    def b0_scale(self) -> float:
+        return 2.0 if self.bin0_mode == "exact" else 1.0
+
+    @staticmethod
+    def for_ir_length(cvs: int, pts: int, **kw) -> "PconvConfig":
+        """Reference ctor arithmetic: nparts = cvs / pts (cl_conv.cpp:143)."""
+        if pts <= 0 or cvs % pts:
+            raise ValueError(f"convolution size {cvs} must be a multiple of pts {pts}")
+        return PconvConfig(pts=pts, nparts=cvs // pts, **kw)
+
+
+class PconvState(NamedTuple):
+    """Streaming state, in the JAX package's field layout.
+
+    The input ring is stored DOUBLED (2*nparts rows; each frame written at
+    wp and wp+nparts), so the MAC window is one contiguous row slice.
+    The ring pointers are Python ints (no device sync to read them).
+    """
+
+    spec_x_re: torch.Tensor  # (2*nparts, bins) doubled input spectral ring
+    spec_x_im: torch.Tensor
+    spec_h_re: torch.Tensor  # (nparts, bins) IR spectra, stored reversed
+    spec_h_im: torch.Tensor
+    tail: torch.Tensor       # (pts,) overlap-add tail (unnormalized)
+    wp: int                  # input ring pointer (increments)
+    wp2: int                 # coefficient ring pointer (decrements)
+
+
+def pconv_init(cfg: PconvConfig, device: Union[str, torch.device]) -> PconvState:
+    """Zero state on ``device``; wp = 0, wp2 = nparts - 1 (cl_conv.cpp:144)."""
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    return PconvState(
+        spec_x_re=z(2 * cfg.nparts, cfg.bins), spec_x_im=z(2 * cfg.nparts, cfg.bins),
+        spec_h_re=z(cfg.nparts, cfg.bins), spec_h_im=z(cfg.nparts, cfg.bins),
+        tail=z(cfg.pts), wp=0, wp2=cfg.nparts - 1)
+
+
+def _forward_partition(cfg: PconvConfig, block: torch.Tensor) -> Cplx:
+    """Zero-padded unnormalized forward real FFT of (..., pts) blocks.
+
+    Up to _FWD_MM_MAX_PTS the whole chain (zero-pad -> deinterleave ->
+    half-size DFT -> pack) is one matmul against the f64-built
+    (pts, 2*bins) table, as in the JAX package; beyond, the transform chain.
+    """
+    block = block.to(torch.float32)
+    if cfg.pts <= _FWD_MM_MAX_PTS:
+        z = block @ fwd_table(cfg.pts, block.device)
+        return z[..., :cfg.bins], z[..., cfg.bins:]
+    frame = torch.cat([block, torch.zeros_like(block)], dim=-1)
+    return rfft_split(frame, cfg.impl, unnormalized=True)
+
+
+def push_ir(cfg: PconvConfig, state: PconvState, ir: torch.Tensor) -> PconvState:
+    """Analyze an impulse response into the coefficient ring.
+
+    Parity with Clpconv::push_ir (cl_conv.cpp:353-388): partition j is
+    written at slot wp2 - j, so the ring holds the partitions in REVERSE
+    order and wp2 ends where it started.
+    """
+    if tuple(ir.shape) != (cfg.cvs,):
+        raise ValueError(f"IR must have shape ({cfg.cvs},), got {tuple(ir.shape)}")
+    hr, hi = _forward_partition(cfg, ir.reshape(cfg.nparts, cfg.pts))
+    slots = (state.wp2 - torch.arange(cfg.nparts, device=ir.device)) % cfg.nparts
+    spec_h_re = torch.empty_like(state.spec_h_re)
+    spec_h_im = torch.empty_like(state.spec_h_im)
+    spec_h_re[slots] = hr
+    spec_h_im[slots] = hi
+    return state._replace(spec_h_re=spec_h_re, spec_h_im=spec_h_im)
+
+
+def _spectral_mac(cfg: PconvConfig, state: PconvState, rp: int) -> Cplx:
+    """Frequency-delay-line MAC: sum over partitions of in[(rp+q) % np] *
+    coef[q]; bin 0 (the packed (DC, Nyq) pair) multiplies componentwise
+    (cl_conv_kernels.h:102-118)."""
+    xr = state.spec_x_re[rp:rp + cfg.nparts]
+    xi = state.spec_x_im[rp:rp + cfg.nparts]
+    hr, hi = state.spec_h_re, state.spec_h_im
+    acc_r = torch.sum(xr * hr - xi * hi, dim=0)
+    acc_i = torch.sum(xr * hi + xi * hr, dim=0)
+    acc_r[0] = cfg.b0_scale * torch.sum(xr[:, 0] * hr[:, 0])
+    acc_i[0] = cfg.b0_scale * torch.sum(xi[:, 0] * hi[:, 0])
+    return acc_r, acc_i
+
+
+def _inverse_and_ola(cfg: PconvConfig, state: PconvState, acc: Cplx
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse transform + overlap-add; returns (out_block, new_tail):
+    out = (first half + tail) / pts, new tail = second half
+    (cl_conv_kernels.h:120-124)."""
+    y = irfft_split(acc, cfg.impl)               # (2*pts,)
+    return (y[..., :cfg.pts] + state.tail) / cfg.pts, y[..., cfg.pts:]
+
+
+def _ring_write2(ring: torch.Tensor, row: torch.Tensor, wp: int,
+                 nparts: int) -> torch.Tensor:
+    """Write one frame into the doubled ring: at wp and wp + nparts."""
+    ring = ring.clone()
+    ring[wp] = row
+    ring[wp + nparts] = row
+    return ring
+
+
+def pconv_step(cfg: PconvConfig, state: PconvState, block: torch.Tensor
+               ) -> Tuple[PconvState, torch.Tensor]:
+    """One LTI streaming block: Clpconv::convolution(out, in) parity
+    (cl_conv.cpp:393-458). block: (pts,) -> out: (pts,)."""
+    xr, xi = _forward_partition(cfg, block)
+    wp = (state.wp + 1) % cfg.nparts                  # cl_conv.cpp:424
+    state = state._replace(
+        spec_x_re=_ring_write2(state.spec_x_re, xr, state.wp, cfg.nparts),
+        spec_x_im=_ring_write2(state.spec_x_im, xi, state.wp, cfg.nparts),
+        wp=wp)
+    out, tail = _inverse_and_ola(cfg, state, _spectral_mac(cfg, state, wp))
+    return state._replace(tail=tail), out
+
+
+def pconv_stream(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor
+                 ) -> Tuple[PconvState, torch.Tensor]:
+    """Run many LTI blocks, blocks: (nblocks, pts) -> outs (nblocks, pts).
+
+    Every block goes through the whole-scan kernel
+    (``ops/cuda/streamstep.py``): its CUDA kernel for a CUDA tensor, its
+    plain twin for a CPU tensor. Same per-block results as pconv_step.
+    """
+    if blocks.dim() != 2 or blocks.shape[1] != cfg.pts:
+        raise ValueError(f"blocks must be (nblocks, {cfg.pts}), got {tuple(blocks.shape)}")
+    if blocks.is_cuda and blocks.dtype != torch.float32:
+        raise TypeError(f"CUDA blocks must be float32, got {blocks.dtype}")
+    if cfg.pts > _FWD_MM_MAX_PTS:
+        raise NotImplementedError(
+            f"pts={cfg.pts} > {_FWD_MM_MAX_PTS} needs the split-table stream "
+            f"kernel (ROADMAP queue 2 item 5)")
+    nb = blocks.shape[0]
+    if nb == 0:
+        return state, blocks.new_zeros((0, cfg.pts), dtype=torch.float32)
+    np_, wp = cfg.nparts, state.wp
+    # window row q = frame (wp + q): doubled-ring rows [wp, wp+nparts)
+    w0 = (state.spec_x_re[wp:wp + np_].contiguous(),
+          state.spec_x_im[wp:wp + np_].contiguous())
+    outs, (wfr, wfi), tail = stream_steps_fused(
+        blocks.to(torch.float32).contiguous(), w0,
+        (state.spec_h_re, state.spec_h_im), cfg.b0_scale, state.tail, cfg.pts)
+    wp_out = (wp + nb) % np_
+    # final window row q holds frame (wp_out + q): ring[r] = W[r - wp_out]
+    ring_r = torch.roll(wfr, wp_out, 0)
+    ring_i = torch.roll(wfi, wp_out, 0)
+    return state._replace(spec_x_re=torch.cat([ring_r, ring_r]),
+                          spec_x_im=torch.cat([ring_i, ring_i]),
+                          tail=tail, wp=wp_out), outs
+
+
+def convolve(signal, ir, pts: int, bin0_mode: str = "exact",
+             impl: str = "auto",
+             device: Optional[Union[str, torch.device]] = None) -> torch.Tensor:
+    """Full linear convolution of ``signal`` with ``ir`` via the streaming
+    engine: len(signal) + len(ir) - 1 samples, matching
+    scipy.signal.fftconvolve up to f32 tolerance (bin0_mode="exact").
+
+    ``device``: where to run; defaults to the device of ``signal`` when it
+    is a tensor (a numpy signal needs an explicit device).
+    """
+    if device is None:
+        if not isinstance(signal, torch.Tensor):
+            raise ValueError("convolve: pass device= for a non-tensor signal")
+        device = signal.device
+    signal = torch.as_tensor(signal, dtype=torch.float32, device=device)
+    ir = torch.as_tensor(ir, dtype=torch.float32, device=device)
+    cvs = -(-ir.shape[-1] // pts) * pts
+    cfg = PconvConfig.for_ir_length(cvs, pts, bin0_mode=bin0_mode, impl=impl)
+    out_len = signal.shape[-1] + ir.shape[-1] - 1
+    nblocks = -(-(signal.shape[-1] + cvs) // pts)
+    ir_p = torch.nn.functional.pad(ir, (0, cvs - ir.shape[-1]))
+    sig_p = torch.nn.functional.pad(signal, (0, nblocks * pts - signal.shape[-1]))
+    state = push_ir(cfg, pconv_init(cfg, device), ir_p)
+    _, out = pconv_stream(cfg, state, sig_p.reshape(nblocks, pts))
+    return out.reshape(-1)[:out_len]
