@@ -2,22 +2,32 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout, holds it
-against its plain PyTorch twin at the headline shape (2^17-tap IR in
-512-sample partitions: nparts=256, bins=512, 1880-block scans), drives the
-main path (``convolve`` and the ``ClconvProcessor`` opcode layer) on the card
-against a float64 scipy oracle, times the stream, and prints one JSON line
-per kernel and, last, ``{"ok": true, "device": {...}}``. Every phase prints
-one line; any failure exits non-zero before the last line. Without a CUDA
-card, or without the port beside this script, it fails.
+Builds the port's CUDA kernels from the sources in this checkout and holds
+each against its plain PyTorch twin: the LTI and time-varying (TV) stream
+kernels at the headline shape (2^17-tap IR in 512-sample partitions:
+nparts=256, bins=512, 1880-block scans) and at small odd shapes, the direct
+FIR kernel at 512 taps @ 512 and at other context depths. It then drives
+the three main paths on the card through the entry points a user calls,
+against float64 scipy/numpy oracles: ``convolve`` and ``ClconvProcessor``
+(LTI), ``pconv_stream_tv`` and ``CltvconvProcessor`` with the IR fed
+cyclically through the second operand (TV), and ``convolve_direct`` with
+the direct processors (parts=1). It times each stream, prints per stream
+the device time of each kernel and copy under ``torch.profiler`` and the
+device's busy share of the call, then one JSON line with every kernel's
+launches, error, time and bound, the card's name and power limit, and,
+last, ``{"ok": true, "device": {...}}``. Every phase prints one line; any
+failure exits non-zero before the last line. Without a CUDA card, or
+without the port beside this script, it fails.
 """
 
 import json
+import math
 import re
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -26,8 +36,13 @@ SR = 48000.0
 PTS = 512
 IR_LEN = 1 << 17
 SCAN_BLOCKS = 1880
+DIRECT_TAPS = 512
 TOL = 2e-5          # kernel vs twin, relative to max|twin| (JAX stream-vs-scan bound)
-ORACLE_TOL = 5e-5   # relative max error vs the float64 scipy oracle
+ORACLE_TOL = 5e-5   # relative max error vs the float64 scipy/numpy oracle
+# H100 SXM published peaks at its full 700 W limit: FP32 outside the tensor
+# cores (the kernels run plain FP32 FMA, no TF32) and HBM3 bandwidth
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
 
 
 def check(ok, what):
@@ -56,6 +71,93 @@ def cuda_ms(fn, warmup=2, reps=7):
     return statistics.median(times)
 
 
+def bound(flops, nbytes):
+    """Least milliseconds the card could take: the larger of the FLOPs over
+    the FP32 peak and the bytes (each input read once, each output written
+    once) over the HBM rate; and which of the two it is."""
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def rfft_flops(n):
+    """Operations of one transform of n real points: half those of a
+    complex one, 5 n log2 n."""
+    return 2.5 * n * math.log2(n)
+
+
+def stream_flops(nb, nparts, bins, pts, transforms):
+    """Least operations of a partitioned scan of nb blocks: the FDL MAC (a
+    complex multiply-add, 8 operations, per bin, partition and block) and
+    ``transforms`` real transforms of 2*pts points. The kernels do more:
+    their transforms are dense DFT products, O(pts^2) per block."""
+    return 8.0 * nb * nparts * bins + transforms * rfft_flops(2 * pts)
+
+
+def ptxas_summary(log):
+    """Per kernel (template flag as <0>/<1>), its ptxas register/smem line."""
+    kernels, resources = [], []
+    for ln in log.splitlines():
+        found = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)(ILb([01])EE)?",
+                          ln)
+        if found:
+            kernels.append(found.group(1) + (f"<{found.group(3)}>" if found.group(3) else ""))
+        elif "Used" in ln:
+            resources.append(ln.split(":", 1)[1].strip())
+    return "; ".join(f"{k}: {r}" for k, r in zip(kernels, resources))
+
+
+def profile_streams(streams, calls=10):
+    """Per (label, fn): device microseconds per call of each kernel and
+    copy under torch.profiler (the 8 largest) and their sum, against the
+    host wall per call of a synchronised run without the profiler; one
+    line per label."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for label, fn in streams:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) / calls * 1e6
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total / calls) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        rows.sort(key=lambda r: -r[1])
+        busy = sum(us for _, us in rows)
+        print(f"phase 12 profile {label}: device busy {busy:.1f} us of {wall_us:.1f} us "
+              f"host wall per call ({100 * busy / wall_us:.1f}%); {len(rows)} kinds; top: "
+              + "; ".join(f"{k[:60]} {us:.1f} us" for k, us in rows[:8]), flush=True)
+
+
+def direct_tv_model(irsize, vsize, xs, hs, off=1):
+    """float64 model of the direct engine's time-varying blocks
+    (cl_dconv.cpp:109-148): operand 2 goes into the coefficient ring and
+    operand 1 into the delay line at the ring pointer, then output n is
+    sum_h d[n + off + h] * coefs[irsize-1-h] over the rotated delay line."""
+    ring = irsize + vsize
+    dl, co, wp, outs = np.zeros(ring), np.zeros(ring), 0, []
+    for x, h in zip(xs, hs):
+        idx = (wp + np.arange(vsize)) % ring
+        co[idx] = h
+        dl[idx] = x
+        wp = (wp + vsize) % ring
+        d = np.roll(dl, -wp)
+        k = co[:irsize][::-1]
+        outs.append([d[n + off:n + off + irsize] @ k for n in range(vsize)])
+    return np.concatenate(outs)
+
+
 def main():
     # phase 1: the card
     check(torch.cuda.is_available(), "torch.cuda.is_available()")
@@ -75,30 +177,41 @@ def main():
     from scipy import signal as sps
 
     import opencl_fft_tpu_torch as P
+    from opencl_fft_tpu_torch.ops import dconv as D
     from opencl_fft_tpu_torch.ops.cuda import _build
+    from opencl_fft_tpu_torch.ops.cuda import dstream as K
     from opencl_fft_tpu_torch.ops.cuda import streamstep as S
 
-    # phase 2: build from the checkout's sources
-    t0 = time.perf_counter()
-    _build.load("streamstep")
-    build_s = time.perf_counter() - t0
-    # ptxas -v: per kernel, its spill line and then its register/smem line
-    kernels, resources = [], []
-    for ln in _build.build_log("streamstep").splitlines():
-        found = re.search(r"Compiling entry function '.*?\d+([a-z_]+_kernel)E", ln)
-        if found:
-            kernels.append(found.group(1))
-        elif "Used" in ln:
-            resources.append(ln.split(":", 1)[1].strip())
-    print(f"phase 2 build: streamstep.cu for sm_90a in {build_s:.3f} s; ptxas: "
-          + "; ".join(f"{k}: {r}" for k, r in zip(kernels, resources)), flush=True)
+    def zero_counts():
+        S.LAUNCHES = S.TV_LAUNCHES = K.LAUNCHES = 0
 
-    # phase 3: kernel vs plain twin on the card
+    # phase 2: build from the checkout's sources, one nvcc per source at once
+    libs = ("streamstep", "dstream")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as ex:
+        list(ex.map(_build.load, libs))
+    build_s = time.perf_counter() - t0
+    print(f"phase 2 build: {', '.join(f'{n}.cu' for n in libs)} for sm_90a in "
+          f"{build_s:.3f} s (parallel); ptxas: "
+          + " | ".join(f"{n}.cu: {ptxas_summary(_build.build_log(n))}" for n in libs),
+          flush=True)
+
     rng = np.random.default_rng(0)
 
+    def f(*shape, s=1.0):
+        return torch.from_numpy((s * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+
+    def compare(pairs, where, worst):
+        """Each (label, kernel, twin): finite, and within TOL of max|twin|."""
+        for label, g, w in pairs:
+            check(bool(torch.isfinite(g).all()), f"{label} finite at {where}")
+            rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            check(rel <= TOL, f"kernel vs twin {label} at {where}: {rel:.3e} > {TOL}")
+            worst = max(worst, rel)
+        return worst
+
+    # phase 3: LTI kernel vs plain twin on the card
     def scan_inputs(pts, nparts, nb):
-        def f(*shape, s=1.0):
-            return torch.from_numpy((s * rng.standard_normal(shape)).astype(np.float32)).to(dev)
         return (f(nb, pts, s=0.1), (f(nparts, pts), f(nparts, pts)),
                 (f(nparts, pts, s=0.05), f(nparts, pts, s=0.05)), f(pts))
 
@@ -114,26 +227,22 @@ def main():
             torch.cuda.synchronize()
             check(S.LAUNCHES == n0 + 1, "LAUNCHES counts the kernel launch")
             want = S.stream_steps_fused_plain(blocks, w0, h, b0, tail, pts)
-            for label, g, w in (("out", got[0], want[0]), ("window re", got[1][0], want[1][0]),
-                                ("window im", got[1][1], want[1][1]), ("tail", got[2], want[2])):
-                check(bool(torch.isfinite(g).all()), f"{label} finite at {pts},{nparts},{nb}")
-                err = float((g - w).abs().max())
-                rel = err / float(w.abs().max())
-                worst = max(worst, rel)
-                check(rel <= TOL, f"kernel vs twin {label} at pts={pts} nparts={nparts} "
-                                  f"nb={nb} b0={b0}: {rel:.3e} > {TOL}")
-                if (pts, nparts, nb) == headline and label == "out":
-                    headline_err = max(headline_err, err)
+            worst = compare((("out", got[0], want[0]), ("window re", got[1][0], want[1][0]),
+                             ("window im", got[1][1], want[1][1]),
+                             ("tail", got[2], want[2])),
+                            f"pts={pts} nparts={nparts} nb={nb} b0={b0}", worst)
+            if (pts, nparts, nb) == headline:
+                headline_err = max(headline_err, float((got[0] - want[0]).abs().max()))
     print(f"phase 3 kernel vs twin: shapes (pts,nparts,nb) {shapes} x b0 {{1,2}}; "
           f"worst rel err {worst:.3e} (tol {TOL}); headline out max_abs_err "
           f"{headline_err:.3e}", flush=True)
 
-    # phase 4: main path, convolve() on the card, against scipy in float64
+    # phase 4: LTI main path, convolve() on the card, against scipy in float64
     x = (0.1 * rng.standard_normal(int(20 * SR))).astype(np.float32)
     decay = np.exp(-np.arange(IR_LEN) / (0.5 * SR))
     ir = (rng.standard_normal(IR_LEN) * decay).astype(np.float32)
     x_d, ir_d = torch.from_numpy(x).to(dev), torch.from_numpy(ir).to(dev)
-    S.LAUNCHES = 0
+    zero_counts()
     y = P.convolve(x_d, ir_d, PTS)
     torch.cuda.synchronize()
     main_launches = S.LAUNCHES
@@ -163,8 +272,7 @@ def main():
     # phase 6: timing at the bench shape
     cfg = P.PconvConfig.for_ir_length(IR_LEN, PTS)
     state = P.push_ir(cfg, P.pconv_init(cfg, dev), ir_d)
-    blocks = torch.from_numpy(
-        (0.1 * rng.standard_normal((SCAN_BLOCKS, PTS))).astype(np.float32)).to(dev)
+    blocks = f(SCAN_BLOCKS, PTS, s=0.1)
     stream_ms = cuda_ms(lambda: P.pconv_stream(cfg, state, blocks), reps=15)
     w0 = (state.spec_x_re[:cfg.nparts].contiguous(), state.spec_x_im[:cfg.nparts].contiguous())
     h = (state.spec_h_re, state.spec_h_im)
@@ -174,17 +282,209 @@ def main():
                        warmup=1, reps=5)
     audio_s = SCAN_BLOCKS * PTS / SR
     rtf = audio_s / (stream_ms / 1e3)
+    nb, np_, b = SCAN_BLOCKS, cfg.nparts, cfg.bins
+    # least work: the MAC and one forward and one inverse transform a block;
+    # bytes: blocks, window and tail in and out, the IR spectra in
+    lti_flops = stream_flops(nb, np_, b, PTS, 2 * nb)
+    lti_bound = bound(lti_flops, 2 * nbytes(blocks, *w0, state.tail) + nbytes(*h))
+    # what the design does: dense forward and post DFT products and the MAC
+    fwd_flops = 2.0 * nb * PTS * 2 * b
+    design_flops = fwd_flops + 8.0 * nb * np_ * b + 2.0 * nb * 2 * b * 2 * b
     print(f"phase 6 timing [{card}]: pconv_stream {SCAN_BLOCKS}x{PTS} blocks, {IR_LEN} taps: "
           f"{stream_ms:.4f} ms/scan = {rtf:.1f}x real time ({1e3 * stream_ms / SCAN_BLOCKS:.4f} "
           f"us/block); stream_steps_fused kernel {kernel_ms:.4f} ms/scan; plain twin "
-          f"{plain_ms:.4f} ms/scan (median CUDA-event times)", flush=True)
+          f"{plain_ms:.4f} ms/scan (median CUDA-event times); bound {lti_bound[0]:.4f} ms "
+          f"({lti_bound[1]}, {lti_flops / 1e9:.3f} GFLOP of MAC and FFTs; the kernel's "
+          f"dense DFT products make it {design_flops / 1e9:.3f})", flush=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "stream_steps_fused", "route": "cuda",
-        "source": "opencl_fft_tpu_torch/csrc/streamstep.cu",
-        "replaces": "opencl_fft_tpu/ops/pallas/streamstep.py:149",
-        "launches": main_launches, "max_abs_err": headline_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+    # phase 7: TV kernel vs plain twin on the card
+    tv_shapes = [headline + (np_ - 1,), (PTS, np_, 21, 100), (64, 5, 21, 2),
+                 (128, 8, 3, 6), (16, 1, 1, 0)]
+    tv_err = 0.0
+    worst = 0.0
+    for pts, nparts, nb_, wp2 in tv_shapes:
+        bx, w0_, h0_, tail = scan_inputs(pts, nparts, nb_)
+        bh = f(nb_, pts, s=0.1)
+        for b0 in (1.0, 2.0):
+            n0 = S.TV_LAUNCHES
+            got = S.stream_steps_fused_tv(bx, bh, w0_, h0_, wp2, b0, tail, pts)
+            torch.cuda.synchronize()
+            check(S.TV_LAUNCHES == n0 + 1, "TV_LAUNCHES counts the kernel launch")
+            want = S.stream_steps_fused_tv_plain(bx, bh, w0_, h0_, wp2, b0, tail, pts)
+            worst = compare((("out", got[0], want[0]), ("window re", got[1][0], want[1][0]),
+                             ("window im", got[1][1], want[1][1]),
+                             ("h ring re", got[2][0], want[2][0]),
+                             ("h ring im", got[2][1], want[2][1]),
+                             ("tail", got[3], want[3])),
+                            f"pts={pts} nparts={nparts} nb={nb_} wp2={wp2} b0={b0}", worst)
+            if (pts, nparts, nb_) == headline:
+                tv_err = max(tv_err, float((got[0] - want[0]).abs().max()))
+    print(f"phase 7 TV kernel vs twin: shapes (pts,nparts,nb,wp2) {tv_shapes} x b0 {{1,2}}; "
+          f"worst rel err {worst:.3e} (tol {TOL}); headline out max_abs_err {tv_err:.3e}",
+          flush=True)
+
+    # phase 8: direct-FIR kernel vs plain twin on the card
+    d_shapes = [(DIRECT_TAPS, PTS, SCAN_BLOCKS), (DIRECT_TAPS, PTS, 21), (7 * 128, 128, 200),
+                (1000, 256, 40), (5, 3, 1)]
+    d_err = 0.0
+    worst = 0.0
+    for irsize, vsize, nb_ in d_shapes:
+        seq = f(K.context_blocks(irsize, vsize) + nb_, vsize)
+        coefs = f(irsize, s=0.1)
+        for off in (0, 1):          # delay_compat True / False
+            slabs = K.toeplitz_slabs(coefs, irsize, vsize, off)
+            n0 = K.LAUNCHES
+            got = K.dstream_steps(seq, slabs, vsize)
+            torch.cuda.synchronize()
+            check(K.LAUNCHES == n0 + 1, "dstream LAUNCHES counts the kernel launch")
+            want = K.dstream_steps_plain(seq, slabs, vsize)
+            worst = compare((("out", got, want),),
+                            f"irsize={irsize} vsize={vsize} nb={nb_} off={off}", worst)
+            if (irsize, vsize, nb_) == d_shapes[0]:
+                d_err = max(d_err, float((got - want).abs().max()))
+    print(f"phase 8 dstream kernel vs twin: shapes (irsize,vsize,nb) {d_shapes} x "
+          f"delay_compat {{0,1}}; worst rel err {worst:.3e} (tol {TOL}); 512@512 out "
+          f"max_abs_err {d_err:.3e}", flush=True)
+
+    # phase 9: TV main path. After push_ir, feeding the IR's partitions
+    # cyclically through operand 2 rewrites each ring slot with the frame
+    # it already holds, so pconv_stream_tv must equal the full convolution.
+    nb_tv = -(-(x.size + IR_LEN) // PTS)
+    x_p = torch.nn.functional.pad(x_d, (0, nb_tv * PTS - x.size)).reshape(nb_tv, PTS)
+    h_cyc = ir_d.reshape(cfg.nparts, PTS)[torch.arange(nb_tv, device=dev) % cfg.nparts]
+    state = P.push_ir(cfg, P.pconv_init(cfg, dev), ir_d)
+    zero_counts()
+    _, y_tv = P.pconv_stream_tv(cfg, state, x_p, h_cyc.contiguous())
+    torch.cuda.synchronize()
+    tv_launches = S.TV_LAUNCHES
+    check(tv_launches > 0, "the TV main path launched the TV kernel")
+    y_tv = y_tv.reshape(-1)[:ref.size].cpu().numpy()
+    check(bool(np.isfinite(y_tv).all()), "pconv_stream_tv finite")
+    err9 = rel_err(y_tv, ref)
+    check(err9 <= ORACLE_TOL, f"pconv_stream_tv vs scipy {err9:.3e} > {ORACLE_TOL}")
+    tvp = P.CltvconvProcessor(PTS, IR_LEN, device="cuda", on_message=lambda m, u: None)
+    ir_cyc = np.resize(ir, xs.size)
+    out = np.concatenate([tvp.process(xs[i:i + 64], ir_cyc[i:i + 64])
+                          for i in range(0, xs.size, 64)])
+    check(bool(np.isfinite(out).all()) and np.all(out[:PTS] == 0), "TV processor output")
+    err9p = rel_err(out[PTS:], ref5[: xs.size - PTS])
+    check(err9p <= ORACLE_TOL, f"CltvconvProcessor vs scipy {err9p:.3e} > {ORACLE_TOL}")
+    print(f"phase 9 TV main path: push_ir + pconv_stream_tv({nb_tv}x{PTS} blocks, IR "
+          f"partitions cyclic in operand 2) on {dev}: rel err vs float64 scipy {err9:.3e}; "
+          f"CltvconvProcessor(parts={PTS}) fed {xs.size // 64} host blocks of 64: rel err "
+          f"{err9p:.3e} (tol {ORACLE_TOL}); TV kernel launches {tv_launches}", flush=True)
+
+    # phase 10: direct path, convolve_direct of 20 s against numpy in float64
+    ir_d512 = (0.1 * rng.standard_normal(DIRECT_TAPS)).astype(np.float32)
+    zero_counts()
+    y_d = P.convolve_direct(x_d, torch.from_numpy(ir_d512).to(dev), vsize=PTS)
+    torch.cuda.synchronize()
+    d_launches = K.LAUNCHES
+    check(d_launches > 0, "the direct path launched the dstream kernel")
+    y_d = y_d.cpu().numpy()
+    ref10 = np.convolve(x.astype(np.float64), ir_d512.astype(np.float64))
+    check(y_d.shape == ref10.shape and bool(np.isfinite(y_d).all()),
+          "convolve_direct shape/finite")
+    err10 = rel_err(y_d, ref10)
+    check(err10 <= ORACLE_TOL, f"convolve_direct vs numpy {err10:.3e} > {ORACLE_TOL}")
+    bs, nblk = 64, 20
+    xs10 = x[: bs * nblk]
+    cp = P.ClconvProcessor(ir_d512, parts=1, block_size=bs, device="cuda",
+                           on_message=lambda m, u: None)
+    check(cp.latency == 0, "direct processor latency 0")
+    out = np.concatenate([cp.process(xs10[i:i + bs]) for i in range(0, xs10.size, bs)])
+    err10c = rel_err(out, ref10[: xs10.size])
+    hs = (0.1 * rng.standard_normal(xs10.size)).astype(np.float32)
+    tp = P.CltvconvProcessor(1, DIRECT_TAPS, block_size=bs, device="cuda",
+                             on_message=lambda m, u: None)
+    out = np.concatenate([tp.process(xs10[i:i + bs], hs[i:i + bs])
+                          for i in range(0, xs10.size, bs)])
+    model = direct_tv_model(DIRECT_TAPS, bs, xs10.reshape(nblk, bs).astype(np.float64),
+                            hs.reshape(nblk, bs).astype(np.float64))
+    err10t = rel_err(out, model)
+    check(max(err10c, err10t) <= ORACLE_TOL,
+          f"direct processors vs float64 models {err10c:.3e}, {err10t:.3e} > {ORACLE_TOL}")
+    print(f"phase 10 direct path: convolve_direct({x.size} samples, {DIRECT_TAPS} taps, "
+          f"vsize={PTS}) on {dev}: rel err vs float64 numpy {err10:.3e}; "
+          f"ClconvProcessor(parts=1) {nblk} blocks of {bs}: {err10c:.3e}; "
+          f"CltvconvProcessor(parts=1): {err10t:.3e} (tol {ORACLE_TOL}); dstream kernel "
+          f"launches {d_launches}", flush=True)
+
+    # phase 11: TV and direct timing at the bench shapes
+    state = P.push_ir(cfg, P.pconv_init(cfg, dev), ir_d)
+    bh = f(SCAN_BLOCKS, PTS, s=0.1)
+    tv_stream_ms = cuda_ms(lambda: P.pconv_stream_tv(cfg, state, blocks, bh), reps=15)
+    w0 = (state.spec_x_re[:cfg.nparts].contiguous(), state.spec_x_im[:cfg.nparts].contiguous())
+    h0 = (state.spec_h_re, state.spec_h_im)
+    tv_args = (blocks, bh, w0, h0, state.wp2, 2.0, state.tail, PTS)
+    tv_kernel_ms = cuda_ms(lambda: S.stream_steps_fused_tv(*tv_args), reps=15)
+    tv_plain_ms = cuda_ms(lambda: S.stream_steps_fused_tv_plain(*tv_args), warmup=1, reps=5)
+    # least work: the MAC and two forward and one inverse transform a block;
+    # bytes: both block sets, window, h ring and tail, in and out
+    tv_flops = stream_flops(nb, np_, b, PTS, 3 * nb)
+    tv_bound = bound(tv_flops, 2 * nbytes(blocks, *w0, *h0, state.tail) + nbytes(bh))
+    tv_design_flops = design_flops + fwd_flops
+
+    dcfg = D.DconvConfig(irsize=DIRECT_TAPS, vsize=PTS)
+    dstate = D.push_ir(dcfg, D.dconv_init(dcfg, dev), torch.from_numpy(ir_d512).to(dev))
+    d_stream_ms = cuda_ms(lambda: D.dconv_stream(dcfg, dstate, blocks), reps=15)
+    p = K.context_blocks(DIRECT_TAPS, PTS)
+    seq = torch.cat([f(p, PTS), blocks])
+    slabs = K.toeplitz_slabs(dstate.coefs, DIRECT_TAPS, PTS, dcfg.off)
+    d_kernel_ms = cuda_ms(lambda: K.dstream_steps(seq, slabs, PTS), reps=15)
+    d_plain_ms = cuda_ms(lambda: K.dstream_steps_plain(seq, slabs, PTS), reps=15)
+    rows = K.context_rows(seq, p, PTS)
+    d_lib_ms = cuda_ms(lambda: torch.matmul(rows, slabs), reps=15)
+    # least work: an irsize-tap dot product per output sample; bytes: the
+    # context and the blocks in, the outputs out, the taps in
+    d_flops = 2.0 * SCAN_BLOCKS * PTS * DIRECT_TAPS
+    d_bound = bound(d_flops, nbytes(seq, blocks) + 4 * DIRECT_TAPS)
+    print(f"phase 11 timing [{card}]: pconv_stream_tv {SCAN_BLOCKS}x{PTS} blocks, {IR_LEN} "
+          f"taps: {tv_stream_ms:.4f} ms/scan = {audio_s / (tv_stream_ms / 1e3):.1f}x real "
+          f"time; stream_steps_fused_tv kernel {tv_kernel_ms:.4f} ms; plain twin "
+          f"{tv_plain_ms:.4f} ms; bound {tv_bound[0]:.4f} ms ({tv_bound[1]}, "
+          f"{tv_flops / 1e9:.3f} GFLOP of MAC and FFTs; the kernel does "
+          f"{tv_design_flops / 1e9:.3f}) | dconv_stream {SCAN_BLOCKS}x{PTS} blocks, "
+          f"{DIRECT_TAPS} taps: {d_stream_ms:.4f} ms/scan = "
+          f"{audio_s / (d_stream_ms / 1e3):.1f}x real time; dstream_steps kernel "
+          f"{d_kernel_ms:.4f} ms; plain twin {d_plain_ms:.4f} ms; torch.matmul of the "
+          f"strided product {d_lib_ms:.4f} ms; bound {d_bound[0]:.4f} ms ({d_bound[1]}, "
+          f"{d_flops / 1e9:.3f} GFLOP of taps; the kernel's dense slabs make it "
+          f"{2.0 * SCAN_BLOCKS * slabs.numel() / 1e9:.3f})", flush=True)
+
+    # phase 12: where each stream's time goes, device and host
+    quiet = lambda m, u: None  # noqa: E731
+    eng = P.Clpconv(0, IR_LEN, PTS, quiet, device="cuda")
+    eng.push_ir(ir)
+    deng = P.Cldconv(0, DIRECT_TAPS, 64, quiet, device="cuda")
+    deng.push_ir(ir_d512)
+    out, out64 = np.empty(PTS, np.float32), np.empty(64, np.float32)
+    b1, b2 = x[:PTS], x[PTS:2 * PTS]
+    small = blocks[:8]
+    profile_streams((
+        ("pconv_stream", lambda: P.pconv_stream(cfg, state, blocks)),
+        ("pconv_stream_tv", lambda: P.pconv_stream_tv(cfg, state, blocks, bh)),
+        ("dconv_stream", lambda: D.dconv_stream(dcfg, dstate, blocks)),
+        ("pconv_stream 8 blocks", lambda: P.pconv_stream(cfg, state, small)),
+        ("pconv_stream_tv 8 blocks", lambda: P.pconv_stream_tv(cfg, state, small, small)),
+        ("dconv_stream 8 blocks", lambda: D.dconv_stream(dcfg, dstate, small)),
+        ("Clpconv.convolution LTI block", lambda: eng.convolution(out, b1)),
+        ("Clpconv.convolution TV block", lambda: eng.convolution(out, b1, b2)),
+        ("Cldconv.convolution 64-sample block", lambda: deng.convolution(out64, b1[:64]))))
+
+    def kernel(name, source, replaces, launches, err, ms, plain, bnd, lib):
+        return {"name": name, "route": "cuda", "source": f"opencl_fft_tpu_torch/csrc/{source}",
+                "replaces": f"opencl_fft_tpu/ops/pallas/{replaces}", "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": lib}
+
+    print(json.dumps({"kernels": [
+        kernel("stream_steps_fused", "streamstep.cu", "streamstep.py:209", main_launches,
+               headline_err, kernel_ms, plain_ms, lti_bound, None),
+        kernel("stream_steps_fused_tv", "streamstep.cu", "streamstep.py:345", tv_launches,
+               tv_err, tv_kernel_ms, tv_plain_ms, tv_bound, None),
+        kernel("dstream_steps", "dstream.cu", "dstream.py:85", d_launches, d_err,
+               d_kernel_ms, d_plain_ms, d_bound, d_lib_ms)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

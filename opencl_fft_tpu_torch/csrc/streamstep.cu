@@ -1,20 +1,25 @@
-// Whole-scan LTI partitioned convolution on Hopper (sm_90a).
+// Whole-scan partitioned convolution on Hopper (sm_90a): LTI and
+// time-varying (TV).
 //
-// Replaces the TPU kernel opencl_fft_tpu/ops/pallas/streamstep.py:_stream_kernel
-// (wrapper stream_steps_fused). For every input block t it computes the same
+// Replaces the TPU kernels opencl_fft_tpu/ops/pallas/streamstep.py:
+// _stream_kernel (wrapper stream_steps_fused) and _stream_tv_kernel (wrapper
+// stream_steps_fused_tv). For every input block t they compute the same
 // thing: forward rFFT of the zero-padded block as one matmul against wfwd, a
 // one-frame slide of the spectral window, the frequency-delay-line complex MAC
-// against the reversed IR spectra (bin 0 componentwise, scaled by b0), one
-// matmul against wpost (unpack + inverse DFT + deinterleave), overlap-add and
-// division by pts.
+// against the IR spectra (bin 0 componentwise, scaled by b0), one matmul
+// against wpost (unpack + inverse DFT + deinterleave), overlap-add and
+// division by pts. In the TV scan the IR spectra are a ring too: block t's
+// coefficient frame (the forward rFFT of its second operand) is written at
+// ring slot (wp2_0 - t) mod nparts before its MAC.
 //
 // What bounds it on the card. At the headline shape (pts = bins = 512,
 // nparts = 256, nb = 1880 blocks) the forward product is nb * pts * 2b * 2
-// ~ 2.0 GFLOP, the inverse product nb * 2b * 2b * 2 ~ 3.9 GFLOP and the MAC
+// ~ 2.0 GFLOP (twice that in the TV scan, which transforms both operands),
+// the inverse product nb * 2b * 2b * 2 ~ 3.9 GFLOP and the MAC
 // nb * nparts * bins * 8 ~ 2.0 GFLOP, all float32 (the JAX tables run at
 // Precision.HIGHEST, so no TF32). The data is a few MB: the tables are 6 MB,
-// the frame timeline 8.7 MB, the MAC output 7.7 MB, all L2-resident. So the
-// scan is bound by FP32 FMA issue, not by memory.
+// each frame timeline 8.7 MB, the MAC output 7.7 MB, all L2-resident. So the
+// scan is bound by FP32 FMA throughput, not by memory.
 //
 // What the design does about it. The TPU kernel walks the blocks as a
 // sequential grid with the window, h and the tables resident in VMEM; a
@@ -34,69 +39,40 @@
 //      with row stride 2b. Against [wpost[:, b:] ; wpost[:, :b]] its row t
 //      is y[t-1, b:] + y[t, :b]: rows t < nb are the outputs (plus the
 //      carried tail at t = 0, then / pts), row nb is the final tail.
-// Both products are one shared-memory tiled FP32 FMA SGEMM (64x64 tiles,
-// 4x4 outputs per thread). The final window is timeline rows [nb, nb+nparts).
-// wgmma/TMA products and a persistent variant for small nb are later work.
+// The TV scan adds a second timeline HT of nparts-1+nb rows for the
+// coefficient frames: row s+nparts-1 holds the frame of block s, and the
+// nparts-1 prefix rows (pseudo-times s = -(nparts-1)..-1) are gathered from
+// the initial ring at slot (wp2_0 - s) mod nparts. Ring slot q at block t
+// then holds the frame of the last s <= t with s = wp2_0 - q (mod nparts),
+// so the TV MAC is
+//   acc[t, k] = sum_q T[t+1+q, k] * HT[t - ((t - wp2_0 + q) mod nparts)
+//                                      + nparts - 1, k],
+// the x rows sliding in registers as in the LTI MAC and the h row read per
+// (q, block) from L2 (it changes only where the mod wraps, so neighbouring
+// blocks read the same row). The final ring is the same gather at t = nb-1.
+// Both products are one shared-memory tiled FP32 FMA SGEMM (sgemm_tile.cuh).
+// The final window is timeline rows [nb, nb+nparts). wgmma/TMA products and
+// a persistent variant for small nb are later work.
 
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "sgemm_tile.cuh"
 
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int TM = 4;
-constexpr int TN = 4;
-constexpr int GEMM_THREADS = (BM / TM) * (BN / TN);   // 256
+using sgemm::BM;
+using sgemm::BN;
+using sgemm::TM;
+using sgemm::TN;
+using sgemm::cdiv;
+using sgemm::gemm_tile;
+constexpr int GEMM_THREADS = sgemm::THREADS;
 
 constexpr int MAC_TT = 8;          // output blocks per MAC thread
 constexpr int MAC_THREADS = 128;   // bins per MAC block
+constexpr int ROW_THREADS = 128;   // bins per block of the ring gathers
 
-inline int cdiv(long long a, long long b) { return static_cast<int>((a + b - 1) / b); }
-
-// acc = the (BM x BN) tile at (row0, col0) of A (M x K, row stride lda) @
-// B (K x N, row stride ldb); thread (ty, tx) holds rows ty*TM.., cols tx*TN..
-__device__ __forceinline__ void gemm_tile(int M, int N, int K,
-                                          const float* __restrict__ A, int lda,
-                                          const float* __restrict__ B, int ldb,
-                                          int row0, int col0,
-                                          float (&acc)[TM][TN]) {
-    __shared__ __align__(16) float As[BK][BM + 4];   // k-major: As[k][m]
-    __shared__ __align__(16) float Bs[BK][BN + 4];
-    const int tid = threadIdx.x;
-    const int tx = tid % (BN / TN);
-    const int ty = tid / (BN / TN);
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < K; k0 += BK) {
-        for (int i = tid; i < BM * BK; i += GEMM_THREADS) {
-            const int m = i / BK, k = i % BK;
-            const int gm = row0 + m, gk = k0 + k;
-            As[k][m] = (gm < M && gk < K) ? A[static_cast<size_t>(gm) * lda + gk] : 0.f;
-        }
-        for (int i = tid; i < BK * BN; i += GEMM_THREADS) {
-            const int k = i / BN, n = i % BN;
-            const int gk = k0 + k, gn = col0 + n;
-            Bs[k][n] = (gk < K && gn < N) ? B[static_cast<size_t>(gk) * ldb + gn] : 0.f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int k = 0; k < BK; ++k) {
-            const float4 a = *reinterpret_cast<const float4*>(&As[k][ty * TM]);
-            const float4 b = *reinterpret_cast<const float4*>(&Bs[k][tx * TN]);
-            const float av[TM] = {a.x, a.y, a.z, a.w};
-            const float bv[TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-            for (int i = 0; i < TM; ++i)
-#pragma unroll
-                for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-        }
-        __syncthreads();
-    }
+__device__ __forceinline__ int pmod(int a, int n) {
+    const int r = a % n;
+    return r < 0 ? r + n : r;
 }
 
 // frames (nb, 2b) = blocks (nb, pts) @ wfwd (pts, 2b)
@@ -119,15 +95,19 @@ fwd_gemm_kernel(int nb, int pts, int b2, const float* __restrict__ blocks,
     }
 }
 
-template <bool DC>
+// LTI: h is the (nparts, bins) IR ring, the same row q for every block.
+// TV: h is the timeline HT (rows [re | im]); block t at partition q reads
+// row t - ((t - wp2_0 + q) mod nparts) + nparts - 1.
+template <bool DC, bool TV>
 __device__ __forceinline__ void mac_rows(int nb, int nparts, int bins, int k, int t0,
-                                         const float* __restrict__ tl,
+                                         int wp2_0, const float* __restrict__ tl,
                                          const float* __restrict__ hr,
                                          const float* __restrict__ hi,
                                          float b0, float* __restrict__ aext) {
     const size_t b2 = 2 * static_cast<size_t>(bins);
     const int nrows = nparts + nb;
     float xr[MAC_TT], xi[MAC_TT], ar[MAC_TT], ai[MAC_TT];
+    int m[MAC_TT];   // TV: (t0 + j - wp2_0 + q) mod nparts at the current q
     // window of block t0+j at partition q is timeline row t0+j+1+q
 #pragma unroll
     for (int j = 0; j < MAC_TT; ++j) {
@@ -136,12 +116,23 @@ __device__ __forceinline__ void mac_rows(int nb, int nparts, int bins, int k, in
         xi[j] = r < nrows ? tl[r * b2 + bins + k] : 0.f;
         ar[j] = 0.f;
         ai[j] = 0.f;
+        m[j] = TV ? pmod(t0 + j - wp2_0, nparts) : 0;
     }
     for (int q = 0; q < nparts; ++q) {
-        const float h_r = hr[static_cast<size_t>(q) * bins + k];
-        const float h_i = hi[static_cast<size_t>(q) * bins + k];
+        float h_r = 0.f, h_i = 0.f;
+        if (!TV) {
+            h_r = hr[static_cast<size_t>(q) * bins + k];
+            h_i = hi[static_cast<size_t>(q) * bins + k];
+        }
 #pragma unroll
         for (int j = 0; j < MAC_TT; ++j) {
+            if (TV) {
+                const int t = t0 + j;
+                const size_t row = static_cast<size_t>(t - m[j] + nparts - 1);
+                h_r = t < nb ? hr[row * b2 + k] : 0.f;
+                h_i = t < nb ? hr[row * b2 + bins + k] : 0.f;
+                m[j] = m[j] + 1 == nparts ? 0 : m[j] + 1;
+            }
             if (DC) {            // packed (DC/2, Nyq/2) bin: componentwise
                 ar[j] += xr[j] * h_r;
                 ai[j] += xi[j] * h_i;
@@ -169,18 +160,47 @@ __device__ __forceinline__ void mac_rows(int nb, int nparts, int bins, int k, in
     }
 }
 
-// aext[t+1] = [acc_re[t] | acc_im[t]] for t < nb
+// aext[t+1] = [acc_re[t] | acc_im[t]] for t < nb. LTI: (hr, hi) are the IR
+// planes; TV: hr is the coefficient timeline HT and hi is unused.
+template <bool TV>
 __global__ void __launch_bounds__(MAC_THREADS)
-mac_kernel(int nb, int nparts, int bins, const float* __restrict__ tl,
+mac_kernel(int nb, int nparts, int bins, int wp2_0, const float* __restrict__ tl,
            const float* __restrict__ hr, const float* __restrict__ hi, float b0,
            float* __restrict__ aext) {
     const int k = blockIdx.y * MAC_THREADS + threadIdx.x;
     if (k >= bins) return;
     const int t0 = blockIdx.x * MAC_TT;
     if (k == 0)
-        mac_rows<true>(nb, nparts, bins, k, t0, tl, hr, hi, b0, aext);
+        mac_rows<true, TV>(nb, nparts, bins, k, t0, wp2_0, tl, hr, hi, b0, aext);
     else
-        mac_rows<false>(nb, nparts, bins, k, t0, tl, hr, hi, b0, aext);
+        mac_rows<false, TV>(nb, nparts, bins, k, t0, wp2_0, tl, hr, hi, b0, aext);
+}
+
+// HT rows [0, nparts-1): row j holds the initial ring's frame of pseudo-time
+// s = j - (nparts-1), ring slot (wp2_0 - s) mod nparts.
+__global__ void __launch_bounds__(ROW_THREADS)
+h_prefix_kernel(int nparts, int bins, int wp2_0, const float* __restrict__ h0r,
+                const float* __restrict__ h0i, float* __restrict__ ht) {
+    const int j = blockIdx.x;
+    const int k = blockIdx.y * ROW_THREADS + threadIdx.x;
+    if (k >= bins) return;
+    const size_t slot = pmod(wp2_0 - (j - (nparts - 1)), nparts);
+    float* row = ht + static_cast<size_t>(j) * 2 * bins;
+    row[k] = h0r[slot * bins + k];
+    row[bins + k] = h0i[slot * bins + k];
+}
+
+// final ring slot q = HT row (nb-1) - ((nb-1 - wp2_0 + q) mod nparts) + nparts-1
+__global__ void __launch_bounds__(ROW_THREADS)
+h_final_kernel(int nb, int nparts, int bins, int wp2_0, const float* __restrict__ ht,
+               float* __restrict__ hfr, float* __restrict__ hfi) {
+    const int q = blockIdx.x;
+    const int k = blockIdx.y * ROW_THREADS + threadIdx.x;
+    if (k >= bins) return;
+    const size_t r = nb - 1 - pmod(nb - 1 - wp2_0 + q, nparts) + nparts - 1;
+    const float* row = ht + r * 2 * bins;
+    hfr[static_cast<size_t>(q) * bins + k] = row[k];
+    hfi[static_cast<size_t>(q) * bins + k] = row[bins + k];
 }
 
 // rows t < nb: outs[t] = ([acc[t-1] | acc[t]] @ w2 + (t == 0 ? tail0 : 0)) / pts;
@@ -210,6 +230,59 @@ post_ola_kernel(int nb, int pts, const float* __restrict__ aext,
     }
 }
 
+// frames of `blocks` -> rows [row0, row0+nb) of a (., 2*pts) timeline
+cudaError_t forward_frames(const float* blocks, const float* wfwd, float* timeline,
+                           int row0, int nb, int pts, cudaStream_t s) {
+    const int b2 = 2 * pts;
+    fwd_gemm_kernel<<<dim3(cdiv(nb, BM), cdiv(b2, BN)), GEMM_THREADS, 0, s>>>(
+        nb, pts, b2, blocks, wfwd, timeline + static_cast<size_t>(row0) * b2);
+    return cudaGetLastError();
+}
+
+// split (rows, bins) planes <-> rows of a [re | im] timeline
+cudaError_t planes_to_rows(const float* re, const float* im, float* rows, int nrows,
+                           int bins, cudaStream_t s) {
+    const size_t row_bytes = bins * sizeof(float), pitch = 2 * row_bytes;
+    SGEMM_RETURN_IF_ERROR(cudaMemcpy2DAsync(rows, pitch, re, row_bytes, row_bytes, nrows,
+                                            cudaMemcpyDeviceToDevice, s));
+    return cudaMemcpy2DAsync(rows + bins, pitch, im, row_bytes, row_bytes, nrows,
+                             cudaMemcpyDeviceToDevice, s);
+}
+
+cudaError_t rows_to_planes(const float* rows, float* re, float* im, int nrows, int bins,
+                           cudaStream_t s) {
+    const size_t row_bytes = bins * sizeof(float), pitch = 2 * row_bytes;
+    SGEMM_RETURN_IF_ERROR(cudaMemcpy2DAsync(re, row_bytes, rows, pitch, row_bytes, nrows,
+                                            cudaMemcpyDeviceToDevice, s));
+    return cudaMemcpy2DAsync(im, row_bytes, rows + bins, pitch, row_bytes, nrows,
+                             cudaMemcpyDeviceToDevice, s);
+}
+
+// The steps both scans share: the x timeline (initial window + frames), the
+// MAC (LTI or TV) into aext, the post product with the overlap-add, and the
+// final window.
+template <bool TV>
+cudaError_t run_scan(const float* blocks, const float* w0r, const float* w0i,
+                     const float* hr, const float* hi, const float* wfwd,
+                     const float* w2, const float* tail0, float* outs, float* wfr,
+                     float* wfi, float* tailf, float* timeline, float* aext, int nb,
+                     int nparts, int pts, int wp2_0, float b0_scale, cudaStream_t s) {
+    const int bins = pts;
+    const size_t b2 = 2 * static_cast<size_t>(bins);
+    SGEMM_RETURN_IF_ERROR(planes_to_rows(w0r, w0i, timeline, nparts, bins, s));
+    SGEMM_RETURN_IF_ERROR(forward_frames(blocks, wfwd, timeline, nparts, nb, pts, s));
+    SGEMM_RETURN_IF_ERROR(cudaMemsetAsync(aext, 0, b2 * sizeof(float), s));
+    SGEMM_RETURN_IF_ERROR(cudaMemsetAsync(aext + (nb + 1) * b2, 0, b2 * sizeof(float), s));
+    mac_kernel<TV><<<dim3(cdiv(nb, MAC_TT), cdiv(bins, MAC_THREADS)), MAC_THREADS, 0, s>>>(
+        nb, nparts, bins, wp2_0, timeline, hr, hi, b0_scale, aext);
+    SGEMM_RETURN_IF_ERROR(cudaGetLastError());
+    post_ola_kernel<<<dim3(cdiv(nb + 1, BM), cdiv(pts, BN)), GEMM_THREADS, 0, s>>>(
+        nb, pts, aext, w2, tail0, 1.0f / static_cast<float>(pts), outs, tailf);
+    SGEMM_RETURN_IF_ERROR(cudaGetLastError());
+    // final window: timeline rows [nb, nb+nparts)
+    return rows_to_planes(timeline + nb * b2, wfr, wfi, nparts, bins, s);
+}
+
 }  // namespace
 
 // One LTI scan of nb blocks. All pointers are float32 device memory on
@@ -222,48 +295,36 @@ extern "C" int stream_steps_fused_f32(
     const float* tail0, float* outs, float* wfr, float* wfi, float* tailf,
     float* timeline, float* aext, int nb, int nparts, int pts,
     float b0_scale, int device, void* stream_ptr) {
+    SGEMM_RETURN_IF_ERROR(cudaSetDevice(device));
+    return run_scan<false>(blocks, w0r, w0i, hr, hi, wfwd, w2, tail0, outs, wfr, wfi,
+                           tailf, timeline, aext, nb, nparts, pts, 0, b0_scale,
+                           static_cast<cudaStream_t>(stream_ptr));
+}
+
+// One TV scan of nb blocks: blocks_x / blocks_h (nb, pts) are the input and
+// coefficient operands, (h0r, h0i) the initial coefficient ring and wp2_0 in
+// [0, nparts) its pointer; (hfr, hfi) receive the final ring. Scratch:
+//   timeline (nparts+nb, 2*pts), htimeline (nparts-1+nb, 2*pts),
+//   aext (nb+2, 2*pts).
+extern "C" int stream_steps_fused_tv_f32(
+    const float* blocks_x, const float* blocks_h, const float* w0r, const float* w0i,
+    const float* h0r, const float* h0i, const float* wfwd, const float* w2,
+    const float* tail0, float* outs, float* wfr, float* wfi, float* hfr, float* hfi,
+    float* tailf, float* timeline, float* htimeline, float* aext, int nb, int nparts,
+    int pts, int wp2_0, float b0_scale, int device, void* stream_ptr) {
     cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
     const int bins = pts;
-    const size_t b2 = 2 * static_cast<size_t>(bins);
-    const size_t row_bytes = bins * sizeof(float);
-    const size_t tl_pitch = b2 * sizeof(float);
-    cudaError_t e = cudaSetDevice(device);
-    if (e != cudaSuccess) return e;
-
-    // initial window -> timeline rows [0, nparts)
-    e = cudaMemcpy2DAsync(timeline, tl_pitch, w0r, row_bytes, row_bytes, nparts,
-                          cudaMemcpyDeviceToDevice, s);
-    if (e != cudaSuccess) return e;
-    e = cudaMemcpy2DAsync(timeline + bins, tl_pitch, w0i, row_bytes, row_bytes,
-                          nparts, cudaMemcpyDeviceToDevice, s);
-    if (e != cudaSuccess) return e;
-
-    fwd_gemm_kernel<<<dim3(cdiv(nb, BM), cdiv(b2, BN)), GEMM_THREADS, 0, s>>>(
-        nb, pts, static_cast<int>(b2), blocks, wfwd, timeline + nparts * b2);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-
-    e = cudaMemsetAsync(aext, 0, tl_pitch, s);
-    if (e != cudaSuccess) return e;
-    e = cudaMemsetAsync(aext + (nb + 1) * b2, 0, tl_pitch, s);
-    if (e != cudaSuccess) return e;
-
-    mac_kernel<<<dim3(cdiv(nb, MAC_TT), cdiv(bins, MAC_THREADS)), MAC_THREADS, 0, s>>>(
-        nb, nparts, bins, timeline, hr, hi, b0_scale, aext);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-
-    post_ola_kernel<<<dim3(cdiv(nb + 1, BM), cdiv(pts, BN)), GEMM_THREADS, 0, s>>>(
-        nb, pts, aext, w2, tail0, 1.0f / static_cast<float>(pts), outs, tailf);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-
-    // final window: timeline rows [nb, nb+nparts)
-    e = cudaMemcpy2DAsync(wfr, row_bytes, timeline + nb * b2, tl_pitch, row_bytes,
-                          nparts, cudaMemcpyDeviceToDevice, s);
-    if (e != cudaSuccess) return e;
-    e = cudaMemcpy2DAsync(wfi, row_bytes, timeline + nb * b2 + bins, tl_pitch,
-                          row_bytes, nparts, cudaMemcpyDeviceToDevice, s);
-    if (e != cudaSuccess) return e;
+    SGEMM_RETURN_IF_ERROR(cudaSetDevice(device));
+    if (nparts > 1) {
+        h_prefix_kernel<<<dim3(nparts - 1, cdiv(bins, ROW_THREADS)), ROW_THREADS, 0, s>>>(
+            nparts, bins, wp2_0, h0r, h0i, htimeline);
+        SGEMM_RETURN_IF_ERROR(cudaGetLastError());
+    }
+    SGEMM_RETURN_IF_ERROR(forward_frames(blocks_h, wfwd, htimeline, nparts - 1, nb, pts, s));
+    SGEMM_RETURN_IF_ERROR(run_scan<true>(blocks_x, w0r, w0i, htimeline, nullptr, wfwd, w2,
+                                         tail0, outs, wfr, wfi, tailf, timeline, aext, nb,
+                                         nparts, pts, wp2_0, b0_scale, s));
+    h_final_kernel<<<dim3(nparts, cdiv(bins, ROW_THREADS)), ROW_THREADS, 0, s>>>(
+        nb, nparts, bins, wp2_0, htimeline, hfr, hfi);
     return cudaGetLastError();
 }

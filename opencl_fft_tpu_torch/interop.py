@@ -1,10 +1,12 @@
 """Streaming state across packages.
 
-A ``PconvState`` of the JAX package and of this one have the same fields
-in the same layout, so a live stream can move from one to the other
-mid-stream: the carried parameters are the IR spectra and the input ring,
-plus the overlap-add tail and the ring pointers. The exchange format is
-numpy: a mapping (or NamedTuple) of field name -> array.
+A ``PconvState`` (LTI or time-varying) and a ``DconvState`` of the JAX
+package and of this one have the same fields in the same layout, so a live
+stream can move from one to the other mid-stream. A pconv state carries the
+IR spectra and the input ring, plus the overlap-add tail and the ring
+pointers; a dconv state the delay line, the coefficient ring and its
+pointer. The exchange format is numpy: a mapping (or NamedTuple) of field
+name -> array.
 """
 
 from __future__ import annotations
@@ -14,18 +16,24 @@ from typing import Any, Dict, Mapping, Union
 import numpy as np
 import torch
 
+from .ops.dconv import DconvState
 from .ops.pconv import PconvState
+
+
+def _fields(fields, state_type) -> Mapping[str, Any]:
+    if hasattr(fields, "_asdict"):
+        fields = fields._asdict()
+    missing = set(state_type._fields) - set(fields)
+    if missing:
+        raise ValueError(f"missing {state_type.__name__} fields: {sorted(missing)}")
+    return fields
 
 
 def pconv_state_from_numpy(fields: Union[Mapping[str, Any], tuple],
                            device: Union[str, torch.device]) -> PconvState:
     """Build a PconvState on ``device`` from numpy fields (for example the
     JAX package's ``PconvState`` mapped through ``np.asarray``)."""
-    if hasattr(fields, "_asdict"):
-        fields = fields._asdict()
-    missing = set(PconvState._fields) - set(fields)
-    if missing:
-        raise ValueError(f"missing PconvState fields: {sorted(missing)}")
+    fields = _fields(fields, PconvState)
     hr = np.asarray(fields["spec_h_re"])
     if hr.ndim != 2:
         raise ValueError(f"spec_h_re must be (nparts, bins), got {hr.shape}")
@@ -51,3 +59,26 @@ def pconv_state_to_numpy(state: PconvState) -> Dict[str, np.ndarray]:
     out["wp"] = np.asarray(state.wp, np.int32)
     out["wp2"] = np.asarray(state.wp2, np.int32)
     return out
+
+
+def dconv_state_from_numpy(fields: Union[Mapping[str, Any], tuple],
+                           device: Union[str, torch.device]) -> DconvState:
+    """Build a DconvState on ``device`` from numpy fields (for example the
+    JAX package's ``DconvState`` mapped through ``np.asarray``)."""
+    fields = _fields(fields, DconvState)
+    delay = np.asarray(fields["delay"], dtype=np.float32)
+    coefs = np.asarray(fields["coefs"], dtype=np.float32)
+    if delay.ndim != 1 or coefs.shape != delay.shape:
+        raise ValueError(f"delay and coefs must be one (ring,) shape, got "
+                         f"{delay.shape} and {coefs.shape}")
+    return DconvState(delay=torch.tensor(delay, device=device),
+                      coefs=torch.tensor(coefs, device=device),
+                      wp=int(fields["wp"]) % delay.shape[0])
+
+
+def dconv_state_to_numpy(state: DconvState) -> Dict[str, np.ndarray]:
+    """The state's fields as numpy arrays (the ring pointer as an int32
+    scalar, the JAX package's pointer type)."""
+    return {"delay": state.delay.detach().cpu().numpy(),
+            "coefs": state.coefs.detach().cpu().numpy(),
+            "wp": np.asarray(state.wp, np.int32)}

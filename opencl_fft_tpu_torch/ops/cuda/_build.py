@@ -1,11 +1,14 @@
-"""Build and load the package's CUDA sources.
+"""Build and load the package's CUDA sources, and check a launch's tensors.
 
-Each ``opencl_fft_tpu_torch/csrc/<name>.cu`` has a plain C interface. It is
-compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
+Each ``opencl_fft_tpu_torch/csrc/<name>.cu`` has a plain C interface and
+may include the shared headers ``csrc/*.cuh``. It is compiled by ``nvcc``
+for Hopper (``sm_90a``) into a shared library under
 ``build/opencl_fft_tpu_torch/`` at the repository root, named with a hash of
-the source and flags, on first use in a process, and loaded with ctypes. A
+the source, every header and the flags, on first use in a process, and
+loaded with ctypes. A
 missing ``nvcc``, a failed build or a failed load raises with the
-compiler's output; there is no fall back.
+compiler's output; there is no fall back. ``launch_device`` is the
+wrappers' common check of the tensors they hand to a kernel.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -41,9 +46,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library for ``csrc/<name>.cu`` is (or will be) built."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where the library for ``csrc/<name>.cu`` is (or will be) built: the
+    name hashes the source, every ``csrc/*.cuh`` header and the flags, so
+    an edit to a shared header builds anew."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
@@ -55,7 +65,8 @@ def load(name: str) -> ctypes.CDLL:
     if not so.is_file():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
         so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         if proc.returncode != 0:
@@ -75,3 +86,20 @@ def build_log(name: str) -> str:
     registers, shared memory and spills per kernel)."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.is_file() else ""
+
+
+def launch_device(name: str, tensors) -> torch.device:
+    """The one device of ``tensors``: the CPU (where the wrapper ``name``
+    runs its plain twin), or a CUDA card whose tensors are all contiguous
+    float32 (where it launches its kernel); anything else raises."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: all tensors must be on one device")
+    if dev.type == "cpu":
+        return dev
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    for t in tensors:
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: CUDA tensors must be contiguous float32")
+    return dev

@@ -1,4 +1,5 @@
-"""Uniform partitioned fast convolution (frequency-delay line), LTI path.
+"""Uniform partitioned fast convolution (frequency-delay line), LTI and
+time-varying.
 
 Counterpart of ``opencl_fft_tpu/ops/pconv.py`` (parity with ``Clpconv``,
 ``cl_conv.h:124-188``): a length-``cvs`` convolution split into
@@ -13,6 +14,10 @@ State keeps the JAX package's field layout so that a stream can cross
 packages (see ``interop.py``): a doubled input ring, an IR ring stored
 reversed, the overlap-add tail and the two ring pointers. Functions return
 new state and do not modify the state they are given.
+
+Time-varying (TV) convolution streams the second operand into the IR ring:
+each block's coefficient frame is written at slot wp2, which then
+decrements (cl_conv.cpp:460-548).
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch
 
 from ..utils.numerics import is_pow2
 from .cplx import Cplx
-from .cuda.streamstep import stream_steps_fused
+from .cuda.streamstep import stream_steps_fused, stream_steps_fused_tv
 from .cuda.tables import fwd_table
 from .fft import _IMPLS
 from .rfft import irfft_split, rfft_split
@@ -200,6 +205,53 @@ def pconv_step(cfg: PconvConfig, state: PconvState, block: torch.Tensor
     return state._replace(tail=tail), out
 
 
+def pconv_step_tv(cfg: PconvConfig, state: PconvState, block_x: torch.Tensor,
+                  block_h: torch.Tensor) -> Tuple[PconvState, torch.Tensor]:
+    """One time-varying block: Clpconv::convolution(out, in1, in2) parity
+    (cl_conv.cpp:460-548). Both operands go through one batched forward
+    transform; the coefficient frame lands at slot wp2 (then wp2
+    decrements) and takes part in this block's MAC."""
+    both = torch.stack([block_x.to(torch.float32), block_h.to(torch.float32)])
+    fr, fi = _forward_partition(cfg, both)            # (2, bins)
+    spec_h_re = state.spec_h_re.clone()
+    spec_h_im = state.spec_h_im.clone()
+    spec_h_re[state.wp2] = fr[1]
+    spec_h_im[state.wp2] = fi[1]
+    wp = (state.wp + 1) % cfg.nparts                  # cl_conv.cpp:516
+    state = state._replace(
+        spec_x_re=_ring_write2(state.spec_x_re, fr[0], state.wp, cfg.nparts),
+        spec_x_im=_ring_write2(state.spec_x_im, fi[0], state.wp, cfg.nparts),
+        spec_h_re=spec_h_re, spec_h_im=spec_h_im, wp=wp,
+        wp2=(state.wp2 - 1) % cfg.nparts)             # cl_conv.cpp:519
+    out, tail = _inverse_and_ola(cfg, state, _spectral_mac(cfg, state, wp))
+    return state._replace(tail=tail), out
+
+
+def _check_blocks(cfg: PconvConfig, blocks: torch.Tensor, name: str = "blocks"):
+    if blocks.dim() != 2 or blocks.shape[1] != cfg.pts:
+        raise ValueError(f"{name} must be (nblocks, {cfg.pts}), got {tuple(blocks.shape)}")
+    if blocks.is_cuda and blocks.dtype != torch.float32:
+        raise TypeError(f"CUDA {name} must be float32, got {blocks.dtype}")
+    if cfg.pts > _FWD_MM_MAX_PTS:
+        raise NotImplementedError(
+            f"pts={cfg.pts} > {_FWD_MM_MAX_PTS} needs the split-table stream "
+            f"kernel (ROADMAP queue 2 item 5)")
+
+
+def _window(cfg: PconvConfig, state: PconvState) -> Cplx:
+    """MAC window row q = frame (wp + q): doubled-ring rows [wp, wp+nparts)."""
+    wp = state.wp
+    return (state.spec_x_re[wp:wp + cfg.nparts].contiguous(),
+            state.spec_x_im[wp:wp + cfg.nparts].contiguous())
+
+
+def _doubled_ring(w: torch.Tensor, wp: int) -> torch.Tensor:
+    """Doubled input ring from a window whose row q holds frame (wp + q):
+    ring[r] = W[r - wp]."""
+    ring = torch.roll(w, wp, 0)
+    return torch.cat([ring, ring])
+
+
 def pconv_stream(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor
                  ) -> Tuple[PconvState, torch.Tensor]:
     """Run many LTI blocks, blocks: (nblocks, pts) -> outs (nblocks, pts).
@@ -208,31 +260,46 @@ def pconv_stream(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor
     (``ops/cuda/streamstep.py``): its CUDA kernel for a CUDA tensor, its
     plain twin for a CPU tensor. Same per-block results as pconv_step.
     """
-    if blocks.dim() != 2 or blocks.shape[1] != cfg.pts:
-        raise ValueError(f"blocks must be (nblocks, {cfg.pts}), got {tuple(blocks.shape)}")
-    if blocks.is_cuda and blocks.dtype != torch.float32:
-        raise TypeError(f"CUDA blocks must be float32, got {blocks.dtype}")
-    if cfg.pts > _FWD_MM_MAX_PTS:
-        raise NotImplementedError(
-            f"pts={cfg.pts} > {_FWD_MM_MAX_PTS} needs the split-table stream "
-            f"kernel (ROADMAP queue 2 item 5)")
+    _check_blocks(cfg, blocks)
     nb = blocks.shape[0]
     if nb == 0:
         return state, blocks.new_zeros((0, cfg.pts), dtype=torch.float32)
-    np_, wp = cfg.nparts, state.wp
-    # window row q = frame (wp + q): doubled-ring rows [wp, wp+nparts)
-    w0 = (state.spec_x_re[wp:wp + np_].contiguous(),
-          state.spec_x_im[wp:wp + np_].contiguous())
     outs, (wfr, wfi), tail = stream_steps_fused(
-        blocks.to(torch.float32).contiguous(), w0,
+        blocks.to(torch.float32).contiguous(), _window(cfg, state),
         (state.spec_h_re, state.spec_h_im), cfg.b0_scale, state.tail, cfg.pts)
-    wp_out = (wp + nb) % np_
-    # final window row q holds frame (wp_out + q): ring[r] = W[r - wp_out]
-    ring_r = torch.roll(wfr, wp_out, 0)
-    ring_i = torch.roll(wfi, wp_out, 0)
-    return state._replace(spec_x_re=torch.cat([ring_r, ring_r]),
-                          spec_x_im=torch.cat([ring_i, ring_i]),
+    wp_out = (state.wp + nb) % cfg.nparts
+    return state._replace(spec_x_re=_doubled_ring(wfr, wp_out),
+                          spec_x_im=_doubled_ring(wfi, wp_out),
                           tail=tail, wp=wp_out), outs
+
+
+def pconv_stream_tv(cfg: PconvConfig, state: PconvState, blocks_x: torch.Tensor,
+                    blocks_h: torch.Tensor) -> Tuple[PconvState, torch.Tensor]:
+    """Run many time-varying blocks: blocks_x (input) and blocks_h
+    (coefficient operand), both (nblocks, pts) -> outs (nblocks, pts).
+
+    Every block goes through the whole-scan TV kernel
+    (``ops/cuda/streamstep.py``): its CUDA kernel for CUDA tensors, its
+    plain twin for CPU tensors. Same per-block results as pconv_step_tv.
+    The IR ring goes in and comes out in place, in the state's layout.
+    """
+    _check_blocks(cfg, blocks_x, "blocks_x")
+    _check_blocks(cfg, blocks_h, "blocks_h")
+    if blocks_h.shape != blocks_x.shape:
+        raise ValueError(f"blocks_h {tuple(blocks_h.shape)} must have the shape "
+                         f"of blocks_x {tuple(blocks_x.shape)}")
+    nb = blocks_x.shape[0]
+    if nb == 0:
+        return state, blocks_x.new_zeros((0, cfg.pts), dtype=torch.float32)
+    outs, (wfr, wfi), (hfr, hfi), tail = stream_steps_fused_tv(
+        blocks_x.to(torch.float32).contiguous(), blocks_h.to(torch.float32).contiguous(),
+        _window(cfg, state), (state.spec_h_re, state.spec_h_im), state.wp2,
+        cfg.b0_scale, state.tail, cfg.pts)
+    wp_out = (state.wp + nb) % cfg.nparts
+    return state._replace(spec_x_re=_doubled_ring(wfr, wp_out),
+                          spec_x_im=_doubled_ring(wfi, wp_out),
+                          spec_h_re=hfr, spec_h_im=hfi, tail=tail, wp=wp_out,
+                          wp2=(state.wp2 - nb) % cfg.nparts), outs
 
 
 def convolve(signal, ir, pts: int, bin0_mode: str = "exact",

@@ -76,6 +76,24 @@ def test_post_ola_table_is_wpost_halves_swapped():
     np.testing.assert_array_equal(w2[32:], w[:, :16])
 
 
+def test_library_path_hashes_shared_headers(tmp_path, monkeypatch):
+    """An edit to a shared csrc/*.cuh header names a new library, so a
+    stale build is never reused."""
+    from opencl_fft_tpu_torch.ops.cuda import _build
+
+    (tmp_path / "k.cu").write_text('#include "tile.cuh"\n')
+    (tmp_path / "tile.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    (tmp_path / "tile.cuh").write_text("// v2\n")
+    second = _build.library_path("k")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("\n")
+    assert _build.library_path("k") not in (first, second)
+    assert first.parent == second.parent == _build.BUILD_DIR
+
+
 def test_wrapper_runs_twin_on_cpu_without_counting():
     d = _inputs(1, 16, 3, 5)
     before = S.LAUNCHES
