@@ -6,16 +6,20 @@ Builds the port's CUDA kernels from the sources in this checkout and holds
 each against its plain PyTorch twin: the LTI and time-varying (TV) stream
 kernels at the headline shape (2^17-tap IR in 512-sample partitions:
 nparts=256, bins=512, 1880-block scans) and at small odd shapes, the direct
-FIR kernel at 512 taps @ 512 and at other context depths. It then drives
-the three main paths on the card through the entry points a user calls,
-against float64 scipy/numpy oracles: ``convolve`` and ``ClconvProcessor``
-(LTI), ``pconv_stream_tv`` and ``CltvconvProcessor`` with the IR fed
-cyclically through the second operand (TV), and ``convolve_direct`` with
-the direct processors (parts=1). It times each stream, prints per stream
-the device time of each kernel and copy under ``torch.profiler`` and the
-device's busy share of the call, then one JSON line with every kernel's
-launches, error, time and bound, the card's name and power limit, and,
-last, ``{"ok": true, "device": {...}}``. Every phase prints one line; any
+FIR kernel at 512 taps @ 512 and at other context depths, and the batched
+(multi-channel) LTI and TV stream kernels at the serving shape (64
+channels of 2^17-tap IRs, 470-block scans) and at small odd shapes. It
+then drives the main paths on the card through the entry points a user
+calls, against float64 scipy/numpy oracles: ``convolve`` and
+``ClconvProcessor`` (LTI), ``pconv_stream_tv`` and ``CltvconvProcessor``
+with the IR fed cyclically through the second operand (TV),
+``convolve_direct`` with the direct processors (parts=1), and the serving
+models ``Convolver``, ``TVConvolver`` and ``MatrixConvolver`` (64 channels;
+true stereo). It times each stream, prints per stream the device time of
+each kernel and copy under ``torch.profiler`` and the device's busy share
+of the call, then one JSON line with every kernel's launches, error, time
+and bound, the card's name and power limit, and, last,
+``{"ok": true, "device": {...}}``. Every phase prints one line; any
 failure exits non-zero before the last line. Without a CUDA card, or
 without the port beside this script, it fails.
 """
@@ -36,6 +40,8 @@ SR = 48000.0
 PTS = 512
 IR_LEN = 1 << 17
 SCAN_BLOCKS = 1880
+SERVE_CH = 64        # the JAX bench's serving shape (bench.py:314-371)
+SERVE_BLOCKS = 470
 DIRECT_TAPS = 512
 TOL = 2e-5          # kernel vs twin, relative to max|twin| (JAX stream-vs-scan bound)
 ORACLE_TOL = 5e-5   # relative max error vs the float64 scipy/numpy oracle
@@ -99,13 +105,13 @@ def stream_flops(nb, nparts, bins, pts, transforms):
 
 
 def ptxas_summary(log):
-    """Per kernel (template flag as <0>/<1>), its ptxas register/smem line."""
+    """Per kernel (template argument as <n>), its ptxas register/smem line."""
     kernels, resources = [], []
     for ln in log.splitlines():
-        found = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)(ILb([01])EE)?",
+        found = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)(?:IL\w*?(\d+)EE)?",
                           ln)
         if found:
-            kernels.append(found.group(1) + (f"<{found.group(3)}>" if found.group(3) else ""))
+            kernels.append(found.group(1) + (f"<{found.group(2)}>" if found.group(2) else ""))
         elif "Used" in ln:
             resources.append(ln.split(":", 1)[1].strip())
     return "; ".join(f"{k}: {r}" for k, r in zip(kernels, resources))
@@ -135,7 +141,7 @@ def profile_streams(streams, calls=10):
                 and e.self_device_time_total > 0]
         rows.sort(key=lambda r: -r[1])
         busy = sum(us for _, us in rows)
-        print(f"phase 12 profile {label}: device busy {busy:.1f} us of {wall_us:.1f} us "
+        print(f"phase 17 profile {label}: device busy {busy:.1f} us of {wall_us:.1f} us "
               f"host wall per call ({100 * busy / wall_us:.1f}%); {len(rows)} kinds; top: "
               + "; ".join(f"{k[:60]} {us:.1f} us" for k, us in rows[:8]), flush=True)
 
@@ -183,7 +189,8 @@ def main():
     from opencl_fft_tpu_torch.ops.cuda import streamstep as S
 
     def zero_counts():
-        S.LAUNCHES = S.TV_LAUNCHES = K.LAUNCHES = 0
+        S.LAUNCHES = S.TV_LAUNCHES = S.BATCHED_LAUNCHES = S.BATCHED_TV_LAUNCHES = 0
+        K.LAUNCHES = 0
 
     # phase 2: build from the checkout's sources, one nvcc per source at once
     libs = ("streamstep", "dstream")
@@ -452,7 +459,183 @@ def main():
           f"{d_flops / 1e9:.3f} GFLOP of taps; the kernel's dense slabs make it "
           f"{2.0 * SCAN_BLOCKS * slabs.numel() / 1e9:.3f})", flush=True)
 
-    # phase 12: where each stream's time goes, device and host
+    # phase 12: batched (serving) kernels vs plain twins on the card; TV
+    # with one shared ring pointer and with one per channel
+    def batched_inputs(pts, nparts, nb, nch):
+        return (f(nb, nch, pts, s=0.1), f(nb, nch, pts, s=0.1),
+                (f(nch, nparts, pts), f(nch, nparts, pts)),
+                (f(nch, nparts, pts, s=0.05), f(nch, nparts, pts, s=0.05)), f(nch, pts))
+
+    serving = (PTS, IR_LEN // PTS, SERVE_BLOCKS, SERVE_CH)
+    b_shapes = [serving, (64, 5, 21, 3), (128, 8, 3, 1), (16, 1, 1, 2)]
+    b_err = bt_err = worst = 0.0
+    for pts, nparts, nb_, nch in b_shapes:
+        px, ph, w0_, h0_, tails = batched_inputs(pts, nparts, nb_, nch)
+        where = f"pts={pts} nparts={nparts} nb={nb_} C={nch}"
+        for b0 in (1.0, 2.0):
+            n0 = S.BATCHED_LAUNCHES
+            got = S.stream_steps_fused_batched(px, w0_, h0_, b0, tails, pts)
+            torch.cuda.synchronize()
+            check(S.BATCHED_LAUNCHES == n0 + 1, "BATCHED_LAUNCHES counts the kernel launch")
+            want = S.stream_steps_fused_batched_plain(px, w0_, h0_, b0, tails, pts)
+            worst = compare((("out", got[0], want[0]), ("window re", got[1][0], want[1][0]),
+                             ("window im", got[1][1], want[1][1]),
+                             ("tails", got[2], want[2])), f"{where} b0={b0}", worst)
+            if (pts, nparts, nb_, nch) == serving:
+                b_err = max(b_err, float((got[0] - want[0]).abs().max()))
+            for wp2 in (nparts - 1, tuple((7 * c + 3) % nparts for c in range(nch))):
+                n0 = S.BATCHED_TV_LAUNCHES
+                got = S.stream_steps_fused_batched_tv(px, ph, w0_, h0_, wp2, b0, tails, pts)
+                torch.cuda.synchronize()
+                check(S.BATCHED_TV_LAUNCHES == n0 + 1,
+                      "BATCHED_TV_LAUNCHES counts the kernel launch")
+                want = S.stream_steps_fused_batched_tv_plain(px, ph, w0_, h0_, wp2, b0,
+                                                             tails, pts)
+                worst = compare((("out", got[0], want[0]),
+                                 ("window re", got[1][0], want[1][0]),
+                                 ("window im", got[1][1], want[1][1]),
+                                 ("h ring re", got[2][0], want[2][0]),
+                                 ("h ring im", got[2][1], want[2][1]),
+                                 ("tails", got[3], want[3])),
+                                f"{where} b0={b0} wp2 {'per channel' if isinstance(wp2, tuple) else 'shared'}",
+                                worst)
+                if (pts, nparts, nb_, nch) == serving:
+                    bt_err = max(bt_err, float((got[0] - want[0]).abs().max()))
+    del px, ph, w0_, h0_, tails, got, want
+    print(f"phase 12 batched kernels vs twins: shapes (pts,nparts,nb,C) {b_shapes} x b0 "
+          f"{{1,2}}, TV wp2 shared and per channel; worst rel err {worst:.3e} (tol {TOL}); "
+          f"serving out max_abs_err LTI {b_err:.3e} TV {bt_err:.3e}", flush=True)
+
+    # phase 13: LTI serving main path: Convolver(cfg, 64).push_ir, then one
+    # 470-block scan of all 64 channels, against the single-channel kernel
+    # path on every channel and against float64 scipy on four
+    n_serve = SERVE_BLOCKS * PTS
+    irs = (rng.standard_normal((SERVE_CH, IR_LEN)) * decay).astype(np.float32)
+    xs_serve = (0.1 * rng.standard_normal((SERVE_CH, n_serve))).astype(np.float32)
+    irs_d = torch.from_numpy(irs).to(dev)
+    serve_blocks = torch.from_numpy(
+        np.ascontiguousarray(xs_serve.reshape(SERVE_CH, SERVE_BLOCKS, PTS).transpose(1, 0, 2))
+    ).to(dev)
+    conv = P.Convolver(cfg, SERVE_CH, device=dev)
+    conv.push_ir(irs_d)
+    zero_counts()
+    y_serve = conv.stream(serve_blocks)
+    torch.cuda.synchronize()
+    serve_launches = S.BATCHED_LAUNCHES
+    check(serve_launches > 0, "the serving path launched the batched kernel")
+    check(tuple(y_serve.shape) == (SERVE_BLOCKS, SERVE_CH, PTS)
+          and bool(torch.isfinite(y_serve).all()), "Convolver.stream shape/finite")
+    singles = []
+    for c in range(SERVE_CH):
+        st = P.push_ir(cfg, P.pconv_init(cfg, dev), irs_d[c])
+        singles.append(P.pconv_stream(cfg, st, serve_blocks[:, c])[1])
+    singles = torch.stack(singles, 1)
+    err13 = max(float((y_serve[:, c] - singles[:, c]).abs().max())
+                / float(singles[:, c].abs().max()) for c in range(SERVE_CH))
+    check(err13 <= TOL, f"Convolver.stream vs single-channel pconv_stream {err13:.3e} > {TOL}")
+    y_np = y_serve.cpu().numpy()
+    oracle_ch = (0, SERVE_CH // 3, 2 * SERVE_CH // 3, SERVE_CH - 1)
+    refs = {c: sps.fftconvolve(xs_serve[c].astype(np.float64),
+                               irs[c].astype(np.float64))[:n_serve] for c in oracle_ch}
+    err13o = max(rel_err(y_np[:, c].reshape(-1), refs[c]) for c in oracle_ch)
+    check(err13o <= ORACLE_TOL, f"Convolver.stream vs scipy {err13o:.3e} > {ORACLE_TOL}")
+    print(f"phase 13 serving main path: Convolver(C={SERVE_CH}).push_ir({SERVE_CH}x{IR_LEN}) + "
+          f"stream({SERVE_BLOCKS}x{SERVE_CH}x{PTS}) on {dev}: vs single-channel pconv_stream "
+          f"on all {SERVE_CH} channels {err13:.3e} (tol {TOL}); vs float64 scipy on channels "
+          f"{oracle_ch} {err13o:.3e} (tol {ORACLE_TOL}); batched kernel launches "
+          f"{serve_launches}", flush=True)
+
+    # phase 14: TV serving main path: from a zero state, each channel's IR
+    # partitions fed cyclically through operand 2 (partition j arrives
+    # before any input block it multiplies), so TVConvolver.stream equals
+    # the full convolution; then MatrixConvolver true stereo
+    h_cyc = irs_d.reshape(SERVE_CH, cfg.nparts, PTS)[
+        :, torch.arange(SERVE_BLOCKS, device=dev) % cfg.nparts].transpose(0, 1).contiguous()
+    tvc = P.TVConvolver(cfg, SERVE_CH, device=dev)
+    zero_counts()
+    y_tvs = tvc.stream(serve_blocks, h_cyc)
+    torch.cuda.synchronize()
+    serve_tv_launches = S.BATCHED_TV_LAUNCHES
+    check(serve_tv_launches > 0, "the TV serving path launched the batched TV kernel")
+    check(bool(torch.isfinite(y_tvs).all()), "TVConvolver.stream finite")
+    err14 = max(float((y_tvs[:, c] - singles[:, c]).abs().max())
+                / float(singles[:, c].abs().max()) for c in range(SERVE_CH))
+    check(err14 <= ORACLE_TOL, f"TVConvolver.stream vs pconv_stream {err14:.3e} > {ORACLE_TOL}")
+    y_np = y_tvs.cpu().numpy()
+    err14o = max(rel_err(y_np[:, c].reshape(-1), refs[c]) for c in oracle_ch)
+    check(err14o <= ORACLE_TOL, f"TVConvolver.stream vs scipy {err14o:.3e} > {ORACLE_TOL}")
+    m_len, m_blocks = 1 << 14, 64
+    mcfg = P.PconvConfig.for_ir_length(m_len, PTS)
+    m_irs = (0.1 * rng.standard_normal((2, 2, m_len))).astype(np.float32)
+    mx = (0.1 * rng.standard_normal((m_blocks, 2, PTS))).astype(np.float32)
+    mconv = P.MatrixConvolver(mcfg, 2, 2, device=dev)
+    mconv.push_ir(m_irs)
+    n0 = S.BATCHED_LAUNCHES
+    y_m = mconv.stream(torch.from_numpy(mx).to(dev)).cpu().numpy()
+    check(S.BATCHED_LAUNCHES == n0 + 1, "MatrixConvolver.stream launched the batched kernel")
+    mxs = mx.transpose(1, 0, 2).reshape(2, -1).astype(np.float64)
+    err14m = max(rel_err(y_m[:, o].reshape(-1),
+                         sum(sps.fftconvolve(mxs[i], m_irs[o, i].astype(np.float64))
+                             [:m_blocks * PTS] for i in range(2))) for o in range(2))
+    check(err14m <= ORACLE_TOL, f"MatrixConvolver vs scipy {err14m:.3e} > {ORACLE_TOL}")
+    print(f"phase 14 TV serving main path: TVConvolver(C={SERVE_CH}).stream("
+          f"{SERVE_BLOCKS}x{SERVE_CH}x{PTS}, IR partitions cyclic in operand 2) on {dev}: vs "
+          f"single-channel pconv_stream on all channels {err14:.3e}, vs float64 scipy "
+          f"{err14o:.3e} (tol {ORACLE_TOL}); batched TV kernel launches {serve_tv_launches}; "
+          f"MatrixConvolver(2, 2) true stereo, {m_len} taps x {m_blocks} blocks: vs scipy "
+          f"{err14m:.3e}", flush=True)
+    del singles, y_np, h_cyc
+
+    # phase 15: serving timing, one 470-block scan of 64 channels
+    serve_audio_s = SERVE_CH * SERVE_BLOCKS * PTS / SR
+    sbx = f(SERVE_BLOCKS, SERVE_CH, PTS, s=0.1)
+    sbh = f(SERVE_BLOCKS, SERVE_CH, PTS, s=0.1)
+    serve_ms = cuda_ms(lambda: conv.stream(sbx), reps=9)
+    serve_tv_ms = cuda_ms(lambda: tvc.stream(sbx, sbh), reps=9)
+    cst = conv.state
+    sw0 = (cst.spec_x_re[:, :cfg.nparts].contiguous(), cst.spec_x_im[:, :cfg.nparts].contiguous())
+    sh = (cst.spec_h_re, cst.spec_h_im)
+    b_args = (sbx, sw0, sh, 2.0, cst.tail, PTS)
+    bt_args = (sbx, sbh, sw0, sh, cfg.nparts - 1, 2.0, cst.tail, PTS)
+    b_kernel_ms = cuda_ms(lambda: S.stream_steps_fused_batched(*b_args), reps=9)
+    bt_kernel_ms = cuda_ms(lambda: S.stream_steps_fused_batched_tv(*bt_args), reps=9)
+    b_plain_ms = cuda_ms(lambda: S.stream_steps_fused_batched_plain(*b_args), warmup=1, reps=3)
+    bt_plain_ms = cuda_ms(lambda: S.stream_steps_fused_batched_tv_plain(*bt_args),
+                          warmup=1, reps=3)
+    nbc = SERVE_BLOCKS * SERVE_CH
+    # least work: the MAC and two (LTI) or three (TV) real transforms a
+    # block of a channel; bytes: blocks, windows and tails in and out, the
+    # IR spectra in (LTI) or in and out (TV), the coefficient blocks in
+    b_flops = stream_flops(nbc, np_, b, PTS, 2 * nbc)
+    bt_flops = stream_flops(nbc, np_, b, PTS, 3 * nbc)
+    b_bound = bound(b_flops, 2 * nbytes(sbx, *sw0, cst.tail) + nbytes(*sh))
+    bt_bound = bound(bt_flops, 2 * nbytes(sbx, *sw0, *sh, cst.tail) + nbytes(sbh))
+    b_design = 2.0 * nbc * PTS * 2 * b + 8.0 * nbc * np_ * b \
+        + 2.0 * (SERVE_BLOCKS + 1) * SERVE_CH * 2 * b * 2 * b
+    bt_design = b_design + 2.0 * nbc * PTS * 2 * b
+    print(f"phase 15 serving timing [{card}]: serving_64ch_audio_seconds_per_second LTI "
+          f"{serve_audio_s / (serve_ms / 1e3):.1f} (Convolver.stream {SERVE_BLOCKS}x{SERVE_CH}x"
+          f"{PTS}, {IR_LEN} taps: {serve_ms:.4f} ms/scan; stream_steps_fused_batched kernel "
+          f"{b_kernel_ms:.4f} ms; plain twin {b_plain_ms:.4f} ms; bound {b_bound[0]:.4f} ms "
+          f"({b_bound[1]}, {b_flops / 1e9:.3f} GFLOP; the kernel does {b_design / 1e9:.3f})) | "
+          f"TV {serve_audio_s / (serve_tv_ms / 1e3):.1f} (TVConvolver.stream: "
+          f"{serve_tv_ms:.4f} ms/scan; stream_steps_fused_batched_tv kernel {bt_kernel_ms:.4f} "
+          f"ms; plain twin {bt_plain_ms:.4f} ms; bound {bt_bound[0]:.4f} ms ({bt_bound[1]}, "
+          f"{bt_flops / 1e9:.3f} GFLOP; the kernel does {bt_design / 1e9:.3f}))", flush=True)
+
+    # phase 16: device memory of one serving scan
+    for label, fn in (("Convolver.stream", lambda: conv.stream(sbx)),
+                      ("TVConvolver.stream", lambda: tvc.stream(sbx, sbh))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        print(f"phase 16 memory {label} {SERVE_BLOCKS}x{SERVE_CH}x{PTS}: peak "
+              f"{(torch.cuda.max_memory_allocated() - base) / 1e9:.3f} GB above the "
+              f"{base / 1e9:.3f} GB held before the call", flush=True)
+
+    # phase 17: where each stream's time goes, device and host
     quiet = lambda m, u: None  # noqa: E731
     eng = P.Clpconv(0, IR_LEN, PTS, quiet, device="cuda")
     eng.push_ir(ir)
@@ -465,6 +648,8 @@ def main():
         ("pconv_stream", lambda: P.pconv_stream(cfg, state, blocks)),
         ("pconv_stream_tv", lambda: P.pconv_stream_tv(cfg, state, blocks, bh)),
         ("dconv_stream", lambda: D.dconv_stream(dcfg, dstate, blocks)),
+        ("Convolver.stream 64ch", lambda: conv.stream(sbx)),
+        ("TVConvolver.stream 64ch", lambda: tvc.stream(sbx, sbh)),
         ("pconv_stream 8 blocks", lambda: P.pconv_stream(cfg, state, small)),
         ("pconv_stream_tv 8 blocks", lambda: P.pconv_stream_tv(cfg, state, small, small)),
         ("dconv_stream 8 blocks", lambda: D.dconv_stream(dcfg, dstate, small)),
@@ -483,6 +668,10 @@ def main():
                headline_err, kernel_ms, plain_ms, lti_bound, None),
         kernel("stream_steps_fused_tv", "streamstep.cu", "streamstep.py:345", tv_launches,
                tv_err, tv_kernel_ms, tv_plain_ms, tv_bound, None),
+        kernel("stream_steps_fused_batched", "streamstep.cu", "streamstep.py:506",
+               serve_launches, b_err, b_kernel_ms, b_plain_ms, b_bound, None),
+        kernel("stream_steps_fused_batched_tv", "streamstep.cu", "streamstep.py:682",
+               serve_tv_launches, bt_err, bt_kernel_ms, bt_plain_ms, bt_bound, None),
         kernel("dstream_steps", "dstream.cu", "dstream.py:85", d_launches, d_err,
                d_kernel_ms, d_plain_ms, d_bound, d_lib_ms)]}))
     print(card)

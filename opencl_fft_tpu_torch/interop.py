@@ -29,31 +29,46 @@ def _fields(fields, state_type) -> Mapping[str, Any]:
     return fields
 
 
+def _pointers(value, nparts: int, nch: int):
+    """A ring pointer: a scalar becomes an int, a (C,) vector (a batched
+    state's per-channel pointers) a tuple of C ints; both mod nparts."""
+    a = np.asarray(value)
+    if a.ndim == 0:
+        return int(a) % nparts
+    if a.shape != (nch,):
+        raise ValueError(f"per-channel ring pointers must be ({nch},), got {a.shape}")
+    return tuple(int(p) % nparts for p in a)
+
+
 def pconv_state_from_numpy(fields: Union[Mapping[str, Any], tuple],
                            device: Union[str, torch.device]) -> PconvState:
     """Build a PconvState on ``device`` from numpy fields (for example the
-    JAX package's ``PconvState`` mapped through ``np.asarray``)."""
+    JAX package's ``PconvState`` mapped through ``np.asarray``). A batched
+    state (``spec_h_re`` of rank 3, a leading channel axis) keeps that axis
+    on every plane; its pointers may be scalars or per-channel vectors."""
     fields = _fields(fields, PconvState)
     hr = np.asarray(fields["spec_h_re"])
-    if hr.ndim != 2:
-        raise ValueError(f"spec_h_re must be (nparts, bins), got {hr.shape}")
-    nparts, bins = hr.shape
+    if hr.ndim not in (2, 3):
+        raise ValueError(f"spec_h_re must be ([C,] nparts, bins), got {hr.shape}")
+    lead, (nparts, bins) = hr.shape[:-2], hr.shape[-2:]
     shapes = {"spec_x_re": (2 * nparts, bins), "spec_x_im": (2 * nparts, bins),
               "spec_h_re": (nparts, bins), "spec_h_im": (nparts, bins),
               "tail": (bins,)}
     planes = {}
     for name, shape in shapes.items():
         a = np.asarray(fields[name], dtype=np.float32)
-        if a.shape != shape:
-            raise ValueError(f"{name} must be {shape}, got {a.shape}")
+        if a.shape != lead + shape:
+            raise ValueError(f"{name} must be {lead + shape}, got {a.shape}")
         planes[name] = torch.tensor(a, device=device)     # a copy
-    return PconvState(**planes, wp=int(fields["wp"]) % nparts,
-                      wp2=int(fields["wp2"]) % nparts)
+    nch = lead[0] if lead else 1
+    return PconvState(**planes, wp=_pointers(fields["wp"], nparts, nch),
+                      wp2=_pointers(fields["wp2"], nparts, nch))
 
 
 def pconv_state_to_numpy(state: PconvState) -> Dict[str, np.ndarray]:
     """The state's fields as numpy arrays (ring pointers as int32 scalars,
-    the JAX package's pointer type)."""
+    or int32 (C,) vectors when they are per channel: the JAX package's
+    pointer type)."""
     out = {name: getattr(state, name).detach().cpu().numpy()
            for name in ("spec_x_re", "spec_x_im", "spec_h_re", "spec_h_im", "tail")}
     out["wp"] = np.asarray(state.wp, np.int32)

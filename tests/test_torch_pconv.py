@@ -193,7 +193,7 @@ def test_config_validation():
         P.PconvConfig(pts=64, nparts=2, ring_dtype="f16")
     with pytest.raises(ValueError, match="dtype"):
         P.PconvConfig(pts=64, nparts=2, dtype="f16")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
         P.PconvConfig(pts=64, nparts=2, ring_dtype="bf16")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
         P.PconvConfig(pts=64, nparts=2, dtype="f64")
