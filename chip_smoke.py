@@ -17,9 +17,13 @@ with the IR fed cyclically through the second operand (TV),
 models ``Convolver``, ``TVConvolver`` and ``MatrixConvolver`` (64 channels;
 true stereo). It times each stream, prints per stream the device time of
 each kernel and copy under ``torch.profiler`` and the device's busy share
-of the call, then one JSON line with every kernel's launches, error, time
-and bound, the card's name and power limit, and, last,
-``{"ok": true, "device": {...}}``. Every phase prints one line; any
+of the call. Then the FFT path: the batched FFT kernels (``fft_vmem``,
+``fft_vmem_front2``) against their twins at the JAX FFT sweep's shapes
+(2^10..2^20 at 32 MB of planes a call), the FFT main paths (``Clcfft``,
+``Clrfft``, the ``clfft``/``clrfft`` processors, ``BatchedFFT``, Bluestein)
+against float64 numpy, and the sweep's times against cuFFT. Last, one JSON
+line with every kernel's launches, error, time and bound, the card's name
+and power limit, and ``{"ok": true, "device": {...}}``. Every phase prints one line; any
 failure exits non-zero before the last line. Without a CUDA card, or
 without the port beside this script, it fails.
 """
@@ -43,6 +47,8 @@ SCAN_BLOCKS = 1880
 SERVE_CH = 64        # the JAX bench's serving shape (bench.py:314-371)
 SERVE_BLOCKS = 470
 DIRECT_TAPS = 512
+SWEEP_LOG2 = (10, 12, 14, 16, 18, 20)   # the JAX FFT sweep (bench.py:421-439)
+SWEEP_BYTES = 32 << 20                  # rows = SWEEP_BYTES // (8 n)
 TOL = 2e-5          # kernel vs twin, relative to max|twin| (JAX stream-vs-scan bound)
 ORACLE_TOL = 5e-5   # relative max error vs the float64 scipy/numpy oracle
 # H100 SXM published peaks at its full 700 W limit: FP32 outside the tensor
@@ -61,8 +67,10 @@ def rel_err(got, ref):
     return float(np.max(np.abs(np.asarray(got, np.float64) - ref)) / np.max(np.abs(ref)))
 
 
-def cuda_ms(fn, warmup=2, reps=7):
-    """Median milliseconds of fn() over reps runs, by CUDA events."""
+def cuda_ms(fn, warmup=2, reps=7, calls=1):
+    """Median milliseconds of one fn() over reps runs of ``calls`` calls
+    back to back, by CUDA events (calls > 1 keeps the host's launch cost of
+    a short call out of the device time)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -70,10 +78,11 @@ def cuda_ms(fn, warmup=2, reps=7):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         stop.record()
         stop.synchronize()
-        times.append(start.elapsed_time(stop))
+        times.append(start.elapsed_time(stop) / calls)
     return statistics.median(times)
 
 
@@ -115,6 +124,21 @@ def ptxas_summary(log):
         elif "Used" in ln:
             resources.append(ln.split(":", 1)[1].strip())
     return "; ".join(f"{k}: {r}" for k, r in zip(kernels, resources))
+
+
+def device_us(fn, calls=10):
+    """Device microseconds per call of fn(): the kernels' and copies' time
+    under torch.profiler over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / calls
 
 
 def profile_streams(streams, calls=10):
@@ -187,13 +211,15 @@ def main():
     from opencl_fft_tpu_torch.ops.cuda import _build
     from opencl_fft_tpu_torch.ops.cuda import dstream as K
     from opencl_fft_tpu_torch.ops.cuda import streamstep as S
+    from opencl_fft_tpu_torch.ops.cuda import vmemfft as V
 
     def zero_counts():
         S.LAUNCHES = S.TV_LAUNCHES = S.BATCHED_LAUNCHES = S.BATCHED_TV_LAUNCHES = 0
         K.LAUNCHES = 0
+        V.LAUNCHES = V.FRONT2_LAUNCHES = 0
 
     # phase 2: build from the checkout's sources, one nvcc per source at once
-    libs = ("streamstep", "dstream")
+    libs = ("streamstep", "dstream", "fft")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as ex:
         list(ex.map(_build.load, libs))
@@ -644,6 +670,11 @@ def main():
     out, out64 = np.empty(PTS, np.float32), np.empty(64, np.float32)
     b1, b2 = x[:PTS], x[PTS:2 * PTS]
     small = blocks[:8]
+    n18 = 1 << 18
+    cf = P.Clcfft(0, n18, True, on_message=quiet)
+    cbuf = (rng.standard_normal(n18) + 1j * rng.standard_normal(n18)).astype(np.complex64)
+    bfft = P.BatchedFFT(n18, device=dev)
+    xb = (f(16, n18), f(16, n18))
     profile_streams((
         ("pconv_stream", lambda: P.pconv_stream(cfg, state, blocks)),
         ("pconv_stream_tv", lambda: P.pconv_stream_tv(cfg, state, blocks, bh)),
@@ -655,7 +686,152 @@ def main():
         ("dconv_stream 8 blocks", lambda: D.dconv_stream(dcfg, dstate, small)),
         ("Clpconv.convolution LTI block", lambda: eng.convolution(out, b1)),
         ("Clpconv.convolution TV block", lambda: eng.convolution(out, b1, b2)),
-        ("Cldconv.convolution 64-sample block", lambda: deng.convolution(out64, b1[:64]))))
+        ("Cldconv.convolution 64-sample block", lambda: deng.convolution(out64, b1[:64])),
+        ("Clcfft.transform 2^18", lambda: cf.transform(cbuf.copy())),
+        ("BatchedFFT 2^18 x 16", lambda: bfft(xb))))
+
+    # phase 18: FFT kernels vs plain twins on the card at the sweep's shapes
+    def planes(rows, n):
+        return f(rows, n), f(rows, n)
+
+    def sweep_rows(n):
+        return max(1, SWEEP_BYTES // (8 * n))
+
+    worst = fft_err = f2_err = 0.0
+    for logn in SWEEP_LOG2:
+        n = 1 << logn
+        xs_ = planes(sweep_rows(n), n)
+        for sign in (-1, 1):
+            n0 = V.LAUNCHES + V.FRONT2_LAUNCHES
+            got = V.fft_vmem(xs_, sign, 0.5)
+            torch.cuda.synchronize()
+            check(V.LAUNCHES + V.FRONT2_LAUNCHES == n0 + 1, "fft_vmem counts its launch")
+            want = V.fft_vmem_plain(xs_, sign, 0.5)
+            worst = compare((("re", got[0], want[0]), ("im", got[1], want[1])),
+                            f"fft_vmem n=2^{logn} x{sweep_rows(n)} sign={sign}", worst)
+            if logn == 18:
+                fft_err = max(fft_err, *(float((g - w).abs().max()) for g, w in zip(got, want)))
+    for logn in (18, 19, 20):
+        n = 1 << logn
+        xs_ = planes(sweep_rows(n), n)
+        for sign in (-1, 1):
+            n0 = V.FRONT2_LAUNCHES
+            got = V.fft_vmem_front2(xs_, sign, 0.5)
+            torch.cuda.synchronize()
+            check(V.FRONT2_LAUNCHES == n0 + 1, "fft_vmem_front2 counts its launch")
+            want = V.fft_vmem_front2_plain(xs_, sign, 0.5)
+            worst = compare((("re", got[0], want[0]), ("im", got[1], want[1])),
+                            f"fft_vmem_front2 n=2^{logn} x{sweep_rows(n)} sign={sign}", worst)
+            if logn == 18:
+                f2_err = max(f2_err, *(float((g - w).abs().max()) for g, w in zip(got, want)))
+    del xs_, got, want
+    print(f"phase 18 FFT kernels vs twins: fft_vmem n=2^{{{','.join(map(str, SWEEP_LOG2))}}} "
+          f"and fft_vmem_front2 n=2^{{18,19,20}} at {SWEEP_BYTES >> 20} MB of planes (rows = "
+          f"32 MB / 8n), sign +-1, scale 0.5; worst rel err {worst:.3e} (tol {TOL}); 2^18 x16 "
+          f"max_abs_err fft_vmem {fft_err:.3e} fft_vmem_front2 {f2_err:.3e}", flush=True)
+
+    # phase 19: FFT main paths on the card against float64 numpy
+    def cplx(*shape):
+        return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+    def oracle(got, ref, what):
+        """max |got - ref| / max |ref| of complex spectra, within ORACLE_TOL."""
+        got = np.asarray(got, np.complex128)
+        check(got.shape == np.shape(ref) and bool(np.isfinite(got).all()),
+              f"{what} shape/finite")
+        err = float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+        check(err <= ORACLE_TOL, f"{what} vs float64 numpy {err:.3e} > {ORACLE_TOL}")
+        return err
+
+    z18 = cplx(n18)
+    n19 = 1 << 19
+    r19 = rng.standard_normal(n19).astype(np.float32)
+    z1000, r1000 = cplx(1000), rng.standard_normal(1000).astype(np.float32)
+    zb = cplx(16, n18)
+    nblu = 3 << 16
+    zblu = cplx(4, nblu)
+    fwd, inv = P.Clcfft(0, n18, True, on_message=quiet), P.Clcfft(0, n18, False, on_message=quiet)
+    rf = P.Clrfft(0, n19, True, on_message=quiet)
+    cproc = P.ClfftProcessor(1000, on_message=quiet)
+    rproc = P.ClrfftProcessor(1000, on_message=quiet)
+    bf = P.BatchedFFT(n18, device=dev)
+    zero_counts()
+    spec = z18.copy()
+    check(fwd.transform(spec) == 0, "Clcfft forward status")
+    back = spec.copy()
+    check(inv.transform(back) == 0, "Clcfft inverse status")
+    packed = np.zeros(n19 // 2, np.complex64)
+    check(rf.transform(packed, r19) == 0, "Clrfft status")
+    c_out, r_out = cproc.process(z1000), rproc.process(r1000)
+    yb = bf((torch.from_numpy(zb.real.copy()).to(dev), torch.from_numpy(zb.imag.copy()).to(dev)))
+    yblu = P.fft_split((torch.from_numpy(zblu.real.copy()).to(dev),
+                        torch.from_numpy(zblu.imag.copy()).to(dev)), -1)
+    torch.cuda.synchronize()
+    fft_launches, f2_launches = V.LAUNCHES, V.FRONT2_LAUNCHES
+    check(fft_launches > 0 and f2_launches > 0,
+          f"the FFT main paths launched both FFT kernels ({fft_launches}, {f2_launches})")
+    z64 = z18.astype(np.complex128)
+    e_fwd = oracle(spec, np.fft.fft(z64) / n18, "Clcfft(2^18) forward")
+    e_inv = oracle(back, np.fft.ifft(spec.astype(np.complex128)) * n18, "Clcfft(2^18) inverse")
+    e_rt = oracle(back, z64, "Clcfft(2^18) forward then inverse")
+    std = np.fft.rfft(r19.astype(np.float64)) * 2 / n19
+    ref_packed = P.standard_to_packed(torch.from_numpy(std)).numpy()
+    e_rf = oracle(packed, ref_packed, "Clrfft(2^19) vs standard_to_packed(np.fft.rfft)")
+    pad = np.zeros(1024, np.complex128)
+    pad[:1000] = z1000
+    e_cp = oracle(c_out, (np.fft.fft(pad) / 1024)[:1000], "ClfftProcessor(1000)")
+    rpad = np.zeros(1024)
+    rpad[:1000] = r1000
+    ref_rp = P.standard_to_packed(torch.from_numpy(np.fft.rfft(rpad) * 2 / 1024)).numpy()[:500]
+    e_rp = oracle(r_out, ref_rp, "ClrfftProcessor(1000)")
+    e_bf = oracle((yb[0] + 1j * yb[1]).cpu().numpy(), np.fft.fft(zb.astype(np.complex128)),
+                  "BatchedFFT(2^18) x16")
+    e_blu = oracle((yblu[0] + 1j * yblu[1]).cpu().numpy(),
+                   np.fft.fft(zblu.astype(np.complex128)), "Bluestein n=3*2^16")
+    print(f"phase 19 FFT main paths on {dev} vs float64 numpy (tol {ORACLE_TOL}): Clcfft(2^18) "
+          f"forward {e_fwd:.3e}, inverse {e_inv:.3e}, round trip {e_rt:.3e}; Clrfft(2^19) "
+          f"{e_rf:.3e}; ClfftProcessor(1000) {e_cp:.3e}; ClrfftProcessor(1000) {e_rp:.3e}; "
+          f"BatchedFFT(2^18) x16 {e_bf:.3e}; Bluestein 4 x {nblu} (core 2^19) {e_blu:.3e}; "
+          f"launches fft_vmem {fft_launches} fft_vmem_front2 {f2_launches}", flush=True)
+    del zb, yb, zblu, yblu
+
+    # phase 20: the FFT sweep's times, CUDA events; GFLOP/s in bench.py's
+    # 5 n log2 n convention; bound: the planes read once and written once
+    sweep = []
+    device_us(torch.cuda.synchronize, calls=1)    # one session first: the first read 0 us
+    for logn in SWEEP_LOG2:
+        n, rows = 1 << logn, sweep_rows(1 << logn)
+        xs_ = planes(rows, n)
+        z = torch.complex(*xs_)
+        k_ms = cuda_ms(lambda: V.fft_vmem(xs_, -1), reps=9, calls=10)
+        lib_ms = cuda_ms(lambda: torch.fft.fft(z), reps=9, calls=10)
+        tw_ms = cuda_ms(lambda: V.fft_vmem_plain(xs_, -1), warmup=1, reps=5)
+        f2_ms = cuda_ms(lambda: V.fft_vmem_front2(xs_, -1), reps=9, calls=10) \
+            if n in V.FRONT2_SIZES else None
+        k_dev = device_us(lambda: V.fft_vmem(xs_, -1))
+        flops = 5.0 * n * logn * rows
+        bnd = bound(flops, 2 * nbytes(*xs_))
+        sweep.append((logn, rows, k_ms, k_dev, f2_ms, lib_ms, tw_ms, bnd, flops))
+        if logn == 18:
+            fft_row = (k_ms, tw_ms, bnd, lib_ms)
+            f2_row = (f2_ms, cuda_ms(lambda: V.fft_vmem_front2_plain(xs_, -1), warmup=1, reps=5),
+                      bnd, lib_ms)
+    del xs_, z
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        cf.transform(cbuf.copy())
+    clc_ms = (time.perf_counter() - t0) / 20 * 1e3
+    print(f"phase 20 FFT sweep [{card}] (ms per call, median CUDA events over 10 calls back "
+          f"to back, the twin over 1; GFLOP/s = 5 n log2 n rows / time): " + "; ".join(
+              f"2^{lg} x{rows}: fft_vmem {k:.4f} ({fl / k / 1e6:.1f} GFLOP/s; device "
+              f"{kd:.1f} us)"
+              + (f", fft_vmem_front2 {f2:.4f} ({fl / f2 / 1e6:.1f})" if f2 else "")
+              + f", cuFFT {lib:.4f} ({fl / lib / 1e6:.1f}), twin {tw:.4f}, bound {b[0]:.4f} "
+              f"({b[1]}; kernel at {100 * b[0] / k:.1f}%)"
+              for lg, rows, k, kd, f2, lib, tw, b, fl in sweep)
+          + f" | Clcfft.transform 2^18 host wall {clc_ms:.4f} ms per call (numpy in and out)",
+          flush=True)
 
     def kernel(name, source, replaces, launches, err, ms, plain, bnd, lib):
         return {"name": name, "route": "cuda", "source": f"opencl_fft_tpu_torch/csrc/{source}",
@@ -673,7 +849,10 @@ def main():
         kernel("stream_steps_fused_batched_tv", "streamstep.cu", "streamstep.py:682",
                serve_tv_launches, bt_err, bt_kernel_ms, bt_plain_ms, bt_bound, None),
         kernel("dstream_steps", "dstream.cu", "dstream.py:85", d_launches, d_err,
-               d_kernel_ms, d_plain_ms, d_bound, d_lib_ms)]}))
+               d_kernel_ms, d_plain_ms, d_bound, d_lib_ms),
+        kernel("fft_vmem", "fft.cu", "vmemfft.py:1100", fft_launches, fft_err, *fft_row),
+        kernel("fft_vmem_front2", "fft.cu", "vmemfft.py:808", f2_launches, f2_err,
+               *f2_row)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

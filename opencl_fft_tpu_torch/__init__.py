@@ -1,7 +1,13 @@
 """opencl_fft_tpu_torch — the PyTorch/CUDA port of opencl_fft_tpu.
 
-It mirrors the JAX package's module layout. So far it holds the streaming
-convolution paths: packed real FFTs on ``torch.fft``; the partitioned
+It mirrors the JAX package's module layout. So far it holds the FFT surface
+and the streaming convolution paths: complex and packed real FFTs
+(``ops/fft.py``, ``ops/rfft.py``), whose power-of-two sizes 2^10..2^20 run
+on a hand-written CUDA FFT on the card (``csrc/fft.cu``, wrapped by
+``ops/cuda/vmemfft.py``: ``fft_vmem``, ``fft_vmem_front2``) and the rest on
+``torch.fft``, with Bluestein for sizes that are not powers of two; the
+``Clcfft`` and ``Clrfft`` classes and the ``ClfftProcessor`` and
+``ClrfftProcessor`` opcode layers; the partitioned
 engine (``ops/pconv.py``), LTI and time-varying, whose whole-scan streams
 run on hand-written CUDA kernels for Hopper (``csrc/streamstep.cu``); the
 direct FIR engine (``ops/dconv.py``), whose whole-scan stream runs on
@@ -16,7 +22,7 @@ Every engine takes an explicit device: a CUDA card, or the CPU when asked
 for by name, where each kernel's plain PyTorch twin runs.
 """
 
-from .api import Cldconv, Clpconv
+from .api import Clcfft, Cldconv, Clpconv, Clrfft
 from .interop import (dconv_state_from_numpy, dconv_state_to_numpy,
                       pconv_state_from_numpy, pconv_state_to_numpy)
 from .ops.cuda.dstream import dstream_steps, dstream_steps_plain, toeplitz_slabs
@@ -30,13 +36,17 @@ from .ops.cuda.streamstep import (stream_steps_fused, stream_steps_fused_batched
                                   stream_steps_fused_tv_plain)
 from .ops.dconv import (DconvConfig, DconvState, convolve_direct, dconv_init,
                         dconv_step, dconv_step_tv, dconv_stream)
-from .ops.fft import cfft_split, fft_split
+from .ops.cuda.vmemfft import (fft_vmem, fft_vmem_front2, fft_vmem_front2_plain,
+                               fft_vmem_plain)
+from .ops.fft import cfft, cfft_split, fft, fft_split, fft_unnormalized, ifft
 from .ops.pconv import (PconvConfig, PconvState, convolve, pconv_init,
                         pconv_step, pconv_step_tv, pconv_stream,
                         pconv_stream_batched, pconv_stream_batched_tv,
                         pconv_stream_tv, push_ir)
-from .ops.rfft import irfft_split, pack_forward, rfft_split, unpack_inverse
-from .stream import ClconvProcessor, CltvconvProcessor
+from .ops.rfft import (irfft, irfft_split, pack_forward, packed_to_standard, rfft,
+                       rfft_split, standard_to_packed, unpack_inverse)
+from .stream import (ClconvProcessor, ClfftProcessor, ClrfftProcessor,
+                     CltvconvProcessor)
 from .utils.devices import get_device
 from .utils.errors import (ArgumentError, DeviceError, FftError, SizeError,
                            Status, error_string)
@@ -45,9 +55,12 @@ from .utils.numerics import np2
 __version__ = "0.1.0"
 
 __all__ = [
-    "Clpconv", "Cldconv", "ClconvProcessor", "CltvconvProcessor",
+    "Clcfft", "Clrfft", "Clpconv", "Cldconv",
+    "ClfftProcessor", "ClrfftProcessor", "ClconvProcessor", "CltvconvProcessor",
     "fft_split", "cfft_split", "rfft_split", "irfft_split",
-    "pack_forward", "unpack_inverse",
+    "cfft", "fft", "ifft", "fft_unnormalized", "rfft", "irfft",
+    "packed_to_standard", "standard_to_packed", "pack_forward", "unpack_inverse",
+    "fft_vmem", "fft_vmem_plain", "fft_vmem_front2", "fft_vmem_front2_plain",
     "PconvConfig", "PconvState", "pconv_init", "push_ir", "pconv_step",
     "pconv_step_tv", "pconv_stream", "pconv_stream_tv", "convolve",
     "pconv_stream_batched", "pconv_stream_batched_tv",

@@ -1,0 +1,446 @@
+// Batched complex FFT of float32 split planes on Hopper (sm_90a).
+//
+// Replaces the TPU kernels of opencl_fft_tpu/ops/pallas/vmemfft.py:
+//   fft_vmem         (vmemfft.py:1100; _build / _build2 / _build3h / _build_sl)
+//   fft_vmem_front2  (vmemfft.py:808; _build_front2, two in-kernel levels + leaf)
+// Both compute out = scale * DFT_sign(x) over the last axis of (rows, n)
+// split re/im planes, sign = -1 forward (exp(-2 pi i jk/n)), +1 the
+// unnormalized inverse. The TPU kernels are bf16x3 matmul levels on the MXU;
+// here the butterflies are plain float32, which is exact enough, and the
+// transform is memory-bound.
+//
+// What bounds it on the card. 5 n log2 n operations per row against 16 n
+// bytes of planes in and out: at n = 2^20 that is 0.1 GFLOP for 16 MB, so
+// one read and one write of the planes per pass over device memory is the
+// floor (bytes, not operations).
+//
+// What the design does about it. Every pass over device memory reads the
+// planes once and writes them once, coalesced, and keeps all butterflies
+// on chip. A CTA owns a tile of B transforms of length L (B * L = 2^13
+// values, 64 KB; two CTAs per SM) and runs Stockham passes of radix 16 (the last one of
+// radix 2, 4 or 8 when log2 L is not a multiple of 4): each thread holds 16
+// values in registers and does its radix-16 butterfly there, so L = 2^10
+// takes three passes and two exchanges through shared memory. The first
+// pass reads its operands straight from device memory and the last writes
+// straight back (both coalesced, since those passes' operand index runs
+// along the thread index), so the planes never take a trip through shared
+// memory only to be loaded or stored.
+//   fft_rows_kernel   B whole rows per CTA. For n <= 2^13 this is the whole
+//                     transform (fft_vmem's single pass); it is also the
+//                     four-step's leaf pass, whose output Z[k1, k2] goes to
+//                     out[k1 + n1 k2], staged in shared memory so that B
+//                     adjacent k1 are stored together.
+//   fft_front_kernel  the four-step's first pass for n = n1 * n2: a CTA
+//                     takes C adjacent columns j2 of the (n1, n2) matrix
+//                     (threads run along the columns, so every load and
+//                     store moves C contiguous floats), runs the n1-point
+//                     transforms down the columns, multiplies by
+//                     W_n^(j2 k1) and writes the (n1, n2) scratch.
+// Above 2^13 two passes move 4x the planes instead of 2x: the price of a row
+// that no longer fits one CTA.
+//
+// Shared memory pads one float per 32 (p -> p + p/32) against bank
+// conflicts of the strided Stockham writes; rows of a row tile sit at an odd
+// stride. Twiddles of the passes come from float32 tables built in float64
+// on the host (angles reduced mod n in integers): W_L^k for k < L, and the
+// (n1, n2) table W_n^(k1 j2) of the front pass; the constants inside a
+// radix-8/16 butterfly are W_16^m. All offsets into the planes are 64-bit.
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int TILE_LOG2 = 13;               // complex values per CTA, log2
+constexpr int PER_THREAD = 16;              // values a thread holds in a pass
+constexpr int MAX_THREADS = (1 << TILE_LOG2) / PER_THREAD;
+// Two CTAs per SM, so that one loads or stores while the other computes:
+// this caps the kernels at 64 registers, which they fit without spilling.
+// Chosen by timing on the H100 against one CTA per SM (128 registers) and
+// against 4096- and 2048-value tiles at two to four CTAs per SM: faster than
+// one CTA at every sweep size, and than the smaller tiles above 2^12.
+constexpr int MIN_BLOCKS = 2;
+
+#define FFT_RETURN_IF_ERROR(expr)                \
+    do {                                         \
+        cudaError_t err_ = (expr);               \
+        if (err_ != cudaSuccess) return err_;    \
+    } while (0)
+
+__host__ __device__ __forceinline__ int pidx(int p) { return p + (p >> 5); }
+
+__host__ __device__ __forceinline__ int row_stride(int log_l) {
+    const int l = 1 << log_l;
+    return l + (l >> 5) + 1;
+}
+
+// W_16^m = cos + i sign sin of 2 pi m / 16, m < 16.
+__device__ constexpr float kCos16[16] = {
+    1.f, 0.92387953251128674f, 0.70710678118654757f, 0.38268343236508978f,
+    0.f, -0.38268343236508978f, -0.70710678118654757f, -0.92387953251128674f,
+    -1.f, -0.92387953251128674f, -0.70710678118654757f, -0.38268343236508978f,
+    0.f, 0.38268343236508978f, 0.70710678118654757f, 0.92387953251128674f};
+__device__ constexpr float kSin16[16] = {
+    0.f, 0.38268343236508978f, 0.70710678118654757f, 0.92387953251128674f,
+    1.f, 0.92387953251128674f, 0.70710678118654757f, 0.38268343236508978f,
+    0.f, -0.38268343236508978f, -0.70710678118654757f, -0.92387953251128674f,
+    -1.f, -0.92387953251128674f, -0.70710678118654757f, -0.38268343236508978f};
+
+template <int R> struct Log2;
+template <> struct Log2<2> { static constexpr int value = 1; };
+template <> struct Log2<4> { static constexpr int value = 2; };
+template <> struct Log2<8> { static constexpr int value = 3; };
+template <> struct Log2<16> { static constexpr int value = 4; };
+
+template <int R> struct Dft;
+
+template <>
+struct Dft<2> {
+    static __device__ __forceinline__ void run(float (&xr)[2], float (&xi)[2], int) {
+        const float ar = xr[0], ai = xi[0];
+        xr[0] = ar + xr[1];
+        xi[0] = ai + xi[1];
+        xr[1] = ar - xr[1];
+        xi[1] = ai - xi[1];
+    }
+};
+
+template <>
+struct Dft<4> {
+    // X1 = (x0 - x2) + w (x1 - x3), X3 = (x0 - x2) - w (x1 - x3), w = sign i
+    static __device__ __forceinline__ void run(float (&xr)[4], float (&xi)[4], int sign) {
+        const float s02r = xr[0] + xr[2], s02i = xi[0] + xi[2];
+        const float d02r = xr[0] - xr[2], d02i = xi[0] - xi[2];
+        const float s13r = xr[1] + xr[3], s13i = xi[1] + xi[3];
+        const float d13r = xr[1] - xr[3], d13i = xi[1] - xi[3];
+        const float wdr = -sign * d13i, wdi = sign * d13r;
+        xr[0] = s02r + s13r;
+        xi[0] = s02i + s13i;
+        xr[1] = d02r + wdr;
+        xi[1] = d02i + wdi;
+        xr[2] = s02r - s13r;
+        xi[2] = s02i - s13i;
+        xr[3] = d02r - wdr;
+        xi[3] = d02i - wdi;
+    }
+};
+
+// In-register DFT_R, natural order in and out: X[k] = sum_r x[r] W_R^(rk),
+// W_R = exp(sign 2 pi i / R). R = 8, 16 as the four-step 4 x (R/4):
+// X[k1 + 4 k2] = sum_n2 W_(R/4)^(n2 k2) W_R^(n2 k1) sum_n1 x[n1 R/4 + n2] W_4^(n1 k1).
+template <int R>
+struct Dft {
+    static __device__ __forceinline__ void run(float (&xr)[R], float (&xi)[R], int sign) {
+        constexpr int R2 = R / 4;
+        float ar[4][R2], ai[4][R2];
+#pragma unroll
+        for (int n2 = 0; n2 < R2; ++n2) {
+            float tr[4], ti[4];
+#pragma unroll
+            for (int n1 = 0; n1 < 4; ++n1) {
+                tr[n1] = xr[n1 * R2 + n2];
+                ti[n1] = xi[n1 * R2 + n2];
+            }
+            Dft<4>::run(tr, ti, sign);
+#pragma unroll
+            for (int k1 = 0; k1 < 4; ++k1) {
+                const int m = (n2 * k1 * (16 / R)) & 15;   // W_R^(n2 k1) = W_16^m
+                if (m == 0) {
+                    ar[k1][n2] = tr[k1];
+                    ai[k1][n2] = ti[k1];
+                } else {
+                    const float wr = kCos16[m], wi = sign * kSin16[m];
+                    ar[k1][n2] = tr[k1] * wr - ti[k1] * wi;
+                    ai[k1][n2] = tr[k1] * wi + ti[k1] * wr;
+                }
+            }
+        }
+#pragma unroll
+        for (int k1 = 0; k1 < 4; ++k1) {
+            Dft<R2>::run(ar[k1], ai[k1], sign);
+#pragma unroll
+            for (int k2 = 0; k2 < R2; ++k2) {
+                xr[k1 + 4 * k2] = ar[k1][k2];
+                xi[k1 + 4 * k2] = ai[k1][k2];
+            }
+        }
+    }
+};
+
+// The tile's transforms: B = 2^log_b of length L = 2^log_l. Butterfly bf of
+// a pass (j its index inside its transform, b the transform) and element
+// (b, p) in shared memory are placed by the tile's layout: a row tile runs
+// j fastest over the threads and keeps transform b at b * S; a column tile
+// (COLS) runs b fastest and interleaves the transforms, element (b, p) at
+// p * B + b, so threads next to each other touch neighbouring columns.
+template <bool COLS>
+struct Layout {
+    int log_l, log_b, S;
+    __device__ __forceinline__ void butterfly(int bf, int log_lr, int& b, int& j) const {
+        if (COLS) {
+            b = bf & ((1 << log_b) - 1);
+            j = bf >> log_b;
+        } else {
+            b = bf >> log_lr;
+            j = bf & ((1 << log_lr) - 1);
+        }
+    }
+    __device__ __forceinline__ int smem(int b, int p) const {
+        return COLS ? pidx((p << log_b) + b) : b * S + pidx(p);
+    }
+};
+
+// One Stockham pass of radix R at sub-transform size ns over the tile:
+//   v[r] = x[j + r L/R] * W_L^(r k), k = (j mod ns) * L / (ns R)
+//   y[(j / ns) ns R + j mod ns + r ns] = DFT_R(v)[r].
+// load(b, p, re, im) reads element p of transform b of the pass's input,
+// store(b, p, re, im) writes the output; `exchange` puts a barrier between
+// the reads and the writes (input and output share the shared memory).
+template <int R, bool COLS, typename Load, typename Store>
+__device__ __forceinline__ void stockham_pass(const Layout<COLS>& lay, Load load, Store store,
+                                              const float* __restrict__ twr,
+                                              const float* __restrict__ twi, int ns, int sign,
+                                              bool exchange) {
+    constexpr int NB = PER_THREAD / R;
+    const int log_lr = lay.log_l - Log2<R>::value;
+    const int lr = 1 << log_lr;
+    const int kstep = (1 << lay.log_l) / (ns * R);
+    float vr[NB][R], vi[NB][R];
+    int bs[NB], js[NB];
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+        lay.butterfly(threadIdx.x + i * blockDim.x, log_lr, bs[i], js[i]);
+#pragma unroll
+        for (int r = 0; r < R; ++r) load(bs[i], js[i] + r * lr, vr[i][r], vi[i][r]);
+    }
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+        if (ns > 1) {
+            const int k = (js[i] & (ns - 1)) * kstep;
+#pragma unroll
+            for (int r = 1; r < R; ++r) {
+                const float wr = __ldg(twr + k * r), wi = __ldg(twi + k * r);
+                const float xr = vr[i][r], xi = vi[i][r];
+                vr[i][r] = xr * wr - xi * wi;
+                vi[i][r] = xr * wi + xi * wr;
+            }
+        }
+        Dft<R>::run(vr[i], vi[i], sign);
+    }
+    if (exchange) __syncthreads();
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+        const int jm = js[i] & (ns - 1);
+        const int d = (js[i] - jm) * R + jm;
+#pragma unroll
+        for (int r = 0; r < R; ++r) store(bs[i], d + r * ns, vr[i][r], vi[i][r]);
+    }
+}
+
+// All passes of the tile's transforms: radix 16 while four or more bits of
+// L remain, then one pass of the remaining 2, 4 or 8. The first pass reads
+// with gload, the last writes with lstore; the passes between go through
+// shared memory. last_to_smem: lstore writes shared memory too, so the last
+// pass needs its barrier between reads and writes.
+template <bool COLS, typename GLoad, typename LStore>
+__device__ __forceinline__ void fft_tile(const Layout<COLS>& lay, float* sr, float* si,
+                                         GLoad gload, LStore lstore, bool last_to_smem,
+                                         const float* __restrict__ twr,
+                                         const float* __restrict__ twi, int sign) {
+    const int npass = (lay.log_l + 3) / 4;
+    int ns = 1;
+    for (int p = 0; p < npass; ++p) {
+        const bool first = p == 0, last = p == npass - 1;
+        const int log_r = last ? lay.log_l - 4 * p : 4;
+        auto load = [&](int b, int q, float& re, float& im) {
+            if (first) {
+                gload(b, q, re, im);
+            } else {
+                re = sr[lay.smem(b, q)];
+                im = si[lay.smem(b, q)];
+            }
+        };
+        auto store = [&](int b, int q, float re, float im) {
+            if (last) {
+                lstore(b, q, re, im);
+            } else {
+                sr[lay.smem(b, q)] = re;
+                si[lay.smem(b, q)] = im;
+            }
+        };
+        const bool exchange = !first && (!last || last_to_smem);
+        switch (log_r) {
+            case 1: stockham_pass<2>(lay, load, store, twr, twi, ns, sign, exchange); break;
+            case 2: stockham_pass<4>(lay, load, store, twr, twi, ns, sign, exchange); break;
+            case 3: stockham_pass<8>(lay, load, store, twr, twi, ns, sign, exchange); break;
+            default: stockham_pass<16>(lay, load, store, twr, twi, ns, sign, exchange); break;
+        }
+        if (!last) __syncthreads();
+        ns <<= log_r;
+    }
+}
+
+// Rows of length L = 2^log_l, B = 2^log_b of them per CTA. log_n1 == 0:
+// rows [blockIdx.x B, +B) of (rows, L), transformed in place of their input
+// layout (rows past the end are skipped). log_n1 > 0: the four-step leaf;
+// row q = batch * n1 + k1 of the (rows, L) scratch holds k1's n2 = L values,
+// and Z[k1, k2] goes to out[batch * n + k1 + n1 * k2], n = n1 * L (B
+// divides n1), through shared memory.
+__global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
+fft_rows_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                float* __restrict__ yr, float* __restrict__ yi,
+                const float* __restrict__ twr, const float* __restrict__ twi,
+                long long rows, int log_l, int log_b, int log_n1, int sign, float scale) {
+    extern __shared__ float smem[];
+    const Layout<false> lay{log_l, log_b, row_stride(log_l)};
+    const int B = 1 << log_b;
+    float* sr = smem;
+    float* si = smem + B * lay.S;
+    const long long row0 = static_cast<long long>(blockIdx.x) << log_b;
+    auto gload = [&](int b, int q, float& re, float& im) {
+        const bool in = row0 + b < rows;
+        const size_t g = (static_cast<size_t>(row0 + b) << log_l) + q;
+        re = in ? xr[g] : 0.f;
+        im = in ? xi[g] : 0.f;
+    };
+    if (log_n1 == 0) {
+        auto gstore = [&](int b, int k, float re, float im) {
+            if (row0 + b < rows) {
+                const size_t g = (static_cast<size_t>(row0 + b) << log_l) + k;
+                yr[g] = scale * re;
+                yi[g] = scale * im;
+            }
+        };
+        fft_tile(lay, sr, si, gload, gstore, false, twr, twi, sign);
+        return;
+    }
+    auto sstore = [&](int b, int k, float re, float im) {
+        sr[lay.smem(b, k)] = re;
+        si[lay.smem(b, k)] = im;
+    };
+    fft_tile(lay, sr, si, gload, sstore, true, twr, twi, sign);
+    __syncthreads();
+    const long long batch = row0 >> log_n1;
+    const int k1_0 = static_cast<int>(row0 & ((1LL << log_n1) - 1));
+    const size_t base = static_cast<size_t>(batch) << (log_n1 + log_l);
+    const int T = blockDim.x;
+#pragma unroll
+    for (int i = 0; i < PER_THREAD; ++i) {   // T * PER_THREAD == B * L
+        const int e = threadIdx.x + i * T;
+        const int b = e & (B - 1), k2 = e >> log_b;
+        const size_t g = base + k1_0 + b + (static_cast<size_t>(k2) << log_n1);
+        yr[g] = scale * sr[lay.smem(b, k2)];
+        yi[g] = scale * si[lay.smem(b, k2)];
+    }
+}
+
+// Four-step first pass for n = n1 * n2 (n1 = 2^log_n1, n2 = 2^log_n2): CTA
+// blockIdx.x takes batch row blockIdx.x / (n2 / C) and columns
+// [j2_0, j2_0 + C), C = 2^log_c, of its (n1, n2) matrix x[j1 n2 + j2]; it
+// transforms each column over j1 and writes
+// y[k1 n2 + j2] = W_n^(k1 j2) * sum_j1 x[j1 n2 + j2] W_n1^(j1 k1).
+__global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
+fft_front_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                 float* __restrict__ yr, float* __restrict__ yi,
+                 const float* __restrict__ twr, const float* __restrict__ twi,
+                 const float* __restrict__ t4r, const float* __restrict__ t4i,
+                 int log_n1, int log_n2, int log_c, int sign) {
+    extern __shared__ float smem[];
+    const Layout<true> lay{log_n1, log_c, 0};
+    float* sr = smem;
+    float* si = smem + pidx(1 << (log_n1 + log_c));
+    const int tiles = 1 << (log_n2 - log_c);
+    const long long batch = blockIdx.x / tiles;
+    const int j2_0 = (blockIdx.x % tiles) << log_c;
+    const size_t base = (static_cast<size_t>(batch) << (log_n1 + log_n2)) + j2_0;
+    auto gload = [&](int c, int j1, float& re, float& im) {
+        const size_t off = (static_cast<size_t>(j1) << log_n2) + c;
+        re = xr[base + off];
+        im = xi[base + off];
+    };
+    auto gstore = [&](int c, int k1, float re, float im) {
+        const size_t off = (static_cast<size_t>(k1) << log_n2) + c;
+        const size_t t = off + j2_0;
+        const float wr = __ldg(t4r + t), wi = __ldg(t4i + t);
+        yr[base + off] = re * wr - im * wi;
+        yi[base + off] = re * wi + im * wr;
+    };
+    fft_tile(lay, sr, si, gload, gstore, false, twr, twi, sign);
+}
+
+int ilog2(long long v) {
+    int l = 0;
+    while ((1LL << (l + 1)) <= v) ++l;
+    return l;
+}
+
+// Raise a kernel's dynamic shared memory limit once per device and size.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int device, size_t bytes, size_t (&granted)[64]) {
+    if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+    if (bytes <= 48 * 1024 || bytes <= granted[device]) return cudaSuccess;
+    FFT_RETURN_IF_ERROR(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
+    granted[device] = bytes;
+    return cudaSuccess;
+}
+
+size_t rows_granted[64];
+size_t front_granted[64];
+
+}  // namespace
+
+// Transforms of length 2^log_l along the rows of (rows, 2^log_l) split
+// planes x -> y, times scale. log_n1 == 0: y has x's layout (the single-pass
+// route; rows need not divide the CTA's row count). log_n1 > 0: the
+// four-step leaf after fft_front_f32; x is its (batch * n1, n2) scratch,
+// rows = batch * n1, and y[batch n + k1 + n1 k2] = scale * Z[k1, k2].
+// tw: W_L^k for k < L, sign baked in. All pointers are float32 device
+// memory on `device`. Launches on `stream` without synchronising; returns
+// the first CUDA error.
+extern "C" int fft_rows_f32(const float* xr, const float* xi, float* yr, float* yi,
+                            const float* twr, const float* twi, long long rows, int log_l,
+                            int log_n1, int sign, float scale, int device, void* stream_ptr) {
+    FFT_RETURN_IF_ERROR(cudaSetDevice(device));
+    int log_b = TILE_LOG2 - log_l;
+    if (log_b < 0 || log_l < 1) return cudaErrorInvalidValue;
+    if (log_n1 > 0) {
+        if (log_b > log_n1) log_b = log_n1;                     // B divides n1
+    } else {
+        const int need = rows > 1 ? ilog2(rows - 1) + 1 : 0;   // B = np2(rows) at most
+        if (log_b > need) log_b = need;
+    }
+    const long long B = 1LL << log_b;
+    const long long ctas = (rows + B - 1) / B;
+    const int threads = static_cast<int>((B << log_l) / PER_THREAD);
+    if (ctas > 0x7fffffffLL || threads < 1) return cudaErrorInvalidValue;
+    const size_t smem = 2 * sizeof(float) * static_cast<size_t>(B) * row_stride(log_l);
+    FFT_RETURN_IF_ERROR(allow_smem(fft_rows_kernel, device, smem, rows_granted));
+    fft_rows_kernel<<<static_cast<unsigned>(ctas), threads, smem,
+                      static_cast<cudaStream_t>(stream_ptr)>>>(
+        xr, xi, yr, yi, twr, twi, rows, log_l, log_b, log_n1, sign, scale);
+    return cudaGetLastError();
+}
+
+// Four-step first pass over `batch` rows of n = 2^(log_n1 + log_n2):
+// y[k1 n2 + j2] = W_n^(k1 j2) * sum_j1 x[j1 n2 + j2] W_n1^(j1 k1) per row.
+// tw: W_n1^k for k < n1; t4: the (n1, n2) table W_n^(k1 j2); both with the
+// sign baked in. Same pointer and stream contract as fft_rows_f32.
+extern "C" int fft_front_f32(const float* xr, const float* xi, float* yr, float* yi,
+                             const float* twr, const float* twi, const float* t4r,
+                             const float* t4i, long long batch, int log_n1, int log_n2,
+                             int sign, int device, void* stream_ptr) {
+    FFT_RETURN_IF_ERROR(cudaSetDevice(device));
+    int log_c = TILE_LOG2 - log_n1;
+    if (log_c < 0 || log_n1 < 1) return cudaErrorInvalidValue;
+    if (log_c > log_n2) log_c = log_n2;
+    const long long ctas = batch << (log_n2 - log_c);
+    const int threads = (1 << (log_c + log_n1)) / PER_THREAD;
+    if (ctas > 0x7fffffffLL || threads < 1) return cudaErrorInvalidValue;
+    const size_t smem = 2 * sizeof(float) * static_cast<size_t>(pidx(1 << (log_c + log_n1)));
+    FFT_RETURN_IF_ERROR(allow_smem(fft_front_kernel, device, smem, front_granted));
+    fft_front_kernel<<<static_cast<unsigned>(ctas), threads, smem,
+                       static_cast<cudaStream_t>(stream_ptr)>>>(
+        xr, xi, yr, yi, twr, twi, t4r, t4i, log_n1, log_n2, log_c, sign);
+    return cudaGetLastError();
+}

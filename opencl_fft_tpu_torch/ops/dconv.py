@@ -50,7 +50,7 @@ class DconvConfig:
             raise ValueError(f"dtype must be 'f32'|'f64', got {self.dtype}")
         if self.dtype == "f64":
             raise NotImplementedError(
-                "dtype='f64' is not ported yet (ROADMAP queue 1 item 7)")
+                "dtype='f64' is not ported yet (ROADMAP queue 1 item 17)")
 
     @property
     def ring(self) -> int:

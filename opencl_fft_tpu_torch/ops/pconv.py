@@ -84,7 +84,7 @@ class PconvConfig:
                 "ring_dtype='bf16' is not ported yet (ROADMAP queue 1 item 16)")
         if self.dtype == "f64":
             raise NotImplementedError(
-                "dtype='f64' is not ported yet (ROADMAP queue 1 item 7)")
+                "dtype='f64' is not ported yet (ROADMAP queue 1 item 17)")
 
     @property
     def bins(self) -> int:

@@ -12,7 +12,9 @@ Packed-spectrum convention (M = N/2 complex bins):
     stay exact.
 
 Complex data is carried split as (re, im) planes; every function is
-batched over leading axes.
+batched over leading axes. ``rfft``/``irfft`` are the complex-tensor
+wrappers, and ``packed_to_standard``/``standard_to_packed`` convert to and
+from numpy's (M+1)-bin rfft layout.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .cplx import Cplx
+from .cplx import Cplx, from_complex, to_complex
 from .fft import fft_split
 
 
@@ -138,3 +140,43 @@ def irfft_split(c: Cplx, impl: str = "auto", scale: float = 1.0) -> torch.Tensor
     (irfft(rfft(x)) == x when rfft used the default 1/M scaling).
     """
     return interleave(fft_split(unpack_inverse(c), +1, impl, scale=scale))
+
+
+def rfft(r: torch.Tensor, impl: str = "auto", unnormalized: bool = False) -> torch.Tensor:
+    """Complex-tensor wrapper for rfft_split: (..., N) reals -> (..., N/2)
+    packed complex spectrum."""
+    return to_complex(rfft_split(r, impl, unnormalized))
+
+
+def irfft(c: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """Complex-tensor wrapper for irfft_split: (..., M) packed complex
+    spectrum -> (..., 2M) reals."""
+    return irfft_split(from_complex(c), impl)
+
+
+# ---------------------------------------------------------------------------
+# Interop with the standard (numpy) rfft layout
+# ---------------------------------------------------------------------------
+
+def packed_to_standard(c: torch.Tensor) -> torch.Tensor:
+    """Packed (M bins) -> standard rfft layout (M+1 bins, numpy convention).
+
+    Inverts the reference packing: bin0 (re,im) = (DC/2, Nyq/2); bin M/2 is
+    stored conjugated (the skipped conjugation described in the module doc).
+    """
+    m = c.shape[-1]
+    full = torch.cat([c, torch.zeros(c.shape[:-1] + (1,), dtype=c.dtype,
+                                     device=c.device)], dim=-1)
+    full[..., 0] = 2.0 * c[..., 0].real
+    full[..., m] = 2.0 * c[..., 0].imag
+    full[..., m // 2] = torch.conj(c[..., m // 2])
+    return full
+
+
+def standard_to_packed(s: torch.Tensor) -> torch.Tensor:
+    """Standard rfft layout (M+1 bins) -> reference packed layout (M bins)."""
+    m = s.shape[-1] - 1
+    packed = s[..., :m].clone()
+    packed[..., 0] = torch.complex(0.5 * s[..., 0].real, 0.5 * s[..., m].real)
+    packed[..., m // 2] = torch.conj(s[..., m // 2])
+    return packed

@@ -90,15 +90,21 @@ def test_rfft_roundtrip_and_interleave():
 def test_fft_split_validation():
     x = (torch.zeros(8), torch.zeros(8))
     with pytest.raises(ValueError, match="unknown impl"):
-        tfft.fft_split(x, -1, impl="vmem")
+        tfft.fft_split(x, -1, impl="mm")
     with pytest.raises(ValueError, match="sign"):
         tfft.fft_split(x, 0)
     with pytest.raises(ValueError, match="shapes differ"):
         tfft.fft_split((torch.zeros(8), torch.zeros(4)), -1)
     with pytest.raises(ValueError, match="empty"):
         tfft.fft_split((torch.zeros(0), torch.zeros(0)), -1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfft.fft_split((torch.zeros(12), torch.zeros(12)), -1)
+    with pytest.raises(ValueError, match="power-of-two"):
+        tfft.fft_split((torch.zeros(12), torch.zeros(12)), -1, impl="vmem")
+    with pytest.raises(ValueError, match="unsupported size"):
+        tfft.fft_split(x, -1, impl="vmem")
+    with pytest.raises(ValueError, match="float32-only"):
+        tfft.fft_split((torch.zeros(1024, dtype=torch.float64),) * 2, -1, impl="vmem")
+    twelve = tfft.fft_split((torch.ones(12), torch.zeros(12)), -1)
+    np.testing.assert_allclose(twelve[0].numpy(), np.fft.fft(np.ones(12)).real, atol=1e-5)
     with pytest.raises(ValueError, match="multiple of 4"):
         trfft.rfft_split(torch.zeros(6))
     one = tfft.fft_split((torch.ones(1), torch.zeros(1)), -1, scale=0.5)

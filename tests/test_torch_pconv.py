@@ -195,7 +195,7 @@ def test_config_validation():
         P.PconvConfig(pts=64, nparts=2, dtype="f16")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
         P.PconvConfig(pts=64, nparts=2, ring_dtype="bf16")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 17"):
         P.PconvConfig(pts=64, nparts=2, dtype="f64")
     with pytest.raises(ValueError, match="multiple"):
         P.PconvConfig.for_ir_length(100, 64)

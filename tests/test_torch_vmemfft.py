@@ -1,0 +1,214 @@
+"""Port parity: the batched FFT kernels' wrappers and plain twins of
+opencl_fft_tpu_torch (``ops/cuda/vmemfft.py``) against the JAX package's
+Pallas ``fft_vmem`` / ``fft_vmem_front2`` in interpret mode (atol 1e-4 *
+max|ref|, the JAX tests' bf16x3 budget) and against float64 numpy (1e-5 *
+max|ref|); their float64-built tables against the JAX builders; and, on a
+card, each CUDA kernel against its twin (2e-5)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from opencl_fft_tpu.ops import fft as jfft
+from opencl_fft_tpu.ops.pallas import vmemfft as jvmem
+from opencl_fft_tpu_torch.ops import fft as tfft
+from opencl_fft_tpu_torch.ops.cuda import vmemfft as V
+
+torch.set_num_threads(1)
+
+
+def _planes(rng, shape):
+    return tuple(rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _close(got, ref, tol):
+    got = np.asarray(got[0], np.float64) + 1j * np.asarray(got[1], np.float64)
+    ref = np.asarray(ref[0], np.float64) + 1j * np.asarray(ref[1], np.float64) \
+        if isinstance(ref, tuple) else np.asarray(ref)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, atol=tol * np.abs(ref).max(), rtol=0)
+
+
+def _numpy_dft(x, sign, scale):
+    z = x[0].astype(np.float64) + 1j * x[1].astype(np.float64)
+    n = z.shape[-1]
+    return scale * (np.fft.fft(z) if sign == -1 else np.fft.ifft(z) * n)
+
+
+@pytest.mark.parametrize("n", [1 << 13, 1 << 15])
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_fft_vmem_matches_jax(n, sign):
+    """The wrapper (its twin on the CPU) and the twin called directly
+    against the Pallas kernel in interpret mode; 2^15 takes the two-pass
+    route at the (128, 256) split."""
+    x = _planes(np.random.default_rng(n + sign), (2, n))
+    scale = 1.0 / np.sqrt(n)
+    ref = jvmem.fft_vmem(tuple(map(jnp.asarray, x)), sign, interpret=True, scale=scale)
+    before = (V.LAUNCHES, V.FRONT2_LAUNCHES)
+    _close(V.fft_vmem(tuple(map(_t, x)), sign, scale), ref, 1e-4)
+    _close(V.fft_vmem_plain(tuple(map(_t, x)), sign, scale), ref, 1e-4)
+    assert (V.LAUNCHES, V.FRONT2_LAUNCHES) == before       # no kernel on the CPU
+
+
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_fft_vmem_front2_matches_jax_plan_override(sign):
+    """JAX's plan (16, 8, 256) runs two 16- and 8-point levels in the kernel
+    and a 256-point leaf: the port's (128, 256) split."""
+    n = 1 << 15
+    x = _planes(np.random.default_rng(40 + sign), (2, n))
+    ref = jvmem.fft_vmem_front2(tuple(map(jnp.asarray, x)), sign, interpret=True,
+                                scale=0.5, plan_override=(16, 8, 256))
+    _close(V.fft_vmem_front2(tuple(map(_t, x)), sign, 0.5, split=(128, 256)), ref, 1e-4)
+    _close(V.fft_vmem_front2_plain(tuple(map(_t, x)), sign, 0.5, split=(128, 256)),
+           ref, 1e-4)
+
+
+@pytest.mark.parametrize("n,split", [(1 << 13, (64, 128)), (1 << 17, (512, 256)),
+                                     (1 << 18, None)])
+@pytest.mark.parametrize("sign", [-1, 1])
+@pytest.mark.parametrize("twin", ["fft_vmem", "fft_vmem_front2"])
+def test_twins_match_numpy(n, split, sign, twin):
+    x = _planes(np.random.default_rng(n + 3 * sign), (1, n))
+    ref = _numpy_dft(x, sign, 0.25)
+    if twin == "fft_vmem":
+        got = V.fft_vmem_plain(tuple(map(_t, x)), sign, 0.25)
+    else:
+        got = V.fft_vmem_front2_plain(tuple(map(_t, x)), sign, 0.25, split)
+    _close(got, ref, 1e-5)
+
+
+def test_leading_axes_and_strided_input():
+    """Leading axes are flattened to rows and restored; a strided view (as
+    rfft's unpack hands over) is read as its values."""
+    rng = np.random.default_rng(5)
+    n = 1 << 10
+    big = _planes(rng, (2, 3, 2 * n))
+    x = tuple(_t(p)[..., ::2] for p in big)
+    assert not x[0].is_contiguous()
+    got = V.fft_vmem(x, -1)
+    assert got[0].shape == (2, 3, n)
+    _close(got, _numpy_dft(tuple(p[..., ::2] for p in big), -1, 1.0), 1e-5)
+
+
+def test_supported_matches_jax():
+    for k in range(1, 23):
+        for n in (1 << k, (1 << k) + 1, 3 << k):
+            assert V.supported(n) == jvmem.supported(n), n
+    assert [k for k in range(1, 23) if V.supported(1 << k)] == list(range(10, 21))
+
+
+@pytest.mark.parametrize("n1,n2", [(16, 8), (128, 256), (256, 128), (1024, 256), (64, 64)])
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_four_step_twiddle_bit_identical_to_jax(n1, n2, sign):
+    tr, ti = V.four_step_twiddle_np(n1, n2, sign)
+    jr, ji = jvmem._twiddle_np(n1, n2, sign)
+    assert tr.dtype == np.float32 and tr.shape == (n1, n2)
+    np.testing.assert_array_equal(tr, jr)
+    np.testing.assert_array_equal(ti, ji)
+
+
+@pytest.mark.parametrize("n", [2, 4, 256, 8192])
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_stage_twiddle_bit_identical_to_jax(n, sign):
+    """W_n^k for k < n/2 is row 1 of JAX's (2, n/2) level table; the whole
+    table is the float64 value rounded once."""
+    tr, ti = V.stage_twiddle_np(n, sign)
+    jr, ji = jvmem._twiddle_np(2, n // 2, sign)
+    np.testing.assert_array_equal(tr[: n // 2], jr[1])
+    np.testing.assert_array_equal(ti[: n // 2], ji[1])
+    w = np.exp(sign * 2j * np.pi * np.arange(n) / n)
+    np.testing.assert_array_equal(tr, w.real.astype(np.float32))
+    np.testing.assert_array_equal(ti, w.imag.astype(np.float32))
+
+
+@pytest.mark.parametrize("n", [2, 8, 64])
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_dft_matrix_matches_jax_leaf(n, sign):
+    """The twins' DFT matrices against JAX's leaf matrix: the same values,
+    except that reducing jk mod n in integers removes JAX's float64
+    large-angle error (at most 4e-14 here) where the entry is 0."""
+    wr, wi = V.dft_matrix_np(n, sign)
+    m = jfft._leaf_matrix_np(n, sign)
+    np.testing.assert_allclose(wr, m[:n, :n], atol=1e-13, rtol=0)
+    np.testing.assert_allclose(wi, m[:n, n:], atol=1e-13, rtol=0)
+    assert np.array_equal(wr[1], m[1, :n]) and np.array_equal(wi[1], m[1, n:])
+
+
+@pytest.mark.parametrize("n", [3, 12, 100, 1000])
+@pytest.mark.parametrize("sign", [-1, 1])
+@pytest.mark.parametrize("npdt", [np.float32, np.float64])
+def test_bluestein_tables_bit_identical_to_jax(n, sign, npdt):
+    c, b, m = tfft._bluestein_tables_np(n, sign, npdt)
+    jc, jb, jm = jfft._bluestein_tables_np(n, sign, npdt)
+    assert m == jm and c.dtype == jc.dtype
+    np.testing.assert_array_equal(c, jc)
+    np.testing.assert_array_equal(b, jb)
+
+
+def test_splits_and_validation():
+    assert V.default_split(1 << 14) == (128, 128)
+    assert V.default_split(1 << 15) == (128, 256)
+    assert V.default_split(1 << 20) == (1024, 1024)
+    assert [V.front2_split(n) for n in V.FRONT2_SIZES] == [(1024, 256), (2048, 256),
+                                                          (4096, 256)]
+    assert V.front2_split(1 << 15, (128, 256)) == (128, 256)
+    for n, split in ((1 << 15, None), (1 << 15, (64, 256)), (1 << 15, (1, 1 << 15)),
+                     (1 << 9, (16, 32)), (1 << 15, (96, 341))):
+        with pytest.raises(ValueError, match="fft_vmem_front2"):
+            V.front2_split(n, split)
+    z = torch.zeros
+    with pytest.raises(ValueError, match="unsupported size"):
+        V.fft_vmem((z(4, 512), z(4, 512)), -1)
+    with pytest.raises(ValueError, match="sign"):
+        V.fft_vmem((z(1024), z(1024)), 0)
+    with pytest.raises(ValueError, match="one shape"):
+        V.fft_vmem((z(1024), z(2, 1024)), -1)
+    with pytest.raises(ValueError, match="no rows"):
+        V.fft_vmem((z(0, 1024), z(0, 1024)), -1)
+    with pytest.raises(ValueError, match="no default split"):
+        V.fft_vmem_front2((z(1 << 14), z(1 << 14)), 1)
+    with pytest.raises(ValueError, match="sign"):
+        V.fft_vmem_plain((z(1024), z(1024)), 2)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the FFT kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,rows", [(1 << 10, 33), (1 << 13, 5), (1 << 15, 3), (1 << 17, 2),
+                                    (1 << 19, 1), (1 << 20, 2)])
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_cuda_fft_vmem_matches_twin(cuda_device, n, rows, sign):
+    x = tuple(_t(p).to(cuda_device) for p in _planes(np.random.default_rng(n), (rows, n)))
+    before = V.LAUNCHES + V.FRONT2_LAUNCHES
+    got = V.fft_vmem(x, sign, 0.5)
+    torch.cuda.synchronize()
+    assert V.LAUNCHES + V.FRONT2_LAUNCHES == before + 1
+    want = V.fft_vmem_plain(x, sign, 0.5)
+    _close(tuple(g.cpu() for g in got), tuple(w.cpu() for w in want), 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,split", [(1 << 15, (128, 256)), (1 << 18, None), (1 << 19, None),
+                                     (1 << 20, None), (1 << 14, (8192, 2))])
+def test_cuda_fft_vmem_front2_matches_twin(cuda_device, n, split):
+    x = tuple(_t(p).to(cuda_device) for p in _planes(np.random.default_rng(n + 1), (3, n)))
+    before = V.FRONT2_LAUNCHES
+    got = V.fft_vmem_front2(x, 1, 1.0, split)
+    torch.cuda.synchronize()
+    assert V.FRONT2_LAUNCHES == before + 1
+    _close(tuple(g.cpu() for g in got),
+           tuple(w.cpu() for w in V.fft_vmem_front2_plain(x, 1, 1.0, split)), 2e-5)
+    with pytest.raises(ValueError, match="float32"):
+        V.fft_vmem_front2(tuple(p.double() for p in x), 1, 1.0, split)
