@@ -21,9 +21,18 @@ of the call. Then the FFT path: the batched FFT kernels (``fft_vmem``,
 ``fft_vmem_front2``) against their twins at the JAX FFT sweep's shapes
 (2^10..2^20 at 32 MB of planes a call), the FFT main paths (``Clcfft``,
 ``Clrfft``, the ``clfft``/``clrfft`` processors, ``BatchedFFT``, Bluestein)
-against float64 numpy, and the sweep's times against cuFFT. Last, one JSON
-line with every kernel's launches, error, time and bound, the card's name
-and power limit, and ``{"ok": true, "device": {...}}``. Every phase prints one line; any
+against float64 numpy, and the sweep's times against cuFFT. Then the
+offline and chunked paths: the sliding-MAC kernel (``chunk_mac``,
+``macflow_lti``, ``macflow_lti_batched``) against its twin at the JAX
+bench's offline shapes and odd shapes; ``pconv_offline``,
+``Convolver.render`` (16 and 64 channels), ``pconv_stream_batched_chunked``
+(K = 8), ``Convolver.stream(chunk=8)``, ``pconv_chunk{,_tv}``, the LTI
+``stream_decomposed`` and ``convolve_oneshot`` against float64 scipy and
+the streaming paths; and their times under the JAX bench's metric names,
+beside the kernel's, its twin's, its bound and one cuDNN ``conv1d`` of the
+same correlation. Last, one JSON line with every kernel's launches, error,
+time and bound, the card's name and power limit, and
+``{"ok": true, "device": {...}}``. Every phase prints one line; any
 failure exits non-zero before the last line. Without a CUDA card, or
 without the port beside this script, it fails.
 """
@@ -210,6 +219,7 @@ def main():
     from opencl_fft_tpu_torch.ops import dconv as D
     from opencl_fft_tpu_torch.ops.cuda import _build
     from opencl_fft_tpu_torch.ops.cuda import dstream as K
+    from opencl_fft_tpu_torch.ops.cuda import slidemac as SM
     from opencl_fft_tpu_torch.ops.cuda import streamstep as S
     from opencl_fft_tpu_torch.ops.cuda import vmemfft as V
 
@@ -217,9 +227,10 @@ def main():
         S.LAUNCHES = S.TV_LAUNCHES = S.BATCHED_LAUNCHES = S.BATCHED_TV_LAUNCHES = 0
         K.LAUNCHES = 0
         V.LAUNCHES = V.FRONT2_LAUNCHES = 0
+        SM.CHUNKMAC_LAUNCHES = SM.MACFLOW_LAUNCHES = SM.MACFLOW_BATCHED_LAUNCHES = 0
 
     # phase 2: build from the checkout's sources, one nvcc per source at once
-    libs = ("streamstep", "dstream", "fft")
+    libs = ("streamstep", "dstream", "fft", "slidemac")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as ex:
         list(ex.map(_build.load, libs))
@@ -680,6 +691,10 @@ def main():
         ("pconv_stream_tv", lambda: P.pconv_stream_tv(cfg, state, blocks, bh)),
         ("dconv_stream", lambda: D.dconv_stream(dcfg, dstate, blocks)),
         ("Convolver.stream 64ch", lambda: conv.stream(sbx)),
+        ("pconv_offline", lambda: P.pconv_offline(cfg, state, blocks)),
+        ("Convolver.render 64ch", lambda: conv.render(sbx)),
+        ("pconv_stream_batched_chunked K=8 64ch x 464 blocks",
+         lambda: P.pconv_stream_batched_chunked(cfg, conv.state, sbx[:464], K=8)),
         ("TVConvolver.stream 64ch", lambda: tvc.stream(sbx, sbh)),
         ("pconv_stream 8 blocks", lambda: P.pconv_stream(cfg, state, small)),
         ("pconv_stream_tv 8 blocks", lambda: P.pconv_stream_tv(cfg, state, small, small)),
@@ -833,6 +848,257 @@ def main():
           + f" | Clcfft.transform 2^18 host wall {clc_ms:.4f} ms per call (numpy in and out)",
           flush=True)
 
+    # phase 21: the sliding-MAC kernel (one CUDA entry under three wrappers:
+    # chunk_mac, macflow_lti_batched, macflow_lti on channel 0) vs its plain
+    # twin on the card, at the JAX bench's offline shapes and at odd shapes
+    from opencl_fft_tpu_torch.ops.decomposed import stream_decomposed
+
+    def mac_inputs(nch, nparts, bins, nout):
+        """timeline (C, nparts + nout, bins), h (C, nparts, bins): chunk_mac
+        gives nout outputs, the macflow wrappers are asked for nout."""
+        return ((f(nch, nparts + nout, bins), f(nch, nparts + nout, bins)),
+                (f(nch, nparts, bins, s=0.05), f(nch, nparts, bins, s=0.05)))
+
+    def wrapper_counts():
+        return SM.CHUNKMAC_LAUNCHES, SM.MACFLOW_LAUNCHES, SM.MACFLOW_BATCHED_LAUNCHES
+
+    mac_shapes = [(1, np_, b, SCAN_BLOCKS), (16, np_, b, SERVE_BLOCKS),
+                  (SERVE_CH, np_, b, SERVE_BLOCKS), (2, 3, 64, 13), (3, 37, 64, 21),
+                  (1, 1, 16, 1)]
+    mac_err = {}
+    worst = 0.0
+    for nch, nparts, bins, nout in mac_shapes:
+        xm, hm = mac_inputs(nch, nparts, bins, nout)
+        for b0 in (1.0, 2.0):
+            n0 = wrapper_counts()
+            got = {"chunk_mac": SM.chunk_mac(xm, hm, b0),
+                   "macflow_lti_batched": SM.macflow_lti_batched(xm, hm, nout, b0),
+                   "macflow_lti": SM.macflow_lti((xm[0][0], xm[1][0]), (hm[0][0], hm[1][0]),
+                                                 nout, b0)}
+            torch.cuda.synchronize()
+            check(wrapper_counts() == tuple(n + 1 for n in n0),
+                  "each sliding-MAC wrapper counts its launch")
+            want = SM.slide_mac_plain(xm, hm, nout, b0)
+            for wname, g in got.items():
+                w = (want[0][0], want[1][0]) if wname == "macflow_lti" else want
+                worst = compare(((f"{wname} re", g[0], w[0]), (f"{wname} im", g[1], w[1])),
+                                f"C={nch} nparts={nparts} bins={bins} nout={nout} b0={b0}",
+                                worst)
+                key = (wname, nch, nout)
+                mac_err[key] = max(mac_err.get(key, 0.0),
+                                   *(float((gg - ww).abs().max()) for gg, ww in zip(g, w)))
+    del xm, hm, got, want
+    print(f"phase 21 sliding-MAC kernel vs twin: chunk_mac, macflow_lti_batched and "
+          f"macflow_lti (channel 0) at (C,nparts,bins,nout) {mac_shapes} x b0 {{1,2}}; worst "
+          f"rel err {worst:.3e} (tol {TOL}); max_abs_err chunk_mac 1x{SCAN_BLOCKS} "
+          f"{mac_err[('chunk_mac', 1, SCAN_BLOCKS)]:.3e}, 16x{SERVE_BLOCKS} "
+          f"{mac_err[('chunk_mac', 16, SERVE_BLOCKS)]:.3e}; macflow_lti_batched "
+          f"{SERVE_CH}x{SERVE_BLOCKS} "
+          f"{mac_err[('macflow_lti_batched', SERVE_CH, SERVE_BLOCKS)]:.3e}; macflow_lti "
+          f"{SCAN_BLOCKS} {mac_err[('macflow_lti', 1, SCAN_BLOCKS)]:.3e}", flush=True)
+
+    # phase 22: the offline and chunked main paths on the card, against
+    # float64 scipy (phase 4's 20 s signal and 2^17-tap IR; phase 13's 64
+    # IRs) and against the streaming paths
+    def worst_channel(got, want):
+        """max over channels of max|got - want| / max|want| on (nb, C, pts)."""
+        return max(float((got[:, c] - want[:, c]).abs().max()) / float(want[:, c].abs().max())
+                   for c in range(got.shape[1]))
+
+    def conv_ready(nch):
+        c = P.Convolver(cfg, nch, device=dev)
+        c.push_ir(irs_d[:nch])
+        return c
+
+    CHUNK_K, CHUNK_BLOCKS = 8, 472      # bench.py:374-417
+
+    def in_chunks(fn, state0, *ops):
+        """fn(cfg, state, *chunk) over CHUNK_K-block chunks of ops, the state
+        chained from state0; the outputs concatenated."""
+        st_, outs = state0, []
+        for i in range(0, ops[0].shape[0], CHUNK_K):
+            st_, o = fn(cfg, st_, *(a[i:i + CHUNK_K] for a in ops))
+            outs.append(o)
+        return torch.cat(outs)
+
+    n_chk = CHUNK_BLOCKS * PTS
+    xs_chk = (0.1 * rng.standard_normal((SERVE_CH, n_chk))).astype(np.float32)
+    chk_blocks = torch.from_numpy(np.ascontiguousarray(
+        xs_chk.reshape(SERVE_CH, CHUNK_BLOCKS, PTS).transpose(1, 0, 2))).to(dev)
+    st_ir = P.push_ir(cfg, P.pconv_init(cfg, dev), ir_d)
+    conv16, conv64, conv_s1, conv_s8 = (conv_ready(n) for n in (16, SERVE_CH, SERVE_CH,
+                                                                  SERVE_CH))
+    st64 = conv_s1.state
+    bx32 = x_p[:32]
+    bh32 = f(32, PTS, s=0.1)
+    zero_counts()
+    y_off = P.pconv_offline(cfg, st_ir, x_p)[1]
+    y_r16 = conv16.render(serve_blocks[:, :16].contiguous())
+    y_r64 = conv64.render(serve_blocks)
+    y_chk = P.pconv_stream_batched_chunked(cfg, st64, chk_blocks, K=CHUNK_K)[1]
+    y_s8 = conv_s8.stream(chk_blocks, chunk=CHUNK_K)
+    y_chunk = in_chunks(P.pconv_chunk, st_ir, bx32)
+    y_chunk_tv = in_chunks(P.pconv_chunk_tv, st_ir, bx32, bh32)
+    y_dec = stream_decomposed(cfg, st_ir, x_p)[1]
+    y_one = P.convolve_oneshot(x_d, ir_d)
+    torch.cuda.synchronize()
+    off_launches = wrapper_counts()
+    check(min(off_launches) > 0,
+          f"the offline main paths launched every sliding-MAC wrapper {off_launches}")
+    # the checks, after the counts are read
+    n_ref = ref.size
+    err_off = rel_err(y_off.reshape(-1)[:n_ref].cpu().numpy(), ref)
+    err_dec = rel_err(y_dec.reshape(-1)[:n_ref].cpu().numpy(), ref)
+    err_one = rel_err(y_one.cpu().numpy(), ref)
+    check(tuple(y_one.shape) == ref.shape, "convolve_oneshot shape")
+    y_str = P.pconv_stream(cfg, st_ir, x_p)[1]
+    err_dec_s = float((y_dec - y_str).abs().max()) / float(y_str.abs().max())
+    singles = torch.stack([P.pconv_stream(cfg, P.push_ir(cfg, P.pconv_init(cfg, dev), irs_d[c]),
+                                          serve_blocks[:, c])[1] for c in range(SERVE_CH)], 1)
+    err_r64, err_r16 = worst_channel(y_r64, singles), worst_channel(y_r16, singles[:, :16])
+    y_np = y_r64.cpu().numpy()
+    err_r64o = max(rel_err(y_np[:, c].reshape(-1), refs[c]) for c in oracle_ch)
+    ref15 = sps.fftconvolve(xs_serve[15].astype(np.float64), irs[15].astype(np.float64))[:n_serve]
+    y_np = y_r16.cpu().numpy()
+    err_r16o = max(rel_err(y_np[:, 0].reshape(-1), refs[0]),
+                   rel_err(y_np[:, 15].reshape(-1), ref15))
+    y_s1 = conv_s1.stream(chk_blocks)
+    err_chk = worst_channel(y_chk, y_s1)
+    err_chko = max(rel_err(y_chk[:, c].reshape(-1).cpu().numpy(),
+                           sps.fftconvolve(xs_chk[c].astype(np.float64),
+                                           irs[c].astype(np.float64))[:n_chk])
+                   for c in (0, SERVE_CH - 1))
+    err_s8 = worst_channel(y_s8, y_s1)
+    s8_bit_s1 = bool(torch.equal(y_s8, y_s1))
+    conv_st = conv_ready(SERVE_CH)
+    y_steps = torch.stack([conv_st.step(chk_blocks[i]) for i in range(16)])
+    s8_bit_steps = bool(torch.equal(y_s8[:16], y_steps))
+    st_, seq = st_ir, []
+    for blk in bx32:
+        st_, o = P.pconv_step(cfg, st_, blk)
+        seq.append(o)
+    seq = torch.stack(seq)
+    st_, seq_tv = st_ir, []
+    for blk, bh_ in zip(bx32, bh32):
+        st_, o = P.pconv_step_tv(cfg, st_, blk, bh_)
+        seq_tv.append(o)
+    seq_tv = torch.stack(seq_tv)
+    err_chunk = float((y_chunk - seq).abs().max()) / float(seq.abs().max())
+    err_chunk_tv = float((y_chunk_tv - seq_tv).abs().max()) / float(seq_tv.abs().max())
+    err_chunko = rel_err(y_chunk.reshape(-1).cpu().numpy(), ref[:32 * PTS])
+    for what, e, tol in (("pconv_offline vs scipy", err_off, ORACLE_TOL),
+                         ("stream_decomposed vs scipy", err_dec, ORACLE_TOL),
+                         ("stream_decomposed vs pconv_stream", err_dec_s, TOL),
+                         ("convolve_oneshot vs scipy", err_one, ORACLE_TOL),
+                         ("Convolver.render(64) vs pconv_stream", err_r64, TOL),
+                         ("Convolver.render(16) vs pconv_stream", err_r16, TOL),
+                         ("Convolver.render(64) vs scipy", err_r64o, ORACLE_TOL),
+                         ("Convolver.render(16) vs scipy", err_r16o, ORACLE_TOL),
+                         ("pconv_stream_batched_chunked vs Convolver.stream", err_chk, TOL),
+                         ("pconv_stream_batched_chunked vs scipy", err_chko, ORACLE_TOL),
+                         ("Convolver.stream(chunk=8) vs chunk=1", err_s8, TOL),
+                         ("pconv_chunk vs steps", err_chunk, TOL),
+                         ("pconv_chunk_tv vs steps", err_chunk_tv, TOL),
+                         ("pconv_chunk vs scipy", err_chunko, ORACLE_TOL)):
+        check(np.isfinite(e) and e <= tol, f"{what}: {e:.3e} > {tol}")
+    print(f"phase 22 offline and chunked main paths on {dev}: pconv_offline({x_p.shape[0]}x{PTS}, "
+          f"{IR_LEN} taps) vs float64 scipy {err_off:.3e}; stream_decomposed vs scipy "
+          f"{err_dec:.3e}, vs pconv_stream {err_dec_s:.3e}; convolve_oneshot({x.size} samples) vs "
+          f"scipy {err_one:.3e}; Convolver.render({SERVE_BLOCKS}x64) vs single-channel "
+          f"pconv_stream {err_r64:.3e}, vs scipy {err_r64o:.3e}; render 16 ch {err_r16:.3e}, "
+          f"{err_r16o:.3e}; pconv_stream_batched_chunked(K={CHUNK_K}, {CHUNK_BLOCKS}x64) vs "
+          f"Convolver.stream {err_chk:.3e}, vs scipy {err_chko:.3e}; Convolver.stream(chunk=8) "
+          f"vs chunk=1 {err_s8:.3e} (bit-equal {s8_bit_s1}), first 16 blocks bit-equal to "
+          f"step() {s8_bit_steps}; pconv_chunk (K=8, 32 blocks) vs steps {err_chunk:.3e} "
+          f"(bit-equal {bool(torch.equal(y_chunk, seq))}), vs scipy {err_chunko:.3e}; "
+          f"pconv_chunk_tv vs steps {err_chunk_tv:.3e} (bit-equal "
+          f"{bool(torch.equal(y_chunk_tv, seq_tv))}) (tol {TOL} between paths, {ORACLE_TOL} "
+          f"vs scipy); launches chunk_mac {off_launches[0]} macflow_lti {off_launches[1]} "
+          f"macflow_lti_batched {off_launches[2]}", flush=True)
+    del singles, y_np, y_s1, y_s8, y_chk, y_r64, y_r16, y_steps, y_str
+
+    # phase 23: offline and chunked timing (CUDA events) under the JAX
+    # bench's metric names, and each sliding-MAC wrapper at its main-path
+    # shape against its twin, its bound and one cuDNN conv1d of the same
+    # correlation (groups = C*bins: [re, im] of one bin of one channel in,
+    # the same out; weight [[hr, -hi], [hi, hr]], bin 0 [[b0 hr, 0], [0, b0 hi]])
+    def conv1d_yardstick(xm, hm, nout, b0):
+        (xr, xi), (hr, hi) = xm, hm
+        nch, rows, bins = xr.shape
+        inp = torch.stack([xr, xi], -1).permute(0, 2, 3, 1).reshape(1, 2 * nch * bins, rows)
+        hr_t, hi_t = hr.permute(0, 2, 1), hi.permute(0, 2, 1)           # (C, bins, nparts)
+        w = torch.stack([torch.stack([hr_t, -hi_t], 2), torch.stack([hi_t, hr_t], 2)], 2)
+        z = torch.zeros_like(hr_t[:, 0])
+        w[:, 0] = torch.stack([torch.stack([b0 * hr_t[:, 0], z], 1),
+                               torch.stack([z, b0 * hi_t[:, 0]], 1)], 1)
+        w = w.reshape(2 * nch * bins, 2, -1).contiguous()
+
+        def call():
+            return torch.nn.functional.conv1d(inp, w, groups=nch * bins)
+
+        y = call().reshape(nch, bins, 2, -1)[..., :nout]
+        return call, (y[:, :, 0].transpose(1, 2), y[:, :, 1].transpose(1, 2))
+
+    def mac_bound(xm, hm, nout):
+        nch, _, bins = xm[0].shape
+        return bound(8.0 * nch * nout * hm[0].shape[1] * bins,
+                     nbytes(*xm, *hm) + 2 * 4 * nch * nout * bins)
+
+    sbx16 = sbx[:, :16].contiguous()
+    audio_chk = SERVE_CH * n_chk / SR
+    audio_16 = 16 * SERVE_BLOCKS * PTS / SR
+    off_ms = cuda_ms(lambda: P.pconv_offline(cfg, state, blocks), reps=15)
+    r16_ms = cuda_ms(lambda: conv16.render(sbx16), reps=9)
+    r64_ms = cuda_ms(lambda: conv64.render(sbx), reps=9)
+    chk_ms = cuda_ms(lambda: P.pconv_stream_batched_chunked(cfg, st64, chk_blocks, K=CHUNK_K),
+                     warmup=1, reps=5)
+    s1_ms = cuda_ms(lambda: conv_s1.stream(chk_blocks), reps=5)
+    s8_ms = cuda_ms(lambda: conv_s8.stream(chk_blocks, chunk=CHUNK_K), warmup=1, reps=3)
+    chunk8_ms = cuda_ms(lambda: in_chunks(P.pconv_chunk, state, blocks), warmup=1, reps=3)
+    dec_ms = cuda_ms(lambda: stream_decomposed(cfg, state, blocks), reps=15)
+    one_ms = cuda_ms(lambda: P.convolve_oneshot(x_d, ir_d), reps=9)
+    mac_rows = []
+    for wname, nch, nout in (("chunk_mac", 1, SCAN_BLOCKS), ("chunk_mac", 16, SERVE_BLOCKS),
+                             ("macflow_lti_batched", SERVE_CH, SERVE_BLOCKS),
+                             ("macflow_lti_batched", SERVE_CH, CHUNK_K),
+                             ("macflow_lti", 1, SCAN_BLOCKS)):
+        xm, hm = mac_inputs(nch, np_, b, nout)
+        if wname == "chunk_mac":
+            run = lambda: SM.chunk_mac(xm, hm, 2.0)  # noqa: E731
+        elif wname == "macflow_lti":
+            x1, h1 = (xm[0][0], xm[1][0]), (hm[0][0], hm[1][0])
+            run = lambda: SM.macflow_lti(x1, h1, nout, 2.0)  # noqa: E731
+        else:
+            run = lambda: SM.macflow_lti_batched(xm, hm, nout, 2.0)  # noqa: E731
+        k_ms = cuda_ms(run, reps=9, calls=10 if nout == CHUNK_K else 1)
+        tw_ms = cuda_ms(lambda: SM.slide_mac_plain(xm, hm, nout, 2.0), warmup=1, reps=3)
+        lib_call, lib_out = conv1d_yardstick(xm, hm, nout, 2.0)
+        want = SM.slide_mac_plain(xm, hm, nout, 2.0)
+        lib_err = max(float((g - w_).abs().max()) / float(w_.abs().max())
+                      for g, w_ in zip(lib_out, want))
+        check(lib_err <= TOL, f"conv1d yardstick vs twin at {wname} C={nch}: {lib_err:.3e}")
+        lib_ms = cuda_ms(lib_call, warmup=1, reps=3)
+        mac_rows.append((wname, nch, nout, k_ms, tw_ms, mac_bound(xm, hm, nout), lib_ms))
+    del xm, hm, want, lib_out
+    mac_by = {(r[0], r[1], r[2]): r for r in mac_rows}
+    print(f"phase 23 offline timing [{card}]: pconv_offline_rt_factor "
+          f"{audio_s / (off_ms / 1e3):.1f} (pconv_offline {SCAN_BLOCKS}x{PTS}, {IR_LEN} taps: "
+          f"{off_ms:.4f} ms/scan); serving_offline_16ch_audio_seconds_per_second "
+          f"{audio_16 / (r16_ms / 1e3):.1f} (Convolver.render {SERVE_BLOCKS}x16: {r16_ms:.4f} ms); "
+          f"render 64 ch {serve_audio_s / (r64_ms / 1e3):.1f} audio-s/s ({r64_ms:.4f} ms); "
+          f"serving_64ch_chunk8_audio_seconds_per_second {audio_chk / (chk_ms / 1e3):.1f} "
+          f"(pconv_stream_batched_chunked K={CHUNK_K} {CHUNK_BLOCKS}x64: {chk_ms:.4f} ms; "
+          f"Convolver.stream at the same shape {s1_ms:.4f} ms = "
+          f"{audio_chk / (s1_ms / 1e3):.1f}; Convolver.stream(chunk=8) {s8_ms:.4f} ms = "
+          f"{audio_chk / (s8_ms / 1e3):.1f}); pconv_chunk8_rt_factor "
+          f"{audio_s / (chunk8_ms / 1e3):.1f} ({SCAN_BLOCKS // CHUNK_K} pconv_chunk calls: "
+          f"{chunk8_ms:.4f} ms); stream_decomposed {SCAN_BLOCKS} blocks {dec_ms:.4f} ms; "
+          f"convolve_oneshot({x.size} samples, {IR_LEN} taps) {one_ms:.4f} ms | kernels (ms; "
+          f"twin; bound; cuDNN conv1d): " + "; ".join(
+              f"{w_} C={c_}x{n_}: {k:.4f}; twin {tw:.4f}; bound {bd[0]:.4f} ({bd[1]}, "
+              f"{100 * bd[0] / k:.1f}% reached); conv1d {lib:.4f}"
+              for w_, c_, n_, k, tw, bd, lib in mac_rows), flush=True)
+
     def kernel(name, source, replaces, launches, err, ms, plain, bnd, lib):
         return {"name": name, "route": "cuda", "source": f"opencl_fft_tpu_torch/csrc/{source}",
                 "replaces": f"opencl_fft_tpu/ops/pallas/{replaces}", "launches": launches,
@@ -852,7 +1118,14 @@ def main():
                d_kernel_ms, d_plain_ms, d_bound, d_lib_ms),
         kernel("fft_vmem", "fft.cu", "vmemfft.py:1100", fft_launches, fft_err, *fft_row),
         kernel("fft_vmem_front2", "fft.cu", "vmemfft.py:808", f2_launches, f2_err,
-               *f2_row)]}))
+               *f2_row),
+        *(kernel(w_, "slidemac.cu", src, launches, mac_err[(w_, c_, n_)],
+                 *(mac_by[(w_, c_, n_)][i] for i in (3, 4, 5, 6)))
+          for w_, c_, n_, src, launches in (
+              ("chunk_mac", 1, SCAN_BLOCKS, "chunkmac.py:158", off_launches[0]),
+              ("macflow_lti", 1, SCAN_BLOCKS, "macflow.py:252", off_launches[1]),
+              ("macflow_lti_batched", SERVE_CH, SERVE_BLOCKS, "macflow.py:367",
+               off_launches[2])))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -15,8 +15,13 @@ direct FIR engine (``ops/dconv.py``), whose whole-scan stream runs on
 ``ClconvProcessor`` and ``CltvconvProcessor`` opcode layers; the batched
 serving models (``models/``: ``Convolver``, ``TVConvolver``,
 ``MatrixConvolver``, ``BatchedFFT``), whose scans run on the batched
-entries of ``csrc/streamstep.cu``; and state exchange with the JAX package
-(``interop.py``).
+entries of ``csrc/streamstep.cu``; the chunked, offline and decomposed
+engines (``pconv_chunk{,_tv}``, ``pconv_offline``, ``Convolver.render``,
+``pconv_stream_batched_chunked``, ``convolve_oneshot``, the LTI
+``stream_decomposed`` of ``ops/decomposed.py``), whose sliding MAC runs on
+``csrc/slidemac.cu`` (``ops/cuda/slidemac.py``: ``chunk_mac``,
+``macflow_lti``, ``macflow_lti_batched``); and state exchange with the JAX
+package (``interop.py``).
 
 Every engine takes an explicit device: a CUDA card, or the CPU when asked
 for by name, where each kernel's plain PyTorch twin runs.
@@ -26,6 +31,7 @@ from .api import Clcfft, Cldconv, Clpconv, Clrfft
 from .interop import (dconv_state_from_numpy, dconv_state_to_numpy,
                       pconv_state_from_numpy, pconv_state_to_numpy)
 from .ops.cuda.dstream import dstream_steps, dstream_steps_plain, toeplitz_slabs
+from .ops.cuda.slidemac import chunk_mac, macflow_lti, macflow_lti_batched, slide_mac_plain
 from .models import (BatchedFFT, Convolver, MatrixConvolver, TVConvolver,
                      batched_state)
 from .ops.cuda.streamstep import (stream_steps_fused, stream_steps_fused_batched,
@@ -34,15 +40,17 @@ from .ops.cuda.streamstep import (stream_steps_fused, stream_steps_fused_batched
                                   stream_steps_fused_batched_tv_plain,
                                   stream_steps_fused_plain, stream_steps_fused_tv,
                                   stream_steps_fused_tv_plain)
+from .ops.decomposed import stream_decomposed
 from .ops.dconv import (DconvConfig, DconvState, convolve_direct, dconv_init,
                         dconv_step, dconv_step_tv, dconv_stream)
 from .ops.cuda.vmemfft import (fft_vmem, fft_vmem_front2, fft_vmem_front2_plain,
                                fft_vmem_plain)
 from .ops.fft import cfft, cfft_split, fft, fft_split, fft_unnormalized, ifft
-from .ops.pconv import (PconvConfig, PconvState, convolve, pconv_init,
+from .ops.pconv import (PconvConfig, PconvState, convolve, convolve_oneshot,
+                        pconv_chunk, pconv_chunk_tv, pconv_init, pconv_offline,
                         pconv_step, pconv_step_tv, pconv_stream,
-                        pconv_stream_batched, pconv_stream_batched_tv,
-                        pconv_stream_tv, push_ir)
+                        pconv_stream_batched, pconv_stream_batched_chunked,
+                        pconv_stream_batched_tv, pconv_stream_tv, push_ir)
 from .ops.rfft import (irfft, irfft_split, pack_forward, packed_to_standard, rfft,
                        rfft_split, standard_to_packed, unpack_inverse)
 from .stream import (ClconvProcessor, ClfftProcessor, ClrfftProcessor,
@@ -64,6 +72,8 @@ __all__ = [
     "PconvConfig", "PconvState", "pconv_init", "push_ir", "pconv_step",
     "pconv_step_tv", "pconv_stream", "pconv_stream_tv", "convolve",
     "pconv_stream_batched", "pconv_stream_batched_tv",
+    "pconv_chunk", "pconv_chunk_tv", "pconv_offline", "pconv_stream_batched_chunked",
+    "convolve_oneshot", "stream_decomposed",
     "Convolver", "TVConvolver", "MatrixConvolver", "BatchedFFT", "batched_state",
     "DconvConfig", "DconvState", "dconv_init", "dconv_step", "dconv_step_tv",
     "dconv_stream", "convolve_direct",
@@ -72,6 +82,7 @@ __all__ = [
     "stream_steps_fused_batched", "stream_steps_fused_batched_plain",
     "stream_steps_fused_batched_tv", "stream_steps_fused_batched_tv_plain",
     "dstream_steps", "dstream_steps_plain", "toeplitz_slabs",
+    "chunk_mac", "macflow_lti", "macflow_lti_batched", "slide_mac_plain",
     "pconv_state_from_numpy", "pconv_state_to_numpy",
     "dconv_state_from_numpy", "dconv_state_to_numpy",
     "get_device", "np2",

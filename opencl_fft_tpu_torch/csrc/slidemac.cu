@@ -1,0 +1,137 @@
+// LTI sliding-window spectral MAC on Hopper (sm_90a), C channels at once.
+//
+// Replaces three TPU kernels that compute one function:
+// opencl_fft_tpu/ops/pallas/chunkmac.py _chunkmac_kernel (wrapper chunk_mac
+// :158), macflow.py _lti_kernel (macflow_lti :252) and _lti_batched_kernel
+// (macflow_lti_batched :367). For every channel c, output row t < nout and
+// bin k:
+//   acc[c, t, k] = sum_{q < nparts} X[c, t+q, k] (*) H[c, q, k]
+// a complex product except at bin 0, the packed (DC/2, Nyq/2) pair, which
+// multiplies componentwise and is scaled by b0 (cl_conv_kernels.h:102-118).
+// X is a frame timeline (prior ring frames in ascending time, then fresh
+// frame spectra), H the coefficient frames in ring order; both are split
+// re/im float32 planes, the JAX layout.
+//
+// What bounds it on the card. At the offline render shape (C = 64,
+// nout = 470, nparts = 256, bins = 512) the MAC is
+// 8 * C * nout * nparts * bins ~ 31.5 GFLOP of FP32 (0.47 ms at 67
+// TFLOP/s) against ~380 MB of planes read and written once (0.11 ms at
+// 3.35 TB/s): bound by FP32 operations. At the K = 8 chunked serving shape
+// (nout = 8) the same planes are read for 1/59 of the work: bound by bytes.
+//
+// What the design does about it. The TPU kernels keep shifted,
+// column-0-adjusted h stacks resident in VMEM (chunk_mac) or stream
+// 8-row-aligned tiles by double-buffered DMA (macflow); both are VMEM
+// workarounds. Here one thread owns one bin and MAC_TT consecutive output
+// rows: it holds the MAC_TT timeline rows of the current partition q in
+// registers and slides them by one row per q, so each timeline element is
+// loaded once per MAC_TT outputs and each H element once per thread; the
+// row loads of a warp are 128 contiguous bytes. Bin 0 runs its own
+// (componentwise) instantiation. The channel is the slowest grid dimension,
+// so one channel's timeline and H (a few MB at the render shape) are read
+// from L2 by all of its blocks. Any nparts >= 1, bins >= 1 and nout >= 1
+// are taken: rows past the timeline read as zero. wgmma/TMA and a split of
+// the q range for short nout are later work.
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int MAC_TT = 8;         // output rows per thread
+constexpr int MAC_THREADS = 128;  // bins per block
+
+inline int cdiv(long long a, long long b) { return static_cast<int>((a + b - 1) / b); }
+
+// Sizes and per-channel strides: channel c of x starts at c * rows * bins,
+// of h at c * nparts * bins, of the outputs at c * nout * bins.
+struct Mac {
+    int C, rows, nparts, bins, nout;
+};
+
+template <bool DC>
+__device__ __forceinline__ void mac_rows(const Mac& s, int k, int t0, size_t c,
+                                         const float* __restrict__ xr,
+                                         const float* __restrict__ xi,
+                                         const float* __restrict__ hr,
+                                         const float* __restrict__ hi, float b0,
+                                         float* __restrict__ outr, float* __restrict__ outi) {
+    const size_t bins = s.bins;
+    const size_t x0 = c * s.rows, h0 = c * s.nparts, o0 = c * s.nout;
+    float wr[MAC_TT], wi[MAC_TT], ar[MAC_TT], ai[MAC_TT];
+    // output t0+j at partition q reads timeline row t0+j+q
+#pragma unroll
+    for (int j = 0; j < MAC_TT; ++j) {
+        const int r = t0 + j;
+        wr[j] = r < s.rows ? xr[(x0 + r) * bins + k] : 0.f;
+        wi[j] = r < s.rows ? xi[(x0 + r) * bins + k] : 0.f;
+        ar[j] = 0.f;
+        ai[j] = 0.f;
+    }
+#pragma unroll 2
+    for (int q = 0; q < s.nparts; ++q) {
+        const float h_r = hr[(h0 + q) * bins + k];
+        const float h_i = hi[(h0 + q) * bins + k];
+        const int r = t0 + q + MAC_TT;   // the row that slides in for q + 1
+        const float nr = r < s.rows ? xr[(x0 + r) * bins + k] : 0.f;
+        const float ni = r < s.rows ? xi[(x0 + r) * bins + k] : 0.f;
+#pragma unroll
+        for (int j = 0; j < MAC_TT; ++j) {
+            if (DC) {
+                ar[j] += wr[j] * h_r;
+                ai[j] += wi[j] * h_i;
+            } else {
+                ar[j] += wr[j] * h_r - wi[j] * h_i;
+                ai[j] += wr[j] * h_i + wi[j] * h_r;
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < MAC_TT - 1; ++j) {
+            wr[j] = wr[j + 1];
+            wi[j] = wi[j + 1];
+        }
+        wr[MAC_TT - 1] = nr;
+        wi[MAC_TT - 1] = ni;
+    }
+#pragma unroll
+    for (int j = 0; j < MAC_TT; ++j) {
+        const int t = t0 + j;
+        if (t >= s.nout) break;
+        outr[(o0 + t) * bins + k] = DC ? b0 * ar[j] : ar[j];
+        outi[(o0 + t) * bins + k] = DC ? b0 * ai[j] : ai[j];
+    }
+}
+
+// grid (cdiv(nout, MAC_TT), cdiv(bins, MAC_THREADS), C)
+__global__ void __launch_bounds__(MAC_THREADS)
+slide_mac_kernel(Mac s, const float* __restrict__ xr, const float* __restrict__ xi,
+                 const float* __restrict__ hr, const float* __restrict__ hi, float b0,
+                 float* __restrict__ outr, float* __restrict__ outi) {
+    const int k = blockIdx.y * MAC_THREADS + threadIdx.x;
+    if (k >= s.bins) return;
+    const int t0 = blockIdx.x * MAC_TT;
+    const size_t c = blockIdx.z;
+    if (k == 0)
+        mac_rows<true>(s, k, t0, c, xr, xi, hr, hi, b0, outr, outi);
+    else
+        mac_rows<false>(s, k, t0, c, xr, xi, hr, hi, b0, outr, outi);
+}
+
+}  // namespace
+
+// acc[c, t] = sum_q x[c, t+q] (*) h[c, q] for t < nout, all C channels.
+// x planes (C, rows, bins), h planes (C, nparts, bins), outputs (C, nout,
+// bins); float32 device memory on `device`, each plane contiguous. Launches
+// on `stream` without synchronising; returns the first CUDA error.
+extern "C" int slide_mac_batched_f32(const float* xr, const float* xi, const float* hr,
+                                     const float* hi, float* outr, float* outi, int C,
+                                     int rows, int nparts, int bins, int nout, float b0,
+                                     int device, void* stream_ptr) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const Mac s{C, rows, nparts, bins, nout};
+    slide_mac_kernel<<<dim3(cdiv(nout, MAC_TT), cdiv(bins, MAC_THREADS), C), MAC_THREADS, 0,
+                       static_cast<cudaStream_t>(stream_ptr)>>>(s, xr, xi, hr, hi, b0, outr,
+                                                                 outi);
+    return static_cast<int>(cudaGetLastError());
+}

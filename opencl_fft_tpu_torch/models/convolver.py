@@ -8,16 +8,19 @@ the ring pointers are shared. ``step`` is one block of every channel
 through the per-block functions of ``ops/pconv.py``, which broadcast over
 the channel axis (the JAX package vmaps them); ``stream`` sends a whole
 (nblocks, C, pts) scan through the batched whole-scan kernel
-(``ops/cuda/streamstep.py``), one launch sequence for all channels.
-``MatrixConvolver`` (true stereo and other matrices) rides on
-``Convolver``; ``BatchedFFT`` is ``fft_split`` over leading axes.
+(``ops/cuda/streamstep.py``), one launch sequence for all channels, or
+with ``chunk > 1`` K blocks at a time through ``pconv_chunk`` (bit-equal to
+per-block steps); ``Convolver.render`` is the offline render
+(``_offline_batched``: one forward product, the sliding-MAC kernel of
+``ops/cuda/slidemac.py``, one inverse transform). ``MatrixConvolver``
+(true stereo and other matrices) rides on ``Convolver``; ``BatchedFFT`` is
+``fft_split`` over leading axes.
 
 Every engine takes an explicit device: a CUDA card (the default), or the
 CPU when asked for by name, where each kernel's plain twin runs. Not
 ported yet, each raising NotImplementedError naming its ROADMAP item: IR
-hot-swap (``set_ir``, queue 1 item 11), offline render and chunked
-streaming (``render``, ``stream(chunk>1)``, item 9), and the decomposed TV
-engine (``TVConvolver.stream_chunked``, item 10).
+hot-swap (``set_ir``, queue 1 item 11) and the decomposed TV engine
+(``TVConvolver.stream_chunked``, item 10).
 """
 
 from __future__ import annotations
@@ -98,17 +101,34 @@ class Convolver:
 
     def stream(self, blocks, chunk: int = 1) -> torch.Tensor:
         """Scan (nblocks, batch, pts) -> (nblocks, batch, pts): every block
-        of every channel through the batched whole-scan kernel."""
-        if chunk > 1:
-            raise NotImplementedError(
-                "chunked streaming (chunk > 1) is not ported yet (ROADMAP queue 1 item 9)")
-        self.state, out = _p.pconv_stream_batched(self.cfg, self.state,
-                                                  _f32(blocks, self.device))
-        return out
+        of every channel through the batched whole-scan kernel.
+
+        chunk > 1 takes that many blocks per ``pconv_chunk`` call instead
+        (bit-equal to per-block ``step`` calls; nblocks must be a multiple
+        of chunk and chunk <= nparts)."""
+        blocks = _f32(blocks, self.device)
+        if chunk <= 1:
+            self.state, out = _p.pconv_stream_batched(self.cfg, self.state, blocks)
+            return out
+        _check_shape("blocks", blocks, (len(blocks), self.batch, self.cfg.pts))
+        if blocks.shape[0] % chunk:
+            raise ValueError(f"nblocks {blocks.shape[0]} must be a multiple of chunk {chunk}")
+        outs = []
+        for c0 in range(0, blocks.shape[0], chunk):
+            self.state, out = _p.pconv_chunk(self.cfg, self.state, blocks[c0:c0 + chunk])
+            outs.append(out)
+        return torch.cat(outs) if outs else blocks
 
     def render(self, blocks) -> torch.Tensor:
-        raise NotImplementedError(
-            "offline batched render is not ported yet (ROADMAP queue 1 item 9)")
+        """Offline batched render: (nblocks, batch, pts) -> the same shape,
+        through ``_offline_batched``: the MAC is a sliding correlation over
+        the precomputed frame spectra, so the render is batched transforms
+        and one sliding-MAC kernel launch with no sequential scan. Output
+        matches ``stream`` within float32 tolerance; latency is the whole
+        render (``step``/``stream`` bound it)."""
+        self.state, out = _p._offline_batched(self.cfg, self.state,
+                                              _f32(blocks, self.device))
+        return out
 
 
 class TVConvolver:

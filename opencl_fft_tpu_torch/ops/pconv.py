@@ -25,6 +25,15 @@ the per-block functions broadcast over it with shared int ring pointers
 (the JAX package vmaps them), and ``pconv_stream_batched{,_tv}`` send every
 block of every channel through one batched whole-scan kernel launch, with
 ring pointers shared or one per channel.
+
+When several blocks are known at once the frequency-delay-line MAC is a
+sliding correlation over the frame timeline (the previous nparts-1 frames,
+then the new ones): ``pconv_chunk{,_tv}`` take K <= nparts blocks a call,
+bit-equal to per-block steps; ``pconv_offline`` and ``_offline_batched``
+(``Convolver.render``) render any number of blocks with one sliding-MAC
+kernel launch (``ops/cuda/slidemac.py``), and
+``pconv_stream_batched_chunked`` runs K-block chunks through them.
+``convolve_oneshot`` is one zero-padded transform pair.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from ..utils.numerics import is_pow2
 from .cplx import Cplx
 from .cuda.streamstep import (Pointers, stream_steps_fused, stream_steps_fused_batched,
                               stream_steps_fused_batched_tv, stream_steps_fused_tv)
+from .cuda.slidemac import CHUNKMAC_MAX_BATCH, chunk_mac, macflow_lti_batched
 from .cuda.tables import fwd_table
 from .fft import _IMPLS
 from .rfft import irfft_split, rfft_split
@@ -106,6 +116,9 @@ class PconvConfig:
         return PconvConfig(pts=pts, nparts=cvs // pts, **kw)
 
 
+_PLANES = ("spec_x_re", "spec_x_im", "spec_h_re", "spec_h_im", "tail")
+
+
 class PconvState(NamedTuple):
     """Streaming state, in the JAX package's field layout.
 
@@ -143,10 +156,18 @@ def _forward_partition(cfg: PconvConfig, block: torch.Tensor) -> Cplx:
     Up to _FWD_MM_MAX_PTS the whole chain (zero-pad -> deinterleave ->
     half-size DFT -> pack) is one matmul against the f64-built
     (pts, 2*bins) table, as in the JAX package; beyond, the transform chain.
+    The matmul is always a 2-D product of at least two rows: a one-row
+    product takes BLAS's matrix-vector route, which rounds differently, and
+    a block's frame must not depend on how many blocks share the product
+    (``pconv_chunk`` is bit-equal to sequential ``pconv_step`` calls).
     """
     block = block.to(torch.float32)
     if cfg.pts <= _FWD_MM_MAX_PTS:
-        z = block @ fwd_table(cfg.pts, block.device)
+        rows = block.reshape(-1, cfg.pts)
+        if rows.shape[0] == 1:
+            rows = torch.cat([rows, torch.zeros_like(rows)])
+        z = (rows @ fwd_table(cfg.pts, block.device))[:block.numel() // cfg.pts]
+        z = z.reshape(block.shape[:-1] + (2 * cfg.bins,))
         return z[..., :cfg.bins], z[..., cfg.bins:]
     frame = torch.cat([block, torch.zeros_like(block)], dim=-1)
     return rfft_split(frame, cfg.impl, unnormalized=True)
@@ -176,9 +197,16 @@ def _spectral_mac(cfg: PconvConfig, state: PconvState, rp: int) -> Cplx:
     """Frequency-delay-line MAC: sum over partitions of in[(rp+q) % np] *
     coef[q]; bin 0 (the packed (DC, Nyq) pair) multiplies componentwise
     (cl_conv_kernels.h:102-118)."""
-    xr = state.spec_x_re[..., rp:rp + cfg.nparts, :]
-    xi = state.spec_x_im[..., rp:rp + cfg.nparts, :]
-    hr, hi = state.spec_h_re, state.spec_h_im
+    return _window_mac(cfg, state.spec_x_re[..., rp:rp + cfg.nparts, :],
+                       state.spec_x_im[..., rp:rp + cfg.nparts, :],
+                       state.spec_h_re, state.spec_h_im)
+
+
+def _window_mac(cfg: PconvConfig, xr: torch.Tensor, xi: torch.Tensor,
+                hr: torch.Tensor, hi: torch.Tensor) -> Cplx:
+    """The MAC of ``_spectral_mac`` on (..., nparts, bins) windows and
+    coefficient planes (broadcast over leading axes), summed over the
+    partition axis."""
     acc_r = torch.sum(xr * hr - xi * hi, dim=-2)
     acc_i = torch.sum(xr * hi + xi * hr, dim=-2)
     acc_r[..., 0] = cfg.b0_scale * torch.sum(xr[..., 0] * hr[..., 0], dim=-1)
@@ -242,17 +270,136 @@ def pconv_step_tv(cfg: PconvConfig, state: PconvState, block_x: torch.Tensor,
     return state._replace(tail=tail), out
 
 
+def _chunk_size(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor,
+                name: str = "blocks") -> int:
+    """K of a chunk: blocks must be (K, [C,] pts) with 1 <= K <= nparts."""
+    if tuple(blocks.shape[1:]) != tuple(state.tail.shape):
+        raise ValueError(f"{name} must be (K, {', '.join(map(str, state.tail.shape))}), "
+                         f"got {tuple(blocks.shape)}")
+    k = blocks.shape[0]
+    if not 1 <= k <= cfg.nparts:
+        raise ValueError(f"chunk size must be in [1, nparts={cfg.nparts}], got {k}")
+    return k
+
+
+def _x_prefix_rows(cfg: PconvConfig, state: PconvState) -> Cplx:
+    """The nparts-1 previous input frames in ascending time: one slice of
+    the doubled ring, rows [wp+1, wp+nparts), ([C,] nparts-1, bins)."""
+    if isinstance(state.wp, tuple):
+        raise ValueError("this engine needs ring pointers shared by every channel "
+                         "(ints), got per-channel pointers")
+    rows = slice(state.wp + 1, state.wp + cfg.nparts)
+    return state.spec_x_re[..., rows, :], state.spec_x_im[..., rows, :]
+
+
+def _chunk_windows(cfg: PconvConfig, state: PconvState, fr: torch.Tensor,
+                   fi: torch.Tensor) -> Cplx:
+    """MAC windows of K consecutive blocks whose frames are fr, fi (K, [C,]
+    bins): window k row q is timeline row k + q of [nparts-1 previous
+    frames | the K new ones], ([C,] K, nparts, bins)."""
+    k = fr.shape[0]
+    old_r, old_i = _x_prefix_rows(cfg, state)
+    idx = torch.arange(k, device=fr.device)[:, None] + torch.arange(cfg.nparts,
+                                                                   device=fr.device)
+    return (torch.cat([old_r, fr.movedim(0, -2)], -2)[..., idx, :],
+            torch.cat([old_i, fi.movedim(0, -2)], -2)[..., idx, :])
+
+
+def _chunk_out(cfg: PconvConfig, state: PconvState, acc: Cplx,
+               spec_x: Cplx) -> Tuple[PconvState, torch.Tensor]:
+    """Inverse transform and overlap-add of K accumulators ([C,] K, bins)
+    -> outs (K, [C,] pts), each exactly as ``_inverse_and_ola`` does per
+    block; the state gets the new input rings and the last block's tail."""
+    acc = tuple(a.movedim(-2, 0).contiguous() for a in acc)
+    y = irfft_split(acc, cfg.impl)                    # (K, [C,] 2*pts)
+    tails = torch.cat([state.tail[None], y[:-1, ..., cfg.pts:]])
+    outs = (y[..., :cfg.pts] + tails) / cfg.pts
+    return state._replace(spec_x_re=spec_x[0], spec_x_im=spec_x[1],
+                          wp=(state.wp + y.shape[0]) % cfg.nparts,
+                          tail=y[-1, ..., cfg.pts:]), outs
+
+
+def _chunk_rings(cfg: PconvConfig, state: PconvState, fr: torch.Tensor,
+                 fi: torch.Tensor) -> Cplx:
+    """The doubled input rings after K <= nparts blocks: frame k lands at
+    slot (wp + k) mod nparts and its double."""
+    slots = (state.wp + torch.arange(fr.shape[0], device=fr.device)) % cfg.nparts
+    rings = []
+    for ring, f in ((state.spec_x_re, fr), (state.spec_x_im, fi)):
+        ring = ring.clone()
+        ring[..., slots, :] = f.movedim(0, -2)
+        ring[..., slots + cfg.nparts, :] = f.movedim(0, -2)
+        rings.append(ring)
+    return tuple(rings)
+
+
+def pconv_chunk(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor
+                ) -> Tuple[PconvState, torch.Tensor]:
+    """K consecutive LTI blocks in one call, 1 <= K <= nparts: blocks (K,
+    pts) -> outs (K, pts); with a batched state (K, C, pts) -> (K, C, pts).
+
+    Bit-equal to K sequential ``pconv_step`` calls (the JAX package's
+    contract, ``pconv.py:557-632``), with one forward product and one
+    inverse transform for the K blocks: the sequential MAC is a sliding
+    complex dot of the coefficient frames against the frame timeline (the
+    nparts-1 previous frames from the ring, then the K new ones), and
+    every block's window is gathered from it and reduced as the step
+    reduces its ring window. Latency becomes K blocks. Plain PyTorch on
+    either device (the JAX package has no kernel for it).
+    """
+    _chunk_size(cfg, state, blocks)
+    fr, fi = _forward_partition(cfg, blocks)          # (K, [C,] bins)
+    wr, wi = _chunk_windows(cfg, state, fr, fi)
+    acc = _window_mac(cfg, wr, wi, state.spec_h_re.unsqueeze(-3),
+                      state.spec_h_im.unsqueeze(-3))
+    return _chunk_out(cfg, state, acc, _chunk_rings(cfg, state, fr, fi))
+
+
+def pconv_chunk_tv(cfg: PconvConfig, state: PconvState, blocks_x: torch.Tensor,
+                   blocks_h: torch.Tensor) -> Tuple[PconvState, torch.Tensor]:
+    """K consecutive time-varying blocks in one call, 1 <= K <= nparts:
+    blocks_x and blocks_h (K, [C,] pts) -> outs (K, [C,] pts).
+
+    Bit-equal to K sequential ``pconv_step_tv`` calls (``pconv.py:635-715``).
+    The input side is ``pconv_chunk``'s; the coefficient ring turns the
+    other way (wp2 decrements, cl_conv.cpp:519), so at block k of the chunk
+    slot q holds the chunk's own coefficient frame d = (wp2 - q) mod nparts
+    when d <= k, and its pre-chunk content otherwise.
+    """
+    k = _chunk_size(cfg, state, blocks_x, "blocks_x")
+    if blocks_h.shape != blocks_x.shape:
+        raise ValueError(f"blocks_h {tuple(blocks_h.shape)} must have the shape "
+                         f"of blocks_x {tuple(blocks_x.shape)}")
+    both = torch.stack([blocks_x.to(torch.float32), blocks_h.to(torch.float32)], 1)
+    fr, fi = _forward_partition(cfg, both)            # (K, 2, [C,] bins)
+    wr, wi = _chunk_windows(cfg, state, fr[:, 0], fi[:, 0])
+    dev = fr.device
+    d = (state.wp2 - torch.arange(cfg.nparts, device=dev)) % cfg.nparts
+    dcl = d.clamp(max=k - 1)
+    sel = (d[None] <= torch.arange(k, device=dev)[:, None])[..., None]    # (K, np, 1)
+    hnew = tuple(f[:, 1].movedim(0, -2)[..., dcl, :] for f in (fr, fi))   # ([C,] np, b)
+    hold = (state.spec_h_re, state.spec_h_im)
+    hk = [torch.where(sel, n.unsqueeze(-3), o.unsqueeze(-3)) for n, o in zip(hnew, hold)]
+    acc = _window_mac(cfg, wr, wi, *hk)
+    last = (d <= k - 1)[:, None]
+    state = state._replace(
+        spec_h_re=torch.where(last, hnew[0], state.spec_h_re),
+        spec_h_im=torch.where(last, hnew[1], state.spec_h_im),
+        wp2=(state.wp2 - k) % cfg.nparts)
+    return _chunk_out(cfg, state, acc, _chunk_rings(cfg, state, fr[:, 0], fi[:, 0]))
+
+
 def _check_blocks(cfg: PconvConfig, blocks: torch.Tensor, name: str = "blocks",
-                  channels: Optional[int] = None):
+                  channels: Optional[int] = None, scan: bool = True):
     """blocks must be (nblocks, pts), or (nblocks, channels, pts) for a
-    batched stream."""
+    batched stream; a whole-scan kernel (``scan``) takes pts <= 2048."""
     shape = (cfg.pts,) if channels is None else (channels, cfg.pts)
     if blocks.dim() != len(shape) + 1 or tuple(blocks.shape[1:]) != shape:
         want = ", ".join(["nblocks", *map(str, shape)])
         raise ValueError(f"{name} must be ({want}), got {tuple(blocks.shape)}")
     if blocks.is_cuda and blocks.dtype != torch.float32:
         raise TypeError(f"CUDA {name} must be float32, got {blocks.dtype}")
-    if cfg.pts > _FWD_MM_MAX_PTS:
+    if scan and cfg.pts > _FWD_MM_MAX_PTS:
         raise NotImplementedError(
             f"pts={cfg.pts} > {_FWD_MM_MAX_PTS} needs the split-table stream "
             f"kernel (ROADMAP queue 2 item 5)")
@@ -414,6 +561,155 @@ def pconv_stream_batched_tv(cfg: PconvConfig, state: PconvState, blocks_x: torch
                           wp2=_advance(state.wp2, -nb, cfg.nparts)), outs
 
 
+def _rings_after(cfg: PconvConfig, state: PconvState, fr: torch.Tensor,
+                 fi: torch.Tensor) -> Cplx:
+    """The doubled input rings after nb blocks whose frames are fr, fi
+    ([C,] nb, bins), any nb: below nparts the frames are written at slots
+    (wp + t) mod nparts; from nparts on slot s holds frame
+    t_s = nb-1 - ((wp + nb-1 - s) mod nparts), the last to land there."""
+    nb = fr.shape[-2]
+    if nb < cfg.nparts:
+        return _chunk_rings(cfg, state, fr.movedim(-2, 0), fi.movedim(-2, 0))
+    s = torch.arange(cfg.nparts, device=fr.device)
+    t_s = nb - 1 - ((state.wp + nb - 1 - s) % cfg.nparts)
+    return tuple(torch.cat([f[..., t_s, :]] * 2, -2) for f in (fr, fi))
+
+
+def _offline_batched(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor
+                     ) -> Tuple[PconvState, torch.Tensor]:
+    """Batched offline LTI render: blocks (nb, C, pts) -> (nb, C, pts) on a
+    batched state with shared ring pointers.
+
+    The frequency-delay-line MAC is a pure sliding-window correlation over
+    each channel's frame timeline (the ring holds exactly the last nparts
+    spectra), so the render is one forward product of every block, one
+    sliding-MAC kernel launch over the timelines, one batched inverse
+    transform and a vectorized overlap-add, with no sequential scan. The
+    MAC runs through ``chunk_mac`` up to CHUNKMAC_MAX_BATCH channels and
+    ``macflow_lti_batched`` above (both ``ops/cuda/slidemac.py``: the CUDA
+    kernel for CUDA tensors, the twin for CPU tensors). Outputs match
+    per-block streaming within float32 reduction-order tolerance; the state
+    chains exactly.
+    """
+    _check_offline(cfg, state, blocks)
+    nb, nch, pts = blocks.shape
+    old_r, old_i = _x_prefix_rows(cfg, state)         # (C, nparts-1, bins)
+    fr, fi = _forward_partition(cfg, blocks)          # (nb, C, bins)
+    fr, fi = fr.transpose(0, 1), fi.transpose(0, 1)   # (C, nb, bins)
+    h = (state.spec_h_re, state.spec_h_im)
+    if nch <= CHUNKMAC_MAX_BATCH:
+        # chunk_mac's timeline is nparts + G rows for G outputs: one zero
+        # row closes it
+        pad = fr.new_zeros((nch, 1, cfg.bins))
+        acc_r, acc_i = chunk_mac((torch.cat([old_r, fr, pad], 1),
+                                  torch.cat([old_i, fi, pad], 1)), h, cfg.b0_scale)
+    else:
+        acc_r, acc_i = macflow_lti_batched((torch.cat([old_r, fr], 1),
+                                            torch.cat([old_i, fi], 1)), h, nb, cfg.b0_scale)
+    y = irfft_split((acc_r, acc_i), cfg.impl)         # (C, nb, 2*pts)
+    tails = torch.cat([state.tail[:, None], y[:, :-1, pts:]], 1)
+    outs = ((y[..., :pts] + tails) / pts).transpose(0, 1).contiguous()
+    sxr, sxi = _rings_after(cfg, state, fr, fi)
+    return state._replace(spec_x_re=sxr, spec_x_im=sxi, wp=(state.wp + nb) % cfg.nparts,
+                          tail=y[:, -1, pts:]), outs
+
+
+def _check_offline(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor):
+    """blocks must be (nblocks >= 1, C, pts) for a batched state of C channels."""
+    _check_blocks(cfg, blocks, channels=_batched_channels(state), scan=False)
+    if blocks.shape[0] < 1:
+        raise ValueError("an offline render needs at least one block")
+
+
+def pconv_offline(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor
+                  ) -> Tuple[PconvState, torch.Tensor]:
+    """Offline LTI render of many blocks with no sequential dependence:
+    blocks (nblocks >= 1, pts) -> (nblocks, pts).
+
+    The one-channel case of ``_offline_batched``: one forward product, the
+    ``chunk_mac`` kernel over the frame timeline, one inverse transform.
+    Equals sequential ``pconv_step`` streaming within float32 tolerance
+    (the kernel sums in another order); use ``pconv_stream`` or
+    ``pconv_chunk`` where bit-equality with per-block streaming is needed.
+    Every shape takes the kernel: there is no fall back to the scan.
+    """
+    _check_blocks(cfg, blocks, scan=False)
+    one = state._replace(**{n: getattr(state, n)[None] for n in _PLANES})
+    one, outs = _offline_batched(cfg, one, blocks[:, None])
+    return state._replace(**{n: getattr(one, n)[0] for n in _PLANES}, wp=one.wp), outs[:, 0]
+
+
+def pconv_stream_batched_chunked(cfg: PconvConfig, state: PconvState,
+                                 blocks: torch.Tensor, K: int = 8
+                                 ) -> Tuple[PconvState, torch.Tensor]:
+    """Latency-relaxed batched streaming: blocks (nblocks, C, pts) in
+    K-block chunks (K blocks of latency), each chunk through the offline
+    engine ``_offline_batched`` (one forward product, one sliding-MAC
+    launch, one inverse transform), so a channel's ring window is read once
+    per chunk rather than once per block.
+
+    nblocks must be a multiple of K. Outputs match per-block streaming
+    within float32 reduction-order tolerance and the state chains exactly.
+    A state with per-channel ring pointers goes to ``pconv_stream_batched``
+    (the chunk engine takes shared pointers), as in the JAX package; its
+    VMEM-envelope routing to the scan is a TPU rule and is not kept.
+    """
+    nch = _batched_channels(state)
+    _check_blocks(cfg, blocks, channels=nch, scan=False)
+    nb = blocks.shape[0]
+    if K < 1 or nb % K:
+        raise ValueError(f"nblocks {nb} must be a multiple of K={K} >= 1")
+    if isinstance(state.wp, tuple):
+        return pconv_stream_batched(cfg, state, blocks)
+    if nb == 0:
+        return state, blocks.new_zeros((0, nch, cfg.pts), dtype=torch.float32)
+    outs = []
+    for c0 in range(0, nb, K):
+        state, out = _offline_batched(cfg, state, blocks[c0:c0 + K])
+        outs.append(out)
+    return state, torch.cat(outs)
+
+
+def _on_device(name: str, signal, device) -> torch.device:
+    """``convolve``'s device rule: an explicit device, else the signal's."""
+    if device is not None:
+        return torch.device(device)
+    if not isinstance(signal, torch.Tensor):
+        raise ValueError(f"{name}: pass device= for a non-tensor signal")
+    return signal.device
+
+
+def convolve_oneshot(signal, ir, impl: str = "auto",
+                     device: Optional[Union[str, torch.device]] = None) -> torch.Tensor:
+    """Full linear convolution in one zero-padded transform pair (the
+    offline path, ``pconv.py:1394-1428``): len(signal) + len(ir) - 1
+    samples, matching scipy.signal.fftconvolve to float32 tolerance.
+
+    Both operands go through one n-point packed real transform (n the
+    power of two >= the output length, at least 4), so on a card an
+    n/2-point complex transform of 2^10..2^20 points runs the CUDA FFT
+    kernel (``ops/cuda/vmemfft.py``). In the packed convention bin 0 carries
+    (DC/2, Nyq/2), so its componentwise product takes a factor 2; the
+    1/(n/2) scale rides the inverse transform. ``device``: as ``convolve``.
+    """
+    device = _on_device("convolve_oneshot", signal, device)
+    signal = torch.as_tensor(signal, dtype=torch.float32, device=device)
+    ir = torch.as_tensor(ir, dtype=torch.float32, device=device)
+    out_len = signal.shape[-1] + ir.shape[-1] - 1
+    n = 4
+    while n < out_len:
+        n <<= 1
+    xr, xi = rfft_split(torch.nn.functional.pad(signal, (0, n - signal.shape[-1])), impl,
+                        unnormalized=True)
+    hr, hi = rfft_split(torch.nn.functional.pad(ir, (0, n - ir.shape[-1])), impl,
+                        unnormalized=True)
+    yr = xr * hr - xi * hi
+    yi = xr * hi + xi * hr
+    yr[..., 0] = 2.0 * xr[..., 0] * hr[..., 0]
+    yi[..., 0] = 2.0 * xi[..., 0] * hi[..., 0]
+    return irfft_split((yr, yi), impl, scale=2.0 / n)[..., :out_len]
+
+
 def convolve(signal, ir, pts: int, bin0_mode: str = "exact",
              impl: str = "auto",
              device: Optional[Union[str, torch.device]] = None) -> torch.Tensor:
@@ -424,10 +720,7 @@ def convolve(signal, ir, pts: int, bin0_mode: str = "exact",
     ``device``: where to run; defaults to the device of ``signal`` when it
     is a tensor (a numpy signal needs an explicit device).
     """
-    if device is None:
-        if not isinstance(signal, torch.Tensor):
-            raise ValueError("convolve: pass device= for a non-tensor signal")
-        device = signal.device
+    device = _on_device("convolve", signal, device)
     signal = torch.as_tensor(signal, dtype=torch.float32, device=device)
     ir = torch.as_tensor(ir, dtype=torch.float32, device=device)
     cvs = -(-ir.shape[-1] // pts) * pts
