@@ -862,9 +862,12 @@ def main():
     def wrapper_counts():
         return SM.CHUNKMAC_LAUNCHES, SM.MACFLOW_LAUNCHES, SM.MACFLOW_BATCHED_LAUNCHES
 
+    CHUNK_K, CHUNK_BLOCKS = 8, 472      # bench.py:374-417
+    # every main-path shape (the K = 8 chunk takes 59 of the 60 launches of
+    # macflow_lti_batched), then odd ones
     mac_shapes = [(1, np_, b, SCAN_BLOCKS), (16, np_, b, SERVE_BLOCKS),
-                  (SERVE_CH, np_, b, SERVE_BLOCKS), (2, 3, 64, 13), (3, 37, 64, 21),
-                  (1, 1, 16, 1)]
+                  (SERVE_CH, np_, b, SERVE_BLOCKS), (SERVE_CH, np_, b, CHUNK_K),
+                  (2, 3, 64, 13), (3, 37, 64, 21), (1, 1, 16, 1)]
     mac_err = {}
     worst = 0.0
     for nch, nparts, bins, nout in mac_shapes:
@@ -894,7 +897,9 @@ def main():
           f"{mac_err[('chunk_mac', 1, SCAN_BLOCKS)]:.3e}, 16x{SERVE_BLOCKS} "
           f"{mac_err[('chunk_mac', 16, SERVE_BLOCKS)]:.3e}; macflow_lti_batched "
           f"{SERVE_CH}x{SERVE_BLOCKS} "
-          f"{mac_err[('macflow_lti_batched', SERVE_CH, SERVE_BLOCKS)]:.3e}; macflow_lti "
+          f"{mac_err[('macflow_lti_batched', SERVE_CH, SERVE_BLOCKS)]:.3e}, "
+          f"{SERVE_CH}x{CHUNK_K} {mac_err[('macflow_lti_batched', SERVE_CH, CHUNK_K)]:.3e}; "
+          f"macflow_lti "
           f"{SCAN_BLOCKS} {mac_err[('macflow_lti', 1, SCAN_BLOCKS)]:.3e}", flush=True)
 
     # phase 22: the offline and chunked main paths on the card, against
@@ -909,8 +914,6 @@ def main():
         c = P.Convolver(cfg, nch, device=dev)
         c.push_ir(irs_d[:nch])
         return c
-
-    CHUNK_K, CHUNK_BLOCKS = 8, 472      # bench.py:374-417
 
     def in_chunks(fn, state0, *ops):
         """fn(cfg, state, *chunk) over CHUNK_K-block chunks of ops, the state
@@ -956,6 +959,11 @@ def main():
     singles = torch.stack([P.pconv_stream(cfg, P.push_ir(cfg, P.pconv_init(cfg, dev), irs_d[c]),
                                           serve_blocks[:, c])[1] for c in range(SERVE_CH)], 1)
     err_r64, err_r16 = worst_channel(y_r64, singles), worst_channel(y_r16, singles[:, :16])
+    # the render's state chains into the batched scan kernel
+    conv_ref = conv_ready(16)
+    conv_ref.stream(serve_blocks[:, :16].contiguous())
+    nxt = chk_blocks[:CHUNK_K, :16].contiguous()
+    err_r16c = worst_channel(conv16.stream(nxt), conv_ref.stream(nxt))
     y_np = y_r64.cpu().numpy()
     err_r64o = max(rel_err(y_np[:, c].reshape(-1), refs[c]) for c in oracle_ch)
     ref15 = sps.fftconvolve(xs_serve[15].astype(np.float64), irs[15].astype(np.float64))[:n_serve]
@@ -992,6 +1000,7 @@ def main():
                          ("convolve_oneshot vs scipy", err_one, ORACLE_TOL),
                          ("Convolver.render(64) vs pconv_stream", err_r64, TOL),
                          ("Convolver.render(16) vs pconv_stream", err_r16, TOL),
+                         ("Convolver.render(16) then stream vs stream", err_r16c, TOL),
                          ("Convolver.render(64) vs scipy", err_r64o, ORACLE_TOL),
                          ("Convolver.render(16) vs scipy", err_r16o, ORACLE_TOL),
                          ("pconv_stream_batched_chunked vs Convolver.stream", err_chk, TOL),
@@ -1006,7 +1015,8 @@ def main():
           f"{err_dec:.3e}, vs pconv_stream {err_dec_s:.3e}; convolve_oneshot({x.size} samples) vs "
           f"scipy {err_one:.3e}; Convolver.render({SERVE_BLOCKS}x64) vs single-channel "
           f"pconv_stream {err_r64:.3e}, vs scipy {err_r64o:.3e}; render 16 ch {err_r16:.3e}, "
-          f"{err_r16o:.3e}; pconv_stream_batched_chunked(K={CHUNK_K}, {CHUNK_BLOCKS}x64) vs "
+          f"{err_r16o:.3e}, then stream() vs stream() {err_r16c:.3e}; "
+          f"pconv_stream_batched_chunked(K={CHUNK_K}, {CHUNK_BLOCKS}x64) vs "
           f"Convolver.stream {err_chk:.3e}, vs scipy {err_chko:.3e}; Convolver.stream(chunk=8) "
           f"vs chunk=1 {err_s8:.3e} (bit-equal {s8_bit_s1}), first 16 blocks bit-equal to "
           f"step() {s8_bit_steps}; pconv_chunk (K=8, 32 blocks) vs steps {err_chunk:.3e} "
@@ -1119,13 +1129,17 @@ def main():
         kernel("fft_vmem", "fft.cu", "vmemfft.py:1100", fft_launches, fft_err, *fft_row),
         kernel("fft_vmem_front2", "fft.cu", "vmemfft.py:808", f2_launches, f2_err,
                *f2_row),
-        *(kernel(w_, "slidemac.cu", src, launches, mac_err[(w_, c_, n_)],
-                 *(mac_by[(w_, c_, n_)][i] for i in (3, 4, 5, 6)))
-          for w_, c_, n_, src, launches in (
-              ("chunk_mac", 1, SCAN_BLOCKS, "chunkmac.py:158", off_launches[0]),
-              ("macflow_lti", 1, SCAN_BLOCKS, "macflow.py:252", off_launches[1]),
-              ("macflow_lti_batched", SERVE_CH, SERVE_BLOCKS, "macflow.py:367",
-               off_launches[2])))]}))
+        # times at the shape that takes most of the wrapper's main-path
+        # launches; the error over every main-path shape of the wrapper
+        *(kernel(w_, "slidemac.cu", src, launches,
+                 max(mac_err[(w_, c_, n_)] for c_, n_ in shapes),
+                 *(mac_by[(w_, *shapes[0])][i] for i in (3, 4, 5, 6)))
+          for w_, shapes, src, launches in (
+              ("chunk_mac", ((1, SCAN_BLOCKS), (16, SERVE_BLOCKS)), "chunkmac.py:158",
+               off_launches[0]),
+              ("macflow_lti", ((1, SCAN_BLOCKS),), "macflow.py:252", off_launches[1]),
+              ("macflow_lti_batched", ((SERVE_CH, CHUNK_K), (SERVE_CH, SERVE_BLOCKS)),
+               "macflow.py:367", off_launches[2])))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

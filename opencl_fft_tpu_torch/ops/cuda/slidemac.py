@@ -39,9 +39,9 @@ MACFLOW_BATCHED_LAUNCHES = 0
 
 # Offline render routing (``ops/pconv._offline_batched``): chunk_mac up to
 # this many channels, macflow_lti_batched above, as in the JAX package
-# (``chunkmac.CHUNKMAC_MAX_BATCH``). Both run the one CUDA entry here, so
-# the crossover only decides which wrapper (and launch count) a render
-# goes through.
+# (``chunkmac.CHUNKMAC_MAX_BATCH``). Both run the one CUDA entry here on the
+# same timeline, so the crossover only decides which wrapper (and launch
+# count) a render goes through.
 CHUNKMAC_MAX_BATCH = 16
 
 # Elements of one gathered (C, k, nparts, bins) window plane in the twin:
@@ -60,7 +60,8 @@ def _kernel():
 
 def _check(name: str, x: Cplx, h: Cplx, nout: int):
     """x planes (C, rows, bins), h planes (C, nparts, bins), one shape each;
-    rows must hold every window: rows >= nout + nparts - 1."""
+    rows must hold every window: rows >= nout + nparts - 1 (later rows are
+    not read)."""
     (xr, xi), (hr, hi) = x, h
     if xr.dim() != 3 or tuple(xi.shape) != tuple(xr.shape):
         raise ValueError(f"{name}: timeline planes must be one (C, rows, bins) shape, got "
@@ -143,9 +144,10 @@ def chunk_mac(timeline: Cplx, h: Cplx, b0_scale: float) -> Cplx:
 
 def macflow_lti_batched(xtl: Cplx, h: Cplx, nb: int, b0: float) -> Cplx:
     """Per-channel LTI sliding MAC: acc[c, t] = sum_q xtl[c, t+q] (*)
-    h[c, q] for t < nb. xtl: split (B, nparts-1+nb, bins); h: split (B,
-    nparts, bins). Returns split (B, nb, bins) (the JAX kernel returns a
-    padded row count for the caller to slice)."""
+    h[c, q] for t < nb. xtl: split (B, >= nparts-1+nb, bins), rows past
+    the last window unread; h: split (B, nparts, bins). Returns split (B,
+    nb, bins) (the JAX kernel returns a padded row count for the caller to
+    slice)."""
     global MACFLOW_BATCHED_LAUNCHES
     acc, launched = _run("macflow_lti_batched", xtl, h, nb, b0)
     MACFLOW_BATCHED_LAUNCHES += launched
@@ -154,7 +156,7 @@ def macflow_lti_batched(xtl: Cplx, h: Cplx, nb: int, b0: float) -> Cplx:
 
 def macflow_lti(xtl: Cplx, h: Cplx, nb: int, b0: float) -> Cplx:
     """acc[t] = sum_q xtl[t+q] (*) h[q] for t < nb: the C = 1 case of
-    ``macflow_lti_batched``. xtl: split (nparts-1+nb, bins); h: split
+    ``macflow_lti_batched``. xtl: split (>= nparts-1+nb, bins); h: split
     (nparts, bins). Returns split (nb, bins)."""
     global MACFLOW_LAUNCHES
     for name, planes in (("xtl", xtl), ("h", h)):

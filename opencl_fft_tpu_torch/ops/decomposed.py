@@ -13,6 +13,10 @@ so ``stream_decomposed``
      overlap-add, and
   4. rebuilds the ring state from the timeline's tail.
 
+Steps 2–4 run in ``ops/pconv._timeline_engine``, which the offline and
+chunked paths share; this module gives it the frames and ``macflow_lti``
+as its MAC.
+
 Outputs match the sequential scan within float32 reduction-order
 tolerance, and chained calls match one call. It is an explicit entry
 point: ``pconv_stream`` keeps its whole-scan kernel, which has no VMEM
@@ -29,7 +33,6 @@ import torch
 
 from . import pconv as P
 from .cuda.slidemac import macflow_lti
-from .rfft import irfft_split
 
 
 def stream_decomposed(cfg: P.PconvConfig, state: P.PconvState, blocks_x: torch.Tensor,
@@ -52,12 +55,6 @@ def stream_decomposed(cfg: P.PconvConfig, state: P.PconvState, blocks_x: torch.T
     if nb == 0:
         return state, blocks_x.new_zeros((0, pts), dtype=torch.float32)
     fxr, fxi = P._forward_partition(cfg, blocks_x)            # (nb, bins)
-    old_r, old_i = P._x_prefix_rows(cfg, state)
-    acc = macflow_lti((torch.cat([old_r, fxr]), torch.cat([old_i, fxi])),
-                      (state.spec_h_re, state.spec_h_im), nb, cfg.b0_scale)
-    y = irfft_split(acc, cfg.impl)                            # (nb, 2*pts)
-    tails = torch.cat([state.tail[None], y[:-1, pts:]])
-    outs = (y[:, :pts] + tails) / pts
-    sxr, sxi = P._rings_after(cfg, state, fxr, fxi)
-    return state._replace(spec_x_re=sxr, spec_x_im=sxi, wp=(state.wp + nb) % cfg.nparts,
-                          tail=y[-1, pts:]), outs
+    h = (state.spec_h_re, state.spec_h_im)
+    return P._timeline_engine(cfg, state, fxr, fxi,
+                              lambda tl: macflow_lti(tl, h, nb, cfg.b0_scale))

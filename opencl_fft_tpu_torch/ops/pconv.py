@@ -29,17 +29,19 @@ ring pointers shared or one per channel.
 When several blocks are known at once the frequency-delay-line MAC is a
 sliding correlation over the frame timeline (the previous nparts-1 frames,
 then the new ones): ``pconv_chunk{,_tv}`` take K <= nparts blocks a call,
-bit-equal to per-block steps; ``pconv_offline`` and ``_offline_batched``
+bit-equal to per-block steps on the CPU; ``pconv_offline`` and ``_offline_batched``
 (``Convolver.render``) render any number of blocks with one sliding-MAC
 kernel launch (``ops/cuda/slidemac.py``), and
 ``pconv_stream_batched_chunked`` runs K-block chunks through them.
-``convolve_oneshot`` is one zero-padded transform pair.
+All of these and ``ops/decomposed.stream_decomposed`` share one engine,
+``_timeline_engine``, and differ in the MAC they give it. ``convolve_oneshot``
+is one zero-padded transform pair.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -156,15 +158,17 @@ def _forward_partition(cfg: PconvConfig, block: torch.Tensor) -> Cplx:
     Up to _FWD_MM_MAX_PTS the whole chain (zero-pad -> deinterleave ->
     half-size DFT -> pack) is one matmul against the f64-built
     (pts, 2*bins) table, as in the JAX package; beyond, the transform chain.
-    The matmul is always a 2-D product of at least two rows: a one-row
+    On the CPU the matmul is a 2-D product of at least two rows: a one-row
     product takes BLAS's matrix-vector route, which rounds differently, and
     a block's frame must not depend on how many blocks share the product
-    (``pconv_chunk`` is bit-equal to sequential ``pconv_step`` calls).
+    (``pconv_chunk`` is bit-equal to sequential ``pconv_step`` calls there).
+    cuBLAS keeps no such promise between row counts, so on a card the
+    product runs as given.
     """
     block = block.to(torch.float32)
     if cfg.pts <= _FWD_MM_MAX_PTS:
         rows = block.reshape(-1, cfg.pts)
-        if rows.shape[0] == 1:
+        if rows.shape[0] == 1 and rows.device.type == "cpu":
             rows = torch.cat([rows, torch.zeros_like(rows)])
         z = (rows @ fwd_table(cfg.pts, block.device))[:block.numel() // cfg.pts]
         z = z.reshape(block.shape[:-1] + (2 * cfg.bins,))
@@ -292,45 +296,66 @@ def _x_prefix_rows(cfg: PconvConfig, state: PconvState) -> Cplx:
     return state.spec_x_re[..., rows, :], state.spec_x_im[..., rows, :]
 
 
-def _chunk_windows(cfg: PconvConfig, state: PconvState, fr: torch.Tensor,
-                   fi: torch.Tensor) -> Cplx:
-    """MAC windows of K consecutive blocks whose frames are fr, fi (K, [C,]
-    bins): window k row q is timeline row k + q of [nparts-1 previous
-    frames | the K new ones], ([C,] K, nparts, bins)."""
-    k = fr.shape[0]
-    old_r, old_i = _x_prefix_rows(cfg, state)
-    idx = torch.arange(k, device=fr.device)[:, None] + torch.arange(cfg.nparts,
-                                                                   device=fr.device)
-    return (torch.cat([old_r, fr.movedim(0, -2)], -2)[..., idx, :],
-            torch.cat([old_i, fi.movedim(0, -2)], -2)[..., idx, :])
-
-
-def _chunk_out(cfg: PconvConfig, state: PconvState, acc: Cplx,
-               spec_x: Cplx) -> Tuple[PconvState, torch.Tensor]:
-    """Inverse transform and overlap-add of K accumulators ([C,] K, bins)
-    -> outs (K, [C,] pts), each exactly as ``_inverse_and_ola`` does per
-    block; the state gets the new input rings and the last block's tail."""
-    acc = tuple(a.movedim(-2, 0).contiguous() for a in acc)
-    y = irfft_split(acc, cfg.impl)                    # (K, [C,] 2*pts)
-    tails = torch.cat([state.tail[None], y[:-1, ..., cfg.pts:]])
-    outs = (y[..., :cfg.pts] + tails) / cfg.pts
-    return state._replace(spec_x_re=spec_x[0], spec_x_im=spec_x[1],
-                          wp=(state.wp + y.shape[0]) % cfg.nparts,
-                          tail=y[-1, ..., cfg.pts:]), outs
-
-
-def _chunk_rings(cfg: PconvConfig, state: PconvState, fr: torch.Tensor,
+def _rings_after(cfg: PconvConfig, state: PconvState, fr: torch.Tensor,
                  fi: torch.Tensor) -> Cplx:
-    """The doubled input rings after K <= nparts blocks: frame k lands at
-    slot (wp + k) mod nparts and its double."""
-    slots = (state.wp + torch.arange(fr.shape[0], device=fr.device)) % cfg.nparts
-    rings = []
-    for ring, f in ((state.spec_x_re, fr), (state.spec_x_im, fi)):
-        ring = ring.clone()
-        ring[..., slots, :] = f.movedim(0, -2)
-        ring[..., slots + cfg.nparts, :] = f.movedim(0, -2)
-        rings.append(ring)
-    return tuple(rings)
+    """The doubled input rings after nb blocks whose frames are fr, fi
+    ([C,] nb, bins), any nb: below nparts frame t lands at slot
+    (wp + t) mod nparts and its double; from nparts on slot s holds frame
+    t_s = nb-1 - ((wp + nb-1 - s) mod nparts), the last to land there."""
+    nb = fr.shape[-2]
+    if nb < cfg.nparts:
+        slots = (state.wp + torch.arange(nb, device=fr.device)) % cfg.nparts
+        rings = []
+        for ring, f in ((state.spec_x_re, fr), (state.spec_x_im, fi)):
+            ring = ring.clone()
+            ring[..., slots, :] = f
+            ring[..., slots + cfg.nparts, :] = f
+            rings.append(ring)
+        return tuple(rings)
+    s = torch.arange(cfg.nparts, device=fr.device)
+    t_s = nb - 1 - ((state.wp + nb - 1 - s) % cfg.nparts)
+    return tuple(torch.cat([f[..., t_s, :]] * 2, -2) for f in (fr, fi))
+
+
+def _timeline_engine(cfg: PconvConfig, state: PconvState, fr: torch.Tensor,
+                     fi: torch.Tensor, mac: Callable[[Cplx], Cplx]
+                     ) -> Tuple[PconvState, torch.Tensor]:
+    """The engine of every path whose blocks are known up front
+    (``pconv_chunk{,_tv}``, ``_offline_batched``, ``stream_decomposed``).
+
+    fr, fi ([C,] nb, bins) are the frames of nb new blocks. They follow
+    the nparts-1 previous frames of the ring in a timeline ([C,] nparts +
+    nb, bins) whose last row is zero and feeds no output (``chunk_mac``'s
+    layout; the macflow wrappers read its first nparts-1+nb rows).
+    ``mac(timeline)`` gives the nb accumulators ([C,] nb, bins); one
+    inverse transform and the overlap-add give outs ([C,] nb, pts), each
+    block as ``_inverse_and_ola`` gives it. The state gets the rings after
+    the nb frames, wp + nb and the last block's tail.
+    """
+    nb = fr.shape[-2]
+    old_r, old_i = _x_prefix_rows(cfg, state)
+    pad = fr.new_zeros(fr.shape[:-2] + (1, cfg.bins))
+    acc = mac((torch.cat([old_r, fr, pad], -2), torch.cat([old_i, fi, pad], -2)))
+    y = irfft_split(acc, cfg.impl)                    # ([C,] nb, 2*pts)
+    tails = torch.cat([state.tail.unsqueeze(-2), y[..., :-1, cfg.pts:]], -2)
+    sxr, sxi = _rings_after(cfg, state, fr, fi)
+    return (state._replace(spec_x_re=sxr, spec_x_im=sxi, wp=(state.wp + nb) % cfg.nparts,
+                           tail=y[..., -1, cfg.pts:].contiguous()),
+            (y[..., :cfg.pts] + tails) / cfg.pts)
+
+
+def _gather_mac(cfg: PconvConfig, hr: torch.Tensor, hi: torch.Tensor
+                ) -> Callable[[Cplx], Cplx]:
+    """The chunk paths' ``mac``: every block's window gathered from the
+    timeline, ([C,] K, nparts, bins), and reduced against hr, hi
+    (broadcast to it) as ``pconv_step`` reduces its ring window, so a chunk
+    is bit-equal to sequential steps."""
+    def mac(tl: Cplx) -> Cplx:
+        k = tl[0].shape[-2] - cfg.nparts
+        idx = (torch.arange(k, device=hr.device)[:, None]
+               + torch.arange(cfg.nparts, device=hr.device))
+        return _window_mac(cfg, tl[0][..., idx, :], tl[1][..., idx, :], hr, hi)
+    return mac
 
 
 def pconv_chunk(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor
@@ -338,9 +363,9 @@ def pconv_chunk(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor
     """K consecutive LTI blocks in one call, 1 <= K <= nparts: blocks (K,
     pts) -> outs (K, pts); with a batched state (K, C, pts) -> (K, C, pts).
 
-    Bit-equal to K sequential ``pconv_step`` calls (the JAX package's
-    contract, ``pconv.py:557-632``), with one forward product and one
-    inverse transform for the K blocks: the sequential MAC is a sliding
+    Bit-equal to K sequential ``pconv_step`` calls on the CPU (the JAX
+    package's contract, ``pconv.py:557-632``), with one forward product and
+    one inverse transform for the K blocks: the sequential MAC is a sliding
     complex dot of the coefficient frames against the frame timeline (the
     nparts-1 previous frames from the ring, then the K new ones), and
     every block's window is gathered from it and reduced as the step
@@ -349,10 +374,10 @@ def pconv_chunk(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor
     """
     _chunk_size(cfg, state, blocks)
     fr, fi = _forward_partition(cfg, blocks)          # (K, [C,] bins)
-    wr, wi = _chunk_windows(cfg, state, fr, fi)
-    acc = _window_mac(cfg, wr, wi, state.spec_h_re.unsqueeze(-3),
-                      state.spec_h_im.unsqueeze(-3))
-    return _chunk_out(cfg, state, acc, _chunk_rings(cfg, state, fr, fi))
+    state, outs = _timeline_engine(
+        cfg, state, fr.movedim(0, -2), fi.movedim(0, -2),
+        _gather_mac(cfg, state.spec_h_re.unsqueeze(-3), state.spec_h_im.unsqueeze(-3)))
+    return state, outs.movedim(-2, 0).contiguous()
 
 
 def pconv_chunk_tv(cfg: PconvConfig, state: PconvState, blocks_x: torch.Tensor,
@@ -360,7 +385,8 @@ def pconv_chunk_tv(cfg: PconvConfig, state: PconvState, blocks_x: torch.Tensor,
     """K consecutive time-varying blocks in one call, 1 <= K <= nparts:
     blocks_x and blocks_h (K, [C,] pts) -> outs (K, [C,] pts).
 
-    Bit-equal to K sequential ``pconv_step_tv`` calls (``pconv.py:635-715``).
+    Bit-equal to K sequential ``pconv_step_tv`` calls on the CPU
+    (``pconv.py:635-715``).
     The input side is ``pconv_chunk``'s; the coefficient ring turns the
     other way (wp2 decrements, cl_conv.cpp:519), so at block k of the chunk
     slot q holds the chunk's own coefficient frame d = (wp2 - q) mod nparts
@@ -372,7 +398,6 @@ def pconv_chunk_tv(cfg: PconvConfig, state: PconvState, blocks_x: torch.Tensor,
                          f"of blocks_x {tuple(blocks_x.shape)}")
     both = torch.stack([blocks_x.to(torch.float32), blocks_h.to(torch.float32)], 1)
     fr, fi = _forward_partition(cfg, both)            # (K, 2, [C,] bins)
-    wr, wi = _chunk_windows(cfg, state, fr[:, 0], fi[:, 0])
     dev = fr.device
     d = (state.wp2 - torch.arange(cfg.nparts, device=dev)) % cfg.nparts
     dcl = d.clamp(max=k - 1)
@@ -380,13 +405,14 @@ def pconv_chunk_tv(cfg: PconvConfig, state: PconvState, blocks_x: torch.Tensor,
     hnew = tuple(f[:, 1].movedim(0, -2)[..., dcl, :] for f in (fr, fi))   # ([C,] np, b)
     hold = (state.spec_h_re, state.spec_h_im)
     hk = [torch.where(sel, n.unsqueeze(-3), o.unsqueeze(-3)) for n, o in zip(hnew, hold)]
-    acc = _window_mac(cfg, wr, wi, *hk)
     last = (d <= k - 1)[:, None]
     state = state._replace(
         spec_h_re=torch.where(last, hnew[0], state.spec_h_re),
         spec_h_im=torch.where(last, hnew[1], state.spec_h_im),
         wp2=(state.wp2 - k) % cfg.nparts)
-    return _chunk_out(cfg, state, acc, _chunk_rings(cfg, state, fr[:, 0], fi[:, 0]))
+    state, outs = _timeline_engine(cfg, state, fr[:, 0].movedim(0, -2),
+                                   fi[:, 0].movedim(0, -2), _gather_mac(cfg, *hk))
+    return state, outs.movedim(-2, 0).contiguous()
 
 
 def _check_blocks(cfg: PconvConfig, blocks: torch.Tensor, name: str = "blocks",
@@ -561,20 +587,6 @@ def pconv_stream_batched_tv(cfg: PconvConfig, state: PconvState, blocks_x: torch
                           wp2=_advance(state.wp2, -nb, cfg.nparts)), outs
 
 
-def _rings_after(cfg: PconvConfig, state: PconvState, fr: torch.Tensor,
-                 fi: torch.Tensor) -> Cplx:
-    """The doubled input rings after nb blocks whose frames are fr, fi
-    ([C,] nb, bins), any nb: below nparts the frames are written at slots
-    (wp + t) mod nparts; from nparts on slot s holds frame
-    t_s = nb-1 - ((wp + nb-1 - s) mod nparts), the last to land there."""
-    nb = fr.shape[-2]
-    if nb < cfg.nparts:
-        return _chunk_rings(cfg, state, fr.movedim(-2, 0), fi.movedim(-2, 0))
-    s = torch.arange(cfg.nparts, device=fr.device)
-    t_s = nb - 1 - ((state.wp + nb - 1 - s) % cfg.nparts)
-    return tuple(torch.cat([f[..., t_s, :]] * 2, -2) for f in (fr, fi))
-
-
 def _offline_batched(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor
                      ) -> Tuple[PconvState, torch.Tensor]:
     """Batched offline LTI render: blocks (nb, C, pts) -> (nb, C, pts) on a
@@ -582,36 +594,28 @@ def _offline_batched(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor
 
     The frequency-delay-line MAC is a pure sliding-window correlation over
     each channel's frame timeline (the ring holds exactly the last nparts
-    spectra), so the render is one forward product of every block, one
-    sliding-MAC kernel launch over the timelines, one batched inverse
-    transform and a vectorized overlap-add, with no sequential scan. The
-    MAC runs through ``chunk_mac`` up to CHUNKMAC_MAX_BATCH channels and
-    ``macflow_lti_batched`` above (both ``ops/cuda/slidemac.py``: the CUDA
-    kernel for CUDA tensors, the twin for CPU tensors). Outputs match
-    per-block streaming within float32 reduction-order tolerance; the state
-    chains exactly.
+    spectra), so the render is ``_timeline_engine``: one forward product of
+    every block, one sliding-MAC kernel launch over the timelines, one
+    batched inverse transform and a vectorized overlap-add, with no
+    sequential scan. The MAC runs through ``chunk_mac`` up to
+    CHUNKMAC_MAX_BATCH channels and ``macflow_lti_batched`` above: one
+    CUDA entry under the JAX package's two names, on the same timeline
+    (``ops/cuda/slidemac.py``: the kernel for CUDA tensors, the twin for
+    CPU tensors). Outputs match per-block streaming within float32
+    reduction-order tolerance; the state chains exactly.
     """
     _check_offline(cfg, state, blocks)
-    nb, nch, pts = blocks.shape
-    old_r, old_i = _x_prefix_rows(cfg, state)         # (C, nparts-1, bins)
+    nb, nch = blocks.shape[:2]
     fr, fi = _forward_partition(cfg, blocks)          # (nb, C, bins)
-    fr, fi = fr.transpose(0, 1), fi.transpose(0, 1)   # (C, nb, bins)
     h = (state.spec_h_re, state.spec_h_im)
-    if nch <= CHUNKMAC_MAX_BATCH:
-        # chunk_mac's timeline is nparts + G rows for G outputs: one zero
-        # row closes it
-        pad = fr.new_zeros((nch, 1, cfg.bins))
-        acc_r, acc_i = chunk_mac((torch.cat([old_r, fr, pad], 1),
-                                  torch.cat([old_i, fi, pad], 1)), h, cfg.b0_scale)
-    else:
-        acc_r, acc_i = macflow_lti_batched((torch.cat([old_r, fr], 1),
-                                            torch.cat([old_i, fi], 1)), h, nb, cfg.b0_scale)
-    y = irfft_split((acc_r, acc_i), cfg.impl)         # (C, nb, 2*pts)
-    tails = torch.cat([state.tail[:, None], y[:, :-1, pts:]], 1)
-    outs = ((y[..., :pts] + tails) / pts).transpose(0, 1).contiguous()
-    sxr, sxi = _rings_after(cfg, state, fr, fi)
-    return state._replace(spec_x_re=sxr, spec_x_im=sxi, wp=(state.wp + nb) % cfg.nparts,
-                          tail=y[:, -1, pts:]), outs
+
+    def mac(tl: Cplx) -> Cplx:
+        if nch <= CHUNKMAC_MAX_BATCH:
+            return chunk_mac(tl, h, cfg.b0_scale)
+        return macflow_lti_batched(tl, h, nb, cfg.b0_scale)
+
+    state, outs = _timeline_engine(cfg, state, fr.transpose(0, 1), fi.transpose(0, 1), mac)
+    return state, outs.transpose(0, 1).contiguous()
 
 
 def _check_offline(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor):

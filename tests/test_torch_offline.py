@@ -276,6 +276,36 @@ def test_stream_batched_chunked_matches_jax():
     assert sv.wp == ss.wp
 
 
+@pytest.mark.parametrize("path", ["chunk", "chunk_tv", "offline", "render", "chunked",
+                                  "decomposed"])
+def test_engine_states_chain_into_the_scan(path):
+    """Every path of the timeline engine leaves contiguous state planes
+    (the card's whole-scan kernels take no others) that chain into the
+    per-block scan as the scan's own state does."""
+    cfg = P.PconvConfig(pts=16, nparts=4)
+    rng = np.random.default_rng(len(path))
+    nch = None if path in ("chunk", "chunk_tv", "offline", "decomposed") else 3
+    st0 = _seeded(cfg, rng, nch)
+    shape = (6, 16) if nch is None else (6, nch, 16)
+    blocks, more = (_t(rng.standard_normal(shape).astype(np.float32)) for _ in range(2))
+    run = {"chunk": lambda s: P.pconv_chunk(cfg, s, blocks[:3]),
+           "chunk_tv": lambda s: P.pconv_chunk_tv(cfg, s, blocks[:3], blocks[3:]),
+           "offline": lambda s: P.pconv_offline(cfg, s, blocks),
+           "render": lambda s: P._offline_batched(cfg, s, blocks),
+           "chunked": lambda s: P.pconv_stream_batched_chunked(cfg, s, blocks, K=2),
+           "decomposed": lambda s: stream_decomposed(cfg, s, blocks)}[path]
+    st = run(st0)[0]
+    for name in RINGS + ("tail",):
+        assert getattr(st, name).is_contiguous(), name
+    scan = P.pconv_stream if nch is None else P.pconv_stream_batched
+    if path == "chunk_tv":
+        ref = P.pconv_stream_tv(cfg, st0, blocks[:3], blocks[3:])[0]
+    else:
+        ref = scan(cfg, st0, blocks[:3] if path == "chunk" else blocks)[0]
+    _assert_state_close(st, ref)
+    _close(scan(cfg, st, more)[1], scan(cfg, ref, more)[1])
+
+
 # ---------------------------------------------------------------------------
 # convolve_oneshot
 # ---------------------------------------------------------------------------
