@@ -30,7 +30,15 @@ bench's offline shapes and odd shapes; ``pconv_offline``,
 ``stream_decomposed`` and ``convolve_oneshot`` against float64 scipy and
 the streaming paths; and their times under the JAX bench's metric names,
 beside the kernel's, its twin's, its bound and one cuDNN ``conv1d`` of the
-same correlation. Last, one JSON line with every kernel's launches, error,
+same correlation. Then the per-block path: the block-step kernels
+(``spectral_mac``, ``block_step_fused``, ``block_step_fwd_fused``,
+``block_step_fwd_fused_tv``) against their twins at one and 64 channels of
+the headline ring and at odd shapes; ``Clpconv.convolution`` with a
+crossfaded IR swap retargeted mid-fade, ``ClconvProcessor.set_ir``,
+``CltvconvProcessor``, ``Convolver.set_ir`` on 16 of 64 channels (the
+others bit-equal to an engine that never swapped) and a ``MatrixConvolver``
+entry swap against float64 scipy blends; and their per-block times.
+Last, one JSON line with every kernel's launches, error,
 time and bound, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Every phase prints one line; any
 failure exits non-zero before the last line. Without a CUDA card, or
@@ -218,7 +226,9 @@ def main():
     import opencl_fft_tpu_torch as P
     from opencl_fft_tpu_torch.ops import dconv as D
     from opencl_fft_tpu_torch.ops.cuda import _build
+    from opencl_fft_tpu_torch.ops.cuda import blockstep as BS
     from opencl_fft_tpu_torch.ops.cuda import dstream as K
+    from opencl_fft_tpu_torch.ops.cuda import mac as MC
     from opencl_fft_tpu_torch.ops.cuda import slidemac as SM
     from opencl_fft_tpu_torch.ops.cuda import streamstep as S
     from opencl_fft_tpu_torch.ops.cuda import vmemfft as V
@@ -228,9 +238,20 @@ def main():
         K.LAUNCHES = 0
         V.LAUNCHES = V.FRONT2_LAUNCHES = 0
         SM.CHUNKMAC_LAUNCHES = SM.MACFLOW_LAUNCHES = SM.MACFLOW_BATCHED_LAUNCHES = 0
+        MC.LAUNCHES = BS.STEP_LAUNCHES = BS.FWD_LAUNCHES = BS.FWD_TV_LAUNCHES = 0
+
+    def step_counts():
+        """Launches of spectral_mac, block_step_fused, block_step_fwd_fused
+        and block_step_fwd_fused_tv."""
+        return MC.LAUNCHES, BS.STEP_LAUNCHES, BS.FWD_LAUNCHES, BS.FWD_TV_LAUNCHES
+
+    def worst_channel(got, want):
+        """max over channels of max|got - want| / max|want| on (nb, C, pts)."""
+        return max(float((got[:, c] - want[:, c]).abs().max()) / float(want[:, c].abs().max())
+                   for c in range(got.shape[1]))
 
     # phase 2: build from the checkout's sources, one nvcc per source at once
-    libs = ("streamstep", "dstream", "fft", "slidemac")
+    libs = ("streamstep", "dstream", "fft", "slidemac", "blockstep")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as ex:
         list(ex.map(_build.load, libs))
@@ -576,11 +597,19 @@ def main():
                                irs[c].astype(np.float64))[:n_serve] for c in oracle_ch}
     err13o = max(rel_err(y_np[:, c].reshape(-1), refs[c]) for c in oracle_ch)
     check(err13o <= ORACLE_TOL, f"Convolver.stream vs scipy {err13o:.3e} > {ORACLE_TOL}")
+    # the per-block step's state chains into the scan: 3 steps (the block
+    # step kernel), then a scan of 8 blocks, against the scan of all of them
+    conv_st = P.Convolver(cfg, SERVE_CH, device=dev)
+    conv_st.push_ir(irs_d)
+    y_st = torch.stack([conv_st.step(serve_blocks[i]) for i in range(3)])
+    y_st = torch.cat([y_st, conv_st.stream(serve_blocks[3:11])])
+    err13s = worst_channel(y_st, y_serve[:11])
+    check(err13s <= TOL, f"Convolver.step then stream vs stream {err13s:.3e} > {TOL}")
     print(f"phase 13 serving main path: Convolver(C={SERVE_CH}).push_ir({SERVE_CH}x{IR_LEN}) + "
           f"stream({SERVE_BLOCKS}x{SERVE_CH}x{PTS}) on {dev}: vs single-channel pconv_stream "
           f"on all {SERVE_CH} channels {err13:.3e} (tol {TOL}); vs float64 scipy on channels "
-          f"{oracle_ch} {err13o:.3e} (tol {ORACLE_TOL}); batched kernel launches "
-          f"{serve_launches}", flush=True)
+          f"{oracle_ch} {err13o:.3e} (tol {ORACLE_TOL}); 3 step() then stream(8) vs stream "
+          f"{err13s:.3e} (tol {TOL}); batched kernel launches {serve_launches}", flush=True)
 
     # phase 14: TV serving main path: from a zero state, each channel's IR
     # partitions fed cyclically through operand 2 (partition j arrives
@@ -601,6 +630,12 @@ def main():
     y_np = y_tvs.cpu().numpy()
     err14o = max(rel_err(y_np[:, c].reshape(-1), refs[c]) for c in oracle_ch)
     check(err14o <= ORACLE_TOL, f"TVConvolver.stream vs scipy {err14o:.3e} > {ORACLE_TOL}")
+    tv_st = P.TVConvolver(cfg, SERVE_CH, device=dev)
+    y_st = torch.stack([tv_st.step(serve_blocks[i], h_cyc[i]) for i in range(3)])
+    y_st = torch.cat([y_st, tv_st.stream(serve_blocks[3:11], h_cyc[3:11])])
+    err14s = worst_channel(y_st, y_tvs[:11])
+    check(err14s <= TOL, f"TVConvolver.step then stream vs stream {err14s:.3e} > {TOL}")
+    del conv_st, tv_st, y_st
     m_len, m_blocks = 1 << 14, 64
     mcfg = P.PconvConfig.for_ir_length(m_len, PTS)
     m_irs = (0.1 * rng.standard_normal((2, 2, m_len))).astype(np.float32)
@@ -618,7 +653,8 @@ def main():
     print(f"phase 14 TV serving main path: TVConvolver(C={SERVE_CH}).stream("
           f"{SERVE_BLOCKS}x{SERVE_CH}x{PTS}, IR partitions cyclic in operand 2) on {dev}: vs "
           f"single-channel pconv_stream on all channels {err14:.3e}, vs float64 scipy "
-          f"{err14o:.3e} (tol {ORACLE_TOL}); batched TV kernel launches {serve_tv_launches}; "
+          f"{err14o:.3e} (tol {ORACLE_TOL}); 3 step() then stream(8) vs stream {err14s:.3e} "
+          f"(tol {TOL}); batched TV kernel launches {serve_tv_launches}; "
           f"MatrixConvolver(2, 2) true stereo, {m_len} taps x {m_blocks} blocks: vs scipy "
           f"{err14m:.3e}", flush=True)
     del singles, y_np, h_cyc
@@ -905,11 +941,6 @@ def main():
     # phase 22: the offline and chunked main paths on the card, against
     # float64 scipy (phase 4's 20 s signal and 2^17-tap IR; phase 13's 64
     # IRs) and against the streaming paths
-    def worst_channel(got, want):
-        """max over channels of max|got - want| / max|want| on (nb, C, pts)."""
-        return max(float((got[:, c] - want[:, c]).abs().max()) / float(want[:, c].abs().max())
-                   for c in range(got.shape[1]))
-
     def conv_ready(nch):
         c = P.Convolver(cfg, nch, device=dev)
         c.push_ir(irs_d[:nch])
@@ -1109,6 +1140,274 @@ def main():
               f"{100 * bd[0] / k:.1f}% reached); conv1d {lib:.4f}"
               for w_, c_, n_, k, tw, bd, lib in mac_rows), flush=True)
 
+    # phase 24: the block-step kernels (spectral_mac, block_step_fused,
+    # block_step_fwd_fused, block_step_fwd_fused_tv) vs their twins on the
+    # card at one and 64 channels of the headline ring (nparts 256, bins
+    # 512), at the ring boundaries (rp 0, 1, 255; wp2 0, 255), both b0s, and
+    # at odd shapes
+    def ring_inputs(nch, nparts, bins):
+        """A doubled ring (both halves equal), h planes, a tail and the two
+        operands' blocks; ``nch`` None for no channel axis."""
+        lead = () if nch is None else (nch,)
+        a, b_ = f(*lead, nparts, bins), f(*lead, nparts, bins)
+        return ((torch.cat([a, a], -2).contiguous(), torch.cat([b_, b_], -2).contiguous()),
+                (f(*lead, nparts, bins, s=0.05), f(*lead, nparts, bins, s=0.05)),
+                f(*lead, bins), f(2, *lead, bins, s=0.1))
+
+    def block_kernels(ring, h, tail, blocks, rp, wp2, b0, twin):
+        """Each block-step kernel (or its twin) once: name -> its outputs."""
+        m = (MC.spectral_mac_plain, BS.block_step_fused_plain, BS.block_step_fwd_fused_plain,
+             BS.block_step_fwd_fused_tv_plain) if twin else \
+            (MC.spectral_mac, BS.block_step_fused, BS.block_step_fwd_fused,
+             BS.block_step_fwd_fused_tv)
+        bins = tail.shape[-1]
+        fwd = m[2](blocks[0], ring, h, rp, b0, tail, bins)
+        tv = m[3](blocks, ring, h, rp, wp2, b0, tail, bins)
+        return {"spectral_mac": m[0](ring, h, rp, b0),
+                "block_step_fused": m[1](ring, h, rp, b0, tail, bins),
+                "block_step_fwd_fused": (fwd[0], fwd[1], *fwd[2]),
+                "block_step_fwd_fused_tv": (tv[0], tv[1], *tv[2], *tv[3])}
+
+    bs_names = ("spectral_mac", "block_step_fused", "block_step_fwd_fused",
+                "block_step_fwd_fused_tv")
+    bs_shapes = [(None, np_, b), (SERVE_CH, np_, b), (None, 3, 16), (3, 3, 16)]
+    bs_err = {}
+    worst = 0.0
+    for nch, nparts, bins in bs_shapes:
+        ring, h, tail, bl2 = ring_inputs(nch, nparts, bins)
+        for rp in sorted({0, 1, nparts - 1}):
+            for wp2 in sorted({0, nparts - 1}):
+                for b0 in (1.0, 2.0):
+                    n0 = step_counts()
+                    got = block_kernels(ring, h, tail, bl2, rp, wp2, b0, False)
+                    torch.cuda.synchronize()
+                    check(step_counts() == tuple(n + 1 for n in n0),
+                          "each block-step wrapper counts its launch")
+                    want = block_kernels(ring, h, tail, bl2, rp, wp2, b0, True)
+                    for kname in bs_names:
+                        for g in got[kname]:
+                            check(g.is_contiguous(), f"{kname} returns contiguous planes")
+                        worst = compare(tuple((f"{kname} {i}", g, w_) for i, (g, w_) in
+                                              enumerate(zip(got[kname], want[kname]))),
+                                        f"C={nch} nparts={nparts} bins={bins} rp={rp} "
+                                        f"wp2={wp2} b0={b0}", worst)
+                        key = (kname, nch or 1, nparts)
+                        bs_err[key] = max(bs_err.get(key, 0.0), *(
+                            float((g - w_).abs().max()) for g, w_ in zip(got[kname],
+                                                                         want[kname])))
+    del ring, h, tail, bl2, got, want
+    print(f"phase 24 block-step kernels vs twins: {', '.join(bs_names)} at (C,nparts,bins) "
+          f"{bs_shapes}, rp {{0, 1, nparts-1}}, wp2 {{0, nparts-1}}, b0 {{1,2}}; worst rel err "
+          f"{worst:.3e} (tol {TOL}); max_abs_err at C=1 / C={SERVE_CH}: " + "; ".join(
+              f"{k} {bs_err[(k, 1, np_)]:.3e} / {bs_err[(k, SERVE_CH, np_)]:.3e}"
+              for k in bs_names), flush=True)
+
+    # phase 25: the per-block main paths and the IR hot-swap on the card,
+    # against float64 scipy blends (1-r) conv(x, h_old) + r conv(x, h_new)
+    def blend(xx, h_old, h_new, f0, f1, n):
+        """float64: r rises per sample over [f0, f1) to 1."""
+        y_old = sps.fftconvolve(xx.astype(np.float64), h_old.astype(np.float64))[:n]
+        y_new = sps.fftconvolve(xx.astype(np.float64), h_new.astype(np.float64))[:n]
+        r = np.zeros(n)
+        r[f0:f1] = (np.arange(f1 - f0) + 1) / (f1 - f0)
+        r[f1:] = 1.0
+        return (1 - r) * y_old + r * y_new
+
+    def fresh_ir(n):
+        return (rng.standard_normal(n) * np.exp(-np.arange(n) / (0.5 * SR))).astype(np.float32)
+
+    FADE = 8
+    h1, h2 = fresh_ir(IR_LEN), fresh_ir(IR_LEN)
+    n25 = xs.size // PTS
+    x25 = xs[:n25 * PTS]
+    sw1, sw2 = 60, 64                      # fade to h1, retarget to h2 mid-fade
+    eng25 = P.Clpconv(0, IR_LEN, PTS, quiet, device="cuda")
+    eng25.push_ir(ir)
+    proc_table = (0.3 * rng.standard_normal(IR_LEN + 900)).astype(np.float32)
+    p_skip, p_size, p_scale, p_at, p_fade, p_blocks = 700, 100700, 0.5, 40, 4, 94
+    proc25 = P.ClconvProcessor(ir, parts=PTS, device="cuda", on_message=quiet)
+    tvp25 = P.CltvconvProcessor(PTS, IR_LEN, device="cuda", on_message=quiet)
+    ir_cyc25 = np.resize(ir, p_blocks * PTS)
+    swap_ch = list(range(0, SERVE_CH, 4))
+    new_irs = (rng.standard_normal((len(swap_ch), IR_LEN)) * decay).astype(np.float32)
+    conv25, ref25 = (P.Convolver(cfg, SERVE_CH, device=dev) for _ in range(2))
+    conv25.push_ir(irs_d)
+    ref25.push_ir(irs_d)
+    m_new = (0.1 * rng.standard_normal((1, m_len))).astype(np.float32)
+    mx25 = (0.1 * rng.standard_normal((16, 2, PTS))).astype(np.float32)
+    m25 = P.MatrixConvolver(mcfg, 2, 2, device=dev)
+    m25.push_ir(m_irs)
+    out = np.empty(PTS, np.float32)
+    zero_counts()
+    y_eng = []
+    for i in range(n25):
+        if i == sw1:
+            eng25.push_ir_xfade(h1, FADE)
+        if i == sw2:
+            eng25.push_ir_xfade(h2, FADE)
+        eng25.convolution(out, x25[i * PTS:(i + 1) * PTS])
+        y_eng.append(out.copy())
+    y_proc, y_tvp = [], []
+    for i in range(p_blocks):
+        if i == p_at:
+            proc25.set_ir(proc_table, skip=p_skip, size=p_size, scale=p_scale,
+                          fade_blocks=p_fade)
+        y_proc.append(proc25.process(xs[i * PTS:(i + 1) * PTS]))
+        y_tvp.append(tvp25.process(xs[i * PTS:(i + 1) * PTS], ir_cyc25[i * PTS:(i + 1) * PTS]))
+    y_conv, y_ref = [], []
+    for i in range(24):
+        if i == 8:
+            conv25.set_ir(torch.from_numpy(new_irs).to(dev), channels=swap_ch, fade_blocks=FADE)
+        y_conv.append(conv25.step(serve_blocks[i]))
+        y_ref.append(ref25.step(serve_blocks[i]))
+    y_conv = torch.cat([torch.stack(y_conv), conv25.stream(serve_blocks[24:32])])
+    y_ref = torch.cat([torch.stack(y_ref), ref25.stream(serve_blocks[24:32])])
+    y_m = []
+    for i in range(16):
+        if i == 5:
+            m25.set_ir(m_new, entries=[(1, 0)], fade_blocks=4)
+        y_m.append(m25.step(torch.from_numpy(mx25[i]).to(dev)))
+    y_m = torch.stack(y_m).cpu().numpy()
+    torch.cuda.synchronize()
+    bs_launches = step_counts()
+    check(min(bs_launches) > 0, f"the per-block main paths launched every block-step "
+                                f"kernel {dict(zip(bs_names, bs_launches))}")
+    # the checks, after the counts are read
+    n_eng = n25 * PTS
+    y_eng = np.concatenate(y_eng)
+    want = blend(x25, ir, h1, sw1 * PTS, (sw1 + FADE) * PTS, n_eng)
+    want[sw2 * PTS:] = blend(x25, h1, h2, sw2 * PTS, (sw2 + FADE) * PTS, n_eng)[sw2 * PTS:]
+    err25a = rel_err(y_eng, want)
+    h_proc = np.zeros(IR_LEN, np.float32)
+    h_proc[:p_size - p_skip] = proc_table[p_skip:p_size] * np.float32(p_scale)
+    n_p = p_blocks * PTS
+    y_proc = np.concatenate(y_proc)
+    check(np.all(y_proc[:PTS] == 0), "ClconvProcessor latency block")
+    want = blend(xs[:n_p], ir, h_proc, p_at * PTS, (p_at + p_fade) * PTS, n_p)
+    err25b = rel_err(y_proc[PTS:], want[:n_p - PTS])
+    y_tvp = np.concatenate(y_tvp)
+    err25c = rel_err(y_tvp[PTS:], ref5[:n_p - PTS])
+    untouched = [c for c in range(SERVE_CH) if c not in swap_ch]
+    bit25 = all(bool(torch.equal(y_conv[:24, c], y_ref[:24, c])) for c in untouched)
+    check(bit25, "Convolver.set_ir: untouched channels bit-equal to a never-swapped engine")
+    err25s = worst_channel(y_conv[24:, untouched], y_ref[24:, untouched])
+    check(err25s <= TOL, f"Convolver stream after the fade, untouched channels {err25s:.3e}")
+    y_np = y_conv.cpu().numpy()
+    xs_np = serve_blocks[:32].cpu().numpy()
+    err25d = max(rel_err(y_np[:, c].reshape(-1),
+                         blend(xs_np[:, c].reshape(-1), irs[c], new_irs[j], 8 * PTS,
+                               (8 + FADE) * PTS, 32 * PTS)) for j, c in enumerate(swap_ch))
+    mxs = mx25.transpose(1, 0, 2).reshape(2, -1)
+    T = 16 * PTS
+    ref0 = sum(sps.fftconvolve(mxs[i].astype(np.float64), m_irs[0, i].astype(np.float64))[:T]
+               for i in range(2))
+    ref1 = blend(mxs[0], m_irs[1, 0], m_new[0], 5 * PTS, 9 * PTS, T) + sps.fftconvolve(
+        mxs[1].astype(np.float64), m_irs[1, 1].astype(np.float64))[:T]
+    err25m = max(rel_err(y_m[:, 0].reshape(-1), ref0), rel_err(y_m[:, 1].reshape(-1), ref1))
+    for what, e in (("Clpconv push_ir_xfade with a retarget", err25a),
+                    ("ClconvProcessor.set_ir", err25b), ("CltvconvProcessor", err25c),
+                    ("Convolver.set_ir swapped channels", err25d),
+                    ("MatrixConvolver.set_ir", err25m)):
+        check(bool(np.isfinite(e)) and e <= ORACLE_TOL, f"{what} vs scipy: {e:.3e}")
+    print(f"phase 25 per-block main paths and IR hot-swap on {dev} vs float64 scipy blends "
+          f"(tol {ORACLE_TOL}): Clpconv.convolution {n25} blocks of {PTS}, push_ir_xfade "
+          f"({FADE} blocks) at block {sw1} retargeted at {sw2}: {err25a:.3e}; "
+          f"ClconvProcessor.set_ir(skip={p_skip}, size={p_size}, scale={p_scale}, "
+          f"fade_blocks={p_fade}) {p_blocks} blocks: {err25b:.3e}; CltvconvProcessor, IR fed "
+          f"cyclically: {err25c:.3e}; Convolver(C={SERVE_CH}) 24 step() with set_ir on "
+          f"{len(swap_ch)} channels at step 8, then stream(8): swapped {err25d:.3e}, untouched "
+          f"bit-equal to a never-swapped engine {bit25}, their stream after the fade "
+          f"{err25s:.3e} (tol {TOL}); MatrixConvolver(2, 2) entry (1, 0) swap: {err25m:.3e}; "
+          f"launches " + ", ".join(f"{k} {n}" for k, n in zip(bs_names, bs_launches)),
+          flush=True)
+    del y_conv, y_ref, y_np, xs_np
+
+    # phase 26: per-block times. CUDA events over 10 calls back to back,
+    # device time under torch.profiler, and host wall of one synchronised
+    # call; each block-step kernel alone (and its twin) at one and 64
+    # channels of the headline ring
+    def host_wall_us(fn, calls=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls * 1e6
+
+    st1 = P.push_ir(cfg, P.pconv_init(cfg, dev), ir_d)
+    st1 = P.pconv_stream(cfg, st1, blocks[:5])[0]
+    st64_ = conv25.state
+    b1d, b1h, b64 = f(PTS, s=0.1), f(PTS, s=0.1), f(SERVE_CH, PTS, s=0.1)
+    xf1 = P.pconv_begin_xfade(cfg, st1, torch.from_numpy(h1).to(dev))
+    xf64 = P.pconv_begin_xfade(cfg, st64_, irs_d.flip(0).contiguous())
+    # the blend weights of fade block 3 of FADE
+    ramp = torch.from_numpy((np.arange(PTS, dtype=np.float32) + 1 + 3 * PTS)
+                            / np.float32(FADE * PTS)).to(dev)
+    conv26 = P.Convolver(cfg, SERVE_CH, device=dev)
+    conv26.push_ir(irs_d)
+    out_b = np.empty(PTS, np.float32)
+    path_rows = []
+    for label, fn in (("Clpconv.convolution LTI", lambda: eng25.convolution(out_b, b1)),
+                      ("Clpconv.convolution TV", lambda: eng25.convolution(out_b, b1, b2)),
+                      ("pconv_step C=1", lambda: P.pconv_step(cfg, st1, b1d)),
+                      ("pconv_step_tv C=1", lambda: P.pconv_step_tv(cfg, st1, b1d, b1h)),
+                      (f"Convolver.step C={SERVE_CH}", lambda: conv26.step(b64)),
+                      ("pconv_step_xfade C=1", lambda: P.pconv_step_xfade(cfg, xf1, b1d, ramp)),
+                      (f"pconv_step_xfade C={SERVE_CH}",
+                       lambda: P.pconv_step_xfade(cfg, xf64, b64, ramp))):
+        path_rows.append((label, cuda_ms(fn, reps=7, calls=10), device_us(fn),
+                          host_wall_us(fn)))
+    print(f"phase 26 per-block timing [{card}] (event ms per call over 10 back to back; "
+          f"device us per call under torch.profiler; host wall us of one synchronised call): "
+          + "; ".join(f"{lab}: {ms:.4f} ms, device {dus:.1f} us, wall {wus:.1f} us"
+                      for lab, ms, dus, wus in path_rows), flush=True)
+
+    def bs_bound(kname, nch):
+        """Least time of one call at the headline ring: each input read once,
+        each output written once; the MAC, and the post and forward
+        products as the dense table products the function is."""
+        plane, row = nch * np_ * b * 4, nch * b * 4     # a (nparts, bins) plane; a (bins,) row
+        nbytes_, flops = 4 * plane, 8.0 * nch * np_ * b  # the window and h, re and im; the MAC
+        if kname == "spectral_mac":
+            return bound(flops, nbytes_ + 2 * row)       # the accumulators out
+        nbytes_ += (2 * b) ** 2 * 4 + 3 * row            # wpost, the tail in, out and tail out
+        flops += 2.0 * nch * (2 * b) ** 2
+        if kname != "block_step_fused":
+            nfr = 2 if kname.endswith("_tv") else 1
+            # wfwd, the blocks, the new doubled input ring and the new h ring
+            nbytes_ += PTS * 2 * b * 4 + nfr * row + 4 * plane + (nfr - 1) * 2 * plane
+            flops += 2.0 * nfr * nch * PTS * 2 * b
+        return bound(flops, nbytes_)
+
+    kern_rows = {}
+    for nch in (None, SERVE_CH):
+        ring, h, tail, bl2 = ring_inputs(nch, np_, b)
+        for kname in bs_names:
+            single = {"spectral_mac": lambda: MC.spectral_mac(ring, h, 1, 2.0),
+                      "block_step_fused": lambda: BS.block_step_fused(ring, h, 1, 2.0, tail, b),
+                      "block_step_fwd_fused": lambda: BS.block_step_fwd_fused(
+                          bl2[0], ring, h, 1, 2.0, tail, b),
+                      "block_step_fwd_fused_tv": lambda: BS.block_step_fwd_fused_tv(
+                          bl2, ring, h, 1, 3, 2.0, tail, b)}[kname]
+            plain = {"spectral_mac": lambda: MC.spectral_mac_plain(ring, h, 1, 2.0),
+                     "block_step_fused": lambda: BS.block_step_fused_plain(ring, h, 1, 2.0, tail,
+                                                                           b),
+                     "block_step_fwd_fused": lambda: BS.block_step_fwd_fused_plain(
+                         bl2[0], ring, h, 1, 2.0, tail, b),
+                     "block_step_fwd_fused_tv": lambda: BS.block_step_fwd_fused_tv_plain(
+                         bl2, ring, h, 1, 3, 2.0, tail, b)}[kname]
+            kern_rows[(kname, nch or 1)] = (cuda_ms(single, reps=9, calls=10),
+                                            device_us(single),
+                                            cuda_ms(plain, warmup=1, reps=5, calls=3),
+                                            bs_bound(kname, nch or 1))
+    del ring, h, tail, bl2
+    print(f"phase 26 block-step kernels [{card}] (ms per call, CUDA events over 10 calls back "
+          f"to back; device us under torch.profiler; twin ms; bound ms): " + "; ".join(
+              f"{k} C={c}: {ms:.4f} (device {dus:.1f} us); twin {tw:.4f}; bound {bd[0]:.4f} "
+              f"({bd[1]}, {100 * bd[0] / ms:.1f}% reached)"
+              for (k, c), (ms, dus, tw, bd) in kern_rows.items()), flush=True)
+
     def kernel(name, source, replaces, launches, err, ms, plain, bnd, lib):
         return {"name": name, "route": "cuda", "source": f"opencl_fft_tpu_torch/csrc/{source}",
                 "replaces": f"opencl_fft_tpu/ops/pallas/{replaces}", "launches": launches,
@@ -1139,7 +1438,14 @@ def main():
                off_launches[0]),
               ("macflow_lti", ((1, SCAN_BLOCKS),), "macflow.py:252", off_launches[1]),
               ("macflow_lti_batched", ((SERVE_CH, CHUNK_K), (SERVE_CH, SERVE_BLOCKS)),
-               "macflow.py:367", off_launches[2])))]}))
+               "macflow.py:367", off_launches[2]))),
+        # times at one channel, the shape of most of each kernel's main-path
+        # launches (Clpconv, the processors); the error over both widths
+        *(kernel(k, "blockstep.cu", src, n,
+                 max(bs_err[(k, 1, np_)], bs_err[(k, SERVE_CH, np_)]),
+                 kern_rows[(k, 1)][0], kern_rows[(k, 1)][2], kern_rows[(k, 1)][3], None)
+          for k, src, n in zip(bs_names, ("mac.py:87", "blockstep.py:438", "blockstep.py:343",
+                                          "blockstep.py:382"), bs_launches))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

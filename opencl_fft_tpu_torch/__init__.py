@@ -20,8 +20,15 @@ engines (``pconv_chunk{,_tv}``, ``pconv_offline``, ``Convolver.render``,
 ``pconv_stream_batched_chunked``, ``convolve_oneshot``, the LTI
 ``stream_decomposed`` of ``ops/decomposed.py``), whose sliding MAC runs on
 ``csrc/slidemac.cu`` (``ops/cuda/slidemac.py``: ``chunk_mac``,
-``macflow_lti``, ``macflow_lti_batched``); and state exchange with the JAX
-package (``interop.py``).
+``macflow_lti``, ``macflow_lti_batched``); the per-block steps
+(``pconv_step{,_tv}``, ``Clpconv.convolution``, the opcode processors,
+``Convolver.step``) and the crossfaded IR replacement (``XfadeState``,
+``pconv_begin_xfade``, ``pconv_step_xfade``, ``Clpconv.push_ir_xfade``,
+``ClconvProcessor.set_ir``, ``Convolver.set_ir``, ``MatrixConvolver.set_ir``),
+whose block steps run on ``csrc/blockstep.cu`` (``ops/cuda/blockstep.py``:
+``block_step_fused``, ``block_step_fwd_fused``, ``block_step_fwd_fused_tv``;
+``ops/cuda/mac.py``: ``spectral_mac``); and state exchange with the JAX
+package (``interop.py``), a crossfade in progress included.
 
 Every engine takes an explicit device: a CUDA card, or the CPU when asked
 for by name, where each kernel's plain PyTorch twin runs.
@@ -29,7 +36,12 @@ for by name, where each kernel's plain PyTorch twin runs.
 
 from .api import Clcfft, Cldconv, Clpconv, Clrfft
 from .interop import (dconv_state_from_numpy, dconv_state_to_numpy,
-                      pconv_state_from_numpy, pconv_state_to_numpy)
+                      pconv_state_from_numpy, pconv_state_to_numpy,
+                      xfade_state_from_numpy, xfade_state_to_numpy)
+from .ops.cuda.blockstep import (block_step_fused, block_step_fused_plain,
+                                 block_step_fwd_fused, block_step_fwd_fused_plain,
+                                 block_step_fwd_fused_tv, block_step_fwd_fused_tv_plain)
+from .ops.cuda.mac import spectral_mac, spectral_mac_plain
 from .ops.cuda.dstream import dstream_steps, dstream_steps_plain, toeplitz_slabs
 from .ops.cuda.slidemac import chunk_mac, macflow_lti, macflow_lti_batched, slide_mac_plain
 from .models import (BatchedFFT, Convolver, MatrixConvolver, TVConvolver,
@@ -46,10 +58,10 @@ from .ops.dconv import (DconvConfig, DconvState, convolve_direct, dconv_init,
 from .ops.cuda.vmemfft import (fft_vmem, fft_vmem_front2, fft_vmem_front2_plain,
                                fft_vmem_plain)
 from .ops.fft import cfft, cfft_split, fft, fft_split, fft_unnormalized, ifft
-from .ops.pconv import (PconvConfig, PconvState, convolve, convolve_oneshot,
-                        pconv_chunk, pconv_chunk_tv, pconv_init, pconv_offline,
-                        pconv_step, pconv_step_tv, pconv_stream,
-                        pconv_stream_batched, pconv_stream_batched_chunked,
+from .ops.pconv import (PconvConfig, PconvState, XfadeState, convolve, convolve_oneshot,
+                        pconv_begin_xfade, pconv_chunk, pconv_chunk_tv, pconv_init,
+                        pconv_offline, pconv_step, pconv_step_tv, pconv_step_xfade,
+                        pconv_stream, pconv_stream_batched, pconv_stream_batched_chunked,
                         pconv_stream_batched_tv, pconv_stream_tv, push_ir)
 from .ops.rfft import (irfft, irfft_split, pack_forward, packed_to_standard, rfft,
                        rfft_split, standard_to_packed, unpack_inverse)
@@ -74,6 +86,7 @@ __all__ = [
     "pconv_stream_batched", "pconv_stream_batched_tv",
     "pconv_chunk", "pconv_chunk_tv", "pconv_offline", "pconv_stream_batched_chunked",
     "convolve_oneshot", "stream_decomposed",
+    "XfadeState", "pconv_begin_xfade", "pconv_step_xfade",
     "Convolver", "TVConvolver", "MatrixConvolver", "BatchedFFT", "batched_state",
     "DconvConfig", "DconvState", "dconv_init", "dconv_step", "dconv_step_tv",
     "dconv_stream", "convolve_direct",
@@ -83,7 +96,11 @@ __all__ = [
     "stream_steps_fused_batched_tv", "stream_steps_fused_batched_tv_plain",
     "dstream_steps", "dstream_steps_plain", "toeplitz_slabs",
     "chunk_mac", "macflow_lti", "macflow_lti_batched", "slide_mac_plain",
+    "spectral_mac", "spectral_mac_plain", "block_step_fused", "block_step_fused_plain",
+    "block_step_fwd_fused", "block_step_fwd_fused_plain",
+    "block_step_fwd_fused_tv", "block_step_fwd_fused_tv_plain",
     "pconv_state_from_numpy", "pconv_state_to_numpy",
+    "xfade_state_from_numpy", "xfade_state_to_numpy",
     "dconv_state_from_numpy", "dconv_state_to_numpy",
     "get_device", "np2",
     "Status", "error_string", "FftError", "DeviceError", "SizeError",

@@ -1,12 +1,13 @@
 """Streaming state across packages.
 
-A ``PconvState`` (LTI or time-varying) and a ``DconvState`` of the JAX
-package and of this one have the same fields in the same layout, so a live
-stream can move from one to the other mid-stream. A pconv state carries the
-IR spectra and the input ring, plus the overlap-add tail and the ring
-pointers; a dconv state the delay line, the coefficient ring and its
-pointer. The exchange format is numpy: a mapping (or NamedTuple) of field
-name -> array.
+A ``PconvState`` (LTI or time-varying), an ``XfadeState`` (an IR crossfade
+in progress) and a ``DconvState`` of the JAX package and of this one have
+the same fields in the same layout, so a live stream can move from one to
+the other mid-stream, mid-fade included. A pconv state carries the IR
+spectra and the input ring, plus the overlap-add tail and the ring
+pointers; a crossfade a pconv state and the outgoing IR's ring and tail; a
+dconv state the delay line, the coefficient ring and its pointer. The
+exchange format is numpy: a mapping (or NamedTuple) of field name -> array.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from .ops.dconv import DconvState
-from .ops.pconv import PconvState
+from .ops.pconv import PconvState, XfadeState
 
 
 def _fields(fields, state_type) -> Mapping[str, Any]:
@@ -73,6 +74,34 @@ def pconv_state_to_numpy(state: PconvState) -> Dict[str, np.ndarray]:
            for name in ("spec_x_re", "spec_x_im", "spec_h_re", "spec_h_im", "tail")}
     out["wp"] = np.asarray(state.wp, np.int32)
     out["wp2"] = np.asarray(state.wp2, np.int32)
+    return out
+
+
+def xfade_state_from_numpy(fields: Union[Mapping[str, Any], tuple],
+                           device: Union[str, torch.device]) -> XfadeState:
+    """Build an XfadeState (a crossfade in progress) on ``device`` from
+    numpy fields: ``state`` (the PconvState fields, as for
+    ``pconv_state_from_numpy``) and the outgoing path's ``old_h_re``,
+    ``old_h_im`` and ``old_tail``, for example the JAX package's
+    ``XfadeState`` mapped through ``np.asarray``."""
+    fields = _fields(fields, XfadeState)
+    state = pconv_state_from_numpy(fields["state"], device)
+    old = {}
+    for name, like in (("old_h_re", state.spec_h_re), ("old_h_im", state.spec_h_im),
+                       ("old_tail", state.tail)):
+        a = np.asarray(fields[name], dtype=np.float32)
+        if a.shape != tuple(like.shape):
+            raise ValueError(f"{name} must be {tuple(like.shape)}, got {a.shape}")
+        old[name] = torch.tensor(a, device=device)       # a copy
+    return XfadeState(state=state, **old)
+
+
+def xfade_state_to_numpy(xf: XfadeState) -> Dict[str, Any]:
+    """The crossfade's fields as numpy: ``state`` as
+    ``pconv_state_to_numpy`` gives it, and the outgoing path's planes."""
+    out: Dict[str, Any] = {"state": pconv_state_to_numpy(xf.state)}
+    for name in ("old_h_re", "old_h_im", "old_tail"):
+        out[name] = getattr(xf, name).detach().cpu().numpy()
     return out
 
 

@@ -6,28 +6,33 @@ flagship models. ``Convolver`` (LTI, the ``clconv`` model at scale) and
 lockstep on one batched state: every plane has a leading channel axis and
 the ring pointers are shared. ``step`` is one block of every channel
 through the per-block functions of ``ops/pconv.py``, which broadcast over
-the channel axis (the JAX package vmaps them); ``stream`` sends a whole
-(nblocks, C, pts) scan through the batched whole-scan kernel
+the channel axis (the JAX package vmaps them; on a card one block-step
+kernel launch of ``ops/cuda/blockstep.py`` for all channels); ``stream``
+sends a whole (nblocks, C, pts) scan through the batched whole-scan kernel
 (``ops/cuda/streamstep.py``), one launch sequence for all channels, or
 with ``chunk > 1`` K blocks at a time through ``pconv_chunk`` (bit-equal to
 per-block steps); ``Convolver.render`` is the offline render
 (``_offline_batched``: one forward product, the sliding-MAC kernel of
-``ops/cuda/slidemac.py``, one inverse transform). ``MatrixConvolver``
-(true stereo and other matrices) rides on ``Convolver``; ``BatchedFFT`` is
-``fft_split`` over leading axes.
+``ops/cuda/slidemac.py``, one inverse transform). ``Convolver.set_ir`` is
+the serving hot-swap: the chosen channels crossfade to new IRs over the
+next steps (``pconv_begin_xfade`` / ``pconv_step_xfade`` on the whole
+batch, the other channels' coefficients and tails left as they are, so
+their outputs are bit-equal to an engine that never swapped).
+``MatrixConvolver`` (true stereo and other matrices) rides on
+``Convolver``; ``BatchedFFT`` is ``fft_split`` over leading axes.
 
 Every engine takes an explicit device: a CUDA card (the default), or the
 CPU when asked for by name, where each kernel's plain twin runs. Not
-ported yet, each raising NotImplementedError naming its ROADMAP item: IR
-hot-swap (``set_ir``, queue 1 item 11) and the decomposed TV engine
-(``TVConvolver.stream_chunked``, item 10).
+ported yet, raising NotImplementedError naming its ROADMAP item: the
+decomposed TV engine (``TVConvolver.stream_chunked``, queue 1 item 10).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Union
+from typing import Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..ops import pconv as _p
@@ -68,9 +73,37 @@ def batched_state(cfg: _p.PconvConfig, batch: int, device: Device = None) -> _p.
         tail=z(cfg.pts), wp=0, wp2=cfg.nparts - 1)
 
 
-def _set_ir_not_ported():
-    raise NotImplementedError(
-        "IR hot-swap (set_ir) is not ported yet (ROADMAP queue 1 item 11)")
+def _masked(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """Per channel (the leading axis): ``new`` where ``mask``, else ``old``."""
+    return torch.where(mask.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+
+def _xfade_begin(cfg: _p.PconvConfig, state: _p.PconvState, irs: torch.Tensor,
+                 mask: torch.Tensor) -> _p.XfadeState:
+    """Batched ``pconv_begin_xfade`` that starts a fade only on the channels
+    where ``mask`` (C,) is True (``models/convolver.py:269-278``): the
+    others keep their coefficient ring and tail on both paths, so their
+    blend is exactly a no-op. irs: (C, cvs); rows outside the mask are
+    unused."""
+    xf = _p.pconv_begin_xfade(cfg, state, irs)
+    st = state._replace(spec_h_re=_masked(mask, xf.state.spec_h_re, state.spec_h_re),
+                        spec_h_im=_masked(mask, xf.state.spec_h_im, state.spec_h_im),
+                        tail=_masked(mask, xf.state.tail, state.tail))
+    return xf._replace(state=st)
+
+
+def _push_masked(cfg: _p.PconvConfig, state: _p.PconvState, irs: torch.Tensor,
+                 mask: torch.Tensor) -> _p.PconvState:
+    """Batched ``push_ir`` on the channels where ``mask`` is True: an
+    instant swap (``models/convolver.py:285-290``)."""
+    new = _p.push_ir(cfg, state, irs)
+    return state._replace(spec_h_re=_masked(mask, new.spec_h_re, state.spec_h_re),
+                          spec_h_im=_masked(mask, new.spec_h_im, state.spec_h_im))
+
+
+def _mid_fade(what: str):
+    raise RuntimeError(f"an IR crossfade is in progress: drive step() for the remaining "
+                       f"fade blocks before {what}")
 
 
 class Convolver:
@@ -84,19 +117,80 @@ class Convolver:
         self.batch = batch
         self.state = batched_state(cfg, batch, device)
         self.device = self.state.tail.device
+        self._xf: Optional[_p.XfadeState] = None     # an IR crossfade in progress
+        self._fade_pos = self._fade_total = 0
 
     def push_ir(self, irs) -> None:
-        """irs: (batch, cvs)."""
+        """irs: (batch, cvs). An instant swap; it ends any crossfade on the
+        live input ring."""
+        self._collapse_fade()
         self.state = _p.push_ir(self.cfg, self.state, _f32(irs, self.device))
 
-    def set_ir(self, irs, channels=None, fade_blocks: int = 8) -> None:
-        _set_ir_not_ported()
+    def _collapse_fade(self) -> None:
+        if self._xf is not None:
+            self.state = self._xf.state
+            self._xf = None
+
+    def set_ir(self, irs, channels: Optional[Sequence[int]] = None,
+               fade_blocks: int = 8) -> None:
+        """Replace per-channel IRs on the live batched stream (the serving
+        hot-swap, ``models/convolver.py:120-169``): each swapped channel
+        crossfades between its two exact convolutions over the next
+        ``fade_blocks`` step() calls, while the other channels are
+        bit-exactly unaffected.
+
+        irs: (k, cvs) with ``channels`` a length-k index list, or (batch,
+        cvs) with ``channels=None`` to swap every channel. ``fade_blocks=0``
+        swaps at once (push_ir semantics, cl_conv.cpp:353-388: a click on a
+        live stream). A second call mid-fade adopts the in-flight targets
+        and fades to the new ones.
+        """
+        irs = _f32(irs, self.device)
+        if irs.dim() != 2 or irs.shape[1] != self.cfg.cvs:
+            raise ValueError(f"irs must be (k, {self.cfg.cvs}), got {tuple(irs.shape)}")
+        if channels is None:
+            if irs.shape[0] != self.batch:
+                raise ValueError(f"channels=None needs (batch={self.batch}, cvs) irs, "
+                                 f"got {tuple(irs.shape)}")
+            full = irs
+            mask = torch.ones(self.batch, dtype=torch.bool, device=self.device)
+        else:
+            idx = np.asarray(channels, np.int64).reshape(-1)
+            if idx.size != irs.shape[0]:
+                raise ValueError(f"{idx.size} channel indices for {irs.shape[0]} IRs")
+            if idx.size != np.unique(idx).size:
+                raise ValueError("duplicate channel indices")
+            if idx.size and (idx.min() < 0 or idx.max() >= self.batch):
+                raise ValueError(f"channel indices out of range [0, {self.batch})")
+            rows = torch.from_numpy(idx).to(self.device)
+            full = irs.new_zeros((self.batch, self.cfg.cvs))
+            full[rows] = irs
+            mask = torch.zeros(self.batch, dtype=torch.bool, device=self.device)
+            mask[rows] = True
+        if fade_blocks < 0:
+            raise ValueError(f"fade_blocks must be >= 0, got {fade_blocks}")
+        self._collapse_fade()
+        if fade_blocks == 0:
+            self.state = _push_masked(self.cfg, self.state, full, mask)
+            return
+        self._xf = _xfade_begin(self.cfg, self.state, full, mask)
+        self._fade_pos, self._fade_total = 0, int(fade_blocks)
 
     def step(self, blocks) -> torch.Tensor:
-        """blocks: (batch, pts) -> (batch, pts)."""
+        """blocks: (batch, pts) -> (batch, pts). During a crossfade, one
+        fade block (``pconv_step_xfade``)."""
         blocks = _f32(blocks, self.device)
         _check_shape("blocks", blocks, (self.batch, self.cfg.pts))
-        self.state, out = _p.pconv_step(self.cfg, self.state, blocks)
+        if self._xf is None:
+            self.state, out = _p.pconv_step(self.cfg, self.state, blocks)
+            return out
+        # pconv_step_xfade broadcasts over the channels; one ramp for the
+        # batch (every channel of a set_ir call fades on the same schedule)
+        ramp = _p._xfade_ramp(self.cfg, self._fade_pos, self._fade_total, self.device)
+        self._xf, out = _p.pconv_step_xfade(self.cfg, self._xf, blocks, ramp)
+        self._fade_pos += 1
+        if self._fade_pos >= self._fade_total:
+            self._collapse_fade()
         return out
 
     def stream(self, blocks, chunk: int = 1) -> torch.Tensor:
@@ -105,7 +199,9 @@ class Convolver:
 
         chunk > 1 takes that many blocks per ``pconv_chunk`` call instead
         (bit-equal to per-block ``step`` calls; nblocks must be a multiple
-        of chunk and chunk <= nparts)."""
+        of chunk and chunk <= nparts). Raises RuntimeError mid-fade."""
+        if self._xf is not None:
+            _mid_fade("bulk streaming")
         blocks = _f32(blocks, self.device)
         if chunk <= 1:
             self.state, out = _p.pconv_stream_batched(self.cfg, self.state, blocks)
@@ -125,7 +221,10 @@ class Convolver:
         the precomputed frame spectra, so the render is batched transforms
         and one sliding-MAC kernel launch with no sequential scan. Output
         matches ``stream`` within float32 tolerance; latency is the whole
-        render (``step``/``stream`` bound it)."""
+        render (``step``/``stream`` bound it). Raises RuntimeError
+        mid-fade."""
+        if self._xf is not None:
+            _mid_fade("bulk rendering")
         self.state, out = _p._offline_batched(self.cfg, self.state,
                                               _f32(blocks, self.device))
         return out
@@ -197,8 +296,28 @@ class MatrixConvolver:
                 f"got {tuple(irs.shape)}")
         self._conv.push_ir(irs.reshape(self.n_out * self.n_in, self.cfg.cvs))
 
-    def set_ir(self, irs, entries=None, fade_blocks: int = 8) -> None:
-        _set_ir_not_ported()
+    def set_ir(self, irs, entries: Optional[Sequence[Tuple[int, int]]] = None,
+               fade_blocks: int = 8) -> None:
+        """Hot-swap matrix entries on the live stream
+        (``models/convolver.py:388-410``): irs (k, cvs) with ``entries`` a
+        list of k (out, in) pairs, or (n_out, n_in, cvs) with
+        ``entries=None`` for the whole matrix. Crossfaded as
+        ``Convolver.set_ir`` (entries left alone are bit-exact)."""
+        if entries is None:
+            irs = _f32(irs, self.device)
+            if irs.shape != (self.n_out, self.n_in, self.cfg.cvs):
+                raise ValueError(
+                    f"irs must be ({self.n_out}, {self.n_in}, {self.cfg.cvs}), "
+                    f"got {tuple(irs.shape)}")
+            self._conv.set_ir(irs.reshape(self.n_out * self.n_in, self.cfg.cvs),
+                              fade_blocks=fade_blocks)
+            return
+        for o, i in entries:
+            if not (0 <= o < self.n_out and 0 <= i < self.n_in):
+                raise ValueError(f"entry ({o}, {i}) out of range "
+                                 f"({self.n_out} x {self.n_in})")
+        self._conv.set_ir(irs, channels=[o * self.n_in + i for o, i in entries],
+                          fade_blocks=fade_blocks)
 
     def step(self, blocks) -> torch.Tensor:
         """blocks: (n_in, pts) -> (n_out, pts)."""

@@ -150,6 +150,7 @@ class ClconvProcessor:
             raise ArgumentError(f"bad skip/size ({skip}/{size}) for IR of {ir.size}")
         coefs = ir[skip: skip + length] * np.float32(scale)
         self.parts = parts
+        self._ir_scale = np.float32(scale)
         self.dconv = parts == 1
         if self.dconv:
             self.block_size = block_size
@@ -172,10 +173,36 @@ class ClconvProcessor:
 
     def set_ir(self, ir: np.ndarray, skip: int = 0, size: int = 0,
                scale: Optional[float] = None, fade_blocks: int = 8) -> None:
+        """Replace the impulse response on the live stream (beyond the
+        reference, which would tear the opcode down and build it again;
+        partitioned engine only; JAX ``stream.py:200-233``).
+
+        The same skip/size/scale preparation as the constructor (scale
+        defaults to the constructor's); the prepared IR must fit the
+        engine's analysis size and is zero-padded up to it. ``fade_blocks``
+        partition blocks of per-sample crossfade make the swap click-free
+        (``Clpconv.push_ir_xfade``); ``fade_blocks=0`` swaps at once (push_ir
+        semantics, cl_conv.cpp:353-388).
+        """
         if self.dconv:
             raise ArgumentError("set_ir requires the partitioned engine (parts > 1)")
-        raise NotImplementedError(
-            "live IR replacement is not ported yet (ROADMAP queue 1 item 11)")
+        ir = np.asarray(ir, np.float32).reshape(-1)
+        length = (size if size else ir.size) - skip
+        if length <= 0 or skip < 0 or skip + length > ir.size:
+            raise ArgumentError(f"bad skip/size ({skip}/{size}) for IR of {ir.size}")
+        if scale is None:
+            scale = self._ir_scale
+        cvs = self._engine.cfg.cvs
+        if length > cvs:
+            raise ArgumentError(
+                f"new IR ({length} taps after skip/size) exceeds the engine's analysis "
+                f"size ({cvs}); construct a new processor")
+        padded = np.zeros(cvs, np.float32)
+        padded[:length] = ir[skip: skip + length] * np.float32(scale)
+        if fade_blocks:
+            self._engine.push_ir_xfade(padded, fade_blocks)
+        else:
+            self._engine.push_ir(padded)
 
     def process(self, block: np.ndarray) -> np.ndarray:
         """One audio block in, one out (the aperf body, opcode.cpp:229-252)."""

@@ -1,0 +1,334 @@
+"""Port parity: the block-step kernels of opencl_fft_tpu_torch
+(``ops/cuda/mac.py``: ``spectral_mac``; ``ops/cuda/blockstep.py``:
+``block_step_fused``, ``block_step_fwd_fused``, ``block_step_fwd_fused_tv``)
+against the JAX Pallas kernels of ``ops/pallas/mac.py`` and
+``ops/pallas/blockstep.py`` in interpret mode, on the same numpy-seeded
+inputs: atol 1e-5 * max|JAX| (both sum the partitions in float32 in other
+orders). The JAX kernels take nparts % 8 == 0 and bins % 128 == 0, so the
+comparison runs at (8, 128) and (16, 256); other shapes (nparts 3, bins 16)
+and a channel axis (C = 3) are held against a float64 numpy loop. The card
+route of ``pconv_step{,_tv}``, composed from the twins on the CPU, streams
+20 blocks against JAX's ``pallas="blockf"`` route at 2e-5 * max, JAX's own
+bound between its routes. The CUDA kernels are held against the twins on a
+card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from opencl_fft_tpu.ops import pconv as J
+from opencl_fft_tpu.ops.pallas import blockstep as JB
+from opencl_fft_tpu.ops.pallas import mac as JMAC
+from opencl_fft_tpu_torch.ops import pconv as P
+from opencl_fft_tpu_torch.ops.cuda import blockstep as B
+from opencl_fft_tpu_torch.ops.cuda import mac as MAC
+from opencl_fft_tpu_torch.ops.cuda.tables import _wfwd_np, _wpost_np
+
+torch.set_num_threads(1)
+
+TOL = 1e-5
+SHAPES = [(8, 128), (16, 256)]
+
+
+def _close(got, ref, rel=TOL):
+    got = got.cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    ref = np.asarray(ref)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, atol=rel * (np.abs(ref).max() + 1e-30), rtol=0)
+
+
+def _inputs(rng, nparts, bins, lead=()):
+    """A doubled ring (both halves equal), h planes, a tail and two blocks
+    (numpy float32, a leading channel axis when given)."""
+    def f(*shape, s=1.0):
+        return (s * rng.standard_normal(shape)).astype(np.float32)
+
+    ring = tuple(np.concatenate([a, a], -2) for a in (f(*lead, nparts, bins),
+                                                      f(*lead, nparts, bins)))
+    h = (f(*lead, nparts, bins, s=0.3), f(*lead, nparts, bins, s=0.3))
+    return ring, h, f(*lead, bins), f(2, *lead, bins)
+
+
+def _t(planes):
+    return tuple(torch.from_numpy(np.ascontiguousarray(p)) for p in planes)
+
+
+def _j(planes):
+    return tuple(jnp.asarray(p) for p in planes)
+
+
+# ---------------------------------------------------------------------------
+# each twin against its Pallas kernel in interpret mode
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("nparts,bins", SHAPES)
+@pytest.mark.parametrize("rp", [0, 3, 7])
+@pytest.mark.parametrize("b0", [1.0, 2.0])
+def test_spectral_mac_twin_matches_pallas_kernel(nparts, bins, rp, b0):
+    ring, h, _, _ = _inputs(np.random.default_rng(nparts + rp), nparts, bins)
+    jr, ji = JMAC.spectral_mac(_j(ring), _j(h), rp, b0, interpret=True)
+    before = MAC.LAUNCHES
+    gr, gi = MAC.spectral_mac(_t(ring), _t(h), rp, b0)
+    assert MAC.LAUNCHES == before                 # the CPU runs the twin
+    _close(gr, jr)
+    _close(gi, ji)
+
+
+@pytest.mark.parametrize("nparts,bins", SHAPES)
+@pytest.mark.parametrize("rp", [0, 3, 7])
+@pytest.mark.parametrize("b0", [1.0, 2.0])
+def test_block_step_fused_twin_matches_pallas_kernel(nparts, bins, rp, b0):
+    ring, h, tail, _ = _inputs(np.random.default_rng(10 + nparts + rp), nparts, bins)
+    jout, jtail = JB.block_step_fused(_j(ring), _j(h), rp, b0, jnp.asarray(tail), bins,
+                                      interpret=True)
+    before = B.STEP_LAUNCHES
+    out, new_tail = B.block_step_fused(_t(ring), _t(h), rp, b0, torch.from_numpy(tail), bins)
+    assert B.STEP_LAUNCHES == before
+    _close(out, jout)
+    _close(new_tail, jtail)
+
+
+def _assert_ring_written(new, old, fresh, rows):
+    """new == old except rows ``rows``, which hold ``fresh``."""
+    for n, o, f in zip(new, old, fresh):
+        n = n.numpy()
+        keep = np.ones(n.shape[-2], bool)
+        keep[list(rows)] = False
+        np.testing.assert_array_equal(n[..., keep, :], o[..., keep, :])
+        for r in rows:
+            _close(n[..., r, :], f)
+
+
+@pytest.mark.parametrize("nparts,bins", SHAPES)
+@pytest.mark.parametrize("rp", [0, 3, 7])
+@pytest.mark.parametrize("b0", [1.0, 2.0])
+def test_block_step_fwd_fused_twin_matches_pallas_kernel(nparts, bins, rp, b0):
+    """rp = 0 puts the fresh frame at slot nparts - 1, the ring's last row
+    pair; the JAX kernel returns the frame, the twin the written ring."""
+    ring, h, tail, blocks = _inputs(np.random.default_rng(20 + nparts + rp), nparts, bins)
+    jout, jtail, jfr, jfi = JB.block_step_fwd_fused(
+        jnp.asarray(blocks[0]), _j(ring), _j(h), rp, b0, jnp.asarray(tail), bins,
+        interpret=True)
+    before = B.FWD_LAUNCHES
+    out, new_tail, x2 = B.block_step_fwd_fused(torch.from_numpy(blocks[0]), _t(ring), _t(h),
+                                               rp, b0, torch.from_numpy(tail), bins)
+    assert B.FWD_LAUNCHES == before
+    _close(out, jout)
+    _close(new_tail, jtail)
+    wp = (rp - 1) % nparts
+    _assert_ring_written(x2, ring, (jfr, jfi), (wp, wp + nparts))
+
+
+@pytest.mark.parametrize("nparts,bins", SHAPES)
+@pytest.mark.parametrize("rp", [0, 3, 7])
+@pytest.mark.parametrize("wp2", [0, 7])
+@pytest.mark.parametrize("b0", [1.0, 2.0])
+def test_block_step_fwd_fused_tv_twin_matches_pallas_kernel(nparts, bins, rp, wp2, b0):
+    ring, h, tail, blocks = _inputs(np.random.default_rng(30 + nparts + rp + wp2), nparts,
+                                    bins)
+    jout, jtail, jfr, jfi, jhr, jhi = JB.block_step_fwd_fused_tv(
+        jnp.asarray(blocks), _j(ring), _j(h), rp, wp2, b0, jnp.asarray(tail), bins,
+        interpret=True)
+    before = B.FWD_TV_LAUNCHES
+    out, new_tail, x2, hn = B.block_step_fwd_fused_tv(
+        torch.from_numpy(blocks), _t(ring), _t(h), rp, wp2, b0, torch.from_numpy(tail), bins)
+    assert B.FWD_TV_LAUNCHES == before
+    _close(out, jout)
+    _close(new_tail, jtail)
+    wp = (rp - 1) % nparts
+    _assert_ring_written(x2, ring, (jfr, jfi), (wp, wp + nparts))
+    _assert_ring_written(hn, h, (jhr, jhi), (wp2,))
+
+
+# ---------------------------------------------------------------------------
+# odd shapes and a channel axis against a float64 loop
+# ---------------------------------------------------------------------------
+
+def _oracle_step(ring, h, rp, b0, tail, pts, fresh_x=None, fresh_h=None, wp2=None):
+    """float64: the fresh rows substituted, the window MAC (bin 0
+    componentwise times b0), y = [acc_re | acc_im] @ wpost, the OLA."""
+    xr, xi = (a.astype(np.float64).copy() for a in ring)
+    hr, hi = (a.astype(np.float64).copy() for a in h)
+    nparts = hr.shape[-2]
+    if fresh_x is not None:
+        wp = (rp - 1) % nparts
+        for plane, f in zip((xr, xi), (fresh_x[..., :pts], fresh_x[..., pts:])):
+            plane[..., wp, :] = plane[..., wp + nparts, :] = f
+    if fresh_h is not None:
+        hr[..., wp2, :], hi[..., wp2, :] = fresh_h[..., :pts], fresh_h[..., pts:]
+    wr, wi = xr[..., rp:rp + nparts, :], xi[..., rp:rp + nparts, :]
+    acc_r = np.sum(wr * hr - wi * hi, axis=-2)
+    acc_i = np.sum(wr * hi + wi * hr, axis=-2)
+    acc_r[..., 0] = b0 * np.sum(wr[..., 0] * hr[..., 0], axis=-1)
+    acc_i[..., 0] = b0 * np.sum(wi[..., 0] * hi[..., 0], axis=-1)
+    y = np.concatenate([acc_r, acc_i], -1) @ _wpost_np(pts).astype(np.float64)
+    return (acc_r, acc_i), (y[..., :pts] + tail) / pts, y[..., pts:], (xr, xi), (hr, hi)
+
+
+@pytest.mark.parametrize("nparts,bins,lead", [(3, 16, ()), (3, 16, (3,)), (8, 32, (3,)),
+                                              (1, 16, (2,))])
+@pytest.mark.parametrize("b0", [1.0, 2.0])
+def test_twins_match_float64_oracle(nparts, bins, lead, b0):
+    """Shapes the TPU kernels do not take, one channel or three; every rp
+    (the ring boundaries included) and, for TV, wp2 at both ends."""
+    rng = np.random.default_rng(nparts * bins + len(lead))
+    ring, h, tail, blocks = _inputs(rng, nparts, bins, lead)
+    wfwd = _wfwd_np(bins).astype(np.float64)
+    frames = blocks.astype(np.float64) @ wfwd
+    for rp in range(nparts):
+        acc, out, ntail, _, _ = _oracle_step(ring, h, rp, b0, tail, bins)
+        for g, r in zip(MAC.spectral_mac(_t(ring), _t(h), rp, b0), acc):
+            _close(g, r)
+        for g, r in zip(B.block_step_fused(_t(ring), _t(h), rp, b0, torch.from_numpy(tail),
+                                           bins), (out, ntail)):
+            _close(g, r)
+        _, out, ntail, x2, _ = _oracle_step(ring, h, rp, b0, tail, bins, fresh_x=frames[0])
+        got = B.block_step_fwd_fused(torch.from_numpy(blocks[0]), _t(ring), _t(h), rp, b0,
+                                     torch.from_numpy(tail), bins)
+        for g, r in zip((got[0], got[1], *got[2]), (out, ntail, *x2)):
+            _close(g, r)
+        for wp2 in {0, nparts - 1}:
+            _, out, ntail, x2, hn = _oracle_step(ring, h, rp, b0, tail, bins,
+                                                 fresh_x=frames[0], fresh_h=frames[1], wp2=wp2)
+            got = B.block_step_fwd_fused_tv(torch.from_numpy(blocks), _t(ring), _t(h), rp, wp2,
+                                            b0, torch.from_numpy(tail), bins)
+            for g, r in zip((got[0], got[1], *got[2], *got[3]), (out, ntail, *x2, *hn)):
+                _close(g, r)
+
+
+def test_twin_outputs_are_contiguous_and_inputs_untouched():
+    rng = np.random.default_rng(5)
+    ring, h, tail, blocks = _inputs(rng, 4, 16, (3,))
+    args = (_t(ring), _t(h))
+    before = [p.clone() for p in (*args[0], *args[1])]
+    got = B.block_step_fwd_fused_tv(torch.from_numpy(blocks), *args, 1, 2, 2.0,
+                                    torch.from_numpy(tail), 16)
+    for t in (got[0], got[1], *got[2], *got[3]):
+        assert t.is_contiguous()
+    for b, a in zip(before, (*args[0], *args[1])):
+        assert torch.equal(b, a)
+
+
+def test_wrappers_validate_arguments():
+    z = torch.zeros
+    ring, h = (z(8, 16), z(8, 16)), (z(4, 16), z(4, 16))
+    with pytest.raises(ValueError, match="rp must be an int in \\[0, 4\\)"):
+        MAC.spectral_mac(ring, h, 4, 1.0)
+    with pytest.raises(ValueError, match="doubled-ring planes"):
+        MAC.spectral_mac((z(4, 16), z(4, 16)), h, 0, 1.0)
+    with pytest.raises(ValueError, match="bins \\(16\\) must equal pts \\(8\\)"):
+        B.block_step_fused(ring, h, 0, 1.0, z(8), 8)
+    with pytest.raises(ValueError, match="tail must be"):
+        B.block_step_fused(ring, h, 0, 1.0, z(3, 16), 16)
+    with pytest.raises(ValueError, match="block must be"):
+        B.block_step_fwd_fused(z(8), ring, h, 0, 1.0, z(16), 16)
+    with pytest.raises(ValueError, match="wp2 must be an int"):
+        B.block_step_fwd_fused_tv(z(2, 16), ring, h, 0, 4, 1.0, z(16), 16)
+    meta = torch.zeros((8, 16), device="meta")
+    with pytest.raises(ValueError, match="one device"):
+        B.block_step_fused((meta, meta), h, 0, 1.0, z(16), 16)
+
+
+# ---------------------------------------------------------------------------
+# the card route, composed from the twins, against JAX's blockf route
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tv", [False, True])
+def test_card_route_streams_like_jax_blockf(tv):
+    """20 blocks through ``_step_fused`` / ``_step_tv_fused`` (the route
+    pconv_step{,_tv} take on a card) against JAX's pconv_step{,_tv} with
+    pallas="blockf" (its fused block-step kernels in interpret mode), the
+    port's state chained through every block."""
+    pts, nparts, nblocks = 128, 8, 20
+    rng = np.random.default_rng(40 + tv)
+    jcfg = J.PconvConfig(pts=pts, nparts=nparts, pallas="blockf")
+    cfg = P.PconvConfig(pts=pts, nparts=nparts)
+    assert jcfg._use_pallas_blockstep_fwd()
+    ir = (0.2 * rng.standard_normal(cfg.cvs)).astype(np.float32)
+    blocks = rng.standard_normal((nblocks, pts)).astype(np.float32)
+    coefs = (0.3 * rng.standard_normal((nblocks, pts))).astype(np.float32)
+    js = J.push_ir(jcfg, J.pconv_init(jcfg), ir)
+    ts = P.push_ir(cfg, P.pconv_init(cfg, "cpu"), torch.from_numpy(ir))
+    jo, to = [], []
+    for b, c in zip(blocks, coefs):
+        if tv:
+            js, o = J.pconv_step_tv(jcfg, js, b, c)
+            ts, g = P._step_tv_fused(cfg, ts, torch.from_numpy(b), torch.from_numpy(c))
+        else:
+            js, o = J.pconv_step(jcfg, js, b)
+            ts, g = P._step_fused(cfg, ts, torch.from_numpy(b))
+        jo.append(np.asarray(o))
+        to.append(g.numpy())
+    _close(np.concatenate(to), np.concatenate(jo), 2e-5)
+    for name in ("spec_x_re", "spec_x_im", "spec_h_re", "spec_h_im", "tail"):
+        _close(getattr(ts, name), getattr(js, name), 2e-5)
+    assert (ts.wp, ts.wp2) == (int(js.wp), int(js.wp2))
+
+
+def test_block_kernels_shape_rule():
+    """On a card the per-block functions launch the kernels up to pts =
+    2048 (the largest forward and post tables built); beyond, and on the
+    CPU, the plain composition."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert P._block_kernels(P.PconvConfig(pts=2048, nparts=2), cuda)
+    assert not P._block_kernels(P.PconvConfig(pts=4096, nparts=2), cuda)
+    assert not P._block_kernels(P.PconvConfig(pts=512, nparts=2), cpu)
+    cfg = P.PconvConfig(pts=16, nparts=4)
+    st = P.pconv_init(cfg, "cpu")
+    before = (B.FWD_LAUNCHES, B.FWD_TV_LAUNCHES, B.STEP_LAUNCHES, MAC.LAUNCHES)
+    st, _ = P.pconv_step(cfg, st, torch.ones(16))
+    P.pconv_step_tv(cfg, st, torch.ones(16), torch.ones(16))
+    assert (B.FWD_LAUNCHES, B.FWD_TV_LAUNCHES, B.STEP_LAUNCHES, MAC.LAUNCHES) == before
+    vec = st._replace(wp=(1, 1))
+    with pytest.raises(ValueError, match="shared by every channel"):
+        P._step_fused(cfg, vec, torch.ones(16))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels against the twins on a card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the block-step kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _on(planes, dev):
+    return tuple(p.to(dev) for p in planes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nparts,bins,lead", [(3, 16, ()), (3, 16, (3,)), (256, 512, ()),
+                                              (256, 512, (5,))])
+def test_cuda_kernels_match_twins(cuda_device, nparts, bins, lead):
+    rng = np.random.default_rng(nparts + len(lead))
+    ring, h, tail, blocks = _inputs(rng, nparts, bins, lead)
+    ring_d, h_d = _on(_t(ring), cuda_device), _on(_t(h), cuda_device)
+    tail_d = torch.from_numpy(tail).to(cuda_device)
+    blocks_d = torch.from_numpy(blocks).to(cuda_device)
+    for rp in sorted({0, 1, nparts - 1}):
+        for b0 in (1.0, 2.0):
+            pairs = [(MAC.spectral_mac(ring_d, h_d, rp, b0),
+                      MAC.spectral_mac_plain(ring_d, h_d, rp, b0)),
+                     (B.block_step_fused(ring_d, h_d, rp, b0, tail_d, bins),
+                      B.block_step_fused_plain(ring_d, h_d, rp, b0, tail_d, bins))]
+            got = B.block_step_fwd_fused(blocks_d[0], ring_d, h_d, rp, b0, tail_d, bins)
+            want = B.block_step_fwd_fused_plain(blocks_d[0], ring_d, h_d, rp, b0, tail_d, bins)
+            pairs.append(((got[0], got[1], *got[2]), (want[0], want[1], *want[2])))
+            for wp2 in sorted({0, nparts - 1}):
+                got = B.block_step_fwd_fused_tv(blocks_d, ring_d, h_d, rp, wp2, b0, tail_d,
+                                                bins)
+                want = B.block_step_fwd_fused_tv_plain(blocks_d, ring_d, h_d, rp, wp2, b0,
+                                                       tail_d, bins)
+                pairs.append(((got[0], got[1], *got[2], *got[3]),
+                              (want[0], want[1], *want[2], *want[3])))
+            torch.cuda.synchronize()
+            for gs, ws in pairs:
+                for g, w in zip(gs, ws):
+                    assert g.is_contiguous()
+                    _close(g, w.cpu(), 2e-5)

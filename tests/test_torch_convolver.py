@@ -228,8 +228,6 @@ def test_steps_validate_shapes():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda c, t, m: c.set_ir(np.zeros((2, 32), np.float32)), "item 11"),
-    (lambda c, t, m: m.set_ir(np.zeros((1, 1, 32), np.float32)), "item 11"),
     (lambda c, t, m: P.PconvConfig(pts=16, nparts=2, dtype="f64"), "item 17"),
     (lambda c, t, m: stream_decomposed(c.cfg, P.pconv_init(c.cfg, CPU),
                                        np.zeros((4, 16), np.float32),

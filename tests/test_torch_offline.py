@@ -276,12 +276,20 @@ def test_stream_batched_chunked_matches_jax():
     assert sv.wp == ss.wp
 
 
+def _steps(step, st, *ops):
+    """Per-block steps over the blocks of ops, the state chained."""
+    for blk in zip(*ops):
+        st = step(st, *blk)[0]
+    return st, None
+
+
 @pytest.mark.parametrize("path", ["chunk", "chunk_tv", "offline", "render", "chunked",
-                                  "decomposed"])
+                                  "decomposed", "step", "step_tv"])
 def test_engine_states_chain_into_the_scan(path):
-    """Every path of the timeline engine leaves contiguous state planes
-    (the card's whole-scan kernels take no others) that chain into the
-    per-block scan as the scan's own state does."""
+    """Every path of the timeline engine, and the per-block steps on a
+    batched state, leave contiguous state planes (the card's whole-scan
+    kernels take no others) that chain into the scan as the scan's own
+    state does."""
     cfg = P.PconvConfig(pts=16, nparts=4)
     rng = np.random.default_rng(len(path))
     nch = None if path in ("chunk", "chunk_tv", "offline", "decomposed") else 3
@@ -293,15 +301,19 @@ def test_engine_states_chain_into_the_scan(path):
            "offline": lambda s: P.pconv_offline(cfg, s, blocks),
            "render": lambda s: P._offline_batched(cfg, s, blocks),
            "chunked": lambda s: P.pconv_stream_batched_chunked(cfg, s, blocks, K=2),
-           "decomposed": lambda s: stream_decomposed(cfg, s, blocks)}[path]
+           "decomposed": lambda s: stream_decomposed(cfg, s, blocks),
+           "step": lambda s: _steps(lambda s_, b: P.pconv_step(cfg, s_, b), s, blocks[:3]),
+           "step_tv": lambda s: _steps(lambda s_, x, h: P.pconv_step_tv(cfg, s_, x, h), s,
+                                       blocks[:3], blocks[3:])}[path]
     st = run(st0)[0]
     for name in RINGS + ("tail",):
         assert getattr(st, name).is_contiguous(), name
     scan = P.pconv_stream if nch is None else P.pconv_stream_batched
-    if path == "chunk_tv":
-        ref = P.pconv_stream_tv(cfg, st0, blocks[:3], blocks[3:])[0]
+    if path in ("chunk_tv", "step_tv"):
+        scan_tv = P.pconv_stream_tv if nch is None else P.pconv_stream_batched_tv
+        ref = scan_tv(cfg, st0, blocks[:3], blocks[3:])[0]
     else:
-        ref = scan(cfg, st0, blocks[:3] if path == "chunk" else blocks)[0]
+        ref = scan(cfg, st0, blocks[:3] if path in ("chunk", "step") else blocks)[0]
     _assert_state_close(st, ref)
     _close(scan(cfg, st, more)[1], scan(cfg, ref, more)[1])
 
