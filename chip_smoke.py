@@ -37,8 +37,18 @@ the headline ring and at odd shapes; ``Clpconv.convolution`` with a
 crossfaded IR swap retargeted mid-fade, ``ClconvProcessor.set_ir``,
 ``CltvconvProcessor``, ``Convolver.set_ir`` on 16 of 64 channels (the
 others bit-equal to an engine that never swapped) and a ``MatrixConvolver``
-entry swap against float64 scipy blends; and their per-block times.
-Last, one JSON line with every kernel's launches, error,
+entry swap against float64 scipy blends; and their per-block times. Then
+the time-varying decomposed engine and the long-partition streams: the TV
+sliding-MAC kernel (``macflow_tv``, ``macflow_tv_batched``) and the
+factored-table scan kernels (``stream_steps_fused_split{,_tv}``) against
+their twins at their main-path shapes (the headline TV scan and the K = 8
+chunk of 64 channels; pts 4096 with a 2^20-tap IR, one and 16 channels)
+and at odd shapes; TV ``stream_decomposed``,
+``TVConvolver.stream_chunked`` (K = 8, 64 channels, from the start and off
+phase), ``convolve`` and ``pconv_stream_tv`` at pts 4096, the LTI and TV
+decomposed engine at pts 4096 and ``Convolver``/``TVConvolver`` of 16
+channels at pts 4096 against float64 scipy and the scans; and their times
+beside the paths they are alternatives to. Last, one JSON line with every kernel's launches, error,
 time and bound, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Every phase prints one line; any
 failure exits non-zero before the last line. Without a CUDA card, or
@@ -64,6 +74,10 @@ SCAN_BLOCKS = 1880
 SERVE_CH = 64        # the JAX bench's serving shape (bench.py:314-371)
 SERVE_BLOCKS = 470
 DIRECT_TAPS = 512
+LONG_PTS = 4096      # a hall IR at a long partition (ROADMAP 15b's grid)
+LONG_IR = 1 << 20
+LONG_BLOCKS = 470
+LONG_CH = 16
 SWEEP_LOG2 = (10, 12, 14, 16, 18, 20)   # the JAX FFT sweep (bench.py:421-439)
 SWEEP_BYTES = 32 << 20                  # rows = SWEEP_BYTES // (8 n)
 TOL = 2e-5          # kernel vs twin, relative to max|twin| (JAX stream-vs-scan bound)
@@ -158,7 +172,7 @@ def device_us(fn, calls=10):
                if e.device_type == torch.autograd.DeviceType.CUDA) / calls
 
 
-def profile_streams(streams, calls=10):
+def profile_streams(streams, calls=10, phase=17):
     """Per (label, fn): device microseconds per call of each kernel and
     copy under torch.profiler (the 8 largest) and their sum, against the
     host wall per call of a synchronised run without the profiler; one
@@ -182,7 +196,7 @@ def profile_streams(streams, calls=10):
                 and e.self_device_time_total > 0]
         rows.sort(key=lambda r: -r[1])
         busy = sum(us for _, us in rows)
-        print(f"phase 17 profile {label}: device busy {busy:.1f} us of {wall_us:.1f} us "
+        print(f"phase {phase} profile {label}: device busy {busy:.1f} us of {wall_us:.1f} us "
               f"host wall per call ({100 * busy / wall_us:.1f}%); {len(rows)} kinds; top: "
               + "; ".join(f"{k[:60]} {us:.1f} us" for k, us in rows[:8]), flush=True)
 
@@ -230,6 +244,7 @@ def main():
     from opencl_fft_tpu_torch.ops.cuda import dstream as K
     from opencl_fft_tpu_torch.ops.cuda import mac as MC
     from opencl_fft_tpu_torch.ops.cuda import slidemac as SM
+    from opencl_fft_tpu_torch.ops.cuda import splitstep as SP
     from opencl_fft_tpu_torch.ops.cuda import streamstep as S
     from opencl_fft_tpu_torch.ops.cuda import vmemfft as V
 
@@ -238,6 +253,8 @@ def main():
         K.LAUNCHES = 0
         V.LAUNCHES = V.FRONT2_LAUNCHES = 0
         SM.CHUNKMAC_LAUNCHES = SM.MACFLOW_LAUNCHES = SM.MACFLOW_BATCHED_LAUNCHES = 0
+        SM.MACFLOW_TV_LAUNCHES = SM.MACFLOW_TV_BATCHED_LAUNCHES = 0
+        SP.LAUNCHES = SP.TV_LAUNCHES = 0
         MC.LAUNCHES = BS.STEP_LAUNCHES = BS.FWD_LAUNCHES = BS.FWD_TV_LAUNCHES = 0
 
     def step_counts():
@@ -251,7 +268,7 @@ def main():
                    for c in range(got.shape[1]))
 
     # phase 2: build from the checkout's sources, one nvcc per source at once
-    libs = ("streamstep", "dstream", "fft", "slidemac", "blockstep")
+    libs = ("streamstep", "splitstep", "dstream", "fft", "slidemac", "blockstep")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as ex:
         list(ex.map(_build.load, libs))
@@ -1408,6 +1425,315 @@ def main():
               f"({bd[1]}, {100 * bd[0] / ms:.1f}% reached)"
               for (k, c), (ms, dus, tw, bd) in kern_rows.items()), flush=True)
 
+    # phase 27: the TV sliding-MAC kernel (macflow_tv, macflow_tv_batched:
+    # one CUDA entry) vs its twin at every main-path shape (1 x 1880 of the
+    # headline, the K = 8 chunk's 64 x 8 and 64 x 470, nparts 256, bins
+    # 512) at phases on and off the JAX kernel's 8-row alignment, and at odd
+    # shapes
+    def tv_counts():
+        return SM.MACFLOW_TV_LAUNCHES, SM.MACFLOW_TV_BATCHED_LAUNCHES
+
+    def tv_mac_inputs(nch, nparts, bins, nout):
+        rows = nparts - 1 + nout
+        return ((f(nch, rows, bins), f(nch, rows, bins)),
+                (f(nch, rows, bins, s=0.05), f(nch, rows, bins, s=0.05)))
+
+    tv_mac_shapes = [(1, np_, b, SCAN_BLOCKS, (0, 5, np_ - 1)),
+                     (SERVE_CH, np_, b, CHUNK_K, (0, 3)), (SERVE_CH, np_, b, SERVE_BLOCKS, (0, 3)),
+                     (2, 1, 16, 5, (0,)), (3, 3, 48, 13, (0, 2)), (2, 9, 16, 21, (4,))]
+    tvm_err = {}
+    worst = 0.0
+    for nch, nparts, bins, nout, phases in tv_mac_shapes:
+        xm, hm = tv_mac_inputs(nch, nparts, bins, nout)
+        for c in phases:
+            for b0 in (1.0, 2.0):
+                n0 = tv_counts()
+                got = {"macflow_tv_batched": SM.macflow_tv_batched(xm, hm, nout, nparts, b0, c),
+                       "macflow_tv": SM.macflow_tv((xm[0][0], xm[1][0]), (hm[0][0], hm[1][0]),
+                                                   nout, nparts, b0, c)}
+                torch.cuda.synchronize()
+                check(tv_counts() == tuple(n + 1 for n in n0),
+                      "each TV sliding-MAC wrapper counts its launch")
+                want = SM.slide_mac_tv_plain(xm, hm, nout, nparts, b0, c)
+                for wname, g in got.items():
+                    w = (want[0][0], want[1][0]) if wname == "macflow_tv" else want
+                    worst = compare(((f"{wname} re", g[0], w[0]), (f"{wname} im", g[1], w[1])),
+                                    f"C={nch} nparts={nparts} bins={bins} nout={nout} c={c} "
+                                    f"b0={b0}", worst)
+                    key = (wname, nch, nout)
+                    tvm_err[key] = max(tvm_err.get(key, 0.0),
+                                       *(float((gg - ww).abs().max()) for gg, ww in zip(g, w)))
+    del xm, hm, got, want
+    print(f"phase 27 TV sliding-MAC kernel vs twin: macflow_tv_batched and macflow_tv (channel "
+          f"0) at (C,nparts,bins,nout,phases) {tv_mac_shapes} x b0 {{1,2}}; worst rel err "
+          f"{worst:.3e} (tol {TOL}); max_abs_err macflow_tv 1x{SCAN_BLOCKS} "
+          f"{tvm_err[('macflow_tv', 1, SCAN_BLOCKS)]:.3e}; macflow_tv_batched "
+          f"{SERVE_CH}x{CHUNK_K} {tvm_err[('macflow_tv_batched', SERVE_CH, CHUNK_K)]:.3e}, "
+          f"{SERVE_CH}x{SERVE_BLOCKS} "
+          f"{tvm_err[('macflow_tv_batched', SERVE_CH, SERVE_BLOCKS)]:.3e}", flush=True)
+
+    # phase 28: the factored-table scan kernels (stream_steps_fused_split
+    # {,_tv}: C = 1 and batched wrappers, one entry each) vs their twins at
+    # the long-IR shape (pts 4096, 2^20 taps: nparts 256, 470 blocks) at one
+    # and 16 channels (TV pointers shared and per channel), at pts 512
+    # against the dense-table kernels #1/#2 on the same scan, and at odd
+    # shapes
+    long_np = LONG_IR // LONG_PTS
+    split_shapes = [(LONG_PTS, long_np, LONG_BLOCKS, 1), (LONG_PTS, long_np, LONG_BLOCKS, LONG_CH),
+                    (PTS, 16, 21, 2), (64, 3, 5, 3), (16, 1, 1, 2), (32, 3, 1, 1), (16, 1, 5, 1)]
+    split_err = {}
+    worst = dense_gap = 0.0
+    for pts, nparts, nb_, nch in split_shapes:
+        px, ph, w0_, h0_, tails = batched_inputs(pts, nparts, nb_, nch)
+        where = f"pts={pts} nparts={nparts} nb={nb_} C={nch}"
+        for b0 in ((2.0,) if pts == LONG_PTS else (1.0, 2.0)):
+            n0 = SP.LAUNCHES
+            got = SP.stream_steps_fused_split_batched(px, w0_, h0_, b0, tails, pts)
+            torch.cuda.synchronize()
+            check(SP.LAUNCHES == n0 + 1, "split LAUNCHES counts the kernel launch")
+            want = SP.stream_steps_fused_split_batched_plain(px, w0_, h0_, b0, tails, pts)
+            worst = compare((("out", got[0], want[0]), ("window re", got[1][0], want[1][0]),
+                             ("window im", got[1][1], want[1][1]), ("tails", got[2], want[2])),
+                            f"{where} b0={b0}", worst)
+            key = ("split", nch, pts)
+            split_err[key] = max(split_err.get(key, 0.0), float((got[0] - want[0]).abs().max()))
+            if pts == PTS:
+                dense = S.stream_steps_fused_batched(px, w0_, h0_, b0, tails, pts)
+                worst = compare((("out vs dense kernel", got[0], dense[0]),), where, worst)
+                dense_gap = max(dense_gap, float((got[0] - dense[0]).abs().max())
+                                / float(dense[0].abs().max()))
+            ptrs = [nparts - 1]
+            if nch > 1:
+                ptrs.append(tuple((7 * c + 3) % nparts for c in range(nch)))
+            for wp2 in ptrs:
+                n0 = SP.TV_LAUNCHES
+                got = SP.stream_steps_fused_split_batched_tv(px, ph, w0_, h0_, wp2, b0, tails,
+                                                             pts)
+                torch.cuda.synchronize()
+                check(SP.TV_LAUNCHES == n0 + 1, "split TV_LAUNCHES counts the kernel launch")
+                want = SP.stream_steps_fused_split_batched_tv_plain(px, ph, w0_, h0_, wp2, b0,
+                                                                    tails, pts)
+                worst = compare((("out", got[0], want[0]), ("window re", got[1][0], want[1][0]),
+                                 ("h ring re", got[2][0], want[2][0]),
+                                 ("h ring im", got[2][1], want[2][1]),
+                                 ("tails", got[3], want[3])),
+                                f"{where} b0={b0} wp2 "
+                                f"{'per channel' if isinstance(wp2, tuple) else 'shared'}", worst)
+                key = ("split_tv", nch, pts)
+                split_err[key] = max(split_err.get(key, 0.0),
+                                     float((got[0] - want[0]).abs().max()))
+                if pts == PTS:
+                    dense = S.stream_steps_fused_batched_tv(px, ph, w0_, h0_, wp2, b0, tails, pts)
+                    worst = compare((("TV out vs dense kernel", got[0], dense[0]),), where, worst)
+                    dense_gap = max(dense_gap, float((got[0] - dense[0]).abs().max())
+                                    / float(dense[0].abs().max()))
+    del px, ph, w0_, h0_, tails, got, want, dense
+    print(f"phase 28 split-table scan kernels vs twins: shapes (pts,nparts,nb,C) {split_shapes} "
+          f"(b0 2 at pts {LONG_PTS}, {{1,2}} elsewhere), TV wp2 shared and per channel; worst rel "
+          f"err {worst:.3e} (tol {TOL}); at pts {PTS} vs the dense-table kernels {dense_gap:.3e}; "
+          f"out max_abs_err at pts {LONG_PTS}: LTI C=1 {split_err[('split', 1, LONG_PTS)]:.3e} "
+          f"C={LONG_CH} {split_err[('split', LONG_CH, LONG_PTS)]:.3e}, TV C=1 "
+          f"{split_err[('split_tv', 1, LONG_PTS)]:.3e} C={LONG_CH} "
+          f"{split_err[('split_tv', LONG_CH, LONG_PTS)]:.3e}", flush=True)
+
+    # phase 29: the new main paths against float64 oracles. The TV
+    # decomposed engine at the headline (phase 9's scan, the IR fed
+    # cyclically through operand 2); K = 8 chunked TV serving of 64
+    # channels x 472 blocks (each channel's IR fed cyclically from a zero
+    # state, so the output is its convolution), from the start and after 3
+    # step() calls, chained into stream(); and the long-IR paths at pts 4096
+    # (a 2^20-tap IR): convolve of phase 4's 20 s, pconv_stream_tv with the
+    # IR fed cyclically, stream_decomposed LTI and TV against the split
+    # scans, and Convolver / TVConvolver of 16 channels against 16
+    # single-channel scans
+    from opencl_fft_tpu_torch.ops.decomposed import stream_decomposed as SD
+
+    cfg4 = P.PconvConfig.for_ir_length(LONG_IR, LONG_PTS)
+    decay4 = np.exp(-np.arange(LONG_IR) / (2.0 * SR))
+    ir4 = (rng.standard_normal(LONG_IR) * decay4).astype(np.float32)
+    ir4_d = torch.from_numpy(ir4).to(dev)
+    st4 = P.push_ir(cfg4, P.pconv_init(cfg4, dev), ir4_d)
+    nb4 = -(-(x.size + LONG_IR) // LONG_PTS)
+    x_p4 = torch.nn.functional.pad(x_d, (0, nb4 * LONG_PTS - x.size)).reshape(nb4, LONG_PTS)
+    h_cyc4 = ir4_d.reshape(long_np, LONG_PTS)[torch.arange(nb4, device=dev) % long_np]
+    h_cyc = ir_d.reshape(np_, PTS)[torch.arange(nb_tv, device=dev) % np_].contiguous()
+    h_chk = irs_d.reshape(SERVE_CH, np_, PTS)[
+        :, torch.arange(CHUNK_BLOCKS, device=dev) % np_].transpose(0, 1).contiguous()
+    irs4 = (rng.standard_normal((LONG_CH, LONG_IR)) * decay4).astype(np.float32)
+    irs4_d = torch.from_numpy(irs4).to(dev)
+    xs4 = (0.1 * rng.standard_normal((LONG_CH, LONG_BLOCKS * LONG_PTS))).astype(np.float32)
+    b4 = torch.from_numpy(np.ascontiguousarray(
+        xs4.reshape(LONG_CH, LONG_BLOCKS, LONG_PTS).transpose(1, 0, 2))).to(dev)
+    h4 = irs4_d.reshape(LONG_CH, long_np, LONG_PTS)[
+        :, torch.arange(LONG_BLOCKS, device=dev) % long_np].transpose(0, 1).contiguous()
+    conv4 = P.Convolver(cfg4, LONG_CH, device=dev)
+    conv4.push_ir(irs4_d)
+    tvc4 = P.TVConvolver(cfg4, LONG_CH, device=dev)
+    tvk, tvk3 = (P.TVConvolver(cfg, SERVE_CH, device=dev) for _ in range(2))
+    zero_counts()
+    y_dtv = SD(cfg, st_ir, x_p, h_cyc)[1]
+    y_k = tvk.stream_chunked(chk_blocks, h_chk, K=CHUNK_K)
+    y_k3 = torch.cat([torch.stack([tvk3.step(chk_blocks[i], h_chk[i]) for i in range(3)]),
+                      tvk3.stream_chunked(chk_blocks[3:CHUNK_BLOCKS - 5],
+                                          h_chk[3:CHUNK_BLOCKS - 5], K=CHUNK_K),
+                      tvk3.stream(chk_blocks[CHUNK_BLOCKS - 5:], h_chk[CHUNK_BLOCKS - 5:])])
+    y_c4 = P.convolve(x_d, ir4_d, LONG_PTS)
+    y_tv4 = P.pconv_stream_tv(cfg4, st4, x_p4, h_cyc4)[1]
+    y_d4 = SD(cfg4, st4, x_p4)[1]
+    y_dtv4 = SD(cfg4, st4, x_p4, h_cyc4)[1]
+    y_s4 = conv4.stream(b4)
+    y_t4 = tvc4.stream(b4, h4)
+    torch.cuda.synchronize()
+    new_launches = (SM.MACFLOW_TV_LAUNCHES, SM.MACFLOW_TV_BATCHED_LAUNCHES, SP.LAUNCHES,
+                    SP.TV_LAUNCHES)
+    check(min(new_launches) > 0, f"the new main paths launched every new kernel {new_launches}")
+    # the checks, after the counts are read
+    y_tvs = P.pconv_stream_tv(cfg, st_ir, x_p, h_cyc)[1]
+    err_dtv = rel_err(y_dtv.reshape(-1)[:ref.size].cpu().numpy(), ref)
+    err_dtv_s = float((y_dtv - y_tvs).abs().max()) / float(y_tvs.abs().max())
+    tv_ref = P.TVConvolver(cfg, SERVE_CH, device=dev)
+    y_ks = tv_ref.stream(chk_blocks, h_chk)
+    err_k, err_k3 = worst_channel(y_k, y_ks), worst_channel(y_k3, y_ks)
+    err_ko = max(rel_err(y_k[:, c].reshape(-1).cpu().numpy(),
+                         sps.fftconvolve(xs_chk[c].astype(np.float64),
+                                         irs[c].astype(np.float64))[:n_chk])
+                 for c in (0, SERVE_CH - 1))
+    n4 = x.size + LONG_IR - 1
+    ref4 = sps.fftconvolve(x.astype(np.float64), ir4.astype(np.float64))
+    check(tuple(y_c4.shape) == ref4.shape, "convolve at pts 4096 shape")
+    err_c4 = rel_err(y_c4.cpu().numpy(), ref4)
+    err_tv4 = rel_err(y_tv4.reshape(-1)[:n4].cpu().numpy(), ref4)
+    err_d4 = float((y_d4.reshape(-1)[:n4] - y_c4).abs().max()) / float(y_c4.abs().max())
+    err_dtv4 = float((y_dtv4 - y_tv4).abs().max()) / float(y_tv4.abs().max())
+    singles4 = torch.stack([P.pconv_stream(cfg4, P.push_ir(cfg4, P.pconv_init(cfg4, dev),
+                                                           irs4_d[c]), b4[:, c])[1]
+                            for c in range(LONG_CH)], 1)
+    err_s4, err_t4 = worst_channel(y_s4, singles4), worst_channel(y_t4, singles4)
+    n_4 = LONG_BLOCKS * LONG_PTS
+    err_s4o = max(rel_err(y_s4[:, c].reshape(-1).cpu().numpy(),
+                          sps.fftconvolve(xs4[c].astype(np.float64),
+                                          irs4[c].astype(np.float64))[:n_4])
+                  for c in (0, LONG_CH - 1))
+    for what, e, tol in (("TV stream_decomposed vs scipy", err_dtv, ORACLE_TOL),
+                         ("TV stream_decomposed vs pconv_stream_tv", err_dtv_s, TOL),
+                         ("TVConvolver.stream_chunked vs stream", err_k, TOL),
+                         ("3 step() + stream_chunked + stream vs stream", err_k3, TOL),
+                         ("TVConvolver.stream_chunked vs scipy", err_ko, ORACLE_TOL),
+                         ("convolve at pts 4096 vs scipy", err_c4, ORACLE_TOL),
+                         ("pconv_stream_tv at pts 4096 vs scipy", err_tv4, ORACLE_TOL),
+                         ("stream_decomposed at pts 4096 vs the split scan", err_d4, TOL),
+                         ("TV stream_decomposed at pts 4096 vs the split scan", err_dtv4, TOL),
+                         ("Convolver(16).stream at pts 4096 vs single scans", err_s4, TOL),
+                         ("TVConvolver(16).stream at pts 4096 vs single scans", err_t4,
+                          ORACLE_TOL),
+                         ("Convolver(16).stream at pts 4096 vs scipy", err_s4o, ORACLE_TOL)):
+        check(np.isfinite(e) and e <= tol, f"{what}: {e:.3e} > {tol}")
+    print(f"phase 29 TV decomposed and long-IR main paths on {dev}: TV stream_decomposed("
+          f"{nb_tv}x{PTS}, {IR_LEN} taps cyclic in operand 2) vs float64 scipy {err_dtv:.3e}, vs "
+          f"pconv_stream_tv {err_dtv_s:.3e}; TVConvolver({SERVE_CH}).stream_chunked(K={CHUNK_K}, "
+          f"{CHUNK_BLOCKS} blocks, IRs cyclic) vs stream {err_k:.3e}, vs scipy {err_ko:.3e}; 3 "
+          f"step() + stream_chunked + stream vs stream {err_k3:.3e}; convolve({x.size} samples, "
+          f"{LONG_IR} taps, pts={LONG_PTS}) vs scipy {err_c4:.3e}; pconv_stream_tv({nb4}x"
+          f"{LONG_PTS}, IR cyclic) vs scipy {err_tv4:.3e}; stream_decomposed LTI / TV at pts "
+          f"{LONG_PTS} vs the split scans {err_d4:.3e} / {err_dtv4:.3e}; Convolver({LONG_CH}) / "
+          f"TVConvolver({LONG_CH}).stream({LONG_BLOCKS}x{LONG_CH}x{LONG_PTS}) vs {LONG_CH} "
+          f"single-channel scans {err_s4:.3e} / {err_t4:.3e}, vs scipy {err_s4o:.3e} (tol "
+          f"{TOL} between paths, {ORACLE_TOL} vs scipy); launches macflow_tv "
+          f"{new_launches[0]} macflow_tv_batched {new_launches[1]} stream_steps_fused_split "
+          f"{new_launches[2]} stream_steps_fused_split_tv {new_launches[3]}", flush=True)
+    del y_dtv, y_k, y_k3, y_ks, y_tvs, y_c4, y_tv4, y_d4, y_dtv4, y_s4, y_t4, singles4, tv_ref
+
+    # phase 30: timing of the new paths (CUDA events) under the JAX bench's
+    # metric names, each beside the path it is an alternative to, the new
+    # kernels against their twins and bounds, and the new paths' device
+    # busy share under torch.profiler
+    st_tv = P.push_ir(cfg, P.batched_state(cfg, SERVE_CH, dev), irs_d)
+    b4_1, bh4_1 = b4[:, 0].contiguous(), h4[:, 0].contiguous()
+    long_audio = LONG_BLOCKS * LONG_PTS / SR
+    tv_s_ms = cuda_ms(lambda: P.pconv_stream_tv(cfg, state, blocks, bh), reps=9)
+    dtv_ms = cuda_ms(lambda: SD(cfg, state, blocks, bh), reps=9)
+    chk_tv_ms = cuda_ms(lambda: P.pconv_stream_batched_tv_chunked(cfg, st_tv, chk_blocks, h_chk,
+                                                                   K=CHUNK_K), warmup=1, reps=3)
+    s_tv_ms = cuda_ms(lambda: P.pconv_stream_batched_tv(cfg, st_tv, chk_blocks, h_chk), reps=5)
+    l_ms = cuda_ms(lambda: P.pconv_stream(cfg4, st4, b4_1), reps=7)
+    l_tv_ms = cuda_ms(lambda: P.pconv_stream_tv(cfg4, st4, b4_1, bh4_1), reps=7)
+    l_d_ms = cuda_ms(lambda: SD(cfg4, st4, b4_1), reps=7)
+    l_dtv_ms = cuda_ms(lambda: SD(cfg4, st4, b4_1, bh4_1), reps=7)
+    s4_ms = cuda_ms(lambda: conv4.stream(b4), warmup=1, reps=3)
+    t4_ms = cuda_ms(lambda: tvc4.stream(b4, h4), warmup=1, reps=3)
+    audio_chk_tv = SERVE_CH * n_chk / SR
+    new_rows = {}
+    for wname, nch, nout in (("macflow_tv", 1, SCAN_BLOCKS),
+                             ("macflow_tv_batched", SERVE_CH, CHUNK_K),
+                             ("macflow_tv_batched", SERVE_CH, SERVE_BLOCKS)):
+        xm, hm = tv_mac_inputs(nch, np_, b, nout)
+        if wname == "macflow_tv":
+            x1, h1_ = (xm[0][0], xm[1][0]), (hm[0][0], hm[1][0])
+            run = lambda: SM.macflow_tv(x1, h1_, nout, np_, 2.0, 5)  # noqa: E731
+        else:
+            run = lambda: SM.macflow_tv_batched(xm, hm, nout, np_, 2.0, 3)  # noqa: E731
+        k_ms = cuda_ms(run, reps=9, calls=10 if nout == CHUNK_K else 1)
+        tw_ms = cuda_ms(lambda: SM.slide_mac_tv_plain(xm, hm, nout, np_, 2.0, 3), warmup=1,
+                        reps=3)
+        # least work: the MAC; bytes: both timelines in, the accumulators out
+        bnd = bound(8.0 * nch * nout * np_ * b, nbytes(*xm, *hm) + 2 * 4 * nch * nout * b)
+        new_rows[(wname, nch, nout)] = (k_ms, tw_ms, bnd)
+    del xm, hm
+    for nch in (1, LONG_CH):
+        px, ph, w0_, h0_, tails = batched_inputs(LONG_PTS, long_np, LONG_BLOCKS, nch)
+        la = (px, w0_, h0_, 2.0, tails, LONG_PTS)
+        ta = (px, ph, w0_, h0_, long_np - 1, 2.0, tails, LONG_PTS)
+        nbc4 = LONG_BLOCKS * nch
+        for kname, fn, plain, args, ntr, hio in (
+                ("stream_steps_fused_split", SP.stream_steps_fused_split_batched,
+                 SP.stream_steps_fused_split_batched_plain, la, 2, 1),
+                ("stream_steps_fused_split_tv", SP.stream_steps_fused_split_batched_tv,
+                 SP.stream_steps_fused_split_batched_tv_plain, ta, 3, 2)):
+            k_ms = cuda_ms(lambda: fn(*args), reps=5 if nch == 1 else 3)
+            tw_ms = cuda_ms(lambda: plain(*args), warmup=1, reps=3)
+            # least work: the MAC and 2 (LTI) or 3 (TV) real transforms a
+            # block; bytes: blocks, windows and tails in and out, the h
+            # planes in (LTI) or in and out (TV), the coefficient blocks in
+            nbytes_ = 2 * nbytes(px, *w0_, tails) + hio * nbytes(*h0_) \
+                + (nbytes(ph) if ntr == 3 else 0)
+            bnd = bound(stream_flops(nbc4, long_np, LONG_PTS, LONG_PTS, ntr * nbc4), nbytes_)
+            new_rows[(kname, nch, LONG_BLOCKS)] = (k_ms, tw_ms, bnd)
+    del px, ph, w0_, h0_, tails
+    # what the factored design does a block: 4 forward rows (8 for TV) and
+    # 4 inverse rows of m x m products, and the MAC
+    split_design = 2.0 * LONG_BLOCKS * 4 * LONG_PTS ** 2 + 2.0 * (LONG_BLOCKS + 1) * 4 \
+        * LONG_PTS ** 2 + 8.0 * LONG_BLOCKS * long_np * LONG_PTS
+    print(f"phase 30 timing [{card}]: tvconv_decomposed_rt_factor_2^17_512 "
+          f"{audio_s / (dtv_ms / 1e3):.1f} (TV stream_decomposed {SCAN_BLOCKS}x{PTS}: "
+          f"{dtv_ms:.4f} ms; pconv_stream_tv {tv_s_ms:.4f} ms = {audio_s / (tv_s_ms / 1e3):.1f}x); "
+          f"serving_64ch_tv_chunk8_audio_seconds_per_second {audio_chk_tv / (chk_tv_ms / 1e3):.1f} "
+          f"(pconv_stream_batched_tv_chunked K={CHUNK_K} {CHUNK_BLOCKS}x{SERVE_CH}: "
+          f"{chk_tv_ms:.4f} ms; TVConvolver.stream at that shape {s_tv_ms:.4f} ms = "
+          f"{audio_chk_tv / (s_tv_ms / 1e3):.1f}; chunked/stream {chk_tv_ms / s_tv_ms:.2f}x); "
+          f"pconv_realtime_factor_2^20tap_4096pts {long_audio / (l_ms / 1e3):.1f} (pconv_stream "
+          f"{LONG_BLOCKS}x{LONG_PTS}: {l_ms:.4f} ms; stream_decomposed {l_d_ms:.4f} ms = "
+          f"{long_audio / (l_d_ms / 1e3):.1f}x); tvconv_rt_factor_2^20_4096 "
+          f"{long_audio / (l_tv_ms / 1e3):.1f} (pconv_stream_tv {l_tv_ms:.4f} ms; TV "
+          f"stream_decomposed {l_dtv_ms:.4f} ms = {long_audio / (l_dtv_ms / 1e3):.1f}x); "
+          f"Convolver({LONG_CH}).stream {s4_ms:.4f} ms = "
+          f"{LONG_CH * long_audio / (s4_ms / 1e3):.1f} audio-s/s, TVConvolver({LONG_CH}).stream "
+          f"{t4_ms:.4f} ms = {LONG_CH * long_audio / (t4_ms / 1e3):.1f} | kernels (ms; twin; "
+          f"bound): " + "; ".join(
+              f"{k} C={c}x{n}: {ms:.4f}; twin {tw:.4f}; bound {bd[0]:.4f} ({bd[1]}, "
+              f"{100 * bd[0] / ms:.2f}% reached)" for (k, c, n), (ms, tw, bd) in new_rows.items())
+          + f" | the factored LTI scan does {split_design / 1e9:.3f} GFLOP at C=1 "
+          f"({split_design / (new_rows[('stream_steps_fused_split', 1, LONG_BLOCKS)][0] / 1e3) / 1e12:.2f} "
+          f"TFLOP/s)", flush=True)
+    profile_streams((
+        ("TV stream_decomposed 1880 blocks", lambda: SD(cfg, state, blocks, bh)),
+        ("pconv_stream_batched_tv_chunked K=8 64ch x 472 blocks",
+         lambda: P.pconv_stream_batched_tv_chunked(cfg, st_tv, chk_blocks, h_chk, K=CHUNK_K)),
+        ("pconv_stream pts 4096 470 blocks", lambda: P.pconv_stream(cfg4, st4, b4_1)),
+        ("pconv_stream_tv pts 4096 470 blocks",
+         lambda: P.pconv_stream_tv(cfg4, st4, b4_1, bh4_1)),
+        ("stream_decomposed pts 4096 470 blocks", lambda: SD(cfg4, st4, b4_1)),
+        ("Convolver(16).stream pts 4096", lambda: conv4.stream(b4))), calls=3, phase=30)
+
     def kernel(name, source, replaces, launches, err, ms, plain, bnd, lib):
         return {"name": name, "route": "cuda", "source": f"opencl_fft_tpu_torch/csrc/{source}",
                 "replaces": f"opencl_fft_tpu/ops/pallas/{replaces}", "launches": launches,
@@ -1445,7 +1771,23 @@ def main():
                  max(bs_err[(k, 1, np_)], bs_err[(k, SERVE_CH, np_)]),
                  kern_rows[(k, 1)][0], kern_rows[(k, 1)][2], kern_rows[(k, 1)][3], None)
           for k, src, n in zip(bs_names, ("mac.py:87", "blockstep.py:438", "blockstep.py:343",
-                                          "blockstep.py:382"), bs_launches))]}))
+                                          "blockstep.py:382"), bs_launches)),
+        # times at the shape of most of each kernel's main-path launches;
+        # the error over the kernel's main-path shapes
+        *(kernel(k, "splitstep.cu", src, n,
+                 max(split_err[(ek, c_, LONG_PTS)] for c_ in (1, LONG_CH)),
+                 *new_rows[(k, 1, LONG_BLOCKS)], None)
+          for k, ek, src, n in (("stream_steps_fused_split", "split", "splitstep.py:367",
+                                 new_launches[2]),
+                                ("stream_steps_fused_split_tv", "split_tv", "splitstep.py:493",
+                                 new_launches[3]))),
+        kernel("macflow_tv", "slidemac.cu", "macflow.py:498", new_launches[0],
+               tvm_err[("macflow_tv", 1, SCAN_BLOCKS)],
+               *new_rows[("macflow_tv", 1, SCAN_BLOCKS)], None),
+        kernel("macflow_tv_batched", "slidemac.cu", "macflow.py:646", new_launches[1],
+               max(tvm_err[("macflow_tv_batched", SERVE_CH, n_)]
+                   for n_ in (CHUNK_K, SERVE_BLOCKS)),
+               *new_rows[("macflow_tv_batched", SERVE_CH, CHUNK_K)], None)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -20,7 +20,14 @@ engines (``pconv_chunk{,_tv}``, ``pconv_offline``, ``Convolver.render``,
 ``pconv_stream_batched_chunked``, ``convolve_oneshot``, the LTI
 ``stream_decomposed`` of ``ops/decomposed.py``), whose sliding MAC runs on
 ``csrc/slidemac.cu`` (``ops/cuda/slidemac.py``: ``chunk_mac``,
-``macflow_lti``, ``macflow_lti_batched``); the per-block steps
+``macflow_lti``, ``macflow_lti_batched``); the time-varying decomposed
+engine (``stream_decomposed`` with ``blocks_h``,
+``stream_batched_tv_decomposed``, ``pconv_stream_batched_tv_chunked``,
+``TVConvolver.stream_chunked``), whose TV sliding MAC runs on the same
+source (``macflow_tv``, ``macflow_tv_batched``); the streams at partitions
+above 2048, whose whole-scan kernels factor the transform tables
+(``csrc/splitstep.cu``, ``ops/cuda/splitstep.py``:
+``stream_steps_fused_split{,_batched}{,_tv}``); the per-block steps
 (``pconv_step{,_tv}``, ``Clpconv.convolution``, the opcode processors,
 ``Convolver.step``) and the crossfaded IR replacement (``XfadeState``,
 ``pconv_begin_xfade``, ``pconv_step_xfade``, ``Clpconv.push_ir_xfade``,
@@ -43,7 +50,14 @@ from .ops.cuda.blockstep import (block_step_fused, block_step_fused_plain,
                                  block_step_fwd_fused_tv, block_step_fwd_fused_tv_plain)
 from .ops.cuda.mac import spectral_mac, spectral_mac_plain
 from .ops.cuda.dstream import dstream_steps, dstream_steps_plain, toeplitz_slabs
-from .ops.cuda.slidemac import chunk_mac, macflow_lti, macflow_lti_batched, slide_mac_plain
+from .ops.cuda.slidemac import (chunk_mac, macflow_lti, macflow_lti_batched, macflow_tv,
+                                macflow_tv_batched, slide_mac_plain, slide_mac_tv_plain)
+from .ops.cuda.splitstep import (stream_steps_fused_split, stream_steps_fused_split_batched,
+                                 stream_steps_fused_split_batched_plain,
+                                 stream_steps_fused_split_batched_tv,
+                                 stream_steps_fused_split_batched_tv_plain,
+                                 stream_steps_fused_split_plain, stream_steps_fused_split_tv,
+                                 stream_steps_fused_split_tv_plain)
 from .models import (BatchedFFT, Convolver, MatrixConvolver, TVConvolver,
                      batched_state)
 from .ops.cuda.streamstep import (stream_steps_fused, stream_steps_fused_batched,
@@ -52,7 +66,7 @@ from .ops.cuda.streamstep import (stream_steps_fused, stream_steps_fused_batched
                                   stream_steps_fused_batched_tv_plain,
                                   stream_steps_fused_plain, stream_steps_fused_tv,
                                   stream_steps_fused_tv_plain)
-from .ops.decomposed import stream_decomposed
+from .ops.decomposed import stream_batched_tv_decomposed, stream_decomposed
 from .ops.dconv import (DconvConfig, DconvState, convolve_direct, dconv_init,
                         dconv_step, dconv_step_tv, dconv_stream)
 from .ops.cuda.vmemfft import (fft_vmem, fft_vmem_front2, fft_vmem_front2_plain,
@@ -62,7 +76,8 @@ from .ops.pconv import (PconvConfig, PconvState, XfadeState, convolve, convolve_
                         pconv_begin_xfade, pconv_chunk, pconv_chunk_tv, pconv_init,
                         pconv_offline, pconv_step, pconv_step_tv, pconv_step_xfade,
                         pconv_stream, pconv_stream_batched, pconv_stream_batched_chunked,
-                        pconv_stream_batched_tv, pconv_stream_tv, push_ir)
+                        pconv_stream_batched_tv, pconv_stream_batched_tv_chunked,
+                        pconv_stream_tv, push_ir)
 from .ops.rfft import (irfft, irfft_split, pack_forward, packed_to_standard, rfft,
                        rfft_split, standard_to_packed, unpack_inverse)
 from .stream import (ClconvProcessor, ClfftProcessor, ClrfftProcessor,
@@ -85,7 +100,8 @@ __all__ = [
     "pconv_step_tv", "pconv_stream", "pconv_stream_tv", "convolve",
     "pconv_stream_batched", "pconv_stream_batched_tv",
     "pconv_chunk", "pconv_chunk_tv", "pconv_offline", "pconv_stream_batched_chunked",
-    "convolve_oneshot", "stream_decomposed",
+    "convolve_oneshot", "stream_decomposed", "stream_batched_tv_decomposed",
+    "pconv_stream_batched_tv_chunked",
     "XfadeState", "pconv_begin_xfade", "pconv_step_xfade",
     "Convolver", "TVConvolver", "MatrixConvolver", "BatchedFFT", "batched_state",
     "DconvConfig", "DconvState", "dconv_init", "dconv_step", "dconv_step_tv",
@@ -96,6 +112,11 @@ __all__ = [
     "stream_steps_fused_batched_tv", "stream_steps_fused_batched_tv_plain",
     "dstream_steps", "dstream_steps_plain", "toeplitz_slabs",
     "chunk_mac", "macflow_lti", "macflow_lti_batched", "slide_mac_plain",
+    "macflow_tv", "macflow_tv_batched", "slide_mac_tv_plain",
+    "stream_steps_fused_split", "stream_steps_fused_split_plain",
+    "stream_steps_fused_split_tv", "stream_steps_fused_split_tv_plain",
+    "stream_steps_fused_split_batched", "stream_steps_fused_split_batched_plain",
+    "stream_steps_fused_split_batched_tv", "stream_steps_fused_split_batched_tv_plain",
     "spectral_mac", "spectral_mac_plain", "block_step_fused", "block_step_fused_plain",
     "block_step_fwd_fused", "block_step_fwd_fused_plain",
     "block_step_fwd_fused_tv", "block_step_fwd_fused_tv_plain",

@@ -1,6 +1,8 @@
-// LTI sliding-window spectral MAC on Hopper (sm_90a), C channels at once.
+// Sliding-window spectral MAC over frame timelines on Hopper (sm_90a), C
+// channels at once: LTI (slide_mac_batched_f32) and time-varying
+// (slide_mac_tv_batched_f32, at the end of this file).
 //
-// Replaces three TPU kernels that compute one function:
+// The LTI entry replaces three TPU kernels that compute one function:
 // opencl_fft_tpu/ops/pallas/chunkmac.py _chunkmac_kernel (wrapper chunk_mac
 // :158), macflow.py _lti_kernel (macflow_lti :252) and _lti_batched_kernel
 // (macflow_lti_batched :367). For every channel c, output row t < nout and
@@ -33,15 +35,9 @@
 // are taken: rows past the timeline read as zero. wgmma/TMA and a split of
 // the q range for short nout are later work.
 
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "scan_mac.cuh"   // MAC_TT (output rows per thread), MAC_THREADS (bins per block)
 
 namespace {
-
-constexpr int MAC_TT = 8;         // output rows per thread
-constexpr int MAC_THREADS = 128;  // bins per block
-
-inline int cdiv(long long a, long long b) { return static_cast<int>((a + b - 1) / b); }
 
 // Sizes and per-channel strides: channel c of x starts at c * rows * bins,
 // of h at c * nparts * bins, of the outputs at c * nout * bins.
@@ -50,7 +46,7 @@ struct Mac {
 };
 
 template <bool DC>
-__device__ __forceinline__ void mac_rows(const Mac& s, int k, int t0, size_t c,
+__device__ __forceinline__ void slide_rows(const Mac& s, int k, int t0, size_t c,
                                          const float* __restrict__ xr,
                                          const float* __restrict__ xi,
                                          const float* __restrict__ hr,
@@ -112,9 +108,51 @@ slide_mac_kernel(Mac s, const float* __restrict__ xr, const float* __restrict__ 
     const int t0 = blockIdx.x * MAC_TT;
     const size_t c = blockIdx.z;
     if (k == 0)
-        mac_rows<true>(s, k, t0, c, xr, xi, hr, hi, b0, outr, outi);
+        slide_rows<true>(s, k, t0, c, xr, xi, hr, hi, b0, outr, outi);
     else
-        mac_rows<false>(s, k, t0, c, xr, xi, hr, hi, b0, outr, outi);
+        slide_rows<false>(s, k, t0, c, xr, xi, hr, hi, b0, outr, outi);
+}
+
+// The TV sliding MAC. Replaces opencl_fft_tpu/ops/pallas/macflow.py
+// _tv_kernel (wrapper macflow_tv :498) and _tv_batched_kernel
+// (macflow_tv_batched :646). For channel c, output t < nout and bin k:
+//   acc[c, t, k] = sum_{p < nparts} X[c, t+p, k] (*) H[c, hrow(t, p), k],
+//   hrow(t, p) = t + nparts-1 - ((t - nparts+1 + p + phase) mod nparts),
+// bin 0 componentwise and times b0. X and H are the input and coefficient
+// frame timelines (row f + nparts-1 holds the frame of time f; rows
+// [0, nparts-1) the pre-call ring contents in time order), phase the
+// coefficient ring's (nparts-1 - wp2) mod nparts, shared by the channels.
+// This is the TV scan's MAC (scan_mac.cuh) with X one row earlier:
+// hrow(t, p) = t - ((t - wp2 + p) mod nparts) + nparts-1. So it runs that
+// code: one thread per bin slides MAC_TT output rows of X through
+// registers, and for nparts >= MAC_TT reads two H rows per p for all of
+// them (H_TV_PAIR: the row changes only where the mod wraps, once in
+// MAC_TT consecutive outputs), one per output below (H_TV).
+//
+// What bounds it on the card: as the LTI MAC, FP32 operations at long
+// timelines (8 C nout nparts bins; 1.97 GFLOP at 1 x 1880, nparts 256,
+// bins 512) and bytes at short ones (a K = 8 chunk reads both timelines,
+// 64 x 263 x 512 x 8 B each, for 8 outputs). The TPU kernel streams
+// 8-row-aligned DMA tiles of the reversed X and of H, so it takes only
+// phases = 0 (mod 8) and the JAX engine routes the others to XLA gathers;
+// here every phase, nparts >= 1, bins and output count runs the kernel.
+template <HMode MODE>
+__global__ void __launch_bounds__(MAC_THREADS)
+slide_mac_tv_kernel(Mac s, int hrows, int wp2, const float* __restrict__ xr,
+                    const float* __restrict__ xi, const float* __restrict__ hr,
+                    const float* __restrict__ hi, float b0, float* __restrict__ outr,
+                    float* __restrict__ outi) {
+    const int k = blockIdx.y * MAC_THREADS + threadIdx.x;
+    if (k >= s.bins) return;
+    const int t0 = blockIdx.x * MAC_TT;
+    const size_t c = blockIdx.z, bins = s.bins;
+    const size_t x0 = c * s.rows, h0 = c * hrows, o0 = c * s.nout;
+    if (k == 0)
+        mac_rows<true, MODE>(s.nout, s.rows, s.nparts, k, t0, wp2, xr, xi, bins, hr, hi, bins,
+                             b0, outr, outi, bins, x0, h0, o0);
+    else
+        mac_rows<false, MODE>(s.nout, s.rows, s.nparts, k, t0, wp2, xr, xi, bins, hr, hi,
+                              bins, b0, outr, outi, bins, x0, h0, o0);
 }
 
 }  // namespace
@@ -133,5 +171,29 @@ extern "C" int slide_mac_batched_f32(const float* xr, const float* xi, const flo
     slide_mac_kernel<<<dim3(cdiv(nout, MAC_TT), cdiv(bins, MAC_THREADS), C), MAC_THREADS, 0,
                        static_cast<cudaStream_t>(stream_ptr)>>>(s, xr, xi, hr, hi, b0, outr,
                                                                  outi);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The TV sliding MAC of every channel for t < nout: x planes (C, rows,
+// bins) (rows >= nparts-1+nout; later rows unread), h planes (C, hrows,
+// bins) (hrows >= nparts-1+nout), outputs (C, nout, bins); phase in
+// [0, nparts). Float32 device memory on `device`, each plane contiguous.
+// Launches on `stream` without synchronising; returns the first CUDA error.
+extern "C" int slide_mac_tv_batched_f32(const float* xr, const float* xi, const float* hr,
+                                        const float* hi, float* outr, float* outi, int C,
+                                        int rows, int hrows, int nparts, int bins, int nout,
+                                        int phase, float b0, int device, void* stream_ptr) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const Mac s{C, rows, nparts, bins, nout};
+    const int wp2 = (nparts - 1 - phase) % nparts;
+    const dim3 grid(cdiv(nout, MAC_TT), cdiv(bins, MAC_THREADS), C);
+    cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
+    if (nparts >= MAC_TT)
+        slide_mac_tv_kernel<H_TV_PAIR><<<grid, MAC_THREADS, 0, st>>>(s, hrows, wp2, xr, xi, hr,
+                                                                     hi, b0, outr, outi);
+    else
+        slide_mac_tv_kernel<H_TV><<<grid, MAC_THREADS, 0, st>>>(s, hrows, wp2, xr, xi, hr, hi,
+                                                                b0, outr, outi);
     return static_cast<int>(cudaGetLastError());
 }

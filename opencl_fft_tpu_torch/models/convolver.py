@@ -9,9 +9,13 @@ through the per-block functions of ``ops/pconv.py``, which broadcast over
 the channel axis (the JAX package vmaps them; on a card one block-step
 kernel launch of ``ops/cuda/blockstep.py`` for all channels); ``stream``
 sends a whole (nblocks, C, pts) scan through the batched whole-scan kernel
-(``ops/cuda/streamstep.py``), one launch sequence for all channels, or
-with ``chunk > 1`` K blocks at a time through ``pconv_chunk`` (bit-equal to
-per-block steps); ``Convolver.render`` is the offline render
+(``ops/cuda/streamstep.py``, or ``ops/cuda/splitstep.py``'s factored-table
+scan above pts 2048), one launch sequence for all channels, or with
+``chunk > 1`` K blocks at a time through ``pconv_chunk`` (bit-equal to
+per-block steps); ``TVConvolver.stream_chunked`` runs K-block chunks through
+the batched TV decomposed engine (``pconv_stream_batched_tv_chunked``: one
+TV sliding-MAC launch of ``ops/cuda/slidemac.py`` a chunk);
+``Convolver.render`` is the offline render
 (``_offline_batched``: one forward product, the sliding-MAC kernel of
 ``ops/cuda/slidemac.py``, one inverse transform). ``Convolver.set_ir`` is
 the serving hot-swap: the chosen channels crossfade to new IRs over the
@@ -22,9 +26,7 @@ their outputs are bit-equal to an engine that never swapped).
 ``Convolver``; ``BatchedFFT`` is ``fft_split`` over leading axes.
 
 Every engine takes an explicit device: a CUDA card (the default), or the
-CPU when asked for by name, where each kernel's plain twin runs. Not
-ported yet, raising NotImplementedError naming its ROADMAP item: the
-decomposed TV engine (``TVConvolver.stream_chunked``, queue 1 item 10).
+CPU when asked for by name, where each kernel's plain twin runs.
 """
 
 from __future__ import annotations
@@ -195,7 +197,8 @@ class Convolver:
 
     def stream(self, blocks, chunk: int = 1) -> torch.Tensor:
         """Scan (nblocks, batch, pts) -> (nblocks, batch, pts): every block
-        of every channel through the batched whole-scan kernel.
+        of every channel through the batched whole-scan kernel (the
+        factored-table one above pts 2048).
 
         chunk > 1 takes that many blocks per ``pconv_chunk`` call instead
         (bit-equal to per-block ``step`` calls; nblocks must be a multiple
@@ -253,15 +256,21 @@ class TVConvolver:
 
     def stream(self, blocks_x, blocks_h) -> torch.Tensor:
         """Scan (nblocks, batch, pts) pairs -> (nblocks, batch, pts): every
-        block of every channel through the batched whole-scan TV kernel."""
+        block of every channel through the batched whole-scan TV kernel
+        (the factored-table one above pts 2048)."""
         self.state, out = _p.pconv_stream_batched_tv(
             self.cfg, self.state, _f32(blocks_x, self.device), _f32(blocks_h, self.device))
         return out
 
     def stream_chunked(self, blocks_x, blocks_h, K: int = 8) -> torch.Tensor:
-        raise NotImplementedError(
-            "the chunked TV engine (stream_chunked) is not ported yet "
-            "(ROADMAP queue 1 item 10)")
+        """Latency-relaxed TV serving: (nblocks, batch, pts) pairs in K-block
+        chunks through ``pconv_stream_batched_tv_chunked`` (nblocks a
+        multiple of K). Within float32 reduction-order tolerance of
+        ``stream``; the state chains exactly."""
+        self.state, out = _p.pconv_stream_batched_tv_chunked(
+            self.cfg, self.state, _f32(blocks_x, self.device), _f32(blocks_h, self.device),
+            K=K)
+        return out
 
     def step_fn(self):
         """The plain (state, bx, bh) -> (state, out) step on a batched

@@ -1,6 +1,6 @@
-"""LTI sliding-window spectral MAC over a frame timeline: the CUDA kernel of
-``csrc/slidemac.cu`` and its plain PyTorch twin, under the three names the
-JAX package gives it.
+"""Sliding-window spectral MACs over frame timelines, LTI and time-varying:
+the CUDA kernels of ``csrc/slidemac.cu`` and their plain PyTorch twins,
+under the names the JAX package gives them.
 
 Counterparts of ``opencl_fft_tpu/ops/pallas/chunkmac.py`` ``chunk_mac`` and
 ``opencl_fft_tpu/ops/pallas/macflow.py`` ``macflow_lti`` and
@@ -16,11 +16,24 @@ output count multiples of 8, ``bins`` of 128) are VMEM and DMA-alignment
 rules and do not apply: every ``nparts >= 1``, ``bins`` and output count
 is taken, and the wrappers return exactly the rows asked for.
 
+The time-varying form (``macflow_tv``, ``macflow_tv_batched``: the JAX
+``macflow.py`` kernels of the same names) pairs each input frame with a
+frame of a second, coefficient timeline:
+
+    acc[c, t, k] = sum_{p < nparts} X[c, t+p, k] (*) H[c, t + nparts-1 -
+                   ((t - nparts+1 + p + phase) mod nparts), k]
+
+both timelines laid out as row f + nparts-1 = the frame of time f, and
+``phase`` = (nparts-1 - wp2) mod nparts the coefficient ring's, shared by
+the channels. The JAX kernel takes only phases = 0 (mod 8) (a DMA row
+alignment rule); here every phase runs the kernel.
+
 Each wrapper runs the CUDA kernel for CUDA tensors and the twin for CPU
 tensors; anything else raises, and a build or launch failure raises.
-``CHUNKMAC_LAUNCHES``, ``MACFLOW_LAUNCHES`` and ``MACFLOW_BATCHED_LAUNCHES``
-count the kernel launches of ``chunk_mac``, ``macflow_lti`` and
-``macflow_lti_batched``.
+``CHUNKMAC_LAUNCHES``, ``MACFLOW_LAUNCHES``, ``MACFLOW_BATCHED_LAUNCHES``,
+``MACFLOW_TV_LAUNCHES`` and ``MACFLOW_TV_BATCHED_LAUNCHES`` count the kernel
+launches of ``chunk_mac``, ``macflow_lti``, ``macflow_lti_batched``,
+``macflow_tv`` and ``macflow_tv_batched``.
 """
 
 from __future__ import annotations
@@ -36,6 +49,8 @@ from . import _build
 CHUNKMAC_LAUNCHES = 0
 MACFLOW_LAUNCHES = 0
 MACFLOW_BATCHED_LAUNCHES = 0
+MACFLOW_TV_LAUNCHES = 0
+MACFLOW_TV_BATCHED_LAUNCHES = 0
 
 # Offline render routing (``ops/pconv._offline_batched``): chunk_mac up to
 # this many channels, macflow_lti_batched above, as in the JAX package
@@ -54,6 +69,15 @@ def _kernel():
     fn = _build.load("slidemac").slide_mac_batched_f32
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p] * 6 + [i] * 5 + [ctypes.c_float, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _tv_kernel():
+    fn = _build.load("slidemac").slide_mac_tv_batched_f32
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 6 + [i] * 7 + [ctypes.c_float, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -166,4 +190,104 @@ def macflow_lti(xtl: Cplx, h: Cplx, nb: int, b0: float) -> Cplx:
     (acc_r, acc_i), launched = _run("macflow_lti", (xtl[0][None], xtl[1][None]),
                                     (h[0][None], h[1][None]), nb, b0)
     MACFLOW_LAUNCHES += launched
+    return acc_r[0], acc_i[0]
+
+
+def _check_tv(name: str, x: Cplx, h: Cplx, nout: int, nparts: int):
+    """x and h planes (C, rows, bins), each pair one shape and the two
+    alike but for rows; both must hold nparts-1+nout rows."""
+    for what, (re, im) in (("x", x), ("h", h)):
+        if re.dim() != 3 or tuple(im.shape) != tuple(re.shape):
+            raise ValueError(f"{name}: {what} timeline planes must be one (C, rows, bins) "
+                             f"shape, got {tuple(re.shape)} and {tuple(im.shape)}")
+    if x[0].shape[0] != h[0].shape[0] or x[0].shape[2] != h[0].shape[2]:
+        raise ValueError(f"{name}: x and h timelines differ in channels or bins: "
+                         f"{tuple(x[0].shape)}, {tuple(h[0].shape)}")
+    if nparts < 1 or nout < 1:
+        raise ValueError(f"{name}: need nparts >= 1 and nb >= 1, got {nparts}, {nout}")
+    need = nparts - 1 + nout
+    if min(x[0].shape[1], h[0].shape[1]) < need:
+        raise ValueError(f"{name}: {nout} outputs of {nparts} partitions need timelines of "
+                         f">= {need} rows, got {x[0].shape[1]} and {h[0].shape[1]}")
+
+
+def _run_tv(name: str, x: Cplx, h: Cplx, nout: int, nparts: int, b0: float, phase: int):
+    """(acc planes (C, nout, bins), launched): the TV kernel on a card, the
+    twin on the CPU."""
+    _check_tv(name, x, h, nout, nparts)
+    phase = int(phase) % nparts
+    dev = _build.launch_device(name, (*x, *h))
+    if dev.type == "cpu":
+        return slide_mac_tv_plain(x, h, nout, nparts, b0, phase), False
+    return _launch_tv(x, h, nout, nparts, b0, phase, dev), True
+
+
+def _launch_tv(x: Cplx, h: Cplx, nout: int, nparts: int, b0: float, phase: int,
+               dev: torch.device) -> Cplx:
+    (xr, xi), (hr, hi) = x, h
+    nch, rows, bins = xr.shape
+    outr = torch.empty((nch, nout, bins), dtype=torch.float32, device=dev)
+    outi = torch.empty_like(outr)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _tv_kernel()(xr.data_ptr(), xi.data_ptr(), hr.data_ptr(), hi.data_ptr(),
+                       outr.data_ptr(), outi.data_ptr(), nch, rows, hr.shape[1], nparts, bins,
+                       nout, phase, float(b0), dev.index, stream)
+    if err != 0:
+        raise RuntimeError(f"slide_mac_tv_batched_f32: CUDA error {err} at launch")
+    return outr, outi
+
+
+def slide_mac_tv_plain(x: Cplx, h: Cplx, nout: int, nparts: int, b0: float,
+                       phase: int) -> Cplx:
+    """Plain PyTorch twin of the TV sliding MAC (the JAX package's
+    ``_tv_mac_xla`` over channels): x, h (C, rows, bins) timelines -> (C,
+    nout, bins). Outputs are taken in chunks of k rows whose (C, k, nparts,
+    bins) windows of both timelines are gathered and summed over the
+    partitions."""
+    (xr, xi), (hr, hi) = x, h
+    nch, _, bins = xr.shape
+    dev = xr.device
+    acc_r = torch.empty((nch, nout, bins), dtype=torch.float32, device=dev)
+    acc_i = torch.empty_like(acc_r)
+    p = torch.arange(nparts, device=dev)
+    step = max(1, _PLAIN_CHUNK_ELEMS // (nch * nparts * bins))
+    for t0 in range(0, nout, step):
+        k = min(step, nout - t0)
+        t = t0 + torch.arange(k, device=dev)[:, None]                 # (k, 1)
+        xrow = t + p                                                  # (k, nparts)
+        hrow = t + nparts - 1 - (t - nparts + 1 + p + phase) % nparts
+        wr, wi, gr, gi = xr[:, xrow], xi[:, xrow], hr[:, hrow], hi[:, hrow]
+        ar = torch.sum(wr * gr - wi * gi, dim=2)
+        ai = torch.sum(wr * gi + wi * gr, dim=2)
+        ar[..., 0] = b0 * torch.sum(wr[..., 0] * gr[..., 0], dim=2)
+        ai[..., 0] = b0 * torch.sum(wi[..., 0] * gi[..., 0], dim=2)
+        acc_r[:, t0:t0 + k] = ar
+        acc_i[:, t0:t0 + k] = ai
+    return acc_r, acc_i
+
+
+def macflow_tv_batched(xtl: Cplx, htl: Cplx, nb: int, np_: int, b0: float, c=0) -> Cplx:
+    """Per-channel TV sliding MAC with a shared phase ``c`` = (np_-1 -
+    wp2) mod np_: xtl, htl split (B, >= np_-1+nb, bins) timelines (row f +
+    np_-1 = the frame of time f, rows [0, np_-1) the pre-call ring contents
+    in time order). Returns split (B, nb, bins) (the JAX kernel returns a
+    padded row count for the caller to slice). Any phase."""
+    global MACFLOW_TV_BATCHED_LAUNCHES
+    acc, launched = _run_tv("macflow_tv_batched", xtl, htl, nb, np_, b0, c)
+    MACFLOW_TV_BATCHED_LAUNCHES += launched
+    return acc
+
+
+def macflow_tv(xtl: Cplx, htl: Cplx, nb: int, np_: int, b0: float, c=0) -> Cplx:
+    """The TV sliding MAC of one timeline pair, the C = 1 case of
+    ``macflow_tv_batched``: xtl, htl split (>= np_-1+nb, bins). Returns split
+    (nb, bins). Any phase ``c``."""
+    global MACFLOW_TV_LAUNCHES
+    for name, planes in (("xtl", xtl), ("htl", htl)):
+        if planes[0].dim() != 2:
+            raise ValueError(f"macflow_tv: {name} planes must be (rows, bins), got "
+                             f"{tuple(planes[0].shape)}")
+    (acc_r, acc_i), launched = _run_tv("macflow_tv", (xtl[0][None], xtl[1][None]),
+                                       (htl[0][None], htl[1][None]), nb, np_, b0, c)
+    MACFLOW_TV_LAUNCHES += launched
     return acc_r[0], acc_i[0]

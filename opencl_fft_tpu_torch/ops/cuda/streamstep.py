@@ -222,11 +222,17 @@ def stream_steps_fused_batched(blocks: torch.Tensor, w0: Cplx, h: Cplx,
     return got
 
 
-def _timeline(blocks: torch.Tensor, w0: Cplx, pts: int) -> Cplx:
-    """Per channel: the initial window, then the forward frames of the
-    blocks (nb, C, pts) -> split (C, nparts + nb, bins)."""
+def _dense_frames(blocks: torch.Tensor, pts: int) -> Cplx:
+    """Forward frames of blocks (nb, C, pts) as one product against the
+    ``wfwd`` table: split (C, nb, bins)."""
     f = (blocks.to(torch.float32) @ fwd_table(pts, blocks.device)).transpose(0, 1)
-    return torch.cat([w0[0], f[..., :pts]], 1), torch.cat([w0[1], f[..., pts:]], 1)
+    return f[..., :pts], f[..., pts:]
+
+
+def _timeline(frames: Cplx, w0: Cplx) -> Cplx:
+    """Per channel: the initial window, then the frames (C, nb, bins) ->
+    split (C, nparts + nb, bins)."""
+    return torch.cat([w0[0], frames[0]], 1), torch.cat([w0[1], frames[1]], 1)
 
 
 def _post_ola_plain(acc_r, acc_i, tails, pts):
@@ -243,10 +249,20 @@ def stream_steps_fused_batched_plain(blocks: torch.Tensor, w0: Cplx, h: Cplx,
     """Plain PyTorch twin of the batched LTI scan: the kernel's three steps
     with a leading channel axis, the MAC summed over partitions in the
     kernel's order (q ascending)."""
+    return _lti_scan_plain(blocks, w0, h, b0_scale, tails, pts, _dense_frames, _post_ola_plain)
+
+
+def _lti_scan_plain(blocks, w0: Cplx, h: Cplx, b0_scale: float, tails, pts: int,
+                   frames, post_ola):
+    """The batched LTI scan, block-parallel, around two transform steps:
+    ``frames(blocks, pts)`` -> split (C, nb, bins) forward frames and
+    ``post_ola(acc_r, acc_i, tails, pts)`` -> (outs (nb, C, pts), final
+    tails (C, pts)). The dense twin and the split-table twin
+    (``ops/cuda/splitstep.py``) share it."""
     hr, hi = h
     nparts = hr.shape[1]
     nb = blocks.shape[0]
-    tr, ti = _timeline(blocks, w0, pts)                        # (C, nparts+nb, b)
+    tr, ti = _timeline(frames(blocks, pts), w0)                # (C, nparts+nb, b)
     acc_r = torch.zeros((hr.shape[0], nb, pts), dtype=torch.float32, device=blocks.device)
     acc_i = torch.zeros_like(acc_r)
     for q in range(nparts):
@@ -255,7 +271,7 @@ def stream_steps_fused_batched_plain(blocks: torch.Tensor, w0: Cplx, h: Cplx,
         acc_i += xr * hi[:, q, None] + xi * hr[:, q, None]
     acc_r[..., 0] = b0_scale * (tr[:, 1:, 0].unfold(1, nparts, 1) * hr[:, None, :, 0]).sum(-1)
     acc_i[..., 0] = b0_scale * (ti[:, 1:, 0].unfold(1, nparts, 1) * hi[:, None, :, 0]).sum(-1)
-    outs, tailf = _post_ola_plain(acc_r, acc_i, tails, pts)
+    outs, tailf = post_ola(acc_r, acc_i, tails, pts)
     return outs, (tr[:, nb:nb + nparts], ti[:, nb:nb + nparts]), tailf
 
 
@@ -350,6 +366,14 @@ def stream_steps_fused_batched_tv_plain(blocks_x: torch.Tensor, blocks_h: torch.
     row ``_tv_rows(t, q, wp2_c)``, summed over q ascending as the kernel
     does; the final ring is the same gather at t = nblocks - 1.
     """
+    return _tv_scan_plain(blocks_x, blocks_h, w0, h0, wp2, b0_scale, tails, pts,
+                         _dense_frames, _post_ola_plain)
+
+
+def _tv_scan_plain(blocks_x, blocks_h, w0: Cplx, h0: Cplx, wp2: Pointers, b0_scale: float,
+                  tails, pts: int, frames, post_ola):
+    """The batched TV scan around the two transform steps of
+    ``_lti_scan_plain``."""
     h0r, h0i = h0
     nch, nparts = h0r.shape[:2]
     nb = blocks_x.shape[0]
@@ -357,9 +381,9 @@ def stream_steps_fused_batched_tv_plain(blocks_x: torch.Tensor, blocks_h: torch.
     wp2 = _channel_pointers(wp2, nch, nparts)
     wp2 = torch.tensor(wp2 if isinstance(wp2, tuple) else (wp2,) * nch, device=dev)[:, None]
     ch = torch.arange(nch, device=dev)[:, None]
-    tr, ti = _timeline(blocks_x, w0, pts)                      # (C, nparts+nb, b)
+    tr, ti = _timeline(frames(blocks_x, pts), w0)              # (C, nparts+nb, b)
     slots = (wp2 - torch.arange(-(nparts - 1), 0, device=dev)) % nparts
-    htr, hti = _timeline(blocks_h, (h0r[ch, slots], h0i[ch, slots]), pts)
+    htr, hti = _timeline(frames(blocks_h, pts), (h0r[ch, slots], h0i[ch, slots]))
     t = torch.arange(nb, device=dev)
     acc_r = torch.zeros((nch, nb, pts), dtype=torch.float32, device=dev)
     acc_i = torch.zeros_like(acc_r)
@@ -375,7 +399,7 @@ def stream_steps_fused_batched_tv_plain(blocks_x: torch.Tensor, blocks_h: torch.
         dc_i += xi[..., 0] * hi[..., 0]
     acc_r[..., 0] = b0_scale * dc_r
     acc_i[..., 0] = b0_scale * dc_i
-    outs, tailf = _post_ola_plain(acc_r, acc_i, tails, pts)
+    outs, tailf = post_ola(acc_r, acc_i, tails, pts)
     rows = _tv_rows(nb - 1, torch.arange(nparts, device=dev), wp2, nparts)   # (C, nparts)
     return (outs, (tr[:, nb:nb + nparts], ti[:, nb:nb + nparts]),
             (htr[ch, rows], hti[ch, rows]), tailf)

@@ -1,13 +1,19 @@
 """Fused transform tables of the streaming engine, built in float64 numpy
 and rounded once to float32 — copies of the JAX package's builders in
-``ops/pallas/blockstep.py`` (bit for bit: the tests compare them).
+``ops/pallas/blockstep.py`` and ``ops/pallas/splitstep.py`` (bit for bit:
+the tests compare them).
 
 ``_wfwd_np(pts)``: block @ W == the whole forward rFFT of the zero-padded
 frame (deinterleave + half-size DFT + pack), split [re | im].
 ``_wpost_np(bins)``: [accr | acci] @ W == [time[:bins] | time[bins:]], the
 whole inverse half (unpack + inverse DFT + deinterleave).
+``ctab_np(m)`` and ``_coef_stacks_np(m)``: the factored form of both
+chains, one (m, m) cos/sin table and two (8, m) coefficient stacks, which
+the split-table scans (``ops/cuda/splitstep.py``) use where the dense
+tables (6 m^2 floats) are large.
 
-The ``*_table`` functions cache the float32 tensors per (size, device).
+The ``*_table``/``*_tables`` functions cache the float32 tensors per (size,
+device).
 """
 
 from __future__ import annotations
@@ -118,3 +124,75 @@ def post_ola_table(bins: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(
         np.ascontiguousarray(np.concatenate([w[:, bins:], w[:, :bins]]))
     ).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def ctab_np(m: int) -> np.ndarray:
+    """(m, m) table: cos(2*pi*j*k/m) in column q = 2j, sin(...) in column
+    q = 2j+1 (float64 trig, cast to float32)."""
+    k = np.arange(m, dtype=np.float64)[:, None]
+    j = (np.arange(m, dtype=np.float64)[None, :] // 2)
+    ang = 2.0 * np.pi * j * k / m
+    tab = np.where(np.arange(m)[None, :] % 2 == 0, np.cos(ang), np.sin(ang))
+    return tab.astype(np.float32)
+
+
+def _diag_flip_coeffs(block: np.ndarray):
+    """(d1, d2) with block == diag(d1) + P @ diag(d2), P the index negation
+    (row (m-k) % m, column k). Where the two coincide (k = 0, m/2) the
+    weight goes to d1. Raises if block has another structure."""
+    m = block.shape[0]
+    k = np.arange(m)
+    d1 = block[k, k].copy()
+    d2 = block[(m - k) % m, k].copy()
+    d2[k == (m - k) % m] = 0.0
+    rec = np.diag(d1)
+    rec[(m - k) % m, k] += d2
+    if not np.allclose(rec, block, atol=0.0):
+        raise ValueError("matrix is not diag + flip*diag")
+    return d1, d2
+
+
+@functools.lru_cache(maxsize=None)
+def pack_coeffs_np(m: int, forward: bool):
+    """The pack (forward) or unpack pass [re | im] @ U as 8 length-m
+    vectors: out_re = re*a1 + nflip(re)*a2 + im*b1 + nflip(im)*b2, out_im =
+    re*c1 + nflip(re)*c2 + im*d1 + nflip(im)*d2, nflip the index negation
+    v_k -> v_{(m-k) % m}; returned as ((a1, a2), (b1, b2), (c1, c2),
+    (d1, d2))."""
+    u = _pack_matrix_np(m, forward)
+    return (_diag_flip_coeffs(u[:m, :m]), _diag_flip_coeffs(u[m:, :m]),
+            _diag_flip_coeffs(u[:m, m:]), _diag_flip_coeffs(u[m:, m:]))
+
+
+@functools.lru_cache(maxsize=None)
+def _coef_stacks_np(m: int):
+    """(8, m) forward and (8, m) inverse coefficient stacks, float32.
+
+    Forward rows [a1, a2, b1, b2, c1, c2, d1, d2]: with FR/FI the products
+    of the block and of its parity swap against ctab^T and GR/GI those of
+    the same with odd lanes negated, packed_re = FR*a1 + GR*a2 + FI*b1 +
+    GI*b2 and packed_im = FR*c1 + GR*c2 + FI*d1 + GI*d2.
+    Inverse rows [a1, b1, na2, nb2, c1, d1, nc2, nd2] (n* index-negated):
+    A = accR*a1 + accI*b1, B = accR*na2 + accI*nb2, D = accR*c1 + accI*d1,
+    E = accR*nc2 + accI*nd2, the four rows that go through ctab."""
+    (fa1, fa2), (fb1, fb2), (fc1, fc2), (fd1, fd2) = pack_coeffs_np(m, True)
+    fwd = np.stack([fa1, fa2, fb1, fb2, fc1, fc2, fd1, fd2]).astype(np.float32)
+    (ia1, ia2), (ib1, ib2), (ic1, ic2), (id1, id2) = pack_coeffs_np(m, False)
+
+    def nf(v):
+        return np.roll(v[::-1], 1)
+
+    inv = np.stack([ia1, ib1, nf(ia2), nf(ib2),
+                    ic1, id1, nf(ic2), nf(id2)]).astype(np.float32)
+    return fwd, inv
+
+
+@functools.lru_cache(maxsize=None)
+def split_tables(m: int, device: torch.device):
+    """(ctab, ctab^T, forward coefficients, inverse coefficients) as
+    contiguous float32 tensors on ``device``."""
+    c = ctab_np(m)
+    fwd, inv = _coef_stacks_np(m)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (c, c.T, fwd, inv))

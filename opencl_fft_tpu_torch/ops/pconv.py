@@ -27,6 +27,11 @@ of ``ops/cuda/blockstep.py`` and ``ops/cuda/mac.py`` on a state on a card
 of a live stream without a click: both coefficient rings are kept and the
 two exact convolutions are blended sample by sample (``XfadeState``).
 
+The streams (``pconv_stream{,_tv}``, ``pconv_stream_batched{,_tv}``,
+``convolve``) send every block through one whole-scan kernel launch: the
+dense-table scans of ``ops/cuda/streamstep.py`` up to ``_FWD_MM_MAX_PTS``,
+the factored-table scans of ``ops/cuda/splitstep.py`` above (``_scans``).
+
 Batched serving (``models/convolver.py``) runs C channels in lockstep on a
 state whose planes have a leading channel axis (``models.batched_state``):
 the per-block functions broadcast over it with shared int ring pointers
@@ -42,9 +47,11 @@ bit-equal to per-block steps on the CPU; ``pconv_offline`` and ``_offline_batche
 (``Convolver.render``) render any number of blocks with one sliding-MAC
 kernel launch (``ops/cuda/slidemac.py``), and
 ``pconv_stream_batched_chunked`` runs K-block chunks through them.
-All of these and ``ops/decomposed.stream_decomposed`` share one engine,
-``_timeline_engine``, and differ in the MAC they give it. ``convolve_oneshot``
-is one zero-padded transform pair.
+All of these and ``ops/decomposed.py`` (``stream_decomposed``, LTI and TV,
+and ``stream_batched_tv_decomposed``, which ``pconv_stream_batched_tv_chunked``
+runs in K-block chunks) share one engine, ``_timeline_engine``, and differ in
+the MAC they give it; the TV paths give it their coefficient frames too.
+``convolve_oneshot`` is one zero-padded transform pair.
 """
 
 from __future__ import annotations
@@ -62,14 +69,20 @@ from .cuda.mac import spectral_mac
 from .cuda.streamstep import (Pointers, stream_steps_fused, stream_steps_fused_batched,
                               stream_steps_fused_batched_tv, stream_steps_fused_tv)
 from .cuda.slidemac import CHUNKMAC_MAX_BATCH, chunk_mac, macflow_lti_batched
+from .cuda.splitstep import (stream_steps_fused_split, stream_steps_fused_split_batched,
+                             stream_steps_fused_split_batched_tv, stream_steps_fused_split_tv)
 from .cuda.tables import fwd_table
 from .fft import _IMPLS
 from .rfft import irfft_split, rfft_split
 
-# Largest partition size whose (pts, 2*pts) forward table (and the
-# (2*pts, 2*pts) inverse table of the stream and block-step kernels) the
-# engine builds; larger partitions take the split-table kernel, ROADMAP
-# queue 2 item 5.
+# Largest partition size whose dense transform tables, (pts, 2*pts) forward
+# and (2*pts, 2*pts) inverse (96 MB at 2048), the engine builds. Up to it
+# the forward transform is one product against the forward table
+# (``_forward_partition``), the streams run the dense-table scan kernels
+# and a state on a card runs the per-block step kernels (``_block_kernels``);
+# above it the forward transform is the transform chain, the streams run the
+# factored-table scan kernels (``_scans``) and the per-block functions the
+# plain composition.
 _FWD_MM_MAX_PTS = 2048
 
 
@@ -475,11 +488,20 @@ def _rings_after(cfg: PconvConfig, state: PconvState, fr: torch.Tensor,
     return tuple(torch.cat([f[..., t_s, :]] * 2, -2) for f in (fr, fi))
 
 
+def _h_prefix_rows(cfg: PconvConfig, state: PconvState) -> Cplx:
+    """The coefficient ring in the TV pairing's time order, ([C,] nparts-1,
+    bins): row j holds the frame of pseudo-time f = j - (nparts-1) < 0,
+    ring slot (wp2 - f) mod nparts; wp2 an int shared by every channel."""
+    slots = (state.wp2 - torch.arange(-(cfg.nparts - 1), 0,
+                                      device=state.spec_h_re.device)) % cfg.nparts
+    return state.spec_h_re[..., slots, :], state.spec_h_im[..., slots, :]
+
+
 def _timeline_engine(cfg: PconvConfig, state: PconvState, fr: torch.Tensor,
-                     fi: torch.Tensor, mac: Callable[[Cplx], Cplx]
-                     ) -> Tuple[PconvState, torch.Tensor]:
+                     fi: torch.Tensor, mac: Callable[..., Cplx],
+                     h_frames: Optional[Cplx] = None) -> Tuple[PconvState, torch.Tensor]:
     """The engine of every path whose blocks are known up front
-    (``pconv_chunk{,_tv}``, ``_offline_batched``, ``stream_decomposed``).
+    (``pconv_chunk{,_tv}``, ``_offline_batched``, ``ops/decomposed.py``).
 
     fr, fi ([C,] nb, bins) are the frames of nb new blocks. They follow
     the nparts-1 previous frames of the ring in a timeline ([C,] nparts +
@@ -489,17 +511,36 @@ def _timeline_engine(cfg: PconvConfig, state: PconvState, fr: torch.Tensor,
     inverse transform and the overlap-add give outs ([C,] nb, pts), each
     block as ``_inverse_and_ola`` gives it. The state gets the rings after
     the nb frames, wp + nb and the last block's tail.
+
+    With ``h_frames`` (the nb blocks' coefficient frames, the TV engine)
+    the MAC is ``mac(timeline, h_timeline)``, the h timeline ([C,]
+    nparts-1+nb, bins) being ``_h_prefix_rows`` then the new frames, and the
+    state also gets the coefficient ring after the nb frames and wp2 - nb.
     """
     nb = fr.shape[-2]
     old_r, old_i = _x_prefix_rows(cfg, state)
     pad = fr.new_zeros(fr.shape[:-2] + (1, cfg.bins))
-    acc = mac((torch.cat([old_r, fr, pad], -2), torch.cat([old_i, fi, pad], -2)))
+    xtl = (torch.cat([old_r, fr, pad], -2), torch.cat([old_i, fi, pad], -2))
+    if h_frames is None:
+        acc = mac(xtl)
+    else:
+        htl = tuple(torch.cat([old, new], -2)
+                    for old, new in zip(_h_prefix_rows(cfg, state), h_frames))
+        acc = mac(xtl, htl)
     y = irfft_split(acc, cfg.impl)                    # ([C,] nb, 2*pts)
     tails = torch.cat([state.tail.unsqueeze(-2), y[..., :-1, cfg.pts:]], -2)
     sxr, sxi = _rings_after(cfg, state, fr, fi)
-    return (state._replace(spec_x_re=sxr, spec_x_im=sxi, wp=(state.wp + nb) % cfg.nparts,
-                           tail=y[..., -1, cfg.pts:].contiguous()),
-            (y[..., :cfg.pts] + tails) / cfg.pts)
+    new = state._replace(spec_x_re=sxr, spec_x_im=sxi, wp=(state.wp + nb) % cfg.nparts,
+                         tail=y[..., -1, cfg.pts:].contiguous())
+    if h_frames is not None:
+        # slot q ends holding the last frame written there: that of block
+        # t_q = nb-1 - ((nb-1 - wp2 + q) mod nparts), h timeline row
+        # t_q + nparts-1 (t_q < 0 lands in the prefix rows, same formula)
+        q = torch.arange(cfg.nparts, device=fr.device)
+        rows = nb - 1 - (nb - 1 - state.wp2 + q) % cfg.nparts + cfg.nparts - 1
+        new = new._replace(spec_h_re=htl[0][..., rows, :], spec_h_im=htl[1][..., rows, :],
+                           wp2=(state.wp2 - nb) % cfg.nparts)
+    return new, (y[..., :cfg.pts] + tails) / cfg.pts
 
 
 def _gather_mac(cfg: PconvConfig, hr: torch.Tensor, hi: torch.Tensor
@@ -574,19 +615,47 @@ def pconv_chunk_tv(cfg: PconvConfig, state: PconvState, blocks_x: torch.Tensor,
 
 
 def _check_blocks(cfg: PconvConfig, blocks: torch.Tensor, name: str = "blocks",
-                  channels: Optional[int] = None, scan: bool = True):
+                  channels: Optional[int] = None):
     """blocks must be (nblocks, pts), or (nblocks, channels, pts) for a
-    batched stream; a whole-scan kernel (``scan``) takes pts <= 2048."""
+    batched stream, and float32 on a card; every partition size runs."""
     shape = (cfg.pts,) if channels is None else (channels, cfg.pts)
     if blocks.dim() != len(shape) + 1 or tuple(blocks.shape[1:]) != shape:
         want = ", ".join(["nblocks", *map(str, shape)])
         raise ValueError(f"{name} must be ({want}), got {tuple(blocks.shape)}")
     if blocks.is_cuda and blocks.dtype != torch.float32:
         raise TypeError(f"CUDA {name} must be float32, got {blocks.dtype}")
-    if scan and cfg.pts > _FWD_MM_MAX_PTS:
-        raise NotImplementedError(
-            f"pts={cfg.pts} > {_FWD_MM_MAX_PTS} needs the split-table stream "
-            f"kernel (ROADMAP queue 2 item 5)")
+
+
+def _check_pair(cfg: PconvConfig, blocks_x: torch.Tensor, blocks_h: torch.Tensor,
+                channels: Optional[int] = None):
+    """A TV path's two operands: each as ``_check_blocks`` takes it, one
+    shape."""
+    _check_blocks(cfg, blocks_x, "blocks_x", channels)
+    _check_blocks(cfg, blocks_h, "blocks_h", channels)
+    if blocks_h.shape != blocks_x.shape:
+        raise ValueError(f"blocks_h {tuple(blocks_h.shape)} must have the shape "
+                         f"of blocks_x {tuple(blocks_x.shape)}")
+
+
+class _Scans(NamedTuple):
+    lti: Callable
+    tv: Callable
+    batched: Callable
+    batched_tv: Callable
+
+
+_DENSE_SCANS = _Scans(stream_steps_fused, stream_steps_fused_tv, stream_steps_fused_batched,
+                      stream_steps_fused_batched_tv)
+_SPLIT_SCANS = _Scans(stream_steps_fused_split, stream_steps_fused_split_tv,
+                      stream_steps_fused_split_batched, stream_steps_fused_split_batched_tv)
+
+
+def _scans(cfg: PconvConfig) -> _Scans:
+    """The whole-scan kernel wrappers of cfg's partition size: the dense
+    tables' (``ops/cuda/streamstep.py``) up to _FWD_MM_MAX_PTS, the factored
+    tables' (``ops/cuda/splitstep.py``) above. Both take the same arguments
+    and give the same results within float32 rounding."""
+    return _DENSE_SCANS if cfg.pts <= _FWD_MM_MAX_PTS else _SPLIT_SCANS
 
 
 def _batched_channels(state: PconvState) -> int:
@@ -642,15 +711,16 @@ def pconv_stream(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor
                  ) -> Tuple[PconvState, torch.Tensor]:
     """Run many LTI blocks, blocks: (nblocks, pts) -> outs (nblocks, pts).
 
-    Every block goes through the whole-scan kernel
-    (``ops/cuda/streamstep.py``): its CUDA kernel for a CUDA tensor, its
-    plain twin for a CPU tensor. Same per-block results as pconv_step.
+    Every block goes through one whole-scan kernel launch (``_scans``: the
+    dense-table scan up to _FWD_MM_MAX_PTS, the factored-table one above):
+    its CUDA kernel for a CUDA tensor, its plain twin for a CPU tensor. Same
+    per-block results as pconv_step.
     """
     _check_blocks(cfg, blocks)
     nb = blocks.shape[0]
     if nb == 0:
         return state, blocks.new_zeros((0, cfg.pts), dtype=torch.float32)
-    outs, (wfr, wfi), tail = stream_steps_fused(
+    outs, (wfr, wfi), tail = _scans(cfg).lti(
         blocks.to(torch.float32).contiguous(), _window(cfg, state),
         (state.spec_h_re, state.spec_h_im), cfg.b0_scale, state.tail, cfg.pts)
     wp_out = (state.wp + nb) % cfg.nparts
@@ -664,20 +734,16 @@ def pconv_stream_tv(cfg: PconvConfig, state: PconvState, blocks_x: torch.Tensor,
     """Run many time-varying blocks: blocks_x (input) and blocks_h
     (coefficient operand), both (nblocks, pts) -> outs (nblocks, pts).
 
-    Every block goes through the whole-scan TV kernel
-    (``ops/cuda/streamstep.py``): its CUDA kernel for CUDA tensors, its
-    plain twin for CPU tensors. Same per-block results as pconv_step_tv.
-    The IR ring goes in and comes out in place, in the state's layout.
+    Every block goes through one whole-scan TV kernel launch (``_scans``):
+    its CUDA kernel for CUDA tensors, its plain twin for CPU tensors. Same
+    per-block results as pconv_step_tv. The IR ring goes in and comes out
+    in place, in the state's layout.
     """
-    _check_blocks(cfg, blocks_x, "blocks_x")
-    _check_blocks(cfg, blocks_h, "blocks_h")
-    if blocks_h.shape != blocks_x.shape:
-        raise ValueError(f"blocks_h {tuple(blocks_h.shape)} must have the shape "
-                         f"of blocks_x {tuple(blocks_x.shape)}")
+    _check_pair(cfg, blocks_x, blocks_h)
     nb = blocks_x.shape[0]
     if nb == 0:
         return state, blocks_x.new_zeros((0, cfg.pts), dtype=torch.float32)
-    outs, (wfr, wfi), (hfr, hfi), tail = stream_steps_fused_tv(
+    outs, (wfr, wfi), (hfr, hfi), tail = _scans(cfg).tv(
         blocks_x.to(torch.float32).contiguous(), blocks_h.to(torch.float32).contiguous(),
         _window(cfg, state), (state.spec_h_re, state.spec_h_im), state.wp2,
         cfg.b0_scale, state.tail, cfg.pts)
@@ -695,16 +761,16 @@ def pconv_stream_batched(cfg: PconvConfig, state: PconvState, blocks: torch.Tens
     ring pointers are shared ints or length-C tuples.
 
     Every block of every channel goes through one launch of the batched
-    whole-scan kernel (``ops/cuda/streamstep.py``): its CUDA kernel for a
-    CUDA tensor, its plain twin for a CPU tensor. Same per-block results as
-    pconv_step on each channel.
+    whole-scan kernel (``_scans``): its CUDA kernel for a CUDA tensor, its
+    plain twin for a CPU tensor. Same per-block results as pconv_step on
+    each channel.
     """
     nch = _batched_channels(state)
     _check_blocks(cfg, blocks, channels=nch)
     nb = blocks.shape[0]
     if nb == 0:
         return state, blocks.new_zeros((0, nch, cfg.pts), dtype=torch.float32)
-    outs, (wfr, wfi), tails = stream_steps_fused_batched(
+    outs, (wfr, wfi), tails = _scans(cfg).batched(
         blocks.to(torch.float32).contiguous(), _window(cfg, state),
         (state.spec_h_re, state.spec_h_im), cfg.b0_scale, state.tail, cfg.pts)
     wp_out = _advance(state.wp, nb, cfg.nparts)
@@ -720,21 +786,16 @@ def pconv_stream_batched_tv(cfg: PconvConfig, state: PconvState, blocks_x: torch
     ring pointers are shared ints or length-C tuples.
 
     Every block of every channel goes through one launch of the batched
-    whole-scan TV kernel (``ops/cuda/streamstep.py``): its CUDA kernel for
-    CUDA tensors, its plain twin for CPU tensors. Same per-block results as
-    pconv_step_tv on each channel; the IR rings go in and come out in the
-    state's layout.
+    whole-scan TV kernel (``_scans``): its CUDA kernel for CUDA tensors, its
+    plain twin for CPU tensors. Same per-block results as pconv_step_tv on
+    each channel; the IR rings go in and come out in the state's layout.
     """
     nch = _batched_channels(state)
-    _check_blocks(cfg, blocks_x, "blocks_x", nch)
-    _check_blocks(cfg, blocks_h, "blocks_h", nch)
-    if blocks_h.shape != blocks_x.shape:
-        raise ValueError(f"blocks_h {tuple(blocks_h.shape)} must have the shape "
-                         f"of blocks_x {tuple(blocks_x.shape)}")
+    _check_pair(cfg, blocks_x, blocks_h, nch)
     nb = blocks_x.shape[0]
     if nb == 0:
         return state, blocks_x.new_zeros((0, nch, cfg.pts), dtype=torch.float32)
-    outs, (wfr, wfi), (hfr, hfi), tails = stream_steps_fused_batched_tv(
+    outs, (wfr, wfi), (hfr, hfi), tails = _scans(cfg).batched_tv(
         blocks_x.to(torch.float32).contiguous(), blocks_h.to(torch.float32).contiguous(),
         _window(cfg, state), (state.spec_h_re, state.spec_h_im), state.wp2,
         cfg.b0_scale, state.tail, cfg.pts)
@@ -778,7 +839,7 @@ def _offline_batched(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor
 
 def _check_offline(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor):
     """blocks must be (nblocks >= 1, C, pts) for a batched state of C channels."""
-    _check_blocks(cfg, blocks, channels=_batched_channels(state), scan=False)
+    _check_blocks(cfg, blocks, channels=_batched_channels(state))
     if blocks.shape[0] < 1:
         raise ValueError("an offline render needs at least one block")
 
@@ -795,7 +856,7 @@ def pconv_offline(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor
     ``pconv_chunk`` where bit-equality with per-block streaming is needed.
     Every shape takes the kernel: there is no fall back to the scan.
     """
-    _check_blocks(cfg, blocks, scan=False)
+    _check_blocks(cfg, blocks)
     one = state._replace(**{n: getattr(state, n)[None] for n in _PLANES})
     one, outs = _offline_batched(cfg, one, blocks[:, None])
     return state._replace(**{n: getattr(one, n)[0] for n in _PLANES}, wp=one.wp), outs[:, 0]
@@ -817,7 +878,7 @@ def pconv_stream_batched_chunked(cfg: PconvConfig, state: PconvState,
     VMEM-envelope routing to the scan is a TPU rule and is not kept.
     """
     nch = _batched_channels(state)
-    _check_blocks(cfg, blocks, channels=nch, scan=False)
+    _check_blocks(cfg, blocks, channels=nch)
     nb = blocks.shape[0]
     if K < 1 or nb % K:
         raise ValueError(f"nblocks {nb} must be a multiple of K={K} >= 1")
@@ -828,6 +889,41 @@ def pconv_stream_batched_chunked(cfg: PconvConfig, state: PconvState,
     outs = []
     for c0 in range(0, nb, K):
         state, out = _offline_batched(cfg, state, blocks[c0:c0 + K])
+        outs.append(out)
+    return state, torch.cat(outs)
+
+
+def pconv_stream_batched_tv_chunked(cfg: PconvConfig, state: PconvState,
+                                    blocks_x: torch.Tensor, blocks_h: torch.Tensor,
+                                    K: int = 8) -> Tuple[PconvState, torch.Tensor]:
+    """Latency-relaxed batched time-varying streaming: blocks_x and
+    blocks_h (nblocks, C, pts) in K-block chunks (K blocks of latency),
+    each chunk through the batched TV decomposed engine
+    (``ops/decomposed.stream_batched_tv_decomposed``: one forward product of
+    both operands, one TV sliding-MAC launch, one inverse transform).
+
+    nblocks must be a multiple of K. Outputs match per-block streaming
+    within float32 reduction-order tolerance and the state chains exactly.
+    A state with per-channel ring pointers goes to
+    ``pconv_stream_batched_tv`` (the chunk engine takes shared pointers), as
+    in the JAX package; its rule that sends resident-kernel shapes to the
+    scan is a TPU measurement and is not kept.
+    """
+    from .decomposed import stream_batched_tv_decomposed
+
+    nch = _batched_channels(state)
+    _check_pair(cfg, blocks_x, blocks_h, nch)
+    nb = blocks_x.shape[0]
+    if K < 1 or nb % K:
+        raise ValueError(f"nblocks {nb} must be a multiple of K={K} >= 1")
+    if isinstance(state.wp, tuple) or isinstance(state.wp2, tuple):
+        return pconv_stream_batched_tv(cfg, state, blocks_x, blocks_h)
+    if nb == 0:
+        return state, blocks_x.new_zeros((0, nch, cfg.pts), dtype=torch.float32)
+    outs = []
+    for c0 in range(0, nb, K):
+        state, out = stream_batched_tv_decomposed(cfg, state, blocks_x[c0:c0 + K],
+                                                  blocks_h[c0:c0 + K])
         outs.append(out)
     return state, torch.cat(outs)
 

@@ -18,7 +18,6 @@ from opencl_fft_tpu.ops import pconv as J
 from opencl_fft_tpu_torch import models as M
 from opencl_fft_tpu_torch.interop import pconv_state_from_numpy, pconv_state_to_numpy
 from opencl_fft_tpu_torch.ops import pconv as P
-from opencl_fft_tpu_torch.ops.decomposed import stream_decomposed
 from opencl_fft_tpu_torch.ops.cuda import streamstep as S
 from opencl_fft_tpu_torch.utils.errors import DeviceError
 
@@ -229,11 +228,6 @@ def test_steps_validate_shapes():
 
 @pytest.mark.parametrize("call,item", [
     (lambda c, t, m: P.PconvConfig(pts=16, nparts=2, dtype="f64"), "item 17"),
-    (lambda c, t, m: stream_decomposed(c.cfg, P.pconv_init(c.cfg, CPU),
-                                       np.zeros((4, 16), np.float32),
-                                       np.zeros((4, 16), np.float32)), "item 10"),
-    (lambda c, t, m: t.stream_chunked(np.zeros((8, 2, 16), np.float32),
-                                      np.zeros((8, 2, 16), np.float32)), "item 10"),
     (lambda c, t, m: P.PconvConfig(pts=16, nparts=2, ring_dtype="bf16"), "item 16"),
 ])
 def test_unported_surfaces_name_their_roadmap_item(call, item):

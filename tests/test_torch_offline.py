@@ -218,9 +218,10 @@ def test_offline_matches_stream_at_any_shape(nparts, nb):
 
 
 def test_scan_free_engines_take_partitions_above_the_scan_kernels():
-    """pts = 4096 (the whole-scan kernels stop at 2048): pconv_offline and
-    stream_decomposed render through the transform chain and the sliding
-    MAC, against float64 scipy."""
+    """pts = 4096 (above the dense-table scan kernels' 2048): pconv_offline
+    and stream_decomposed render through the transform chain and the
+    sliding MAC, and pconv_stream runs the factored-table scan, against
+    float64 scipy."""
     pts, nparts, nb = 4096, 2, 3
     cfg = P.PconvConfig(pts=pts, nparts=nparts)
     rng = np.random.default_rng(4096)
@@ -228,10 +229,8 @@ def test_scan_free_engines_take_partitions_above_the_scan_kernels():
     x = rng.standard_normal(nb * pts).astype(np.float32)
     st = P.push_ir(cfg, P.pconv_init(cfg, CPU), _t(ir))
     ref = sps.fftconvolve(x.astype(np.float64), ir.astype(np.float64))[:nb * pts]
-    for fn in (P.pconv_offline, stream_decomposed):
+    for fn in (P.pconv_offline, stream_decomposed, P.pconv_stream):
         _close(fn(cfg, st, _t(x.reshape(nb, pts)))[1].reshape(-1), ref, 3e-5)
-    with pytest.raises(NotImplementedError, match="queue 2 item 5"):
-        P.pconv_stream(cfg, st, _t(x.reshape(nb, pts)))
 
 
 @pytest.mark.parametrize("nch,route", [(3, "chunk_mac"), (17, "macflow_lti_batched")])
@@ -284,15 +283,18 @@ def _steps(step, st, *ops):
 
 
 @pytest.mark.parametrize("path", ["chunk", "chunk_tv", "offline", "render", "chunked",
-                                  "decomposed", "step", "step_tv"])
-def test_engine_states_chain_into_the_scan(path):
-    """Every path of the timeline engine, and the per-block steps on a
-    batched state, leave contiguous state planes (the card's whole-scan
-    kernels take no others) that chain into the scan as the scan's own
-    state does."""
+                                  "decomposed", "step", "step_tv", "decomposed_tv",
+                                  "tv_chunked", "split_scan"])
+def test_engine_states_chain_into_the_scan(path, monkeypatch):
+    """Every path of the timeline engine, the per-block steps on a batched
+    state and the factored-table scan (``split_scan``: the streams' kernel
+    above pts 2048, taken here at pts 16) leave contiguous state planes
+    (the card's whole-scan kernels take no others) that chain into the scan
+    as the scan's own state does."""
     cfg = P.PconvConfig(pts=16, nparts=4)
     rng = np.random.default_rng(len(path))
-    nch = None if path in ("chunk", "chunk_tv", "offline", "decomposed") else 3
+    nch = None if path in ("chunk", "chunk_tv", "offline", "decomposed",
+                           "decomposed_tv") else 3
     st0 = _seeded(cfg, rng, nch)
     shape = (6, 16) if nch is None else (6, nch, 16)
     blocks, more = (_t(rng.standard_normal(shape).astype(np.float32)) for _ in range(2))
@@ -304,12 +306,19 @@ def test_engine_states_chain_into_the_scan(path):
            "decomposed": lambda s: stream_decomposed(cfg, s, blocks),
            "step": lambda s: _steps(lambda s_, b: P.pconv_step(cfg, s_, b), s, blocks[:3]),
            "step_tv": lambda s: _steps(lambda s_, x, h: P.pconv_step_tv(cfg, s_, x, h), s,
-                                       blocks[:3], blocks[3:])}[path]
-    st = run(st0)[0]
+                                       blocks[:3], blocks[3:]),
+           "decomposed_tv": lambda s: stream_decomposed(cfg, s, blocks[:3], blocks[3:]),
+           "tv_chunked": lambda s: P.pconv_stream_batched_tv_chunked(cfg, s, blocks[:3],
+                                                                     blocks[3:], K=1),
+           "split_scan": lambda s: P.pconv_stream_batched_tv(cfg, s, blocks[:3], blocks[3:])}[path]
+    with monkeypatch.context() as m:
+        if path == "split_scan":
+            m.setattr(P, "_scans", lambda cfg_: P._SPLIT_SCANS)
+        st = run(st0)[0]
     for name in RINGS + ("tail",):
         assert getattr(st, name).is_contiguous(), name
     scan = P.pconv_stream if nch is None else P.pconv_stream_batched
-    if path in ("chunk_tv", "step_tv"):
+    if path in ("chunk_tv", "step_tv", "decomposed_tv", "tv_chunked", "split_scan"):
         scan_tv = P.pconv_stream_tv if nch is None else P.pconv_stream_batched_tv
         ref = scan_tv(cfg, st0, blocks[:3], blocks[3:])[0]
     else:
@@ -371,12 +380,6 @@ def test_stream_decomposed_matches_pconv_stream(nparts, nb):
     s0, empty = stream_decomposed(cfg, st0, blocks[:0])
     assert empty.shape == (0, 16) and s0 is st0 and S.MACFLOW_LAUNCHES == before
 
-
-def test_stream_decomposed_tv_names_its_roadmap_item():
-    cfg = P.PconvConfig(pts=16, nparts=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        stream_decomposed(cfg, P.pconv_init(cfg, CPU), torch.zeros((2, 16)),
-                          torch.zeros((2, 16)))
 
 
 # ---------------------------------------------------------------------------

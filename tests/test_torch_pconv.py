@@ -213,8 +213,8 @@ def test_stream_and_push_ir_validate_shapes():
     with pytest.raises(ValueError, match="blocks"):
         P.pconv_stream(cfg, st, torch.zeros((2, 8)))
     big = P.PconvConfig(pts=4096, nparts=1)
-    with pytest.raises(NotImplementedError, match="queue 2 item 5"):
-        P.pconv_stream(big, st, torch.zeros((1, 4096)))
+    out = P.pconv_stream(big, P.pconv_init(big, "cpu"), torch.zeros((1, 4096)))[1]
+    assert out.shape == (1, 4096) and not out.any()
 
 
 @pytest.fixture
