@@ -48,7 +48,16 @@ and at odd shapes; TV ``stream_decomposed``,
 phase), ``convolve`` and ``pconv_stream_tv`` at pts 4096, the LTI and TV
 decomposed engine at pts 4096 and ``Convolver``/``TVConvolver`` of 16
 channels at pts 4096 against float64 scipy and the scans; and their times
-beside the paths they are alternatives to. Last, one JSON line with every kernel's launches, error,
+beside the paths they are alternatives to. Then the zero-latency and
+long-partition per-block paths: the MAC-and-unpack kernel
+(``block_mac_unpack``) against its twin and bit for bit against
+``unpack_inverse`` of the ``spectral_mac`` kernel; ``ClconvProcessor(parts=0,
+pmax=4096)`` and ``ZeroLatencyConvolver.render`` on a 2^20-tap IR in 64-sample
+blocks, ``ClconvProcessor(parts=4096)``, ``pconv_step_tv`` and
+``push_ir_xfade`` at pts 4096, ``Convolver(16).step`` chained into the scan and
+the STFT round trip at 20 s against float64 scipy/numpy; and the
+zero-latency host wall per block against its budget, #11's and the STFT's
+times. Last, one JSON line with every kernel's launches, error,
 time and bound, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Every phase prints one line; any
 failure exits non-zero before the last line. Without a CUDA card, or
@@ -256,6 +265,7 @@ def main():
         SM.MACFLOW_TV_LAUNCHES = SM.MACFLOW_TV_BATCHED_LAUNCHES = 0
         SP.LAUNCHES = SP.TV_LAUNCHES = 0
         MC.LAUNCHES = BS.STEP_LAUNCHES = BS.FWD_LAUNCHES = BS.FWD_TV_LAUNCHES = 0
+        BS.MAC_UNPACK_LAUNCHES = 0
 
     def step_counts():
         """Launches of spectral_mac, block_step_fused, block_step_fwd_fused
@@ -1158,10 +1168,11 @@ def main():
               for w_, c_, n_, k, tw, bd, lib in mac_rows), flush=True)
 
     # phase 24: the block-step kernels (spectral_mac, block_step_fused,
-    # block_step_fwd_fused, block_step_fwd_fused_tv) vs their twins on the
-    # card at one and 64 channels of the headline ring (nparts 256, bins
-    # 512), at the ring boundaries (rp 0, 1, 255; wp2 0, 255), both b0s, and
-    # at odd shapes
+    # block_step_fwd_fused, block_step_fwd_fused_tv, block_mac_unpack) vs
+    # their twins on the card at one and 64 channels of the headline ring
+    # (nparts 256, bins 512), at the ring boundaries (rp 0, 1, 255; wp2 0,
+    # 255), both b0s, at one partition (the zero-latency doubling segments:
+    # nparts 1, bins 64 and 2048) and at odd shapes
     def ring_inputs(nch, nparts, bins):
         """A doubled ring (both halves equal), h planes, a tail and the two
         operands' blocks; ``nch`` None for no channel axis."""
@@ -1174,34 +1185,37 @@ def main():
     def block_kernels(ring, h, tail, blocks, rp, wp2, b0, twin):
         """Each block-step kernel (or its twin) once: name -> its outputs."""
         m = (MC.spectral_mac_plain, BS.block_step_fused_plain, BS.block_step_fwd_fused_plain,
-             BS.block_step_fwd_fused_tv_plain) if twin else \
+             BS.block_step_fwd_fused_tv_plain, BS.block_mac_unpack_plain) if twin else \
             (MC.spectral_mac, BS.block_step_fused, BS.block_step_fwd_fused,
-             BS.block_step_fwd_fused_tv)
+             BS.block_step_fwd_fused_tv, BS.block_mac_unpack)
         bins = tail.shape[-1]
         fwd = m[2](blocks[0], ring, h, rp, b0, tail, bins)
         tv = m[3](blocks, ring, h, rp, wp2, b0, tail, bins)
         return {"spectral_mac": m[0](ring, h, rp, b0),
                 "block_step_fused": m[1](ring, h, rp, b0, tail, bins),
                 "block_step_fwd_fused": (fwd[0], fwd[1], *fwd[2]),
-                "block_step_fwd_fused_tv": (tv[0], tv[1], *tv[2], *tv[3])}
+                "block_step_fwd_fused_tv": (tv[0], tv[1], *tv[2], *tv[3]),
+                "block_mac_unpack": m[4](ring, h, rp, b0)}
 
     bs_names = ("spectral_mac", "block_step_fused", "block_step_fwd_fused",
                 "block_step_fwd_fused_tv")
-    bs_shapes = [(None, np_, b), (SERVE_CH, np_, b), (None, 3, 16), (3, 3, 16)]
+    bs_shapes = [(None, np_, b), (SERVE_CH, np_, b), (None, 1, 64), (None, 1, 2048),
+                 (None, 3, 16), (3, 3, 16)]
     bs_err = {}
     worst = 0.0
     for nch, nparts, bins in bs_shapes:
         ring, h, tail, bl2 = ring_inputs(nch, nparts, bins)
-        for rp in sorted({0, 1, nparts - 1}):
+        for rp in sorted({0, 1 % nparts, nparts - 1}):
             for wp2 in sorted({0, nparts - 1}):
                 for b0 in (1.0, 2.0):
-                    n0 = step_counts()
+                    n0, u0 = step_counts(), BS.MAC_UNPACK_LAUNCHES
                     got = block_kernels(ring, h, tail, bl2, rp, wp2, b0, False)
                     torch.cuda.synchronize()
-                    check(step_counts() == tuple(n + 1 for n in n0),
+                    check(step_counts() == tuple(n + 1 for n in n0)
+                          and BS.MAC_UNPACK_LAUNCHES == u0 + 1,
                           "each block-step wrapper counts its launch")
                     want = block_kernels(ring, h, tail, bl2, rp, wp2, b0, True)
-                    for kname in bs_names:
+                    for kname in (*bs_names, "block_mac_unpack"):
                         for g in got[kname]:
                             check(g.is_contiguous(), f"{kname} returns contiguous planes")
                         worst = compare(tuple((f"{kname} {i}", g, w_) for i, (g, w_) in
@@ -1213,11 +1227,12 @@ def main():
                             float((g - w_).abs().max()) for g, w_ in zip(got[kname],
                                                                          want[kname])))
     del ring, h, tail, bl2, got, want
-    print(f"phase 24 block-step kernels vs twins: {', '.join(bs_names)} at (C,nparts,bins) "
-          f"{bs_shapes}, rp {{0, 1, nparts-1}}, wp2 {{0, nparts-1}}, b0 {{1,2}}; worst rel err "
-          f"{worst:.3e} (tol {TOL}); max_abs_err at C=1 / C={SERVE_CH}: " + "; ".join(
-              f"{k} {bs_err[(k, 1, np_)]:.3e} / {bs_err[(k, SERVE_CH, np_)]:.3e}"
-              for k in bs_names), flush=True)
+    print(f"phase 24 block-step kernels vs twins: {', '.join(bs_names)}, block_mac_unpack at "
+          f"(C,nparts,bins) {bs_shapes}, rp {{0, 1, nparts-1}}, wp2 {{0, nparts-1}}, b0 {{1,2}}; "
+          f"worst rel err {worst:.3e} (tol {TOL}); max_abs_err at C=1 / C={SERVE_CH} / nparts 1: "
+          + "; ".join(f"{k} {bs_err[(k, 1, np_)]:.3e} / {bs_err[(k, SERVE_CH, np_)]:.3e} / "
+                      f"{bs_err[(k, 1, 1)]:.3e}" for k in (*bs_names, "block_mac_unpack")),
+          flush=True)
 
     # phase 25: the per-block main paths and the IR hot-swap on the card,
     # against float64 scipy blends (1-r) conv(x, h_old) + r conv(x, h_new)
@@ -1734,6 +1749,237 @@ def main():
         ("stream_decomposed pts 4096 470 blocks", lambda: SD(cfg4, st4, b4_1)),
         ("Convolver(16).stream pts 4096", lambda: conv4.stream(b4))), calls=3, phase=30)
 
+    # phase 31: the MAC-and-unpack kernel (block_mac_unpack) vs its twin on
+    # the card at its main-path shapes (the zero-latency terminal segment,
+    # nparts 255; the per-block step at pts 4096, nparts 256, one channel and
+    # Convolver(16)), at one partition, at the JAX test's (8, 128) and at an
+    # odd shape, within 3e-6 of max|twin|; and bit for bit against
+    # unpack_inverse of the spectral_mac kernel, whose MAC and slice-order
+    # reduce it shares
+    from opencl_fft_tpu_torch.ops.rfft import unpack_inverse
+    from opencl_fft_tpu_torch.ops.stft import hann_np
+
+    MU_TOL = 3e-6
+    mu_shapes = [(None, long_np - 1, LONG_PTS), (None, long_np, LONG_PTS),
+                 (LONG_CH, long_np, LONG_PTS), (None, 1, LONG_PTS), (None, 8, 128), (3, 5, 96)]
+    mu_err, worst, mu_bit = {}, 0.0, True
+    for nch, nparts, bins in mu_shapes:
+        ring, h, _, _ = ring_inputs(nch, nparts, bins)
+        for rp in sorted({0, 1 % nparts, nparts - 1}):
+            for b0 in (1.0, 2.0):
+                u0 = BS.MAC_UNPACK_LAUNCHES
+                got = BS.block_mac_unpack(ring, h, rp, b0)
+                torch.cuda.synchronize()
+                check(BS.MAC_UNPACK_LAUNCHES == u0 + 1, "block_mac_unpack counts its launch")
+                want = BS.block_mac_unpack_plain(ring, h, rp, b0)
+                same = unpack_inverse(MC.spectral_mac(ring, h, rp, b0))
+                where = f"C={nch} nparts={nparts} bins={bins} rp={rp} b0={b0}"
+                for g, w_, s_ in zip(got, want, same):
+                    check(g.is_contiguous() and bool(torch.isfinite(g).all()),
+                          f"block_mac_unpack contiguous and finite at {where}")
+                    rel = float((g - w_).abs().max()) / max(float(w_.abs().max()), 1e-30)
+                    check(rel <= MU_TOL, f"block_mac_unpack vs twin at {where}: {rel:.3e}")
+                    worst = max(worst, rel)
+                    mu_bit = mu_bit and bool(torch.equal(g, s_))
+                    key = (nch or 1, nparts, bins)
+                    mu_err[key] = max(mu_err.get(key, 0.0), float((g - w_).abs().max()))
+    check(mu_bit, "block_mac_unpack equals unpack_inverse(spectral_mac) bit for bit")
+    del ring, h, got, want, same
+    print(f"phase 31 MAC-and-unpack kernel vs twin: block_mac_unpack at (C,nparts,bins) "
+          f"{mu_shapes}, rp {{0, 1, nparts-1}}, b0 {{1,2}}: worst rel err {worst:.3e} (tol "
+          f"{MU_TOL}); bit-equal to unpack_inverse(spectral_mac kernel) {mu_bit}; max_abs_err "
+          + ", ".join(f"{k} {e:.3e}" for k, e in mu_err.items()), flush=True)
+
+    # phase 32: this slice's main paths on the card against float64 scipy.
+    # A, zero-latency reverb of the 2^20-tap hall IR: ClconvProcessor(parts=0,
+    # block_size=64, pmax=4096) (a 64-tap direct head, doubling segments at
+    # pts 64..2048 of one partition on block_step_fwd_fused, a terminal
+    # engine of 255 partitions of 4096 on block_mac_unpack and fft_vmem) fed
+    # 2 s in 64-sample blocks, ZeroLatencyConvolver.render of the same with
+    # its whole tail, and a unit impulse (ir[:64] in block 0). B, the
+    # per-block step at pts 4096 on the same IR: ClconvProcessor(parts=4096)
+    # for 2 s, pconv_step_tv with the IR fed cyclically, Clpconv.push_ir_xfade
+    # against the float64 blend, Convolver(16).step x 3 then stream(8)
+    # against the split scan. And the STFT layer on phase 4's 20 s at nfft
+    # 1024 / hop 256 and 4096 / 1024: stft against float64 numpy, istft back
+    # to the input, twice (deterministic)
+    ZL_B = 64
+    n32 = xs.size
+    proc_a = P.ClconvProcessor(ir4, parts=0, block_size=ZL_B, pmax=LONG_PTS, device="cuda",
+                               on_message=quiet)
+    zl_a = P.ZeroLatencyConvolver(ir4, block=ZL_B, pmax=LONG_PTS, device=dev)
+    zl_imp = P.ZeroLatencyConvolver(ir4, block=ZL_B, pmax=LONG_PTS, device=dev)
+    zl_plan = [(sg.pts, sg.nparts) for sg in zl_a.segments]
+    check(zl_plan == [(64 << i, 1) for i in range(6)] + [(LONG_PTS, long_np - 1)],
+          f"the zero-latency plan of the hall IR {zl_plan}")
+    proc_b = P.ClconvProcessor(ir4, parts=LONG_PTS, device="cuda", on_message=quiet)
+    eng_b = P.Clpconv(0, LONG_IR, LONG_PTS, quiet, device="cuda")
+    eng_b.push_ir(ir4)
+    h_new4 = fresh_ir(LONG_IR)
+    conv_b, conv_ref = (P.Convolver(cfg4, LONG_CH, device=dev) for _ in range(2))
+    conv_b.push_ir(irs4_d)
+    conv_ref.push_ir(irs4_d)
+    nb32 = -(-n32 // LONG_PTS)
+    SW4, N_XF = 6, 20
+    imp = np.zeros(3 * ZL_B, np.float32)
+    imp[0] = 1.0
+    out4 = np.empty(LONG_PTS, np.float32)
+    STFT_SIZES = ((1024, 256), (4096, 1024))
+    zero_counts()
+    t_a = time.perf_counter()
+    y_a = np.concatenate([proc_a.process(xs[i:i + ZL_B]) for i in range(0, n32, ZL_B)])
+    t_a = time.perf_counter() - t_a
+    t_r = time.perf_counter()
+    y_ar = zl_a.render(xs)
+    t_r = time.perf_counter() - t_r
+    y_imp = np.concatenate([zl_imp.process(imp[i:i + ZL_B]) for i in range(0, imp.size, ZL_B)])
+    y_b = np.concatenate([proc_b.process(xs[i:i + 64]) for i in range(0, n32, 64)])
+    st_tv32, y_tv32 = st4, []
+    for t in range(nb32):
+        st_tv32, o = P.pconv_step_tv(cfg4, st_tv32, x_p4[t], h_cyc4[t])
+        y_tv32.append(o)
+    y_tv32 = torch.stack(y_tv32)
+    y_xf = []
+    for i in range(N_XF):
+        if i == SW4:
+            eng_b.push_ir_xfade(h_new4, FADE)
+        eng_b.convolution(out4, x[i * LONG_PTS:(i + 1) * LONG_PTS])
+        y_xf.append(out4.copy())
+    y_cs = torch.cat([torch.stack([conv_b.step(b4[i]) for i in range(3)]),
+                      conv_b.stream(b4[3:11])])
+    stft_out = {}
+    for nfft, hop in STFT_SIZES:
+        spec = P.stft(x_d, nfft, hop)
+        stft_out[nfft] = (spec, P.istft(spec, nfft, hop, length=x.size),
+                          P.istft(spec, nfft, hop, length=x.size))
+    torch.cuda.synchronize()
+    zl_launches = (BS.MAC_UNPACK_LAUNCHES, BS.FWD_LAUNCHES, V.LAUNCHES)
+    check(min(zl_launches) > 0, f"the main paths launched block_mac_unpack, "
+                                f"block_step_fwd_fused and fft_vmem {zl_launches}")
+    # the checks, after the counts are read
+    ref_a = sps.fftconvolve(xs.astype(np.float64), ir4.astype(np.float64))
+    check(y_a.shape == (n32,) and y_ar.shape == ref_a.shape, "zero-latency output shapes")
+    err_a = rel_err(y_a, ref_a[:n32])
+    err_ar = rel_err(y_ar, ref_a)
+    err_aa = float(np.max(np.abs(y_a - y_ar[:n32]))) / float(np.max(np.abs(y_ar[:n32])))
+    err_imp = float(np.max(np.abs(y_imp - ir4[:imp.size]))) / float(np.max(np.abs(ir4)))
+    lat_b = proc_b.latency
+    check(lat_b == LONG_PTS and np.all(y_b[:lat_b] == 0), "ClconvProcessor(parts=4096) latency")
+    err_b = rel_err(y_b[lat_b:], ref_a[:n32 - lat_b])
+    err_tv32 = rel_err(y_tv32.reshape(-1).cpu().numpy(), ref4[:nb32 * LONG_PTS])
+    n_xf = N_XF * LONG_PTS
+    err_xf = rel_err(np.concatenate(y_xf), blend(x[:n_xf], ir4, h_new4, SW4 * LONG_PTS,
+                                                 (SW4 + FADE) * LONG_PTS, n_xf))
+    err_cs = worst_channel(y_cs, conv_ref.stream(b4[:11]))
+    stft_err = {}
+    for nfft, hop in STFT_SIZES:
+        (sr_, si_), y1, y2 = stft_out[nfft]
+        nfr = sr_.shape[0]
+        xp = np.zeros((nfr - 1) * hop + nfft)
+        xp[:x.size] = x
+        fr64 = np.lib.stride_tricks.sliding_window_view(xp, nfft)[::hop][:nfr]
+        want = np.fft.rfft(fr64 * hann_np(nfft).astype(np.float64), axis=-1)
+        e_spec = max(rel_err(sr_.cpu().numpy(), want.real), rel_err(si_.cpu().numpy(), want.imag))
+        y1n = y1.cpu().numpy()
+        e_rt = rel_err(y1n[nfft:-nfft], x[nfft:-nfft])
+        stft_err[nfft] = (e_spec, e_rt, bool(torch.equal(y1, y2)))
+        check(stft_err[nfft][2], f"istft at nfft {nfft} is deterministic")
+    for what, e, tol in (("ClconvProcessor(parts=0) vs scipy", err_a, ORACLE_TOL),
+                         ("ZeroLatencyConvolver.render vs scipy", err_ar, ORACLE_TOL),
+                         ("ClconvProcessor(parts=0) vs render", err_aa, TOL),
+                         ("unit impulse: ir in block 0 and on", err_imp, TOL),
+                         ("ClconvProcessor(parts=4096) vs scipy", err_b, ORACLE_TOL),
+                         ("pconv_step_tv at pts 4096 vs scipy", err_tv32, ORACLE_TOL),
+                         ("push_ir_xfade at pts 4096 vs the float64 blend", err_xf, ORACLE_TOL),
+                         ("Convolver(16) 3 step() + stream(8) vs stream", err_cs, TOL),
+                         *((f"stft nfft {n_} vs float64 numpy", e_[0], ORACLE_TOL)
+                           for n_, e_ in stft_err.items()),
+                         *((f"stft -> istft nfft {n_} vs the input", e_[1], ORACLE_TOL)
+                           for n_, e_ in stft_err.items())):
+        check(bool(np.isfinite(e)) and e <= tol, f"{what}: {e:.3e} > {tol}")
+    print(f"phase 32 zero-latency and long-partition per-block main paths on {dev}: "
+          f"ClconvProcessor(parts=0, block_size={ZL_B}, pmax={LONG_PTS}) on the {LONG_IR}-tap IR "
+          f"(plan {zl_plan}) fed {n32 // ZL_B} blocks of {ZL_B} ({t_a:.3f} s): latency "
+          f"{proc_a.latency}, vs float64 scipy {err_a:.3e}; ZeroLatencyConvolver.render "
+          f"({y_ar.size} samples, {-(-y_ar.size // ZL_B)} blocks, {t_r:.3f} s) vs scipy "
+          f"{err_ar:.3e}, vs the processor {err_aa:.3e}; unit impulse -> ir[:{imp.size}] "
+          f"{err_imp:.3e}; ClconvProcessor(parts={LONG_PTS}) {n32 // 64} blocks of 64: latency "
+          f"{lat_b}, vs scipy {err_b:.3e}; pconv_step_tv {nb32}x{LONG_PTS} (IR cyclic) vs scipy "
+          f"{err_tv32:.3e}; Clpconv.push_ir_xfade ({FADE} blocks at block {SW4} of {N_XF}) vs "
+          f"the float64 blend {err_xf:.3e}; Convolver({LONG_CH}) 3 step() + stream(8) vs the "
+          f"split scan {err_cs:.3e}; stft/istft of {x.size} samples: " + "; ".join(
+              f"nfft {n_} spectrum {e_[0]:.3e}, round trip {e_[1]:.3e}, deterministic {e_[2]}"
+              for n_, e_ in stft_err.items())
+          + f" (tol {TOL} between paths, {ORACLE_TOL} vs float64); launches block_mac_unpack "
+          f"{zl_launches[0]}, block_step_fwd_fused {zl_launches[1]}, fft_vmem {zl_launches[2]}",
+          flush=True)
+    del y_cs, stft_out, y_tv32, conv_b, conv_ref
+
+    # phase 33: timing. The zero-latency processor's host wall per 64-sample
+    # block (process() ends in the copy to the host) over 512 blocks, 8 of
+    # them firing the terminal engine, against the 1.333 ms a block of
+    # 48 kHz audio lasts, and the device's busy share of 64 blocks under
+    # torch.profiler (and of 8 blocks of Clpconv.convolution at pts 4096);
+    # Clpconv.convolution at pts 4096 (host wall and device time a block);
+    # block_mac_unpack at its main-path shapes against its
+    # twin and bound; stft at 20 s beside torch.stft (cuFFT, the yardstick)
+    budget_us = ZL_B / SR * 1e6
+    xs33 = x[n32:n32 + 512 * ZL_B]
+    t_first = proc_a._engine.state.t
+    walls = []
+    for i in range(512):
+        t0 = time.perf_counter()
+        proc_a.process(xs33[i * ZL_B:(i + 1) * ZL_B])
+        walls.append((time.perf_counter() - t0) * 1e6)
+    walls = np.asarray(walls)
+    fires = np.asarray([(t_first + i) % (LONG_PTS // ZL_B) == LONG_PTS // ZL_B - 1
+                        for i in range(512)])
+    zl_blk = xs33[:64 * ZL_B].reshape(64, ZL_B)
+    b4_blk = x[:LONG_PTS]
+    profile_streams((("ClconvProcessor(parts=0) 64 blocks of 64",
+                      lambda: [proc_a.process(bb) for bb in zl_blk]),
+                     (f"Clpconv.convolution pts {LONG_PTS} x 8",
+                      lambda: [eng_b.convolution(out4, b4_blk) for _ in range(8)])),
+                    calls=2, phase=33)
+    cl_ms = cuda_ms(lambda: eng_b.convolution(out4, b4_blk), reps=7, calls=10)
+    cl_dev = device_us(lambda: eng_b.convolution(out4, b4_blk))
+    cl_wall = host_wall_us(lambda: eng_b.convolution(out4, b4_blk))
+    mu_rows = {}
+    for nch, nparts in ((None, long_np - 1), (LONG_CH, long_np)):
+        ring, h, _, _ = ring_inputs(nch, nparts, LONG_PTS)
+        c_ = nch or 1
+        k_ms = cuda_ms(lambda: BS.block_mac_unpack(ring, h, 1, 2.0), reps=9, calls=10)
+        k_dev = device_us(lambda: BS.block_mac_unpack(ring, h, 1, 2.0))
+        tw_ms = cuda_ms(lambda: BS.block_mac_unpack_plain(ring, h, 1, 2.0), warmup=1, reps=5,
+                        calls=3)
+        # least work: the MAC (8 operations a bin and partition) and the
+        # unpack (~10 a bin); bytes: the window rows and h planes in, z out
+        mu_bnd = bound(8.0 * c_ * nparts * LONG_PTS + 10.0 * c_ * LONG_PTS,
+                       4 * 4 * c_ * nparts * LONG_PTS + 2 * 4 * c_ * LONG_PTS)
+        mu_rows[(c_, nparts)] = (k_ms, tw_ms, mu_bnd, k_dev)
+    del ring, h
+    hann1024 = torch.hann_window(1024, periodic=True, device=dev)
+    st_ms = cuda_ms(lambda: P.stft(x_d, 1024, 256), reps=7)
+    ist_spec = P.stft(x_d, 1024, 256)
+    ist_ms = cuda_ms(lambda: P.istft(ist_spec, 1024, 256, length=x.size), reps=7)
+    tst_ms = cuda_ms(lambda: torch.stft(x_d, 1024, 256, window=hann1024, center=False,
+                                        return_complex=True), reps=7)
+    print(f"phase 33 timing [{card}]: ClconvProcessor(parts=0, pmax={LONG_PTS}) host wall per "
+          f"{ZL_B}-sample block over 512 blocks: mean {walls.mean():.1f} us, worst "
+          f"{walls.max():.1f} us, median {np.median(walls):.1f} us; the {int(fires.sum())} "
+          f"blocks firing the terminal engine mean {walls[fires].mean():.1f} / worst "
+          f"{walls[fires].max():.1f} us, the others worst {walls[~fires].max():.1f} us; budget "
+          f"{budget_us:.1f} us (mean {100 * walls.mean() / budget_us:.1f}%, worst "
+          f"{100 * walls.max() / budget_us:.1f}%); Clpconv.convolution pts {LONG_PTS}: {cl_ms:.4f} "
+          f"ms a block (events, 10 back to back), device {cl_dev:.1f} us, host wall "
+          f"{cl_wall:.1f} us; block_mac_unpack (ms, CUDA events over 10 calls back to back; "
+          f"device us; twin; bound): " + "; ".join(
+              f"C={c_} nparts={np__} bins={LONG_PTS}: {k_ms:.4f} (device {kd:.1f} us); twin "
+              f"{tw:.4f}; bound {bd[0]:.4f} ({bd[1]}, {100 * bd[0] / k_ms:.1f}% reached)"
+              for (c_, np__), (k_ms, tw, bd, kd) in mu_rows.items())
+          + f"; stft {x.size} samples nfft 1024 hop 256: {st_ms:.4f} ms, istft {ist_ms:.4f} ms, "
+          f"torch.stft {tst_ms:.4f} ms", flush=True)
+
     def kernel(name, source, replaces, launches, err, ms, plain, bnd, lib):
         return {"name": name, "route": "cuda", "source": f"opencl_fft_tpu_torch/csrc/{source}",
                 "replaces": f"opencl_fft_tpu/ops/pallas/{replaces}", "launches": launches,
@@ -1787,7 +2033,13 @@ def main():
         kernel("macflow_tv_batched", "slidemac.cu", "macflow.py:646", new_launches[1],
                max(tvm_err[("macflow_tv_batched", SERVE_CH, n_)]
                    for n_ in (CHUNK_K, SERVE_BLOCKS)),
-               *new_rows[("macflow_tv_batched", SERVE_CH, CHUNK_K)], None)]}))
+               *new_rows[("macflow_tv_batched", SERVE_CH, CHUNK_K)], None),
+        # times at one channel, 255 partitions (the zero-latency terminal
+        # segment); the error over the main-path shapes
+        kernel("block_mac_unpack", "blockstep.cu", "blockstep.py:484", zl_launches[0],
+               max(mu_err[(1, long_np - 1, LONG_PTS)], mu_err[(1, long_np, LONG_PTS)],
+                   mu_err[(LONG_CH, long_np, LONG_PTS)]),
+               *mu_rows[(1, long_np - 1)][:3], None)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

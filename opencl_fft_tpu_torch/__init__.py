@@ -34,8 +34,13 @@ above 2048, whose whole-scan kernels factor the transform tables
 ``ClconvProcessor.set_ir``, ``Convolver.set_ir``, ``MatrixConvolver.set_ir``),
 whose block steps run on ``csrc/blockstep.cu`` (``ops/cuda/blockstep.py``:
 ``block_step_fused``, ``block_step_fwd_fused``, ``block_step_fwd_fused_tv``;
-``ops/cuda/mac.py``: ``spectral_mac``); and state exchange with the JAX
-package (``interop.py``), a crossfade in progress included.
+``ops/cuda/mac.py``: ``spectral_mac``) and, above pts 2048, on the
+MAC-and-unpack entry of the same source (``block_mac_unpack``) before the
+inverse FFT; the zero-latency convolver (``models/lowlatency.py``:
+``ZeroLatencyConvolver``, ``plan_segments``; ``ClconvProcessor(parts=0)``);
+the STFT layer (``ops/stft.py``: ``stft``, ``istft``, ``spectrogram``) on
+the FFT kernel; and state exchange with the JAX package (``interop.py``), a
+crossfade in progress and a zero-latency stream included.
 
 Every engine takes an explicit device: a CUDA card, or the CPU when asked
 for by name, where each kernel's plain PyTorch twin runs.
@@ -44,8 +49,10 @@ for by name, where each kernel's plain PyTorch twin runs.
 from .api import Clcfft, Cldconv, Clpconv, Clrfft
 from .interop import (dconv_state_from_numpy, dconv_state_to_numpy,
                       pconv_state_from_numpy, pconv_state_to_numpy,
-                      xfade_state_from_numpy, xfade_state_to_numpy)
-from .ops.cuda.blockstep import (block_step_fused, block_step_fused_plain,
+                      xfade_state_from_numpy, xfade_state_to_numpy, zl_state_from_numpy,
+                      zl_state_to_numpy)
+from .ops.cuda.blockstep import (block_mac_unpack, block_mac_unpack_plain,
+                                 block_step_fused, block_step_fused_plain,
                                  block_step_fwd_fused, block_step_fwd_fused_plain,
                                  block_step_fwd_fused_tv, block_step_fwd_fused_tv_plain)
 from .ops.cuda.mac import spectral_mac, spectral_mac_plain
@@ -59,7 +66,7 @@ from .ops.cuda.splitstep import (stream_steps_fused_split, stream_steps_fused_sp
                                  stream_steps_fused_split_plain, stream_steps_fused_split_tv,
                                  stream_steps_fused_split_tv_plain)
 from .models import (BatchedFFT, Convolver, MatrixConvolver, TVConvolver,
-                     batched_state)
+                     ZeroLatencyConvolver, batched_state, plan_segments)
 from .ops.cuda.streamstep import (stream_steps_fused, stream_steps_fused_batched,
                                   stream_steps_fused_batched_plain,
                                   stream_steps_fused_batched_tv,
@@ -80,6 +87,7 @@ from .ops.pconv import (PconvConfig, PconvState, XfadeState, convolve, convolve_
                         pconv_stream_tv, push_ir)
 from .ops.rfft import (irfft, irfft_split, pack_forward, packed_to_standard, rfft,
                        rfft_split, standard_to_packed, unpack_inverse)
+from .ops.stft import istft, spectrogram, stft
 from .stream import (ClconvProcessor, ClfftProcessor, ClrfftProcessor,
                      CltvconvProcessor)
 from .utils.devices import get_device
@@ -104,6 +112,7 @@ __all__ = [
     "pconv_stream_batched_tv_chunked",
     "XfadeState", "pconv_begin_xfade", "pconv_step_xfade",
     "Convolver", "TVConvolver", "MatrixConvolver", "BatchedFFT", "batched_state",
+    "ZeroLatencyConvolver", "plan_segments", "stft", "istft", "spectrogram",
     "DconvConfig", "DconvState", "dconv_init", "dconv_step", "dconv_step_tv",
     "dconv_stream", "convolve_direct",
     "stream_steps_fused", "stream_steps_fused_plain",
@@ -120,9 +129,11 @@ __all__ = [
     "spectral_mac", "spectral_mac_plain", "block_step_fused", "block_step_fused_plain",
     "block_step_fwd_fused", "block_step_fwd_fused_plain",
     "block_step_fwd_fused_tv", "block_step_fwd_fused_tv_plain",
+    "block_mac_unpack", "block_mac_unpack_plain",
     "pconv_state_from_numpy", "pconv_state_to_numpy",
     "xfade_state_from_numpy", "xfade_state_to_numpy",
     "dconv_state_from_numpy", "dconv_state_to_numpy",
+    "zl_state_from_numpy", "zl_state_to_numpy",
     "get_device", "np2",
     "Status", "error_string", "FftError", "DeviceError", "SizeError",
     "ArgumentError",

@@ -3,7 +3,7 @@
 // the doubled input ring, alone or fused with the inverse transform and the
 // overlap-add, with or without the forward transform of the new block.
 //
-// Replaces four TPU kernels:
+// Replaces five TPU kernels:
 //   opencl_fft_tpu/ops/pallas/mac.py        _mac_kernel (spectral_mac :87)
 //   opencl_fft_tpu/ops/pallas/blockstep.py  _blockstep_full_kernel
 //                                           (block_step_fused :438)
@@ -11,6 +11,8 @@
 //                                           (block_step_fwd_fused :343)
 //                                           _blockstep_fwd_tv_kernel
 //                                           (block_step_fwd_fused_tv :382)
+//                                           _blockstep_kernel
+//                                           (block_mac_unpack :484)
 // For channel c, bin k, with window row q = doubled-ring row rp + q:
 //   acc[c, k] = sum_{q < nparts} X[c, rp + q, k] (*) H[c, q, k]
 // a complex product except at bin 0, the packed (DC/2, Nyq/2) pair, which
@@ -24,7 +26,12 @@
 // doubled ring at slots wp and wp + nparts (the given ring is not touched:
 // the per-block functions return new state). The TV form transforms both
 // operands as one 2-row product; the coefficient frame replaces H row wp2
-// and is written with H into a new coefficient ring.
+// and is written with H into a new coefficient ring. block_mac_unpack
+// returns z = unpack_inverse(acc) (ops/rfft.py): z[0] = (re + im, re - im),
+// z[M/2] = acc[M/2] and every other bin k mixes acc[k] with
+// acc[(M - k) mod M] and the twiddle exp(+i pi k / M), M = bins: the input
+// of the half-size inverse FFT, for partitions whose dense post table is
+// too large to build (pts > 2048).
 //
 // What bounds it on the card. At the headline shape (nparts 256, bins 512)
 // one channel's MAC reads the 1 MiB window and the 1 MiB IR ring and does
@@ -52,6 +59,13 @@
 //      times b0.
 //   4. post_ola_kernel: [acc_re | acc_im] @ wpost as the GEMV of stage 1,
 //      with the overlap-add and the 1/pts folded into its store.
+//   3'. reduce_unpack_kernel (block_mac_unpack, in place of 3 and 4): one
+//      thread owns the bin pair (k, M - k), k <= M/2, because the unpack of
+//      either bin reads both accumulators, which exist only after the slice
+//      reduce. It reduces both bins as reduce_kernel does (so the
+//      accumulator is spectral_mac's bit for bit) and writes both unpacked
+//      bins, with each product and sum rounded on its own (no contraction
+//      into FMA) as the plain unpack rounds them.
 // No atomics anywhere: every sum is taken in a fixed order, so a call is
 // bitwise deterministic and one channel's result does not depend on the
 // others. block_step_fused and the fused steps run the same mac, reduce and
@@ -235,6 +249,70 @@ reduce_kernel(Step s, float b0, const float* __restrict__ part, float* __restric
     outi[c * out_cs + k] = i;
 }
 
+// The slices' partial sums of bin k of one channel's part rows, added in
+// slice order as reduce_kernel adds them; bin 0 times b0.
+__device__ __forceinline__ void slice_sum(const Step& s, const float* __restrict__ p, int k,
+                                          float b0, float& r, float& i) {
+    const size_t b2 = 2 * static_cast<size_t>(s.bins);
+    r = 0.f;
+    i = 0.f;
+    for (int sl = 0; sl < s.slices; ++sl) {
+        r += p[sl * b2 + k];
+        i += p[sl * b2 + s.bins + k];
+    }
+    if (k == 0) {
+        r *= b0;
+        i *= b0;
+    }
+}
+
+// One generic bin of the inverse unpack (rfft.unpack_inverse): (re, im) the
+// bin's accumulator, (fr, fi) its mirror's, (wr, wi) its twiddle.
+__device__ __forceinline__ void unpack_bin(float re, float im, float fr, float fi, float wr,
+                                           float wi, float* zr, float* zi) {
+    const float er = __fmul_rn(0.5f, __fadd_rn(re, fr));
+    const float ei = __fmul_rn(0.5f, __fsub_rn(im, fi));
+    const float o_r = __fmul_rn(-0.5f, __fadd_rn(im, fi));
+    const float o_i = __fmul_rn(0.5f, __fsub_rn(re, fr));
+    *zr = __fadd_rn(er, __fsub_rn(__fmul_rn(wr, o_r), __fmul_rn(wi, o_i)));
+    *zi = __fadd_rn(ei, __fadd_rn(__fmul_rn(wr, o_i), __fmul_rn(wi, o_r)));
+}
+
+// z[c] = unpack_inverse(acc[c]) from the MAC's partial sums: thread k in
+// [0, M/2] owns bins k and j = (M - k) mod M. Bin 0 is (re + im, re - im);
+// bin M/2 (k == M/2; for odd M the floor) passes through; every other bin is
+// unpack_bin against its mirror. twr/twi (M,) the twiddle exp(+i pi k / M).
+// grid (cdiv(M/2 + 1, ROW_THREADS), C)
+__global__ void __launch_bounds__(ROW_THREADS)
+reduce_unpack_kernel(Step s, float b0, const float* __restrict__ part,
+                     const float* __restrict__ twr, const float* __restrict__ twi,
+                     float* __restrict__ zr, float* __restrict__ zi) {
+    const int m = s.bins, half = m / 2;
+    const int k = blockIdx.x * ROW_THREADS + threadIdx.x;
+    if (k > half) return;
+    const size_t c = blockIdx.y;
+    const float* p = part + c * s.slices * 2 * static_cast<size_t>(m);
+    zr += c * m;
+    zi += c * m;
+    float ar, ai;
+    slice_sum(s, p, k, b0, ar, ai);
+    if (k == 0) {
+        zr[0] = __fadd_rn(ar, ai);
+        zi[0] = __fsub_rn(ar, ai);
+        return;
+    }
+    const int j = m - k;
+    float fr = ar, fi = ai;
+    if (j != k) slice_sum(s, p, j, b0, fr, fi);
+    if (k == half) {
+        zr[k] = ar;
+        zi[k] = ai;
+    } else {
+        unpack_bin(ar, ai, fr, fi, twr[k], twi[k], zr + k, zi + k);
+    }
+    if (j != k) unpack_bin(fr, fi, ar, ai, twr[j], twi[j], zr + j, zi + j);
+}
+
 // y = z (C, 2b) @ wpost (2b, 2b); out[c, n] = (y[c, n] + tail[c, n]) / pts
 // for n < b, new_tail[c, n - b] = y[c, n] for n >= b.
 // grid (cdiv(2b, GEMV_COLS), cdiv(C, GEMV_MT))
@@ -310,7 +388,7 @@ cudaError_t fwd_step(int R, const float* blocks, const float* xr, const float* x
 //   part (C, min(nparts, MAC_SLICES), 2*bins), z (C, 2*bins),
 //   F (R*C, 2*bins) for the fused steps.
 // Each entry launches on `stream` without synchronising and returns the
-// first CUDA error.
+// first CUDA error. block_mac_unpack_f32 takes any nparts >= 1 and bins >= 2.
 
 // acc planes (C, bins) = the window MAC at rp.
 extern "C" int spectral_mac_f32(const float* xr, const float* xi, const float* hr,
@@ -368,4 +446,20 @@ extern "C" int block_step_fwd_fused_tv_f32(const float* blocks, const float* xr,
                                      new_tail, nxr, nxi, nhr, nhi, F, part, z, C, nparts, pts,
                                      rp, wp2, b0, device,
                                      static_cast<cudaStream_t>(stream_ptr)));
+}
+
+// z planes (C, bins) = unpack_inverse of the window MAC at rp; twr/twi
+// (bins,) the twiddle exp(+i pi k / bins), built in float64 by the caller.
+extern "C" int block_mac_unpack_f32(const float* xr, const float* xi, const float* hr,
+                                    const float* hi, const float* twr, const float* twi,
+                                    float* zr, float* zi, float* part, int C, int nparts,
+                                    int bins, int rp, float b0, int device, void* stream_ptr) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
+    BLOCKSTEP_RETURN_IF_ERROR(cudaSetDevice(device));
+    const Step s = make_step(C, nparts, bins, rp);
+    BLOCKSTEP_RETURN_IF_ERROR(launch_mac(s, xr, xi, hr, hi, nullptr, nullptr, -1, nullptr,
+                                         nullptr, nullptr, nullptr, part, st));
+    reduce_unpack_kernel<<<dim3(cdiv(bins / 2 + 1, ROW_THREADS), C), ROW_THREADS, 0, st>>>(
+        s, b0, part, twr, twi, zr, zi);
+    return static_cast<int>(cudaGetLastError());
 }

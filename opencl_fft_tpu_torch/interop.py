@@ -1,13 +1,17 @@
 """Streaming state across packages.
 
 A ``PconvState`` (LTI or time-varying), an ``XfadeState`` (an IR crossfade
-in progress) and a ``DconvState`` of the JAX package and of this one have
-the same fields in the same layout, so a live stream can move from one to
-the other mid-stream, mid-fade included. A pconv state carries the IR
-spectra and the input ring, plus the overlap-add tail and the ring
-pointers; a crossfade a pconv state and the outgoing IR's ring and tail; a
-dconv state the delay line, the coefficient ring and its pointer. The
-exchange format is numpy: a mapping (or NamedTuple) of field name -> array.
+in progress), a ``DconvState`` and a zero-latency ``ZLState`` of the JAX
+package and of this one have the same fields in the same layout, so a live
+stream can move from one to the other mid-stream, mid-fade included. A
+pconv state carries the IR spectra and the input ring, plus the overlap-add
+tail and the ring pointers; a crossfade a pconv state and the outgoing IR's
+ring and tail; a dconv state the delay line, the coefficient ring and its
+pointer; a zero-latency state its block counter ``t``, the head's dconv
+state and per segment its pconv state (``eng``), input buffer (``buf``)
+and output queue (``queue``). The exchange format is numpy: a mapping (or
+NamedTuple) of field name -> array, nested for the crossfade and the
+zero-latency state.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import Any, Dict, Mapping, Union
 import numpy as np
 import torch
 
+from .models.lowlatency import ZLState, _SegState
 from .ops.dconv import DconvState
 from .ops.pconv import PconvState, XfadeState
 
@@ -126,3 +131,39 @@ def dconv_state_to_numpy(state: DconvState) -> Dict[str, np.ndarray]:
     return {"delay": state.delay.detach().cpu().numpy(),
             "coefs": state.coefs.detach().cpu().numpy(),
             "wp": np.asarray(state.wp, np.int32)}
+
+
+def zl_state_from_numpy(fields: Union[Mapping[str, Any], tuple],
+                        device: Union[str, torch.device]) -> ZLState:
+    """Build a ZLState on ``device`` from numpy fields: ``t``, ``head`` (the
+    DconvState fields) and ``segs``, one mapping per segment of ``eng``
+    (the PconvState fields), ``buf`` (pts,) and ``queue`` (delay + 1, pts);
+    for example the JAX package's ``ZLState`` as it is (its arrays go
+    through ``np.asarray``). Assign it to a ``ZeroLatencyConvolver`` of the
+    same IR, block and pmax."""
+    fields = _fields(fields, ZLState)
+    segs = []
+    for seg in fields["segs"]:
+        seg = _fields(seg, _SegState)
+        eng = pconv_state_from_numpy(seg["eng"], device)
+        pts = eng.tail.shape[-1]
+        buf = np.asarray(seg["buf"], dtype=np.float32)
+        queue = np.asarray(seg["queue"], dtype=np.float32)
+        if buf.shape != (pts,) or queue.ndim != 2 or queue.shape[1] != pts \
+                or queue.shape[0] < 2:
+            raise ValueError(f"a segment of pts {pts} needs buf ({pts},) and queue "
+                             f"(delay + 1 >= 2, {pts}), got {buf.shape} and {queue.shape}")
+        segs.append(_SegState(eng=eng, buf=torch.tensor(buf, device=device),
+                              queue=torch.tensor(queue, device=device)))
+    return ZLState(t=int(np.asarray(fields["t"])),
+                   head=dconv_state_from_numpy(fields["head"], device), segs=tuple(segs))
+
+
+def zl_state_to_numpy(state: ZLState) -> Dict[str, Any]:
+    """The zero-latency state's fields as numpy: ``t`` as an int32 scalar
+    (the JAX package's counter type), ``head`` as ``dconv_state_to_numpy``
+    gives it and ``segs`` a list of per-segment mappings (``eng`` as
+    ``pconv_state_to_numpy`` gives it, ``buf``, ``queue``)."""
+    return {"t": np.asarray(state.t, np.int32), "head": dconv_state_to_numpy(state.head),
+            "segs": [{"eng": pconv_state_to_numpy(s.eng), "buf": s.buf.detach().cpu().numpy(),
+                      "queue": s.queue.detach().cpu().numpy()} for s in state.segs]}

@@ -12,6 +12,15 @@ Counterparts of ``opencl_fft_tpu/ops/pallas/blockstep.py``:
   (both halves of the doubled ring), then ``block_step_fused`` at rp.
 - ``block_step_fwd_fused_tv``: both operands' frames from one 2-row product;
   the input frame as above, the coefficient frame into h row ``wp2``.
+- ``block_mac_unpack``: z = ``rfft.unpack_inverse`` of the MAC at ring row
+  ``rp``, the input of the half-size inverse FFT. It serves partitions whose
+  dense post table is too large to build (pts > 2048). The MAC's kernel and
+  its slice-order reduce are ``spectral_mac``'s, so the accumulator is that
+  kernel's bit for bit; one thread unpacks each bin pair (k, M - k) with
+  the twiddle table of ``tables.unpack_twiddle``. The TPU kernel's one-hot
+  flip product, aligned DMA and rotate switch are VMEM workarounds and its
+  shape gates (nparts % 8, bins % 128) do not apply: any nparts >= 1 and
+  bins >= 2.
 
 Where the JAX kernels return the fresh frames for the caller to write, these
 return the new rings: the kernel writes the given ring with the fresh rows
@@ -22,9 +31,10 @@ a grid dimension of the kernels. Every output plane is contiguous.
 
 Each wrapper runs its CUDA kernel for CUDA tensors and its twin for CPU
 tensors; anything else raises, and a build or launch failure raises.
-``STEP_LAUNCHES``, ``FWD_LAUNCHES`` and ``FWD_TV_LAUNCHES`` count the kernel
-launches of ``block_step_fused``, ``block_step_fwd_fused`` and
-``block_step_fwd_fused_tv``.
+``STEP_LAUNCHES``, ``FWD_LAUNCHES``, ``FWD_TV_LAUNCHES`` and
+``MAC_UNPACK_LAUNCHES`` count the kernel launches of ``block_step_fused``,
+``block_step_fwd_fused``, ``block_step_fwd_fused_tv`` and
+``block_mac_unpack``.
 """
 
 from __future__ import annotations
@@ -32,13 +42,15 @@ from __future__ import annotations
 import torch
 
 from ..cplx import Cplx
+from ..rfft import unpack_inverse
 from . import _build
 from .mac import check_ring, launch, part_scratch, spectral_mac_plain
-from .tables import fwd_table, post_table
+from .tables import fwd_table, post_table, unpack_twiddle
 
 STEP_LAUNCHES = 0
 FWD_LAUNCHES = 0
 FWD_TV_LAUNCHES = 0
+MAC_UNPACK_LAUNCHES = 0
 
 
 def _check_step(name: str, x2: Cplx, h: Cplx, rp: int, tail: torch.Tensor, pts: int):
@@ -177,3 +189,30 @@ def block_step_fwd_fused_tv(blocks: torch.Tensor, x2: Cplx, h: Cplx, rp: int, wp
            (nch, nparts, pts, rp, wp2), b0_scale, dev)
     FWD_TV_LAUNCHES += 1
     return out, new_tail, nx, nh
+
+
+def block_mac_unpack_plain(x2: Cplx, h: Cplx, rp: int, b0_scale: float) -> Cplx:
+    """Plain PyTorch twin of ``block_mac_unpack``: ``spectral_mac_plain``,
+    then ``rfft.unpack_inverse``."""
+    return unpack_inverse(spectral_mac_plain(x2, h, rp, b0_scale))
+
+
+def block_mac_unpack(x2: Cplx, h: Cplx, rp: int, b0_scale: float) -> Cplx:
+    """The MAC of one block and the inverse unpack: x2 split doubled ring
+    ([C,] 2*nparts, bins), h split ([C,] nparts, bins), rp an int in [0,
+    nparts), bins >= 2. Returns split ([C,] bins), the input of the
+    half-size inverse FFT (``fft_split(z, +1)``, then ``interleave``)."""
+    global MAC_UNPACK_LAUNCHES
+    nch, nparts, bins = check_ring("block_mac_unpack", x2, h, rp)
+    if bins < 2:
+        raise ValueError(f"block_mac_unpack: bins must be >= 2, got {bins}")
+    dev = _build.launch_device("block_mac_unpack", (*x2, *h))
+    if dev.type == "cpu":
+        return block_mac_unpack_plain(x2, h, rp, b0_scale)
+    zr = torch.empty((*x2[0].shape[:-2], bins), dtype=torch.float32, device=dev)
+    zi = torch.empty_like(zr)
+    launch("block_mac_unpack_f32",
+           (*x2, *h, *unpack_twiddle(bins, dev), zr, zi, part_scratch(nch, nparts, bins, dev)),
+           (nch, nparts, bins, rp), b0_scale, dev)
+    MAC_UNPACK_LAUNCHES += 1
+    return zr, zi

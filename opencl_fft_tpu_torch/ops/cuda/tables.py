@@ -12,8 +12,11 @@ chains, one (m, m) cos/sin table and two (8, m) coefficient stacks, which
 the split-table scans (``ops/cuda/splitstep.py``) use where the dense
 tables (6 m^2 floats) are large.
 
-The ``*_table``/``*_tables`` functions cache the float32 tensors per (size,
-device).
+``unpack_twiddle(bins)``: the inverse unpack's twiddle exp(+i pi k / bins)
+(``rfft._half_twiddle_np(bins, +1)``), which ``block_mac_unpack`` reads.
+
+The ``*_table``/``*_tables`` functions and ``unpack_twiddle`` cache the
+float32 tensors per (size, device).
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import functools
 
 import numpy as np
 import torch
+
+from ..rfft import _half_twiddle_np
 
 
 @functools.lru_cache(maxsize=None)
@@ -113,6 +118,15 @@ def fwd_table(pts: int, device: torch.device) -> torch.Tensor:
 def post_table(bins: int, device: torch.device) -> torch.Tensor:
     """``_wpost_np(bins)`` as a float32 tensor on ``device``."""
     return torch.from_numpy(_wpost_np(bins)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def unpack_twiddle(bins: int, device: torch.device):
+    """exp(+i pi k / bins), k < bins, built in float64 and rounded once to
+    float32 (the twiddle of ``rfft.unpack_inverse``), as split (re, im)
+    tensors on ``device``."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(p)).to(device)
+                 for p in _half_twiddle_np(bins, +1))
 
 
 @functools.lru_cache(maxsize=None)

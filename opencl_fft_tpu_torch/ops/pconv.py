@@ -22,8 +22,10 @@ decrements (cl_conv.cpp:460-548).
 The per-block functions (``pconv_step{,_tv}`` and the crossfade's
 ``pconv_begin_xfade`` / ``pconv_step_xfade``) launch the block-step kernels
 of ``ops/cuda/blockstep.py`` and ``ops/cuda/mac.py`` on a state on a card
-(``_block_kernels``); on the CPU they keep the plain composition, which
-``pconv_chunk{,_tv}`` reproduce bit for bit. A crossfade replaces the IR
+(``_block_kernels``), and above pts 2048 the MAC-and-unpack kernel
+``block_mac_unpack`` before the inverse FFT (``_mac_unpack_kernel``); on
+the CPU they keep the plain composition, which ``pconv_chunk{,_tv}``
+reproduce bit for bit. A crossfade replaces the IR
 of a live stream without a click: both coefficient rings are kept and the
 two exact convolutions are blended sample by sample (``XfadeState``).
 
@@ -64,7 +66,8 @@ import torch
 
 from ..utils.numerics import is_pow2
 from .cplx import Cplx
-from .cuda.blockstep import block_step_fused, block_step_fwd_fused, block_step_fwd_fused_tv
+from .cuda.blockstep import (block_mac_unpack, block_step_fused, block_step_fwd_fused,
+                              block_step_fwd_fused_tv)
 from .cuda.mac import spectral_mac
 from .cuda.streamstep import (Pointers, stream_steps_fused, stream_steps_fused_batched,
                               stream_steps_fused_batched_tv, stream_steps_fused_tv)
@@ -72,8 +75,8 @@ from .cuda.slidemac import CHUNKMAC_MAX_BATCH, chunk_mac, macflow_lti_batched
 from .cuda.splitstep import (stream_steps_fused_split, stream_steps_fused_split_batched,
                              stream_steps_fused_split_batched_tv, stream_steps_fused_split_tv)
 from .cuda.tables import fwd_table
-from .fft import _IMPLS
-from .rfft import irfft_split, rfft_split
+from .fft import _IMPLS, fft_split
+from .rfft import interleave, irfft_split, rfft_split
 
 # Largest partition size whose dense transform tables, (pts, 2*pts) forward
 # and (2*pts, 2*pts) inverse (96 MB at 2048), the engine builds. Up to it
@@ -82,7 +85,7 @@ from .rfft import irfft_split, rfft_split
 # and a state on a card runs the per-block step kernels (``_block_kernels``);
 # above it the forward transform is the transform chain, the streams run the
 # factored-table scan kernels (``_scans``) and the per-block functions the
-# plain composition.
+# transform chain around the MAC-and-unpack kernel (``_mac_unpack_kernel``).
 _FWD_MM_MAX_PTS = 2048
 
 
@@ -233,6 +236,14 @@ def _block_kernels(cfg: PconvConfig, device: torch.device) -> bool:
     return torch.device(device).type == "cuda" and cfg.pts <= _FWD_MM_MAX_PTS
 
 
+def _mac_unpack_kernel(cfg: PconvConfig, device: torch.device) -> bool:
+    """Whether the per-block functions run their MAC and inverse through
+    ``_mac_unpack_inverse_ola`` (the ``block_mac_unpack`` kernel): for a
+    state on a CUDA card at pts > _FWD_MM_MAX_PTS, where no dense post
+    table is built. A shape rule, like ``_block_kernels``."""
+    return torch.device(device).type == "cuda" and cfg.pts > _FWD_MM_MAX_PTS
+
+
 def _rings(state: PconvState) -> Tuple[Cplx, Cplx]:
     """The doubled input ring and the coefficient ring, split."""
     return (state.spec_x_re, state.spec_x_im), (state.spec_h_re, state.spec_h_im)
@@ -281,14 +292,28 @@ def _inverse_and_ola(cfg: PconvConfig, state: PconvState, acc: Cplx
     return (y[..., :cfg.pts] + state.tail) / cfg.pts, y[..., cfg.pts:].contiguous()
 
 
+def _mac_unpack_inverse_ola(cfg: PconvConfig, state: PconvState, rp: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_inverse_and_ola`` of the MAC at rp with the MAC and the inverse
+    unpack in one ``block_mac_unpack`` launch (its twin for CPU tensors),
+    then the half-size inverse FFT (``fft_vmem`` on a card at 2^10..2^20
+    bins), the interleave and the overlap-add; the tail is contiguous."""
+    z = block_mac_unpack(*_rings(state), _shared(rp), cfg.b0_scale)
+    y = interleave(fft_split(z, +1, cfg.impl))       # (..., 2*pts)
+    return (y[..., :cfg.pts] + state.tail) / cfg.pts, y[..., cfg.pts:].contiguous()
+
+
 def _mac_inverse_ola(cfg: PconvConfig, state: PconvState, rp: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MAC at rp, inverse transform and overlap-add: (out_block, new_tail).
-    On a card (``_block_kernels``) one ``block_step_fused`` launch, else
+    On a card one ``block_step_fused`` launch (``_block_kernels``) or, above
+    pts 2048, ``_mac_unpack_inverse_ola`` (``_mac_unpack_kernel``); else
     ``_spectral_mac`` then ``_inverse_and_ola``."""
     if _block_kernels(cfg, state.tail.device):
         return block_step_fused(*_rings(state), _shared(rp), cfg.b0_scale, state.tail,
                                 cfg.pts)
+    if _mac_unpack_kernel(cfg, state.tail.device):
+        return _mac_unpack_inverse_ola(cfg, state, rp)
     return _inverse_and_ola(cfg, state, _spectral_mac(cfg, state, rp))
 
 
@@ -332,8 +357,10 @@ def pconv_step(cfg: PconvConfig, state: PconvState, block: torch.Tensor
     state, (C, pts) -> (C, pts).
 
     On a card at pts <= _FWD_MM_MAX_PTS (``_block_kernels``) the whole
-    block is one ``block_step_fwd_fused`` launch; otherwise the plain
-    composition, which ``pconv_chunk`` reproduces bit for bit on the CPU."""
+    block is one ``block_step_fwd_fused`` launch; above, the forward
+    transform chain, the ring write and ``_mac_inverse_ola`` (one
+    ``block_mac_unpack`` launch and the inverse FFT); on the CPU the plain
+    composition, which ``pconv_chunk`` reproduces bit for bit."""
     if _block_kernels(cfg, state.tail.device):
         return _step_fused(cfg, state, block)
     xr, xi = _forward_partition(cfg, block)
@@ -353,7 +380,9 @@ def pconv_step_tv(cfg: PconvConfig, state: PconvState, block_x: torch.Tensor,
     transform; the coefficient frame lands at slot wp2 (then wp2
     decrements) and takes part in this block's MAC. Blocks (pts,), or
     (C, pts) with a batched state. On a card at pts <= _FWD_MM_MAX_PTS one
-    ``block_step_fwd_fused_tv`` launch, as ``pconv_step``."""
+    ``block_step_fwd_fused_tv`` launch, as ``pconv_step``; above, the
+    coefficient frame is written before ``_mac_inverse_ola`` reads the ring
+    (``block_mac_unpack``)."""
     if _block_kernels(cfg, state.tail.device):
         return _step_tv_fused(cfg, state, block_x, block_h)
     both = torch.stack([block_x.to(torch.float32), block_h.to(torch.float32)])
@@ -396,15 +425,19 @@ def pconv_begin_xfade(cfg: PconvConfig, state: PconvState, new_ir: torch.Tensor
     state.
 
     The incoming path's tail is rebuilt exactly: the previous block's MAC
-    (at the current wp, ``spectral_mac`` on a card) and inverse transform
-    are run again against the new coefficients over the retained input ring,
-    which holds the whole dependency window. From the first faded sample
-    the output is (1-r)·conv(x, old_ir) + r·conv(x, new_ir) over the whole
-    input history (``pconv.py:506-527``).
+    (at the current wp, ``spectral_mac`` on a card; above pts 2048 the MAC
+    and unpack of ``block_mac_unpack``) and inverse transform are run again
+    against the new coefficients over the retained input ring, which holds
+    the whole dependency window. From the first faded sample the output is
+    (1-r)·conv(x, old_ir) + r·conv(x, new_ir) over the whole input history
+    (``pconv.py:506-527``).
     """
     new_state = push_ir(cfg, state, new_ir)
-    _, tail_new = _inverse_and_ola(cfg, new_state,
-                                   _spectral_mac(cfg, new_state, _shared(state.wp)))
+    if _mac_unpack_kernel(cfg, state.tail.device):
+        _, tail_new = _mac_unpack_inverse_ola(cfg, new_state, _shared(state.wp))
+    else:
+        _, tail_new = _inverse_and_ola(cfg, new_state,
+                                       _spectral_mac(cfg, new_state, _shared(state.wp)))
     return XfadeState(state=new_state._replace(tail=tail_new), old_h_re=state.spec_h_re,
                       old_h_im=state.spec_h_im, old_tail=state.tail)
 
@@ -423,8 +456,10 @@ def pconv_step_xfade(cfg: PconvConfig, xf: XfadeState, block: torch.Tensor, ramp
     over that ring with the old coefficients (one ``block_step_fused``
     launch): the two kernels share their MAC and post stages, so where the
     coefficients agree (a channel a batched fade leaves alone) the two paths,
-    and so the blend, are bit-equal to a plain ``pconv_step``. Once the ramp
-    has reached 1, continue with ``xf.state``.
+    and so the blend, are bit-equal to a plain ``pconv_step``. Above pts
+    2048 both paths run ``_mac_inverse_ola`` (one ``block_mac_unpack``
+    launch each), with the same property. Once the ramp has reached 1,
+    continue with ``xf.state``.
     """
     st, out_new = pconv_step(cfg, xf.state, block)
     st_old = st._replace(spec_h_re=xf.old_h_re, spec_h_im=xf.old_h_im, tail=xf.old_tail)

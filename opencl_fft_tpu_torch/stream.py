@@ -9,7 +9,9 @@ length.
 
 The partitioned engines accumulate arbitrary-size audio blocks into
 partition-size engine calls with one partition of latency (:240-249); the
-direct engine runs fixed-size blocks with none. ``ClconvProcessor``
+direct engine runs fixed-size blocks with none, and so does the
+zero-latency engine (``parts=0``, beyond the reference:
+``models/lowlatency.ZeroLatencyConvolver``). ``ClconvProcessor``
 zero-pads the IR to whole partitions and applies the 0dbfs scale (:190-191)
 and table skip/size (:181-182).
 """
@@ -22,6 +24,8 @@ import numpy as np
 import torch
 
 from .api import Clcfft, Cldconv, Clpconv, Clrfft
+from .models.lowlatency import ZeroLatencyConvolver
+from .utils.devices import get_device
 from .utils.errors import ArgumentError
 from .utils.logging import MessageCallback
 from .utils.numerics import np2
@@ -125,25 +129,26 @@ class ClconvProcessor:
     """Streaming LTI convolution (the `clconv` opcode, opcode.cpp:157-253).
 
     ir          — impulse response samples (the function-table contents)
-    parts       — partition size (> 1), or 1 for the direct engine (the
-                  zero-latency engine, 0, is not ported yet)
+    parts       — partition size (> 1); 1 selects the direct engine and 0
+                  (beyond the reference) the zero-added-latency non-uniform
+                  engine (models/lowlatency.py): block_size-sample blocks in
+                  and out, ``latency`` == 0, which the reference cannot do
+                  (opcode.cpp:240-249 reads the previous block)
     skip, size  — optional IR table offset / length (opcode.cpp:181-182)
     scale       — 0dbfs multiplier applied to the IR (opcode.cpp:190-191)
-    block_size  — direct engine only: its fixed block size
+    block_size  — direct and zero-latency engines: their fixed block size
+    pmax        — zero-latency engine only: the largest partition of its
+                  plan (clamped to >= block_size)
     device      — None/"cuda" for card ``device_index``, or "cpu"
     """
 
     def __init__(self, ir: np.ndarray, parts: int, device_index: int = 0,
                  skip: int = 0, size: int = 0, scale: float = 1.0,
                  block_size: int = 64, bin0_mode: str = "exact",
-                 impl: str = "auto",
+                 impl: str = "auto", pmax: int = 1024,
                  on_message: Optional[MessageCallback] = None,
                  user_data: Any = None,
                  device: Optional[Union[str, torch.device]] = None):
-        if parts == 0:
-            raise NotImplementedError(
-                "parts == 0 (zero-latency engine) is not ported yet "
-                "(ROADMAP queue 1 item 12)")
         ir = np.asarray(ir, np.float32).reshape(-1)
         length = (size if size else ir.size) - skip
         if length <= 0 or skip < 0 or skip + length > ir.size:
@@ -152,6 +157,16 @@ class ClconvProcessor:
         self.parts = parts
         self._ir_scale = np.float32(scale)
         self.dconv = parts == 1
+        self.zero_latency = parts == 0
+        if self.zero_latency:
+            self.block_size = block_size
+            dev = get_device(device_index, device, on_message, user_data)
+            try:
+                self._engine = ZeroLatencyConvolver(
+                    coefs, block=block_size, pmax=max(pmax, block_size), impl=impl, device=dev)
+            except ValueError as e:   # plan validation speaks this surface's dialect
+                raise ArgumentError(str(e)) from e
+            return
         if self.dconv:
             self.block_size = block_size
             self._engine = _engine(Cldconv(device_index, length, block_size,
@@ -169,7 +184,7 @@ class ClconvProcessor:
     @property
     def latency(self) -> int:
         """Samples of pipeline delay added by the block buffering."""
-        return 0 if self.dconv else self.parts
+        return 0 if (self.dconv or self.zero_latency) else self.parts
 
     def set_ir(self, ir: np.ndarray, skip: int = 0, size: int = 0,
                scale: Optional[float] = None, fade_blocks: int = 8) -> None:
@@ -184,7 +199,7 @@ class ClconvProcessor:
         (``Clpconv.push_ir_xfade``); ``fade_blocks=0`` swaps at once (push_ir
         semantics, cl_conv.cpp:353-388).
         """
-        if self.dconv:
+        if self.dconv or self.zero_latency:
             raise ArgumentError("set_ir requires the partitioned engine (parts > 1)")
         ir = np.asarray(ir, np.float32).reshape(-1)
         length = (size if size else ir.size) - skip
@@ -207,6 +222,11 @@ class ClconvProcessor:
     def process(self, block: np.ndarray) -> np.ndarray:
         """One audio block in, one out (the aperf body, opcode.cpp:229-252)."""
         block = np.asarray(block, np.float32).reshape(-1)
+        if self.zero_latency:
+            if block.size != self.block_size:
+                raise ArgumentError(
+                    f"zero-latency engine is fixed at {self.block_size}-sample blocks")
+            return self._engine.process(block)
         if self.dconv:
             if block.size != self.block_size:
                 raise ArgumentError(

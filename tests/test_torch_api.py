@@ -14,6 +14,7 @@ from opencl_fft_tpu import api as japi
 from opencl_fft_tpu import stream as jstream
 from opencl_fft_tpu_torch import api as tapi
 from opencl_fft_tpu_torch import stream as tstream
+from opencl_fft_tpu_torch.ops import pconv as tpconv
 from opencl_fft_tpu_torch.utils.devices import get_device
 from opencl_fft_tpu_torch.utils.errors import DeviceError, SizeError, Status
 
@@ -98,9 +99,18 @@ def test_device_selection():
 
 
 def test_unported_surfaces_raise():
+    """parts=0 is ported (the zero-latency engine): it dispatches, with no
+    added latency. The surfaces still to port raise, naming their ROADMAP
+    item."""
     ir = np.ones(64, np.float32)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tstream.ClconvProcessor(ir, 0, device="cpu")
+    p = tstream.ClconvProcessor(ir, 0, device="cpu", on_message=_quiet)
+    assert p.zero_latency and p.latency == 0 and not p.dconv
+    np.testing.assert_allclose(p.process(np.eye(1, 64, dtype=np.float32)[0]), ir,
+                               atol=1e-6, rtol=0)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        tpconv.PconvConfig(pts=64, nparts=1, ring_dtype="bf16")
+    with pytest.raises(NotImplementedError, match="item 17"):
+        tpconv.PconvConfig(pts=64, nparts=1, dtype="f64")
 
 
 def test_constructor_records_bad_config():
