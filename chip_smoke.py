@@ -95,6 +95,7 @@ ORACLE_TOL = 5e-5   # relative max error vs the float64 scipy/numpy oracle
 # cores (the kernels run plain FP32 FMA, no TF32) and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+L2_BYTES = 50 * 2**20
 
 
 def check(ok, what):
@@ -179,6 +180,34 @@ def device_us(fn, calls=10):
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA) / calls
+
+
+def graph_us(fn, nsets, calls=20, reps=7):
+    """Device microseconds per call of fn(i): ``calls`` calls, i cycling
+    over ``nsets`` input sets, captured into one CUDA graph and replayed
+    under CUDA events, so no host launch cost is timed; with sets that
+    together outgrow the L2, each call reads its inputs from HBM."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(nsets):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(i % nsets)
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) * 1e3 / calls)
+    return statistics.median(times)
 
 
 def profile_streams(streams, calls=10, phase=17):
@@ -1825,37 +1854,84 @@ def main():
     imp[0] = 1.0
     out4 = np.empty(LONG_PTS, np.float32)
     STFT_SIZES = ((1024, 256), (4096, 1024))
-    zero_counts()
+
+    def path_counts(fn):
+        """fn() with every count set to 0 just before it and read just after:
+        (its result, launches of block_mac_unpack, block_step_fwd_fused,
+        fft_vmem and stream_steps_fused_split)."""
+        zero_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (BS.MAC_UNPACK_LAUNCHES, BS.FWD_LAUNCHES, V.LAUNCHES, SP.LAUNCHES)
+
+    def zl_counts(nblocks):
+        """(block_mac_unpack, block_step_fwd_fused) launches of nblocks
+        zero-latency blocks from t = 0: a segment of r = pts / ZL_B base
+        blocks fires at t % r == r - 1, the terminal one on block_mac_unpack,
+        each doubling one on block_step_fwd_fused."""
+        fired = [nblocks // (sg.pts // ZL_B) for sg in zl_a.segments]
+        return fired[-1], sum(fired[:-1])
+
+    def tv_run():
+        st_, y_ = st4, []
+        for t in range(nb32):
+            st_, o = P.pconv_step_tv(cfg4, st_, x_p4[t], h_cyc4[t])
+            y_.append(o)
+        return torch.stack(y_)
+
+    def xfade_run():
+        y_ = []
+        for i in range(N_XF):
+            if i == SW4:
+                eng_b.push_ir_xfade(h_new4, FADE)
+            eng_b.convolution(out4, x[i * LONG_PTS:(i + 1) * LONG_PTS])
+            y_.append(out4.copy())
+        return y_
+
+    # every path counted on its own
     t_a = time.perf_counter()
-    y_a = np.concatenate([proc_a.process(xs[i:i + ZL_B]) for i in range(0, n32, ZL_B)])
+    y_a, cnt_a = path_counts(lambda: np.concatenate(
+        [proc_a.process(xs[i:i + ZL_B]) for i in range(0, n32, ZL_B)]))
     t_a = time.perf_counter() - t_a
     t_r = time.perf_counter()
-    y_ar = zl_a.render(xs)
+    y_ar, cnt_r = path_counts(lambda: zl_a.render(xs))
     t_r = time.perf_counter() - t_r
-    y_imp = np.concatenate([zl_imp.process(imp[i:i + ZL_B]) for i in range(0, imp.size, ZL_B)])
-    y_b = np.concatenate([proc_b.process(xs[i:i + 64]) for i in range(0, n32, 64)])
-    st_tv32, y_tv32 = st4, []
-    for t in range(nb32):
-        st_tv32, o = P.pconv_step_tv(cfg4, st_tv32, x_p4[t], h_cyc4[t])
-        y_tv32.append(o)
-    y_tv32 = torch.stack(y_tv32)
-    y_xf = []
-    for i in range(N_XF):
-        if i == SW4:
-            eng_b.push_ir_xfade(h_new4, FADE)
-        eng_b.convolution(out4, x[i * LONG_PTS:(i + 1) * LONG_PTS])
-        y_xf.append(out4.copy())
-    y_cs = torch.cat([torch.stack([conv_b.step(b4[i]) for i in range(3)]),
-                      conv_b.stream(b4[3:11])])
-    stft_out = {}
+    y_imp, cnt_imp = path_counts(lambda: np.concatenate(
+        [zl_imp.process(imp[i:i + ZL_B]) for i in range(0, imp.size, ZL_B)]))
+    y_b, cnt_b = path_counts(lambda: np.concatenate(
+        [proc_b.process(xs[i:i + 64]) for i in range(0, n32, 64)]))
+    y_tv32, cnt_tv = path_counts(tv_run)
+    y_xf, cnt_xf = path_counts(xfade_run)
+    y_cs1, cnt_cs1 = path_counts(lambda: torch.stack([conv_b.step(b4[i]) for i in range(3)]))
+    y_cs2, cnt_cs2 = path_counts(lambda: conv_b.stream(b4[3:11]))
+    y_cs = torch.cat([y_cs1, y_cs2])
+    stft_out, cnt_st = {}, {}
     for nfft, hop in STFT_SIZES:
-        spec = P.stft(x_d, nfft, hop)
-        stft_out[nfft] = (spec, P.istft(spec, nfft, hop, length=x.size),
-                          P.istft(spec, nfft, hop, length=x.size))
-    torch.cuda.synchronize()
-    zl_launches = (BS.MAC_UNPACK_LAUNCHES, BS.FWD_LAUNCHES, V.LAUNCHES)
-    check(min(zl_launches) > 0, f"the main paths launched block_mac_unpack, "
-                                f"block_step_fwd_fused and fft_vmem {zl_launches}")
+        spec, cnt_st[f"stft nfft {nfft}"] = path_counts(lambda: P.stft(x_d, nfft, hop))
+        (y1, y2), cnt_st[f"istft x 2 nfft {nfft}"] = path_counts(
+            lambda: (P.istft(spec, nfft, hop, length=x.size),
+                     P.istft(spec, nfft, hop, length=x.size)))
+        stft_out[nfft] = (spec, y1, y2)
+    # what each path must launch, in the order of path_counts: an int is the
+    # exact count, POS any positive one, None any
+    POS = "> 0"
+    nb_r = -(-(n32 + LONG_IR - 1) // ZL_B)
+    want_counts = (
+        ("ClconvProcessor(parts=0)", cnt_a, (*zl_counts(n32 // ZL_B), POS, 0)),
+        ("ZeroLatencyConvolver.render", cnt_r, (*zl_counts(nb_r), POS, 0)),
+        ("unit impulse", cnt_imp, (*zl_counts(imp.size // ZL_B), None, 0)),
+        (f"ClconvProcessor(parts={LONG_PTS})", cnt_b, (n32 // LONG_PTS, 0, POS, 0)),
+        (f"pconv_step_tv pts {LONG_PTS}", cnt_tv, (nb32, 0, POS, 0)),
+        # one a block, one to rebuild the incoming tail, and through the
+        # fade one more a block for the outgoing path
+        (f"push_ir_xfade pts {LONG_PTS}", cnt_xf, (N_XF + 1 + FADE, 0, POS, 0)),
+        (f"Convolver({LONG_CH}).step x 3", cnt_cs1, (3, 0, POS, 0)),
+        (f"Convolver({LONG_CH}).stream(8)", cnt_cs2, (0, 0, None, POS)),
+        *((what, c_, (0, 0, POS, 0)) for what, c_ in cnt_st.items()))
+    for what, got_c, want_c in want_counts:
+        check(all(w is None or (g > 0 if w == POS else g == w) for g, w in zip(got_c, want_c)),
+              f"{what}: launches (block_mac_unpack, block_step_fwd_fused, fft_vmem, "
+              f"stream_steps_fused_split) {got_c}, want {want_c}")
     # the checks, after the counts are read
     ref_a = sps.fftconvolve(xs.astype(np.float64), ir4.astype(np.float64))
     check(y_a.shape == (n32,) and y_ar.shape == ref_a.shape, "zero-latency output shapes")
@@ -1910,10 +1986,10 @@ def main():
           f"split scan {err_cs:.3e}; stft/istft of {x.size} samples: " + "; ".join(
               f"nfft {n_} spectrum {e_[0]:.3e}, round trip {e_[1]:.3e}, deterministic {e_[2]}"
               for n_, e_ in stft_err.items())
-          + f" (tol {TOL} between paths, {ORACLE_TOL} vs float64); launches block_mac_unpack "
-          f"{zl_launches[0]}, block_step_fwd_fused {zl_launches[1]}, fft_vmem {zl_launches[2]}",
-          flush=True)
-    del y_cs, stft_out, y_tv32, conv_b, conv_ref
+          + f" (tol {TOL} between paths, {ORACLE_TOL} vs float64); each path's own launches "
+          f"(block_mac_unpack, block_step_fwd_fused, fft_vmem, stream_steps_fused_split): "
+          + "; ".join(f"{what} {got_c}" for what, got_c, _ in want_counts), flush=True)
+    del y_cs, y_cs1, y_cs2, stft_out, spec, y1, y2, y_tv32, conv_b, conv_ref
 
     # phase 33: timing. The zero-latency processor's host wall per 64-sample
     # block (process() ends in the copy to the host) over 512 blocks, 8 of
@@ -1921,8 +1997,9 @@ def main():
     # 48 kHz audio lasts, and the device's busy share of 64 blocks under
     # torch.profiler (and of 8 blocks of Clpconv.convolution at pts 4096);
     # Clpconv.convolution at pts 4096 (host wall and device time a block);
-    # block_mac_unpack at its main-path shapes against its
-    # twin and bound; stft at 20 s beside torch.stft (cuFFT, the yardstick)
+    # block_mac_unpack at its main-path shapes (event ms, and device us a
+    # call read from HBM through a CUDA graph) against its twin and bound;
+    # stft at 20 s beside torch.stft (cuFFT, the yardstick)
     budget_us = ZL_B / SR * 1e6
     xs33 = x[n32:n32 + 512 * ZL_B]
     t_first = proc_a._engine.state.t
@@ -1949,7 +2026,13 @@ def main():
         ring, h, _, _ = ring_inputs(nch, nparts, LONG_PTS)
         c_ = nch or 1
         k_ms = cuda_ms(lambda: BS.block_mac_unpack(ring, h, 1, 2.0), reps=9, calls=10)
-        k_dev = device_us(lambda: BS.block_mac_unpack(ring, h, 1, 2.0))
+        # device time from HBM: scaled copies of (ring, h) whose windows and
+        # h planes together read over twice the L2
+        nsets = 1 + -(-2 * L2_BYTES // (4 * 4 * c_ * nparts * LONG_PTS))
+        sets = [tuple(tuple(p * (1.0 + 1e-3 * i) for p in planes) for planes in (ring, h))
+                for i in range(nsets)]
+        k_dev = graph_us(lambda i: BS.block_mac_unpack(*sets[i], 1, 2.0), nsets)
+        del sets
         tw_ms = cuda_ms(lambda: BS.block_mac_unpack_plain(ring, h, 1, 2.0), warmup=1, reps=5,
                         calls=3)
         # least work: the MAC (8 operations a bin and partition) and the
@@ -1973,9 +2056,11 @@ def main():
           f"{100 * walls.max() / budget_us:.1f}%); Clpconv.convolution pts {LONG_PTS}: {cl_ms:.4f} "
           f"ms a block (events, 10 back to back), device {cl_dev:.1f} us, host wall "
           f"{cl_wall:.1f} us; block_mac_unpack (ms, CUDA events over 10 calls back to back; "
-          f"device us; twin; bound): " + "; ".join(
-              f"C={c_} nparts={np__} bins={LONG_PTS}: {k_ms:.4f} (device {kd:.1f} us); twin "
-              f"{tw:.4f}; bound {bd[0]:.4f} ({bd[1]}, {100 * bd[0] / k_ms:.1f}% reached)"
+          f"device us a call from HBM, a CUDA graph of 20 calls over rotating inputs; twin; "
+          f"bound): " + "; ".join(
+              f"C={c_} nparts={np__} bins={LONG_PTS}: {k_ms:.4f} (device {kd:.1f} us, "
+              f"{100 * bd[0] * 1e3 / kd:.1f}% of the bound); twin {tw:.4f}; bound {bd[0]:.4f} "
+              f"({bd[1]}, {100 * bd[0] / k_ms:.1f}% reached by the event ms)"
               for (c_, np__), (k_ms, tw, bd, kd) in mu_rows.items())
           + f"; stft {x.size} samples nfft 1024 hop 256: {st_ms:.4f} ms, istft {ist_ms:.4f} ms, "
           f"torch.stft {tst_ms:.4f} ms", flush=True)
@@ -2035,8 +2120,9 @@ def main():
                    for n_ in (CHUNK_K, SERVE_BLOCKS)),
                *new_rows[("macflow_tv_batched", SERVE_CH, CHUNK_K)], None),
         # times at one channel, 255 partitions (the zero-latency terminal
-        # segment); the error over the main-path shapes
-        kernel("block_mac_unpack", "blockstep.cu", "blockstep.py:484", zl_launches[0],
+        # segment); launches of ClconvProcessor(parts=0)'s own run; the error
+        # over the main-path shapes
+        kernel("block_mac_unpack", "blockstep.cu", "blockstep.py:484", cnt_a[0],
                max(mu_err[(1, long_np - 1, LONG_PTS)], mu_err[(1, long_np, LONG_PTS)],
                    mu_err[(LONG_CH, long_np, LONG_PTS)]),
                *mu_rows[(1, long_np - 1)][:3], None)]}))

@@ -288,7 +288,14 @@ def _inverse_and_ola(cfg: PconvConfig, state: PconvState, acc: Cplx
     out = (first half + tail) / pts, new tail = second half
     (cl_conv_kernels.h:120-124). The tail is contiguous: a batched state's
     planes chain into the whole-scan kernels, which take no others."""
-    y = irfft_split(acc, cfg.impl)               # (..., 2*pts)
+    return _ola(cfg, state, irfft_split(acc, cfg.impl))
+
+
+def _ola(cfg: PconvConfig, state: PconvState, y: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Overlap-add of an inverse transform y (..., 2*pts): (out_block,
+    new_tail), out = (first half + tail) / pts, new tail = second half,
+    contiguous."""
     return (y[..., :cfg.pts] + state.tail) / cfg.pts, y[..., cfg.pts:].contiguous()
 
 
@@ -299,8 +306,7 @@ def _mac_unpack_inverse_ola(cfg: PconvConfig, state: PconvState, rp: int
     then the half-size inverse FFT (``fft_vmem`` on a card at 2^10..2^20
     bins), the interleave and the overlap-add; the tail is contiguous."""
     z = block_mac_unpack(*_rings(state), _shared(rp), cfg.b0_scale)
-    y = interleave(fft_split(z, +1, cfg.impl))       # (..., 2*pts)
-    return (y[..., :cfg.pts] + state.tail) / cfg.pts, y[..., cfg.pts:].contiguous()
+    return _ola(cfg, state, interleave(fft_split(z, +1, cfg.impl)))
 
 
 def _mac_inverse_ola(cfg: PconvConfig, state: PconvState, rp: int
@@ -433,11 +439,11 @@ def pconv_begin_xfade(cfg: PconvConfig, state: PconvState, new_ir: torch.Tensor
     (``pconv.py:506-527``).
     """
     new_state = push_ir(cfg, state, new_ir)
-    if _mac_unpack_kernel(cfg, state.tail.device):
-        _, tail_new = _mac_unpack_inverse_ola(cfg, new_state, _shared(state.wp))
-    else:
+    if _block_kernels(cfg, state.tail.device):
         _, tail_new = _inverse_and_ola(cfg, new_state,
                                        _spectral_mac(cfg, new_state, _shared(state.wp)))
+    else:
+        _, tail_new = _mac_inverse_ola(cfg, new_state, _shared(state.wp))
     return XfadeState(state=new_state._replace(tail=tail_new), old_h_re=state.spec_h_re,
                       old_h_im=state.spec_h_im, old_tail=state.tail)
 
