@@ -18,10 +18,12 @@ models ``Convolver``, ``TVConvolver`` and ``MatrixConvolver`` (64 channels;
 true stereo). It times each stream, prints per stream the device time of
 each kernel and copy under ``torch.profiler`` and the device's busy share
 of the call. Then the FFT path: the batched FFT kernels (``fft_vmem``,
-``fft_vmem_front2``) against their twins at the JAX FFT sweep's shapes
-(2^10..2^20 at 32 MB of planes a call), the FFT main paths (``Clcfft``,
-``Clrfft``, the ``clfft``/``clrfft`` processors, ``BatchedFFT``, Bluestein)
-against float64 numpy, and the sweep's times against cuFFT. Then the
+``fft_vmem_front2`` by their routes, at a split and on the cluster kernel)
+against their twins at the JAX FFT sweep's sizes (2^10..2^20 at 32 MB of
+planes a call), the FFT main paths (``Clcfft``, ``Clrfft``, the
+``clfft``/``clrfft`` processors, ``BatchedFFT``, Bluestein) against float64
+numpy, and the sweep's times and each kernel's device time against cuFFT.
+Then the
 offline and chunked paths: the sliding-MAC kernel (``chunk_mac``,
 ``macflow_lti``, ``macflow_lti_batched``) against its twin at the JAX
 bench's offline shapes and odd shapes; ``pconv_offline``,
@@ -87,7 +89,11 @@ LONG_PTS = 4096      # a hall IR at a long partition (ROADMAP 15b's grid)
 LONG_IR = 1 << 20
 LONG_BLOCKS = 470
 LONG_CH = 16
-SWEEP_LOG2 = (10, 12, 14, 16, 18, 20)   # the JAX FFT sweep (bench.py:421-439)
+SWEEP_LOG2 = tuple(range(10, 21))       # the JAX FFT sweep's range (bench.py:421-439)
+CLUSTER_LOG2 = tuple(range(14, 19))     # sizes the cluster FFT kernel holds
+# other two-pass splits timed beside the default route's (log2 n: splits)
+FFT_ALT_SPLITS = {14: ((128, 128),), 18: ((512, 512), (1024, 256)),
+                  19: ((512, 1024), (256, 2048)), 20: ((512, 2048),)}
 SWEEP_BYTES = 32 << 20                  # rows = SWEEP_BYTES // (8 n)
 TOL = 2e-5          # kernel vs twin, relative to max|twin| (JAX stream-vs-scan bound)
 ORACLE_TOL = 5e-5   # relative max error vs the float64 scipy/numpy oracle
@@ -444,21 +450,21 @@ def main():
           f"worst rel err {worst:.3e} (tol {TOL}); headline out max_abs_err {tv_err:.3e}",
           flush=True)
 
-    # phase 8: direct-FIR kernel vs plain twin on the card
+    # phase 8: direct-FIR kernel vs plain twin (the Toeplitz product of the
+    # slabs built from the same taps) on the card
     d_shapes = [(DIRECT_TAPS, PTS, SCAN_BLOCKS), (DIRECT_TAPS, PTS, 21), (7 * 128, 128, 200),
-                (1000, 256, 40), (5, 3, 1)]
+                (1000, 256, 40), (5, 3, 1), (3000, 64, 100)]
     d_err = 0.0
     worst = 0.0
     for irsize, vsize, nb_ in d_shapes:
         seq = f(K.context_blocks(irsize, vsize) + nb_, vsize)
         coefs = f(irsize, s=0.1)
         for off in (0, 1):          # delay_compat True / False
-            slabs = K.toeplitz_slabs(coefs, irsize, vsize, off)
             n0 = K.LAUNCHES
-            got = K.dstream_steps(seq, slabs, vsize)
+            got = K.dstream_steps(seq, coefs, vsize, off)
             torch.cuda.synchronize()
             check(K.LAUNCHES == n0 + 1, "dstream LAUNCHES counts the kernel launch")
-            want = K.dstream_steps_plain(seq, slabs, vsize)
+            want = K.dstream_steps_plain(seq, K.toeplitz_slabs(coefs, irsize, vsize, off), vsize)
             worst = compare((("out", got, want),),
                             f"irsize={irsize} vsize={vsize} nb={nb_} off={off}", worst)
             if (irsize, vsize, nb_) == d_shapes[0]:
@@ -550,12 +556,17 @@ def main():
     dstate = D.push_ir(dcfg, D.dconv_init(dcfg, dev), torch.from_numpy(ir_d512).to(dev))
     d_stream_ms = cuda_ms(lambda: D.dconv_stream(dcfg, dstate, blocks), reps=15)
     p = K.context_blocks(DIRECT_TAPS, PTS)
-    seq = torch.cat([f(p, PTS), blocks])
-    slabs = K.toeplitz_slabs(dstate.coefs, DIRECT_TAPS, PTS, dcfg.off)
-    d_kernel_ms = cuda_ms(lambda: K.dstream_steps(seq, slabs, PTS), reps=15)
+    taps = dstate.coefs[:DIRECT_TAPS]
+    seqs = [torch.cat([f(p, PTS), blocks])] + [f(p + SCAN_BLOCKS, PTS) for _ in range(3)]
+    seq = seqs[0]
+    slabs = K.toeplitz_slabs(taps, DIRECT_TAPS, PTS, dcfg.off)
+    d_call_ms = cuda_ms(lambda: K.dstream_steps(seq, taps, PTS, dcfg.off), reps=15)
     d_plain_ms = cuda_ms(lambda: K.dstream_steps_plain(seq, slabs, PTS), reps=15)
-    rows = K.context_rows(seq, p, PTS)
-    d_lib_ms = cuda_ms(lambda: torch.matmul(rows, slabs), reps=15)
+    d_lib_call_ms = cuda_ms(lambda: torch.matmul(K.context_rows(seq, p, PTS), slabs), reps=15)
+    # device time without the host's launch cost: CUDA graphs over 4 input
+    # sets, the kernel and the library call alike
+    d_kernel_ms = graph_us(lambda i: K.dstream_steps(seqs[i], taps, PTS, dcfg.off), 4) / 1e3
+    d_lib_ms = graph_us(lambda i: torch.matmul(K.context_rows(seqs[i], p, PTS), slabs), 4) / 1e3
     # least work: an irsize-tap dot product per output sample; bytes: the
     # context and the blocks in, the outputs out, the taps in
     d_flops = 2.0 * SCAN_BLOCKS * PTS * DIRECT_TAPS
@@ -568,10 +579,11 @@ def main():
           f"{tv_design_flops / 1e9:.3f}) | dconv_stream {SCAN_BLOCKS}x{PTS} blocks, "
           f"{DIRECT_TAPS} taps: {d_stream_ms:.4f} ms/scan = "
           f"{audio_s / (d_stream_ms / 1e3):.1f}x real time; dstream_steps kernel "
-          f"{d_kernel_ms:.4f} ms; plain twin {d_plain_ms:.4f} ms; torch.matmul of the "
-          f"strided product {d_lib_ms:.4f} ms; bound {d_bound[0]:.4f} ms ({d_bound[1]}, "
-          f"{d_flops / 1e9:.3f} GFLOP of taps; the kernel's dense slabs make it "
-          f"{2.0 * SCAN_BLOCKS * slabs.numel() / 1e9:.3f})", flush=True)
+          f"{d_kernel_ms:.4f} ms by CUDA graph ({100 * d_bound[0] / d_kernel_ms:.1f}% of the "
+          f"bound; one call by events {d_call_ms:.4f}); torch.matmul of the strided product "
+          f"{d_lib_ms:.4f} ms by CUDA graph (one call {d_lib_call_ms:.4f}); plain twin "
+          f"{d_plain_ms:.4f} ms; bound {d_bound[0]:.4f} ms ({d_bound[1]}, "
+          f"{d_flops / 1e9:.3f} GFLOP of taps, all the kernel does)", flush=True)
 
     # phase 12: batched (serving) kernels vs plain twins on the card; TV
     # with one shared ring pointer and with one per channel
@@ -797,45 +809,74 @@ def main():
         ("Clcfft.transform 2^18", lambda: cf.transform(cbuf.copy())),
         ("BatchedFFT 2^18 x 16", lambda: bfft(xb))))
 
-    # phase 18: FFT kernels vs plain twins on the card at the sweep's shapes
+    # phase 18: FFT kernels vs plain twins on the card at the sweep's shapes:
+    # fft_vmem by its route, fft_vmem_front2 at its default sizes and at an
+    # explicit split, and the cluster kernel (cluster=True) at the sizes it
+    # holds
     def planes(rows, n):
         return f(rows, n), f(rows, n)
 
     def sweep_rows(n):
         return max(1, SWEEP_BYTES // (8 * n))
 
-    worst = fft_err = f2_err = 0.0
+    def fft_check(call, twin, x_, what, count):
+        """call() vs twin() at both signs, scale 0.5; one launch counted on
+        ``count`` each; the worst relative error and max abs error."""
+        err, abs_err = 0.0, 0.0
+        for sign in (-1, 1):
+            n0 = count()
+            got = call(x_, sign)
+            torch.cuda.synchronize()
+            check(count() == n0 + 1, f"{what} counts its launch")
+            want = twin(x_, sign)
+            err = compare((("re", got[0], want[0]), ("im", got[1], want[1])),
+                          f"{what} sign={sign}", err)
+            abs_err = max(abs_err, *(float((g - w).abs().max()) for g, w in zip(got, want)))
+        return err, abs_err
+
+    def front2_count():
+        return V.FRONT2_LAUNCHES
+
+    worst, fft_err, f2_err, cl_err = 0.0, 0.0, 0.0, {}
     for logn in SWEEP_LOG2:
         n = 1 << logn
         xs_ = planes(sweep_rows(n), n)
-        for sign in (-1, 1):
-            n0 = V.LAUNCHES + V.FRONT2_LAUNCHES
-            got = V.fft_vmem(xs_, sign, 0.5)
-            torch.cuda.synchronize()
-            check(V.LAUNCHES + V.FRONT2_LAUNCHES == n0 + 1, "fft_vmem counts its launch")
-            want = V.fft_vmem_plain(xs_, sign, 0.5)
-            worst = compare((("re", got[0], want[0]), ("im", got[1], want[1])),
-                            f"fft_vmem n=2^{logn} x{sweep_rows(n)} sign={sign}", worst)
+        e, a = fft_check(lambda x_, s_: V.fft_vmem(x_, s_, 0.5),
+                         lambda x_, s_: V.fft_vmem_plain(x_, s_, 0.5), xs_,
+                         f"fft_vmem n=2^{logn} x{sweep_rows(n)} ({V.route(n)})",
+                         lambda: V.LAUNCHES + V.FRONT2_LAUNCHES)
+        worst = max(worst, e)
+        if logn == 18:
+            fft_err = a
+        if n in V.FRONT2_SIZES:
+            e, a = fft_check(lambda x_, s_: V.fft_vmem_front2(x_, s_, 0.5),
+                             lambda x_, s_: V.fft_vmem_front2_plain(x_, s_, 0.5), xs_,
+                             f"fft_vmem_front2 n=2^{logn}", front2_count)
+            worst = max(worst, e)
             if logn == 18:
-                fft_err = max(fft_err, *(float((g - w).abs().max()) for g, w in zip(got, want)))
-    for logn in (18, 19, 20):
-        n = 1 << logn
-        xs_ = planes(sweep_rows(n), n)
-        for sign in (-1, 1):
-            n0 = V.FRONT2_LAUNCHES
-            got = V.fft_vmem_front2(xs_, sign, 0.5)
-            torch.cuda.synchronize()
-            check(V.FRONT2_LAUNCHES == n0 + 1, "fft_vmem_front2 counts its launch")
-            want = V.fft_vmem_front2_plain(xs_, sign, 0.5)
-            worst = compare((("re", got[0], want[0]), ("im", got[1], want[1])),
-                            f"fft_vmem_front2 n=2^{logn} x{sweep_rows(n)} sign={sign}", worst)
-            if logn == 18:
-                f2_err = max(f2_err, *(float((g - w).abs().max()) for g, w in zip(got, want)))
-    del xs_, got, want
-    print(f"phase 18 FFT kernels vs twins: fft_vmem n=2^{{{','.join(map(str, SWEEP_LOG2))}}} "
-          f"and fft_vmem_front2 n=2^{{18,19,20}} at {SWEEP_BYTES >> 20} MB of planes (rows = "
-          f"32 MB / 8n), sign +-1, scale 0.5; worst rel err {worst:.3e} (tol {TOL}); 2^18 x16 "
-          f"max_abs_err fft_vmem {fft_err:.3e} fft_vmem_front2 {f2_err:.3e}", flush=True)
+                f2_err = a
+        if logn in CLUSTER_LOG2:
+            e, cl_err[logn] = fft_check(
+                lambda x_, s_: V.fft_vmem_front2(x_, s_, 0.5, cluster=True),
+                lambda x_, s_: V.fft_vmem_front2_plain(x_, s_, 0.5, cluster=True), xs_,
+                f"fft_vmem_front2 cluster=True n=2^{logn} ({V.route(n, cluster=True)})",
+                front2_count)
+            worst = max(worst, e)
+    xs_ = planes(3, 1 << 15)
+    e, _ = fft_check(lambda x_, s_: V.fft_vmem_front2(x_, s_, 0.5, split=(128, 256)),
+                     lambda x_, s_: V.fft_vmem_front2_plain(x_, s_, 0.5, split=(128, 256)),
+                     xs_, "fft_vmem_front2 n=2^15 split=(128, 256)", front2_count)
+    worst = max(worst, e)
+    n_active = {lg: V.cluster_max_active(1 << lg, dev) for lg in CLUSTER_LOG2}
+    del xs_
+    print(f"phase 18 FFT kernels vs twins: fft_vmem n=2^{{{SWEEP_LOG2[0]}..{SWEEP_LOG2[-1]}}} "
+          f"at {SWEEP_BYTES >> 20} MB of planes (rows = 32 MB / 8n), fft_vmem_front2 at "
+          f"2^{{18,19,20}}, at split (128, 256) and with cluster=True at "
+          f"2^{{{CLUSTER_LOG2[0]}..{CLUSTER_LOG2[-1]}}}, sign +-1, scale 0.5; worst rel err "
+          f"{worst:.3e} (tol {TOL}); 2^18 x16 max_abs_err fft_vmem {fft_err:.3e} "
+          f"fft_vmem_front2 {f2_err:.3e}; cudaOccupancyMaxActiveClusters by size "
+          + ", ".join(f"2^{lg} ({V.route(1 << lg, cluster=True).n1} CTAs): {c_}"
+                      for lg, c_ in n_active.items()), flush=True)
 
     # phase 19: FFT main paths on the card against float64 numpy
     def cplx(*shape):
@@ -902,41 +943,84 @@ def main():
           f"launches fft_vmem {fft_launches} fft_vmem_front2 {f2_launches}", flush=True)
     del zb, yb, zblu, yblu
 
-    # phase 20: the FFT sweep's times, CUDA events; GFLOP/s in bench.py's
-    # 5 n log2 n convention; bound: the planes read once and written once
+    # phase 20: the FFT sweep's times, CUDA events over 10 calls back to back;
+    # GFLOP/s in bench.py's 5 n log2 n convention; device microseconds of
+    # each __global__ under torch.profiler; bound: the planes read once and
+    # written once
+    def kernel_us(fn, calls=10):
+        """Device microseconds per call of each kernel fn() launches."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return {re.sub(r"^void |\(anonymous namespace\)::", "", e.key).split("(")[0][:40]:
+                e.self_device_time_total / calls for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0}
+
+    def us_text(d):
+        return " + ".join(f"{k} {v:.1f}" for k, v in d.items()) + " us"
+
     sweep = []
     device_us(torch.cuda.synchronize, calls=1)    # one session first: the first read 0 us
     for logn in SWEEP_LOG2:
         n, rows = 1 << logn, sweep_rows(1 << logn)
         xs_ = planes(rows, n)
         z = torch.complex(*xs_)
-        k_ms = cuda_ms(lambda: V.fft_vmem(xs_, -1), reps=9, calls=10)
-        lib_ms = cuda_ms(lambda: torch.fft.fft(z), reps=9, calls=10)
-        tw_ms = cuda_ms(lambda: V.fft_vmem_plain(xs_, -1), warmup=1, reps=5)
-        f2_ms = cuda_ms(lambda: V.fft_vmem_front2(xs_, -1), reps=9, calls=10) \
-            if n in V.FRONT2_SIZES else None
-        k_dev = device_us(lambda: V.fft_vmem(xs_, -1))
-        flops = 5.0 * n * logn * rows
-        bnd = bound(flops, 2 * nbytes(*xs_))
-        sweep.append((logn, rows, k_ms, k_dev, f2_ms, lib_ms, tw_ms, bnd, flops))
+        row = {"lg": logn, "rows": rows, "route": V.route(n)}
+        row["k"] = cuda_ms(lambda: V.fft_vmem(xs_, -1), reps=9, calls=10)
+        row["k_us"] = kernel_us(lambda: V.fft_vmem(xs_, -1))
+        row["lib"] = cuda_ms(lambda: torch.fft.fft(z), reps=9, calls=10)
+        row["lib_us"] = sum(kernel_us(lambda: torch.fft.fft(z)).values())
+        row["tw"] = cuda_ms(lambda: V.fft_vmem_plain(xs_, -1), warmup=1, reps=5)
+        if n in V.FRONT2_SIZES:
+            row["f2"] = cuda_ms(lambda: V.fft_vmem_front2(xs_, -1), reps=9, calls=10)
+            row["f2_us"] = kernel_us(lambda: V.fft_vmem_front2(xs_, -1))
+        if logn in CLUSTER_LOG2:
+            row["cl"] = cuda_ms(lambda: V.fft_vmem_front2(xs_, -1, cluster=True), reps=9,
+                                calls=10)
+            row["cl_us"] = kernel_us(lambda: V.fft_vmem_front2(xs_, -1, cluster=True))
+        row["alts"] = {sp: (cuda_ms(lambda: V.fft_vmem_front2(xs_, -1, split=sp), reps=9,
+                                    calls=10),
+                            sum(kernel_us(lambda: V.fft_vmem_front2(xs_, -1, split=sp)).values()))
+                       for sp in FFT_ALT_SPLITS.get(logn, ())}
+        row["flops"] = 5.0 * n * logn * rows
+        row["bnd"] = bound(row["flops"], 2 * nbytes(*xs_))
+        sweep.append(row)
         if logn == 18:
-            fft_row = (k_ms, tw_ms, bnd, lib_ms)
-            f2_row = (f2_ms, cuda_ms(lambda: V.fft_vmem_front2_plain(xs_, -1), warmup=1, reps=5),
-                      bnd, lib_ms)
+            fft_row = (row["k"], row["tw"], row["bnd"], row["lib"])
+            f2_row = (row["f2"],
+                      cuda_ms(lambda: V.fft_vmem_front2_plain(xs_, -1), warmup=1, reps=5),
+                      row["bnd"], row["lib"])
     del xs_, z
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(20):
         cf.transform(cbuf.copy())
     clc_ms = (time.perf_counter() - t0) / 20 * 1e3
+
+    def sweep_text(r):
+        fl, b = r["flops"], r["bnd"]
+        out = (f"2^{r['lg']} x{r['rows']}: fft_vmem {r['k']:.4f} ({fl / r['k'] / 1e6:.1f} "
+               f"GFLOP/s; {r['route'].kind} {r['route'].n1}x{r['route'].n2}; device "
+               f"{us_text(r['k_us'])})")
+        if "f2" in r:
+            out += f", fft_vmem_front2 {r['f2']:.4f} (device {us_text(r['f2_us'])})"
+        if "cl" in r:
+            out += f", cluster route {r['cl']:.4f} (device {us_text(r['cl_us'])})"
+        for sp, (ms_, us_) in r["alts"].items():
+            out += f", split {sp[0]}x{sp[1]} {ms_:.4f} (device {us_:.1f} us)"
+        return out + (f", cuFFT {r['lib']:.4f} ({fl / r['lib'] / 1e6:.1f}; device "
+                      f"{r['lib_us']:.1f} us), twin {r['tw']:.4f}, bound {b[0]:.4f} ({b[1]}; "
+                      f"fft_vmem at {100 * b[0] / r['k']:.1f}%)")
+
     print(f"phase 20 FFT sweep [{card}] (ms per call, median CUDA events over 10 calls back "
-          f"to back, the twin over 1; GFLOP/s = 5 n log2 n rows / time): " + "; ".join(
-              f"2^{lg} x{rows}: fft_vmem {k:.4f} ({fl / k / 1e6:.1f} GFLOP/s; device "
-              f"{kd:.1f} us)"
-              + (f", fft_vmem_front2 {f2:.4f} ({fl / f2 / 1e6:.1f})" if f2 else "")
-              + f", cuFFT {lib:.4f} ({fl / lib / 1e6:.1f}), twin {tw:.4f}, bound {b[0]:.4f} "
-              f"({b[1]}; kernel at {100 * b[0] / k:.1f}%)"
-              for lg, rows, k, kd, f2, lib, tw, b, fl in sweep)
+          f"to back, the twin over 1; GFLOP/s = 5 n log2 n rows / time; device us per "
+          f"__global__ under torch.profiler): " + "; ".join(sweep_text(r) for r in sweep)
           + f" | Clcfft.transform 2^18 host wall {clc_ms:.4f} ms per call (numpy in and out)",
           flush=True)
 

@@ -1,11 +1,10 @@
 // Shared-memory tiled FP32 FMA SGEMM tile, shared by the streaming kernels
-// (streamstep.cu, splitstep.cu, dstream.cu).
+// (streamstep.cu, splitstep.cu).
 //
 // One 256-thread block computes a 64x64 tile of C = A @ B; each thread holds
 // 4x4 outputs in registers. gemm_tile reads A with an arbitrary row stride,
 // which the callers use to read overlapping rows of one buffer as a matrix
-// (the overlap-add in streamstep.cu, the block-Toeplitz context in
-// dstream.cu); gemm_tile_ld takes a loader a(row, col) for each operand, so
+// (the overlap-add in streamstep.cu); gemm_tile_ld takes a loader a(row, col) for each operand, so
 // a caller can compute A's elements as they are loaded (splitstep.cu's
 // prescaled row stacks, never stored). Plain FP32 FMA, no TF32: the
 // transform tables are exact in float32 only, and the JAX package runs

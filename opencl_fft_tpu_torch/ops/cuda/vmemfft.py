@@ -6,35 +6,48 @@ Counterparts of ``opencl_fft_tpu/ops/pallas/vmemfft.py`` ``supported``,
 DFT_sign(x) over the last axis of (..., n) split planes, sign = -1 forward,
 +1 the unnormalized inverse, n a power of two in [2^10, 2^20].
 
-``fft_vmem`` transforms a row in one pass (``fft_rows_f32``: radix-16
-Stockham passes in registers and shared memory) up to
-``SINGLE_PASS_MAX``; above it, it takes ``fft_vmem_front2``'s two-pass
-route at the split ``default_split``.
-``fft_vmem_front2`` is the four-step in two passes for n = n1 * n2: the
-n1-point transforms down the columns of the (n1, n2) matrix times the
-twiddles W_n^(k1 j2) (``fft_front_f32``), then the n2-point leaf
-transforms of the rows, stored transposed to out[k1 + n1 k2]
-(``fft_rows_f32``). By default n2 = 256 and n in [2^18, 2^20], the JAX
-plan's last factor f3 and domain (``_PLANS_F2``); ``split`` takes the place
-of JAX's ``plan_override``.
+``route(n, split, cluster)`` picks the kernels by size, for both wrappers:
+
+- ``rows``, n <= ``SINGLE_PASS_MAX``: one pass, B whole rows a CTA
+  (``fft_rows_f32``: radix-16 Stockham passes in registers and shared
+  memory);
+- ``two_pass`` above it: the four-step in two passes over device memory at
+  n = n1 x n2, ``two_pass_split(n)`` or an explicit ``split=(n1, n2)``: the
+  n1-point transforms down the columns of the (n1, n2) matrix
+  (``fft_front_f32``), then the n2-point leaf transforms of the rows, each
+  value multiplied by the twiddle W_n^(k1 j2) as it is loaded, stored
+  transposed to out[k1 + n1 k2] (``fft_rows_f32``);
+- ``cluster``, only when asked (``cluster=True``, 2^14 <= n <=
+  ``CLUSTER_MAX``): one transform in a thread-block cluster of c = n / m
+  CTAs of m values (``fft_cluster_f32``), held in distributed shared
+  memory, so the planes cross device memory once: the four-step at n = c x
+  m, its c-point column DFTs and m-point rows inside the cluster. It
+  measured slower than the two passes at every size on the H100 (PERF.md),
+  so no default route takes it.
+
+``fft_vmem_front2`` takes ``split`` in the place of JAX's ``plan_override``;
+without one it runs the JAX plan's domain, n in 2^18..2^20
+(``FRONT2_SIZES``), by the same route as ``fft_vmem``.
 
 Each wrapper runs its CUDA kernels for CUDA tensors and its twin for CPU
 tensors; anything else raises. ``LAUNCHES`` counts the single-pass
 launches of ``fft_vmem``, ``FRONT2_LAUNCHES`` the launches of the
-two-pass route (by ``fft_vmem_front2``, or by ``fft_vmem`` above
-``SINGLE_PASS_MAX``).
+large-size routes (one front and one leaf pass, or the cluster kernel), by
+``fft_vmem_front2`` or by ``fft_vmem`` above ``SINGLE_PASS_MAX``.
 
-The twins follow the kernels' factorization: the same n1 x n2 split and
-the same float32 twiddle tables, with every shorter transform done as
-products with float64-built DFT matrices of at most ``LEAF_MAX`` points
-(true float32 products; TF32 must be off on a card).
+The twins follow the kernels' factorization: the same n1 x n2 split (c x
+m for the cluster route) and float32 twiddles rounded once from float64
+(the kernels form W_n^(k1 j2) as the product of two or three such table
+entries), with every shorter transform done as products with
+float64-built DFT matrices of at most ``LEAF_MAX`` points (true float32
+products; TF32 must be off on a card).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,11 +62,32 @@ FRONT2_LAUNCHES = 0
 MIN_N = 1 << 10
 MAX_N = 1 << 20
 SINGLE_PASS_MAX = 1 << 13     # one CTA holds 8192 complex values (64 KB)
+CLUSTER_MIN = 1 << 14
+CLUSTER_MAX = 1 << 18         # 16 CTAs x 128 KB of shared memory hold 2 MB of planes
 FRONT2_SIZES = (1 << 18, 1 << 19, 1 << 20)
-FRONT2_N2 = 256
 LEAF_MAX = 64                 # the twins' largest DFT matrix
 
 Split = Tuple[int, int]
+
+
+class Route(NamedTuple):
+    """The CUDA kernels for one size: ``kind`` "rows" (n1 = 1, n2 = n),
+    "two_pass" (n1 front points, n2 leaf points) or "cluster" (n1 = c CTAs,
+    n2 = m values each)."""
+
+    kind: str
+    n1: int
+    n2: int
+
+    def __str__(self) -> str:
+        n = self.n1 * self.n2
+        if self.kind == "rows":
+            return f"fft_rows_kernel of csrc/fft.cu (one pass of {n} points)"
+        if self.kind == "cluster":
+            return (f"fft_cluster_kernel of csrc/fft.cu (one pass, clusters of {self.n1} "
+                    f"CTAs: {n} = {self.n1} x {self.n2})")
+        return (f"fft_front_kernel + fft_rows_kernel of csrc/fft.cu (two passes, "
+                f"{n} = {self.n1} x {self.n2})")
 
 
 def supported(n: int) -> bool:
@@ -61,28 +95,45 @@ def supported(n: int) -> bool:
     return is_pow2(n) and MIN_N <= n <= MAX_N
 
 
-def default_split(n: int) -> Split:
-    """``fft_vmem``'s two-pass split above ``SINGLE_PASS_MAX``: n1 =
-    2^floor(log2(n)/2) front points, n2 = n / n1 leaf points."""
-    n1 = 1 << ((n.bit_length() - 1) // 2)
+def two_pass_split(n: int) -> Split:
+    """The default (n1, n2) of the two passes: n1 = 256 front points up to
+    2^18 (32 columns a CTA: 128-byte segments), 1024 above (where 256 would
+    leave the leaf 4 rows a CTA: 16-byte stores). Chosen by timing the
+    splits of 2^14..2^20 on the H100 (PERF.md)."""
+    n1 = 256 if n <= CLUSTER_MAX else 1024
     return n1, n // n1
 
 
-def front2_split(n: int, split: Optional[Split] = None) -> Split:
-    """The (n1, n2) that ``fft_vmem_front2`` uses for size n: (n / 256,
-    256) for n in 2^18..2^20, or ``split`` for any supported n when both
-    factors are powers of two in [2, 8192] with n1 * n2 = n."""
-    if split is None:
-        if n not in FRONT2_SIZES:
-            raise ValueError(f"fft_vmem_front2: no default split for size {n} "
-                             f"(defaults exist for {FRONT2_SIZES}); pass split=(n1, n2)")
-        return n // FRONT2_N2, FRONT2_N2
-    n1, n2 = (int(f) for f in split)
-    if not supported(n) or n1 * n2 != n or not (is_pow2(n1) and is_pow2(n2)) \
-            or not (2 <= n1 <= SINGLE_PASS_MAX and 2 <= n2 <= SINGLE_PASS_MAX):
-        raise ValueError(f"fft_vmem_front2: split {split} does not factor size {n} "
-                         f"into powers of two in [2, {SINGLE_PASS_MAX}]")
-    return n1, n2
+def cluster_split(n: int) -> Split:
+    """(c, m) of the cluster route: m = 2^13 values a CTA (two CTAs an SM)
+    while a cluster of at most 8 holds the transform, 2^14 above."""
+    m = 1 << (13 if n <= 1 << 16 else 14)
+    return n // m, m
+
+
+def route(n: int, split: Optional[Split] = None, cluster: bool = False) -> Route:
+    """The kernels that transform size n (``supported``): with ``split``,
+    the two passes at (n1, n2) = split, both powers of two in [2, 8192]
+    with n1 * n2 = n; with ``cluster``, the cluster kernel (n in
+    [``CLUSTER_MIN``, ``CLUSTER_MAX``]); else one pass up to
+    ``SINGLE_PASS_MAX`` and two passes at ``two_pass_split(n)`` above."""
+    if not supported(n):
+        raise ValueError(f"vmem fft: unsupported size {n}")
+    if cluster:
+        if split is not None or not CLUSTER_MIN <= n <= CLUSTER_MAX:
+            raise ValueError(f"fft_vmem_front2: the cluster route takes n in "
+                             f"[{CLUSTER_MIN}, {CLUSTER_MAX}] and no split, got {n}, {split}")
+        return Route("cluster", *cluster_split(n))
+    if split is not None:
+        n1, n2 = (int(f) for f in split)
+        if n1 * n2 != n or not (is_pow2(n1) and is_pow2(n2)) \
+                or not (2 <= n1 <= SINGLE_PASS_MAX and 2 <= n2 <= SINGLE_PASS_MAX):
+            raise ValueError(f"fft_vmem_front2: split {split} does not factor size {n} "
+                             f"into powers of two in [2, {SINGLE_PASS_MAX}]")
+        return Route("two_pass", n1, n2)
+    if n <= SINGLE_PASS_MAX:
+        return Route("rows", 1, n)
+    return Route("two_pass", *two_pass_split(n))
 
 
 # ---------------------------------------------------------------------------
@@ -110,6 +161,52 @@ def four_step_twiddle_np(n1: int, n2: int, sign: int) -> Tuple[np.ndarray, np.nd
     return w.real.astype(np.float32), w.imag.astype(np.float32)
 
 
+def pass_twiddle_np(n: int, sign: int) -> np.ndarray:
+    """The kernels' Stockham pass table for transforms of length n, float32
+    (re, im) interleaved in a last axis of 2: for each pass after the first
+    (radix 16 while four or more bits remain, then 2, 4 or 8), at sub-size
+    ns and radix R, the block W_n^(r jm n / (ns R)) at (r - 1) ns + jm for
+    1 <= r < R, jm < ns; the entries of ``stage_twiddle_np(n, sign)``."""
+    wr, wi = stage_twiddle_np(n, sign)
+    log_n, ns, idx = n.bit_length() - 1, 1, []
+    for p in range((log_n + 3) // 4):
+        radix = 1 << min(4, log_n - 4 * p)
+        if ns > 1:
+            jm = np.arange(ns, dtype=np.int64)
+            idx += [jm * (n // (ns * radix)) * r for r in range(1, radix)]
+        ns *= radix
+    e = np.concatenate(idx) if idx else np.zeros(0, np.int64)
+    return np.ascontiguousarray(np.stack([wr[e], wi[e]], axis=-1))
+
+
+def four_step_log_a(n2: int) -> int:
+    """log2 of the row length of the kernels' twiddle table A for a leaf
+    of n2 points: half of log2 n2, rounded up."""
+    return (n2.bit_length()) // 2
+
+
+@functools.lru_cache(maxsize=None)
+def four_step_tables_np(n1: int, n2: int, sign: int) -> Tuple[np.ndarray, ...]:
+    """The kernels' twiddle tables for the four-step at n = n1 n2, float32
+    (re, im) interleaved in a last axis of 2: A[k1, l] = W_n^(k1 l) for l <
+    2^a and B[k1, h] = W_n^(k1 h 2^a) for h < n2 / 2^a, a =
+    ``four_step_log_a(n2)``, so W_n^(k1 j2) = A[k1, j2 mod 2^a] *
+    B[k1, j2 >> a]; and S[k1, r] = W_n^(k1 r n2 / R) for r < 16, R =
+    min(16, n2) the leaf's first radix, so that W_n^(k1 (j + r n2 / R)) =
+    W_n^(k1 j) * S[k1, r] (exponents reduced mod n in integers, angles in
+    float64)."""
+    n, a = n1 * n2, four_step_log_a(n2)
+    k1 = np.arange(n1, dtype=np.int64)[:, None]
+
+    def table(e):
+        w = np.exp(sign * 2j * np.pi * ((e % n).astype(np.float64) / n))
+        return np.stack([w.real, w.imag], axis=-1).astype(np.float32)
+
+    return (table(k1 * np.arange(1 << a, dtype=np.int64)[None, :]),
+            table(k1 * (np.arange(n2 >> a, dtype=np.int64)[None, :] << a)),
+            table(k1 * np.arange(16, dtype=np.int64)[None, :] * (n2 // min(16, n2))))
+
+
 @functools.lru_cache(maxsize=None)
 def dft_matrix_np(n: int, sign: int) -> Tuple[np.ndarray, np.ndarray]:
     """(n, n) DFT matrix W[j, k] = exp(sign 2 pi i jk / n), split float32
@@ -122,8 +219,7 @@ def dft_matrix_np(n: int, sign: int) -> Tuple[np.ndarray, np.ndarray]:
 
 @functools.lru_cache(maxsize=None)
 def _table(kind: str, args: tuple, device: torch.device) -> Cplx:
-    builder = {"stage": stage_twiddle_np, "four": four_step_twiddle_np,
-               "dft": dft_matrix_np}[kind]
+    builder = {"four": four_step_twiddle_np, "dft": dft_matrix_np}[kind]
     wr, wi = builder(*args)
     return torch.from_numpy(wr).to(device), torch.from_numpy(wi).to(device)
 
@@ -132,23 +228,60 @@ def _table(kind: str, args: tuple, device: torch.device) -> Cplx:
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
 
 @functools.lru_cache(maxsize=None)
-def _rows_kernel():
-    fn = _build.load("fft").fft_rows_f32
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 6 + [ctypes.c_longlong, i, i, i, ctypes.c_float, i, p]
+def _entry(name: str):
+    fn = getattr(_build.load("fft"), name)
+    fn.argtypes = {
+        "fft_rows_f32": [_P] * 8 + [_I, _LL, _I, _I, _I, _F, _I, _P],
+        "fft_front_f32": [_P] * 5 + [_LL, _I, _I, _I, _I, _P],
+        "fft_cluster_f32": [_P] * 7 + [_I, _LL, _I, _I, _I, _F, _I, _P],
+        "fft_cluster_max_active": [_I, _I, _I, ctypes.POINTER(_I)],
+    }[name]
     fn.restype = ctypes.c_int
     return fn
 
 
+def _call(name: str, *args) -> None:
+    err = _entry(name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+class _Plan(NamedTuple):
+    tables: tuple     # the device tables (kept alive with the plan)
+    pointers: tuple   # their data pointers: pass tables, then A and B
+
+
 @functools.lru_cache(maxsize=None)
-def _front_kernel():
-    fn = _build.load("fft").fft_front_f32
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 8 + [ctypes.c_longlong, i, i, i, i, p]
-    fn.restype = ctypes.c_int
-    return fn
+def _plan(r: Route, sign: int, device: torch.device) -> _Plan:
+    """The device tables of route r: the pass table of each transform
+    length, and the four-step tables (A and B for the cluster, A, B and S
+    for two passes)."""
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    if r.kind == "rows":
+        tables = (dev(pass_twiddle_np(r.n2, sign)),)
+    elif r.kind == "cluster":
+        tables = (dev(pass_twiddle_np(r.n2, sign)),
+                  *map(dev, four_step_tables_np(r.n1, r.n2, sign)[:2]))
+    else:
+        tables = (dev(pass_twiddle_np(r.n1, sign)), dev(pass_twiddle_np(r.n2, sign)),
+                  *map(dev, four_step_tables_np(r.n1, r.n2, sign)))
+    return _Plan(tables, tuple(t.data_ptr() for t in tables))
+
+
+def cluster_max_active(n: int, device: torch.device) -> int:
+    """How many clusters of the cluster route at size n (in
+    [``CLUSTER_MIN``, ``CLUSTER_MAX``]) the card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    r = route(n, cluster=True)
+    count = _I(0)
+    _call("fft_cluster_max_active", _log2(r.n2), _log2(r.n1), device.index, ctypes.byref(count))
+    return count.value
 
 
 def _log2(n: int) -> int:
@@ -167,17 +300,16 @@ def _check(name: str, x: Cplx, sign: int) -> Tuple[torch.Tensor, torch.Tensor, i
 
 
 def _rows_2d(name: str, x: Cplx, sign: int) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """The planes as contiguous (rows, n), checked; and n."""
+    """The planes as contiguous (rows, n), checked; and n. The cluster
+    kernel's 16-byte loads need 16-byte aligned planes: a contiguous view
+    that starts elsewhere is copied."""
     re, im, n = _check(name, x, sign)
-    return re.reshape(-1, n).contiguous(), im.reshape(-1, n).contiguous(), n
-
-
-def route(n: int) -> str:
-    """The CUDA kernels ``fft_vmem`` runs for size n, for logs."""
-    if n <= SINGLE_PASS_MAX:
-        return f"fft_rows_kernel of csrc/fft.cu (one pass of {n} points)"
-    n1, n2 = default_split(n)
-    return f"fft_front_kernel + fft_rows_kernel of csrc/fft.cu (two passes, {n} = {n1} x {n2})"
+    re, im = (p.reshape(-1, n).contiguous() for p in (re, im))
+    if re.data_ptr() % 16:
+        re = re.clone()
+    if im.data_ptr() % 16:
+        im = im.clone()
+    return re, im, n
 
 
 def _check_rows(name, re, im):
@@ -186,70 +318,69 @@ def _check_rows(name, re, im):
     return _build.launch_device(name, (re, im))
 
 
-def _planes_like(re: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Two float32 planes of re's shape and device, from one allocation."""
-    return torch.empty((2,) + tuple(re.shape), dtype=torch.float32, device=re.device).unbind(0)
-
-
-def _launch_rows(xr, xi, yr, yi, log_l, log_n1, sign, scale, dev, stream):
-    twr, twi = _table("stage", (1 << log_l, sign), dev)
-    rows = xr.numel() >> log_l
-    err = _rows_kernel()(xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-                         twr.data_ptr(), twi.data_ptr(), rows, log_l, log_n1, sign,
-                         float(scale), dev.index, stream)
-    if err != 0:
-        raise RuntimeError(f"fft_rows_f32: CUDA error {err} at launch")
-
-
-def _two_pass(re, im, shape, n1, n2, sign, scale, dev) -> Cplx:
-    """The front pass and the leaf pass on contiguous (rows, n1 n2) CUDA
-    planes; counts one ``FRONT2_LAUNCHES``."""
-    global FRONT2_LAUNCHES
-    twr, twi = _table("stage", (n1, sign), dev)
-    t4r, t4i = _table("four", (n1, n2, sign), dev)
-    sr, si = _planes_like(re)
+def _launch(re, im, shape, r: Route, sign, scale, dev) -> Cplx:
+    """The route's kernels on contiguous (rows, n) CUDA planes into new
+    planes of ``shape``; counts one ``LAUNCHES`` (rows) or
+    ``FRONT2_LAUNCHES`` (cluster, two passes)."""
+    global LAUNCHES, FRONT2_LAUNCHES
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _front_kernel()(re.data_ptr(), im.data_ptr(), sr.data_ptr(), si.data_ptr(),
-                          twr.data_ptr(), twi.data_ptr(), t4r.data_ptr(), t4i.data_ptr(),
-                          re.shape[0], _log2(n1), _log2(n2), sign, dev.index, stream)
-    if err != 0:
-        raise RuntimeError(f"fft_front_f32: CUDA error {err} at launch")
-    yr, yi = _planes_like(re)
-    _launch_rows(sr, si, yr, yi, _log2(n2), _log2(n1), sign, scale, dev, stream)
+    yr = torch.empty(shape, dtype=torch.float32, device=dev)
+    yi = torch.empty(shape, dtype=torch.float32, device=dev)
+    ptrs = _plan(r, sign, dev).pointers
+    x = (re.data_ptr(), im.data_ptr())
+    y = (yr.data_ptr(), yi.data_ptr())
+    rows, idx = re.shape[0], dev.index
+    if r.kind == "rows":
+        _call("fft_rows_f32", *x, *y, ptrs[0], None, None, None, 0, rows, _log2(r.n2), 0,
+              sign, scale, idx, stream)
+        LAUNCHES += 1
+        return yr, yi
+    log_a = four_step_log_a(r.n2)
+    if r.kind == "cluster":
+        _call("fft_cluster_f32", *x, *y, *ptrs, log_a, rows, _log2(r.n2), _log2(r.n1), sign,
+              scale, idx, stream)
+    else:
+        sr = torch.empty_like(re)
+        si = torch.empty_like(im)
+        s_ = (sr.data_ptr(), si.data_ptr())
+        _call("fft_front_f32", *x, *s_, ptrs[0], rows, _log2(r.n1), _log2(r.n2), sign, idx,
+              stream)
+        _call("fft_rows_f32", *s_, *y, *ptrs[1:], log_a, rows * r.n1, _log2(r.n2),
+              _log2(r.n1), sign, scale, idx, stream)
     FRONT2_LAUNCHES += 1
-    return yr.reshape(shape), yi.reshape(shape)
+    return yr, yi
 
 
 def fft_vmem(x: Cplx, sign: int, scale: float = 1.0) -> Cplx:
     """scale * DFT_sign over the last axis of split float32 planes (..., n),
-    n in ``supported``. Single pass up to ``SINGLE_PASS_MAX``, else the
-    two-pass route of ``fft_vmem_front2`` at ``default_split(n)``."""
-    global LAUNCHES
+    n in ``supported``, by ``route(n)``."""
     re, im, n = _rows_2d("fft_vmem", x, sign)
-    if not supported(n):
-        raise ValueError(f"vmem fft: unsupported size {n}")
+    r = route(n)
     dev = _check_rows("fft_vmem", re, im)
     if dev.type == "cpu":
         return fft_vmem_plain(x, sign, scale)
-    if n > SINGLE_PASS_MAX:
-        return _two_pass(re, im, x[0].shape, *default_split(n), sign, scale, dev)
-    yr, yi = _planes_like(re)
-    _launch_rows(re, im, yr, yi, _log2(n), 0, sign, scale, dev,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    LAUNCHES += 1
-    return yr.reshape(x[0].shape), yi.reshape(x[0].shape)
+    return _launch(re, im, x[0].shape, r, sign, float(scale), dev)
+
+
+def _front2_route(n: int, split: Optional[Split], cluster: bool) -> Route:
+    if split is None and not cluster and n not in FRONT2_SIZES:
+        raise ValueError(f"fft_vmem_front2: no default split for size {n} "
+                         f"(defaults exist for {FRONT2_SIZES}); pass split=(n1, n2)")
+    return route(n, split, cluster)
 
 
 def fft_vmem_front2(x: Cplx, sign: int, scale: float = 1.0,
-                    split: Optional[Split] = None) -> Cplx:
-    """scale * DFT_sign over the last axis of split float32 planes (..., n)
-    as the two-pass four-step at ``front2_split(n, split)``."""
+                    split: Optional[Split] = None, cluster: bool = False) -> Cplx:
+    """scale * DFT_sign over the last axis of split float32 planes (..., n):
+    n in ``FRONT2_SIZES`` by ``route(n)``, any supported n as the two-pass
+    four-step at ``split``, or, with ``cluster``, n in [2^14, 2^18] by the
+    cluster kernel."""
     re, im, n = _rows_2d("fft_vmem_front2", x, sign)
-    n1, n2 = front2_split(n, split)
+    r = _front2_route(n, split, cluster)
     dev = _check_rows("fft_vmem_front2", re, im)
     if dev.type == "cpu":
-        return fft_vmem_front2_plain(x, sign, scale, (n1, n2))
-    return _two_pass(re, im, x[0].shape, n1, n2, sign, scale, dev)
+        return fft_vmem_front2_plain(x, sign, scale, split, cluster)
+    return _launch(re, im, x[0].shape, r, sign, float(scale), dev)
 
 
 # ---------------------------------------------------------------------------
@@ -284,26 +415,25 @@ def _four_step_plain(re, im, sign, n1, n2) -> Cplx:
             zi.transpose(-1, -2).reshape(lead + (n,)))
 
 
-def fft_vmem_plain(x: Cplx, sign: int, scale: float = 1.0) -> Cplx:
-    """Plain PyTorch twin of ``fft_vmem``: the single-pass transform up to
-    ``SINGLE_PASS_MAX``, else ``fft_vmem_front2_plain`` at
-    ``default_split(n)``; scale applied once, last."""
-    re, im, n = _check("fft_vmem", x, sign)
-    re, im = re.to(torch.float32), im.to(torch.float32)
-    if not supported(n):
-        raise ValueError(f"vmem fft: unsupported size {n}")
-    if n > SINGLE_PASS_MAX:
-        return fft_vmem_front2_plain(x, sign, scale, default_split(n))
-    yr, yi = _dft_plain(re, im, sign)
+def _plain(x: Cplx, sign: int, scale: float, r: Route) -> Cplx:
+    re, im = (p.to(torch.float32) for p in x)
+    if r.kind == "rows":
+        yr, yi = _dft_plain(re, im, sign)
+    else:
+        yr, yi = _four_step_plain(re, im, sign, r.n1, r.n2)
     return yr * scale, yi * scale
+
+
+def fft_vmem_plain(x: Cplx, sign: int, scale: float = 1.0) -> Cplx:
+    """Plain PyTorch twin of ``fft_vmem``: the factorization of
+    ``route(n)``; scale applied once, last."""
+    _, _, n = _check("fft_vmem", x, sign)
+    return _plain(x, sign, scale, route(n))
 
 
 def fft_vmem_front2_plain(x: Cplx, sign: int, scale: float = 1.0,
-                          split: Optional[Split] = None) -> Cplx:
-    """Plain PyTorch twin of ``fft_vmem_front2``: the four-step at the same
-    (n1, n2) split with the same tables; scale applied once, last."""
-    re, im, n = _check("fft_vmem_front2", x, sign)
-    re, im = re.to(torch.float32), im.to(torch.float32)
-    n1, n2 = front2_split(n, split)
-    yr, yi = _four_step_plain(re, im, sign, n1, n2)
-    return yr * scale, yi * scale
+                          split: Optional[Split] = None, cluster: bool = False) -> Cplx:
+    """Plain PyTorch twin of ``fft_vmem_front2``: the factorization of its
+    route; scale applied once, last."""
+    _, _, n = _check("fft_vmem_front2", x, sign)
+    return _plain(x, sign, scale, _front2_route(n, split, cluster))

@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from .cuda.dstream import context_blocks, dstream_steps, toeplitz_slabs
+from .cuda.dstream import context_blocks, dstream_steps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,8 +133,8 @@ def dconv_stream(cfg: DconvConfig, state: DconvState, blocks: torch.Tensor
     """Run many LTI blocks, blocks: (nblocks, vsize) -> outs (nblocks, vsize).
 
     Every block goes through the whole-scan kernel (``ops/cuda/dstream.py``):
-    its CUDA kernel for a CUDA tensor, its plain twin for a CPU tensor, for
-    any irsize and vsize. The context of the first block is the ring's last
+    its CUDA kernel (a direct FIR on the coefficients) for a CUDA tensor,
+    its plain twin for a CPU tensor, for any irsize and vsize. The context of the first block is the ring's last
     irsize samples, front-padded with zeros to P = ceil(irsize / vsize)
     blocks and laid end to end with the blocks in one sequence; the ring
     afterwards is the tail of that sequence (exactly the last irsize + vsize
@@ -154,8 +154,7 @@ def dconv_stream(cfg: DconvConfig, state: DconvState, blocks: torch.Tensor
     ctx = torch.roll(state.delay, -state.wp)[v:]
     seq = torch.cat([ctx.new_zeros(p * v - cfg.irsize), ctx,
                      blocks.to(torch.float32).reshape(-1)])
-    slabs = toeplitz_slabs(state.coefs, cfg.irsize, v, cfg.off)
-    outs = dstream_steps(seq.reshape(p + nb, v), slabs, v)
+    outs = dstream_steps(seq.reshape(p + nb, v), state.coefs[:cfg.irsize], v, cfg.off)
     wp_out = (state.wp + nb * v) % cfg.ring
     return state._replace(delay=torch.roll(seq[-cfg.ring:], wp_out), wp=wp_out), outs
 

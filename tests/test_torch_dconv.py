@@ -3,7 +3,8 @@ opencl_fft_tpu on the same inputs.
 
 The plain twin ``dstream_steps_plain`` is held against the JAX Pallas kernel
 ``dstream_steps`` in interpret mode, and ``toeplitz_slabs`` against the JAX
-slabs (atol 1e-5 * max|ref|). ``dconv_step``, ``dconv_step_tv`` and
+slabs (atol 1e-5 * max|ref|); the wrapper ``dstream_steps``, which takes
+the coefficients, against both and float64 ``np.convolve``. ``dconv_step``, ``dconv_step_tv`` and
 ``dconv_stream`` are held against the JAX functions (its XLA scan,
 pallas="off"), the class and opcode layers against their JAX counterparts,
 at 2e-5 * max|ref| (the JAX package's ``convolve_direct`` bound) and the
@@ -195,18 +196,49 @@ def test_config_state_and_wrapper_checks():
         D.convolve_direct(np.zeros(8, np.float32), np.zeros(3, np.float32))
     z = torch.zeros
     with pytest.raises(ValueError, match="no new block"):
-        K.dstream_steps(z(2, 4), z(12, 4), 4)
+        K.dstream_steps(z(2, 4), z(6), 4, 1)
     with pytest.raises(ValueError, match="seq"):
-        K.dstream_steps(z(5, 3), z(12, 4), 4)
-    with pytest.raises(ValueError, match="slabs"):
-        K.dstream_steps(z(5, 4), z(10, 4), 4)
+        K.dstream_steps(z(5, 3), z(6), 4, 1)
+    with pytest.raises(ValueError, match="ir must be"):
+        K.dstream_steps(z(5, 4), z(2, 3), 4, 1)
+    with pytest.raises(ValueError, match="off"):
+        K.dstream_steps(z(5, 4), z(6), 4, 2)
     with pytest.raises(ValueError, match="slabs"):
         K.dstream_steps_plain(z(5, 4), z(12, 3), 4)
     meta = torch.zeros((5, 4), device="meta")
     with pytest.raises(ValueError, match="one device"):
-        K.dstream_steps(meta, z(12, 4), 4)
+        K.dstream_steps(meta, z(6), 4, 1)
     with pytest.raises(ValueError, match="no kernel"):
-        K.dstream_steps(meta, torch.zeros((12, 4), device="meta"), 4)
+        K.dstream_steps(meta, torch.zeros(6, device="meta"), 4, 1)
+
+
+@pytest.mark.parametrize("irsize,vsize,nb", [(128, 128, 8), (512, 128, 16), (256, 16, 8),
+                                             (12, 3, 8), (100, 32, 1), (7, 3, 1)])
+@pytest.mark.parametrize("delay_compat", [False, True])
+def test_dstream_wrapper_matches_jax_and_numpy(irsize, vsize, nb, delay_compat):
+    """The wrapper (its twin on the CPU) on the coefficients: the Toeplitz
+    product of slabs built from the same taps, bit for bit; the JAX Pallas
+    kernel in interpret mode where it runs (irsize a multiple of vsize, nb
+    a multiple of 8; P = 1, 4, 16, vsize 3) at 1e-5; float64 np.convolve
+    of the whole sequence at 1e-5 (P = 1, 4, 16, 34; vsize 3; nb 1)."""
+    off = 0 if delay_compat else 1
+    rng = np.random.default_rng(irsize + 7 * vsize + nb + off)
+    p = K.context_blocks(irsize, vsize)
+    seq, ir = _f(rng, p + nb, vsize), _f(rng, irsize, s=0.1)
+    got = K.dstream_steps(torch.from_numpy(seq), torch.from_numpy(ir), vsize, off)
+    assert got.shape == (nb, vsize)
+    slabs = K.toeplitz_slabs(torch.from_numpy(ir), irsize, vsize, off)
+    np.testing.assert_array_equal(
+        got.numpy(), K.dstream_steps_plain(torch.from_numpy(seq), slabs, vsize).numpy())
+    c = p * vsize - irsize + off
+    s64 = seq.astype(np.float64).reshape(-1)
+    want = np.convolve(s64, ir.astype(np.float64), "valid")[c:c + nb * vsize]
+    _close(got.reshape(-1), want, 1e-5)
+    if irsize % vsize == 0 and nb % 8 == 0:
+        jslabs = JD.toeplitz_slabs(jnp.asarray(ir), irsize, vsize, off)
+        jout = JD.dstream_steps(jnp.asarray(seq[p:]), jnp.asarray(seq[:p]), jslabs, vsize,
+                                interpret=True)
+        _close(got, jout, 1e-5)
 
 
 def test_interop_rejects_bad_fields():
@@ -274,20 +306,22 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("irsize,vsize,nb", [(512, 512, 40), (7 * 128, 128, 33),
-                                             (1000, 256, 9), (5, 3, 1)])
-def test_cuda_dstream_kernel_matches_twin(cuda_device, irsize, vsize, nb):
+@pytest.mark.parametrize("irsize,vsize,nb", [(512, 512, 1880), (512, 512, 21), (7 * 128, 128, 200),
+                                             (1000, 256, 40), (5, 3, 1), (3000, 64, 100)])
+@pytest.mark.parametrize("off", [0, 1])
+def test_cuda_dstream_kernel_matches_twin(cuda_device, irsize, vsize, nb, off):
+    """The direct-FIR kernel at the smoke run's shapes (and one that stages
+    its taps in three blocks) against the Toeplitz twin."""
     rng = np.random.default_rng(irsize + nb)
     p = K.context_blocks(irsize, vsize)
     seq = torch.from_numpy(_f(rng, p + nb, vsize)).to(cuda_device)
-    slabs = K.toeplitz_slabs(torch.from_numpy(_f(rng, irsize)).to(cuda_device),
-                             irsize, vsize, 1)
+    ir = torch.from_numpy(_f(rng, irsize)).to(cuda_device)
     before = K.LAUNCHES
-    got = K.dstream_steps(seq, slabs, vsize)
+    got = K.dstream_steps(seq, ir, vsize, off)
     torch.cuda.synchronize()
     assert K.LAUNCHES == before + 1
     assert got.shape == (nb, vsize)
-    _close(got, K.dstream_steps_plain(seq, slabs, vsize))
+    _close(got, K.dstream_steps_plain(seq, K.toeplitz_slabs(ir, irsize, vsize, off), vsize))
 
 
 @pytest.mark.cuda

@@ -40,12 +40,12 @@ def _numpy_dft(x, sign, scale):
     return scale * (np.fft.fft(z) if sign == -1 else np.fft.ifft(z) * n)
 
 
-@pytest.mark.parametrize("n", [1 << 13, 1 << 15])
+@pytest.mark.parametrize("n", [1 << 13, 1 << 14, 1 << 15])
 @pytest.mark.parametrize("sign", [-1, 1])
 def test_fft_vmem_matches_jax(n, sign):
     """The wrapper (its twin on the CPU) and the twin called directly
-    against the Pallas kernel in interpret mode; 2^15 takes the two-pass
-    route at the (128, 256) split."""
+    against the Pallas kernel in interpret mode; 2^14 and 2^15 take the
+    two-pass factorization (256 x 64, 256 x 128)."""
     x = _planes(np.random.default_rng(n + sign), (2, n))
     scale = 1.0 / np.sqrt(n)
     ref = jvmem.fft_vmem(tuple(map(jnp.asarray, x)), sign, interpret=True, scale=scale)
@@ -151,16 +151,21 @@ def test_bluestein_tables_bit_identical_to_jax(n, sign, npdt):
 
 
 def test_splits_and_validation():
-    assert V.default_split(1 << 14) == (128, 128)
-    assert V.default_split(1 << 15) == (128, 256)
-    assert V.default_split(1 << 20) == (1024, 1024)
-    assert [V.front2_split(n) for n in V.FRONT2_SIZES] == [(1024, 256), (2048, 256),
-                                                          (4096, 256)]
-    assert V.front2_split(1 << 15, (128, 256)) == (128, 256)
-    for n, split in ((1 << 15, None), (1 << 15, (64, 256)), (1 << 15, (1, 1 << 15)),
-                     (1 << 9, (16, 32)), (1 << 15, (96, 341))):
-        with pytest.raises(ValueError, match="fft_vmem_front2"):
-            V.front2_split(n, split)
+    assert V.route(1 << 13) == ("rows", 1, 1 << 13)
+    assert V.route(1 << 14) == ("two_pass", 256, 64)
+    assert V.route(1 << 20) == ("two_pass", 1024, 1024)
+    assert [V.route(n) for n in V.FRONT2_SIZES] == [("two_pass", 256, 1024),
+                                                   ("two_pass", 1024, 512),
+                                                   ("two_pass", 1024, 1024)]
+    assert V.route(1 << 15, (128, 256)) == ("two_pass", 128, 256)
+    assert V.route(1 << 18, cluster=True) == ("cluster", 16, 1 << 14)
+    for n, split in ((1 << 15, (64, 256)), (1 << 15, (1, 1 << 15)), (1 << 9, (16, 32)),
+                     (1 << 15, (96, 341))):
+        with pytest.raises(ValueError, match="fft_vmem_front2|unsupported size"):
+            V.route(n, split)
+    for n, split in ((1 << 13, None), (1 << 19, None), (1 << 15, (128, 256))):
+        with pytest.raises(ValueError, match="cluster route"):
+            V.route(n, split, cluster=True)
     z = torch.zeros
     with pytest.raises(ValueError, match="unsupported size"):
         V.fft_vmem((z(4, 512), z(4, 512)), -1)
@@ -174,6 +179,86 @@ def test_splits_and_validation():
         V.fft_vmem_front2((z(1 << 14), z(1 << 14)), 1)
     with pytest.raises(ValueError, match="sign"):
         V.fft_vmem_plain((z(1024), z(1024)), 2)
+
+
+@pytest.mark.parametrize("k", range(10, 21))
+def test_route_by_size(k):
+    """One pass up to 2^13, two passes above, at 256 x n / 256 up to 2^18
+    and 1024 x n / 1024 above; an explicit split always takes two passes;
+    the cluster route (asked for) holds 2^14..2^18 in n / m CTAs of m =
+    2^13 (up to 2^16) or 2^14 values, at most 16. The route names its
+    kernels."""
+    n = 1 << k
+    r = V.route(n)
+    assert r.n1 * r.n2 == n and str(r).startswith(
+        {"rows": "fft_rows_kernel", "two_pass": "fft_front_kernel + fft_rows_kernel"}[r.kind])
+    if k <= 13:
+        assert r == ("rows", 1, n)
+    else:
+        assert r == ("two_pass", 256 if k <= 18 else 1024, n // (256 if k <= 18 else 1024))
+    split = (1 << (k // 2), 1 << (k - k // 2))
+    assert V.route(n, split) == ("two_pass", *split)
+    if 14 <= k <= 18:
+        m = 1 << (13 if k <= 16 else 14)
+        rc = V.route(n, cluster=True)
+        assert rc == ("cluster", n // m, m) and 2 <= rc.n1 <= 16
+        assert str(rc).startswith("fft_cluster_kernel")
+
+
+@pytest.mark.parametrize("n,sign", [(1 << 16, -1), (1 << 17, 1), (1 << 18, -1), (1 << 18, 1)])
+def test_cluster_twin_matches_numpy(n, sign):
+    """The twins at the cluster route's factorization (8 x 8192, 8 x 16384,
+    16 x 16384) and the default route's against float64 numpy, 2 rows."""
+    x = _planes(np.random.default_rng(n - sign), (2, n))
+    ref = _numpy_dft(x, sign, 0.5)
+    _close(V.fft_vmem_front2_plain(tuple(map(_t, x)), sign, 0.5, cluster=True), ref, 1e-5)
+    _close(V.fft_vmem_front2(tuple(map(_t, x)), sign, 0.5, cluster=True), ref, 1e-5)
+    _close(V.fft_vmem_plain(tuple(map(_t, x)), sign, 0.5), ref, 1e-5)
+
+
+@pytest.mark.parametrize("n", [2, 16, 32, 512, 1024, 8192, 16384])
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_pass_twiddle_table(n, sign):
+    """Each Stockham pass after the first has its block of W_n^(r k), r <
+    R, k = (j mod ns) n / (ns R), at (r - 1) ns + j mod ns: entries of the
+    stage table, which is bit-identical to JAX's."""
+    t = V.pass_twiddle_np(n, sign)
+    wr, wi = V.stage_twiddle_np(n, sign)
+    log_n, ns, off = n.bit_length() - 1, 1, 0
+    for p in range((log_n + 3) // 4):
+        radix = 1 << min(4, log_n - 4 * p)
+        if ns > 1:
+            for r in (1, radix - 1):
+                for jm in (0, ns - 1):
+                    e = jm * (n // (ns * radix)) * r
+                    assert tuple(t[off + (r - 1) * ns + jm]) == (wr[e], wi[e])
+            off += (radix - 1) * ns
+        ns *= radix
+    assert t.shape == (off, 2) and t.dtype == np.float32
+
+
+@pytest.mark.parametrize("n1,n2", [(2, 8192), (16, 16384), (512, 2048), (512, 1024), (8, 2)])
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_four_step_tables_compose_the_twiddle(n1, n2, sign):
+    """A[k1, j2 mod 2^a] * B[k1, j2 >> a] is W_n^(k1 j2) to two float32
+    roundings, and W_n^(k1 j) * S[k1, r] is W_n^(k1 (j + r n2 / R)); the
+    tables hold (n1, 2^a + n2 / 2^a + 16) entries, not n."""
+    ta, tb, ts = V.four_step_tables_np(n1, n2, sign)
+    a = V.four_step_log_a(n2)
+    assert ta.shape == (n1, 1 << a, 2) and tb.shape == (n1, n2 >> a, 2)
+    ca, cb = ta[..., 0] + 1j * ta[..., 1], tb[..., 0] + 1j * tb[..., 1]
+    k1, j2 = np.arange(n1)[:, None], np.arange(n2)[None, :]
+    w = ca[k1, j2 & ((1 << a) - 1)] * cb[k1, j2 >> a]
+    tr, ti = V.four_step_twiddle_np(n1, n2, sign)
+    np.testing.assert_allclose(w, tr + 1j * ti, atol=3e-7, rtol=0)
+    radix = min(16, n2)
+    cs = ts[..., 0] + 1j * ts[..., 1]
+    assert ts.shape == (n1, 16, 2)
+    j = np.arange(n2 // radix)[None, :, None]
+    r = np.arange(radix)[None, None, :]
+    k = np.arange(n1)[:, None, None]
+    np.testing.assert_allclose((ca[k, j & ((1 << a) - 1)] * cb[k, j >> a]) * cs[k, r],
+                               (tr + 1j * ti)[k, j + r * (n2 // radix)], atol=5e-7, rtol=0)
 
 
 @pytest.fixture
@@ -212,3 +297,19 @@ def test_cuda_fft_vmem_front2_matches_twin(cuda_device, n, split):
            tuple(w.cpu() for w in V.fft_vmem_front2_plain(x, 1, 1.0, split)), 2e-5)
     with pytest.raises(ValueError, match="float32"):
         V.fft_vmem_front2(tuple(p.double() for p in x), 1, 1.0, split)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1 << 14, 1 << 15, 1 << 16, 1 << 17, 1 << 18])
+@pytest.mark.parametrize("rows", [1, 3, 16])
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_cuda_cluster_route_matches_twin(cuda_device, n, rows, sign):
+    x = tuple(_t(p).to(cuda_device) for p in _planes(np.random.default_rng(n + rows), (rows, n)))
+    before = (V.LAUNCHES, V.FRONT2_LAUNCHES)
+    got = V.fft_vmem_front2(x, sign, 0.5, cluster=True)
+    torch.cuda.synchronize()
+    assert (V.LAUNCHES, V.FRONT2_LAUNCHES) == (before[0], before[1] + 1)
+    _close(tuple(g.cpu() for g in got),
+           tuple(w.cpu() for w in V.fft_vmem_front2_plain(x, sign, 0.5, cluster=True)), 2e-5)
+    _close(tuple(g.cpu() for g in got), _numpy_dft(tuple(p.cpu().numpy() for p in x), sign, 0.5),
+           5e-5)
