@@ -18,7 +18,7 @@ models ``Convolver``, ``TVConvolver`` and ``MatrixConvolver`` (64 channels;
 true stereo). It times each stream, prints per stream the device time of
 each kernel and copy under ``torch.profiler`` and the device's busy share
 of the call. Then the FFT path: the batched FFT kernels (``fft_vmem``,
-``fft_vmem_front2`` by their routes, at a split and on the cluster kernel)
+``fft_vmem_front2`` by their routes and at a split)
 against their twins at the JAX FFT sweep's sizes (2^10..2^20 at 32 MB of
 planes a call), the FFT main paths (``Clcfft``, ``Clrfft``, the
 ``clfft``/``clrfft`` processors, ``BatchedFFT``, Bluestein) against float64
@@ -90,7 +90,6 @@ LONG_IR = 1 << 20
 LONG_BLOCKS = 470
 LONG_CH = 16
 SWEEP_LOG2 = tuple(range(10, 21))       # the JAX FFT sweep's range (bench.py:421-439)
-CLUSTER_LOG2 = tuple(range(14, 19))     # sizes the cluster FFT kernel holds
 # other two-pass splits timed beside the default route's (log2 n: splits)
 FFT_ALT_SPLITS = {14: ((128, 128),), 18: ((512, 512), (1024, 256)),
                   19: ((512, 1024), (256, 2048)), 20: ((512, 2048),)}
@@ -811,8 +810,7 @@ def main():
 
     # phase 18: FFT kernels vs plain twins on the card at the sweep's shapes:
     # fft_vmem by its route, fft_vmem_front2 at its default sizes and at an
-    # explicit split, and the cluster kernel (cluster=True) at the sizes it
-    # holds
+    # explicit split
     def planes(rows, n):
         return f(rows, n), f(rows, n)
 
@@ -837,7 +835,7 @@ def main():
     def front2_count():
         return V.FRONT2_LAUNCHES
 
-    worst, fft_err, f2_err, cl_err = 0.0, 0.0, 0.0, {}
+    worst, fft_err, f2_err = 0.0, 0.0, 0.0
     for logn in SWEEP_LOG2:
         n = 1 << logn
         xs_ = planes(sweep_rows(n), n)
@@ -855,28 +853,17 @@ def main():
             worst = max(worst, e)
             if logn == 18:
                 f2_err = a
-        if logn in CLUSTER_LOG2:
-            e, cl_err[logn] = fft_check(
-                lambda x_, s_: V.fft_vmem_front2(x_, s_, 0.5, cluster=True),
-                lambda x_, s_: V.fft_vmem_front2_plain(x_, s_, 0.5, cluster=True), xs_,
-                f"fft_vmem_front2 cluster=True n=2^{logn} ({V.route(n, cluster=True)})",
-                front2_count)
-            worst = max(worst, e)
     xs_ = planes(3, 1 << 15)
     e, _ = fft_check(lambda x_, s_: V.fft_vmem_front2(x_, s_, 0.5, split=(128, 256)),
                      lambda x_, s_: V.fft_vmem_front2_plain(x_, s_, 0.5, split=(128, 256)),
                      xs_, "fft_vmem_front2 n=2^15 split=(128, 256)", front2_count)
     worst = max(worst, e)
-    n_active = {lg: V.cluster_max_active(1 << lg, dev) for lg in CLUSTER_LOG2}
     del xs_
     print(f"phase 18 FFT kernels vs twins: fft_vmem n=2^{{{SWEEP_LOG2[0]}..{SWEEP_LOG2[-1]}}} "
           f"at {SWEEP_BYTES >> 20} MB of planes (rows = 32 MB / 8n), fft_vmem_front2 at "
-          f"2^{{18,19,20}}, at split (128, 256) and with cluster=True at "
-          f"2^{{{CLUSTER_LOG2[0]}..{CLUSTER_LOG2[-1]}}}, sign +-1, scale 0.5; worst rel err "
+          f"2^{{18,19,20}} and at split (128, 256), sign +-1, scale 0.5; worst rel err "
           f"{worst:.3e} (tol {TOL}); 2^18 x16 max_abs_err fft_vmem {fft_err:.3e} "
-          f"fft_vmem_front2 {f2_err:.3e}; cudaOccupancyMaxActiveClusters by size "
-          + ", ".join(f"2^{lg} ({V.route(1 << lg, cluster=True).n1} CTAs): {c_}"
-                      for lg, c_ in n_active.items()), flush=True)
+          f"fft_vmem_front2 {f2_err:.3e}", flush=True)
 
     # phase 19: FFT main paths on the card against float64 numpy
     def cplx(*shape):
@@ -980,10 +967,6 @@ def main():
         if n in V.FRONT2_SIZES:
             row["f2"] = cuda_ms(lambda: V.fft_vmem_front2(xs_, -1), reps=9, calls=10)
             row["f2_us"] = kernel_us(lambda: V.fft_vmem_front2(xs_, -1))
-        if logn in CLUSTER_LOG2:
-            row["cl"] = cuda_ms(lambda: V.fft_vmem_front2(xs_, -1, cluster=True), reps=9,
-                                calls=10)
-            row["cl_us"] = kernel_us(lambda: V.fft_vmem_front2(xs_, -1, cluster=True))
         row["alts"] = {sp: (cuda_ms(lambda: V.fft_vmem_front2(xs_, -1, split=sp), reps=9,
                                     calls=10),
                             sum(kernel_us(lambda: V.fft_vmem_front2(xs_, -1, split=sp)).values()))
@@ -1010,8 +993,6 @@ def main():
                f"{us_text(r['k_us'])})")
         if "f2" in r:
             out += f", fft_vmem_front2 {r['f2']:.4f} (device {us_text(r['f2_us'])})"
-        if "cl" in r:
-            out += f", cluster route {r['cl']:.4f} (device {us_text(r['cl_us'])})"
         for sp, (ms_, us_) in r["alts"].items():
             out += f", split {sp[0]}x{sp[1]} {ms_:.4f} (device {us_:.1f} us)"
         return out + (f", cuFFT {r['lib']:.4f} ({fl / r['lib'] / 1e6:.1f}; device "

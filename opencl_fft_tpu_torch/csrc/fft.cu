@@ -32,57 +32,36 @@
 //                       multiplies each row value by W_n^(k1 j2) as it
 //                       loads it, transforms the rows and stores them
 //                       transposed to out[k1 + n1 k2] through shared memory.
-//   fft_cluster_kernel  2^14 <= n <= 2^18, only when asked for: one
-//                       transform in a thread-block cluster of c = n / m
-//                       CTAs (m = 2^13 values a CTA up to 2^16, 2^14 above;
-//                       c = 16 at 2^18, a non-portable size) held in
-//                       distributed shared memory, so the planes cross
-//                       device memory once. As the four-step at n = c x m:
-//                       CTA r loads columns [r m/c, (r+1) m/c) of the
-//                       (c, m) matrix straight into registers, runs the
-//                       c-point column DFTs and the twiddle there and
-//                       stores row k1 into CTA k1's shared memory; each
-//                       CTA transforms its row of m points; each CTA then
-//                       reads the outputs it writes from the others and
-//                       stores them contiguously. On the H100 it lost to
-//                       the two passes at every size: the two exchanges
-//                       through DSMEM cost as much as a pass over device
-//                       memory (4-byte remote accesses), and at 2^18 only
-//                       7 clusters of 16 CTAs fit at once, so 16 rows take
-//                       3 waves with no overlap of loads and butterflies
-//                       inside an SM (PERF.md).
+// A thread-block-cluster kernel that held a 2^14..2^18 transform in
+// distributed shared memory, so the planes crossed device memory once, lost
+// to the two passes at every size on the H100 (PERF.md, PR 9): its two
+// exchanges moved every value through DSMEM at about the cost of a pass
+// over device memory, and at 2^18 only 7 clusters of 16 CTAs fit at once.
 // Twiddles come from float32 tables built in float64 on the host (angles
 // reduced mod n in integers): W_L^(r k) for the Stockham passes, laid out
 // pass by pass so that a warp reads adjacent entries (see stockham_pass);
 // for the four-step W_n^(k1 j2) from two (n1, ~sqrt(n2)) tables A and B
 // and a (n1, 16) step table S, never an n-sized one. The constants inside
 // a radix-8/16 butterfly are W_16^m. Shared memory pads one float per 32
-// (p -> p + p/32) against bank conflicts of the strided Stockham writes
-// and of the exchanges; rows of a row tile sit at an odd stride. All
+// (p -> p + p/32) against bank conflicts of the strided Stockham writes;
+// rows of a row tile sit at an odd stride. All
 // offsets into the planes are 64-bit.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int PER_THREAD = 16;              // values a thread holds in a pass
-constexpr int TILE_LOG2 = 13;               // values a CTA of the row and front passes holds
-// Tiles of 2^13 values run two CTAs per SM, so that one loads or stores
-// while the other computes (this caps the kernels at 64 registers, which
-// they fit without spilling); tiles of 2^14 values (the cluster kernel
-// above 2^16) run one CTA of 1024 threads per SM, at the same 64
-// registers. Measured on the H100 for the row and front passes: 2^14-value
-// tiles at one CTA per SM were slower than 2^13 at two at every split of
-// 2^14..2^20 but one.
-template <int LOG2>
-struct Tile {
-    static constexpr int THREADS = (1 << LOG2) / PER_THREAD;
-    static constexpr int MIN_BLOCKS = LOG2 == 13 ? 2 : 1;
-};
+constexpr int TILE_LOG2 = 13;               // complex values per CTA, log2
+constexpr int MAX_THREADS = (1 << TILE_LOG2) / PER_THREAD;
+// Two CTAs per SM, so that one loads or stores while the other computes:
+// this caps the kernels at 64 registers, which they fit without spilling.
+// Chosen by timing on the H100 against one CTA per SM (128 registers) and
+// against 4096- and 2048-value tiles at two to four CTAs per SM: faster than
+// one CTA at every sweep size, and than the smaller tiles above 2^12; and
+// against 2^14-value tiles at one CTA per SM for both passes of 2^14..2^20.
+constexpr int MIN_BLOCKS = 2;
 
 #define FFT_RETURN_IF_ERROR(expr)                \
     do {                                         \
@@ -263,10 +242,6 @@ __device__ __forceinline__ void stockham_pass(const Layout<COLS>& lay, Load load
     }
 }
 
-// Where a tile's first pass reads and its last pass writes: device memory
-// or this CTA's shared memory.
-enum class End { Global, Smem };
-
 // A pre(b, j, x_re, x_im) that leaves the values as they are.
 struct NoPre {
     template <int R>
@@ -276,12 +251,15 @@ struct NoPre {
 // All passes of the tile's transforms: radix 16 while four or more bits of
 // L remain, then one pass of the remaining 2, 4 or 8. The first pass reads
 // with gload (then applies gpre to each butterfly's values), the last
-// writes with lstore; the passes between go through shared memory. tw: the pass table of length L (ops/cuda/vmemfft.py
-// pass_twiddle_np), the blocks of the passes after the first in order.
+// writes with lstore; the passes between go through shared memory.
+// last_to_smem: lstore writes shared memory too, so the last pass needs its
+// barrier between reads and writes. tw: the pass table of length L
+// (ops/cuda/vmemfft.py pass_twiddle_np), the blocks of the passes after the
+// first in order.
 template <bool COLS, typename GLoad, typename LStore, typename GPre>
 __device__ __forceinline__ void fft_tile(const Layout<COLS>& lay, float* sr, float* si,
-                                         GLoad gload, LStore lstore, GPre gpre, End first_from,
-                                         End last_to, const float2* __restrict__ tw,
+                                         GLoad gload, LStore lstore, GPre gpre,
+                                         bool last_to_smem, const float2* __restrict__ tw,
                                          int sign) {
     const int npass = (lay.log_l + 3) / 4;
     int ns = 1, toff = 0;
@@ -307,9 +285,7 @@ __device__ __forceinline__ void fft_tile(const Layout<COLS>& lay, float* sr, flo
         auto pre = [&](int b, int j, auto& xr, auto& xi) {
             if (first) gpre(b, j, xr, xi);
         };
-        const bool reads_smem = !first || first_from == End::Smem;
-        const bool writes_smem = !last || last_to == End::Smem;
-        const bool exchange = reads_smem && writes_smem;
+        const bool exchange = !first && (!last || last_to_smem);
         switch (log_r) {
             case 1: stockham_pass<2>(lay, load, store, pre, tw, toff, ns, sign, exchange); break;
             case 2: stockham_pass<4>(lay, load, store, pre, tw, toff, ns, sign, exchange); break;
@@ -337,11 +313,10 @@ __device__ __forceinline__ float2 four_step_twiddle(const float2* __restrict__ t
 // rows [blockIdx.x B, +B) of (rows, L), transformed in place of their input
 // layout (rows past the end are skipped). log_n1 > 0: the four-step leaf;
 // row q = batch * n1 + k1 of the (rows, L) scratch holds k1's n2 = L values
-// X[k1, j2], which are multiplied by W_n^(k1 j2) as they are loaded (see
-// twiddle below),
-// and Z[k1, k2] goes to out[batch * n + k1 + n1 * k2], n = n1 * L (B
-// divides n1), through shared memory.
-__global__ void __launch_bounds__(Tile<TILE_LOG2>::THREADS, Tile<TILE_LOG2>::MIN_BLOCKS)
+// X[k1, j2], multiplied by W_n^(k1 j2) as they are loaded (see twiddle
+// below), and Z[k1, k2] goes to out[batch * n + k1 + n1 * k2], n = n1 * L
+// (B divides n1), through shared memory.
+__global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
 fft_rows_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                 float* __restrict__ yr, float* __restrict__ yi,
                 const float2* __restrict__ tw, const float2* __restrict__ ta,
@@ -367,7 +342,7 @@ fft_rows_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                 yi[g] = scale * im;
             }
         };
-        fft_tile(lay, sr, si, gload, gstore, NoPre{}, End::Global, End::Global, tw, sign);
+        fft_tile(lay, sr, si, gload, gstore, NoPre{}, false, tw, sign);
         return;
     }
     // W_n^(k1 (j + r L/R)) = W_n^(k1 j) * S[k1, r] for the first pass's
@@ -390,7 +365,7 @@ fft_rows_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
         sr[lay.smem(b, k)] = re;
         si[lay.smem(b, k)] = im;
     };
-    fft_tile(lay, sr, si, gload, sstore, twiddle, End::Global, End::Smem, tw, sign);
+    fft_tile(lay, sr, si, gload, sstore, twiddle, true, tw, sign);
     __syncthreads();
     const long long batch = row0 >> log_n1;
     const int k1_0 = static_cast<int>(row0 & ((1LL << log_n1) - 1));
@@ -412,7 +387,7 @@ fft_rows_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // transforms each column over j1 and writes
 // y[k1 n2 + j2] = sum_j1 x[j1 n2 + j2] W_n1^(j1 k1) (the leaf pass applies
 // the twiddle W_n^(k1 j2)).
-__global__ void __launch_bounds__(Tile<TILE_LOG2>::THREADS, Tile<TILE_LOG2>::MIN_BLOCKS)
+__global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
 fft_front_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                  float* __restrict__ yr, float* __restrict__ yi,
                  const float2* __restrict__ tw, int log_n1, int log_n2, int log_c, int sign) {
@@ -434,105 +409,7 @@ fft_front_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
         yr[base + off] = re;
         yi[base + off] = im;
     };
-    fft_tile(lay, sr, si, gload, gstore, NoPre{}, End::Global, End::Global, tw, sign);
-}
-
-// One transform of n = C * M points per cluster of C = 2^LOG_C CTAs of M =
-// 2^LOG_M values: batch row blockIdx.x / C, CTA rank r = blockIdx.x mod C.
-// x viewed as (C, M), x[j1 M + j2]; CTA r takes columns j2 in [r W, r W +
-// W), W = M / C (thread t the columns r W + t + i T, i < 16 / C), and
-// stores Y[k1, j2] = W_n^(k1 j2) sum_j1 x[j1 M + j2] W_C^(j1 k1) into CTA
-// k1's shared memory at j2: each warp store is 32 adjacent words of one
-// CTA. CTA k1 transforms its row over j2 (Stockham, first pass from shared
-// memory) into Z[k1, k2] at k2. CTA r then reads the Z[k1, k2] it writes,
-// out[t] for t = k1 + C k2 in [r M, r M + M) (k2 in [r W, r W + W)), as
-// 32 adjacent words of one CTA a warp load, puts them in order in its own
-// shared memory once every CTA has read, and stores them with 16-byte
-// stores, times scale. Remote accesses are whole 128-byte runs; the
-// strided part of each exchange is on the local side, where the p + p/32
-// padding keeps it within two banks.
-template <int LOG_M, int LOG_C>
-__global__ void __launch_bounds__(Tile<LOG_M>::THREADS, Tile<LOG_M>::MIN_BLOCKS)
-fft_cluster_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                   float* __restrict__ yr, float* __restrict__ yi,
-                   const float2* __restrict__ tw, const float2* __restrict__ ta,
-                   const float2* __restrict__ tb, int log_a, int sign, float scale) {
-    constexpr int M = 1 << LOG_M, C = 1 << LOG_C, W = M / C;
-    constexpr int T = Tile<LOG_M>::THREADS;
-    constexpr int CPT = W / T;                 // columns a thread: 16 / C
-    extern __shared__ float smem[];
-    float* sr = smem;
-    float* si = smem + pidx(M);
-    cg::cluster_group cluster = cg::this_cluster();
-    const int rank = static_cast<int>(cluster.block_rank());
-    const size_t base = static_cast<size_t>(blockIdx.x >> LOG_C) << (LOG_M + LOG_C);
-
-    // column DFTs over j1, straight from device memory into registers
-    float vr[CPT][C], vi[CPT][C];
-#pragma unroll
-    for (int j1 = 0; j1 < C; ++j1)
-#pragma unroll
-        for (int i = 0; i < CPT; ++i) {
-            const size_t g = base + (static_cast<size_t>(j1) << LOG_M) + rank * W +
-                             threadIdx.x + i * T;
-            vr[i][j1] = xr[g];
-            vi[i][j1] = xi[g];
-        }
-    cluster.sync();           // every CTA of the cluster runs before any remote store
-#pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-        Dft<C>::run(vr[i], vi[i], sign);
-        const int j2 = rank * W + threadIdx.x + i * T;
-#pragma unroll
-        for (int k1 = 0; k1 < C; ++k1) {
-            const float2 w = four_step_twiddle(ta, tb, k1, j2, log_a, LOG_M);
-            cluster.map_shared_rank(sr, k1)[pidx(j2)] = vr[i][k1] * w.x - vi[i][k1] * w.y;
-            cluster.map_shared_rank(si, k1)[pidx(j2)] = vr[i][k1] * w.y + vi[i][k1] * w.x;
-        }
-    }
-    cluster.sync();           // the rows are in place
-
-    // the row transform over j2, in place
-    const Layout<false> lay{LOG_M, 0, 0};
-    auto sload = [&](int, int q, float& re, float& im) {
-        re = sr[pidx(q)];
-        im = si[pidx(q)];
-    };
-    auto sstore = [&](int, int k2, float re, float im) {
-        sr[pidx(k2)] = re;
-        si[pidx(k2)] = im;
-    };
-    fft_tile(lay, sr, si, sload, sstore, NoPre{}, End::Smem, End::Smem, tw, sign);
-    cluster.sync();           // every row is transformed
-
-    // element e = k1 W + (k2 - r W) of this CTA's outputs, from CTA k1
-    float zr[PER_THREAD], zi[PER_THREAD];
-#pragma unroll
-    for (int i = 0; i < PER_THREAD; ++i) {
-        const int e = threadIdx.x + i * T;
-        const int k1 = e >> (LOG_M - LOG_C), k2 = rank * W + (e & (W - 1));
-        zr[i] = cluster.map_shared_rank(sr, k1)[pidx(k2)];
-        zi[i] = cluster.map_shared_rank(si, k1)[pidx(k2)];
-    }
-    cluster.sync();           // no CTA reads another's shared memory after this
-#pragma unroll
-    for (int i = 0; i < PER_THREAD; ++i) {
-        const int e = threadIdx.x + i * T;
-        const int q = (e >> (LOG_M - LOG_C)) + C * (e & (W - 1));
-        sr[pidx(q)] = zr[i];
-        si[pidx(q)] = zi[i];
-    }
-    __syncthreads();
-    const size_t obase = base + (static_cast<size_t>(rank) << LOG_M);
-#pragma unroll
-    for (int i = 0; i < PER_THREAD / 4; ++i) {
-        const int q = 4 * (threadIdx.x + i * T);
-        const int s = pidx(q);               // q..q+3 stay inside one 32-run
-        *reinterpret_cast<float4*>(yr + obase + q) =
-            make_float4(scale * sr[s], scale * sr[s + 1], scale * sr[s + 2], scale * sr[s + 3]);
-        *reinterpret_cast<float4*>(yi + obase + q) =
-            make_float4(scale * si[s], scale * si[s + 1], scale * si[s + 2], scale * si[s + 3]);
-    }
+    fft_tile(lay, sr, si, gload, gstore, NoPre{}, false, tw, sign);
 }
 
 int ilog2(long long v) {
@@ -554,70 +431,22 @@ cudaError_t allow_smem(Kernel kernel, int device, size_t bytes, size_t (&granted
 
 size_t rows_granted[64];
 size_t front_granted[64];
-size_t cluster_granted[2][4][64];
-
-using ClusterKernel = void (*)(const float*, const float*, float*, float*, const float2*,
-                               const float2*, const float2*, int, int, float);
-
-// The cluster kernel for (log_m, log_c), or null: the five shapes of
-// ops/cuda/vmemfft.py cluster_split, 2^14..2^18.
-ClusterKernel cluster_kernel(int log_m, int log_c) {
-    switch (log_m * 8 + log_c) {
-        case 13 * 8 + 1: return fft_cluster_kernel<13, 1>;
-        case 13 * 8 + 2: return fft_cluster_kernel<13, 2>;
-        case 13 * 8 + 3: return fft_cluster_kernel<13, 3>;
-        case 14 * 8 + 3: return fft_cluster_kernel<14, 3>;
-        case 14 * 8 + 4: return fft_cluster_kernel<14, 4>;
-        default: return nullptr;
-    }
-}
-
-size_t cluster_smem(int log_m) { return 2 * sizeof(float) * static_cast<size_t>(pidx(1 << log_m)); }
-
-// The kernel's launch attributes for clusters of 2^log_c CTAs on `device`.
-cudaError_t prepare_cluster(ClusterKernel kernel, int log_m, int log_c, int device) {
-    if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
-    size_t& granted = cluster_granted[log_m - 13][log_c - 1][device];
-    const size_t smem = cluster_smem(log_m);
-    if (granted >= smem) return cudaSuccess;
-    FFT_RETURN_IF_ERROR(cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
-    if (log_c > 3)           // 16 CTAs: above the portable cluster size of 8
-        FFT_RETURN_IF_ERROR(
-            cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1));
-    granted = smem;
-    return cudaSuccess;
-}
-
-void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, long long ctas,
-                    int log_m, int log_c, cudaStream_t stream) {
-    cfg = {};
-    cfg.gridDim = dim3(static_cast<unsigned>(ctas));
-    cfg.blockDim = dim3((1u << log_m) / PER_THREAD);
-    cfg.dynamicSmemBytes = cluster_smem(log_m);
-    cfg.stream = stream;
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = 1u << log_c;
-    attr.val.clusterDim.y = 1;
-    attr.val.clusterDim.z = 1;
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
-}
 
 }  // namespace
 
 // Transforms of length 2^log_l along the rows of (rows, 2^log_l) split
-// planes x -> y, times scale.
-// log_n1 == 0: y has x's layout (the single-pass route; rows need not
-// divide the CTA's row count). log_n1 > 0: the four-step leaf after
-// fft_front_f32; x is its (batch * n1, n2) scratch, rows = batch * n1, and
-// y[batch n + k1 + n1 k2] = scale * Z[k1, k2], Z the transforms of the rows
-// times W_n^(k1 j2), j2 = j + r L/R, as W_n^(k1 j) S[k1, r] and W_n^(k1 j)
-// = A[k1, j mod 2^log_a] B[k1, j >> log_a] (ta, tb, ts: A (n1, 2^log_a), B
-// (n1, L / 2^log_a) and S (n1, 16), S[k1, r] = W_n^(k1 r L/R) for the first
-// pass's radix R = min(16, L); unused at log_n1 == 0). tw: the pass table of
-// length L. Tables (re, im) interleaved, sign baked in. All pointers are float32 device memory on `device`. Launches on
-// `stream` without synchronising; returns the first CUDA error.
+// planes x -> y, times scale. log_n1 == 0: y has x's layout (the
+// single-pass route; rows need not divide the CTA's row count). log_n1 > 0:
+// the four-step leaf after fft_front_f32; x is its (batch * n1, n2)
+// scratch, rows = batch * n1, and y[batch n + k1 + n1 k2] = scale *
+// Z[k1, k2], Z the transforms of the rows times W_n^(k1 j2), j2 = j + r L/R,
+// as W_n^(k1 j) S[k1, r] with W_n^(k1 j) = A[k1, j mod 2^log_a]
+// B[k1, j >> log_a] (ta, tb, ts: A (n1, 2^log_a), B (n1, L / 2^log_a) and S
+// (n1, 16), S[k1, r] = W_n^(k1 r L/R) for the first pass's radix R =
+// min(16, L); unused at log_n1 == 0). tw: the pass table of length L.
+// Tables (re, im) interleaved, sign baked in. All pointers are float32
+// device memory on `device`. Launches on `stream` without synchronising;
+// returns the first CUDA error.
 extern "C" int fft_rows_f32(const float* xr, const float* xi, float* yr, float* yi,
                             const float* tw, const float* ta, const float* tb,
                             const float* ts, int log_a, long long rows, int log_l,
@@ -653,8 +482,8 @@ extern "C" int fft_rows_f32(const float* xr, const float* xi, float* yr, float* 
 // length n1, (re, im) interleaved, sign baked in. Same pointer and stream
 // contract as fft_rows_f32.
 extern "C" int fft_front_f32(const float* xr, const float* xi, float* yr, float* yi,
-                             const float* tw, long long batch, int log_n1,
-                             int log_n2, int sign, int device, void* stream_ptr) {
+                             const float* tw, long long batch, int log_n1, int log_n2,
+                             int sign, int device, void* stream_ptr) {
     FFT_RETURN_IF_ERROR(cudaSetDevice(device));
     int log_c = TILE_LOG2 - log_n1;
     if (log_c < 0 || log_n1 < 1) return cudaErrorInvalidValue;
@@ -668,46 +497,4 @@ extern "C" int fft_front_f32(const float* xr, const float* xi, float* yr, float*
                        static_cast<cudaStream_t>(stream_ptr)>>>(
         xr, xi, yr, yi, reinterpret_cast<const float2*>(tw), log_n1, log_n2, log_c, sign);
     return cudaGetLastError();
-}
-
-// Whole transforms of n = 2^(log_m + log_c) points over `rows` rows, one
-// per cluster of 2^log_c CTAs (2..16) of 2^log_m values (13 or 14), the
-// planes read once and written once: y = scale * DFT_sign(x) per row. tw:
-// the pass table of length m; ta, tb: the four-step tables A (c, 2^log_a) and B (c,
-// m / 2^log_a) at n = c x m, interleaved re, im; all with the sign baked
-// in. y must be 16-byte aligned. Same pointer and stream contract as
-// fft_rows_f32.
-extern "C" int fft_cluster_f32(const float* xr, const float* xi, float* yr, float* yi,
-                               const float* tw, const float* ta,
-                               const float* tb, int log_a, long long rows, int log_m,
-                               int log_c, int sign, float scale, int device,
-                               void* stream_ptr) {
-    FFT_RETURN_IF_ERROR(cudaSetDevice(device));
-    const ClusterKernel kernel = cluster_kernel(log_m, log_c);
-    if (kernel == nullptr || rows < 1 || log_a < 0 || log_a > log_m) return cudaErrorInvalidValue;
-    const long long ctas = rows << log_c;
-    if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
-    FFT_RETURN_IF_ERROR(prepare_cluster(kernel, log_m, log_c, device));
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr;
-    cluster_config(cfg, attr, ctas, log_m, log_c, static_cast<cudaStream_t>(stream_ptr));
-    FFT_RETURN_IF_ERROR(cudaLaunchKernelEx(&cfg, kernel, xr, xi, yr, yi,
-                                           reinterpret_cast<const float2*>(tw),
-                                           reinterpret_cast<const float2*>(ta),
-                                           reinterpret_cast<const float2*>(tb), log_a, sign,
-                                           scale));
-    return cudaGetLastError();
-}
-
-// How many clusters of fft_cluster_f32's (log_m, log_c) kernel the card can
-// hold at once (cudaOccupancyMaxActiveClusters), into *count.
-extern "C" int fft_cluster_max_active(int log_m, int log_c, int device, int* count) {
-    FFT_RETURN_IF_ERROR(cudaSetDevice(device));
-    const ClusterKernel kernel = cluster_kernel(log_m, log_c);
-    if (kernel == nullptr) return cudaErrorInvalidValue;
-    FFT_RETURN_IF_ERROR(prepare_cluster(kernel, log_m, log_c, device));
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr;
-    cluster_config(cfg, attr, 1LL << log_c, log_m, log_c, nullptr);
-    return cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
 }

@@ -6,7 +6,7 @@ Counterparts of ``opencl_fft_tpu/ops/pallas/vmemfft.py`` ``supported``,
 DFT_sign(x) over the last axis of (..., n) split planes, sign = -1 forward,
 +1 the unnormalized inverse, n a power of two in [2^10, 2^20].
 
-``route(n, split, cluster)`` picks the kernels by size, for both wrappers:
+``route(n, split)`` picks the kernels by size, for both wrappers:
 
 - ``rows``, n <= ``SINGLE_PASS_MAX``: one pass, B whole rows a CTA
   (``fft_rows_f32``: radix-16 Stockham passes in registers and shared
@@ -16,14 +16,7 @@ DFT_sign(x) over the last axis of (..., n) split planes, sign = -1 forward,
   n1-point transforms down the columns of the (n1, n2) matrix
   (``fft_front_f32``), then the n2-point leaf transforms of the rows, each
   value multiplied by the twiddle W_n^(k1 j2) as it is loaded, stored
-  transposed to out[k1 + n1 k2] (``fft_rows_f32``);
-- ``cluster``, only when asked (``cluster=True``, 2^14 <= n <=
-  ``CLUSTER_MAX``): one transform in a thread-block cluster of c = n / m
-  CTAs of m values (``fft_cluster_f32``), held in distributed shared
-  memory, so the planes cross device memory once: the four-step at n = c x
-  m, its c-point column DFTs and m-point rows inside the cluster. It
-  measured slower than the two passes at every size on the H100 (PERF.md),
-  so no default route takes it.
+  transposed to out[k1 + n1 k2] (``fft_rows_f32``).
 
 ``fft_vmem_front2`` takes ``split`` in the place of JAX's ``plan_override``;
 without one it runs the JAX plan's domain, n in 2^18..2^20
@@ -32,15 +25,14 @@ without one it runs the JAX plan's domain, n in 2^18..2^20
 Each wrapper runs its CUDA kernels for CUDA tensors and its twin for CPU
 tensors; anything else raises. ``LAUNCHES`` counts the single-pass
 launches of ``fft_vmem``, ``FRONT2_LAUNCHES`` the launches of the
-large-size routes (one front and one leaf pass, or the cluster kernel), by
+two-pass route (one front and one leaf pass), by
 ``fft_vmem_front2`` or by ``fft_vmem`` above ``SINGLE_PASS_MAX``.
 
-The twins follow the kernels' factorization: the same n1 x n2 split (c x
-m for the cluster route) and float32 twiddles rounded once from float64
-(the kernels form W_n^(k1 j2) as the product of two or three such table
-entries), with every shorter transform done as products with
-float64-built DFT matrices of at most ``LEAF_MAX`` points (true float32
-products; TF32 must be off on a card).
+The twins follow the kernels' factorization: the same n1 x n2 split and
+float32 twiddles rounded once from float64 (the kernels form W_n^(k1 j2)
+as the product of three such table entries), with every shorter transform
+done as products with float64-built DFT matrices of at most ``LEAF_MAX``
+points (true float32 products; TF32 must be off on a card).
 """
 
 from __future__ import annotations
@@ -62,8 +54,6 @@ FRONT2_LAUNCHES = 0
 MIN_N = 1 << 10
 MAX_N = 1 << 20
 SINGLE_PASS_MAX = 1 << 13     # one CTA holds 8192 complex values (64 KB)
-CLUSTER_MIN = 1 << 14
-CLUSTER_MAX = 1 << 18         # 16 CTAs x 128 KB of shared memory hold 2 MB of planes
 FRONT2_SIZES = (1 << 18, 1 << 19, 1 << 20)
 LEAF_MAX = 64                 # the twins' largest DFT matrix
 
@@ -71,9 +61,8 @@ Split = Tuple[int, int]
 
 
 class Route(NamedTuple):
-    """The CUDA kernels for one size: ``kind`` "rows" (n1 = 1, n2 = n),
-    "two_pass" (n1 front points, n2 leaf points) or "cluster" (n1 = c CTAs,
-    n2 = m values each)."""
+    """The CUDA kernels for one size: ``kind`` "rows" (n1 = 1, n2 = n) or
+    "two_pass" (n1 front points, n2 leaf points)."""
 
     kind: str
     n1: int
@@ -83,9 +72,6 @@ class Route(NamedTuple):
         n = self.n1 * self.n2
         if self.kind == "rows":
             return f"fft_rows_kernel of csrc/fft.cu (one pass of {n} points)"
-        if self.kind == "cluster":
-            return (f"fft_cluster_kernel of csrc/fft.cu (one pass, clusters of {self.n1} "
-                    f"CTAs: {n} = {self.n1} x {self.n2})")
         return (f"fft_front_kernel + fft_rows_kernel of csrc/fft.cu (two passes, "
                 f"{n} = {self.n1} x {self.n2})")
 
@@ -100,30 +86,17 @@ def two_pass_split(n: int) -> Split:
     2^18 (32 columns a CTA: 128-byte segments), 1024 above (where 256 would
     leave the leaf 4 rows a CTA: 16-byte stores). Chosen by timing the
     splits of 2^14..2^20 on the H100 (PERF.md)."""
-    n1 = 256 if n <= CLUSTER_MAX else 1024
+    n1 = 256 if n <= 1 << 18 else 1024
     return n1, n // n1
 
 
-def cluster_split(n: int) -> Split:
-    """(c, m) of the cluster route: m = 2^13 values a CTA (two CTAs an SM)
-    while a cluster of at most 8 holds the transform, 2^14 above."""
-    m = 1 << (13 if n <= 1 << 16 else 14)
-    return n // m, m
-
-
-def route(n: int, split: Optional[Split] = None, cluster: bool = False) -> Route:
+def route(n: int, split: Optional[Split] = None) -> Route:
     """The kernels that transform size n (``supported``): with ``split``,
     the two passes at (n1, n2) = split, both powers of two in [2, 8192]
-    with n1 * n2 = n; with ``cluster``, the cluster kernel (n in
-    [``CLUSTER_MIN``, ``CLUSTER_MAX``]); else one pass up to
-    ``SINGLE_PASS_MAX`` and two passes at ``two_pass_split(n)`` above."""
+    with n1 * n2 = n; else one pass up to ``SINGLE_PASS_MAX`` and two
+    passes at ``two_pass_split(n)`` above."""
     if not supported(n):
         raise ValueError(f"vmem fft: unsupported size {n}")
-    if cluster:
-        if split is not None or not CLUSTER_MIN <= n <= CLUSTER_MAX:
-            raise ValueError(f"fft_vmem_front2: the cluster route takes n in "
-                             f"[{CLUSTER_MIN}, {CLUSTER_MAX}] and no split, got {n}, {split}")
-        return Route("cluster", *cluster_split(n))
     if split is not None:
         n1, n2 = (int(f) for f in split)
         if n1 * n2 != n or not (is_pow2(n1) and is_pow2(n2)) \
@@ -143,8 +116,9 @@ def route(n: int, split: Optional[Split] = None, cluster: bool = False) -> Route
 
 @functools.lru_cache(maxsize=None)
 def stage_twiddle_np(n: int, sign: int) -> Tuple[np.ndarray, np.ndarray]:
-    """W_n^k = exp(sign 2 pi i k / n) for k < n, split float32: the
-    kernels' Stockham-pass table (angle index reduced mod n in integers)."""
+    """W_n^k = exp(sign 2 pi i k / n) for k < n, split float32 (angle
+    index reduced mod n in integers): the values of the kernels' pass
+    tables (``pass_twiddle_np``)."""
     ph = (np.arange(n, dtype=np.int64) % n).astype(np.float64)
     w = np.exp(sign * 2j * np.pi * ph / n)
     return w.real.astype(np.float32), w.imag.astype(np.float32)
@@ -152,9 +126,10 @@ def stage_twiddle_np(n: int, sign: int) -> Tuple[np.ndarray, np.ndarray]:
 
 @functools.lru_cache(maxsize=None)
 def four_step_twiddle_np(n1: int, n2: int, sign: int) -> Tuple[np.ndarray, np.ndarray]:
-    """(n1, n2) table W_n^(k1 j2), n = n1 n2, split float32: the front
-    pass's twiddles (k1 j2 reduced mod n in integers; the JAX package's
-    ``vmemfft._twiddle_np(n1, n2, sign)``)."""
+    """(n1, n2) table W_n^(k1 j2), n = n1 n2, split float32: the twins'
+    four-step twiddles (k1 j2 reduced mod n in integers; the JAX package's
+    ``vmemfft._twiddle_np(n1, n2, sign)``), which the kernels form from the
+    smaller ``four_step_tables_np``."""
     ph = (np.outer(np.arange(n1, dtype=np.int64), np.arange(n2, dtype=np.int64))
           % (n1 * n2)).astype(np.float64)
     w = np.exp(sign * 2j * np.pi * ph / (n1 * n2))
@@ -182,7 +157,7 @@ def pass_twiddle_np(n: int, sign: int) -> np.ndarray:
 def four_step_log_a(n2: int) -> int:
     """log2 of the row length of the kernels' twiddle table A for a leaf
     of n2 points: half of log2 n2, rounded up."""
-    return (n2.bit_length()) // 2
+    return n2.bit_length() // 2
 
 
 @functools.lru_cache(maxsize=None)
@@ -237,8 +212,6 @@ def _entry(name: str):
     fn.argtypes = {
         "fft_rows_f32": [_P] * 8 + [_I, _LL, _I, _I, _I, _F, _I, _P],
         "fft_front_f32": [_P] * 5 + [_LL, _I, _I, _I, _I, _P],
-        "fft_cluster_f32": [_P] * 7 + [_I, _LL, _I, _I, _I, _F, _I, _P],
-        "fft_cluster_max_active": [_I, _I, _I, ctypes.POINTER(_I)],
     }[name]
     fn.restype = ctypes.c_int
     return fn
@@ -252,36 +225,22 @@ def _call(name: str, *args) -> None:
 
 class _Plan(NamedTuple):
     tables: tuple     # the device tables (kept alive with the plan)
-    pointers: tuple   # their data pointers: pass tables, then A and B
+    pointers: tuple   # their data pointers: pass tables, then A, B and S
 
 
 @functools.lru_cache(maxsize=None)
 def _plan(r: Route, sign: int, device: torch.device) -> _Plan:
     """The device tables of route r: the pass table of each transform
-    length, and the four-step tables (A and B for the cluster, A, B and S
-    for two passes)."""
+    length, and for two passes the four-step tables A, B and S."""
     def dev(a):
         return torch.from_numpy(a).to(device)
 
     if r.kind == "rows":
         tables = (dev(pass_twiddle_np(r.n2, sign)),)
-    elif r.kind == "cluster":
-        tables = (dev(pass_twiddle_np(r.n2, sign)),
-                  *map(dev, four_step_tables_np(r.n1, r.n2, sign)[:2]))
     else:
         tables = (dev(pass_twiddle_np(r.n1, sign)), dev(pass_twiddle_np(r.n2, sign)),
                   *map(dev, four_step_tables_np(r.n1, r.n2, sign)))
     return _Plan(tables, tuple(t.data_ptr() for t in tables))
-
-
-def cluster_max_active(n: int, device: torch.device) -> int:
-    """How many clusters of the cluster route at size n (in
-    [``CLUSTER_MIN``, ``CLUSTER_MAX``]) the card holds at once
-    (``cudaOccupancyMaxActiveClusters``)."""
-    r = route(n, cluster=True)
-    count = _I(0)
-    _call("fft_cluster_max_active", _log2(r.n2), _log2(r.n1), device.index, ctypes.byref(count))
-    return count.value
 
 
 def _log2(n: int) -> int:
@@ -300,16 +259,9 @@ def _check(name: str, x: Cplx, sign: int) -> Tuple[torch.Tensor, torch.Tensor, i
 
 
 def _rows_2d(name: str, x: Cplx, sign: int) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """The planes as contiguous (rows, n), checked; and n. The cluster
-    kernel's 16-byte loads need 16-byte aligned planes: a contiguous view
-    that starts elsewhere is copied."""
+    """The planes as contiguous (rows, n), checked; and n."""
     re, im, n = _check(name, x, sign)
-    re, im = (p.reshape(-1, n).contiguous() for p in (re, im))
-    if re.data_ptr() % 16:
-        re = re.clone()
-    if im.data_ptr() % 16:
-        im = im.clone()
-    return re, im, n
+    return re.reshape(-1, n).contiguous(), im.reshape(-1, n).contiguous(), n
 
 
 def _check_rows(name, re, im):
@@ -321,7 +273,7 @@ def _check_rows(name, re, im):
 def _launch(re, im, shape, r: Route, sign, scale, dev) -> Cplx:
     """The route's kernels on contiguous (rows, n) CUDA planes into new
     planes of ``shape``; counts one ``LAUNCHES`` (rows) or
-    ``FRONT2_LAUNCHES`` (cluster, two passes)."""
+    ``FRONT2_LAUNCHES`` (two passes)."""
     global LAUNCHES, FRONT2_LAUNCHES
     stream = torch.cuda.current_stream(dev).cuda_stream
     yr = torch.empty(shape, dtype=torch.float32, device=dev)
@@ -335,18 +287,12 @@ def _launch(re, im, shape, r: Route, sign, scale, dev) -> Cplx:
               sign, scale, idx, stream)
         LAUNCHES += 1
         return yr, yi
-    log_a = four_step_log_a(r.n2)
-    if r.kind == "cluster":
-        _call("fft_cluster_f32", *x, *y, *ptrs, log_a, rows, _log2(r.n2), _log2(r.n1), sign,
-              scale, idx, stream)
-    else:
-        sr = torch.empty_like(re)
-        si = torch.empty_like(im)
-        s_ = (sr.data_ptr(), si.data_ptr())
-        _call("fft_front_f32", *x, *s_, ptrs[0], rows, _log2(r.n1), _log2(r.n2), sign, idx,
-              stream)
-        _call("fft_rows_f32", *s_, *y, *ptrs[1:], log_a, rows * r.n1, _log2(r.n2),
-              _log2(r.n1), sign, scale, idx, stream)
+    sr = torch.empty_like(re)
+    si = torch.empty_like(im)
+    s_ = (sr.data_ptr(), si.data_ptr())
+    _call("fft_front_f32", *x, *s_, ptrs[0], rows, _log2(r.n1), _log2(r.n2), sign, idx, stream)
+    _call("fft_rows_f32", *s_, *y, *ptrs[1:], four_step_log_a(r.n2), rows * r.n1, _log2(r.n2),
+          _log2(r.n1), sign, scale, idx, stream)
     FRONT2_LAUNCHES += 1
     return yr, yi
 
@@ -362,24 +308,23 @@ def fft_vmem(x: Cplx, sign: int, scale: float = 1.0) -> Cplx:
     return _launch(re, im, x[0].shape, r, sign, float(scale), dev)
 
 
-def _front2_route(n: int, split: Optional[Split], cluster: bool) -> Route:
-    if split is None and not cluster and n not in FRONT2_SIZES:
+def _front2_route(n: int, split: Optional[Split]) -> Route:
+    if split is None and n not in FRONT2_SIZES:
         raise ValueError(f"fft_vmem_front2: no default split for size {n} "
                          f"(defaults exist for {FRONT2_SIZES}); pass split=(n1, n2)")
-    return route(n, split, cluster)
+    return route(n, split)
 
 
 def fft_vmem_front2(x: Cplx, sign: int, scale: float = 1.0,
-                    split: Optional[Split] = None, cluster: bool = False) -> Cplx:
+                    split: Optional[Split] = None) -> Cplx:
     """scale * DFT_sign over the last axis of split float32 planes (..., n):
-    n in ``FRONT2_SIZES`` by ``route(n)``, any supported n as the two-pass
-    four-step at ``split``, or, with ``cluster``, n in [2^14, 2^18] by the
-    cluster kernel."""
+    n in ``FRONT2_SIZES`` by ``route(n)``, or any supported n as the
+    two-pass four-step at ``split``."""
     re, im, n = _rows_2d("fft_vmem_front2", x, sign)
-    r = _front2_route(n, split, cluster)
+    r = _front2_route(n, split)
     dev = _check_rows("fft_vmem_front2", re, im)
     if dev.type == "cpu":
-        return fft_vmem_front2_plain(x, sign, scale, split, cluster)
+        return fft_vmem_front2_plain(x, sign, scale, split)
     return _launch(re, im, x[0].shape, r, sign, float(scale), dev)
 
 
@@ -432,8 +377,8 @@ def fft_vmem_plain(x: Cplx, sign: int, scale: float = 1.0) -> Cplx:
 
 
 def fft_vmem_front2_plain(x: Cplx, sign: int, scale: float = 1.0,
-                          split: Optional[Split] = None, cluster: bool = False) -> Cplx:
+                          split: Optional[Split] = None) -> Cplx:
     """Plain PyTorch twin of ``fft_vmem_front2``: the factorization of its
     route; scale applied once, last."""
     _, _, n = _check("fft_vmem_front2", x, sign)
-    return _plain(x, sign, scale, _front2_route(n, split, cluster))
+    return _plain(x, sign, scale, _front2_route(n, split))

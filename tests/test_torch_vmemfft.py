@@ -158,14 +158,10 @@ def test_splits_and_validation():
                                                    ("two_pass", 1024, 512),
                                                    ("two_pass", 1024, 1024)]
     assert V.route(1 << 15, (128, 256)) == ("two_pass", 128, 256)
-    assert V.route(1 << 18, cluster=True) == ("cluster", 16, 1 << 14)
     for n, split in ((1 << 15, (64, 256)), (1 << 15, (1, 1 << 15)), (1 << 9, (16, 32)),
                      (1 << 15, (96, 341))):
         with pytest.raises(ValueError, match="fft_vmem_front2|unsupported size"):
             V.route(n, split)
-    for n, split in ((1 << 13, None), (1 << 19, None), (1 << 15, (128, 256))):
-        with pytest.raises(ValueError, match="cluster route"):
-            V.route(n, split, cluster=True)
     z = torch.zeros
     with pytest.raises(ValueError, match="unsupported size"):
         V.fft_vmem((z(4, 512), z(4, 512)), -1)
@@ -184,10 +180,8 @@ def test_splits_and_validation():
 @pytest.mark.parametrize("k", range(10, 21))
 def test_route_by_size(k):
     """One pass up to 2^13, two passes above, at 256 x n / 256 up to 2^18
-    and 1024 x n / 1024 above; an explicit split always takes two passes;
-    the cluster route (asked for) holds 2^14..2^18 in n / m CTAs of m =
-    2^13 (up to 2^16) or 2^14 values, at most 16. The route names its
-    kernels."""
+    and 1024 x n / 1024 above; an explicit split always takes two passes.
+    The route names its kernels."""
     n = 1 << k
     r = V.route(n)
     assert r.n1 * r.n2 == n and str(r).startswith(
@@ -198,22 +192,18 @@ def test_route_by_size(k):
         assert r == ("two_pass", 256 if k <= 18 else 1024, n // (256 if k <= 18 else 1024))
     split = (1 << (k // 2), 1 << (k - k // 2))
     assert V.route(n, split) == ("two_pass", *split)
-    if 14 <= k <= 18:
-        m = 1 << (13 if k <= 16 else 14)
-        rc = V.route(n, cluster=True)
-        assert rc == ("cluster", n // m, m) and 2 <= rc.n1 <= 16
-        assert str(rc).startswith("fft_cluster_kernel")
 
 
 @pytest.mark.parametrize("n,sign", [(1 << 16, -1), (1 << 17, 1), (1 << 18, -1), (1 << 18, 1)])
-def test_cluster_twin_matches_numpy(n, sign):
-    """The twins at the cluster route's factorization (8 x 8192, 8 x 16384,
-    16 x 16384) and the default route's against float64 numpy, 2 rows."""
+def test_default_route_twins_match_numpy(n, sign):
+    """The twins at the two-pass route's factorization (256 x 256, 256 x
+    512, 256 x 1024) against float64 numpy, 2 rows; the wrapper on the CPU."""
     x = _planes(np.random.default_rng(n - sign), (2, n))
     ref = _numpy_dft(x, sign, 0.5)
-    _close(V.fft_vmem_front2_plain(tuple(map(_t, x)), sign, 0.5, cluster=True), ref, 1e-5)
-    _close(V.fft_vmem_front2(tuple(map(_t, x)), sign, 0.5, cluster=True), ref, 1e-5)
     _close(V.fft_vmem_plain(tuple(map(_t, x)), sign, 0.5), ref, 1e-5)
+    _close(V.fft_vmem(tuple(map(_t, x)), sign, 0.5), ref, 1e-5)
+    if n in V.FRONT2_SIZES:
+        _close(V.fft_vmem_front2_plain(tuple(map(_t, x)), sign, 0.5), ref, 1e-5)
 
 
 @pytest.mark.parametrize("n", [2, 16, 32, 512, 1024, 8192, 16384])
@@ -303,13 +293,16 @@ def test_cuda_fft_vmem_front2_matches_twin(cuda_device, n, split):
 @pytest.mark.parametrize("n", [1 << 14, 1 << 15, 1 << 16, 1 << 17, 1 << 18])
 @pytest.mark.parametrize("rows", [1, 3, 16])
 @pytest.mark.parametrize("sign", [-1, 1])
-def test_cuda_cluster_route_matches_twin(cuda_device, n, rows, sign):
+def test_cuda_two_pass_route_matches_twin(cuda_device, n, rows, sign):
+    """The default route above 2^13 (front pass, then the leaf with the
+    twiddles) against its twin and float64 numpy."""
     x = tuple(_t(p).to(cuda_device) for p in _planes(np.random.default_rng(n + rows), (rows, n)))
+    assert V.route(n).kind == "two_pass"
     before = (V.LAUNCHES, V.FRONT2_LAUNCHES)
-    got = V.fft_vmem_front2(x, sign, 0.5, cluster=True)
+    got = V.fft_vmem(x, sign, 0.5)
     torch.cuda.synchronize()
     assert (V.LAUNCHES, V.FRONT2_LAUNCHES) == (before[0], before[1] + 1)
-    _close(tuple(g.cpu() for g in got),
-           tuple(w.cpu() for w in V.fft_vmem_front2_plain(x, sign, 0.5, cluster=True)), 2e-5)
+    _close(tuple(g.cpu() for g in got), tuple(w.cpu() for w in V.fft_vmem_plain(x, sign, 0.5)),
+           2e-5)
     _close(tuple(g.cpu() for g in got), _numpy_dft(tuple(p.cpu().numpy() for p in x), sign, 0.5),
            5e-5)
