@@ -18,13 +18,11 @@ models ``Convolver``, ``TVConvolver`` and ``MatrixConvolver`` (64 channels;
 true stereo). It times each stream, prints per stream the device time of
 each kernel and copy under ``torch.profiler`` and the device's busy share
 of the call. Then the FFT path: the batched FFT kernels (``fft_vmem``,
-``fft_vmem_front2`` by their routes and at a split)
-against their twins at the JAX FFT sweep's sizes (2^10..2^20 at 32 MB of
-planes a call), the FFT main paths (``Clcfft``, ``Clrfft``, the
-``clfft``/``clrfft`` processors, ``BatchedFFT``, Bluestein) against float64
-numpy, and the sweep's times and each kernel's device time against cuFFT.
-Then the
-offline and chunked paths: the sliding-MAC kernel (``chunk_mac``,
+``fft_vmem_front2`` by their routes and at a split) against their twins at
+the JAX FFT sweep's sizes (2^10..2^20 at 32 MB of planes a call), the FFT
+main paths (``Clcfft``, ``Clrfft``, the ``clfft``/``clrfft`` processors,
+``BatchedFFT``, Bluestein) against float64 numpy, and the sweep's times and
+each kernel's device time against cuFFT. Then the offline and chunked paths: the sliding-MAC kernel (``chunk_mac``,
 ``macflow_lti``, ``macflow_lti_batched``) against its twin at the JAX
 bench's offline shapes and odd shapes; ``pconv_offline``,
 ``Convolver.render`` (16 and 64 channels), ``pconv_stream_batched_chunked``
@@ -935,19 +933,25 @@ def main():
     # each __global__ under torch.profiler; bound: the planes read once and
     # written once
     def kernel_us(fn, calls=10):
-        """Device microseconds per call of each kernel fn() launches."""
+        """Device microseconds per call of each kernel fn() launches (a
+        profiler session that records no kernel is taken again, twice at
+        most)."""
         from torch.profiler import ProfilerActivity, profile
 
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        return {re.sub(r"^void |\(anonymous namespace\)::", "", e.key).split("(")[0][:40]:
-                e.self_device_time_total / calls for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.self_device_time_total > 0}
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            us = {re.sub(r"^void |\(anonymous namespace\)::", "", e.key).split("(")[0][:40]:
+                  e.self_device_time_total / calls for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0}
+            if us:
+                return us
+        return us
 
     def us_text(d):
         return " + ".join(f"{k} {v:.1f}" for k, v in d.items()) + " us"
