@@ -34,7 +34,7 @@
 //                       transposed to out[k1 + n1 k2] through shared memory.
 // A thread-block-cluster kernel that held a 2^14..2^18 transform in
 // distributed shared memory, so the planes crossed device memory once, lost
-// to the two passes at every size on the H100 (PERF.md, PR 9): its two
+// to the two passes at every size on the H100 (PERF.md, section 6): its two
 // exchanges moved every value through DSMEM at about the cost of a pass
 // over device memory, and at 2^18 only 7 clusters of 16 CTAs fit at once.
 // Twiddles come from float32 tables built in float64 on the host (angles
