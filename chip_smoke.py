@@ -22,7 +22,9 @@ of the call. Then the FFT path: the batched FFT kernels (``fft_vmem``,
 the JAX FFT sweep's sizes (2^10..2^20 at 32 MB of planes a call), the FFT
 main paths (``Clcfft``, ``Clrfft``, the ``clfft``/``clrfft`` processors,
 ``BatchedFFT``, Bluestein) against float64 numpy, and the sweep's times and
-each kernel's device time against cuFFT. Then the offline and chunked paths: the sliding-MAC kernel (``chunk_mac``,
+each kernel's device time (under the profiler and from device memory)
+against cuFFT and, for the single pass, against the earlier single-pass
+kernel. Then the offline and chunked paths: the sliding-MAC kernel (``chunk_mac``,
 ``macflow_lti``, ``macflow_lti_batched``) against its twin at the JAX
 bench's offline shapes and odd shapes; ``pconv_offline``,
 ``Convolver.render`` (16 and 64 channels), ``pconv_stream_batched_chunked``
@@ -39,11 +41,11 @@ crossfaded IR swap retargeted mid-fade, ``ClconvProcessor.set_ir``,
 others bit-equal to an engine that never swapped) and a ``MatrixConvolver``
 entry swap against float64 scipy blends; and their per-block times. Then
 the time-varying decomposed engine and the long-partition streams: the TV
-sliding-MAC kernel (``macflow_tv``, ``macflow_tv_batched``) and the
-factored-table scan kernels (``stream_steps_fused_split{,_tv}``) against
-their twins at their main-path shapes (the headline TV scan and the K = 8
-chunk of 64 channels; pts 4096 with a 2^20-tap IR, one and 16 channels)
-and at odd shapes; TV ``stream_decomposed``,
+sliding-MAC kernel (``macflow_tv``, ``macflow_tv_batched``; at the
+q-slices its plan picks and at forced ones) and the factored-table scan
+kernels (``stream_steps_fused_split{,_tv}``) against their twins at their
+main-path shapes (the headline TV scan and the K = 8 chunk of 64 channels;
+pts 4096 with a 2^20-tap IR, one and 16 channels) and at odd shapes; TV ``stream_decomposed``,
 ``TVConvolver.stream_chunked`` (K = 8, 64 channels, from the start and off
 phase), ``convolve`` and ``pconv_stream_tv`` at pts 4096, the LTI and TV
 decomposed engine at pts 4096 and ``Convolver``/``TVConvolver`` of 16
@@ -64,6 +66,7 @@ failure exits non-zero before the last line. Without a CUDA card, or
 without the port beside this script, it fails.
 """
 
+import contextlib
 import json
 import math
 import re
@@ -89,10 +92,13 @@ LONG_BLOCKS = 470
 LONG_CH = 16
 SWEEP_LOG2 = tuple(range(10, 21))       # the JAX FFT sweep's range (bench.py:421-439)
 # other two-pass splits timed beside the default route's (log2 n: splits)
-FFT_ALT_SPLITS = {14: ((128, 128),), 18: ((512, 512), (1024, 256)),
+FFT_ALT_SPLITS = {14: ((256, 64), (128, 128)), 18: ((512, 512), (1024, 256)),
                   19: ((512, 1024), (256, 2048)), 20: ((512, 2048),)}
 SWEEP_BYTES = 32 << 20                  # rows = SWEEP_BYTES // (8 n)
 TOL = 2e-5          # kernel vs twin, relative to max|twin| (JAX stream-vs-scan bound)
+# the pipelined single-pass FFT and the q-split TV sliding MAC vs their
+# twins: float32 sums in other orders, ~3e-7 measured
+NEW_TOL = 1e-6
 ORACLE_TOL = 5e-5   # relative max error vs the float64 scipy/numpy oracle
 # H100 SXM published peaks at its full 700 W limit: FP32 outside the tensor
 # cores (the kernels run plain FP32 FMA, no TF32) and HBM3 bandwidth
@@ -833,7 +839,12 @@ def main():
     def front2_count():
         return V.FRONT2_LAUNCHES
 
-    worst, fft_err, f2_err = 0.0, 0.0, 0.0
+    def one_pass_check(e, what):
+        """The pipelined single pass within NEW_TOL of its twin."""
+        check(e <= NEW_TOL, f"single-pass fft_vmem vs twin at {what}: {e:.3e} > {NEW_TOL}")
+        return e
+
+    worst, fft_err, f2_err, one_worst = 0.0, 0.0, 0.0, 0.0
     for logn in SWEEP_LOG2:
         n = 1 << logn
         xs_ = planes(sweep_rows(n), n)
@@ -842,7 +853,9 @@ def main():
                          f"fft_vmem n=2^{logn} x{sweep_rows(n)} ({V.route(n)})",
                          lambda: V.LAUNCHES + V.FRONT2_LAUNCHES)
         worst = max(worst, e)
-        if logn == 18:
+        if V.route(n).kind == "rows":
+            one_worst = max(one_worst, one_pass_check(e, f"2^{logn} x{sweep_rows(n)}"))
+        if logn == 13:
             fft_err = a
         if n in V.FRONT2_SIZES:
             e, a = fft_check(lambda x_, s_: V.fft_vmem_front2(x_, s_, 0.5),
@@ -856,12 +869,24 @@ def main():
                      lambda x_, s_: V.fft_vmem_front2_plain(x_, s_, 0.5, split=(128, 256)),
                      xs_, "fft_vmem_front2 n=2^15 split=(128, 256)", front2_count)
     worst = max(worst, e)
+    # the few-row calls of the main paths (the per-block step and the
+    # zero-latency terminal segment at pts 4096 transform 4096 bins of 1 or
+    # 16 channels; Clcfft and the processors one row) and short last tiles
+    few = ((1, 1 << 10), (1, 1 << 12), (3, 1 << 12), (16, 1 << 12), (1, 1 << 13), (5, 1 << 13),
+           (1, 1 << 14), (3, 1 << 14), (257, 1 << 11))
+    for rows_, n in few:
+        e, _ = fft_check(lambda x_, s_: V.fft_vmem(x_, s_, 0.5),
+                         lambda x_, s_: V.fft_vmem_plain(x_, s_, 0.5), planes(rows_, n),
+                         f"fft_vmem n={n} x{rows_}", lambda: V.LAUNCHES)
+        one_worst = max(one_worst, one_pass_check(e, f"{n} x{rows_}"))
+        worst = max(worst, e)
     del xs_
     print(f"phase 18 FFT kernels vs twins: fft_vmem n=2^{{{SWEEP_LOG2[0]}..{SWEEP_LOG2[-1]}}} "
           f"at {SWEEP_BYTES >> 20} MB of planes (rows = 32 MB / 8n), fft_vmem_front2 at "
-          f"2^{{18,19,20}} and at split (128, 256), sign +-1, scale 0.5; worst rel err "
-          f"{worst:.3e} (tol {TOL}); 2^18 x16 max_abs_err fft_vmem {fft_err:.3e} "
-          f"fft_vmem_front2 {f2_err:.3e}", flush=True)
+          f"2^{{18,19,20}} and at split (128, 256), sign +-1, scale 0.5; the single pass "
+          f"(n <= {V.SINGLE_PASS_MAX}) also at (rows, n) {few}: worst rel err {worst:.3e} (tol "
+          f"{TOL}), single pass {one_worst:.3e} (tol {NEW_TOL}); 2^13 x512 max_abs_err fft_vmem "
+          f"{fft_err:.3e}, 2^18 x16 fft_vmem_front2 {f2_err:.3e}", flush=True)
 
     # phase 19: FFT main paths on the card against float64 numpy
     def cplx(*shape):
@@ -956,17 +981,51 @@ def main():
     def us_text(d):
         return " + ".join(f"{k} {v:.1f}" for k, v in d.items()) + " us"
 
+    def unpipelined(x_, sign):
+        """The earlier single pass (fft_rows_f32 at n1 = 1: each CTA loads its
+        rows through registers, with no overlap inside it), n <= 2^13: the
+        yardstick the pipelined kernel is timed against."""
+        re_, im_ = x_
+        rows_, n_ = re_.shape
+        y = torch.empty((2, rows_, n_), device=dev)
+        tw = V._plan(V.Route("rows", 1, n_), sign, dev).pointers[0]
+        V._call("fft_rows_f32", re_.data_ptr(), im_.data_ptr(), y[0].data_ptr(), y[1].data_ptr(),
+                tw, None, None, None, 0, rows_, n_.bit_length() - 1, 0, sign, 1.0, dev.index,
+                torch.cuda.current_stream(dev).cuda_stream)
+        return y[0], y[1]
+
+    def host_us(fn, calls=200):
+        """Host microseconds a call of fn() takes to enqueue its work."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        return us
+
     sweep = []
     device_us(torch.cuda.synchronize, calls=1)    # one session first: the first read 0 us
+    # device time from HBM: 4 input sets of 32 MB, over twice the L2
+    nsets20 = 1 + -(-2 * L2_BYTES // SWEEP_BYTES)
     for logn in SWEEP_LOG2:
         n, rows = 1 << logn, sweep_rows(1 << logn)
-        xs_ = planes(rows, n)
-        z = torch.complex(*xs_)
+        sets20 = [planes(rows, n) for _ in range(nsets20)]
+        zs20 = [torch.complex(*p_) for p_ in sets20]
+        xs_, z = sets20[0], zs20[0]
         row = {"lg": logn, "rows": rows, "route": V.route(n)}
         row["k"] = cuda_ms(lambda: V.fft_vmem(xs_, -1), reps=9, calls=10)
         row["k_us"] = kernel_us(lambda: V.fft_vmem(xs_, -1))
+        row["k_dev"] = graph_us(lambda i: V.fft_vmem(sets20[i], -1), nsets20)
         row["lib"] = cuda_ms(lambda: torch.fft.fft(z), reps=9, calls=10)
         row["lib_us"] = sum(kernel_us(lambda: torch.fft.fft(z)).values())
+        row["lib_dev"] = graph_us(lambda i: torch.fft.fft(zs20[i]), nsets20)
+        if row["route"].kind == "rows":
+            row["host"] = host_us(lambda: V.fft_vmem(xs_, -1))
+            if n <= V.LEAF_PASS_MAX:
+                row["old"] = cuda_ms(lambda: unpipelined(xs_, -1), reps=9, calls=10)
+                row["old_dev"] = graph_us(lambda i: unpipelined(sets20[i], -1), nsets20)
         row["tw"] = cuda_ms(lambda: V.fft_vmem_plain(xs_, -1), warmup=1, reps=5)
         if n in V.FRONT2_SIZES:
             row["f2"] = cuda_ms(lambda: V.fft_vmem_front2(xs_, -1), reps=9, calls=10)
@@ -978,12 +1037,13 @@ def main():
         row["flops"] = 5.0 * n * logn * rows
         row["bnd"] = bound(row["flops"], 2 * nbytes(*xs_))
         sweep.append(row)
-        if logn == 18:
+        if logn == 13:
             fft_row = (row["k"], row["tw"], row["bnd"], row["lib"])
+        if logn == 18:
             f2_row = (row["f2"],
                       cuda_ms(lambda: V.fft_vmem_front2_plain(xs_, -1), warmup=1, reps=5),
                       row["bnd"], row["lib"])
-    del xs_, z
+    del xs_, z, sets20, zs20
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(20):
@@ -994,18 +1054,27 @@ def main():
         fl, b = r["flops"], r["bnd"]
         out = (f"2^{r['lg']} x{r['rows']}: fft_vmem {r['k']:.4f} ({fl / r['k'] / 1e6:.1f} "
                f"GFLOP/s; {r['route'].kind} {r['route'].n1}x{r['route'].n2}; device "
-               f"{us_text(r['k_us'])})")
+               f"{us_text(r['k_us'])}; from HBM {r['k_dev']:.1f} us, "
+               f"{100 * b[0] * 1e3 / r['k_dev']:.1f}% of the bound)")
+        if "host" in r:
+            out += (f" [host {r['host']:.1f} us a call to enqueue; events - device "
+                    f"{r['k'] * 1e3 - r['k_dev']:.1f} us]")
+        if "old" in r:
+            out += (f", the earlier single pass {r['old']:.4f} (from HBM {r['old_dev']:.1f} us; "
+                    f"pipelined/earlier {r['k_dev'] / r['old_dev']:.3f})")
         if "f2" in r:
             out += f", fft_vmem_front2 {r['f2']:.4f} (device {us_text(r['f2_us'])})"
         for sp, (ms_, us_) in r["alts"].items():
             out += f", split {sp[0]}x{sp[1]} {ms_:.4f} (device {us_:.1f} us)"
         return out + (f", cuFFT {r['lib']:.4f} ({fl / r['lib'] / 1e6:.1f}; device "
-                      f"{r['lib_us']:.1f} us), twin {r['tw']:.4f}, bound {b[0]:.4f} ({b[1]}; "
-                      f"fft_vmem at {100 * b[0] / r['k']:.1f}%)")
+                      f"{r['lib_us']:.1f} us; from HBM {r['lib_dev']:.1f} us; fft_vmem/cuFFT "
+                      f"from HBM {r['k_dev'] / r['lib_dev']:.3f}), twin {r['tw']:.4f}, bound "
+                      f"{b[0]:.4f} ({b[1]}; fft_vmem at {100 * b[0] / r['k']:.1f}%)")
 
     print(f"phase 20 FFT sweep [{card}] (ms per call, median CUDA events over 10 calls back "
           f"to back, the twin over 1; GFLOP/s = 5 n log2 n rows / time; device us per "
-          f"__global__ under torch.profiler): " + "; ".join(sweep_text(r) for r in sweep)
+          f"__global__ under torch.profiler; from HBM: a CUDA graph of 20 calls over "
+          f"{nsets20} rotating input sets): " + "; ".join(sweep_text(r) for r in sweep)
           + f" | Clcfft.transform 2^18 host wall {clc_ms:.4f} ms per call (numpy in and out)",
           flush=True)
 
@@ -1546,40 +1615,66 @@ def main():
     def tv_counts():
         return SM.MACFLOW_TV_LAUNCHES, SM.MACFLOW_TV_BATCHED_LAUNCHES
 
+    @contextlib.contextmanager
+    def forced_slices(sl):
+        """The TV sliding MAC at ``sl`` q-slices a CTA (1: the unsplit
+        kernel) in place of its plan, ``tv_q_slices``."""
+        plan_fn = SM.tv_q_slices
+        SM.tv_q_slices = lambda *a, **k: sl
+        try:
+            yield
+        finally:
+            SM.tv_q_slices = plan_fn
+
     def tv_mac_inputs(nch, nparts, bins, nout):
         rows = nparts - 1 + nout
         return ((f(nch, rows, bins), f(nch, rows, bins)),
                 (f(nch, rows, bins, s=0.05), f(nch, rows, bins, s=0.05)))
 
+    # the K = 8 chunk also at 255 partitions (nparts % S != 0) and the odd
+    # shapes; q-slices: the plan's (tv_q_slices), and forced (None: the plan)
     tv_mac_shapes = [(1, np_, b, SCAN_BLOCKS, (0, 5, np_ - 1)),
                      (SERVE_CH, np_, b, CHUNK_K, (0, 3)), (SERVE_CH, np_, b, SERVE_BLOCKS, (0, 3)),
+                     (SERVE_CH, np_ - 1, b, CHUNK_K, (0, 5)),
                      (2, 1, 16, 5, (0,)), (3, 3, 48, 13, (0, 2)), (2, 9, 16, 21, (4,))]
-    tvm_err = {}
+    forced = {(SERVE_CH, np_, CHUNK_K): (1, 2, 8), (3, 3, 13): (2, 4, 8), (2, 9, 21): (2, 4)}
+    tvm_err, plans = {}, {}
     worst = 0.0
     for nch, nparts, bins, nout, phases in tv_mac_shapes:
         xm, hm = tv_mac_inputs(nch, nparts, bins, nout)
+        plans[(nch, nparts, nout)] = SM.tv_q_slices(nch, nout, bins, nparts)
         for c in phases:
             for b0 in (1.0, 2.0):
                 n0 = tv_counts()
                 got = {"macflow_tv_batched": SM.macflow_tv_batched(xm, hm, nout, nparts, b0, c),
                        "macflow_tv": SM.macflow_tv((xm[0][0], xm[1][0]), (hm[0][0], hm[1][0]),
                                                    nout, nparts, b0, c)}
+                for sl in forced.get((nch, nparts, nout), ()) if b0 == 2.0 else ():
+                    with forced_slices(sl):
+                        got[f"macflow_tv_batched slices={sl}"] = SM.macflow_tv_batched(
+                            xm, hm, nout, nparts, b0, c)
+                again = SM.macflow_tv_batched(xm, hm, nout, nparts, b0, c)
                 torch.cuda.synchronize()
-                check(tv_counts() == tuple(n + 1 for n in n0),
+                check(tv_counts() == (n0[0] + 1, n0[1] + len(got)),
                       "each TV sliding-MAC wrapper counts its launch")
+                check(all(torch.equal(g_, a_) for g_, a_ in zip(got["macflow_tv_batched"], again)),
+                      f"the TV sliding MAC repeats its bits at C={nch} nparts={nparts}")
                 want = SM.slide_mac_tv_plain(xm, hm, nout, nparts, b0, c)
                 for wname, g in got.items():
                     w = (want[0][0], want[1][0]) if wname == "macflow_tv" else want
-                    worst = compare(((f"{wname} re", g[0], w[0]), (f"{wname} im", g[1], w[1])),
-                                    f"C={nch} nparts={nparts} bins={bins} nout={nout} c={c} "
-                                    f"b0={b0}", worst)
-                    key = (wname, nch, nout)
+                    where = f"C={nch} nparts={nparts} bins={bins} nout={nout} c={c} b0={b0}"
+                    e = compare(((f"{wname} re", g[0], w[0]), (f"{wname} im", g[1], w[1])),
+                                where, 0.0)
+                    check(e <= NEW_TOL, f"{wname} vs twin at {where}: {e:.3e} > {NEW_TOL}")
+                    worst = max(worst, e)
+                    key = (wname.split()[0], nch, nout)
                     tvm_err[key] = max(tvm_err.get(key, 0.0),
                                        *(float((gg - ww).abs().max()) for gg, ww in zip(g, w)))
-    del xm, hm, got, want
+    del xm, hm, got, want, again
     print(f"phase 27 TV sliding-MAC kernel vs twin: macflow_tv_batched and macflow_tv (channel "
-          f"0) at (C,nparts,bins,nout,phases) {tv_mac_shapes} x b0 {{1,2}}; worst rel err "
-          f"{worst:.3e} (tol {TOL}); max_abs_err macflow_tv 1x{SCAN_BLOCKS} "
+          f"0) at (C,nparts,bins,nout,phases) {tv_mac_shapes} x b0 {{1,2}}, q-slices by the plan "
+          f"{plans} and forced {forced}; bit-equal on a second launch; worst rel err "
+          f"{worst:.3e} (tol {NEW_TOL}); max_abs_err macflow_tv 1x{SCAN_BLOCKS} "
           f"{tvm_err[('macflow_tv', 1, SCAN_BLOCKS)]:.3e}; macflow_tv_batched "
           f"{SERVE_CH}x{CHUNK_K} {tvm_err[('macflow_tv_batched', SERVE_CH, CHUNK_K)]:.3e}, "
           f"{SERVE_CH}x{SERVE_BLOCKS} "
@@ -1767,6 +1862,17 @@ def main():
     dtv_ms = cuda_ms(lambda: SD(cfg, state, blocks, bh), reps=9)
     chk_tv_ms = cuda_ms(lambda: P.pconv_stream_batched_tv_chunked(cfg, st_tv, chk_blocks, h_chk,
                                                                    K=CHUNK_K), warmup=1, reps=3)
+    # the same path with the TV sliding MAC unsplit (one q-slice a CTA),
+    # then the default again: the q-split's effect end to end on this card
+    with forced_slices(1):
+        chk_tv_unsplit_ms = cuda_ms(lambda: P.pconv_stream_batched_tv_chunked(
+            cfg, st_tv, chk_blocks, h_chk, K=CHUNK_K), warmup=1, reps=3)
+        chk_tv_unsplit_dev = device_us(lambda: P.pconv_stream_batched_tv_chunked(
+            cfg, st_tv, chk_blocks, h_chk, K=CHUNK_K), calls=2)
+    chk_tv_dev = device_us(lambda: P.pconv_stream_batched_tv_chunked(
+        cfg, st_tv, chk_blocks, h_chk, K=CHUNK_K), calls=2)
+    chk_tv_ms2 = cuda_ms(lambda: P.pconv_stream_batched_tv_chunked(cfg, st_tv, chk_blocks, h_chk,
+                                                                    K=CHUNK_K), warmup=1, reps=3)
     s_tv_ms = cuda_ms(lambda: P.pconv_stream_batched_tv(cfg, st_tv, chk_blocks, h_chk), reps=5)
     l_ms = cuda_ms(lambda: P.pconv_stream(cfg4, st4, b4_1), reps=7)
     l_tv_ms = cuda_ms(lambda: P.pconv_stream_tv(cfg4, st4, b4_1, bh4_1), reps=7)
@@ -1775,11 +1881,13 @@ def main():
     s4_ms = cuda_ms(lambda: conv4.stream(b4), warmup=1, reps=3)
     t4_ms = cuda_ms(lambda: tvc4.stream(b4, h4), warmup=1, reps=3)
     audio_chk_tv = SERVE_CH * n_chk / SR
-    new_rows = {}
+    new_rows, tv_dev = {}, {}
     for wname, nch, nout in (("macflow_tv", 1, SCAN_BLOCKS),
                              ("macflow_tv_batched", SERVE_CH, CHUNK_K),
                              ("macflow_tv_batched", SERVE_CH, SERVE_BLOCKS)):
-        xm, hm = tv_mac_inputs(nch, np_, b, nout)
+        # two input sets (2 x 138 MB at the K = 8 chunk) for device time from HBM
+        tv_sets = [tv_mac_inputs(nch, np_, b, nout) for _ in range(2)]
+        xm, hm = tv_sets[0]
         if wname == "macflow_tv":
             x1, h1_ = (xm[0][0], xm[1][0]), (hm[0][0], hm[1][0])
             run = lambda: SM.macflow_tv(x1, h1_, nout, np_, 2.0, 5)  # noqa: E731
@@ -1791,7 +1899,18 @@ def main():
         # least work: the MAC; bytes: both timelines in, the accumulators out
         bnd = bound(8.0 * nch * nout * np_ * b, nbytes(*xm, *hm) + 2 * 4 * nch * nout * b)
         new_rows[(wname, nch, nout)] = (k_ms, tw_ms, bnd)
-    del xm, hm
+        # device us from HBM at the plan's q-slices and at the others (1: the
+        # unsplit kernel)
+        plan = SM.tv_q_slices(nch, nout, b, np_)
+        calls = 10 if nout == CHUNK_K else 2
+        by_slices = {}
+        for sl in ((1, 2, 4, 8) if nout == CHUNK_K else (1, 2)):
+            with forced_slices(sl):
+                by_slices[sl] = graph_us(
+                    lambda i: SM.macflow_tv_batched(*tv_sets[i], nout, np_, 2.0, 3), 2,
+                    calls=calls)
+        tv_dev[(wname, nch, nout)] = (plan, by_slices)
+    del xm, hm, tv_sets
     for nch in (1, LONG_CH):
         px, ph, w0_, h0_, tails = batched_inputs(LONG_PTS, long_np, LONG_BLOCKS, nch)
         la = (px, w0_, h0_, 2.0, tails, LONG_PTS)
@@ -1822,7 +1941,9 @@ def main():
           f"serving_64ch_tv_chunk8_audio_seconds_per_second {audio_chk_tv / (chk_tv_ms / 1e3):.1f} "
           f"(pconv_stream_batched_tv_chunked K={CHUNK_K} {CHUNK_BLOCKS}x{SERVE_CH}: "
           f"{chk_tv_ms:.4f} ms; TVConvolver.stream at that shape {s_tv_ms:.4f} ms = "
-          f"{audio_chk_tv / (s_tv_ms / 1e3):.1f}; chunked/stream {chk_tv_ms / s_tv_ms:.2f}x); "
+          f"{audio_chk_tv / (s_tv_ms / 1e3):.1f}; chunked/stream {chk_tv_ms / s_tv_ms:.2f}x; "
+          f"with the unsplit TV MAC {chk_tv_unsplit_ms:.4f} ms (device {chk_tv_unsplit_dev:.1f} "
+          f"us), then split again {chk_tv_ms2:.4f} ms (device {chk_tv_dev:.1f} us)); "
           f"pconv_realtime_factor_2^20tap_4096pts {long_audio / (l_ms / 1e3):.1f} (pconv_stream "
           f"{LONG_BLOCKS}x{LONG_PTS}: {l_ms:.4f} ms; stream_decomposed {l_d_ms:.4f} ms = "
           f"{long_audio / (l_d_ms / 1e3):.1f}x); tvconv_rt_factor_2^20_4096 "
@@ -1834,6 +1955,12 @@ def main():
           f"bound): " + "; ".join(
               f"{k} C={c}x{n}: {ms:.4f}; twin {tw:.4f}; bound {bd[0]:.4f} ({bd[1]}, "
               f"{100 * bd[0] / ms:.2f}% reached)" for (k, c, n), (ms, tw, bd) in new_rows.items())
+          + " | TV sliding MAC, device us from HBM (a CUDA graph over 2 input sets) by q-slices "
+          "a CTA: " + "; ".join(
+              f"C={c}x{n} (plan {pl}): " + ", ".join(
+                  f"S={sl} {us:.1f} ({100 * new_rows[(k, c, n)][2][0] * 1e3 / us:.1f}% of the "
+                  f"bound)" for sl, us in d.items())
+              for (k, c, n), (pl, d) in tv_dev.items())
           + f" | the factored LTI scan does {split_design / 1e9:.3f} GFLOP at C=1 "
           f"({split_design / (new_rows[('stream_steps_fused_split', 1, LONG_BLOCKS)][0] / 1e3) / 1e12:.2f} "
           f"TFLOP/s)", flush=True)
@@ -2110,6 +2237,17 @@ def main():
                        4 * 4 * c_ * nparts * LONG_PTS + 2 * 4 * c_ * LONG_PTS)
         mu_rows[(c_, nparts)] = (k_ms, tw_ms, mu_bnd, k_dev)
     del ring, h
+    # the few-row fft_vmem calls of these paths (4096 bins of 1 and 16
+    # channels: the inverse of the step at pts 4096 and of the terminal
+    # segment), the pipelined single pass against the earlier one: events
+    # over 10 calls back to back (host-bound) and device us by CUDA graph
+    few_rows = {}
+    for rows_ in (1, LONG_CH):
+        xf = (f(rows_, LONG_PTS), f(rows_, LONG_PTS))
+        few_rows[rows_] = tuple(
+            (cuda_ms(lambda: fn_(xf, 1), reps=7, calls=10), graph_us(lambda i: fn_(xf, 1), 1))
+            for fn_ in (V.fft_vmem, unpipelined))
+    del xf
     hann1024 = torch.hann_window(1024, periodic=True, device=dev)
     st_ms = cuda_ms(lambda: P.stft(x_d, 1024, 256), reps=7)
     ist_spec = P.stft(x_d, 1024, 256)
@@ -2132,7 +2270,10 @@ def main():
               f"({bd[1]}, {100 * bd[0] / k_ms:.1f}% reached by the event ms)"
               for (c_, np__), (k_ms, tw, bd, kd) in mu_rows.items())
           + f"; stft {x.size} samples nfft 1024 hop 256: {st_ms:.4f} ms, istft {ist_ms:.4f} ms, "
-          f"torch.stft {tst_ms:.4f} ms", flush=True)
+          f"torch.stft {tst_ms:.4f} ms; fft_vmem {LONG_PTS} points, pipelined / earlier single "
+          f"pass (ms by events over 10 calls; device us by CUDA graph): " + "; ".join(
+              f"{r_} rows {a[0]:.4f} ({a[1]:.2f} us) / {o[0]:.4f} ({o[1]:.2f} us)"
+              for r_, (a, o) in few_rows.items()), flush=True)
 
     def kernel(name, source, replaces, launches, err, ms, plain, bnd, lib):
         return {"name": name, "route": "cuda", "source": f"opencl_fft_tpu_torch/csrc/{source}",

@@ -151,6 +151,98 @@ __device__ __forceinline__ void mac_rows(int nout, int nrows, int nparts, int k,
     }
 }
 
+// mac_rows over the partitions [q0, q1) only, into the caller's
+// accumulators (ar, ai) instead of the outputs, for a kernel that splits
+// the q range between threads and reduces their sums itself (slidemac.cu).
+// The MAC_TT window is preloaded at X row t0 + q0 and the H rows found from
+// the same hrow(t, q) at q = q0. Loads run one partition ahead: the H rows
+// and the incoming X row of q + 1 are requested before the products of q,
+// so two partitions' loads are in flight at once; the loop runs two
+// partitions a trip (faster on the H100 than one or four).
+template <bool DC, HMode MODE>
+__device__ __forceinline__ void mac_rows_q(int nout, int nrows, int nparts, int k, int t0,
+                                           int wp2_0, int q0, int q1,
+                                           const float* __restrict__ xr,
+                                           const float* __restrict__ xi, size_t xs,
+                                           const float* __restrict__ hr,
+                                           const float* __restrict__ hi, size_t hs, size_t x0,
+                                           size_t h0, float (&ar)[MAC_TT], float (&ai)[MAC_TT]) {
+    static_assert(MODE != H_LTI, "the q-range MAC is the TV sliding MAC's");
+    float wr[MAC_TT], wi[MAC_TT];
+    int m[MAC_TT];   // H_TV: (t0 + j - wp2_0 + q) mod nparts at the current q
+    int m0 = MODE == H_TV_PAIR ? pmod(t0 - wp2_0 + q0, nparts) : 0;
+#pragma unroll
+    for (int j = 0; j < MAC_TT; ++j) {
+        const int r = t0 + q0 + j;
+        wr[j] = r < nrows ? xr[(x0 + r) * xs + k] : 0.f;
+        wi[j] = r < nrows ? xi[(x0 + r) * xs + k] : 0.f;
+        ar[j] = 0.f;
+        ai[j] = 0.f;
+        m[j] = MODE == H_TV ? pmod(t0 + j - wp2_0 + q0, nparts) : 0;
+    }
+    if (q0 >= q1) return;
+    // H_TV_PAIR: the two H rows of partition q (h, then g past the wrap at
+    // outputs j >= jw), fetched one partition ahead
+    auto pair = [&](int mq, float& h_r, float& h_i, float& g_r, float& g_i, int& jw) {
+        const size_t ra = h0 + (t0 - mq + nparts - 1);
+        h_r = hr[ra * hs + k];
+        h_i = hi[ra * hs + k];
+        jw = nparts - mq;
+        g_r = g_i = 0.f;
+        if (jw < MAC_TT && t0 + jw < nout) {
+            g_r = hr[(ra + nparts) * hs + k];
+            g_i = hi[(ra + nparts) * hs + k];
+        }
+    };
+    float h_r = 0.f, h_i = 0.f, g_r = 0.f, g_i = 0.f;
+    int jw = MAC_TT;
+    if (MODE == H_TV_PAIR) pair(m0, h_r, h_i, g_r, g_i, jw);
+#pragma unroll 2
+    for (int q = q0; q < q1; ++q) {
+        // partition q + 1's loads first
+        const int r = t0 + q + MAC_TT;
+        const float nr = r < nrows ? xr[(x0 + r) * xs + k] : 0.f;
+        const float ni = r < nrows ? xi[(x0 + r) * xs + k] : 0.f;
+        float h_r1 = 0.f, h_i1 = 0.f, g_r1 = 0.f, g_i1 = 0.f;
+        int jw1 = MAC_TT;
+        m0 = m0 + 1 == nparts ? 0 : m0 + 1;
+        if (MODE == H_TV_PAIR && q + 1 < q1) pair(m0, h_r1, h_i1, g_r1, g_i1, jw1);
+#pragma unroll
+        for (int j = 0; j < MAC_TT; ++j) {
+            float y_r = h_r, y_i = h_i;
+            if (MODE == H_TV) {
+                const int t = t0 + j;
+                const size_t row = h0 + (t - m[j] + nparts - 1);
+                y_r = t < nout ? hr[row * hs + k] : 0.f;
+                y_i = t < nout ? hi[row * hs + k] : 0.f;
+                m[j] = m[j] + 1 == nparts ? 0 : m[j] + 1;
+            } else if (j >= jw) {
+                y_r = g_r;
+                y_i = g_i;
+            }
+            if (DC) {            // packed (DC/2, Nyq/2) bin: componentwise
+                ar[j] += wr[j] * y_r;
+                ai[j] += wi[j] * y_i;
+            } else {
+                ar[j] += wr[j] * y_r - wi[j] * y_i;
+                ai[j] += wr[j] * y_i + wi[j] * y_r;
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < MAC_TT - 1; ++j) {
+            wr[j] = wr[j + 1];
+            wi[j] = wi[j + 1];
+        }
+        wr[MAC_TT - 1] = nr;
+        wi[MAC_TT - 1] = ni;
+        h_r = h_r1;
+        h_i = h_i1;
+        g_r = g_r1;
+        g_i = g_i1;
+        jw = jw1;
+    }
+}
+
 // Channel c = blockIdx.z of a scan: aext_c[t+1] = [acc_re[t] | acc_im[t]]
 // for t < nb. LTI: (hr, hi) are the IR planes (C, nparts, bins); TV: hr is
 // the coefficient timelines and hi is unused; channel c's ring pointer is

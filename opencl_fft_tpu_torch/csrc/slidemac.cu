@@ -32,8 +32,9 @@
 // (componentwise) instantiation. The channel is the slowest grid dimension,
 // so one channel's timeline and H (a few MB at the render shape) are read
 // from L2 by all of its blocks. Any nparts >= 1, bins >= 1 and nout >= 1
-// are taken: rows past the timeline read as zero. wgmma/TMA and a split of
-// the q range for short nout are later work.
+// are taken: rows past the timeline read as zero. wgmma/TMA, and for this
+// LTI entry the split of the q range that the TV entry has at short nout,
+// are later work.
 
 #include "scan_mac.cuh"   // MAC_TT (output rows per thread), MAC_THREADS (bins per block)
 
@@ -127,7 +128,9 @@ slide_mac_kernel(Mac s, const float* __restrict__ xr, const float* __restrict__ 
 // code: one thread per bin slides MAC_TT output rows of X through
 // registers, and for nparts >= MAC_TT reads two H rows per p for all of
 // them (H_TV_PAIR: the row changes only where the mod wraps, once in
-// MAC_TT consecutive outputs), one per output below (H_TV).
+// MAC_TT consecutive outputs), one per output below (H_TV). Where that
+// grid is short (a K = 8 chunk), slide_mac_tv_split_kernel splits the
+// partitions between the threads of a CTA instead.
 //
 // What bounds it on the card: as the LTI MAC, FP32 operations at long
 // timelines (8 C nout nparts bins; 1.97 GFLOP at 1 x 1880, nparts 256,
@@ -155,6 +158,72 @@ slide_mac_tv_kernel(Mac s, int hrows, int wp2, const float* __restrict__ xr,
                               bins, b0, outr, outi, bins, x0, h0, o0);
 }
 
+// The TV sliding MAC with the partitions split inside a CTA, for grids too
+// short to fill the card (a K = 8 chunk: 256 CTAs of 128 threads, each
+// walking 256 partitions with dependent loads at every one, reach 15% of
+// the bytes bound). `slices` q-slices work on the same MAC_THREADS bins x
+// MAC_TT outputs: thread (slice, lane) takes partitions [q0, q1), q0 =
+// slice * nparts / slices (some slices may be empty), through mac_rows_q.
+// The partial sums then meet in shared memory ([2][slices][MAC_TT]
+// [MAC_THREADS] floats) and each output is summed over the slices in slice
+// order by one thread, so the result does not depend on timing (no
+// atomics). X and H are read once from device memory; the grid is the
+// unsplit kernel's.
+constexpr int MAX_SLICES = 8;
+
+template <HMode MODE>
+__global__ void __launch_bounds__(MAC_THREADS * MAX_SLICES)
+slide_mac_tv_split_kernel(Mac s, int hrows, int wp2, int slices, const float* __restrict__ xr,
+                          const float* __restrict__ xi, const float* __restrict__ hr,
+                          const float* __restrict__ hi, float b0, float* __restrict__ outr,
+                          float* __restrict__ outi) {
+    extern __shared__ float part[];
+    const int lane = threadIdx.x % MAC_THREADS, slice = threadIdx.x / MAC_THREADS;
+    const int k = blockIdx.y * MAC_THREADS + lane;
+    const int t0 = blockIdx.x * MAC_TT;
+    const size_t c = blockIdx.z, bins = s.bins;
+    const size_t x0 = c * s.rows, h0 = c * hrows, o0 = c * s.nout;
+    const int q0 = slice * s.nparts / slices, q1 = (slice + 1) * s.nparts / slices;
+    float ar[MAC_TT] = {}, ai[MAC_TT] = {};
+    if (k == 0)
+        mac_rows_q<true, MODE>(s.nout, s.rows, s.nparts, k, t0, wp2, q0, q1, xr, xi, bins, hr, hi,
+                               bins, x0, h0, ar, ai);
+    else if (k < s.bins)
+        mac_rows_q<false, MODE>(s.nout, s.rows, s.nparts, k, t0, wp2, q0, q1, xr, xi, bins, hr,
+                                hi, bins, x0, h0, ar, ai);
+    float* pr = part;
+    float* pi = part + slices * MAC_TT * MAC_THREADS;
+#pragma unroll
+    for (int j = 0; j < MAC_TT; ++j) {
+        pr[(slice * MAC_TT + j) * MAC_THREADS + lane] = ar[j];
+        pi[(slice * MAC_TT + j) * MAC_THREADS + lane] = ai[j];
+    }
+    __syncthreads();
+    if (k >= s.bins) return;
+    for (int j = slice; j < MAC_TT && t0 + j < s.nout; j += slices) {
+        float sr = 0.f, si = 0.f;
+        for (int u = 0; u < slices; ++u) {
+            sr += pr[(u * MAC_TT + j) * MAC_THREADS + lane];
+            si += pi[(u * MAC_TT + j) * MAC_THREADS + lane];
+        }
+        outr[(o0 + t0 + j) * bins + k] = k == 0 ? b0 * sr : sr;
+        outi[(o0 + t0 + j) * bins + k] = k == 0 ? b0 * si : si;
+    }
+}
+
+size_t split_granted[2][64];
+
+// Raise a kernel's dynamic shared memory limit once per device and size.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int device, size_t bytes, size_t (&granted)[64]) {
+    if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+    if (bytes <= 48 * 1024 || bytes <= granted[device]) return cudaSuccess;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err == cudaSuccess) granted[device] = bytes;
+    return err;
+}
+
 }  // namespace
 
 // acc[c, t] = sum_q x[c, t+q] (*) h[c, q] for t < nout, all C channels.
@@ -177,18 +246,39 @@ extern "C" int slide_mac_batched_f32(const float* xr, const float* xi, const flo
 // The TV sliding MAC of every channel for t < nout: x planes (C, rows,
 // bins) (rows >= nparts-1+nout; later rows unread), h planes (C, hrows,
 // bins) (hrows >= nparts-1+nout), outputs (C, nout, bins); phase in
-// [0, nparts). Float32 device memory on `device`, each plane contiguous.
-// Launches on `stream` without synchronising; returns the first CUDA error.
+// [0, nparts). slices in [1, MAX_SLICES]: 1 runs slide_mac_tv_kernel,
+// more the q-split kernel with that many partition slices a CTA
+// (ops/cuda/slidemac.py tv_q_slices chooses). Float32 device memory on
+// `device`, each plane contiguous. Launches on `stream` without
+// synchronising; returns the first CUDA error.
 extern "C" int slide_mac_tv_batched_f32(const float* xr, const float* xi, const float* hr,
                                         const float* hi, float* outr, float* outi, int C,
                                         int rows, int hrows, int nparts, int bins, int nout,
-                                        int phase, float b0, int device, void* stream_ptr) {
+                                        int phase, float b0, int slices, int device,
+                                        void* stream_ptr) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
+    if (slices < 1 || slices > MAX_SLICES) return static_cast<int>(cudaErrorInvalidValue);
     const Mac s{C, rows, nparts, bins, nout};
     const int wp2 = (nparts - 1 - phase) % nparts;
     const dim3 grid(cdiv(nout, MAC_TT), cdiv(bins, MAC_THREADS), C);
     cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
+    if (slices > 1) {
+        const size_t smem = sizeof(float) * 2 * slices * MAC_TT * MAC_THREADS;
+        const int threads = MAC_THREADS * slices;
+        const bool pair = nparts >= MAC_TT;
+        err = pair ? allow_smem(slide_mac_tv_split_kernel<H_TV_PAIR>, device, smem,
+                                split_granted[0])
+                   : allow_smem(slide_mac_tv_split_kernel<H_TV>, device, smem, split_granted[1]);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        if (pair)
+            slide_mac_tv_split_kernel<H_TV_PAIR><<<grid, threads, smem, st>>>(
+                s, hrows, wp2, slices, xr, xi, hr, hi, b0, outr, outi);
+        else
+            slide_mac_tv_split_kernel<H_TV><<<grid, threads, smem, st>>>(
+                s, hrows, wp2, slices, xr, xi, hr, hi, b0, outr, outi);
+        return static_cast<int>(cudaGetLastError());
+    }
     if (nparts >= MAC_TT)
         slide_mac_tv_kernel<H_TV_PAIR><<<grid, MAC_THREADS, 0, st>>>(s, hrows, wp2, xr, xi, hr,
                                                                      hi, b0, outr, outi);

@@ -26,7 +26,11 @@ frame of a second, coefficient timeline:
 both timelines laid out as row f + nparts-1 = the frame of time f, and
 ``phase`` = (nparts-1 - wp2) mod nparts the coefficient ring's, shared by
 the channels. The JAX kernel takes only phases = 0 (mod 8) (a DMA row
-alignment rule); here every phase runs the kernel.
+alignment rule); here every phase runs the kernel. Where the grid of
+MAC_TT outputs x 128 bins x C is too short to fill the card (a K = 8
+chunk), the kernel splits the partitions of a CTA between ``S``
+q-slices (``tv_q_slices`` picks S from the shape, ``q_ranges`` is the
+split) and sums the slices in a fixed order.
 
 Each wrapper runs the CUDA kernel for CUDA tensors and the twin for CPU
 tensors; anything else raises, and a build or launch failure raises.
@@ -63,6 +67,15 @@ CHUNKMAC_MAX_BATCH = 16
 # bounds its memory at any shape (64 MB a plane).
 _PLAIN_CHUNK_ELEMS = 1 << 24
 
+# The TV kernel's grid: MAC_TT outputs x MAC_THREADS bins a CTA of
+# MAC_THREADS threads per q-slice (csrc/scan_mac.cuh, csrc/slidemac.cu).
+MAC_TT = 8
+MAC_THREADS = 128
+TV_MAX_SLICES = 8
+# Groups of MAC_THREADS threads an SM holds at the kernels' 64 registers a
+# thread (65,536 registers): the grid fills the card at 8 a SM.
+_GROUPS_PER_SM = 8
+
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
@@ -77,7 +90,7 @@ def _kernel():
 def _tv_kernel():
     fn = _build.load("slidemac").slide_mac_tv_batched_f32
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 6 + [i] * 7 + [ctypes.c_float, i, p]
+    fn.argtypes = [p] * 6 + [i] * 7 + [ctypes.c_float, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -211,30 +224,62 @@ def _check_tv(name: str, x: Cplx, h: Cplx, nout: int, nparts: int):
                          f">= {need} rows, got {x[0].shape[1]} and {h[0].shape[1]}")
 
 
+def tv_q_slices(C: int, nout: int, bins: int, nparts: int, sms: int = 132) -> int:
+    """q-slices a CTA of the TV kernel at this shape. The unsplit grid has
+    cdiv(nout, MAC_TT) x cdiv(bins, MAC_THREADS) x C CTAs of MAC_TT outputs
+    x MAC_THREADS bins; where more of them than the card's ``sms`` SMs hold
+    at once, 1 (64 x 470: 15,104 CTAs). Else the largest power of two up to
+    ``TV_MAX_SLICES`` and nparts whose split grid (MAC_THREADS threads a
+    slice) still fits at once, and at least 2: the split kernel also loads
+    a partition ahead (1 x 1880: 940 CTAs, 2 slices; a K = 8 chunk of 64
+    channels: 256 CTAs, 4)."""
+    groups = -(-nout // MAC_TT) * -(-bins // MAC_THREADS) * C
+    slots = _GROUPS_PER_SM * sms
+    cap = min(TV_MAX_SLICES, nparts)
+    if groups > slots or cap < 2:
+        return 1
+    s = 2
+    while 2 * s <= cap and 2 * s * groups <= slots:
+        s *= 2
+    return s
+
+
+def q_ranges(nparts: int, slices: int) -> list:
+    """The partitions [q0, q1) of each q-slice, as the kernel splits them:
+    q0 = slice * nparts // slices (a slice may be empty where nparts <
+    slices)."""
+    return [(u * nparts // slices, (u + 1) * nparts // slices) for u in range(slices)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _run_tv(name: str, x: Cplx, h: Cplx, nout: int, nparts: int, b0: float, phase: int):
-    """(acc planes (C, nout, bins), launched): the TV kernel on a card, the
-    twin on the CPU."""
+    """(acc planes (C, nout, bins), launched): the TV kernel on a card (at
+    ``tv_q_slices`` of the shape), the twin on the CPU."""
     _check_tv(name, x, h, nout, nparts)
     phase = int(phase) % nparts
     dev = _build.launch_device(name, (*x, *h))
     if dev.type == "cpu":
         return slide_mac_tv_plain(x, h, nout, nparts, b0, phase), False
-    return _launch_tv(x, h, nout, nparts, b0, phase, dev), True
+    slices = tv_q_slices(x[0].shape[0], nout, x[0].shape[2], nparts, _sms(dev.index))
+    return _launch_tv(x, h, nout, nparts, b0, phase, slices, dev), True
 
 
-def _launch_tv(x: Cplx, h: Cplx, nout: int, nparts: int, b0: float, phase: int,
+def _launch_tv(x: Cplx, h: Cplx, nout: int, nparts: int, b0: float, phase: int, slices: int,
                dev: torch.device) -> Cplx:
     (xr, xi), (hr, hi) = x, h
     nch, rows, bins = xr.shape
-    outr = torch.empty((nch, nout, bins), dtype=torch.float32, device=dev)
-    outi = torch.empty_like(outr)
+    out = torch.empty((2, nch, nout, bins), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _tv_kernel()(xr.data_ptr(), xi.data_ptr(), hr.data_ptr(), hi.data_ptr(),
-                       outr.data_ptr(), outi.data_ptr(), nch, rows, hr.shape[1], nparts, bins,
-                       nout, phase, float(b0), dev.index, stream)
+                       out[0].data_ptr(), out[1].data_ptr(), nch, rows, hr.shape[1], nparts,
+                       bins, nout, phase, float(b0), slices, dev.index, stream)
     if err != 0:
         raise RuntimeError(f"slide_mac_tv_batched_f32: CUDA error {err} at launch")
-    return outr, outi
+    return out[0], out[1]
 
 
 def slide_mac_tv_plain(x: Cplx, h: Cplx, nout: int, nparts: int, b0: float,

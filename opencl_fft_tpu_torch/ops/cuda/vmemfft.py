@@ -8,15 +8,18 @@ DFT_sign(x) over the last axis of (..., n) split planes, sign = -1 forward,
 
 ``route(n, split)`` picks the kernels by size, for both wrappers:
 
-- ``rows``, n <= ``SINGLE_PASS_MAX``: one pass, B whole rows a CTA
-  (``fft_rows_f32``: radix-16 Stockham passes in registers and shared
-  memory);
+- ``rows``, n <= ``SINGLE_PASS_MAX``: one pass over device memory
+  (``fft_rows_pipe_f32``: radix-16 Stockham passes in registers and shared
+  memory; persistent CTAs walk tiles of whole rows, and a bulk
+  asynchronous copy refills a CTA's tile while its last pass runs and the
+  SM's other CTAs compute);
 - ``two_pass`` above it: the four-step in two passes over device memory at
-  n = n1 x n2, ``two_pass_split(n)`` or an explicit ``split=(n1, n2)``: the
-  n1-point transforms down the columns of the (n1, n2) matrix
-  (``fft_front_f32``), then the n2-point leaf transforms of the rows, each
-  value multiplied by the twiddle W_n^(k1 j2) as it is loaded, stored
-  transposed to out[k1 + n1 k2] (``fft_rows_f32``).
+  n = n1 x n2, ``two_pass_split(n)`` or an explicit ``split=(n1, n2)``, n1
+  and n2 at most ``LEAF_PASS_MAX``: the n1-point transforms down the
+  columns of the (n1, n2) matrix (``fft_front_f32``), then the n2-point
+  leaf transforms of the rows, each value multiplied by the twiddle
+  W_n^(k1 j2) as it is loaded, stored transposed to out[k1 + n1 k2]
+  (``fft_rows_f32``).
 
 ``fft_vmem_front2`` takes ``split`` in the place of JAX's ``plan_override``;
 without one it runs the JAX plan's domain, n in 2^18..2^20
@@ -53,7 +56,8 @@ FRONT2_LAUNCHES = 0
 
 MIN_N = 1 << 10
 MAX_N = 1 << 20
-SINGLE_PASS_MAX = 1 << 13     # one CTA holds 8192 complex values (64 KB)
+SINGLE_PASS_MAX = 1 << 14     # the single pass: one CTA holds a row of 2^14 values
+LEAF_PASS_MAX = 1 << 13       # a two-pass factor: a leaf CTA holds 2^13 values
 FRONT2_SIZES = (1 << 18, 1 << 19, 1 << 20)
 LEAF_MAX = 64                 # the twins' largest DFT matrix
 
@@ -71,7 +75,7 @@ class Route(NamedTuple):
     def __str__(self) -> str:
         n = self.n1 * self.n2
         if self.kind == "rows":
-            return f"fft_rows_kernel of csrc/fft.cu (one pass of {n} points)"
+            return f"fft_rows_pipe_kernel of csrc/fft.cu (one pass of {n} points)"
         return (f"fft_front_kernel + fft_rows_kernel of csrc/fft.cu (two passes, "
                 f"{n} = {self.n1} x {self.n2})")
 
@@ -92,17 +96,17 @@ def two_pass_split(n: int) -> Split:
 
 def route(n: int, split: Optional[Split] = None) -> Route:
     """The kernels that transform size n (``supported``): with ``split``,
-    the two passes at (n1, n2) = split, both powers of two in [2, 8192]
-    with n1 * n2 = n; else one pass up to ``SINGLE_PASS_MAX`` and two
-    passes at ``two_pass_split(n)`` above."""
+    the two passes at (n1, n2) = split, both powers of two in [2,
+    ``LEAF_PASS_MAX``] with n1 * n2 = n; else one pass up to
+    ``SINGLE_PASS_MAX`` and two passes at ``two_pass_split(n)`` above."""
     if not supported(n):
         raise ValueError(f"vmem fft: unsupported size {n}")
     if split is not None:
         n1, n2 = (int(f) for f in split)
         if n1 * n2 != n or not (is_pow2(n1) and is_pow2(n2)) \
-                or not (2 <= n1 <= SINGLE_PASS_MAX and 2 <= n2 <= SINGLE_PASS_MAX):
+                or not (2 <= n1 <= LEAF_PASS_MAX and 2 <= n2 <= LEAF_PASS_MAX):
             raise ValueError(f"fft_vmem_front2: split {split} does not factor size {n} "
-                             f"into powers of two in [2, {SINGLE_PASS_MAX}]")
+                             f"into powers of two in [2, {LEAF_PASS_MAX}]")
         return Route("two_pass", n1, n2)
     if n <= SINGLE_PASS_MAX:
         return Route("rows", 1, n)
@@ -210,6 +214,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 def _entry(name: str):
     fn = getattr(_build.load("fft"), name)
     fn.argtypes = {
+        "fft_rows_pipe_f32": [_P] * 5 + [_LL, _I, _I, _F, _I, _P],
         "fft_rows_f32": [_P] * 8 + [_I, _LL, _I, _I, _I, _F, _I, _P],
         "fft_front_f32": [_P] * 5 + [_LL, _I, _I, _I, _I, _P],
     }[name]
@@ -261,7 +266,11 @@ def _check(name: str, x: Cplx, sign: int) -> Tuple[torch.Tensor, torch.Tensor, i
 def _rows_2d(name: str, x: Cplx, sign: int) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """The planes as contiguous (rows, n), checked; and n."""
     re, im, n = _check(name, x, sign)
-    return re.reshape(-1, n).contiguous(), im.reshape(-1, n).contiguous(), n
+
+    def rows(p):
+        return p if p.dim() == 2 and p.is_contiguous() else p.reshape(-1, n).contiguous()
+
+    return rows(re), rows(im), n
 
 
 def _check_rows(name, re, im):
@@ -270,31 +279,37 @@ def _check_rows(name, re, im):
     return _build.launch_device(name, (re, im))
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data is not 16-byte aligned (the bulk
+    copies of the single pass need it; a view at an odd offset is not)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(re, im, shape, r: Route, sign, scale, dev) -> Cplx:
     """The route's kernels on contiguous (rows, n) CUDA planes into new
-    planes of ``shape``; counts one ``LAUNCHES`` (rows) or
-    ``FRONT2_LAUNCHES`` (two passes)."""
+    planes of ``shape`` (the two halves of one allocation); counts one
+    ``LAUNCHES`` (rows) or ``FRONT2_LAUNCHES`` (two passes)."""
     global LAUNCHES, FRONT2_LAUNCHES
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    yr = torch.empty(shape, dtype=torch.float32, device=dev)
-    yi = torch.empty(shape, dtype=torch.float32, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)   # current_stream(dev), unwrapped
+    y = re.new_empty((2, *shape))
     ptrs = _plan(r, sign, dev).pointers
-    x = (re.data_ptr(), im.data_ptr())
-    y = (yr.data_ptr(), yi.data_ptr())
+    half = re.numel() * 4
+    y_ = (y.data_ptr(), y.data_ptr() + half)
     rows, idx = re.shape[0], dev.index
     if r.kind == "rows":
-        _call("fft_rows_f32", *x, *y, ptrs[0], None, None, None, 0, rows, _log2(r.n2), 0,
-              sign, scale, idx, stream)
+        re, im = _aligned(re), _aligned(im)
+        _call("fft_rows_pipe_f32", re.data_ptr(), im.data_ptr(), *y_, ptrs[0], rows,
+              _log2(r.n2), sign, scale, idx, stream)
         LAUNCHES += 1
-        return yr, yi
-    sr = torch.empty_like(re)
-    si = torch.empty_like(im)
-    s_ = (sr.data_ptr(), si.data_ptr())
-    _call("fft_front_f32", *x, *s_, ptrs[0], rows, _log2(r.n1), _log2(r.n2), sign, idx, stream)
-    _call("fft_rows_f32", *s_, *y, *ptrs[1:], four_step_log_a(r.n2), rows * r.n1, _log2(r.n2),
+        return y[0], y[1]
+    s = re.new_empty((2, *re.shape))
+    s_ = (s.data_ptr(), s.data_ptr() + half)
+    _call("fft_front_f32", re.data_ptr(), im.data_ptr(), *s_, ptrs[0], rows, _log2(r.n1),
+          _log2(r.n2), sign, idx, stream)
+    _call("fft_rows_f32", *s_, *y_, *ptrs[1:], four_step_log_a(r.n2), rows * r.n1, _log2(r.n2),
           _log2(r.n1), sign, scale, idx, stream)
     FRONT2_LAUNCHES += 1
-    return yr, yi
+    return y[0], y[1]
 
 
 def fft_vmem(x: Cplx, sign: int, scale: float = 1.0) -> Cplx:

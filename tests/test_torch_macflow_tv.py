@@ -162,6 +162,50 @@ def test_wrappers_validate_shapes():
         S.macflow_tv_batched((meta, meta), ok, 8, 4, 1.0)
 
 
+@pytest.mark.parametrize("C,nout,bins,nparts,want", [
+    (64, 8, 512, 256, 4),        # a K = 8 chunk: 256 CTAs, split 4 ways
+    (64, 470, 512, 256, 1),      # the render shape fills the card unsplit
+    (1, 1880, 512, 256, 2),      # macflow_tv at the headline: 940 CTAs
+    (64, 8, 512, 255, 4),        # nparts % S != 0
+    (2, 21, 16, 9, 8),           # a tiny grid takes the most slices
+    (3, 13, 48, 3, 2),           # nparts < TV_MAX_SLICES caps S at nparts
+    (2, 5, 16, 1, 1)])
+def test_tv_q_slices_plan(C, nout, bins, nparts, want):
+    """S = 1 where the unsplit grid is more than the card's 132 SMs x 8
+    groups of 128 threads hold at once, else at least 2 and as many as
+    still fit; a power of two, at most TV_MAX_SLICES and nparts."""
+    s = S.tv_q_slices(C, nout, bins, nparts)
+    assert s == want
+    assert s & (s - 1) == 0 and 1 <= s <= min(S.TV_MAX_SLICES, nparts)
+    # on a card of one SM only the smallest grids split
+    assert (S.tv_q_slices(C, nout, bins, nparts, sms=1) > 1) == (
+        -(-nout // 8) * -(-bins // 128) * C <= 8 and nparts > 1)
+
+
+@pytest.mark.parametrize("nparts", [1, 2, 3, 7, 9, 255, 256])
+@pytest.mark.parametrize("slices", [1, 2, 4, 8])
+def test_q_ranges_cover_each_partition_once(nparts, slices):
+    """The kernel's split of [0, nparts) into q-slices: contiguous, in
+    slice order, every partition exactly once, empty slices where nparts <
+    slices, sizes within one of each other."""
+    ranges = S.q_ranges(nparts, slices)
+    assert len(ranges) == slices and ranges[0][0] == 0 and ranges[-1][1] == nparts
+    covered = [q for q0, q1 in ranges for q in range(q0, q1)]
+    assert covered == list(range(nparts))
+    sizes = [q1 - q0 for q0, q1 in ranges]
+    assert min(sizes) >= 0 and max(sizes) - min(sizes) <= 1
+    if nparts < slices:
+        assert sizes.count(0) == slices - nparts
+
+
+@pytest.mark.parametrize("sms,want", [(66, 2), (132, 4), (264, 8), (1056, 8)])
+def test_tv_q_slices_follows_the_card(sms, want):
+    """The K = 8 chunk's 256 CTAs split as far as the card's SMs hold them
+    at once: a card of twice the SMs takes twice the slices, up to
+    TV_MAX_SLICES."""
+    assert S.tv_q_slices(64, 8, 512, 256, sms=sms) == want
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -187,3 +231,32 @@ def test_cuda_kernel_matches_twin(cuda_device, batch, nparts, bins, nout, c, b0)
     for g, g1, w in zip(got, got_1, want):
         _close(g, w.cpu(), 2e-5)
         _close(g1, w[0].cpu(), 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,nparts,bins,nout,c", [
+    (64, 256, 512, 8, 3), (5, 256, 512, 8, 5), (3, 9, 48, 13, 4), (1, 3, 16, 7, 2),
+    (7, 1, 128, 9, 0), (2, 255, 130, 8, 11)])
+@pytest.mark.parametrize("slices", [None, 2, 4, 8])
+def test_cuda_split_kernel_matches_twin(cuda_device, monkeypatch, batch, nparts, bins, nout,
+                                        c, slices):
+    """The q-split TV kernel (the plan's choice, and 2, 4, 8 slices forced
+    in place of it) against the twin within 1e-6 of max|twin|, at nparts
+    1, 3, 9, 255 and 256 (fewer partitions than slices, nparts % slices !=
+    0), odd channel and bin counts and phases off the 8-row alignment;
+    twice the same launch gives the same bits (the slices are summed in a
+    fixed order)."""
+    if slices is not None:
+        monkeypatch.setattr(S, "tv_q_slices", lambda *a, **k: slices)
+    rng = np.random.default_rng(batch + nparts + nout + c)
+    x = _t(_planes(rng, batch, nparts - 1 + nout, bins), cuda_device)
+    h = _t(_planes(rng, batch, nparts - 1 + nout, bins), cuda_device)
+    before = S.MACFLOW_TV_BATCHED_LAUNCHES
+    got = S.macflow_tv_batched(x, h, nout, nparts, 2.0, c)
+    again = S.macflow_tv_batched(x, h, nout, nparts, 2.0, c)
+    torch.cuda.synchronize()
+    assert S.MACFLOW_TV_BATCHED_LAUNCHES == before + 2
+    want = S.slide_mac_tv_plain(x, h, nout, nparts, 2.0, c)
+    for g, a, w in zip(got, again, want):
+        _close(g, w.cpu(), 1e-6)
+        assert torch.equal(g, a)

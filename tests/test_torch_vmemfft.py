@@ -44,8 +44,8 @@ def _numpy_dft(x, sign, scale):
 @pytest.mark.parametrize("sign", [-1, 1])
 def test_fft_vmem_matches_jax(n, sign):
     """The wrapper (its twin on the CPU) and the twin called directly
-    against the Pallas kernel in interpret mode; 2^14 and 2^15 take the
-    two-pass factorization (256 x 64, 256 x 128)."""
+    against the Pallas kernel in interpret mode; 2^14 is the single pass's
+    largest size, 2^15 takes the two-pass factorization (256 x 128)."""
     x = _planes(np.random.default_rng(n + sign), (2, n))
     scale = 1.0 / np.sqrt(n)
     ref = jvmem.fft_vmem(tuple(map(jnp.asarray, x)), sign, interpret=True, scale=scale)
@@ -152,7 +152,8 @@ def test_bluestein_tables_bit_identical_to_jax(n, sign, npdt):
 
 def test_splits_and_validation():
     assert V.route(1 << 13) == ("rows", 1, 1 << 13)
-    assert V.route(1 << 14) == ("two_pass", 256, 64)
+    assert V.route(1 << 14) == ("rows", 1, 1 << 14)
+    assert V.route(1 << 15) == ("two_pass", 256, 128)
     assert V.route(1 << 20) == ("two_pass", 1024, 1024)
     assert [V.route(n) for n in V.FRONT2_SIZES] == [("two_pass", 256, 1024),
                                                    ("two_pass", 1024, 512),
@@ -179,19 +180,48 @@ def test_splits_and_validation():
 
 @pytest.mark.parametrize("k", range(10, 21))
 def test_route_by_size(k):
-    """One pass up to 2^13, two passes above, at 256 x n / 256 up to 2^18
+    """One pass up to 2^14, two passes above, at 256 x n / 256 up to 2^18
     and 1024 x n / 1024 above; an explicit split always takes two passes.
     The route names its kernels."""
     n = 1 << k
     r = V.route(n)
     assert r.n1 * r.n2 == n and str(r).startswith(
-        {"rows": "fft_rows_kernel", "two_pass": "fft_front_kernel + fft_rows_kernel"}[r.kind])
-    if k <= 13:
+        {"rows": "fft_rows_pipe_kernel",
+         "two_pass": "fft_front_kernel + fft_rows_kernel"}[r.kind])
+    if k <= 14:
         assert r == ("rows", 1, n)
     else:
         assert r == ("two_pass", 256 if k <= 18 else 1024, n // (256 if k <= 18 else 1024))
     split = (1 << (k // 2), 1 << (k - k // 2))
     assert V.route(n, split) == ("two_pass", *split)
+
+
+def test_single_pass_and_leaf_reach():
+    """The single pass reaches 2^14; a two-pass factor (the leaf's and the
+    front's tile) stays at most 2^13, so a split with a 2^14 factor
+    raises."""
+    assert (V.SINGLE_PASS_MAX, V.LEAF_PASS_MAX) == (1 << 14, 1 << 13)
+    assert V.route(V.SINGLE_PASS_MAX).kind == "rows"
+    assert V.route(2 * V.SINGLE_PASS_MAX).kind == "two_pass"
+    for n, split in (((1 << 15), (1 << 14, 2)), ((1 << 15), (2, 1 << 14)),
+                     ((1 << 20), (64, 1 << 14)), ((1 << 14), (1, 1 << 14))):
+        with pytest.raises(ValueError, match=f"powers of two in \\[2, {1 << 13}\\]"):
+            V.route(n, split)
+    assert V.route(1 << 14, (2, 1 << 13)) == ("two_pass", 2, 1 << 13)
+    for n in V.FRONT2_SIZES + (1 << 15,):
+        assert max(V.two_pass_split(n)) <= V.LEAF_PASS_MAX
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_single_pass_reach_twin_matches_numpy(rows, sign):
+    """fft_vmem at 2^14, the single pass's largest size, through its twin
+    (the wrapper on the CPU) against float64 numpy."""
+    n = 1 << 14
+    x = _planes(np.random.default_rng(rows + 7 * (sign + 2)), (rows, n))
+    ref = _numpy_dft(x, sign, 0.5)
+    _close(V.fft_vmem(tuple(map(_t, x)), sign, 0.5), ref, 1e-5)
+    _close(V.fft_vmem_plain(tuple(map(_t, x)), sign, 0.5), ref, 1e-5)
 
 
 @pytest.mark.parametrize("n,sign", [(1 << 16, -1), (1 << 17, 1), (1 << 18, -1), (1 << 18, 1)])
@@ -290,11 +320,41 @@ def test_cuda_fft_vmem_front2_matches_twin(cuda_device, n, split):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1 << 14, 1 << 15, 1 << 16, 1 << 17, 1 << 18])
+@pytest.mark.parametrize("n", [1 << 10, 1 << 11, 1 << 12, 1 << 13, 1 << 14])
+@pytest.mark.parametrize("rows", [1, 2, 7, 33, 257])
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_cuda_single_pass_matches_twin(cuda_device, n, rows, sign):
+    """The pipelined single pass (persistent CTAs, bulk copies into two
+    stages; one stage at 2^14) against its twin (1e-6 of max|twin|) and
+    float64 numpy, at one row, at row counts that leave the last tile
+    short and at more tiles than CTAs; and on planes at an offset that is
+    not 16-byte aligned, which the wrapper copies first."""
+    rng = np.random.default_rng(n + rows + sign)
+    x = tuple(_t(p).to(cuda_device) for p in _planes(rng, (rows, n)))
+    assert V.route(n).kind == "rows"
+    before = (V.LAUNCHES, V.FRONT2_LAUNCHES)
+    got = V.fft_vmem(x, sign, 0.5)
+    torch.cuda.synchronize()
+    assert (V.LAUNCHES, V.FRONT2_LAUNCHES) == (before[0] + 1, before[1])
+    want = tuple(w.cpu() for w in V.fft_vmem_plain(x, sign, 0.5))
+    _close(tuple(g.cpu() for g in got), want, 1e-6)
+    _close(tuple(g.cpu() for g in got), _numpy_dft(tuple(p.cpu().numpy() for p in x), sign, 0.5),
+           5e-6)
+    flat = tuple(torch.zeros(rows * n + 1, device=cuda_device) for _ in range(2))
+    for f_, p in zip(flat, x):
+        f_[1:] = p.reshape(-1)
+    odd = tuple(f_[1:].view(rows, n) for f_ in flat)
+    assert odd[0].is_contiguous() and odd[0].data_ptr() % 16 != 0
+    _close(tuple(g.cpu() for g in V.fft_vmem(odd, sign, 0.5)),
+           tuple(g.cpu() for g in got), 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1 << 15, 1 << 16, 1 << 17, 1 << 18])
 @pytest.mark.parametrize("rows", [1, 3, 16])
 @pytest.mark.parametrize("sign", [-1, 1])
 def test_cuda_two_pass_route_matches_twin(cuda_device, n, rows, sign):
-    """The default route above 2^13 (front pass, then the leaf with the
+    """The default route above 2^14 (front pass, then the leaf with the
     twiddles) against its twin and float64 numpy."""
     x = tuple(_t(p).to(cuda_device) for p in _planes(np.random.default_rng(n + rows), (rows, n)))
     assert V.route(n).kind == "two_pass"
