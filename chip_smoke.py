@@ -42,8 +42,8 @@ others bit-equal to an engine that never swapped) and a ``MatrixConvolver``
 entry swap against float64 scipy blends; and their per-block times. Then
 the time-varying decomposed engine and the long-partition streams: the TV
 sliding-MAC kernel (``macflow_tv``, ``macflow_tv_batched``; at the
-q-slices its plan picks and at forced ones) and the factored-table scan
-kernels (``stream_steps_fused_split{,_tv}``) against their twins at their
+q-slices its plan picks and at forced ones) and the split-scan kernels
+(``stream_steps_fused_split{,_tv}``, in-kernel FFTs) against their twins at their
 main-path shapes (the headline TV scan and the K = 8 chunk of 64 channels;
 pts 4096 with a 2^20-tap IR, one and 16 channels) and at odd shapes; TV ``stream_decomposed``,
 ``TVConvolver.stream_chunked`` (K = 8, 64 channels, from the start and off
@@ -158,8 +158,8 @@ def rfft_flops(n):
 def stream_flops(nb, nparts, bins, pts, transforms):
     """Least operations of a partitioned scan of nb blocks: the FDL MAC (a
     complex multiply-add, 8 operations, per bin, partition and block) and
-    ``transforms`` real transforms of 2*pts points. The kernels do more:
-    their transforms are dense DFT products, O(pts^2) per block."""
+    ``transforms`` real transforms of 2*pts points. The dense-table kernels
+    do more: their transforms are dense DFT products, O(pts^2) per block."""
     return 8.0 * nb * nparts * bins + transforms * rfft_flops(2 * pts)
 
 
@@ -1680,15 +1680,17 @@ def main():
           f"{SERVE_CH}x{SERVE_BLOCKS} "
           f"{tvm_err[('macflow_tv_batched', SERVE_CH, SERVE_BLOCKS)]:.3e}", flush=True)
 
-    # phase 28: the factored-table scan kernels (stream_steps_fused_split
-    # {,_tv}: C = 1 and batched wrappers, one entry each) vs their twins at
-    # the long-IR shape (pts 4096, 2^20 taps: nparts 256, 470 blocks) at one
-    # and 16 channels (TV pointers shared and per channel), at pts 512
-    # against the dense-table kernels #1/#2 on the same scan, and at odd
-    # shapes
+    # phase 28: the split-scan kernels (stream_steps_fused_split{,_tv}: C = 1
+    # and batched wrappers, one entry each) vs their twins at the long-IR
+    # shape (pts 4096, 2^20 taps: nparts 256, 470 blocks) at one and 16
+    # channels (TV pointers shared and per channel), at pts 512 against the
+    # dense-table kernels #1/#2 on the same scan, at odd shapes, and at pts
+    # 8192 and 2^14 (the largest transforms inside a CTA) and 2^15 (the
+    # four-step on scratch planes)
     long_np = LONG_IR // LONG_PTS
     split_shapes = [(LONG_PTS, long_np, LONG_BLOCKS, 1), (LONG_PTS, long_np, LONG_BLOCKS, LONG_CH),
-                    (PTS, 16, 21, 2), (64, 3, 5, 3), (16, 1, 1, 2), (32, 3, 1, 1), (16, 1, 5, 1)]
+                    (PTS, 16, 21, 2), (64, 3, 5, 3), (16, 1, 1, 2), (32, 3, 1, 1), (16, 1, 5, 1),
+                    (1 << 13, 4, 5, 2), (1 << 14, 2, 3, 1), (1 << 15, 2, 3, 2)]
     split_err = {}
     worst = dense_gap = 0.0
     for pts, nparts, nb_, nch in split_shapes:
@@ -1699,6 +1701,9 @@ def main():
             got = SP.stream_steps_fused_split_batched(px, w0_, h0_, b0, tails, pts)
             torch.cuda.synchronize()
             check(SP.LAUNCHES == n0 + 1, "split LAUNCHES counts the kernel launch")
+            again = SP.stream_steps_fused_split_batched(px, w0_, h0_, b0, tails, pts)
+            check(torch.equal(got[0], again[0]) and torch.equal(got[2], again[2]),
+                  f"the split scan repeats its bits at {where}")
             want = SP.stream_steps_fused_split_batched_plain(px, w0_, h0_, b0, tails, pts)
             worst = compare((("out", got[0], want[0]), ("window re", got[1][0], want[1][0]),
                              ("window im", got[1][1], want[1][1]), ("tails", got[2], want[2])),
@@ -1719,6 +1724,10 @@ def main():
                                                              pts)
                 torch.cuda.synchronize()
                 check(SP.TV_LAUNCHES == n0 + 1, "split TV_LAUNCHES counts the kernel launch")
+                again = SP.stream_steps_fused_split_batched_tv(px, ph, w0_, h0_, wp2, b0, tails,
+                                                               pts)
+                check(torch.equal(got[0], again[0]) and torch.equal(got[3], again[3]),
+                      f"the split TV scan repeats its bits at {where}")
                 want = SP.stream_steps_fused_split_batched_tv_plain(px, ph, w0_, h0_, wp2, b0,
                                                                     tails, pts)
                 worst = compare((("out", got[0], want[0]), ("window re", got[1][0], want[1][0]),
@@ -1735,9 +1744,10 @@ def main():
                     worst = compare((("TV out vs dense kernel", got[0], dense[0]),), where, worst)
                     dense_gap = max(dense_gap, float((got[0] - dense[0]).abs().max())
                                     / float(dense[0].abs().max()))
-    del px, ph, w0_, h0_, tails, got, want, dense
-    print(f"phase 28 split-table scan kernels vs twins: shapes (pts,nparts,nb,C) {split_shapes} "
-          f"(b0 2 at pts {LONG_PTS}, {{1,2}} elsewhere), TV wp2 shared and per channel; worst rel "
+    del px, ph, w0_, h0_, tails, got, again, want, dense
+    print(f"phase 28 split-scan kernels vs twins: shapes (pts,nparts,nb,C) {split_shapes} "
+          f"(b0 2 at pts {LONG_PTS}, {{1,2}} elsewhere), TV wp2 shared and per channel, "
+          f"bit-equal on a second launch; worst rel "
           f"err {worst:.3e} (tol {TOL}); at pts {PTS} vs the dense-table kernels {dense_gap:.3e}; "
           f"out max_abs_err at pts {LONG_PTS}: LTI C=1 {split_err[('split', 1, LONG_PTS)]:.3e} "
           f"C={LONG_CH} {split_err[('split', LONG_CH, LONG_PTS)]:.3e}, TV C=1 "
@@ -1911,11 +1921,33 @@ def main():
                     calls=calls)
         tv_dev[(wname, nch, nout)] = (plan, by_slices)
     del xm, hm, tv_sets
+
+    def launch_us(fn, calls=3):
+        """Mean device microseconds of one launch of each kernel fn()
+        launches, under torch.profiler."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return {e.key: e.self_device_time_total / e.count for e in prof.key_averages()
+                if e.self_device_time_total > 0}
+
+    # the split scans at cell 12: CUDA events, device us from HBM (a CUDA
+    # graph over input sets that together outgrow the L2), and by
+    # torch.profiler the forward transforms / MAC / inverse transforms / the
+    # rest; at C = 1 also the scan's transient device memory
+    split_dev, split_parts = {}, {}
     for nch in (1, LONG_CH):
         px, ph, w0_, h0_, tails = batched_inputs(LONG_PTS, long_np, LONG_BLOCKS, nch)
         la = (px, w0_, h0_, 2.0, tails, LONG_PTS)
         ta = (px, ph, w0_, h0_, long_np - 1, 2.0, tails, LONG_PTS)
         nbc4 = LONG_BLOCKS * nch
+        nsets = 1 + -(-2 * L2_BYTES // nbytes(px, ph, *w0_, *h0_, tails))
+        sets = [batched_inputs(LONG_PTS, long_np, LONG_BLOCKS, nch) for _ in range(nsets)]
         for kname, fn, plain, args, ntr, hio in (
                 ("stream_steps_fused_split", SP.stream_steps_fused_split_batched,
                  SP.stream_steps_fused_split_batched_plain, la, 2, 1),
@@ -1930,11 +1962,45 @@ def main():
                 + (nbytes(ph) if ntr == 3 else 0)
             bnd = bound(stream_flops(nbc4, long_np, LONG_PTS, LONG_PTS, ntr * nbc4), nbytes_)
             new_rows[(kname, nch, LONG_BLOCKS)] = (k_ms, tw_ms, bnd)
-    del px, ph, w0_, h0_, tails
-    # what the factored design does a block: 4 forward rows (8 for TV) and
-    # 4 inverse rows of m x m products, and the MAC
-    split_design = 2.0 * LONG_BLOCKS * 4 * LONG_PTS ** 2 + 2.0 * (LONG_BLOCKS + 1) * 4 \
-        * LONG_PTS ** 2 + 8.0 * LONG_BLOCKS * long_np * LONG_PTS
+            if ntr == 2:
+                run_set = lambda i: fn(sets[i][0], *sets[i][2:4], 2.0, sets[i][4],  # noqa: E731
+                                       LONG_PTS)
+            else:
+                run_set = lambda i: fn(sets[i][0], *sets[i][1:4], long_np - 1,  # noqa: E731
+                                       2.0, sets[i][4], LONG_PTS)
+            split_dev[(kname, nch)] = graph_us(run_set, nsets, calls=10 if nch == 1 else 4,
+                                               reps=5)
+            # each kernel's mean device us a launch (a profiler session can
+            # drop launches) times its launches a scan: the forward
+            # transform once a timeline (twice in the TV scan), the rest once
+            parts = {"forward": 0.0, "MAC": 0.0, "inverse": 0.0, "rest": 0.0}
+            for kn, us in launch_us(lambda: fn(*args)).items():
+                part = ("inverse" if "inv" in kn or "unpack" in kn or "ola" in kn
+                        else "forward" if "fwd" in kn or "z_planes" in kn or "pack" in kn
+                        else "MAC" if "mac" in kn else "rest")
+                parts[part] += us * (ntr - 1 if part == "forward" else 1)
+            split_parts[(kname, nch)] = parts
+        if nch == 1:
+            torch.cuda.synchronize()
+            base_mem = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            SP.stream_steps_fused_split_batched(*la)
+            torch.cuda.synchronize()
+            split_peak = torch.cuda.max_memory_allocated(dev) - base_mem
+    split_tables_bytes = sum(nbytes(t) for t in SP._plan(LONG_PTS, dev).tables if t is not None) \
+        + nbytes(*SP.coef_tables(LONG_PTS, dev))
+    del px, ph, w0_, h0_, tails, sets, la, ta
+
+    def split_design(nb_, nparts, m, tv):
+        """Operations the split scan's design does: the MAC, an m-point
+        complex FFT (5 m log2 m) for each block's frame (two in the TV
+        scan) and each of the nb + 1 output rows, the pack (14 a bin) and
+        the fold and unpack (18 a bin)."""
+        nf = (2 if tv else 1) * nb_
+        return 8.0 * nb_ * nparts * m + (nf + nb_ + 1) * 5.0 * m * math.log2(m) \
+            + nf * 14.0 * m + (nb_ + 1) * 18.0 * m
+
+    design_lti = split_design(LONG_BLOCKS, long_np, LONG_PTS, False)
     print(f"phase 30 timing [{card}]: tvconv_decomposed_rt_factor_2^17_512 "
           f"{audio_s / (dtv_ms / 1e3):.1f} (TV stream_decomposed {SCAN_BLOCKS}x{PTS}: "
           f"{dtv_ms:.4f} ms; pconv_stream_tv {tv_s_ms:.4f} ms = {audio_s / (tv_s_ms / 1e3):.1f}x); "
@@ -1961,9 +2027,18 @@ def main():
                   f"S={sl} {us:.1f} ({100 * new_rows[(k, c, n)][2][0] * 1e3 / us:.1f}% of the "
                   f"bound)" for sl, us in d.items())
               for (k, c, n), (pl, d) in tv_dev.items())
-          + f" | the factored LTI scan does {split_design / 1e9:.3f} GFLOP at C=1 "
-          f"({split_design / (new_rows[('stream_steps_fused_split', 1, LONG_BLOCKS)][0] / 1e3) / 1e12:.2f} "
-          f"TFLOP/s)", flush=True)
+          + f" | split scans at pts {LONG_PTS} x {LONG_BLOCKS} blocks, device us from HBM (a "
+          "CUDA graph over rotating input sets) and by torch.profiler (mean a launch times "
+          "launches a scan) forward / MAC / inverse / rest: " + "; ".join(
+              f"{k} C={c}: {us:.1f} us "
+              f"({100 * new_rows[(k, c, LONG_BLOCKS)][2][0] * 1e3 / us:.2f}% of the bound); "
+              + " / ".join(f"{v:.1f}" for v in parts.values())
+              + f" us ({100 * parts['MAC'] / sum(parts.values()):.1f}% MAC)"
+              for (k, c), us in split_dev.items() for parts in (split_parts[(k, c)],))
+          + f" | the split LTI scan's design does {design_lti / 1e9:.3f} GFLOP at C=1 "
+          f"({design_lti / (split_dev[('stream_steps_fused_split', 1)] / 1e6) / 1e12:.2f} "
+          f"TFLOP/s from HBM); its tables {split_tables_bytes / 2**20:.3f} MiB, transient device "
+          f"memory of one C=1 scan {split_peak / 2**20:.1f} MiB", flush=True)
     profile_streams((
         ("TV stream_decomposed 1880 blocks", lambda: SD(cfg, state, blocks, bh)),
         ("pconv_stream_batched_tv_chunked K=8 64ch x 472 blocks",

@@ -1,6 +1,6 @@
 // The parts of the whole-scan partitioned convolution that the dense-table
 // scans (streamstep.cu: TPU kernels stream_steps_fused{,_tv,_batched,
-// _batched_tv}) and the factored-table scans (splitstep.cu:
+// _batched_tv}) and the split scans (splitstep.cu:
 // stream_steps_fused_split{,_tv}) share, and the timeline MAC that the TV
 // sliding MAC (slidemac.cu: macflow_tv{,_batched}) runs too. The two scan
 // families differ only in how a block becomes its frame spectra and how an

@@ -1,232 +1,483 @@
-// Whole-scan partitioned convolution on the factored transform tables, on
-// Hopper (sm_90a): LTI and time-varying (TV), for C channels at once (C = 1
-// is the single-channel scan).
+// Whole-scan partitioned convolution with in-kernel FFTs, on Hopper
+// (sm_90a): LTI and time-varying (TV), for C channels at once (C = 1 is the
+// single-channel scan).
 //
 // Replaces the TPU kernels of opencl_fft_tpu/ops/pallas/splitstep.py:
 // _split_stream_kernel (wrapper stream_steps_fused_split :367) and
 // _split_stream_tv_kernel (stream_steps_fused_split_tv :493). They compute
 // the scans of streamstep.cu (the same window slide, MAC, TV ring walk and
-// overlap-add, shared through scan_mac.cuh) with both transform chains
-// factored through one (m, m) table, m = pts = bins:
-//   ctab[k, q] = cos(2 pi (q/2) k / m) for q even, sin(...) for q odd,
-// plus (8, m) coefficient stacks (ops/cuda/tables.py), instead of the dense
-// (m, 2m) and (2m, 2m) tables: 1 m^2 table where the dense ones take 6 m^2
-// (100 MB at m = 2048, 400 MB at 4096). Per block the JAX chain is
-//   forward: [x, psw(x), x*pm, psw(x)*pm] @ ctab^T -> FR, FI, GR, GI, then
-//     re = FR a1 + GR a2 + FI b1 + GI b2, im = FR c1 + GR c2 + FI d1 + GI d2
-//     (psw(x)_q = x_{q+1} for q even, -x_{q-1} for q odd; pm = (-1)^q);
-//   inverse: A, B, D, E = the four coefficient combos of (acc_re, acc_im),
-//     [A, B, D, E, A pm, B pm, D pm, E pm] @ ctab -> ya .. ye2,
-//     out1 = (ya + yb pm) + sw(yd + ye pm), out2 likewise from the pm rows
-//     (sw(v)_q = -v_{q+1} for q even, v_{q-1} for q odd), and the block's
-//     output is (out1[t] + out2[t-1]) / pts.
+// overlap-add, shared through scan_mac.cuh), and the TPU kernels factor both
+// transform chains through one (m, m) cos/sin table, m = pts = bins (JAX
+// splitstep.py fwd_ref / inv_ref). Here each block's chain is the same
+// function computed by an m-point complex FFT:
+//   forward: the zero-padded 2m-sample frame of block x is the half-size
+//     sequence z_j = x_2j + i x_2j+1 (nonzero for j < m/2); Z = FFT_m(z)
+//     (sign -1), then the pack: packed bin k from Z_k and Z_(m-k) through
+//     the 8 forward coefficient rows (ops/cuda/tables.py _coef_stacks_np):
+//       re_k = Zr_k a1 + Zr_(m-k) a2 + Zi_k b1 + Zi_(m-k) b2, im_k likewise
+//       from c1, c2, d1, d2;
+//   inverse with the overlap-add folded in: output row t (t = 0..nb) is
+//     the unpack U of w = acc[t] + pm acc[t-1] (pm = (-1)^k commutes with
+//     U, since (m-k) has k's parity; acc[-1] = acc[nb] = 0), with the
+//     inverse coefficient rows [a1, b1, na2, nb2, c1, d1, nc2, nd2]:
+//       A = wr a1 + wi b1, Bv = wr na2 + wi nb2, D, E likewise,
+//       U_k = (A_k + Bv_(m-k), D_k + E_(m-k));
+//     y = IFFT_m(U) unnormalized (sign +1); its first m/2 values are
+//     out1[t] + out2[t-1] deinterleaved (out[2j] = Re y_j, out[2j+1] =
+//     Im y_j); the carried tail is added at t = 0 and the row divided by
+//     pts; row nb is the final tail out2[nb-1]. One transform a row, nb+1
+//     a channel.
 //
 // What bounds it on the card. At pts 4096 with a 2^20-tap IR (nparts 256)
 // and 470 blocks, the least work is the MAC (8 nb nparts bins = 3.94 GFLOP)
-// and the transforms (0.25 GFLOP): 0.063 ms at 67 TFLOP/s. The factored
-// chain's products are dense DFTs, O(m^2) a block: 4 nb m^2 * 2 = 63 GFLOP
-// forward (126 in the TV scan) and, with the overlap-add folded in as
-// below, 4 (nb+1) m^2 * 2 = 63 GFLOP inverse, all FP32 FMA (the JAX tables
-// run at Precision.HIGHEST: no TF32). So the products bound it, at the
-// SGEMM tile's rate.
+// and the transforms (0.25 GFLOP): 0.063 ms at 67 TFLOP/s; the bytes (the
+// blocks, windows, IR planes and outputs, ~17 MB) take 0.005 ms. So the MAC
+// bounds it: the transforms do 5 m log2 m operations a block each way
+// (0.23 GFLOP in all) and move each frame through device memory once.
 //
-// What the design does about it. The TPU kernel walks 8-block groups in
-// sequence with the tables and state in VMEM. Here every block is known up
-// front, as in streamstep.cu, and the products run over all blocks of all
-// channels at once on the SGEMM tile of sgemm_tile.cuh, with the row
-// stacks never stored (at 16 channels x 470 blocks x 4096 the stacks would
-// be 0.5-1 GB):
-//   1. split_fwd_kernel: logical row 4 (t*C + c) + v of the A operand is
-//      variant v of block t of channel c, computed as the tile loads it; a
-//      thread's 4 accumulator rows are the 4 variants of one block, so the
-//      pack with the 8 forward coefficients is its epilogue, which writes
-//      row row0 + t of channel c's timeline.
+// What the design does about it. Every block is known up front, as in
+// streamstep.cu, so each step runs over all blocks of all channels at once:
+//   1. fft_fwd_kernel: a CTA loads B = 2^log_b blocks' z straight from
+//      `blocks` (float2 pairs, coalesced) into the first Stockham pass of
+//      fft_tile (fft_tile.cuh, shared with fft.cu), transforms them in
+//      shared memory and packs: one thread a bin pair (k, m-k), both bins
+//      written into row row0 + t of channel c's timeline ([re | im]).
 //   2. the timeline MAC of scan_mac.cuh (H_LTI / H_TV_PAIR / H_TV).
-//   3. split_post_kernel: the overlap-add is folded into the inverse
-//      product. out1[t] + out2[t-1] is linear, and out2's rows are out1's
-//      rows times pm before the same ctab, so logical row 4t + v of the A
-//      operand (t = 0..nb, channel c = blockIdx.z) is
-//        z_v(acc[t]) + pm * z_v(acc[t-1]),   z = A, B, D, E,
-//      read from aext (zero rows at acc[-1] and acc[nb]), and a thread's 4
-//      rows give Ya..Ye of output row t: its epilogue forms (Ya + Yb pm) +
-//      sw(Yd + Ye pm) over its 4 adjacent columns (sw pairs columns 2i and
-//      2i+1, both in the thread), adds the carried tail at t = 0 and
-//      divides by pts; row nb is the final tail. One product of 4 (nb+1)
-//      rows instead of 8 nb.
-// An in-kernel FFT (the radix-16 passes of fft.cu) instead of the dense
-// products is the way to the bound; it is later work.
+//   3. fft_inv_kernel: a CTA takes B output rows of one channel, writes
+//      U(acc[t] + pm acc[t-1]) into shared memory (one thread a bin pair,
+//      reading aext, whose rows 0 and nb+1 are zero), transforms it and
+//      stores the first m/2 outputs, deinterleaved, from registers. Folding
+//      the overlap-add into the transform's input costs one transform a
+//      row and no pass of its own; keeping both output halves in scratch
+//      and adding them in a second pass would move 2 (nb+1) m more floats
+//      through device memory for the same transforms.
+// A CTA holds up to 2^13 values (512 threads, two CTAs an SM, as fft.cu's
+// leaf); m = 2^14 takes one row of 1024 threads. Above 2^14 the same pack
+// and unpack run as kernels of their own around fft.cu's four-step (front
+// then leaf, moved into fft_tile.cuh) on scratch planes. No atomics: every
+// output is written by one thread, in a fixed order.
 
+#include "fft_tile.cuh"
 #include "scan_mac.cuh"
 
 namespace {
 
-using sgemm::BM;
-using sgemm::BN;
-using sgemm::Strided;
-using sgemm::TM;
-using sgemm::TN;
-using sgemm::gemm_tile_ld;
-constexpr int GEMM_THREADS = sgemm::THREADS;
-static_assert(TM == 4, "a thread's rows are the 4 variants of one block");
-static_assert(TN % 2 == 0, "sw pairs columns 2i and 2i+1 within a thread");
+constexpr int BIG_LOG2 = 14;                                 // the largest in-CTA transform
+constexpr int BIG_THREADS = (1 << BIG_LOG2) / PER_THREAD;   // one row of 2^14 a CTA
+constexpr int EW_THREADS = 256;                              // the four-step's pack kernels
 
-// A operand of the forward product: row 4*br + v, column k of
-// [x, psw(x), x*pm, psw(x)*pm] for block row br of blocks (rows of pts)
-struct FwdRows {
-    const float* blocks;
-    int pts;
-    __device__ __forceinline__ float operator()(int r, int k) const {
-        const float* x = blocks + static_cast<size_t>(r >> 2) * pts;
-        const int v = r & 3;
-        float val = (v & 1) ? ((k & 1) ? -__ldg(x + k - 1) : __ldg(x + k + 1)) : __ldg(x + k);
-        return ((v & 2) && (k & 1)) ? -val : val;
-    }
-};
+// Packed bin k of a frame from (zr, zi) = Z_k and (fr, fi) = Z_(m-k):
+// the forward coefficient rows [a1, a2, b1, b2, c1, c2, d1, d2] (8, m).
+__device__ __forceinline__ void pack_bin(const float* __restrict__ fc, int m, int k, float zr,
+                                         float zi, float fr, float fi, float* __restrict__ row) {
+    fc += k;
+    row[k] = zr * __ldg(fc) + fr * __ldg(fc + m) + zi * __ldg(fc + 2 * m) + fi * __ldg(fc + 3 * m);
+    row[m + k] = zr * __ldg(fc + 4 * m) + fr * __ldg(fc + 5 * m) + zi * __ldg(fc + 6 * m)
+        + fi * __ldg(fc + 7 * m);
+}
 
-// A operand of the inverse product of one channel: row 4t + v, column k of
-// z_v(acc[t]) + pm * z_v(acc[t-1]), z_v(a) = a_re * ic[2v] + a_im * ic[2v+1];
-// aext row t+1 holds [acc_re[t] | acc_im[t]]
-struct InvRows {
-    const float* aext;
-    const float* icoef;
-    int m;
-    __device__ __forceinline__ float operator()(int r, int k) const {
-        const size_t b2 = 2 * static_cast<size_t>(m);
-        const int v = r & 3;
-        const float* cur = aext + static_cast<size_t>((r >> 2) + 1) * b2;
-        const float* prev = cur - b2;
-        const float c1 = __ldg(icoef + 2 * v * m + k), c2 = __ldg(icoef + (2 * v + 1) * m + k);
-        const float zc = cur[k] * c1 + cur[m + k] * c2;
-        const float zp = prev[k] * c1 + prev[m + k] * c2;
-        return (k & 1) ? zc - zp : zc + zp;
-    }
-};
-
-// frames of blocks (nb*C rows of pts, row t*C + c) -> row row0 + t of
-// channel c's timeline (channel stride tl_cs)
-__global__ void __launch_bounds__(GEMM_THREADS)
-split_fwd_kernel(Scan s, int row0, const float* __restrict__ blocks,
-                 const float* __restrict__ ctab_t, const float* __restrict__ fcoef,
-                 float* __restrict__ tl, size_t tl_cs) {
-    const int nrows = s.nb * s.C, m = s.bins;
-    const int r0 = blockIdx.x * BM, c0 = blockIdx.y * BN;
-    float acc[TM][TN];
-    gemm_tile_ld(4 * nrows, m, m, FwdRows{blocks, m}, Strided{ctab_t, m}, r0, c0, acc);
-    const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
-    const int br = r0 / 4 + ty;
-    if (br >= nrows) return;
-    const int t = br / s.C, c = br - t * s.C;
-    float* row = tl + c * tl_cs + static_cast<size_t>(row0 + t) * s.b2();
+// The spectrum U(acc[t] + pm acc[t-1]) at bins k (vr, vi) and m-k (ur, ui):
+// cur = [acc_re[t] | acc_im[t]], prev the row before; the inverse
+// coefficient rows [a1, b1, na2, nb2, c1, d1, nc2, nd2] (8, m).
+__device__ __forceinline__ void unpack_pair(const float* __restrict__ cur,
+                                            const float* __restrict__ prev,
+                                            const float* __restrict__ ic, int m, int k, float& vr,
+                                            float& vi, float& ur, float& ui) {
+    const int mk = (m - k) & (m - 1);
+    const float pm = (k & 1) ? -1.f : 1.f;   // (-1)^k == (-1)^(m-k)
+    float a[2], bv[2], d[2], e[2];
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-        const int col = c0 + tx * TN + j;
-        if (col >= m) continue;
-        const float fr = acc[0][j], fi = acc[1][j], gr = acc[2][j], gi = acc[3][j];
-        const float* fc = fcoef + col;
-        row[col] = fr * fc[0] + gr * fc[m] + fi * fc[2 * m] + gi * fc[3 * m];
-        row[m + col] = fr * fc[4 * m] + gr * fc[5 * m] + fi * fc[6 * m] + gi * fc[7 * m];
+    for (int s = 0; s < 2; ++s) {
+        const int i = s ? mk : k;
+        const float wr = cur[i] + pm * prev[i], wi = cur[m + i] + pm * prev[m + i];
+        a[s] = wr * __ldg(ic + i) + wi * __ldg(ic + m + i);
+        bv[s] = wr * __ldg(ic + 2 * m + i) + wi * __ldg(ic + 3 * m + i);
+        d[s] = wr * __ldg(ic + 4 * m + i) + wi * __ldg(ic + 5 * m + i);
+        e[s] = wr * __ldg(ic + 6 * m + i) + wi * __ldg(ic + 7 * m + i);
+    }
+    vr = a[0] + bv[1];
+    vi = d[0] + e[1];
+    ur = a[1] + bv[0];
+    ui = d[1] + e[0];
+}
+
+// Output samples 2j, 2j+1 of row t of channel c from y_j = (re, im): the
+// final tail at t = nb, else (y + tail at t = 0) / pts into outs row t*C + c.
+__device__ __forceinline__ void ola_store(const Scan& s, int c, int t, int j, float re, float im,
+                                          const float* __restrict__ tail0, float inv_pts,
+                                          float* __restrict__ outs, float* __restrict__ tailf) {
+    const size_t cm = static_cast<size_t>(c) * s.bins + 2 * j;
+    if (t == s.nb) {
+        *reinterpret_cast<float2*>(tailf + cm) = make_float2(re, im);
+        return;
+    }
+    if (t == 0) {
+        re += tail0[cm];
+        im += tail0[cm + 1];
+    }
+    *reinterpret_cast<float2*>(outs + static_cast<size_t>(t) * s.C * s.bins + cm) =
+        make_float2(re * inv_pts, im * inv_pts);
+}
+
+// Frames of the rows of blocks ((nb*C, m): row t*C + c), B = 2^log_b a CTA,
+// into row row0 + t of channel c's timeline (channel stride tl_cs).
+template <int MAXT>
+__global__ void __launch_bounds__(MAXT, MAXT == MAX_THREADS ? MIN_BLOCKS : 1)
+fft_fwd_kernel(Scan s, int row0, const float* __restrict__ blocks, const float2* __restrict__ tw,
+               const float* __restrict__ fcoef, float* __restrict__ tl, size_t tl_cs, int log_l,
+               int log_b) {
+    extern __shared__ float smem[];
+    const Layout<false> lay{log_l, log_b, row_stride(log_l)};
+    const int B = 1 << log_b, m = 1 << log_l, half = m >> 1;
+    float* sr = smem;
+    float* si = smem + B * lay.S;
+    const long long nrows = static_cast<long long>(s.nb) * s.C;
+    const long long r0 = static_cast<long long>(blockIdx.x) << log_b;
+    const float2* z = reinterpret_cast<const float2*>(blocks);
+    auto gload = [&](int b, int q, float& re, float& im) {
+        const bool in = q < half && r0 + b < nrows;
+        const float2 v = in ? __ldg(z + static_cast<size_t>(r0 + b) * half + q)
+                            : make_float2(0.f, 0.f);
+        re = v.x;
+        im = v.y;
+    };
+    auto sstore = [&](int b, int k, float re, float im) {
+        sr[lay.smem(b, k)] = re;
+        si[lay.smem(b, k)] = im;
+    };
+    fft_tile(lay, sr, si, gload, sstore, NoPre{}, true, tw, -1);
+    __syncthreads();
+    const int pairs = half + 1;   // (k, m-k) for k = 0..m/2
+    for (int e = threadIdx.x; e < B * pairs; e += blockDim.x) {
+        const int b = e / pairs, k = e - b * pairs;
+        const long long br = r0 + b;
+        if (br >= nrows) break;   // later e have no smaller b
+        const int mk = (m - k) & (m - 1);
+        const int t = static_cast<int>(br / s.C), c = static_cast<int>(br - 1LL * t * s.C);
+        float* row = tl + c * tl_cs + static_cast<size_t>(row0 + t) * s.b2();
+        const float zr = sr[lay.smem(b, k)], zi = si[lay.smem(b, k)];
+        const float fr = sr[lay.smem(b, mk)], fi = si[lay.smem(b, mk)];
+        pack_bin(fcoef, m, k, zr, zi, fr, fi, row);
+        if (mk != k) pack_bin(fcoef, m, mk, fr, fi, zr, zi, row);
     }
 }
 
-// Channel c = blockIdx.z. Rows t < nb: outs[t*C + c] = (out1(acc[t]) +
-// out2(acc[t-1]) + (t == 0 ? tail0_c : 0)) / pts; row nb: tailf_c =
-// out2(acc[nb-1])
-__global__ void __launch_bounds__(GEMM_THREADS)
-split_post_kernel(Scan s, const float* __restrict__ aext, const float* __restrict__ ctab,
-                  const float* __restrict__ icoef, const float* __restrict__ tail0,
-                  float inv_pts, float* __restrict__ outs, float* __restrict__ tailf) {
-    const int nb = s.nb, m = s.bins, c = blockIdx.z;
-    const int r0 = blockIdx.x * BM, c0 = blockIdx.y * BN;
-    float acc[TM][TN];
-    gemm_tile_ld(4 * (nb + 1), m, m, InvRows{aext + c * s.ax(), icoef, m}, Strided{ctab, m},
-                 r0, c0, acc);
-    const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
-    const int t = r0 / 4 + ty;
-    if (t > nb) return;
-    float zr[TN], zi[TN];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-        const bool odd = (c0 + tx * TN + j) & 1;
-        zr[j] = odd ? acc[0][j] - acc[1][j] : acc[0][j] + acc[1][j];
-        zi[j] = odd ? acc[2][j] - acc[3][j] : acc[2][j] + acc[3][j];
+// Output rows t = 0..nb of channel c = blockIdx.y, B = 2^log_b a CTA, from
+// aext (C, nb+2, 2m).
+template <int MAXT>
+__global__ void __launch_bounds__(MAXT, MAXT == MAX_THREADS ? MIN_BLOCKS : 1)
+fft_inv_kernel(Scan s, const float* __restrict__ aext, const float2* __restrict__ tw,
+               const float* __restrict__ icoef, const float* __restrict__ tail0, float inv_pts,
+               float* __restrict__ outs, float* __restrict__ tailf, int log_l, int log_b) {
+    extern __shared__ float smem[];
+    const Layout<false> lay{log_l, log_b, row_stride(log_l)};
+    const int B = 1 << log_b, m = 1 << log_l, half = m >> 1;
+    float* sr = smem;
+    float* si = smem + B * lay.S;
+    const int c = blockIdx.y, t0 = blockIdx.x << log_b;
+    const float* ax = aext + c * s.ax();
+    const int pairs = half + 1;
+    for (int e = threadIdx.x; e < B * pairs; e += blockDim.x) {
+        const int b = e / pairs, k = e - b * pairs, t = t0 + b;
+        const int mk = (m - k) & (m - 1);
+        float vr = 0.f, vi = 0.f, ur = 0.f, ui = 0.f;
+        if (t <= s.nb) {
+            const float* cur = ax + static_cast<size_t>(t + 1) * s.b2();
+            unpack_pair(cur, cur - s.b2(), icoef, m, k, vr, vi, ur, ui);
+        }
+        sr[lay.smem(b, k)] = vr;
+        si[lay.smem(b, k)] = vi;
+        sr[lay.smem(b, mk)] = ur;
+        si[lay.smem(b, mk)] = ui;
     }
-    const size_t chan = static_cast<size_t>(c) * m;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-        const int col = c0 + tx * TN + j;
-        if (col >= m) continue;
-        const float y = zr[j] + ((j & 1) ? zi[j - 1] : -zi[j + 1]);
-        if (t == nb)
-            tailf[chan + col] = y;
-        else
-            outs[static_cast<size_t>(t) * s.C * m + chan + col] =
-                (y + (t == 0 ? tail0[chan + col] : 0.f)) * inv_pts;
+    __syncthreads();
+    auto sload = [&](int b, int q, float& re, float& im) {
+        re = sr[lay.smem(b, q)];
+        im = si[lay.smem(b, q)];
+    };
+    auto gstore = [&](int b, int j, float re, float im) {
+        const int t = t0 + b;
+        if (j < half && t <= s.nb) ola_store(s, c, t, j, re, im, tail0, inv_pts, outs, tailf);
+    };
+    fft_tile(lay, sr, si, sload, gstore, NoPre{}, false, tw, +1, true);
+}
+
+// The four-step's pack kernels, grid-stride over their elements. z planes
+// (rows, m) of the rows of blocks, zero above m/2.
+__global__ void __launch_bounds__(EW_THREADS)
+z_planes_kernel(const float* __restrict__ blocks, long long rows, int log_l,
+                float* __restrict__ zr, float* __restrict__ zi) {
+    const int half = 1 << (log_l - 1);
+    const size_t n = static_cast<size_t>(rows) << log_l;
+    for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n;
+         i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+        const int q = static_cast<int>(i & ((1u << log_l) - 1));
+        const size_t r = i >> log_l;
+        const bool in = q < half;
+        zr[i] = in ? blocks[(r << log_l) + 2 * q] : 0.f;
+        zi[i] = in ? blocks[(r << log_l) + 2 * q + 1] : 0.f;
     }
 }
 
-// steps 1 and 3 of the factored scans, as run_scan takes them
-struct SplitFwd {
-    const float* ctab_t;
+// Z planes (rows, m) -> the packed frames in the timelines, a bin pair an
+// element.
+__global__ void __launch_bounds__(EW_THREADS)
+pack_kernel(Scan s, int row0, const float* __restrict__ zr, const float* __restrict__ zi,
+            const float* __restrict__ fcoef, float* __restrict__ tl, size_t tl_cs, int log_l) {
+    const int m = 1 << log_l, pairs = m / 2 + 1;
+    const size_t n = static_cast<size_t>(s.nb) * s.C * pairs;
+    for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n;
+         i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+        const long long br = static_cast<long long>(i / pairs);
+        const int k = static_cast<int>(i - static_cast<size_t>(br) * pairs);
+        const int mk = (m - k) & (m - 1);
+        const int t = static_cast<int>(br / s.C), c = static_cast<int>(br - 1LL * t * s.C);
+        float* row = tl + c * tl_cs + static_cast<size_t>(row0 + t) * s.b2();
+        const size_t z0 = static_cast<size_t>(br) << log_l;
+        const float a_r = zr[z0 + k], a_i = zi[z0 + k], f_r = zr[z0 + mk], f_i = zi[z0 + mk];
+        pack_bin(fcoef, m, k, a_r, a_i, f_r, f_i, row);
+        if (mk != k) pack_bin(fcoef, m, mk, f_r, f_i, a_r, a_i, row);
+    }
+}
+
+// aext -> V planes (C (nb+1), m): row c (nb+1) + t holds U(acc[t] + pm
+// acc[t-1]) of channel c, a bin pair an element.
+__global__ void __launch_bounds__(EW_THREADS)
+unpack_kernel(Scan s, const float* __restrict__ aext, const float* __restrict__ icoef,
+              int log_l, float* __restrict__ vr, float* __restrict__ vi) {
+    const int m = 1 << log_l, pairs = m / 2 + 1;
+    const size_t rows = static_cast<size_t>(s.nb + 1) * s.C, n = rows * pairs;
+    for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n;
+         i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+        const size_t r = i / pairs;
+        const int k = static_cast<int>(i - r * pairs), mk = (m - k) & (m - 1);
+        const size_t c = r / (s.nb + 1), t = r - c * (s.nb + 1);
+        const float* cur = aext + c * s.ax() + (t + 1) * s.b2();
+        float a_r, a_i, f_r, f_i;
+        unpack_pair(cur, cur - s.b2(), icoef, m, k, a_r, a_i, f_r, f_i);
+        const size_t v0 = r << log_l;
+        vr[v0 + k] = a_r;
+        vi[v0 + k] = a_i;
+        vr[v0 + mk] = f_r;
+        vi[v0 + mk] = f_i;
+    }
+}
+
+// Y planes (C (nb+1), m) -> outputs and final tails: y_j, j < m/2, of row
+// c (nb+1) + t, an element each.
+__global__ void __launch_bounds__(EW_THREADS)
+ola_kernel(Scan s, const float* __restrict__ yr, const float* __restrict__ yi,
+           const float* __restrict__ tail0, float inv_pts, float* __restrict__ outs,
+           float* __restrict__ tailf, int log_l) {
+    const int half = 1 << (log_l - 1);
+    const size_t rows = static_cast<size_t>(s.nb + 1) * s.C, n = rows * half;
+    for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n;
+         i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+        const size_t r = i / half;
+        const int j = static_cast<int>(i - r * half);
+        const size_t c = r / (s.nb + 1), t = r - c * (s.nb + 1);
+        const size_t y0 = r << log_l;
+        ola_store(s, static_cast<int>(c), static_cast<int>(t), j, yr[y0 + j], yi[y0 + j], tail0,
+                  inv_pts, outs, tailf);
+    }
+}
+
+// A grid-stride kernel's CTAs: enough for the card, no more than the work.
+unsigned ew_ctas(size_t n) {
+    const size_t need = (n + EW_THREADS - 1) / EW_THREADS;
+    return static_cast<unsigned>(need < 132 * 16 ? need : 132 * 16);
+}
+
+// The in-CTA tile for `rows` transforms of m = 2^log_l: 2^log_b rows a CTA,
+// at most 2^13 values (2^14 at m = 2^14), at least 16 (one thread), no more
+// rows than there are.
+struct TileShape {
+    int log_b;
+    int threads;
+    size_t smem;
+};
+
+TileShape tile_shape(int log_l, long long rows) {
+    int log_b = 0;
+    if (log_l < BIG_LOG2) {
+        const int need = rows > 1 ? ilog2(rows - 1) + 1 : 0;
+        log_b = TILE_LOG2 - log_l;
+        if (log_b > need) log_b = need;
+        if (log_l + log_b < 4) log_b = 4 - log_l;
+    }
+    const int threads = (1 << (log_l + log_b)) / PER_THREAD;
+    return {log_b, threads, 2 * sizeof(float) * (static_cast<size_t>(row_stride(log_l)) << log_b)};
+}
+
+size_t tile_granted[2][2][64];   // [inverse][m == 2^14][device]
+
+// The m-point transforms of one sign: in the CTA (log_n1 == 0: tw2 the pass
+// table of m) or the four-step at n1 x n2 (tw1, tw2 the pass tables of n1
+// and n2; ta, tb, ts the leaf's twiddle tables, A's rows 2^log_a long).
+struct Plan {
+    const float* tw1;
+    const float* tw2;
+    const float* ta;
+    const float* tb;
+    const float* ts;
+    int log_n1, log_a;
+};
+
+// step 1 of the scans, as run_scan takes it. scratch: four planes of C
+// (nb+1) m floats for the four-step, unused in the CTA.
+struct FftFwd {
+    Plan p;
     const float* fcoef;
-    cudaError_t operator()(const Scan& s, const float* blocks, float* tl, size_t tl_cs,
-                           int row0, cudaStream_t st) const {
-        split_fwd_kernel<<<dim3(cdiv(4LL * s.nb * s.C, BM), cdiv(s.bins, BN)), GEMM_THREADS,
-                           0, st>>>(s, row0, blocks, ctab_t, fcoef, tl, tl_cs);
+    float* scratch;
+    int device;
+    cudaError_t operator()(const Scan& s, const float* blocks, float* tl, size_t tl_cs, int row0,
+                           cudaStream_t st) const {
+        const long long rows = static_cast<long long>(s.nb) * s.C;
+        const int log_l = ilog2(s.bins);
+        if (p.log_n1 == 0) {
+            const TileShape g = tile_shape(log_l, rows);
+            const long long ctas = (rows + (1LL << g.log_b) - 1) >> g.log_b;
+            if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+            const auto tw = reinterpret_cast<const float2*>(p.tw2);
+            if (log_l == BIG_LOG2) {
+                FFT_RETURN_IF_ERROR(allow_smem(fft_fwd_kernel<BIG_THREADS>, device, g.smem,
+                                               tile_granted[0][1]));
+                fft_fwd_kernel<BIG_THREADS><<<static_cast<unsigned>(ctas), g.threads, g.smem, st>>>(
+                    s, row0, blocks, tw, fcoef, tl, tl_cs, log_l, g.log_b);
+            } else {
+                FFT_RETURN_IF_ERROR(allow_smem(fft_fwd_kernel<MAX_THREADS>, device, g.smem,
+                                               tile_granted[0][0]));
+                fft_fwd_kernel<MAX_THREADS><<<static_cast<unsigned>(ctas), g.threads, g.smem, st>>>(
+                    s, row0, blocks, tw, fcoef, tl, tl_cs, log_l, g.log_b);
+            }
+            return cudaGetLastError();
+        }
+        const size_t plane = static_cast<size_t>(rows) << log_l;
+        float *zr = scratch, *zi = zr + plane, *fr = zi + plane, *fi = fr + plane;
+        z_planes_kernel<<<ew_ctas(plane), EW_THREADS, 0, st>>>(blocks, rows, log_l, zr, zi);
+        FFT_RETURN_IF_ERROR(cudaGetLastError());
+        const int log_n2 = log_l - p.log_n1;
+        FFT_RETURN_IF_ERROR(launch_front(zr, zi, fr, fi, p.tw1, rows, p.log_n1, log_n2, -1,
+                                         device, st));
+        FFT_RETURN_IF_ERROR(launch_rows(fr, fi, zr, zi, p.tw2, p.ta, p.tb, p.ts, p.log_a,
+                                        rows << p.log_n1, log_n2, p.log_n1, -1, 1.f, device,
+                                        st));
+        pack_kernel<<<ew_ctas(static_cast<size_t>(rows) * (s.bins / 2 + 1)), EW_THREADS, 0, st>>>(
+            s, row0, zr, zi, fcoef, tl, tl_cs, log_l);
         return cudaGetLastError();
     }
 };
 
-struct SplitPost {
-    const float* ctab;
+// step 3 of the scans, as run_scan takes it
+struct FftPost {
+    Plan p;
     const float* icoef;
+    float* scratch;
+    int device;
     cudaError_t operator()(const Scan& s, const float* aext, const float* tail0, float* outs,
                            float* tailf, cudaStream_t st) const {
-        split_post_kernel<<<dim3(cdiv(4LL * (s.nb + 1), BM), cdiv(s.bins, BN), s.C),
-                            GEMM_THREADS, 0, st>>>(s, aext, ctab, icoef, tail0,
-                                                   1.0f / static_cast<float>(s.bins), outs,
-                                                   tailf);
+        const int log_l = ilog2(s.bins);
+        const float inv_pts = 1.0f / static_cast<float>(s.bins);
+        if (p.log_n1 == 0) {
+            const TileShape g = tile_shape(log_l, s.nb + 1LL);
+            const dim3 grid((s.nb + (1 << g.log_b)) >> g.log_b, s.C);
+            const auto tw = reinterpret_cast<const float2*>(p.tw2);
+            if (log_l == BIG_LOG2) {
+                FFT_RETURN_IF_ERROR(allow_smem(fft_inv_kernel<BIG_THREADS>, device, g.smem,
+                                               tile_granted[1][1]));
+                fft_inv_kernel<BIG_THREADS><<<grid, g.threads, g.smem, st>>>(
+                    s, aext, tw, icoef, tail0, inv_pts, outs, tailf, log_l, g.log_b);
+            } else {
+                FFT_RETURN_IF_ERROR(allow_smem(fft_inv_kernel<MAX_THREADS>, device, g.smem,
+                                               tile_granted[1][0]));
+                fft_inv_kernel<MAX_THREADS><<<grid, g.threads, g.smem, st>>>(
+                    s, aext, tw, icoef, tail0, inv_pts, outs, tailf, log_l, g.log_b);
+            }
+            return cudaGetLastError();
+        }
+        const long long rows = (s.nb + 1LL) * s.C;
+        const size_t plane = static_cast<size_t>(rows) << log_l;
+        float *vr = scratch, *vi = vr + plane, *fr = vi + plane, *fi = fr + plane;
+        unpack_kernel<<<ew_ctas(static_cast<size_t>(rows) * (s.bins / 2 + 1)), EW_THREADS, 0,
+                        st>>>(s, aext, icoef, log_l, vr, vi);
+        FFT_RETURN_IF_ERROR(cudaGetLastError());
+        const int log_n2 = log_l - p.log_n1;
+        FFT_RETURN_IF_ERROR(launch_front(vr, vi, fr, fi, p.tw1, rows, p.log_n1, log_n2, +1,
+                                         device, st));
+        FFT_RETURN_IF_ERROR(launch_rows(fr, fi, vr, vi, p.tw2, p.ta, p.tb, p.ts, p.log_a,
+                                        rows << p.log_n1, log_n2, p.log_n1, +1, 1.f, device,
+                                        st));
+        ola_kernel<<<ew_ctas(static_cast<size_t>(rows) * (s.bins / 2)), EW_THREADS, 0, st>>>(
+            s, vr, vi, tail0, inv_pts, outs, tailf, log_l);
         return cudaGetLastError();
     }
 };
+
+// The C entries' shared checks and plans. tabs: 10 device pointers, the
+// forward plan's (sign -1) [tw1, tw2, ta, tb, ts] then the inverse's (+1).
+cudaError_t plans(const float* const* tabs, int pts, int log_n1, int log_a, const float* scratch,
+                  Plan& fwd, Plan& inv) {
+    if (pts < 2 || (pts & (pts - 1)) != 0) return cudaErrorInvalidValue;
+    const int log_l = ilog2(pts);
+    if (log_n1 == 0 ? log_l > BIG_LOG2
+                    : (log_l <= BIG_LOG2 || log_n1 > TILE_LOG2 || log_l - log_n1 > TILE_LOG2
+                       || log_n1 < 1 || log_l - log_n1 < 1 || scratch == nullptr))
+        return cudaErrorInvalidValue;
+    fwd = {tabs[0], tabs[1], tabs[2], tabs[3], tabs[4], log_n1, log_a};
+    inv = {tabs[5], tabs[6], tabs[7], tabs[8], tabs[9], log_n1, log_a};
+    return cudaSuccess;
+}
 
 }  // namespace
 
-// One LTI scan of nb blocks of C channels on the factored tables. All
-// pointers are float32 device memory on `device`; blocks and outs are (nb,
-// C, pts), the windows and IR planes (C, nparts, pts), the tails (C, pts),
-// ctab and ctab_t (pts, pts), fcoef and icoef (8, pts). The caller
-// allocates outputs and scratch:
-//   timeline (C, nparts+nb, 2*pts), aext (C, nb+2, 2*pts).
+// One LTI scan of nb blocks of C channels. All pointers but tabs are
+// float32 device memory on `device`; blocks (8-byte aligned) and outs are
+// (nb, C, pts), the windows and IR planes (C, nparts, pts), the tails (C,
+// pts), fcoef and icoef (8, pts) (ops/cuda/tables.py _coef_stacks_np).
+// tabs: a host array of 10 device pointers to the transforms' float32
+// tables ((re, im) interleaved, sign baked in; ops/cuda/vmemfft.py): for
+// sign -1 then +1, the pass tables of n1 and n2 = pts / n1 and the
+// four-step tables A, B, S at log_a (four_step_tables_np). pts <= 2^14:
+// log_n1 = 0, one transform in a CTA, only the pass tables of pts (the
+// second of each five) are read. pts > 2^14: n1 = 2^log_n1, both factors in
+// [2, 2^13]. The caller allocates outputs and scratch:
+//   timeline (C, nparts+nb, 2*pts), aext (C, nb+2, 2*pts), and for pts >
+//   2^14 scratch of 4 C (nb+1) pts floats (else null).
 // Launches on `stream` without synchronising; returns the first CUDA error.
 extern "C" int stream_steps_fused_split_batched_f32(
     const float* blocks, const float* w0r, const float* w0i, const float* hr, const float* hi,
-    const float* ctab, const float* ctab_t, const float* fcoef, const float* icoef,
-    const float* tail0, float* outs, float* wfr, float* wfi, float* tailf, float* timeline,
-    float* aext, int nb, int C, int nparts, int pts, float b0_scale, int device,
-    void* stream_ptr) {
+    const float* const* tabs, const float* fcoef, const float* icoef, const float* tail0,
+    float* outs, float* wfr, float* wfi, float* tailf, float* timeline, float* aext,
+    float* scratch, int nb, int C, int nparts, int pts, int log_n1, int log_a, float b0_scale,
+    int device, void* stream_ptr) {
     SGEMM_RETURN_IF_ERROR(cudaSetDevice(device));
+    Plan fwd, inv;
+    SGEMM_RETURN_IF_ERROR(plans(tabs, pts, log_n1, log_a, scratch, fwd, inv));
     const Scan s{nb, C, nparts, pts};
-    return run_scan<false>(s, blocks, w0r, w0i, hr, hi, nullptr, 0, SplitFwd{ctab_t, fcoef},
-                           SplitPost{ctab, icoef}, tail0, outs, wfr, wfi, tailf, timeline,
-                           aext, b0_scale, static_cast<cudaStream_t>(stream_ptr));
+    return run_scan<false>(s, blocks, w0r, w0i, hr, hi, nullptr, 0,
+                           FftFwd{fwd, fcoef, scratch, device},
+                           FftPost{inv, icoef, scratch, device}, tail0, outs, wfr, wfi, tailf,
+                           timeline, aext, b0_scale, static_cast<cudaStream_t>(stream_ptr));
 }
 
-// One TV scan of nb blocks of C channels on the factored tables: blocks_x /
-// blocks_h (nb, C, pts), initial coefficient rings (h0r, h0i) (C, nparts,
-// pts), channel c's ring pointer wp2[c * wp2_stride] in [0, nparts) (int32
-// device memory; stride 0 shares one pointer); (hfr, hfi) receive the final
-// rings. Scratch as the LTI scan's, plus htimeline (C, nparts-1+nb, 2*pts).
+// One TV scan of nb blocks of C channels: blocks_x / blocks_h (nb, C, pts),
+// initial coefficient rings (h0r, h0i) (C, nparts, pts), channel c's ring
+// pointer wp2[c * wp2_stride] in [0, nparts) (int32 device memory; stride 0
+// shares one pointer); (hfr, hfi) receive the final rings. Tables and
+// scratch as the LTI scan's, plus htimeline (C, nparts-1+nb, 2*pts).
 extern "C" int stream_steps_fused_split_batched_tv_f32(
     const float* blocks_x, const float* blocks_h, const float* w0r, const float* w0i,
-    const float* h0r, const float* h0i, const int* wp2, int wp2_stride, const float* ctab,
-    const float* ctab_t, const float* fcoef, const float* icoef, const float* tail0,
+    const float* h0r, const float* h0i, const int* wp2, int wp2_stride,
+    const float* const* tabs, const float* fcoef, const float* icoef, const float* tail0,
     float* outs, float* wfr, float* wfi, float* hfr, float* hfi, float* tailf,
-    float* timeline, float* htimeline, float* aext, int nb, int C, int nparts, int pts,
-    float b0_scale, int device, void* stream_ptr) {
+    float* timeline, float* htimeline, float* aext, float* scratch, int nb, int C, int nparts,
+    int pts, int log_n1, int log_a, float b0_scale, int device, void* stream_ptr) {
     SGEMM_RETURN_IF_ERROR(cudaSetDevice(device));
+    Plan fwd, inv;
+    SGEMM_RETURN_IF_ERROR(plans(tabs, pts, log_n1, log_a, scratch, fwd, inv));
     const Scan s{nb, C, nparts, pts};
     return run_tv_scan(s, blocks_x, blocks_h, w0r, w0i, h0r, h0i, wp2, wp2_stride,
-                       SplitFwd{ctab_t, fcoef}, SplitPost{ctab, icoef}, tail0, outs, wfr, wfi,
-                       hfr, hfi, tailf, timeline, htimeline, aext, b0_scale,
-                       static_cast<cudaStream_t>(stream_ptr));
+                       FftFwd{fwd, fcoef, scratch, device}, FftPost{inv, icoef, scratch, device},
+                       tail0, outs, wfr, wfi, hfr, hfi, tailf, timeline, htimeline, aext,
+                       b0_scale, static_cast<cudaStream_t>(stream_ptr));
 }

@@ -72,7 +72,7 @@
 // one code path. Both products are one shared-memory tiled FP32 FMA SGEMM
 // (sgemm_tile.cuh). The final window is timeline rows [nb, nb+nparts).
 // The timelines, the MAC, the ring gathers and the order of the steps are
-// shared with the factored-table scans (scan_mac.cuh, splitstep.cu); this
+// shared with the split scans (scan_mac.cuh, splitstep.cu); this
 // file holds the two dense products (steps 1 and 3).
 // wgmma/TMA products and a persistent variant for small nb are later work.
 

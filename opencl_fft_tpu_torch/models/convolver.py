@@ -9,8 +9,8 @@ through the per-block functions of ``ops/pconv.py``, which broadcast over
 the channel axis (the JAX package vmaps them; on a card one block-step
 kernel launch of ``ops/cuda/blockstep.py`` for all channels); ``stream``
 sends a whole (nblocks, C, pts) scan through the batched whole-scan kernel
-(``ops/cuda/streamstep.py``, or ``ops/cuda/splitstep.py``'s factored-table
-scan above pts 2048), one launch sequence for all channels, or with
+(``ops/cuda/streamstep.py``, or ``ops/cuda/splitstep.py``'s split scan
+above pts 2048), one launch sequence for all channels, or with
 ``chunk > 1`` K blocks at a time through ``pconv_chunk`` (bit-equal to
 per-block steps); ``TVConvolver.stream_chunked`` runs K-block chunks through
 the batched TV decomposed engine (``pconv_stream_batched_tv_chunked``: one
@@ -198,7 +198,7 @@ class Convolver:
     def stream(self, blocks, chunk: int = 1) -> torch.Tensor:
         """Scan (nblocks, batch, pts) -> (nblocks, batch, pts): every block
         of every channel through the batched whole-scan kernel (the
-        factored-table one above pts 2048).
+        split scan above pts 2048).
 
         chunk > 1 takes that many blocks per ``pconv_chunk`` call instead
         (bit-equal to per-block ``step`` calls; nblocks must be a multiple
@@ -257,7 +257,7 @@ class TVConvolver:
     def stream(self, blocks_x, blocks_h) -> torch.Tensor:
         """Scan (nblocks, batch, pts) pairs -> (nblocks, batch, pts): every
         block of every channel through the batched whole-scan TV kernel
-        (the factored-table one above pts 2048)."""
+        (the split scan above pts 2048)."""
         self.state, out = _p.pconv_stream_batched_tv(
             self.cfg, self.state, _f32(blocks_x, self.device), _f32(blocks_h, self.device))
         return out

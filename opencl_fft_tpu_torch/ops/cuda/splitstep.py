@@ -1,30 +1,39 @@
-"""Whole-scan streaming convolution on the factored transform tables, LTI
-and time-varying, for one channel or many: the CUDA kernels of
+"""Whole-scan streaming convolution with in-kernel FFTs, LTI and
+time-varying, for one channel or many: the CUDA kernels of
 ``csrc/splitstep.cu`` and their plain PyTorch twins.
 
 Counterparts of ``opencl_fft_tpu/ops/pallas/splitstep.py``
 ``stream_steps_fused_split`` and ``stream_steps_fused_split_tv``: the scans
 of ``ops/cuda/streamstep.py`` (same arguments, same results within float32
-rounding) with both transform chains factored through one (pts, pts) table
-``ctab`` and two (8, pts) coefficient stacks (``tables.split_tables``)
-instead of the dense (pts, 2 pts) and (2 pts, 2 pts) tables, which grow to
-400 MB at pts 4096. The engine (``ops/pconv.py``) runs them above
-``_FWD_MM_MAX_PTS``; the wrappers take any power-of-two pts >= 2.
+rounding) without its dense (pts, 2 pts) and (2 pts, 2 pts) transform
+tables, which grow to 400 MB at pts 4096. Each block's forward chain is an
+m-point complex FFT (m = pts) of the half-size sequence z_j = x_2j +
+i x_2j+1, then the pack with the forward coefficient stack; each output
+row's inverse chain is the unpack (inverse stack) of acc[t] + (-1)^k
+acc[t-1], an unnormalized m-point inverse FFT and a deinterleave of its
+first m/2 values, which is the overlap-added block (``tables._coef_stacks_np``
+holds both stacks; the JAX package factors the same chains through a
+(pts, pts) table, ``fwd_ref`` / ``inv_ref``). The engine (``ops/pconv.py``)
+runs them above ``_FWD_MM_MAX_PTS``; the wrappers take any power-of-two
+pts >= 2, and the kernels transform up to 2^14 points inside a CTA and
+larger sizes up to ``MAX_PTS`` by the four-step of ``csrc/fft_tile.cuh``.
 
 The single-channel wrappers are the C = 1 case of the batched ones; the
 batched scans take blocks (nblocks, C, pts) and, in the TV scan, one ring
 pointer shared by every channel or one each. Each wrapper runs its CUDA
 kernel for CUDA tensors and its twin for CPU tensors; anything else raises.
-The twins are the JAX package's factored chains (``fwd_ref``, ``inv_ref``)
-around the dense scan twins' MAC. ``LAUNCHES`` counts launches of the LTI
-kernel, ``TV_LAUNCHES`` of the TV kernel, through any of the wrappers.
+The twins are the kernels' chains in plain PyTorch (``torch.fft``) around
+the dense scan twins' MAC. ``LAUNCHES`` counts launches of the LTI kernel,
+``TV_LAUNCHES`` of the TV kernel, through any of the wrappers.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ...utils.numerics import is_pow2
@@ -32,17 +41,22 @@ from ..cplx import Cplx
 from . import _build
 from .streamstep import (Pointers, _channel_pointers, _check, _check_batched, _one, _ptrs,
                          _slot_table, _lti_scan_plain, _tv_scan_plain)
-from .tables import split_tables
+from .tables import coef_tables
+from .vmemfft import (LEAF_PASS_MAX, SINGLE_PASS_MAX, four_step_log_a,
+                      four_step_tables_np, pass_twiddle_np, two_pass_split)
 
 LAUNCHES = 0
 TV_LAUNCHES = 0
+
+MAX_PTS = LEAF_PASS_MAX ** 2   # the four-step's factors are at most 2^13 each
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = _build.load("splitstep").stream_steps_fused_split_batched_f32
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 16 + [i, i, i, i, ctypes.c_float, i, p]
+    fn.argtypes = [_P] * 16 + [_I] * 6 + [ctypes.c_float, _I, _P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -50,58 +64,99 @@ def _kernel():
 @functools.lru_cache(maxsize=None)
 def _tv_kernel():
     fn = _build.load("splitstep").stream_steps_fused_split_batched_tv_f32
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 7 + [i] + [p] * 14 + [i, i, i, i, ctypes.c_float, i, p]
+    fn.argtypes = [_P] * 7 + [_I] + [_P] * 14 + [_I] * 6 + [ctypes.c_float, _I, _P]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _check_pts(pts: int):
     if not is_pow2(pts) or pts < 2:
-        raise ValueError(f"the split-table scans take a power-of-two pts >= 2, got {pts}")
+        raise ValueError(f"the split scans take a power-of-two pts >= 2, got {pts}")
 
 
-def _parity(pts: int, device: torch.device):
-    """(even-lane mask, pm = +1 on even lanes and -1 on odd) of length pts."""
-    even = torch.arange(pts, device=device) % 2 == 0
-    return even, torch.where(even, 1.0, -1.0).to(torch.float32)
+def _nflip(v: torch.Tensor) -> torch.Tensor:
+    """Index negation along the last axis: v_k -> v_{(m-k) mod m}."""
+    return torch.roll(torch.flip(v, (-1,)), 1, -1)
 
 
-def _split_frames(blocks: torch.Tensor, pts: int) -> Cplx:
-    """Forward frames of blocks (nb, C, pts) through the factored chain
-    (JAX ``splitstep.fwd_ref``): the products of the block, its parity
-    swap and both with odd lanes negated against ctab^T, then the pack with
-    the 8 forward coefficients. Split (C, nb, bins)."""
-    _, ctab_t, fc, _ = split_tables(pts, blocks.device)
+def _fft_frames(blocks: torch.Tensor, pts: int) -> Cplx:
+    """Forward frames of blocks (nb, C, pts), the kernel's chain: the FFT of
+    z_j = x_2j + i x_2j+1 zero-padded to pts points, then the pack with the
+    forward coefficient stack. Split (C, nb, bins)."""
+    fc, _ = coef_tables(pts, blocks.device)
     x = blocks.to(torch.float32)
-    even, pm = _parity(pts, x.device)
-    xs = torch.where(even, torch.roll(x, -1, -1), -torch.roll(x, 1, -1))
-    fr, fi, gr, gi = (v @ ctab_t for v in (x, xs, x * pm, xs * pm))
-    re = fr * fc[0] + gr * fc[1] + fi * fc[2] + gi * fc[3]
-    im = fr * fc[4] + gr * fc[5] + fi * fc[6] + gi * fc[7]
+    z = torch.fft.fft(torch.complex(x[..., 0::2], x[..., 1::2]), n=pts)
+    zr, zi = z.real, z.imag
+    fr, fi = _nflip(zr), _nflip(zi)
+    re = zr * fc[0] + fr * fc[1] + zi * fc[2] + fi * fc[3]
+    im = zr * fc[4] + fr * fc[5] + zi * fc[6] + fi * fc[7]
     return re.transpose(0, 1), im.transpose(0, 1)
 
 
-def _split_post_ola(acc_r: torch.Tensor, acc_i: torch.Tensor, tails: torch.Tensor,
-                    pts: int):
-    """Inverse of the (C, nb, bins) accumulators through the factored
-    chain (JAX ``splitstep.inv_ref``: unpack coefficients, the products
-    against ctab, the parity combines), overlap-add with the carried tails,
-    / pts: (outs (nb, C, pts), final tails (C, pts))."""
-    ctab, _, _, ic = split_tables(pts, acc_r.device)
-    even, pm = _parity(pts, acc_r.device)
+def _fft_post_ola(acc_r: torch.Tensor, acc_i: torch.Tensor, tails: torch.Tensor, pts: int):
+    """The (C, nb, bins) accumulators to output blocks, the kernel's chain:
+    row t (t = 0..nb) folds acc[t] + (-1)^k acc[t-1] (zero rows before and
+    after), unpacks it with the inverse coefficient stack (the sign commutes
+    with the unpack), inverse-transforms it unnormalized and deinterleaves
+    its first pts/2 values: out1[t] + out2[t-1]; the carried tails are added
+    at t = 0 and the rows divided by pts, row nb is the final tails:
+    (outs (nb, C, pts), final tails (C, pts))."""
+    _, ic = coef_tables(pts, acc_r.device)
+    pm = torch.where(torch.arange(pts, device=acc_r.device) % 2 == 0, 1.0, -1.0)
+    ar, ai = (torch.nn.functional.pad(a, (0, 0, 1, 1)) for a in (acc_r, acc_i))
+    wr, wi = ar[:, 1:] + pm * ar[:, :-1], ai[:, 1:] + pm * ai[:, :-1]
+    a, bv, d, e = (wr * ic[2 * j] + wi * ic[2 * j + 1] for j in range(4))
+    y = torch.fft.ifft(torch.complex(a + _nflip(bv), d + _nflip(e)), norm="forward")
+    y = y[..., :pts // 2]
+    out = torch.stack([y.real, y.imag], -1).reshape(*y.shape[:-1], pts)   # (C, nb+1, pts)
+    outs = out[:, :-1].clone()
+    outs[:, 0] += tails
+    return (outs / pts).transpose(0, 1).contiguous(), out[:, -1].contiguous()
 
-    def sw(v):
-        return torch.where(even, -torch.roll(v, -1, -1), torch.roll(v, 1, -1))
 
-    def half(a, b, d, e):
-        ya, yb, yd, ye = (v @ ctab for v in (a, b, d, e))
-        return (ya + yb * pm) + sw(yd + ye * pm)
+class _Plan(NamedTuple):
+    tables: tuple           # the device tables (kept alive with the plan)
+    tabs: ctypes.Array      # their data pointers, as the C entries take them
+    log_n1: int
+    log_a: int
 
-    z = [acc_r * ic[2 * j] + acc_i * ic[2 * j + 1] for j in range(4)]   # A, B, D, E
-    out1, out2 = half(*z), half(*(v * pm for v in z))
-    prev = torch.cat([tails[:, None], out2[:, :-1]], 1)
-    return ((out1 + prev) / pts).transpose(0, 1).contiguous(), out2[:, -1].contiguous()
+
+@functools.lru_cache(maxsize=None)
+def _plan(pts: int, device: torch.device) -> _Plan:
+    """The transforms' device tables for both signs (-1, then +1): the pass
+    tables of n1 and n2 and the four-step tables A, B, S above
+    ``SINGLE_PASS_MAX``; up to it the pass table of pts in the second place."""
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    tables, log_n1, log_a = [], 0, 0
+    for sign in (-1, 1):
+        if pts <= SINGLE_PASS_MAX:
+            tables += [None, dev(pass_twiddle_np(pts, sign)), None, None, None]
+        else:
+            n1, n2 = two_pass_split(pts)
+            log_n1, log_a = n1.bit_length() - 1, four_step_log_a(n2)
+            tables += [dev(pass_twiddle_np(n1, sign)), dev(pass_twiddle_np(n2, sign)),
+                       *map(dev, four_step_tables_np(n1, n2, sign))]
+    tabs = (ctypes.c_void_p * 10)(*(t.data_ptr() if t is not None else None for t in tables))
+    return _Plan(tuple(tables), tabs, log_n1, log_a)
+
+
+def _kernel_args(pts, nb, nch, dev):
+    """(plan, scratch) of one launch: the scratch planes of the four-step
+    (4 C (nb+1) pts floats; none up to ``SINGLE_PASS_MAX``)."""
+    if pts > MAX_PTS:
+        raise ValueError(f"the split-scan kernels take pts <= {MAX_PTS}, got {pts}")
+    plan = _plan(pts, dev)
+    scratch = None if plan.log_n1 == 0 else torch.empty(
+        4 * nch * (nb + 1) * pts, dtype=torch.float32, device=dev)
+    return plan, scratch
+
+
+def _aligned8(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data is not 8-byte aligned (the kernels
+    read blocks as float2 pairs)."""
+    return t if t.data_ptr() % 8 == 0 else t.clone()
 
 
 def _launch(blocks, w0, h, b0_scale, tails, pts, dev):
@@ -109,6 +164,7 @@ def _launch(blocks, w0, h, b0_scale, tails, pts, dev):
     (w0r, w0i), (hr, hi) = w0, h
     nb, nch, _ = blocks.shape
     nparts = hr.shape[1]
+    plan, scratch = _kernel_args(pts, nb, nch, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     outs = torch.empty((nb, nch, pts), **f32)
     wfr, wfi = (torch.empty((nch, nparts, pts), **f32) for _ in range(2))
@@ -116,9 +172,11 @@ def _launch(blocks, w0, h, b0_scale, tails, pts, dev):
     timeline = torch.empty((nch, nparts + nb, 2 * pts), **f32)
     aext = torch.empty((nch, nb + 2, 2 * pts), **f32)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _kernel()(*_ptrs(blocks, w0r, w0i, hr, hi, *split_tables(pts, dev), tails, outs,
-                           wfr, wfi, tailf, timeline, aext),
-                    nb, nch, nparts, pts, float(b0_scale), dev.index, stream)
+    err = _kernel()(*_ptrs(_aligned8(blocks), w0r, w0i, hr, hi), ctypes.addressof(plan.tabs),
+                    *_ptrs(*coef_tables(pts, dev), tails, outs, wfr, wfi, tailf, timeline, aext),
+                    None if scratch is None else scratch.data_ptr(),
+                    nb, nch, nparts, pts, plan.log_n1, plan.log_a, float(b0_scale), dev.index,
+                    stream)
     if err != 0:
         raise RuntimeError(f"stream_steps_fused_split_batched_f32: CUDA error {err} at launch")
     return outs, (wfr, wfi), tailf
@@ -134,6 +192,7 @@ def _launch_tv(blocks_x, blocks_h, w0, h0, wp2, b0_scale, tails, pts, dev):
         slots, offset, stride = torch.tensor(wp2, dtype=torch.int32, device=dev), 0, 1
     else:
         slots, offset, stride = _slot_table(nparts, dev), 4 * wp2, 0
+    plan, scratch = _kernel_args(pts, nb, nch, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     outs = torch.empty((nb, nch, pts), **f32)
     wfr, wfi, hfr, hfi = (torch.empty((nch, nparts, pts), **f32) for _ in range(4))
@@ -143,10 +202,12 @@ def _launch_tv(blocks_x, blocks_h, w0, h0, wp2, b0_scale, tails, pts, dev):
     aext = torch.empty((nch, nb + 2, 2 * pts), **f32)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _tv_kernel()(
-        *_ptrs(blocks_x, blocks_h, w0r, w0i, h0r, h0i), slots.data_ptr() + offset, stride,
-        *_ptrs(*split_tables(pts, dev), tails, outs, wfr, wfi, hfr, hfi, tailf, timeline,
+        *_ptrs(_aligned8(blocks_x), _aligned8(blocks_h), w0r, w0i, h0r, h0i),
+        slots.data_ptr() + offset, stride, ctypes.addressof(plan.tabs),
+        *_ptrs(*coef_tables(pts, dev), tails, outs, wfr, wfi, hfr, hfi, tailf, timeline,
                htimeline, aext),
-        nb, nch, nparts, pts, float(b0_scale), dev.index, stream)
+        None if scratch is None else scratch.data_ptr(),
+        nb, nch, nparts, pts, plan.log_n1, plan.log_a, float(b0_scale), dev.index, stream)
     if err != 0:
         raise RuntimeError(f"stream_steps_fused_split_batched_tv_f32: CUDA error {err} "
                            f"at launch")
@@ -155,7 +216,7 @@ def _launch_tv(blocks_x, blocks_h, w0, h0, wp2, b0_scale, tails, pts, dev):
 
 def stream_steps_fused_split_batched(blocks: torch.Tensor, w0: Cplx, h: Cplx,
                                      b0_scale: float, tails: torch.Tensor, pts: int):
-    """An entire LTI scan of C channels on the factored tables: arguments
+    """An entire LTI scan of C channels with in-kernel FFTs: arguments
     and results as ``streamstep.stream_steps_fused_batched``."""
     global LAUNCHES
     _check_pts(pts)
@@ -171,12 +232,12 @@ def stream_steps_fused_split_batched(blocks: torch.Tensor, w0: Cplx, h: Cplx,
 def stream_steps_fused_split_batched_plain(blocks: torch.Tensor, w0: Cplx, h: Cplx,
                                            b0_scale: float, tails: torch.Tensor, pts: int):
     """Plain PyTorch twin of the batched LTI split scan."""
-    return _lti_scan_plain(blocks, w0, h, b0_scale, tails, pts, _split_frames, _split_post_ola)
+    return _lti_scan_plain(blocks, w0, h, b0_scale, tails, pts, _fft_frames, _fft_post_ola)
 
 
 def stream_steps_fused_split(blocks: torch.Tensor, w0: Cplx, h: Cplx, b0_scale: float,
                              tail: torch.Tensor, pts: int):
-    """An entire LTI scan of one channel on the factored tables: arguments
+    """An entire LTI scan of one channel with in-kernel FFTs: arguments
     and results as ``streamstep.stream_steps_fused``."""
     _check_pts(pts)
     _check(blocks, *w0, *h, tail, pts)
@@ -203,7 +264,7 @@ def _check_tv_blocks(blocks_x, blocks_h):
 def stream_steps_fused_split_batched_tv(blocks_x: torch.Tensor, blocks_h: torch.Tensor,
                                         w0: Cplx, h0: Cplx, wp2: Pointers, b0_scale: float,
                                         tails: torch.Tensor, pts: int):
-    """An entire TV scan of C channels on the factored tables: arguments
+    """An entire TV scan of C channels with in-kernel FFTs: arguments
     and results as ``streamstep.stream_steps_fused_batched_tv``."""
     global TV_LAUNCHES
     _check_pts(pts)
@@ -225,13 +286,13 @@ def stream_steps_fused_split_batched_tv_plain(blocks_x: torch.Tensor, blocks_h: 
                                               b0_scale: float, tails: torch.Tensor, pts: int):
     """Plain PyTorch twin of the batched TV split scan."""
     return _tv_scan_plain(blocks_x, blocks_h, w0, h0, wp2, b0_scale, tails, pts,
-                         _split_frames, _split_post_ola)
+                         _fft_frames, _fft_post_ola)
 
 
 def stream_steps_fused_split_tv(blocks_x: torch.Tensor, blocks_h: torch.Tensor, w0: Cplx,
                                 h0: Cplx, wp2: int, b0_scale: float, tail: torch.Tensor,
                                 pts: int):
-    """An entire TV scan of one channel on the factored tables: arguments
+    """An entire TV scan of one channel with in-kernel FFTs: arguments
     and results as ``streamstep.stream_steps_fused_tv`` (the JAX wrapper
     takes the two operands interleaved in one array; here they are two)."""
     _check_pts(pts)

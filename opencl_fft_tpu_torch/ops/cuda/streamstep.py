@@ -257,7 +257,7 @@ def _lti_scan_plain(blocks, w0: Cplx, h: Cplx, b0_scale: float, tails, pts: int,
     """The batched LTI scan, block-parallel, around two transform steps:
     ``frames(blocks, pts)`` -> split (C, nb, bins) forward frames and
     ``post_ola(acc_r, acc_i, tails, pts)`` -> (outs (nb, C, pts), final
-    tails (C, pts)). The dense twin and the split-table twin
+    tails (C, pts)). The dense twin and the split-scan twin
     (``ops/cuda/splitstep.py``) share it."""
     hr, hi = h
     nparts = hr.shape[1]

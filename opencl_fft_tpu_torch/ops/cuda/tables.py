@@ -7,10 +7,9 @@ the tests compare them).
 frame (deinterleave + half-size DFT + pack), split [re | im].
 ``_wpost_np(bins)``: [accr | acci] @ W == [time[:bins] | time[bins:]], the
 whole inverse half (unpack + inverse DFT + deinterleave).
-``ctab_np(m)`` and ``_coef_stacks_np(m)``: the factored form of both
-chains, one (m, m) cos/sin table and two (8, m) coefficient stacks, which
-the split-table scans (``ops/cuda/splitstep.py``) use where the dense
-tables (6 m^2 floats) are large.
+``_coef_stacks_np(m)``: the pack and unpack of both chains as two (8, m)
+coefficient stacks, which the split scans (``ops/cuda/splitstep.py``) apply
+around m-point FFTs where the dense tables (6 m^2 floats) are large.
 
 ``unpack_twiddle(bins)``: the inverse unpack's twiddle exp(+i pi k / bins)
 (``rfft._half_twiddle_np(bins, +1)``), which ``block_mac_unpack`` reads.
@@ -141,55 +140,53 @@ def post_ola_table(bins: int, device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def ctab_np(m: int) -> np.ndarray:
-    """(m, m) table: cos(2*pi*j*k/m) in column q = 2j, sin(...) in column
-    q = 2j+1 (float64 trig, cast to float32)."""
-    k = np.arange(m, dtype=np.float64)[:, None]
-    j = (np.arange(m, dtype=np.float64)[None, :] // 2)
-    ang = 2.0 * np.pi * j * k / m
-    tab = np.where(np.arange(m)[None, :] % 2 == 0, np.cos(ang), np.sin(ang))
-    return tab.astype(np.float32)
-
-
-def _diag_flip_coeffs(block: np.ndarray):
-    """(d1, d2) with block == diag(d1) + P @ diag(d2), P the index negation
-    (row (m-k) % m, column k). Where the two coincide (k = 0, m/2) the
-    weight goes to d1. Raises if block has another structure."""
-    m = block.shape[0]
-    k = np.arange(m)
-    d1 = block[k, k].copy()
-    d2 = block[(m - k) % m, k].copy()
-    d2[k == (m - k) % m] = 0.0
-    rec = np.diag(d1)
-    rec[(m - k) % m, k] += d2
-    if not np.allclose(rec, block, atol=0.0):
-        raise ValueError("matrix is not diag + flip*diag")
-    return d1, d2
-
-
-@functools.lru_cache(maxsize=None)
 def pack_coeffs_np(m: int, forward: bool):
-    """The pack (forward) or unpack pass [re | im] @ U as 8 length-m
-    vectors: out_re = re*a1 + nflip(re)*a2 + im*b1 + nflip(im)*b2, out_im =
-    re*c1 + nflip(re)*c2 + im*d1 + nflip(im)*d2, nflip the index negation
-    v_k -> v_{(m-k) % m}; returned as ((a1, a2), (b1, b2), (c1, c2),
-    (d1, d2))."""
-    u = _pack_matrix_np(m, forward)
-    return (_diag_flip_coeffs(u[:m, :m]), _diag_flip_coeffs(u[m:, :m]),
-            _diag_flip_coeffs(u[:m, m:]), _diag_flip_coeffs(u[m:, m:]))
+    """The pack (forward) or unpack pass [re | im] @ U of ``_pack_matrix_np``
+    as 8 length-m float64 vectors: out_re = re*a1 + nflip(re)*a2 + im*b1 +
+    nflip(im)*b2, out_im = re*c1 + nflip(re)*c2 + im*d1 + nflip(im)*d2,
+    nflip the index negation v_k -> v_{(m-k) % m}; returned as ((a1, a2),
+    (b1, b2), (c1, c2), (d1, d2)), the blocks U[:m, :m], U[m:, :m],
+    U[:m, m:] and U[m:, m:] each as diag(x1) + nflip @ diag(x2).
+
+    Built in O(m) from the matrix's formulas, bit for bit what the JAX
+    package gets from the dense (2m, 2m) matrix (a product by a diagonal
+    has one nonzero term an entry): e and p are the diagonal and flip
+    cells' entries of I and of the flip, and at k = 0 and m/2, where the two
+    cells coincide, the matrix's column replacements hold and x2 = 0."""
+    i = np.arange(m, dtype=np.float64)
+    w = np.exp((-1.0 if forward else +1.0) * 1j * np.pi * i / m)
+    dr, di = w.real, w.imag
+
+    def blocks(e, p):
+        if forward:
+            return (0.5 * (e + p) - 0.5 * (p - e) * di, 0.5 * (p + e) * dr,
+                    0.5 * (p - e) * dr, 0.5 * (e - p) + 0.5 * (p + e) * di)
+        return (0.5 * (e + p) - 0.5 * (e - p) * di, -0.5 * (e + p) * dr,
+                0.5 * (e - p) * dr, 0.5 * (e - p) - 0.5 * (e + p) * di)
+
+    b0 = 0.5 if forward else 1.0
+    special = ((b0, 1.0), (b0, 0.0), (b0, 0.0), (-b0, 1.0))   # bins 0 and m/2
+    out = []
+    for x1, x2, (s0, sh) in zip(blocks(1.0, 0.0), blocks(0.0, 1.0), special):
+        x1, x2 = x1.copy(), x2.copy()
+        x1[0], x1[m // 2] = s0, sh
+        x2[0] = x2[m // 2] = 0.0
+        out.append((x1, x2))
+    return tuple(out)
 
 
 @functools.lru_cache(maxsize=None)
 def _coef_stacks_np(m: int):
     """(8, m) forward and (8, m) inverse coefficient stacks, float32.
 
-    Forward rows [a1, a2, b1, b2, c1, c2, d1, d2]: with FR/FI the products
-    of the block and of its parity swap against ctab^T and GR/GI those of
-    the same with odd lanes negated, packed_re = FR*a1 + GR*a2 + FI*b1 +
-    GI*b2 and packed_im = FR*c1 + GR*c2 + FI*d1 + GI*d2.
+    Forward rows [a1, a2, b1, b2, c1, c2, d1, d2]: with (Zr, Zi) the
+    half-size DFT of the frame and Fr/Fi the same index-negated (the JAX
+    chain's FR, FI and GR, GI), packed_re = Zr*a1 + Fr*a2 + Zi*b1 + Fi*b2
+    and packed_im = Zr*c1 + Fr*c2 + Zi*d1 + Fi*d2.
     Inverse rows [a1, b1, na2, nb2, c1, d1, nc2, nd2] (n* index-negated):
     A = accR*a1 + accI*b1, B = accR*na2 + accI*nb2, D = accR*c1 + accI*d1,
-    E = accR*nc2 + accI*nd2, the four rows that go through ctab."""
+    E = accR*nc2 + accI*nd2, and the unpacked spectrum is (A + nflip(B),
+    D + nflip(E))."""
     (fa1, fa2), (fb1, fb2), (fc1, fc2), (fd1, fd2) = pack_coeffs_np(m, True)
     fwd = np.stack([fa1, fa2, fb1, fb2, fc1, fc2, fd1, fd2]).astype(np.float32)
     (ia1, ia2), (ib1, ib2), (ic1, ic2), (id1, id2) = pack_coeffs_np(m, False)
@@ -203,10 +200,7 @@ def _coef_stacks_np(m: int):
 
 
 @functools.lru_cache(maxsize=None)
-def split_tables(m: int, device: torch.device):
-    """(ctab, ctab^T, forward coefficients, inverse coefficients) as
-    contiguous float32 tensors on ``device``."""
-    c = ctab_np(m)
-    fwd, inv = _coef_stacks_np(m)
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                 for a in (c, c.T, fwd, inv))
+def coef_tables(m: int, device: torch.device):
+    """(forward, inverse) coefficient stacks ``_coef_stacks_np(m)`` as
+    contiguous float32 (8, m) tensors on ``device``."""
+    return tuple(torch.from_numpy(a).to(device) for a in _coef_stacks_np(m))

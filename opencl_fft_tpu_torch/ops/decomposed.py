@@ -33,7 +33,7 @@ runs the kernel.
 Outputs match the sequential scan within float32 reduction-order
 tolerance, and chained calls match one call. These are explicit entry
 points: the streams keep their whole-scan kernels, which take every
-partition size on the card (the factored-table scans above pts 2048).
+partition size on the card (the split scans above pts 2048).
 """
 
 from __future__ import annotations

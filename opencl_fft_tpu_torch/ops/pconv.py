@@ -32,7 +32,8 @@ two exact convolutions are blended sample by sample (``XfadeState``).
 The streams (``pconv_stream{,_tv}``, ``pconv_stream_batched{,_tv}``,
 ``convolve``) send every block through one whole-scan kernel launch: the
 dense-table scans of ``ops/cuda/streamstep.py`` up to ``_FWD_MM_MAX_PTS``,
-the factored-table scans of ``ops/cuda/splitstep.py`` above (``_scans``).
+the split scans (in-kernel FFTs) of ``ops/cuda/splitstep.py`` above
+(``_scans``).
 
 Batched serving (``models/convolver.py``) runs C channels in lockstep on a
 state whose planes have a leading channel axis (``models.batched_state``):
@@ -84,7 +85,7 @@ from .rfft import interleave, irfft_split, rfft_split
 # (``_forward_partition``), the streams run the dense-table scan kernels
 # and a state on a card runs the per-block step kernels (``_block_kernels``);
 # above it the forward transform is the transform chain, the streams run the
-# factored-table scan kernels (``_scans``) and the per-block functions the
+# split-scan kernels (``_scans``) and the per-block functions the
 # transform chain around the MAC-and-unpack kernel (``_mac_unpack_kernel``).
 _FWD_MM_MAX_PTS = 2048
 
@@ -693,9 +694,9 @@ _SPLIT_SCANS = _Scans(stream_steps_fused_split, stream_steps_fused_split_tv,
 
 def _scans(cfg: PconvConfig) -> _Scans:
     """The whole-scan kernel wrappers of cfg's partition size: the dense
-    tables' (``ops/cuda/streamstep.py``) up to _FWD_MM_MAX_PTS, the factored
-    tables' (``ops/cuda/splitstep.py``) above. Both take the same arguments
-    and give the same results within float32 rounding."""
+    tables' (``ops/cuda/streamstep.py``) up to _FWD_MM_MAX_PTS, the split
+    scans' (``ops/cuda/splitstep.py``, in-kernel FFTs) above. Both take the
+    same arguments and give the same results within float32 rounding."""
     return _DENSE_SCANS if cfg.pts <= _FWD_MM_MAX_PTS else _SPLIT_SCANS
 
 
@@ -753,7 +754,7 @@ def pconv_stream(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor
     """Run many LTI blocks, blocks: (nblocks, pts) -> outs (nblocks, pts).
 
     Every block goes through one whole-scan kernel launch (``_scans``: the
-    dense-table scan up to _FWD_MM_MAX_PTS, the factored-table one above):
+    dense-table scan up to _FWD_MM_MAX_PTS, the split scan above):
     its CUDA kernel for a CUDA tensor, its plain twin for a CPU tensor. Same
     per-block results as pconv_step.
     """

@@ -220,7 +220,7 @@ def test_offline_matches_stream_at_any_shape(nparts, nb):
 def test_scan_free_engines_take_partitions_above_the_scan_kernels():
     """pts = 4096 (above the dense-table scan kernels' 2048): pconv_offline
     and stream_decomposed render through the transform chain and the
-    sliding MAC, and pconv_stream runs the factored-table scan, against
+    sliding MAC, and pconv_stream runs the split scan, against
     float64 scipy."""
     pts, nparts, nb = 4096, 2, 3
     cfg = P.PconvConfig(pts=pts, nparts=nparts)
@@ -287,7 +287,7 @@ def _steps(step, st, *ops):
                                   "tv_chunked", "split_scan"])
 def test_engine_states_chain_into_the_scan(path, monkeypatch):
     """Every path of the timeline engine, the per-block steps on a batched
-    state and the factored-table scan (``split_scan``: the streams' kernel
+    state and the split scan (``split_scan``: the streams' kernel
     above pts 2048, taken here at pts 16) leave contiguous state planes
     (the card's whole-scan kernels take no others) that chain into the scan
     as the scan's own state does."""

@@ -1,10 +1,13 @@
-"""Port parity: the factored-table whole-scan kernels of opencl_fft_tpu_torch
+"""Port parity: the split-scan kernels of opencl_fft_tpu_torch
 (``ops/cuda/splitstep.py``: ``stream_steps_fused_split{,_batched}{,_tv}``
 and their twins) and the streams that run them above pts 2048, against
 opencl_fft_tpu on the same numpy-seeded inputs.
 
-The port's split tables (``ops/cuda/tables.py``) are bit-identical to the
-JAX package's (``ops/pallas/splitstep.py``). The twins are held against the
+The port's coefficient stacks (``ops/cuda/tables.py``) are bit-identical to
+the JAX package's (``ops/pallas/splitstep.py``). The twins' FFT chains are
+held against JAX's factored-table chains ``fwd_ref`` / ``inv_ref`` (with the
+overlap-add) at pts 2..4096 (2e-5 relative) and against the dense-table
+chains. The twins are held against the
 JAX Pallas kernels ``stream_steps_fused_split{,_tv}`` in interpret mode
 (pts 128, nparts 8, nb 16/24; outputs and tails atol 2e-5 * max|ref|, the
 JAX stream-vs-scan tolerance; windows and rings 1e-5 * max|ring|), and
@@ -29,6 +32,7 @@ from opencl_fft_tpu_torch.ops import pconv as P
 from opencl_fft_tpu_torch.ops.cuda import splitstep as SP
 from opencl_fft_tpu_torch.ops.cuda import streamstep as S
 from opencl_fft_tpu_torch.ops.cuda import tables as T
+from opencl_fft_tpu_torch.ops.cuda import vmemfft as V
 
 torch.set_num_threads(1)
 
@@ -73,34 +77,101 @@ def _assert_state_close(got, ref):
 
 @pytest.mark.parametrize("m", [2, 4, 16, 128, 1024])
 def test_split_tables_bit_identical_to_jax(m):
-    np.testing.assert_array_equal(T.ctab_np(m), JS.ctab_np(m))
+    """The coefficient stacks, built in O(m), against the JAX package's,
+    from its dense pack matrix."""
     for mine, theirs in zip(T._coef_stacks_np(m), JS._coef_stacks_np(m)):
         np.testing.assert_array_equal(mine, theirs)
     for forward in (True, False):
         for mine, theirs in zip(T.pack_coeffs_np(m, forward), JS.pack_coeffs_np(m, forward)):
             for a, b in zip(mine, theirs):
                 np.testing.assert_array_equal(a, b)
-    ctab, ctab_t, fc, ic = T.split_tables(m, torch.device(CPU))
-    assert ctab_t.is_contiguous() and torch.equal(ctab_t, ctab.T)
-    assert fc.shape == ic.shape == (8, m)
+    fc, ic = T.coef_tables(m, torch.device(CPU))
+    assert fc.is_contiguous() and ic.is_contiguous() and fc.shape == ic.shape == (8, m)
+    np.testing.assert_array_equal(fc.numpy(), T._coef_stacks_np(m)[0])
+    np.testing.assert_array_equal(ic.numpy(), T._coef_stacks_np(m)[1])
 
 
-def test_diag_flip_rejects_other_structures():
-    with pytest.raises(ValueError, match="diag \\+ flip"):
-        T._diag_flip_coeffs(np.ones((4, 4)))
+@pytest.mark.parametrize("m", [2, 4, 16, 128])
+@pytest.mark.parametrize("forward", [True, False])
+def test_pack_coeffs_rebuild_the_pack_matrix(m, forward):
+    """Each block of the (2m, 2m) pack matrix is diag(x1) + nflip @ diag(x2)
+    of its pair of vectors, exactly."""
+    u = T._pack_matrix_np(m, forward)
+    k = np.arange(m)
+    for (x1, x2), blk in zip(T.pack_coeffs_np(m, forward),
+                             (u[:m, :m], u[m:, :m], u[:m, m:], u[m:, m:])):
+        rec = np.diag(x1)
+        rec[(m - k) % m, k] += x2
+        np.testing.assert_array_equal(rec, blk)
 
 
 @pytest.mark.parametrize("pts", [16, 128])
 def test_factored_chains_match_the_dense_tables(pts):
-    """The twin's two transform steps against the dense-table ones."""
+    """The twin's two transform steps (FFTs and coefficient stacks) against
+    the dense-table ones."""
     rng = np.random.default_rng(pts)
     blocks = _t(rng.standard_normal((5, 2, pts)).astype(np.float32))
-    for s, d in zip(SP._split_frames(blocks, pts), S._dense_frames(blocks, pts)):
+    for s, d in zip(SP._fft_frames(blocks, pts), S._dense_frames(blocks, pts)):
         _close(s, d, 1e-5)
     acc = [_t(rng.standard_normal((2, 5, pts)).astype(np.float32)) for _ in range(2)]
     tails = _t(rng.standard_normal((2, pts)).astype(np.float32))
-    for s, d in zip(SP._split_post_ola(*acc, tails, pts), S._post_ola_plain(*acc, tails, pts)):
+    for s, d in zip(SP._fft_post_ola(*acc, tails, pts), S._post_ola_plain(*acc, tails, pts)):
         _close(s, d, 1e-5)
+
+
+@pytest.mark.parametrize("pts", [2, 16, 4096, 1 << 14, 1 << 15, 1 << 20, 1 << 24, 1 << 26])
+def test_kernel_plan_covers_every_size(pts):
+    """What the kernels are handed: one transform in a CTA up to 2^14 (the
+    pass tables of pts), the four-step above with both factors in
+    [2, 2^13] and its tables; above 2^26 the wrapper raises."""
+    plan = SP._plan(pts, torch.device(CPU))
+    assert len(plan.tables) == len(plan.tabs) == 10
+    for sign, tabs in ((-1, plan.tables[:5]), (1, plan.tables[5:])):
+        if pts <= 1 << 14:
+            assert plan.log_n1 == 0 and tabs[0] is None and tabs[2:] == (None,) * 3
+            np.testing.assert_array_equal(tabs[1].numpy(), V.pass_twiddle_np(pts, sign))
+            continue
+        n1 = 1 << plan.log_n1
+        n2 = pts // n1
+        assert n1 * n2 == pts and 2 <= min(n1, n2) and max(n1, n2) <= 1 << 13
+        assert plan.log_a == V.four_step_log_a(n2)
+        np.testing.assert_array_equal(tabs[0].numpy(), V.pass_twiddle_np(n1, sign))
+        np.testing.assert_array_equal(tabs[1].numpy(), V.pass_twiddle_np(n2, sign))
+        for got, want in zip(tabs[2:], V.four_step_tables_np(n1, n2, sign)):
+            np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(ValueError, match="pts <= "):
+        SP._kernel_args(2 * SP.MAX_PTS, 1, 1, torch.device(CPU))
+
+
+CHAIN_PTS = [2, 4, 16, 128, 1024, 4096]
+
+
+@pytest.mark.parametrize("pts", CHAIN_PTS)
+def test_fft_frames_match_jax_fwd_ref(pts):
+    """The forward chain (FFT of z, pack) against JAX's factored-table
+    chain."""
+    rng = np.random.default_rng(pts + 1)
+    blocks = rng.standard_normal((4, 3, pts)).astype(np.float32)
+    got = SP._fft_frames(_t(blocks), pts)
+    ref = JS.fwd_ref(jnp.asarray(blocks), pts)
+    for g, r in zip(got, ref):
+        _close(g, np.asarray(r).transpose(1, 0, 2), 2e-5)
+
+
+@pytest.mark.parametrize("pts", CHAIN_PTS)
+def test_fft_post_ola_matches_jax_inv_ref(pts):
+    """The inverse chain with the overlap-add folded in against JAX's
+    factored-table chain and its OLA: (out1[t] + out2[t-1]) / pts, the
+    carried tail before row 0, out2 of the last row the final tail."""
+    rng = np.random.default_rng(pts + 2)
+    acc = [rng.standard_normal((3, 5, pts)).astype(np.float32) for _ in range(2)]
+    tails = rng.standard_normal((3, pts)).astype(np.float32)
+    outs, tailf = SP._fft_post_ola(_t(acc[0]), _t(acc[1]), _t(tails), pts)
+    out1, out2 = (np.asarray(o) for o in JS.inv_ref(jnp.asarray(acc[0]), jnp.asarray(acc[1]),
+                                                    pts))
+    prev = np.concatenate([tails[:, None], out2[:, :-1]], 1)
+    _close(outs, ((out1 + prev) / pts).transpose(1, 0, 2), 2e-5)
+    _close(tailf, out2[:, -1], 2e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -325,14 +396,15 @@ def test_models_stream_above_2048_match_single_channel_scans():
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the split-table scan kernels have no CPU mode)")
+        pytest.skip("needs a CUDA card (the split-scan kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("pts,nparts,nb,nch", [(16, 1, 1, 1), (64, 3, 5, 3), (512, 16, 21, 2),
-                                               (4096, 4, 9, 2)])
+                                               (4096, 4, 9, 2), (8192, 2, 3, 2),
+                                               (16384, 2, 3, 1), (32768, 2, 2, 2)])
 def test_cuda_split_kernels_match_twins(cuda_device, pts, nparts, nb, nch):
     d = _scan_inputs(pts + nb, pts, nparts, nb, nch)
     dev = lambda a: _t(a, cuda_device)  # noqa: E731
