@@ -158,9 +158,54 @@ def rfft_flops(n):
 def stream_flops(nb, nparts, bins, pts, transforms):
     """Least operations of a partitioned scan of nb blocks: the FDL MAC (a
     complex multiply-add, 8 operations, per bin, partition and block) and
-    ``transforms`` real transforms of 2*pts points. The dense-table kernels
-    do more: their transforms are dense DFT products, O(pts^2) per block."""
+    ``transforms`` real transforms of 2*pts points."""
     return 8.0 * nb * nparts * bins + transforms * rfft_flops(2 * pts)
+
+
+def scan_design_flops(nb, nch, nparts, m, tv):
+    """Operations the scan kernels' design does (csrc/streamstep.cu): the
+    MAC, an m-point complex FFT (5 m log2 m) for each block's frame (two in
+    the TV scan) and each of the nb + 1 output rows of a channel, the pack
+    (14 a bin) and the fold and unpack (18 a bin)."""
+    nf = (2 if tv else 1) * nb * nch
+    ni = (nb + 1) * nch
+    return 8.0 * nb * nch * nparts * m + (nf + ni) * 5.0 * m * math.log2(m) \
+        + nf * 14.0 * m + ni * 18.0 * m
+
+
+def launch_us(fn, calls=3):
+    """Mean device microseconds of one launch of each kernel fn() launches,
+    under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / e.count for e in prof.key_averages()
+            if e.self_device_time_total > 0}
+
+
+def scan_parts(fn, tv):
+    """Device microseconds of a scan call's forward transforms / MAC /
+    inverse transforms / the rest: each kernel's mean a launch under
+    torch.profiler (a profiler session can drop launches) times its
+    launches a scan (the forward transform twice in the TV scan)."""
+    parts = {"forward": 0.0, "MAC": 0.0, "inverse": 0.0, "rest": 0.0}
+    for kn, us in launch_us(fn).items():
+        part = ("inverse" if "inv" in kn or "unpack" in kn or "ola" in kn
+                else "forward" if "fwd" in kn or "z_planes" in kn or "pack" in kn
+                else "MAC" if "mac" in kn else "rest")
+        parts[part] += us * (2 if tv and part == "forward" else 1)
+    return parts
+
+
+def fmt_parts(parts, mac_flops):
+    """'fwd / MAC / inv / rest us (MAC x TFLOP/s)'."""
+    return (" / ".join(f"{v:.1f}" for v in parts.values())
+            + f" us (MAC {mac_flops / (parts['MAC'] * 1e-6) / 1e12:.2f} TFLOP/s)")
 
 
 def ptxas_summary(log):
@@ -316,7 +361,7 @@ def main():
                    for c in range(got.shape[1]))
 
     # phase 2: build from the checkout's sources, one nvcc per source at once
-    libs = ("streamstep", "splitstep", "dstream", "fft", "slidemac", "blockstep")
+    libs = ("streamstep", "dstream", "fft", "slidemac", "blockstep")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as ex:
         list(ex.map(_build.load, libs))
@@ -346,7 +391,11 @@ def main():
                 (f(nparts, pts, s=0.05), f(nparts, pts, s=0.05)), f(pts))
 
     headline = (PTS, IR_LEN // PTS, SCAN_BLOCKS)
-    shapes = [headline, (PTS, IR_LEN // PTS, 21), (64, 5, 21), (16, 1, 1)]
+    # the headline; pts 64, 128 and 2048 of the same IR; nb not a multiple of
+    # a MAC tile, nparts below MAC_TT and not a multiple of a MAC stage
+    shapes = [headline, (PTS, IR_LEN // PTS, 21), (64, IR_LEN // 64, 40), (128, 37, 70),
+              (2048, IR_LEN // 2048, 470), (64, 5, 21), (256, 63, 65), (8, 9, 200), (2, 3, 5),
+              (16, 1, 1)]
     headline_err = 0.0
     worst = 0.0
     for pts, nparts, nb in shapes:
@@ -354,8 +403,12 @@ def main():
         for b0 in (1.0, 2.0):
             n0 = S.LAUNCHES
             got = S.stream_steps_fused(blocks, w0, h, b0, tail, pts)
+            again = S.stream_steps_fused(blocks, w0, h, b0, tail, pts)
             torch.cuda.synchronize()
-            check(S.LAUNCHES == n0 + 1, "LAUNCHES counts the kernel launch")
+            check(S.LAUNCHES == n0 + 2, "LAUNCHES counts the kernel launch")
+            check(all(torch.equal(a_, b_) for a_, b_ in zip((got[0], *got[1], got[2]),
+                                                           (again[0], *again[1], again[2]))),
+                  f"the LTI scan repeats its bits at pts={pts} nparts={nparts} nb={nb}")
             want = S.stream_steps_fused_plain(blocks, w0, h, b0, tail, pts)
             worst = compare((("out", got[0], want[0]), ("window re", got[1][0], want[1][0]),
                              ("window im", got[1][1], want[1][1]),
@@ -363,9 +416,9 @@ def main():
                             f"pts={pts} nparts={nparts} nb={nb} b0={b0}", worst)
             if (pts, nparts, nb) == headline:
                 headline_err = max(headline_err, float((got[0] - want[0]).abs().max()))
-    print(f"phase 3 kernel vs twin: shapes (pts,nparts,nb) {shapes} x b0 {{1,2}}; "
-          f"worst rel err {worst:.3e} (tol {TOL}); headline out max_abs_err "
-          f"{headline_err:.3e}", flush=True)
+    print(f"phase 3 kernel vs twin: shapes (pts,nparts,nb) {shapes} x b0 {{1,2}}, bit-equal "
+          f"on a second launch; worst rel err {worst:.3e} (tol {TOL}); headline out "
+          f"max_abs_err {headline_err:.3e}", flush=True)
 
     # phase 4: LTI main path, convolve() on the card, against scipy in float64
     x = (0.1 * rng.standard_normal(int(20 * SR))).astype(np.float32)
@@ -417,19 +470,42 @@ def main():
     # bytes: blocks, window and tail in and out, the IR spectra in
     lti_flops = stream_flops(nb, np_, b, PTS, 2 * nb)
     lti_bound = bound(lti_flops, 2 * nbytes(blocks, *w0, state.tail) + nbytes(*h))
-    # what the design does: dense forward and post DFT products and the MAC
-    fwd_flops = 2.0 * nb * PTS * 2 * b
-    design_flops = fwd_flops + 8.0 * nb * np_ * b + 2.0 * nb * 2 * b * 2 * b
+    # what the design does: the MAC and FFT-sized transforms
+    design_flops = scan_design_flops(nb, 1, np_, b, False)
+    mac1_flops = 8.0 * nb * np_ * b
+
+    def scan_sets(nb_, nch, n_h):
+        """Input sets of a scan (blocks, then n_h more block sets, windows, h
+        planes, tails) that together outgrow the L2 twice, for device time
+        from HBM."""
+        def one():
+            return ([f(nb_, nch, PTS, s=0.1) for _ in range(1 + n_h)],
+                    (f(nch, np_, PTS), f(nch, np_, PTS)),
+                    (f(nch, np_, PTS, s=0.05), f(nch, np_, PTS, s=0.05)), f(nch, PTS))
+        first = one()
+        size = nbytes(*first[0], *first[1], *first[2], first[3])
+        return [first] + [one() for _ in range(-(-2 * L2_BYTES // size))]
+
+    sets6 = scan_sets(SCAN_BLOCKS, 1, 0)
+    k1_hbm = graph_us(lambda i: S.stream_steps_fused(
+        sets6[i][0][0][:, 0], (sets6[i][1][0][0], sets6[i][1][1][0]),
+        (sets6[i][2][0][0], sets6[i][2][1][0]), 2.0, sets6[i][3][0], PTS), len(sets6))
+    k1_parts = scan_parts(lambda: S.stream_steps_fused(blocks, w0, h, 2.0, state.tail, PTS),
+                          False)
+    del sets6
     print(f"phase 6 timing [{card}]: pconv_stream {SCAN_BLOCKS}x{PTS} blocks, {IR_LEN} taps: "
           f"{stream_ms:.4f} ms/scan = {rtf:.1f}x real time ({1e3 * stream_ms / SCAN_BLOCKS:.4f} "
-          f"us/block); stream_steps_fused kernel {kernel_ms:.4f} ms/scan; plain twin "
+          f"us/block); stream_steps_fused kernel {kernel_ms:.4f} ms/scan by events, {k1_hbm:.1f} "
+          f"us from HBM by CUDA graph ({100 * lti_bound[0] * 1e3 / k1_hbm:.1f}% of the bound), "
+          f"forward / MAC / inverse / rest {fmt_parts(k1_parts, mac1_flops)}; plain twin "
           f"{plain_ms:.4f} ms/scan (median CUDA-event times); bound {lti_bound[0]:.4f} ms "
-          f"({lti_bound[1]}, {lti_flops / 1e9:.3f} GFLOP of MAC and FFTs; the kernel's "
-          f"dense DFT products make it {design_flops / 1e9:.3f})", flush=True)
+          f"({lti_bound[1]}, {lti_flops / 1e9:.3f} GFLOP of MAC and FFTs; the design does "
+          f"{design_flops / 1e9:.3f})", flush=True)
 
     # phase 7: TV kernel vs plain twin on the card
-    tv_shapes = [headline + (np_ - 1,), (PTS, np_, 21, 100), (64, 5, 21, 2),
-                 (128, 8, 3, 6), (16, 1, 1, 0)]
+    tv_shapes = [headline + (np_ - 1,), (PTS, np_, 21, 100), (64, IR_LEN // 64, 40, 2047),
+                 (128, 37, 70, 3), (2048, IR_LEN // 2048, 470, 63), (64, 5, 21, 2),
+                 (128, 8, 3, 6), (256, 63, 65, 62), (8, 9, 200, 4), (2, 3, 5, 1), (16, 1, 1, 0)]
     tv_err = 0.0
     worst = 0.0
     for pts, nparts, nb_, wp2 in tv_shapes:
@@ -438,8 +514,13 @@ def main():
         for b0 in (1.0, 2.0):
             n0 = S.TV_LAUNCHES
             got = S.stream_steps_fused_tv(bx, bh, w0_, h0_, wp2, b0, tail, pts)
+            again = S.stream_steps_fused_tv(bx, bh, w0_, h0_, wp2, b0, tail, pts)
             torch.cuda.synchronize()
-            check(S.TV_LAUNCHES == n0 + 1, "TV_LAUNCHES counts the kernel launch")
+            check(S.TV_LAUNCHES == n0 + 2, "TV_LAUNCHES counts the kernel launch")
+            check(all(torch.equal(a_, b_) for a_, b_ in zip((got[0], *got[1], *got[2], got[3]),
+                                                           (again[0], *again[1], *again[2],
+                                                            again[3]))),
+                  f"the TV scan repeats its bits at pts={pts} nparts={nparts} nb={nb_}")
             want = S.stream_steps_fused_tv_plain(bx, bh, w0_, h0_, wp2, b0, tail, pts)
             worst = compare((("out", got[0], want[0]), ("window re", got[1][0], want[1][0]),
                              ("window im", got[1][1], want[1][1]),
@@ -449,7 +530,8 @@ def main():
                             f"pts={pts} nparts={nparts} nb={nb_} wp2={wp2} b0={b0}", worst)
             if (pts, nparts, nb_) == headline:
                 tv_err = max(tv_err, float((got[0] - want[0]).abs().max()))
-    print(f"phase 7 TV kernel vs twin: shapes (pts,nparts,nb,wp2) {tv_shapes} x b0 {{1,2}}; "
+    print(f"phase 7 TV kernel vs twin: shapes (pts,nparts,nb,wp2) {tv_shapes} x b0 {{1,2}}, "
+          f"bit-equal on a second launch; "
           f"worst rel err {worst:.3e} (tol {TOL}); headline out max_abs_err {tv_err:.3e}",
           flush=True)
 
@@ -553,7 +635,14 @@ def main():
     # bytes: both block sets, window, h ring and tail, in and out
     tv_flops = stream_flops(nb, np_, b, PTS, 3 * nb)
     tv_bound = bound(tv_flops, 2 * nbytes(blocks, *w0, *h0, state.tail) + nbytes(bh))
-    tv_design_flops = design_flops + fwd_flops
+    tv_design_flops = scan_design_flops(nb, 1, np_, b, True)
+    sets11 = scan_sets(SCAN_BLOCKS, 1, 1)
+    k2_hbm = graph_us(lambda i: S.stream_steps_fused_tv(
+        sets11[i][0][0][:, 0], sets11[i][0][1][:, 0], (sets11[i][1][0][0], sets11[i][1][1][0]),
+        (sets11[i][2][0][0], sets11[i][2][1][0]), np_ - 1, 2.0, sets11[i][3][0], PTS),
+        len(sets11))
+    k2_parts = scan_parts(lambda: S.stream_steps_fused_tv(*tv_args), True)
+    del sets11
 
     dcfg = D.DconvConfig(irsize=DIRECT_TAPS, vsize=PTS)
     dstate = D.push_ir(dcfg, D.dconv_init(dcfg, dev), torch.from_numpy(ir_d512).to(dev))
@@ -576,9 +665,11 @@ def main():
     d_bound = bound(d_flops, nbytes(seq, blocks) + 4 * DIRECT_TAPS)
     print(f"phase 11 timing [{card}]: pconv_stream_tv {SCAN_BLOCKS}x{PTS} blocks, {IR_LEN} "
           f"taps: {tv_stream_ms:.4f} ms/scan = {audio_s / (tv_stream_ms / 1e3):.1f}x real "
-          f"time; stream_steps_fused_tv kernel {tv_kernel_ms:.4f} ms; plain twin "
+          f"time; stream_steps_fused_tv kernel {tv_kernel_ms:.4f} ms by events, {k2_hbm:.1f} us "
+          f"from HBM by CUDA graph ({100 * tv_bound[0] * 1e3 / k2_hbm:.1f}% of the bound), "
+          f"forward / MAC / inverse / rest {fmt_parts(k2_parts, mac1_flops)}; plain twin "
           f"{tv_plain_ms:.4f} ms; bound {tv_bound[0]:.4f} ms ({tv_bound[1]}, "
-          f"{tv_flops / 1e9:.3f} GFLOP of MAC and FFTs; the kernel does "
+          f"{tv_flops / 1e9:.3f} GFLOP of MAC and FFTs; the design does "
           f"{tv_design_flops / 1e9:.3f}) | dconv_stream {SCAN_BLOCKS}x{PTS} blocks, "
           f"{DIRECT_TAPS} taps: {d_stream_ms:.4f} ms/scan = "
           f"{audio_s / (d_stream_ms / 1e3):.1f}x real time; dstream_steps kernel "
@@ -596,7 +687,9 @@ def main():
                 (f(nch, nparts, pts, s=0.05), f(nch, nparts, pts, s=0.05)), f(nch, pts))
 
     serving = (PTS, IR_LEN // PTS, SERVE_BLOCKS, SERVE_CH)
-    b_shapes = [serving, (64, 5, 21, 3), (128, 8, 3, 1), (16, 1, 1, 2)]
+    b_shapes = [serving, (64, IR_LEN // 64, 40, 4), (128, 37, 70, 3),
+                (2048, IR_LEN // 2048, 117, SERVE_CH), (64, 5, 21, 3), (128, 8, 3, 1),
+                (256, 63, 65, 3), (2, 3, 5, 2), (16, 1, 1, 2)]
     b_err = bt_err = worst = 0.0
     for pts, nparts, nb_, nch in b_shapes:
         px, ph, w0_, h0_, tails = batched_inputs(pts, nparts, nb_, nch)
@@ -604,8 +697,12 @@ def main():
         for b0 in (1.0, 2.0):
             n0 = S.BATCHED_LAUNCHES
             got = S.stream_steps_fused_batched(px, w0_, h0_, b0, tails, pts)
+            again = S.stream_steps_fused_batched(px, w0_, h0_, b0, tails, pts)
             torch.cuda.synchronize()
-            check(S.BATCHED_LAUNCHES == n0 + 1, "BATCHED_LAUNCHES counts the kernel launch")
+            check(S.BATCHED_LAUNCHES == n0 + 2, "BATCHED_LAUNCHES counts the kernel launch")
+            check(all(torch.equal(a_, b_) for a_, b_ in zip((got[0], *got[1], got[2]),
+                                                           (again[0], *again[1], again[2]))),
+                  f"the batched scan repeats its bits at {where}")
             want = S.stream_steps_fused_batched_plain(px, w0_, h0_, b0, tails, pts)
             worst = compare((("out", got[0], want[0]), ("window re", got[1][0], want[1][0]),
                              ("window im", got[1][1], want[1][1]),
@@ -615,9 +712,14 @@ def main():
             for wp2 in (nparts - 1, tuple((7 * c + 3) % nparts for c in range(nch))):
                 n0 = S.BATCHED_TV_LAUNCHES
                 got = S.stream_steps_fused_batched_tv(px, ph, w0_, h0_, wp2, b0, tails, pts)
+                again = S.stream_steps_fused_batched_tv(px, ph, w0_, h0_, wp2, b0, tails, pts)
                 torch.cuda.synchronize()
-                check(S.BATCHED_TV_LAUNCHES == n0 + 1,
+                check(S.BATCHED_TV_LAUNCHES == n0 + 2,
                       "BATCHED_TV_LAUNCHES counts the kernel launch")
+                check(all(torch.equal(a_, b_) for a_, b_ in zip(
+                    (got[0], *got[1], *got[2], got[3]), (again[0], *again[1], *again[2],
+                                                         again[3]))),
+                      f"the batched TV scan repeats its bits at {where}")
                 want = S.stream_steps_fused_batched_tv_plain(px, ph, w0_, h0_, wp2, b0,
                                                              tails, pts)
                 worst = compare((("out", got[0], want[0]),
@@ -630,9 +732,9 @@ def main():
                                 worst)
                 if (pts, nparts, nb_, nch) == serving:
                     bt_err = max(bt_err, float((got[0] - want[0]).abs().max()))
-    del px, ph, w0_, h0_, tails, got, want
+    del px, ph, w0_, h0_, tails, got, again, want
     print(f"phase 12 batched kernels vs twins: shapes (pts,nparts,nb,C) {b_shapes} x b0 "
-          f"{{1,2}}, TV wp2 shared and per channel; worst rel err {worst:.3e} (tol {TOL}); "
+          f"{{1,2}}, TV wp2 shared and per channel, bit-equal on a second launch; worst rel err {worst:.3e} (tol {TOL}); "
           f"serving out max_abs_err LTI {b_err:.3e} TV {bt_err:.3e}", flush=True)
 
     # phase 13: LTI serving main path: Convolver(cfg, 64).push_ir, then one
@@ -754,18 +856,33 @@ def main():
     bt_flops = stream_flops(nbc, np_, b, PTS, 3 * nbc)
     b_bound = bound(b_flops, 2 * nbytes(sbx, *sw0, cst.tail) + nbytes(*sh))
     bt_bound = bound(bt_flops, 2 * nbytes(sbx, *sw0, *sh, cst.tail) + nbytes(sbh))
-    b_design = 2.0 * nbc * PTS * 2 * b + 8.0 * nbc * np_ * b \
-        + 2.0 * (SERVE_BLOCKS + 1) * SERVE_CH * 2 * b * 2 * b
-    bt_design = b_design + 2.0 * nbc * PTS * 2 * b
+    b_design = scan_design_flops(SERVE_BLOCKS, SERVE_CH, np_, b, False)
+    bt_design = scan_design_flops(SERVE_BLOCKS, SERVE_CH, np_, b, True)
+    mac64_flops = 8.0 * nbc * np_ * b
+    sets15 = scan_sets(SERVE_BLOCKS, SERVE_CH, 1)
+    k3_hbm = graph_us(lambda i: S.stream_steps_fused_batched(
+        sets15[i][0][0], sets15[i][1], sets15[i][2], 2.0, sets15[i][3], PTS), len(sets15),
+        calls=4, reps=5)
+    k4_hbm = graph_us(lambda i: S.stream_steps_fused_batched_tv(
+        sets15[i][0][0], sets15[i][0][1], sets15[i][1], sets15[i][2], np_ - 1, 2.0, sets15[i][3],
+        PTS), len(sets15), calls=4, reps=5)
+    del sets15
+    k3_parts = scan_parts(lambda: S.stream_steps_fused_batched(*b_args), False)
+    k4_parts = scan_parts(lambda: S.stream_steps_fused_batched_tv(*bt_args), True)
     print(f"phase 15 serving timing [{card}]: serving_64ch_audio_seconds_per_second LTI "
           f"{serve_audio_s / (serve_ms / 1e3):.1f} (Convolver.stream {SERVE_BLOCKS}x{SERVE_CH}x"
           f"{PTS}, {IR_LEN} taps: {serve_ms:.4f} ms/scan; stream_steps_fused_batched kernel "
-          f"{b_kernel_ms:.4f} ms; plain twin {b_plain_ms:.4f} ms; bound {b_bound[0]:.4f} ms "
-          f"({b_bound[1]}, {b_flops / 1e9:.3f} GFLOP; the kernel does {b_design / 1e9:.3f})) | "
-          f"TV {serve_audio_s / (serve_tv_ms / 1e3):.1f} (TVConvolver.stream: "
-          f"{serve_tv_ms:.4f} ms/scan; stream_steps_fused_batched_tv kernel {bt_kernel_ms:.4f} "
-          f"ms; plain twin {bt_plain_ms:.4f} ms; bound {bt_bound[0]:.4f} ms ({bt_bound[1]}, "
-          f"{bt_flops / 1e9:.3f} GFLOP; the kernel does {bt_design / 1e9:.3f}))", flush=True)
+          f"{b_kernel_ms:.4f} ms by events, {k3_hbm:.1f} us from HBM by CUDA graph "
+          f"({100 * b_bound[0] * 1e3 / k3_hbm:.1f}% of the bound), forward / MAC / inverse / rest "
+          f"{fmt_parts(k3_parts, mac64_flops)}; plain twin {b_plain_ms:.4f} ms; bound "
+          f"{b_bound[0]:.4f} ms ({b_bound[1]}, {b_flops / 1e9:.3f} GFLOP; the design does "
+          f"{b_design / 1e9:.3f})) | TV {serve_audio_s / (serve_tv_ms / 1e3):.1f} "
+          f"(TVConvolver.stream: {serve_tv_ms:.4f} ms/scan; stream_steps_fused_batched_tv kernel "
+          f"{bt_kernel_ms:.4f} ms by events, {k4_hbm:.1f} us from HBM by CUDA graph "
+          f"({100 * bt_bound[0] * 1e3 / k4_hbm:.1f}% of the bound), forward / MAC / inverse / "
+          f"rest {fmt_parts(k4_parts, mac64_flops)}; plain twin {bt_plain_ms:.4f} ms; bound "
+          f"{bt_bound[0]:.4f} ms ({bt_bound[1]}, {bt_flops / 1e9:.3f} GFLOP; the design does "
+          f"{bt_design / 1e9:.3f}))", flush=True)
 
     # phase 16: device memory of one serving scan
     for label, fn in (("Convolver.stream", lambda: conv.stream(sbx)),
@@ -1684,15 +1801,15 @@ def main():
     # and batched wrappers, one entry each) vs their twins at the long-IR
     # shape (pts 4096, 2^20 taps: nparts 256, 470 blocks) at one and 16
     # channels (TV pointers shared and per channel), at pts 512 against the
-    # dense-table kernels #1/#2 on the same scan, at odd shapes, and at pts
-    # 8192 and 2^14 (the largest transforms inside a CTA) and 2^15 (the
-    # four-step on scratch planes)
+    # wrappers of #3/#4 on the same scan (one CUDA entry: bit-equal), at odd
+    # shapes, and at pts 8192 and 2^14 (the largest transforms inside a CTA)
+    # and 2^15 (the four-step on scratch planes)
     long_np = LONG_IR // LONG_PTS
     split_shapes = [(LONG_PTS, long_np, LONG_BLOCKS, 1), (LONG_PTS, long_np, LONG_BLOCKS, LONG_CH),
                     (PTS, 16, 21, 2), (64, 3, 5, 3), (16, 1, 1, 2), (32, 3, 1, 1), (16, 1, 5, 1),
                     (1 << 13, 4, 5, 2), (1 << 14, 2, 3, 1), (1 << 15, 2, 3, 2)]
     split_err = {}
-    worst = dense_gap = 0.0
+    worst = 0.0
     for pts, nparts, nb_, nch in split_shapes:
         px, ph, w0_, h0_, tails = batched_inputs(pts, nparts, nb_, nch)
         where = f"pts={pts} nparts={nparts} nb={nb_} C={nch}"
@@ -1711,10 +1828,8 @@ def main():
             key = ("split", nch, pts)
             split_err[key] = max(split_err.get(key, 0.0), float((got[0] - want[0]).abs().max()))
             if pts == PTS:
-                dense = S.stream_steps_fused_batched(px, w0_, h0_, b0, tails, pts)
-                worst = compare((("out vs dense kernel", got[0], dense[0]),), where, worst)
-                dense_gap = max(dense_gap, float((got[0] - dense[0]).abs().max())
-                                / float(dense[0].abs().max()))
+                same = S.stream_steps_fused_batched(px, w0_, h0_, b0, tails, pts)
+                check(torch.equal(got[0], same[0]), f"#5 and #3 run one entry at {where}")
             ptrs = [nparts - 1]
             if nch > 1:
                 ptrs.append(tuple((7 * c + 3) % nparts for c in range(nch)))
@@ -1740,15 +1855,13 @@ def main():
                 split_err[key] = max(split_err.get(key, 0.0),
                                      float((got[0] - want[0]).abs().max()))
                 if pts == PTS:
-                    dense = S.stream_steps_fused_batched_tv(px, ph, w0_, h0_, wp2, b0, tails, pts)
-                    worst = compare((("TV out vs dense kernel", got[0], dense[0]),), where, worst)
-                    dense_gap = max(dense_gap, float((got[0] - dense[0]).abs().max())
-                                    / float(dense[0].abs().max()))
-    del px, ph, w0_, h0_, tails, got, again, want, dense
+                    same = S.stream_steps_fused_batched_tv(px, ph, w0_, h0_, wp2, b0, tails, pts)
+                    check(torch.equal(got[0], same[0]), f"#6 and #4 run one entry at {where}")
+    del px, ph, w0_, h0_, tails, got, again, want, same
     print(f"phase 28 split-scan kernels vs twins: shapes (pts,nparts,nb,C) {split_shapes} "
           f"(b0 2 at pts {LONG_PTS}, {{1,2}} elsewhere), TV wp2 shared and per channel, "
           f"bit-equal on a second launch; worst rel "
-          f"err {worst:.3e} (tol {TOL}); at pts {PTS} vs the dense-table kernels {dense_gap:.3e}; "
+          f"err {worst:.3e} (tol {TOL}); at pts {PTS} bit-equal to the #3/#4 wrappers; "
           f"out max_abs_err at pts {LONG_PTS}: LTI C=1 {split_err[('split', 1, LONG_PTS)]:.3e} "
           f"C={LONG_CH} {split_err[('split', LONG_CH, LONG_PTS)]:.3e}, TV C=1 "
           f"{split_err[('split_tv', 1, LONG_PTS)]:.3e} C={LONG_CH} "
@@ -1922,20 +2035,6 @@ def main():
         tv_dev[(wname, nch, nout)] = (plan, by_slices)
     del xm, hm, tv_sets
 
-    def launch_us(fn, calls=3):
-        """Mean device microseconds of one launch of each kernel fn()
-        launches, under torch.profiler."""
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        return {e.key: e.self_device_time_total / e.count for e in prof.key_averages()
-                if e.self_device_time_total > 0}
-
     # the split scans at cell 12: CUDA events, device us from HBM (a CUDA
     # graph over input sets that together outgrow the L2), and by
     # torch.profiler the forward transforms / MAC / inverse transforms / the
@@ -1970,16 +2069,7 @@ def main():
                                        2.0, sets[i][4], LONG_PTS)
             split_dev[(kname, nch)] = graph_us(run_set, nsets, calls=10 if nch == 1 else 4,
                                                reps=5)
-            # each kernel's mean device us a launch (a profiler session can
-            # drop launches) times its launches a scan: the forward
-            # transform once a timeline (twice in the TV scan), the rest once
-            parts = {"forward": 0.0, "MAC": 0.0, "inverse": 0.0, "rest": 0.0}
-            for kn, us in launch_us(lambda: fn(*args)).items():
-                part = ("inverse" if "inv" in kn or "unpack" in kn or "ola" in kn
-                        else "forward" if "fwd" in kn or "z_planes" in kn or "pack" in kn
-                        else "MAC" if "mac" in kn else "rest")
-                parts[part] += us * (ntr - 1 if part == "forward" else 1)
-            split_parts[(kname, nch)] = parts
+            split_parts[(kname, nch)] = scan_parts(lambda: fn(*args), ntr == 3)
         if nch == 1:
             torch.cuda.synchronize()
             base_mem = torch.cuda.memory_allocated(dev)
@@ -1987,20 +2077,11 @@ def main():
             SP.stream_steps_fused_split_batched(*la)
             torch.cuda.synchronize()
             split_peak = torch.cuda.max_memory_allocated(dev) - base_mem
-    split_tables_bytes = sum(nbytes(t) for t in SP._plan(LONG_PTS, dev).tables if t is not None) \
-        + nbytes(*SP.coef_tables(LONG_PTS, dev))
+    split_tables_bytes = sum(nbytes(t) for t in S._plan(LONG_PTS, dev).tables if t is not None) \
+        + nbytes(*S.coef_tables(LONG_PTS, dev))
     del px, ph, w0_, h0_, tails, sets, la, ta
 
-    def split_design(nb_, nparts, m, tv):
-        """Operations the split scan's design does: the MAC, an m-point
-        complex FFT (5 m log2 m) for each block's frame (two in the TV
-        scan) and each of the nb + 1 output rows, the pack (14 a bin) and
-        the fold and unpack (18 a bin)."""
-        nf = (2 if tv else 1) * nb_
-        return 8.0 * nb_ * nparts * m + (nf + nb_ + 1) * 5.0 * m * math.log2(m) \
-            + nf * 14.0 * m + (nb_ + 1) * 18.0 * m
-
-    design_lti = split_design(LONG_BLOCKS, long_np, LONG_PTS, False)
+    design_lti = scan_design_flops(LONG_BLOCKS, 1, long_np, LONG_PTS, False)
     print(f"phase 30 timing [{card}]: tvconv_decomposed_rt_factor_2^17_512 "
           f"{audio_s / (dtv_ms / 1e3):.1f} (TV stream_decomposed {SCAN_BLOCKS}x{PTS}: "
           f"{dtv_ms:.4f} ms; pconv_stream_tv {tv_s_ms:.4f} ms = {audio_s / (tv_s_ms / 1e3):.1f}x); "
@@ -2032,8 +2113,8 @@ def main():
           "launches a scan) forward / MAC / inverse / rest: " + "; ".join(
               f"{k} C={c}: {us:.1f} us "
               f"({100 * new_rows[(k, c, LONG_BLOCKS)][2][0] * 1e3 / us:.2f}% of the bound); "
-              + " / ".join(f"{v:.1f}" for v in parts.values())
-              + f" us ({100 * parts['MAC'] / sum(parts.values()):.1f}% MAC)"
+              + fmt_parts(parts, 8.0 * c * LONG_BLOCKS * long_np * LONG_PTS)
+              + f" ({100 * parts['MAC'] / sum(parts.values()):.1f}% MAC)"
               for (k, c), us in split_dev.items() for parts in (split_parts[(k, c)],))
           + f" | the split LTI scan's design does {design_lti / 1e9:.3f} GFLOP at C=1 "
           f"({design_lti / (split_dev[('stream_steps_fused_split', 1)] / 1e6) / 1e12:.2f} "
@@ -2390,7 +2471,7 @@ def main():
                                           "blockstep.py:382"), bs_launches)),
         # times at the shape of most of each kernel's main-path launches;
         # the error over the kernel's main-path shapes
-        *(kernel(k, "splitstep.cu", src, n,
+        *(kernel(k, "streamstep.cu", src, n,
                  max(split_err[(ek, c_, LONG_PTS)] for c_ in (1, LONG_CH)),
                  *new_rows[(k, 1, LONG_BLOCKS)], None)
           for k, ek, src, n in (("stream_steps_fused_split", "split", "splitstep.py:367",

@@ -25,8 +25,8 @@ engine (``stream_decomposed`` with ``blocks_h``,
 ``stream_batched_tv_decomposed``, ``pconv_stream_batched_tv_chunked``,
 ``TVConvolver.stream_chunked``), whose TV sliding MAC runs on the same
 source (``macflow_tv``, ``macflow_tv_batched``); the streams at partitions
-above 2048, whose whole-scan kernels factor the transform tables
-(``csrc/splitstep.cu``, ``ops/cuda/splitstep.py``:
+above 2048, through the same whole-scan kernels under the split scans'
+wrappers (``ops/cuda/splitstep.py``:
 ``stream_steps_fused_split{,_batched}{,_tv}``); the per-block steps
 (``pconv_step{,_tv}``, ``Clpconv.convolution``, the opcode processors,
 ``Convolver.step``) and the crossfaded IR replacement (``XfadeState``,

@@ -54,7 +54,7 @@
 // (p -> p + p/32) against bank conflicts of the strided Stockham writes;
 // rows of a row tile sit at an odd stride. All
 // offsets into the planes are 64-bit. The tile, the leaf and front kernels
-// and their launchers are in fft_tile.cuh, which splitstep.cu shares; this
+// and their launchers are in fft_tile.cuh, which streamstep.cu shares; this
 // file holds the single pass and the C entries.
 
 #include "fft_tile.cuh"
@@ -200,7 +200,7 @@ fft_rows_pipe_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // current device; cudaSetDevice costs a CUDA API call each time).
 cudaError_t use_device(int device) {
     int current = -1;
-    FFT_RETURN_IF_ERROR(cudaGetDevice(&current));
+    RETURN_IF_ERROR(cudaGetDevice(&current));
     return current == device ? cudaSuccess : cudaSetDevice(device);
 }
 
@@ -216,11 +216,11 @@ cudaError_t launch_pipe(const float* xr, const float* xi, float* yr, float* yi,
     if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
     constexpr int threads = (1 << (LOG_L + pipe_log_b(LOG_L))) / PER_THREAD;
     constexpr size_t smem = sizeof(float) * 2 * pipe_stage_floats(LOG_L) + sizeof(uint64_t);
-    FFT_RETURN_IF_ERROR(allow_smem(fft_rows_pipe_kernel<LOG_L>, device, smem, granted));
+    RETURN_IF_ERROR(allow_smem(fft_rows_pipe_kernel<LOG_L>, device, smem, granted));
     if (resident[device] == 0) {
         int sms = 0, per_sm = 0;
-        FFT_RETURN_IF_ERROR(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
-        FFT_RETURN_IF_ERROR(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        RETURN_IF_ERROR(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
+        RETURN_IF_ERROR(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
             &per_sm, fft_rows_pipe_kernel<LOG_L>, threads, smem));
         if (per_sm < 1) return cudaErrorInvalidConfiguration;
         resident[device] = sms * per_sm;
@@ -244,7 +244,7 @@ cudaError_t launch_pipe(const float* xr, const float* xi, float* yr, float* yi,
 extern "C" int fft_rows_pipe_f32(const float* xr, const float* xi, float* yr, float* yi,
                                  const float* tw, long long rows, int log_l, int sign,
                                  float scale, int device, void* stream_ptr) {
-    FFT_RETURN_IF_ERROR(use_device(device));
+    RETURN_IF_ERROR(use_device(device));
     if (rows < 1) return cudaErrorInvalidValue;
     if ((reinterpret_cast<uintptr_t>(xr) | reinterpret_cast<uintptr_t>(xi)) & 15)
         return cudaErrorMisalignedAddress;
@@ -277,7 +277,7 @@ extern "C" int fft_rows_f32(const float* xr, const float* xi, float* yr, float* 
                             const float* ts, int log_a, long long rows, int log_l,
                             int log_n1, int sign, float scale, int device,
                             void* stream_ptr) {
-    FFT_RETURN_IF_ERROR(use_device(device));
+    RETURN_IF_ERROR(use_device(device));
     return launch_rows(xr, xi, yr, yi, tw, ta, tb, ts, log_a, rows, log_l, log_n1, sign, scale,
                        device, static_cast<cudaStream_t>(stream_ptr));
 }
@@ -290,7 +290,7 @@ extern "C" int fft_rows_f32(const float* xr, const float* xi, float* yr, float* 
 extern "C" int fft_front_f32(const float* xr, const float* xi, float* yr, float* yi,
                              const float* tw, long long batch, int log_n1, int log_n2,
                              int sign, int device, void* stream_ptr) {
-    FFT_RETURN_IF_ERROR(use_device(device));
+    RETURN_IF_ERROR(use_device(device));
     return launch_front(xr, xi, yr, yi, tw, batch, log_n1, log_n2, sign, device,
                         static_cast<cudaStream_t>(stream_ptr));
 }

@@ -1,5 +1,5 @@
 // The batched complex FFT's tile machinery, shared by fft.cu (the FFT
-// entries) and splitstep.cu (the split scans' in-kernel transforms).
+// entries) and streamstep.cu (the scans' in-kernel transforms).
 //
 // A CTA holds a tile of B = 2^log_b transforms of length L = 2^log_l in
 // shared memory (float32 split planes) and runs Stockham passes of radix 16
@@ -24,9 +24,9 @@
 
 #pragma once
 
-#include <cuda_runtime.h>
-#include <stddef.h>
 #include <stdint.h>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -40,12 +40,6 @@ constexpr int MAX_THREADS = (1 << TILE_LOG2) / PER_THREAD;
 // one CTA at every sweep size, and than the smaller tiles above 2^12; and
 // against 2^14-value tiles at one CTA per SM for both passes of 2^14..2^20.
 constexpr int MIN_BLOCKS = 2;
-
-#define FFT_RETURN_IF_ERROR(expr)                \
-    do {                                         \
-        cudaError_t err_ = (expr);               \
-        if (err_ != cudaSuccess) return err_;    \
-    } while (0)
 
 __host__ __device__ __forceinline__ int pidx(int p) { return p + (p >> 5); }
 
@@ -420,17 +414,6 @@ int ilog2(long long v) {
     return l;
 }
 
-// Raise a kernel's dynamic shared memory limit once per device and size.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int device, size_t bytes, size_t (&granted)[64]) {
-    if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
-    if (bytes <= 48 * 1024 || bytes <= granted[device]) return cudaSuccess;
-    FFT_RETURN_IF_ERROR(cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
-    granted[device] = bytes;
-    return cudaSuccess;
-}
-
 // The four-step leaf (log_n1 > 0) or the earlier single pass (log_n1 == 0)
 // over (rows, 2^log_l) planes: the launch of fft_rows_f32 (fft.cu), whose
 // comment gives the contract.
@@ -453,7 +436,7 @@ cudaError_t launch_rows(const float* xr, const float* xi, float* yr, float* yi, 
     const int threads = static_cast<int>((B << log_l) / PER_THREAD);
     if (ctas > 0x7fffffffLL || threads < 1) return cudaErrorInvalidValue;
     const size_t smem = 2 * sizeof(float) * static_cast<size_t>(B) * row_stride(log_l);
-    FFT_RETURN_IF_ERROR(allow_smem(fft_rows_kernel, device, smem, granted));
+    RETURN_IF_ERROR(allow_smem(fft_rows_kernel, device, smem, granted));
     fft_rows_kernel<<<static_cast<unsigned>(ctas), threads, smem, stream>>>(
         xr, xi, yr, yi, reinterpret_cast<const float2*>(tw), reinterpret_cast<const float2*>(ta),
         reinterpret_cast<const float2*>(tb), reinterpret_cast<const float2*>(ts), log_a, rows,
@@ -474,7 +457,7 @@ cudaError_t launch_front(const float* xr, const float* xi, float* yr, float* yi,
     const int threads = (1 << (log_c + log_n1)) / PER_THREAD;
     if (ctas > 0x7fffffffLL || threads < 1) return cudaErrorInvalidValue;
     const size_t smem = 2 * sizeof(float) * static_cast<size_t>(pidx(1 << (log_c + log_n1)));
-    FFT_RETURN_IF_ERROR(allow_smem(fft_front_kernel, device, smem, granted));
+    RETURN_IF_ERROR(allow_smem(fft_front_kernel, device, smem, granted));
     fft_front_kernel<<<static_cast<unsigned>(ctas), threads, smem, stream>>>(
         xr, xi, yr, yi, reinterpret_cast<const float2*>(tw), log_n1, log_n2, log_c, sign);
     return cudaGetLastError();

@@ -213,17 +213,6 @@ slide_mac_tv_split_kernel(Mac s, int hrows, int wp2, int slices, const float* __
 
 size_t split_granted[2][64];
 
-// Raise a kernel's dynamic shared memory limit once per device and size.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int device, size_t bytes, size_t (&granted)[64]) {
-    if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
-    if (bytes <= 48 * 1024 || bytes <= granted[device]) return cudaSuccess;
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err == cudaSuccess) granted[device] = bytes;
-    return err;
-}
-
 }  // namespace
 
 // acc[c, t] = sum_q x[c, t+q] (*) h[c, q] for t < nout, all C channels.

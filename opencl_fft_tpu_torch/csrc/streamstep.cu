@@ -1,210 +1,542 @@
 // Whole-scan partitioned convolution on Hopper (sm_90a): LTI and
 // time-varying (TV), for C channels at once (C = 1 is the single-channel
-// scan).
+// scan), with the block transforms as FFTs inside the kernels.
 //
-// Replaces the TPU kernels of opencl_fft_tpu/ops/pallas/streamstep.py:
-// _stream_kernel (wrapper stream_steps_fused), _stream_tv_kernel
-// (stream_steps_fused_tv), _stream_batched_kernel :447
-// (stream_steps_fused_batched) and _stream_batched_tv_kernel :607
-// (stream_steps_fused_batched_tv). For every input block t of every channel
-// c they compute the same thing: forward rFFT of the zero-padded block as
-// one matmul against wfwd, a one-frame slide of the channel's spectral
-// window, the frequency-delay-line complex MAC against the channel's IR
-// spectra (bin 0 componentwise, scaled by b0), one matmul against wpost
-// (unpack + inverse DFT + deinterleave), overlap-add with the channel's
-// tail and division by pts. In the TV scan the IR spectra are a ring too:
-// block t's coefficient frame (the forward rFFT of its second operand) is
-// written at ring slot (wp2_c - t) mod nparts before its MAC, wp2_c being
-// channel c's ring pointer.
+// Replaces the TPU kernels of opencl_fft_tpu/ops/pallas/streamstep.py
+// (_stream_kernel, wrapper stream_steps_fused; _stream_tv_kernel,
+// stream_steps_fused_tv; _stream_batched_kernel :447,
+// stream_steps_fused_batched; _stream_batched_tv_kernel :607,
+// stream_steps_fused_batched_tv) and of splitstep.py (_split_stream_kernel,
+// stream_steps_fused_split :367; _split_stream_tv_kernel,
+// stream_steps_fused_split_tv :493). They compute one function: for every
+// input block t of every channel c, the forward rFFT of the zero-padded
+// block, a one-frame slide of the channel's spectral window, the
+// frequency-delay-line complex MAC against the channel's IR spectra (bin 0
+// componentwise, scaled by b0), the inverse transform and the overlap-add
+// with the channel's tail, divided by pts; in the TV scan the IR spectra
+// are a ring too, block t's coefficient frame written at slot (wp2_c - t)
+// mod nparts before its MAC. streamstep.py's kernels take both transform
+// chains as dense DFT products against (pts, 2 pts) and (2 pts, 2 pts)
+// tables, splitstep.py's factor them through one (m, m) cos/sin table (m =
+// pts = bins; JAX splitstep.py fwd_ref / inv_ref). Here each block's chain
+// is the same function computed by an m-point complex FFT:
+//   forward: the zero-padded 2m-sample frame of block x is the half-size
+//     sequence z_j = x_2j + i x_2j+1 (nonzero for j < m/2); Z = FFT_m(z)
+//     (sign -1), then the pack: packed bin k from Z_k and Z_(m-k) through
+//     the 8 forward coefficient rows (ops/cuda/tables.py _coef_stacks_np):
+//       re_k = Zr_k a1 + Zr_(m-k) a2 + Zi_k b1 + Zi_(m-k) b2, im_k likewise
+//       from c1, c2, d1, d2;
+//   inverse with the overlap-add folded in: output row t (t = 0..nb) is
+//     the unpack U of w = acc[t] + pm acc[t-1] (pm = (-1)^k commutes with
+//     U, since (m-k) has k's parity; acc[-1] = acc[nb] = 0), with the
+//     inverse coefficient rows [a1, b1, na2, nb2, c1, d1, nc2, nd2]:
+//       A = wr a1 + wi b1, Bv = wr na2 + wi nb2, D, E likewise,
+//       U_k = (A_k + Bv_(m-k), D_k + E_(m-k));
+//     y = IFFT_m(U) unnormalized (sign +1); its first m/2 values are
+//     out1[t] + out2[t-1] deinterleaved (out[2j] = Re y_j, out[2j+1] =
+//     Im y_j); the carried tail is added at t = 0 and the row divided by
+//     pts; row nb is the final tail out2[nb-1]. One transform a row, nb+1
+//     a channel.
 //
-// What bounds it on the card. At the 64-channel serving shape (C = 64,
-// pts = bins = 512, nparts = 256, nb = 470) the forward product is
-// nb * C * pts * 2b * 2 ~ 31.5 GFLOP (twice that in the TV scan, which
-// transforms both operands), the MAC nb * C * nparts * bins * 8 ~ 31.5 GFLOP
-// and the inverse product (nb+1) * C * 2b * 2b * 2 ~ 63.2 GFLOP, all float32
-// (the JAX tables run at Precision.HIGHEST, so no TF32). The scratch is
-// ~0.3 GB (per-channel timelines ~190 MB, the MAC output ~124 MB; TV adds
-// ~190 MB of coefficient timelines), read a few times: the scan is bound by
-// FP32 FMA throughput, not by memory. At one channel (pts 512, nparts 256,
-// nb 1880) the same holds with ~25 MB of L2-resident data.
+// What bounds it on the card. At the 64-channel serving shape (pts 512, a
+// 2^17-tap IR: nparts 256, 470 blocks) the MAC is 8 C nb nparts bins = 31.5
+// GFLOP and the transforms 5 m log2 m a block each way (1.6 GFLOP in all,
+// the LTI scan): 0.49 ms at 67 TFLOP/s, where the blocks, windows, IR planes
+// and outputs (~0.3 GB) take 0.09 ms. At pts 4096 with a 2^20-tap IR and
+// 470 blocks the same holds (3.94 + 0.25 GFLOP, ~17 MB). So the MAC bounds
+// it: the transforms move each frame through device memory once, and the
+// timelines (~0.2 GB at serving) are read from L2 by the MAC.
 //
 // What the design does about it. The TPU kernels walk the blocks as a
-// sequential grid with the windows, h and the tables resident in VMEM, and
-// the batched ones stack the channels along the sublane axis with one-hot
-// scatter/reduce matmuls; a Hopper block has 227 KB of shared memory and
-// blocks run in no order. But every input block of a scan is known up
-// front, so the sequence dissolves, and the channel index is a grid
-// dimension:
-//   1. fwd_gemm_kernel: F = blocks (nb*C, pts) @ wfwd (pts, 2b), one GEMM
-//      over every channel; row t*C + c lands in row nparts + t of channel
-//      c's frame timeline, whose rows [0, nparts) are its initial window w0
-//      (row q = frame wp0+q). Window t is rows [t+1, t+1+nparts).
-//   2. mac_kernel: acc[c, t, k] = sum_q T_c[t+1+q, k] * h_c[q, k], one
-//      thread per bin k and MAC_TT consecutive blocks, the TT window rows
-//      held in registers and slid by one row per q, so each timeline and h
-//      element is loaded once per TT outputs. Bin 0 takes its own loop. The
-//      channel is the slowest grid dimension, so a channel's blocks run
-//      together and its timeline (~3 MB at the serving shape) and 1 MB h
-//      ring are read from L2 by all of them; the timelines of all channels
-//      (~190 MB) would not fit in L2 at once.
-//   3. post_ola_kernel: the overlap-add is folded into the second product.
-//      acc of channel c is stored with a zero row before and after it
-//      (aext_c), so the (nb+1, 4b) matrix whose row t is
-//      [acc[t-1] | acc[t]] is aext_c read with row stride 2b. Against
-//      [wpost[:, b:] ; wpost[:, :b]] its row t is y[t-1, b:] + y[t, :b]:
-//      rows t < nb are the outputs (plus the carried tail at t = 0, then
-//      / pts), stored at row t*C + c; row nb is the final tail.
-// The TV scan adds a second timeline HT_c of nparts-1+nb rows per channel
-// for the coefficient frames: row s+nparts-1 holds the frame of block s,
-// and the nparts-1 prefix rows (pseudo-times s = -(nparts-1)..-1) are
-// gathered from the initial ring at slot (wp2_c - s) mod nparts. Ring slot
-// q at block t then holds the frame of the last s <= t with
-// s = wp2_c - q (mod nparts), so the TV MAC is
-//   acc[c, t, k] = sum_q T_c[t+1+q, k] * HT_c[t - ((t - wp2_c + q) mod nparts)
-//                                             + nparts - 1, k],
-// the x rows sliding in registers as in the LTI MAC. The h row changes only
-// where the mod wraps, so for nparts >= MAC_TT a thread's MAC_TT blocks read
-// one of two rows per q: two row loads per q serve them all (H_TV_PAIR);
-// smaller nparts read one row per block. The final ring is the same gather
-// at t = nb-1.
-// Ring pointers come per channel (an array read with a stride: 0 for one
-// shared pointer, 1 for one each), so shared and per-channel pointers are
-// one code path. Both products are one shared-memory tiled FP32 FMA SGEMM
-// (sgemm_tile.cuh). The final window is timeline rows [nb, nb+nparts).
-// The timelines, the MAC, the ring gathers and the order of the steps are
-// shared with the split scans (scan_mac.cuh, splitstep.cu); this
-// file holds the two dense products (steps 1 and 3).
-// wgmma/TMA products and a persistent variant for small nb are later work.
+// sequential grid with the windows, h and the tables resident in VMEM; a
+// Hopper CTA has 227 KB of shared memory and CTAs run in no order. But
+// every input block of a scan is known up front, so the sequence dissolves
+// into a frame timeline (scan_mac.cuh), and each step runs over all blocks
+// of all channels at once:
+//   1. fft_fwd_kernel: a CTA loads B = 2^log_b blocks' z straight from
+//      `blocks` (float2 pairs, coalesced) into the first Stockham pass of
+//      fft_tile (fft_tile.cuh, shared with fft.cu), transforms them in
+//      shared memory and packs: one thread a bin pair (k, m-k), both bins
+//      written into row row0 + t of channel c's timeline ([re | im]).
+//   2. the timeline MAC of scan_mac.cuh (mac_tile_kernel: a CTA streams the
+//      partitions of G * TT outputs x 32 bins through shared memory).
+//   3. fft_inv_kernel: a CTA takes B output rows of one channel, writes
+//      U(acc[t] + pm acc[t-1]) into shared memory (one thread a bin pair,
+//      reading aext, whose rows 0 and nb+1 are zero), transforms it and
+//      stores the first m/2 outputs, deinterleaved, from registers. Folding
+//      the overlap-add into the transform's input costs one transform a
+//      row and no pass of its own; keeping both output halves in scratch
+//      and adding them in a second pass would move 2 (nb+1) m more floats
+//      through device memory for the same transforms.
+// A CTA holds 2^log_b rows, up to 2^13 values (512 threads at 64
+// registers, two CTAs an SM, as fft.cu's leaf); the caller's plan
+// (ops/cuda/streamstep.py fft_tile_log_b) picks the rows by shape, 2^11
+// values or two rows a CTA where that grid fills the card (measured the
+// fastest at pts 64..4096). m = 2^14 takes one row of 1024 threads. Above
+// 2^14 the same pack and unpack run as kernels of their own around fft.cu's
+// four-step (front then leaf, in fft_tile.cuh) on scratch planes. No
+// atomics: every output is written by one thread, in a fixed order.
 
+#include <array>
+#include <utility>
+
+#include "fft_tile.cuh"
 #include "scan_mac.cuh"
 
 namespace {
 
-using sgemm::BM;
-using sgemm::BN;
-using sgemm::TM;
-using sgemm::TN;
-using sgemm::gemm_tile;
-constexpr int GEMM_THREADS = sgemm::THREADS;
+constexpr int BIG_LOG2 = 14;                                 // the largest in-CTA transform
+constexpr int BIG_THREADS = (1 << BIG_LOG2) / PER_THREAD;   // one row of 2^14 a CTA
+constexpr int EW_THREADS = 256;                              // the four-step's pack kernels
 
-// rows t*C + c of blocks (nb*C, pts) @ wfwd (pts, 2b) -> row row0 + t of
-// channel c's timeline (channel stride tl_cs)
-__global__ void __launch_bounds__(GEMM_THREADS)
-fwd_gemm_kernel(Scan s, int row0, const float* __restrict__ blocks,
-                const float* __restrict__ wfwd, float* __restrict__ tl, size_t tl_cs) {
-    const int m = s.nb * s.C, pts = s.bins, b2 = 2 * pts;
-    const int r0 = blockIdx.x * BM, c0 = blockIdx.y * BN;
-    float acc[TM][TN];
-    gemm_tile(m, b2, pts, blocks, pts, wfwd, b2, r0, c0, acc);
-    const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
+// Packed bin k of a frame from (zr, zi) = Z_k and (fr, fi) = Z_(m-k):
+// the forward coefficient rows [a1, a2, b1, b2, c1, c2, d1, d2] (8, m).
+__device__ __forceinline__ void pack_bin(const float* __restrict__ fc, int m, int k, float zr,
+                                         float zi, float fr, float fi, float* __restrict__ row) {
+    fc += k;
+    row[k] = zr * __ldg(fc) + fr * __ldg(fc + m) + zi * __ldg(fc + 2 * m) + fi * __ldg(fc + 3 * m);
+    row[m + k] = zr * __ldg(fc + 4 * m) + fr * __ldg(fc + 5 * m) + zi * __ldg(fc + 6 * m)
+        + fi * __ldg(fc + 7 * m);
+}
+
+// The spectrum U(acc[t] + pm acc[t-1]) at bins k (vr, vi) and m-k (ur, ui):
+// cur = [acc_re[t] | acc_im[t]], prev the row before; the inverse
+// coefficient rows [a1, b1, na2, nb2, c1, d1, nc2, nd2] (8, m).
+__device__ __forceinline__ void unpack_pair(const float* __restrict__ cur,
+                                            const float* __restrict__ prev,
+                                            const float* __restrict__ ic, int m, int k, float& vr,
+                                            float& vi, float& ur, float& ui) {
+    const int mk = (m - k) & (m - 1);
+    const float pm = (k & 1) ? -1.f : 1.f;   // (-1)^k == (-1)^(m-k)
+    float a[2], bv[2], d[2], e[2];
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-        const int r = r0 + ty * TM + i;
-        if (r >= m) continue;
-        const int t = r / s.C, c = r - t * s.C;
-        float* row = tl + c * tl_cs + static_cast<size_t>(row0 + t) * b2;
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-            const int col = c0 + tx * TN + j;
-            if (col < b2) row[col] = acc[i][j];
-        }
+    for (int s = 0; s < 2; ++s) {
+        const int i = s ? mk : k;
+        const float wr = cur[i] + pm * prev[i], wi = cur[m + i] + pm * prev[m + i];
+        a[s] = wr * __ldg(ic + i) + wi * __ldg(ic + m + i);
+        bv[s] = wr * __ldg(ic + 2 * m + i) + wi * __ldg(ic + 3 * m + i);
+        d[s] = wr * __ldg(ic + 4 * m + i) + wi * __ldg(ic + 5 * m + i);
+        e[s] = wr * __ldg(ic + 6 * m + i) + wi * __ldg(ic + 7 * m + i);
+    }
+    vr = a[0] + bv[1];
+    vi = d[0] + e[1];
+    ur = a[1] + bv[0];
+    ui = d[1] + e[0];
+}
+
+// Output samples 2j, 2j+1 of row t of channel c from y_j = (re, im): the
+// final tail at t = nb, else (y + tail at t = 0) / pts into outs row t*C + c.
+__device__ __forceinline__ void ola_store(const Scan& s, int c, int t, int j, float re, float im,
+                                          const float* __restrict__ tail0, float inv_pts,
+                                          float* __restrict__ outs, float* __restrict__ tailf) {
+    const size_t cm = static_cast<size_t>(c) * s.bins + 2 * j;
+    if (t == s.nb) {
+        *reinterpret_cast<float2*>(tailf + cm) = make_float2(re, im);
+        return;
+    }
+    if (t == 0) {
+        re += tail0[cm];
+        im += tail0[cm + 1];
+    }
+    *reinterpret_cast<float2*>(outs + static_cast<size_t>(t) * s.C * s.bins + cm) =
+        make_float2(re * inv_pts, im * inv_pts);
+}
+
+// The transform kernels are built once per length m = 2^LOG_L, so that
+// their passes unroll and their strides fold (as fft.cu's single pass):
+// 512 threads at most, two CTAs an SM, or one row of 2^14 on 1024.
+template <int LOG_L>
+constexpr int tile_threads() {
+    return LOG_L == BIG_LOG2 ? BIG_THREADS : MAX_THREADS;
+}
+
+// Frames of the rows of blocks ((nb*C, m): row t*C + c), B = 2^log_b a CTA,
+// into row row0 + t of channel c's timeline (channel stride tl_cs).
+template <int LOG_L>
+__global__ void __launch_bounds__(tile_threads<LOG_L>(), LOG_L == BIG_LOG2 ? 1 : MIN_BLOCKS)
+fft_fwd_kernel(Scan s, int row0, const float* __restrict__ blocks, const float2* __restrict__ tw,
+               const float* __restrict__ fcoef, float* __restrict__ tl, size_t tl_cs,
+               int log_b) {
+    constexpr int log_l = LOG_L;
+    extern __shared__ float smem[];
+    const Layout<false> lay{log_l, log_b, row_stride(log_l)};
+    const int B = 1 << log_b, m = 1 << log_l, half = m >> 1;
+    float* sr = smem;
+    float* si = smem + B * lay.S;
+    const long long nrows = static_cast<long long>(s.nb) * s.C;
+    const long long r0 = static_cast<long long>(blockIdx.x) << log_b;
+    const float2* z = reinterpret_cast<const float2*>(blocks);
+    auto gload = [&](int b, int q, float& re, float& im) {
+        const bool in = q < half && r0 + b < nrows;
+        const float2 v = in ? __ldg(z + static_cast<size_t>(r0 + b) * half + q)
+                            : make_float2(0.f, 0.f);
+        re = v.x;
+        im = v.y;
+    };
+    auto sstore = [&](int b, int k, float re, float im) {
+        sr[lay.smem(b, k)] = re;
+        si[lay.smem(b, k)] = im;
+    };
+    fft_tile(lay, sr, si, gload, sstore, NoPre{}, true, tw, -1);
+    __syncthreads();
+    const int pairs = half + 1;   // (k, m-k) for k = 0..m/2
+    for (int e = threadIdx.x; e < B * pairs; e += blockDim.x) {
+        const int b = e / pairs, k = e - b * pairs;
+        const long long br = r0 + b;
+        if (br >= nrows) break;   // later e have no smaller b
+        const int mk = (m - k) & (m - 1);
+        const int t = static_cast<int>(br / s.C), c = static_cast<int>(br - 1LL * t * s.C);
+        float* row = tl + c * tl_cs + static_cast<size_t>(row0 + t) * s.b2();
+        const float zr = sr[lay.smem(b, k)], zi = si[lay.smem(b, k)];
+        const float fr = sr[lay.smem(b, mk)], fi = si[lay.smem(b, mk)];
+        pack_bin(fcoef, m, k, zr, zi, fr, fi, row);
+        if (mk != k) pack_bin(fcoef, m, mk, fr, fi, zr, zi, row);
     }
 }
 
-// Channel c = blockIdx.z. Rows t < nb: outs[t*C + c] =
-// ([acc[t-1] | acc[t]] @ w2 + (t == 0 ? tail0_c : 0)) / pts;
-// row nb: tailf_c = [acc[nb-1] | 0] @ w2
-__global__ void __launch_bounds__(GEMM_THREADS)
-post_ola_kernel(Scan s, const float* __restrict__ aext, const float* __restrict__ w2,
-                const float* __restrict__ tail0, float inv_pts, float* __restrict__ outs,
-                float* __restrict__ tailf) {
-    const int nb = s.nb, pts = s.bins, c = blockIdx.z;
-    const int r0 = blockIdx.x * BM, c0 = blockIdx.y * BN;
-    float acc[TM][TN];
-    gemm_tile(nb + 1, pts, 4 * pts, aext + c * s.ax(), 2 * pts, w2, pts, r0, c0, acc);
-    const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
-    const size_t chan = static_cast<size_t>(c) * pts;
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-        const int r = r0 + ty * TM + i;
-        if (r > nb) continue;
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-            const int col = c0 + tx * TN + j;
-            if (col >= pts) continue;
-            if (r == nb)
-                tailf[chan + col] = acc[i][j];
-            else
-                outs[static_cast<size_t>(r) * s.C * pts + chan + col] =
-                    (acc[i][j] + (r == 0 ? tail0[chan + col] : 0.f)) * inv_pts;
+// Output rows t = 0..nb of channel c = blockIdx.y, B = 2^log_b a CTA, from
+// aext (C, nb+2, 2m).
+template <int LOG_L>
+__global__ void __launch_bounds__(tile_threads<LOG_L>(), LOG_L == BIG_LOG2 ? 1 : MIN_BLOCKS)
+fft_inv_kernel(Scan s, const float* __restrict__ aext, const float2* __restrict__ tw,
+               const float* __restrict__ icoef, const float* __restrict__ tail0, float inv_pts,
+               float* __restrict__ outs, float* __restrict__ tailf, int log_b) {
+    constexpr int log_l = LOG_L;
+    extern __shared__ float smem[];
+    const Layout<false> lay{log_l, log_b, row_stride(log_l)};
+    const int B = 1 << log_b, m = 1 << log_l, half = m >> 1;
+    float* sr = smem;
+    float* si = smem + B * lay.S;
+    const int c = blockIdx.y, t0 = blockIdx.x << log_b;
+    const float* ax = aext + c * s.ax();
+    const int pairs = half + 1;
+    for (int e = threadIdx.x; e < B * pairs; e += blockDim.x) {
+        const int b = e / pairs, k = e - b * pairs, t = t0 + b;
+        const int mk = (m - k) & (m - 1);
+        float vr = 0.f, vi = 0.f, ur = 0.f, ui = 0.f;
+        if (t <= s.nb) {
+            const float* cur = ax + static_cast<size_t>(t + 1) * s.b2();
+            unpack_pair(cur, cur - s.b2(), icoef, m, k, vr, vi, ur, ui);
         }
+        sr[lay.smem(b, k)] = vr;
+        si[lay.smem(b, k)] = vi;
+        sr[lay.smem(b, mk)] = ur;
+        si[lay.smem(b, mk)] = ui;
+    }
+    __syncthreads();
+    auto sload = [&](int b, int q, float& re, float& im) {
+        re = sr[lay.smem(b, q)];
+        im = si[lay.smem(b, q)];
+    };
+    auto gstore = [&](int b, int j, float re, float im) {
+        const int t = t0 + b;
+        if (j < half && t <= s.nb) ola_store(s, c, t, j, re, im, tail0, inv_pts, outs, tailf);
+    };
+    fft_tile(lay, sr, si, sload, gstore, NoPre{}, false, tw, +1, true);
+}
+
+// The four-step's pack kernels, grid-stride over their elements. z planes
+// (rows, m) of the rows of blocks, zero above m/2.
+__global__ void __launch_bounds__(EW_THREADS)
+z_planes_kernel(const float* __restrict__ blocks, long long rows, int log_l,
+                float* __restrict__ zr, float* __restrict__ zi) {
+    const int half = 1 << (log_l - 1);
+    const size_t n = static_cast<size_t>(rows) << log_l;
+    for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n;
+         i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+        const int q = static_cast<int>(i & ((1u << log_l) - 1));
+        const size_t r = i >> log_l;
+        const bool in = q < half;
+        zr[i] = in ? blocks[(r << log_l) + 2 * q] : 0.f;
+        zi[i] = in ? blocks[(r << log_l) + 2 * q + 1] : 0.f;
     }
 }
 
-// steps 1 and 3 of the dense scans, as run_scan takes them
-struct DenseFwd {
-    const float* wfwd;
-    // frames of `blocks` (nb, C, pts) -> rows [row0, row0+nb) of each
-    // channel's timeline (channel stride tl_cs)
-    cudaError_t operator()(const Scan& s, const float* blocks, float* tl, size_t tl_cs,
-                           int row0, cudaStream_t st) const {
-        fwd_gemm_kernel<<<dim3(cdiv(static_cast<long long>(s.nb) * s.C, BM),
-                               cdiv(2 * s.bins, BN)),
-                          GEMM_THREADS, 0, st>>>(s, row0, blocks, wfwd, tl, tl_cs);
+// Z planes (rows, m) -> the packed frames in the timelines, a bin pair an
+// element.
+__global__ void __launch_bounds__(EW_THREADS)
+pack_kernel(Scan s, int row0, const float* __restrict__ zr, const float* __restrict__ zi,
+            const float* __restrict__ fcoef, float* __restrict__ tl, size_t tl_cs, int log_l) {
+    const int m = 1 << log_l, pairs = m / 2 + 1;
+    const size_t n = static_cast<size_t>(s.nb) * s.C * pairs;
+    for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n;
+         i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+        const long long br = static_cast<long long>(i / pairs);
+        const int k = static_cast<int>(i - static_cast<size_t>(br) * pairs);
+        const int mk = (m - k) & (m - 1);
+        const int t = static_cast<int>(br / s.C), c = static_cast<int>(br - 1LL * t * s.C);
+        float* row = tl + c * tl_cs + static_cast<size_t>(row0 + t) * s.b2();
+        const size_t z0 = static_cast<size_t>(br) << log_l;
+        const float a_r = zr[z0 + k], a_i = zi[z0 + k], f_r = zr[z0 + mk], f_i = zi[z0 + mk];
+        pack_bin(fcoef, m, k, a_r, a_i, f_r, f_i, row);
+        if (mk != k) pack_bin(fcoef, m, mk, f_r, f_i, a_r, a_i, row);
+    }
+}
+
+// aext -> V planes (C (nb+1), m): row c (nb+1) + t holds U(acc[t] + pm
+// acc[t-1]) of channel c, a bin pair an element.
+__global__ void __launch_bounds__(EW_THREADS)
+unpack_kernel(Scan s, const float* __restrict__ aext, const float* __restrict__ icoef,
+              int log_l, float* __restrict__ vr, float* __restrict__ vi) {
+    const int m = 1 << log_l, pairs = m / 2 + 1;
+    const size_t rows = static_cast<size_t>(s.nb + 1) * s.C, n = rows * pairs;
+    for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n;
+         i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+        const size_t r = i / pairs;
+        const int k = static_cast<int>(i - r * pairs), mk = (m - k) & (m - 1);
+        const size_t c = r / (s.nb + 1), t = r - c * (s.nb + 1);
+        const float* cur = aext + c * s.ax() + (t + 1) * s.b2();
+        float a_r, a_i, f_r, f_i;
+        unpack_pair(cur, cur - s.b2(), icoef, m, k, a_r, a_i, f_r, f_i);
+        const size_t v0 = r << log_l;
+        vr[v0 + k] = a_r;
+        vi[v0 + k] = a_i;
+        vr[v0 + mk] = f_r;
+        vi[v0 + mk] = f_i;
+    }
+}
+
+// Y planes (C (nb+1), m) -> outputs and final tails: y_j, j < m/2, of row
+// c (nb+1) + t, an element each.
+__global__ void __launch_bounds__(EW_THREADS)
+ola_kernel(Scan s, const float* __restrict__ yr, const float* __restrict__ yi,
+           const float* __restrict__ tail0, float inv_pts, float* __restrict__ outs,
+           float* __restrict__ tailf, int log_l) {
+    const int half = 1 << (log_l - 1);
+    const size_t rows = static_cast<size_t>(s.nb + 1) * s.C, n = rows * half;
+    for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < n;
+         i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+        const size_t r = i / half;
+        const int j = static_cast<int>(i - r * half);
+        const size_t c = r / (s.nb + 1), t = r - c * (s.nb + 1);
+        const size_t y0 = r << log_l;
+        ola_store(s, static_cast<int>(c), static_cast<int>(t), j, yr[y0 + j], yi[y0 + j], tail0,
+                  inv_pts, outs, tailf);
+    }
+}
+
+// A grid-stride kernel's CTAs: enough for the card, no more than the work.
+unsigned ew_ctas(size_t n) {
+    const size_t need = (n + EW_THREADS - 1) / EW_THREADS;
+    return static_cast<unsigned>(need < 132 * 16 ? need : 132 * 16);
+}
+
+// The in-CTA tile of 2^log_b transforms of m = 2^log_l: its threads and
+// shared memory. log_b comes from the caller's plan: at most 2^13 values a
+// CTA (one row of 2^14 at m = 2^14), at least 16 (one thread).
+struct TileShape {
+    int log_b;
+    int threads;
+    size_t smem;
+};
+
+bool tile_ok(int log_l, int log_b) {
+    return log_b >= 0 && log_l + log_b >= 4
+        && (log_l == BIG_LOG2 ? log_b == 0 : log_l + log_b <= TILE_LOG2);
+}
+
+TileShape tile_shape(int log_l, int log_b) {
+    const int threads = (1 << (log_l + log_b)) / PER_THREAD;
+    return {log_b, threads, 2 * sizeof(float) * (static_cast<size_t>(row_stride(log_l)) << log_b)};
+}
+
+size_t tile_granted[2][BIG_LOG2 + 1][64];   // [inverse][log2 m][device]
+
+// The in-CTA forward and inverse transforms at m = 2^LOG_L, 2^g.log_b rows a
+// CTA: the launches of fft_fwd_kernel<LOG_L> / fft_inv_kernel<LOG_L>.
+template <int LOG_L>
+cudaError_t launch_fwd(const Scan& s, int row0, const float* blocks, const float2* tw,
+                       const float* fcoef, float* tl, size_t tl_cs, const TileShape& g,
+                       unsigned ctas, int device, cudaStream_t st) {
+    RETURN_IF_ERROR(allow_smem(fft_fwd_kernel<LOG_L>, device, g.smem, tile_granted[0][LOG_L]));
+    fft_fwd_kernel<LOG_L><<<ctas, g.threads, g.smem, st>>>(s, row0, blocks, tw, fcoef, tl, tl_cs,
+                                                           g.log_b);
+    return cudaGetLastError();
+}
+
+template <int LOG_L>
+cudaError_t launch_inv(const Scan& s, const float* aext, const float2* tw, const float* icoef,
+                       const float* tail0, float inv_pts, float* outs, float* tailf,
+                       const TileShape& g, dim3 grid, int device, cudaStream_t st) {
+    RETURN_IF_ERROR(allow_smem(fft_inv_kernel<LOG_L>, device, g.smem, tile_granted[1][LOG_L]));
+    fft_inv_kernel<LOG_L><<<grid, g.threads, g.smem, st>>>(s, aext, tw, icoef, tail0, inv_pts,
+                                                           outs, tailf, g.log_b);
+    return cudaGetLastError();
+}
+
+using FwdLaunch = decltype(&launch_fwd<1>);
+using InvLaunch = decltype(&launch_inv<1>);
+
+template <int... L>
+constexpr std::array<FwdLaunch, sizeof...(L)> fwd_launches(std::integer_sequence<int, L...>) {
+    return {&launch_fwd<L + 1>...};
+}
+
+template <int... L>
+constexpr std::array<InvLaunch, sizeof...(L)> inv_launches(std::integer_sequence<int, L...>) {
+    return {&launch_inv<L + 1>...};
+}
+
+// entry log2 m - 1: the launch at m = 2^1 .. 2^14
+constexpr auto kFwdLaunch = fwd_launches(std::make_integer_sequence<int, BIG_LOG2>{});
+constexpr auto kInvLaunch = inv_launches(std::make_integer_sequence<int, BIG_LOG2>{});
+
+// The m-point transforms of one sign: in the CTA (log_n1 == 0: tw2 the pass
+// table of m) or the four-step at n1 x n2 (tw1, tw2 the pass tables of n1
+// and n2; ta, tb, ts the leaf's twiddle tables, A's rows 2^log_a long).
+struct Plan {
+    const float* tw1;
+    const float* tw2;
+    const float* ta;
+    const float* tb;
+    const float* ts;
+    int log_n1, log_a;
+    int log_b;   // in the CTA: 2^log_b rows a CTA
+};
+
+// step 1 of the scans, as run_scan takes it. scratch: four planes of C
+// (nb+1) m floats for the four-step, unused in the CTA.
+struct FftFwd {
+    Plan p;
+    const float* fcoef;
+    float* scratch;
+    int device;
+    cudaError_t operator()(const Scan& s, const float* blocks, float* tl, size_t tl_cs, int row0,
+                           cudaStream_t st) const {
+        const long long rows = static_cast<long long>(s.nb) * s.C;
+        const int log_l = ilog2(s.bins);
+        if (p.log_n1 == 0) {
+            const TileShape g = tile_shape(log_l, p.log_b);
+            const long long ctas = (rows + (1LL << g.log_b) - 1) >> g.log_b;
+            if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+            return kFwdLaunch[log_l - 1](s, row0, blocks, reinterpret_cast<const float2*>(p.tw2),
+                                         fcoef, tl, tl_cs, g, static_cast<unsigned>(ctas),
+                                         device, st);
+        }
+        const size_t plane = static_cast<size_t>(rows) << log_l;
+        float *zr = scratch, *zi = zr + plane, *fr = zi + plane, *fi = fr + plane;
+        z_planes_kernel<<<ew_ctas(plane), EW_THREADS, 0, st>>>(blocks, rows, log_l, zr, zi);
+        RETURN_IF_ERROR(cudaGetLastError());
+        const int log_n2 = log_l - p.log_n1;
+        RETURN_IF_ERROR(launch_front(zr, zi, fr, fi, p.tw1, rows, p.log_n1, log_n2, -1,
+                                     device, st));
+        RETURN_IF_ERROR(launch_rows(fr, fi, zr, zi, p.tw2, p.ta, p.tb, p.ts, p.log_a,
+                                    rows << p.log_n1, log_n2, p.log_n1, -1, 1.f, device,
+                                    st));
+        pack_kernel<<<ew_ctas(static_cast<size_t>(rows) * (s.bins / 2 + 1)), EW_THREADS, 0, st>>>(
+            s, row0, zr, zi, fcoef, tl, tl_cs, log_l);
         return cudaGetLastError();
     }
 };
 
-struct DensePost {
-    const float* w2;
+// step 3 of the scans, as run_scan takes it
+struct FftPost {
+    Plan p;
+    const float* icoef;
+    float* scratch;
+    int device;
     cudaError_t operator()(const Scan& s, const float* aext, const float* tail0, float* outs,
                            float* tailf, cudaStream_t st) const {
-        post_ola_kernel<<<dim3(cdiv(s.nb + 1, BM), cdiv(s.bins, BN), s.C), GEMM_THREADS, 0,
-                          st>>>(s, aext, w2, tail0, 1.0f / static_cast<float>(s.bins), outs,
-                                tailf);
+        const int log_l = ilog2(s.bins);
+        const float inv_pts = 1.0f / static_cast<float>(s.bins);
+        if (p.log_n1 == 0) {
+            const TileShape g = tile_shape(log_l, p.log_b);
+            const dim3 grid((s.nb + (1 << g.log_b)) >> g.log_b, s.C);
+            return kInvLaunch[log_l - 1](s, aext, reinterpret_cast<const float2*>(p.tw2), icoef,
+                                         tail0, inv_pts, outs, tailf, g, grid, device, st);
+        }
+        const long long rows = (s.nb + 1LL) * s.C;
+        const size_t plane = static_cast<size_t>(rows) << log_l;
+        float *vr = scratch, *vi = vr + plane, *fr = vi + plane, *fi = fr + plane;
+        unpack_kernel<<<ew_ctas(static_cast<size_t>(rows) * (s.bins / 2 + 1)), EW_THREADS, 0,
+                        st>>>(s, aext, icoef, log_l, vr, vi);
+        RETURN_IF_ERROR(cudaGetLastError());
+        const int log_n2 = log_l - p.log_n1;
+        RETURN_IF_ERROR(launch_front(vr, vi, fr, fi, p.tw1, rows, p.log_n1, log_n2, +1,
+                                     device, st));
+        RETURN_IF_ERROR(launch_rows(fr, fi, vr, vi, p.tw2, p.ta, p.tb, p.ts, p.log_a,
+                                    rows << p.log_n1, log_n2, p.log_n1, +1, 1.f, device,
+                                    st));
+        ola_kernel<<<ew_ctas(static_cast<size_t>(rows) * (s.bins / 2)), EW_THREADS, 0, st>>>(
+            s, vr, vi, tail0, inv_pts, outs, tailf, log_l);
         return cudaGetLastError();
     }
 };
+
+// The C entries' shared checks and plans. tabs: 10 device pointers, the
+// forward plan's (sign -1) [tw1, tw2, ta, tb, ts] then the inverse's (+1).
+// plan: 6 host ints, the in-CTA transforms' log2 rows a CTA (forward,
+// inverse) and the MAC's groups, outputs a thread, stage partitions and
+// ring rows.
+cudaError_t plans(const float* const* tabs, int pts, int log_n1, int log_a, const int* plan,
+                  const float* scratch, Plan& fwd, Plan& inv, MacPlan& mac) {
+    if (pts < 2 || (pts & (pts - 1)) != 0 || plan == nullptr) return cudaErrorInvalidValue;
+    const int log_l = ilog2(pts);
+    if (log_n1 == 0 ? (log_l > BIG_LOG2 || !tile_ok(log_l, plan[0]) || !tile_ok(log_l, plan[1]))
+                    : (log_l <= BIG_LOG2 || log_n1 > TILE_LOG2 || log_l - log_n1 > TILE_LOG2
+                       || log_n1 < 1 || log_l - log_n1 < 1 || scratch == nullptr))
+        return cudaErrorInvalidValue;
+    fwd = {tabs[0], tabs[1], tabs[2], tabs[3], tabs[4], log_n1, log_a, plan[0]};
+    inv = {tabs[5], tabs[6], tabs[7], tabs[8], tabs[9], log_n1, log_a, plan[1]};
+    mac = {plan[2], plan[3], plan[4], plan[5]};
+    return mac.ok() ? cudaSuccess : cudaErrorInvalidValue;
+}
 
 }  // namespace
 
-// One LTI scan of nb blocks of C channels. All pointers are float32 device
-// memory on `device`; blocks and outs are (nb, C, pts), the windows and IR
-// planes (C, nparts, pts), the tails (C, pts). The caller allocates outputs
-// and scratch:
-//   timeline (C, nparts+nb, 2*pts), aext (C, nb+2, 2*pts).
+// One LTI scan of nb blocks of C channels. All pointers but tabs and plan
+// are float32 device memory on `device`; blocks (8-byte aligned) and outs
+// are (nb, C, pts), the windows and IR planes (C, nparts, pts), the tails
+// (C, pts), fcoef and icoef (8, pts) (ops/cuda/tables.py _coef_stacks_np).
+// tabs: a host array of 10 device pointers to the transforms' float32
+// tables ((re, im) interleaved, sign baked in; ops/cuda/vmemfft.py): for
+// sign -1 then +1, the pass tables of n1 and n2 = pts / n1 and the
+// four-step tables A, B, S at log_a (four_step_tables_np). pts <= 2^14:
+// log_n1 = 0, one transform in a CTA, only the pass tables of pts (the
+// second of each five) are read. pts > 2^14: n1 = 2^log_n1, both factors in
+// [2, 2^13]. plan: a host array of 6 ints (see plans). The caller
+// allocates outputs and scratch:
+//   timeline (C, nparts+nb, 2*pts), aext (C, nb+2, 2*pts), and for pts >
+//   2^14 scratch of 4 C (nb+1) pts floats (else null).
 // Launches on `stream` without synchronising; returns the first CUDA error.
 extern "C" int stream_steps_fused_batched_f32(
-    const float* blocks, const float* w0r, const float* w0i,
-    const float* hr, const float* hi, const float* wfwd, const float* w2,
-    const float* tail0, float* outs, float* wfr, float* wfi, float* tailf,
-    float* timeline, float* aext, int nb, int C, int nparts, int pts,
+    const float* blocks, const float* w0r, const float* w0i, const float* hr, const float* hi,
+    const float* const* tabs, const float* fcoef, const float* icoef, const float* tail0,
+    float* outs, float* wfr, float* wfi, float* tailf, float* timeline, float* aext,
+    float* scratch, int nb, int C, int nparts, int pts, int log_n1, int log_a, const int* plan,
     float b0_scale, int device, void* stream_ptr) {
-    SGEMM_RETURN_IF_ERROR(cudaSetDevice(device));
+    RETURN_IF_ERROR(cudaSetDevice(device));
+    Plan fwd, inv;
+    MacPlan mac;
+    RETURN_IF_ERROR(plans(tabs, pts, log_n1, log_a, plan, scratch, fwd, inv, mac));
     const Scan s{nb, C, nparts, pts};
-    return run_scan<false>(s, blocks, w0r, w0i, hr, hi, nullptr, 0, DenseFwd{wfwd},
-                           DensePost{w2}, tail0, outs, wfr, wfi, tailf, timeline, aext,
-                           b0_scale, static_cast<cudaStream_t>(stream_ptr));
+    return run_scan<false>(s, blocks, w0r, w0i, hr, hi, nullptr, 0,
+                           FftFwd{fwd, fcoef, scratch, device},
+                           FftPost{inv, icoef, scratch, device}, mac, tail0, outs, wfr, wfi,
+                           tailf, timeline, aext, b0_scale, device,
+                           static_cast<cudaStream_t>(stream_ptr));
 }
 
-// One TV scan of nb blocks of C channels: blocks_x / blocks_h (nb, C, pts)
-// are the input and coefficient operands, (h0r, h0i) the initial
-// coefficient rings (C, nparts, pts); channel c's ring pointer, in
-// [0, nparts), is wp2[c * wp2_stride] (int32 device memory; stride 0 shares
-// one pointer). (hfr, hfi) receive the final rings. Scratch:
-//   timeline (C, nparts+nb, 2*pts), htimeline (C, nparts-1+nb, 2*pts),
-//   aext (C, nb+2, 2*pts).
+// One TV scan of nb blocks of C channels: blocks_x / blocks_h (nb, C, pts),
+// initial coefficient rings (h0r, h0i) (C, nparts, pts), channel c's ring
+// pointer wp2[c * wp2_stride] in [0, nparts) (int32 device memory; stride 0
+// shares one pointer); (hfr, hfi) receive the final rings. Tables, plan and
+// scratch as the LTI scan's, plus htimeline (C, nparts-1+nb, 2*pts).
 extern "C" int stream_steps_fused_batched_tv_f32(
     const float* blocks_x, const float* blocks_h, const float* w0r, const float* w0i,
     const float* h0r, const float* h0i, const int* wp2, int wp2_stride,
-    const float* wfwd, const float* w2, const float* tail0, float* outs, float* wfr,
-    float* wfi, float* hfr, float* hfi, float* tailf, float* timeline, float* htimeline,
-    float* aext, int nb, int C, int nparts, int pts, float b0_scale, int device,
+    const float* const* tabs, const float* fcoef, const float* icoef, const float* tail0,
+    float* outs, float* wfr, float* wfi, float* hfr, float* hfi, float* tailf,
+    float* timeline, float* htimeline, float* aext, float* scratch, int nb, int C, int nparts,
+    int pts, int log_n1, int log_a, const int* plan, float b0_scale, int device,
     void* stream_ptr) {
-    SGEMM_RETURN_IF_ERROR(cudaSetDevice(device));
+    RETURN_IF_ERROR(cudaSetDevice(device));
+    Plan fwd, inv;
+    MacPlan mac;
+    RETURN_IF_ERROR(plans(tabs, pts, log_n1, log_a, plan, scratch, fwd, inv, mac));
     const Scan s{nb, C, nparts, pts};
     return run_tv_scan(s, blocks_x, blocks_h, w0r, w0i, h0r, h0i, wp2, wp2_stride,
-                       DenseFwd{wfwd}, DensePost{w2}, tail0, outs, wfr, wfi, hfr, hfi, tailf,
-                       timeline, htimeline, aext, b0_scale,
-                       static_cast<cudaStream_t>(stream_ptr));
+                       FftFwd{fwd, fcoef, scratch, device}, FftPost{inv, icoef, scratch, device},
+                       mac, tail0, outs, wfr, wfi, hfr, hfi, tailf, timeline, htimeline, aext,
+                       b0_scale, device, static_cast<cudaStream_t>(stream_ptr));
 }

@@ -8,8 +8,8 @@ frame (deinterleave + half-size DFT + pack), split [re | im].
 ``_wpost_np(bins)``: [accr | acci] @ W == [time[:bins] | time[bins:]], the
 whole inverse half (unpack + inverse DFT + deinterleave).
 ``_coef_stacks_np(m)``: the pack and unpack of both chains as two (8, m)
-coefficient stacks, which the split scans (``ops/cuda/splitstep.py``) apply
-around m-point FFTs where the dense tables (6 m^2 floats) are large.
+coefficient stacks, which the whole-scan kernels (``ops/cuda/streamstep.py``)
+apply around m-point FFTs in place of the dense tables (6 m^2 floats).
 
 ``unpack_twiddle(bins)``: the inverse unpack's twiddle exp(+i pi k / bins)
 (``rfft._half_twiddle_np(bins, +1)``), which ``block_mac_unpack`` reads.
@@ -126,17 +126,6 @@ def unpack_twiddle(bins: int, device: torch.device):
     tensors on ``device``."""
     return tuple(torch.from_numpy(np.ascontiguousarray(p)).to(device)
                  for p in _half_twiddle_np(bins, +1))
-
-
-@functools.lru_cache(maxsize=None)
-def post_ola_table(bins: int, device: torch.device) -> torch.Tensor:
-    """(4b, b) re-layout of ``_wpost_np`` for the CUDA stream kernel:
-    [wpost[:, b:] ; wpost[:, :b]]. Row t of [acc[t-1] | acc[t]] @ this
-    table is y[t-1, b:] + y[t, :b], the overlap-added block before /pts."""
-    w = _wpost_np(bins)
-    return torch.from_numpy(
-        np.ascontiguousarray(np.concatenate([w[:, bins:], w[:, :bins]]))
-    ).to(device)
 
 
 @functools.lru_cache(maxsize=None)

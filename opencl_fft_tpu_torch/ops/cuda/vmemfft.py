@@ -89,8 +89,8 @@ def two_pass_split(n: int) -> Split:
     """The default (n1, n2) of the two passes: n1 = 256 front points up to
     2^18 (32 columns a CTA: 128-byte segments), 1024 above (where 256 would
     leave the leaf 4 rows a CTA: 16-byte stores). Chosen by timing the
-    splits of 2^14..2^20 on the H100 (PERF.md). Above 2^23 (the split
-    scans' transforms, ``ops/cuda/splitstep.py``) n1 grows so that the leaf
+    splits of 2^14..2^20 on the H100 (PERF.md). Above 2^23 (the scans'
+    transforms, ``ops/cuda/streamstep.py``) n1 grows so that the leaf
     keeps ``LEAF_PASS_MAX`` points."""
     n1 = 256 if n <= 1 << 18 else max(1024, n // LEAF_PASS_MAX)
     return n1, n // n1

@@ -30,10 +30,10 @@ of a live stream without a click: both coefficient rings are kept and the
 two exact convolutions are blended sample by sample (``XfadeState``).
 
 The streams (``pconv_stream{,_tv}``, ``pconv_stream_batched{,_tv}``,
-``convolve``) send every block through one whole-scan kernel launch: the
-dense-table scans of ``ops/cuda/streamstep.py`` up to ``_FWD_MM_MAX_PTS``,
-the split scans (in-kernel FFTs) of ``ops/cuda/splitstep.py`` above
-(``_scans``).
+``convolve``) send every block through one whole-scan kernel launch
+(``csrc/streamstep.cu``, in-kernel FFTs at every pts): through the
+wrappers of ``ops/cuda/streamstep.py`` up to ``_FWD_MM_MAX_PTS``, of
+``ops/cuda/splitstep.py`` above (``_scans``).
 
 Batched serving (``models/convolver.py``) runs C channels in lockstep on a
 state whose planes have a leading channel axis (``models.batched_state``):
@@ -82,10 +82,11 @@ from .rfft import interleave, irfft_split, rfft_split
 # Largest partition size whose dense transform tables, (pts, 2*pts) forward
 # and (2*pts, 2*pts) inverse (96 MB at 2048), the engine builds. Up to it
 # the forward transform is one product against the forward table
-# (``_forward_partition``), the streams run the dense-table scan kernels
-# and a state on a card runs the per-block step kernels (``_block_kernels``);
-# above it the forward transform is the transform chain, the streams run the
-# split-scan kernels (``_scans``) and the per-block functions the
+# (``_forward_partition``), the streams run the scan kernels through the
+# dense-table kernels' wrappers and a state on a card runs the per-block step
+# kernels (``_block_kernels``); above it the forward transform is the
+# transform chain, the streams run the split scans' wrappers (``_scans``)
+# and the per-block functions the
 # transform chain around the MAC-and-unpack kernel (``_mac_unpack_kernel``).
 _FWD_MM_MAX_PTS = 2048
 
@@ -693,10 +694,12 @@ _SPLIT_SCANS = _Scans(stream_steps_fused_split, stream_steps_fused_split_tv,
 
 
 def _scans(cfg: PconvConfig) -> _Scans:
-    """The whole-scan kernel wrappers of cfg's partition size: the dense
-    tables' (``ops/cuda/streamstep.py``) up to _FWD_MM_MAX_PTS, the split
-    scans' (``ops/cuda/splitstep.py``, in-kernel FFTs) above. Both take the
-    same arguments and give the same results within float32 rounding."""
+    """The whole-scan kernel wrappers of cfg's partition size. Both families
+    launch the same CUDA entries (in-kernel FFTs at every pts) and take the
+    same arguments; they differ in the JAX kernels they stand for, and so in
+    their launch counters: the dense-table kernels' (``ops/cuda/
+    streamstep.py``) up to _FWD_MM_MAX_PTS, the split kernels'
+    (``ops/cuda/splitstep.py``) above, as in the JAX package."""
     return _DENSE_SCANS if cfg.pts <= _FWD_MM_MAX_PTS else _SPLIT_SCANS
 
 
@@ -753,8 +756,7 @@ def pconv_stream(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor
                  ) -> Tuple[PconvState, torch.Tensor]:
     """Run many LTI blocks, blocks: (nblocks, pts) -> outs (nblocks, pts).
 
-    Every block goes through one whole-scan kernel launch (``_scans``: the
-    dense-table scan up to _FWD_MM_MAX_PTS, the split scan above):
+    Every block goes through one whole-scan kernel launch (``_scans``):
     its CUDA kernel for a CUDA tensor, its plain twin for a CPU tensor. Same
     per-block results as pconv_step.
     """

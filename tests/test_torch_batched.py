@@ -24,6 +24,8 @@ from opencl_fft_tpu.ops.pallas.streamstep import \
     stream_steps_fused_batched as jax_batched
 from opencl_fft_tpu.ops.pallas.streamstep import \
     stream_steps_fused_batched_tv as jax_batched_tv
+from opencl_fft_tpu.ops.pallas.streamstep import \
+    stream_steps_fused_tv as jax_tv
 from opencl_fft_tpu_torch.interop import pconv_state_from_numpy
 from opencl_fft_tpu_torch.models import batched_state
 from opencl_fft_tpu_torch.ops import pconv as P
@@ -122,6 +124,59 @@ def test_batched_tv_twin_matches_pallas_kernel(pts, nparts, nch, b0):
     ref = (np.asarray(outs).reshape(nb, nch, pts),
            *(_stacked(a, nch) for a in (wr, wi, hr, hi)), tails)
     _assert_scan_close(_run_tv(d, wp2, b0, pts), ref)
+
+
+PTS_ALL = [2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048]
+B0 = [pytest.param(1.0, id="compat"), pytest.param(2.0, id="exact")]
+
+
+def _jax_batched(d, b0, pts, nch, wp2=None):
+    """The JAX batched Pallas kernel (TV with a shared ``wp2``) in interpret
+    mode, its results laid out as the twins' (outs, *planes, tails)."""
+    nb = d["bx"].shape[0]
+    j = {k: jnp.asarray(v) for k, v in d.items()}
+    w0 = (j["w0r"].reshape(-1, pts), j["w0i"].reshape(-1, pts))
+    h0 = (j["h0r"].reshape(-1, pts), j["h0i"].reshape(-1, pts))
+    if wp2 is None:
+        outs, (wr, wi), tails = jax_batched(j["bx"].reshape(nb * nch, pts), w0, h0, b0,
+                                            j["tails"], pts, nch, interpret=True)
+        planes = (wr, wi)
+    else:
+        blocks2 = jnp.stack([j["bx"], j["bh"]], axis=1).reshape(2 * nb * nch, pts)
+        outs, (wr, wi), (hr, hi), tails = jax_batched_tv(blocks2, w0, h0, wp2, b0, j["tails"],
+                                                         pts, nch, interpret=True)
+        planes = (wr, wi, hr, hi)
+    return (np.asarray(outs).reshape(nb, nch, pts), *(_stacked(a, nch) for a in planes),
+            tails)
+
+
+@pytest.mark.parametrize("pts", PTS_ALL)
+@pytest.mark.parametrize("b0", B0)
+def test_fft_batched_twins_match_pallas_kernels_at_every_pts(pts, b0):
+    """The batched twins' chains are FFT-sized; the JAX kernels' dense DFT
+    products: the same LTI and TV (shared pointer) scans within 2e-5."""
+    nparts, nb, nch = 3, 8, 2
+    d = _inputs(7 * pts + int(b0), pts, nparts, nb, nch)
+    _assert_scan_close(_run(d, b0, pts), _jax_batched(d, b0, pts, nch))
+    _assert_scan_close(_run_tv(d, 2, b0, pts), _jax_batched(d, b0, pts, nch, wp2=2))
+
+
+@pytest.mark.parametrize("pts", PTS_ALL)
+def test_fft_batched_tv_twin_per_channel_pointers_match_pallas_kernel(pts):
+    """Per-channel ring pointers (the JAX batched kernel shares one): each
+    channel of the batched TV twin against the JAX single-channel TV kernel
+    at that channel's pointer."""
+    nparts, nb, nch = 3, 8, 2
+    d = _inputs(11 * pts, pts, nparts, nb, nch)
+    wp2 = (2, 0)
+    tv = _run_tv(d, wp2, 2.0, pts)
+    for c in range(nch):
+        j = {k: jnp.asarray(v[:, c] if k in ("bx", "bh") else v[c]) for k, v in d.items()}
+        blocks2 = jnp.stack([j["bx"], j["bh"]], axis=1).reshape(2 * nb, pts)
+        ref = jax_tv(blocks2, (j["w0r"], j["w0i"]), (j["h0r"], j["h0i"]), wp2[c], 2.0,
+                     j["tails"], pts, interpret=True)
+        _assert_scan_close((tv[0][:, c], *(a[c] for a in tv[1:])),
+                           (ref[0], *ref[1], *ref[2], ref[3]))
 
 
 @pytest.mark.parametrize("pts,nparts,nb,nch", [(16, 5, 13, 3), (16, 1, 3, 2),
@@ -330,6 +385,27 @@ def cuda_device():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pts,nparts,nb,nch", [(2, 3, 5, 2), (4, 1, 2, 1), (64, 37, 70, 2),
+                                               (128, 3, 130, 1), (256, 63, 65, 3),
+                                               (1024, 16, 129, 2), (2048, 64, 117, 4)])
+def test_cuda_batched_kernels_match_twins_at_edge_shapes(cuda_device, pts, nparts, nb, nch):
+    """nb not a multiple of a MAC tile, nparts below MAC_TT and not a
+    multiple of a stage, pts 2..2048, per-channel pointers: kernels against
+    twins, and the same bits from a second launch."""
+    d = _inputs(13 * nb + nparts + nch, pts, nparts, nb, nch)
+    wp2 = tuple((5 * c + 2) % nparts for c in range(nch))
+    got = _run(d, 1.0, pts, fn=S.stream_steps_fused_batched, device=cuda_device)
+    again = _run(d, 1.0, pts, fn=S.stream_steps_fused_batched, device=cuda_device)
+    got_tv = _run_tv(d, wp2, 1.0, pts, fn=S.stream_steps_fused_batched_tv, device=cuda_device)
+    again_tv = _run_tv(d, wp2, 1.0, pts, fn=S.stream_steps_fused_batched_tv,
+                       device=cuda_device)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got + got_tv, again + again_tv))
+    _assert_scan_close(got, _run(d, 1.0, pts, device=cuda_device))
+    _assert_scan_close(got_tv, _run_tv(d, wp2, 1.0, pts, device=cuda_device))
 
 
 @pytest.mark.cuda

@@ -111,11 +111,11 @@ def test_factored_chains_match_the_dense_tables(pts):
     the dense-table ones."""
     rng = np.random.default_rng(pts)
     blocks = _t(rng.standard_normal((5, 2, pts)).astype(np.float32))
-    for s, d in zip(SP._fft_frames(blocks, pts), S._dense_frames(blocks, pts)):
+    for s, d in zip(S._fft_frames(blocks, pts), S._dense_frames(blocks, pts)):
         _close(s, d, 1e-5)
     acc = [_t(rng.standard_normal((2, 5, pts)).astype(np.float32)) for _ in range(2)]
     tails = _t(rng.standard_normal((2, pts)).astype(np.float32))
-    for s, d in zip(SP._fft_post_ola(*acc, tails, pts), S._post_ola_plain(*acc, tails, pts)):
+    for s, d in zip(S._fft_post_ola(*acc, tails, pts), S._post_ola_plain(*acc, tails, pts)):
         _close(s, d, 1e-5)
 
 
@@ -124,7 +124,7 @@ def test_kernel_plan_covers_every_size(pts):
     """What the kernels are handed: one transform in a CTA up to 2^14 (the
     pass tables of pts), the four-step above with both factors in
     [2, 2^13] and its tables; above 2^26 the wrapper raises."""
-    plan = SP._plan(pts, torch.device(CPU))
+    plan = S._plan(pts, torch.device(CPU))
     assert len(plan.tables) == len(plan.tabs) == 10
     for sign, tabs in ((-1, plan.tables[:5]), (1, plan.tables[5:])):
         if pts <= 1 << 14:
@@ -140,7 +140,7 @@ def test_kernel_plan_covers_every_size(pts):
         for got, want in zip(tabs[2:], V.four_step_tables_np(n1, n2, sign)):
             np.testing.assert_array_equal(got.numpy(), want)
     with pytest.raises(ValueError, match="pts <= "):
-        SP._kernel_args(2 * SP.MAX_PTS, 1, 1, torch.device(CPU))
+        S._kernel_args(2 * S.MAX_PTS, 1, 1, torch.device(CPU))
 
 
 CHAIN_PTS = [2, 4, 16, 128, 1024, 4096]
@@ -152,7 +152,7 @@ def test_fft_frames_match_jax_fwd_ref(pts):
     chain."""
     rng = np.random.default_rng(pts + 1)
     blocks = rng.standard_normal((4, 3, pts)).astype(np.float32)
-    got = SP._fft_frames(_t(blocks), pts)
+    got = S._fft_frames(_t(blocks), pts)
     ref = JS.fwd_ref(jnp.asarray(blocks), pts)
     for g, r in zip(got, ref):
         _close(g, np.asarray(r).transpose(1, 0, 2), 2e-5)
@@ -166,7 +166,7 @@ def test_fft_post_ola_matches_jax_inv_ref(pts):
     rng = np.random.default_rng(pts + 2)
     acc = [rng.standard_normal((3, 5, pts)).astype(np.float32) for _ in range(2)]
     tails = rng.standard_normal((3, pts)).astype(np.float32)
-    outs, tailf = SP._fft_post_ola(_t(acc[0]), _t(acc[1]), _t(tails), pts)
+    outs, tailf = S._fft_post_ola(_t(acc[0]), _t(acc[1]), _t(tails), pts)
     out1, out2 = (np.asarray(o) for o in JS.inv_ref(jnp.asarray(acc[0]), jnp.asarray(acc[1]),
                                                     pts))
     prev = np.concatenate([tails[:, None], out2[:, :-1]], 1)
@@ -195,6 +195,23 @@ def _pair(planes, fn=_t):
     return tuple(fn(p) for p in planes)
 
 
+def _dense_oracle(bx, w0, h, b0, tail, pts):
+    """The single-channel LTI scan around the JAX kernels' dense-table
+    chains (``_dense_frames``, ``_post_ola_plain``)."""
+    outs, (wr, wi), tailf = S._lti_scan_plain(bx[:, None], S._one(w0), S._one(h), b0,
+                                              tail[None], pts, S._dense_frames,
+                                              S._post_ola_plain)
+    return outs[:, 0], (wr[0], wi[0]), tailf[0]
+
+
+def _dense_tv_oracle(bx, bh, w0, h0, wp2, b0, tail, pts):
+    """The single-channel TV scan around the dense-table chains."""
+    outs, (wr, wi), (hr, hi), tailf = S._tv_scan_plain(
+        bx[:, None], bh[:, None], S._one(w0), S._one(h0), wp2, b0, tail[None], pts,
+        S._dense_frames, S._post_ola_plain)
+    return outs[:, 0], (wr[0], wi[0]), (hr[0], hi[0]), tailf[0]
+
+
 @pytest.mark.parametrize("nb", [16, 24])
 @pytest.mark.parametrize("b0", [2.0, 1.0])
 def test_split_twin_matches_pallas_kernel_and_dense_twin(nb, b0):
@@ -207,7 +224,7 @@ def test_split_twin_matches_pallas_kernel_and_dense_twin(nb, b0):
     before = SP.LAUNCHES
     got = SP.stream_steps_fused_split(*args)
     assert SP.LAUNCHES == before                   # the CPU runs the twin
-    dense = S.stream_steps_fused_plain(*args)
+    dense = _dense_oracle(*args)
     for ref in ((jo, jw, jt), dense):
         _close(got[0], ref[0], 2e-5)
         _close(got[2], ref[2], 2e-5)
@@ -227,7 +244,7 @@ def test_split_tv_twin_matches_pallas_kernel_and_dense_twin(nb, wp2, b0):
     args = (_t(d["bx"]), _t(d["bh"]), _pair(d["w0"]), _pair(d["h"]), wp2, b0, _t(d["tail"]),
             pts)
     got = SP.stream_steps_fused_split_tv(*args)
-    dense = S.stream_steps_fused_tv_plain(*args)
+    dense = _dense_tv_oracle(*args)
     for ref in ((jo, jw, jh, jt), dense):
         _close(got[0], ref[0], 2e-5)
         _close(got[3], ref[3], 2e-5)

@@ -364,6 +364,22 @@ def test_cuda_tv_kernel_matches_twin(cuda_device, pts, nparts, nb, wp2, b0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pts,nparts,nb,wp2", [(2, 3, 5, 1), (8, 9, 200, 4), (64, 37, 70, 3),
+                                               (128, 3, 130, 2), (256, 63, 65, 62),
+                                               (1024, 16, 21, 15), (2048, 64, 117, 63)])
+def test_cuda_tv_kernel_matches_twin_at_edge_shapes(cuda_device, pts, nparts, nb, wp2):
+    """nb not a multiple of a MAC tile, nparts below MAC_TT and not a
+    multiple of a stage, pts 2..2048: kernel against twin, and the same
+    bits from a second launch."""
+    d = _inputs(11 * nb + nparts, pts, nparts, nb)
+    got = _run_tv(d, wp2, 2.0, pts, fn=S.stream_steps_fused_tv, device=cuda_device)
+    again = _run_tv(d, wp2, 2.0, pts, fn=S.stream_steps_fused_tv, device=cuda_device)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _assert_tv_close(got, _run_tv(d, wp2, 2.0, pts, device=cuda_device))
+
+
+@pytest.mark.cuda
 def test_cuda_stream_tv_matches_cpu_twin(cuda_device):
     cfg = P.PconvConfig(pts=64, nparts=5)
     rng = np.random.default_rng(10)
@@ -379,3 +395,79 @@ def test_cuda_stream_tv_matches_cpu_twin(cuda_device):
                                    bh[call].to(cuda_device))
         _close(og, oc, 2e-5)
     assert S.TV_LAUNCHES == before + 2
+
+
+# ---------------------------------------------------------------------------
+# the FFT-chain twin at every pts, and the tiled MAC's ring rows
+# ---------------------------------------------------------------------------
+
+PTS_ALL = [2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048]
+B0 = [pytest.param(1.0, id="compat"), pytest.param(2.0, id="exact")]
+
+
+@pytest.mark.parametrize("pts", PTS_ALL)
+@pytest.mark.parametrize("b0", B0)
+def test_fft_tv_twin_matches_pallas_kernel_at_every_pts(pts, b0):
+    nparts, nb, wp2 = 3, 8, 1
+    d = _inputs(5 * pts + int(b0), pts, nparts, nb)
+    j = {k: jnp.asarray(v) for k, v in d.items()}
+    blocks2 = jnp.stack([j["bx"], j["bh"]], axis=1).reshape(2 * nb, pts)
+    outs, (wr, wi), (hr, hi), tail = jax_stream_steps_fused_tv(
+        blocks2, (j["w0r"], j["w0i"]), (j["h0r"], j["h0i"]), wp2, b0, j["tail"],
+        pts, interpret=True)
+    _assert_tv_close(_run_tv(d, wp2, b0, pts), (outs, wr, wi, hr, hi, tail))
+
+
+def _tile_tv_rows(plan, nb, nparts, wp2):
+    """The coefficient-timeline row the tiled TV MAC (``csrc/scan_mac.cuh``
+    mac_stage / mac_chunk) multiplies into output t at partition q: each
+    CTA stages row s0 + nparts - 1 (s0 the latest block <= t0 with s0 = wp2
+    - q mod nparts) and, where a CTA output reaches s0 + nparts, the row
+    after it; a warp's outputs take the second row once its phase wrapped,
+    and its outputs j >= jw past its own wrap the row after the first."""
+    rows = np.full((nb, nparts), -1)
+    T, tt = plan.outs, plan.tt
+    for t0 in range(0, nb, T):
+        for q in range(nparts):
+            m0 = (t0 - wp2 + q) % nparts
+            s0 = t0 - m0
+            staged = [s0 + nparts - 1,
+                      s0 + 2 * nparts - 1 if s0 + nparts <= min(t0 + T, nb) - 1 else None]
+            for g in range(plan.groups):
+                mg = m0 + g * tt
+                second = int(mg >= nparts)
+                jw = nparts - (mg - nparts * second)
+                for j in range(tt):
+                    t = t0 + g * tt + j
+                    if t < nb:
+                        assert not (j >= jw and second)       # one wrap a warp at most
+                        rows[t, q] = staged[1 if j >= jw else second]
+    return rows
+
+
+@pytest.mark.parametrize("nb,nparts,wp2", [(470, 256, 255), (1880, 256, 5), (70, 37, 3),
+                                           (65, 63, 62), (9, 8, 7), (200, 9, 0), (21, 16, 15),
+                                           (3, 8, 2), (130, 64, 63), (129, 128, 1)])
+@pytest.mark.parametrize("tt,groups", [(8, 8), (8, 4), (8, 1), (16, 4), (16, 2), (16, 1)])
+def test_tiled_tv_mac_reads_the_ring_rows_of_the_twin(nb, nparts, wp2, tt, groups):
+    """Every output and partition of the tiled TV MAC multiplies the row
+    the twin gathers (``_tv_rows``), at each plan the kernel may run
+    (groups * tt <= nparts), and the row it reads was staged."""
+    if groups * tt > nparts:
+        groups = max(1, nparts // tt)
+    if tt > nparts:
+        tt, groups = 8, 1
+    ring = 1 << (2 * 32 + groups * tt - 2).bit_length()
+    plan = S.MacPlan(groups, tt, 32, ring)
+    got = _tile_tv_rows(plan, nb, nparts, wp2)
+    t, q = np.arange(nb)[:, None], np.arange(nparts)[None]
+    np.testing.assert_array_equal(got, S._tv_rows(t, q, wp2, nparts))
+
+
+def test_tv_mac_plan_keeps_a_tile_within_nparts():
+    """The plan's TV tile spans no more blocks than there are partitions,
+    so a tile's outputs read at most two coefficient rows a partition."""
+    for nparts in (8, 9, 15, 16, 31, 63, 64, 256, 2048):
+        for nb, bins, nch in ((1880, 512, 1), (470, 512, 64), (21, 64, 3), (1, 16, 1)):
+            plan = S.mac_plan(nch, nb, bins, nparts, True)
+            assert plan.outs <= nparts and plan.tt <= nparts
