@@ -26,20 +26,22 @@ each kernel's device time (under the profiler and from device memory)
 against cuFFT and, for the single pass, against the earlier single-pass
 kernel. Then the offline and chunked paths: the sliding-MAC kernel (``chunk_mac``,
 ``macflow_lti``, ``macflow_lti_batched``) against its twin at the JAX
-bench's offline shapes and odd shapes; ``pconv_offline``,
+bench's offline shapes and odd shapes, on the route its shape picks (tiled
+or q-split) and on the other; ``pconv_offline``,
 ``Convolver.render`` (16 and 64 channels), ``pconv_stream_batched_chunked``
 (K = 8), ``Convolver.stream(chunk=8)``, ``pconv_chunk{,_tv}``, the LTI
 ``stream_decomposed`` and ``convolve_oneshot`` against float64 scipy and
 the streaming paths; and their times under the JAX bench's metric names,
-beside the kernel's, its twin's, its bound and one cuDNN ``conv1d`` of the
-same correlation. Then the per-block path: the block-step kernels
+beside the kernel's (also from device memory by a CUDA graph), its twin's,
+its bound and one cuDNN ``conv1d`` of the same correlation. Then the per-block path: the block-step kernels
 (``spectral_mac``, ``block_step_fused``, ``block_step_fwd_fused``,
 ``block_step_fwd_fused_tv``) against their twins at one and 64 channels of
 the headline ring and at odd shapes; ``Clpconv.convolution`` with a
 crossfaded IR swap retargeted mid-fade, ``ClconvProcessor.set_ir``,
 ``CltvconvProcessor``, ``Convolver.set_ir`` on 16 of 64 channels (the
 others bit-equal to an engine that never swapped) and a ``MatrixConvolver``
-entry swap against float64 scipy blends; and their per-block times. Then
+entry swap against float64 scipy blends; and their per-block times, each
+step's forward / MAC / inverse stages by shape and its least-work bound. Then
 the time-varying decomposed engine and the long-partition streams: the TV
 sliding-MAC kernel (``macflow_tv``, ``macflow_tv_batched``; at the
 q-slices its plan picks and at forced ones) and the split-scan kernels
@@ -175,17 +177,22 @@ def scan_design_flops(nb, nch, nparts, m, tv):
 
 def launch_us(fn, calls=3):
     """Mean device microseconds of one launch of each kernel fn() launches,
-    under torch.profiler."""
+    under torch.profiler (a session that records no kernel is taken again,
+    twice at most)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / e.count for e in prof.key_averages()
-            if e.self_device_time_total > 0}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = {e.key: e.self_device_time_total / e.count for e in prof.key_averages()
+              if e.self_device_time_total > 0}
+        if us:
+            return us
+    return us
 
 
 def scan_parts(fn, tv):
@@ -223,17 +230,22 @@ def ptxas_summary(log):
 
 def device_us(fn, calls=10):
     """Device microseconds per call of fn(): the kernels' and copies' time
-    under torch.profiler over ``calls`` calls."""
+    under torch.profiler over ``calls`` calls (a session that records none
+    is taken again, twice at most)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / calls
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA) / calls
+        if us > 0:
+            return us
+    return us
 
 
 def graph_us(fn, nsets, calls=20, reps=7):
@@ -1197,8 +1209,21 @@ def main():
 
     # phase 21: the sliding-MAC kernel (one CUDA entry under three wrappers:
     # chunk_mac, macflow_lti_batched, macflow_lti on channel 0) vs its plain
-    # twin on the card, at the JAX bench's offline shapes and at odd shapes
+    # twin on the card, at the JAX bench's offline shapes and at odd shapes,
+    # on the route slide_route picks (tiled or q-split) and on the other one,
+    # bit-equal on a second launch
     from opencl_fft_tpu_torch.ops.decomposed import stream_decomposed
+
+    @contextlib.contextmanager
+    def slide_route_forced(route):
+        own = SM.slide_route
+        SM.slide_route = lambda *a, **k: own(*a, **k, force=route)
+        try:
+            yield
+        finally:
+            SM.slide_route = own
+
+    sms = _build.sm_count(dev.index)
 
     def mac_inputs(nch, nparts, bins, nout):
         """timeline (C, nparts + nout, bins), h (C, nparts, bins): chunk_mac
@@ -1214,9 +1239,11 @@ def main():
     # macflow_lti_batched), then odd ones
     mac_shapes = [(1, np_, b, SCAN_BLOCKS), (16, np_, b, SERVE_BLOCKS),
                   (SERVE_CH, np_, b, SERVE_BLOCKS), (SERVE_CH, np_, b, CHUNK_K),
-                  (2, 3, 64, 13), (3, 37, 64, 21), (1, 1, 16, 1)]
+                  (2, 3, 64, 13), (3, 37, 64, 21), (1, 1, 16, 1), (2, 70, 100, 300),
+                  (1, 5, 33, 70)]
     mac_err = {}
     worst = 0.0
+    routes_taken, other_worst = [], 0.0
     for nch, nparts, bins, nout in mac_shapes:
         xm, hm = mac_inputs(nch, nparts, bins, nout)
         for b0 in (1.0, 2.0):
@@ -1228,6 +1255,10 @@ def main():
             torch.cuda.synchronize()
             check(wrapper_counts() == tuple(n + 1 for n in n0),
                   "each sliding-MAC wrapper counts its launch")
+            again = SM.macflow_lti_batched(xm, hm, nout, b0)
+            torch.cuda.synchronize()
+            check(all(torch.equal(g, a_) for g, a_ in zip(got["macflow_lti_batched"], again)),
+                  f"sliding MAC bit-equal on a second launch at C={nch} nout={nout}")
             want = SM.slide_mac_plain(xm, hm, nout, b0)
             for wname, g in got.items():
                 w = (want[0][0], want[1][0]) if wname == "macflow_lti" else want
@@ -1237,10 +1268,24 @@ def main():
                 key = (wname, nch, nout)
                 mac_err[key] = max(mac_err.get(key, 0.0),
                                    *(float((gg - ww).abs().max()) for gg, ww in zip(g, w)))
-    del xm, hm, got, want
+            route = SM.slide_route(nch, nout, bins, nparts, sms)[0]
+            other = "split" if route == "tiled" else "tiled"
+            with slide_route_forced(other):
+                g = SM.macflow_lti_batched(xm, hm, nout, b0)
+                again = SM.macflow_lti_batched(xm, hm, nout, b0)
+            torch.cuda.synchronize()
+            check(all(torch.equal(u, v) for u, v in zip(g, again)),
+                  f"sliding MAC ({other}) bit-equal on a second launch at C={nch} nout={nout}")
+            other_worst = compare(((f"{other} re", g[0], want[0]), (f"{other} im", g[1], want[1])),
+                                  f"forced {other} C={nch} nparts={nparts} bins={bins} "
+                                  f"nout={nout} b0={b0}", other_worst)
+        routes_taken.append(route)
+    del xm, hm, got, want, g, again
     print(f"phase 21 sliding-MAC kernel vs twin: chunk_mac, macflow_lti_batched and "
-          f"macflow_lti (channel 0) at (C,nparts,bins,nout) {mac_shapes} x b0 {{1,2}}; worst "
-          f"rel err {worst:.3e} (tol {TOL}); max_abs_err chunk_mac 1x{SCAN_BLOCKS} "
+          f"macflow_lti (channel 0) at (C,nparts,bins,nout) {mac_shapes} x b0 {{1,2}} on the "
+          f"routes {routes_taken}; worst rel err {worst:.3e} (tol {TOL}), the other route "
+          f"forced {other_worst:.3e}; bit-equal on a second launch; max_abs_err chunk_mac "
+          f"1x{SCAN_BLOCKS} "
           f"{mac_err[('chunk_mac', 1, SCAN_BLOCKS)]:.3e}, 16x{SERVE_BLOCKS} "
           f"{mac_err[('chunk_mac', 16, SERVE_BLOCKS)]:.3e}; macflow_lti_batched "
           f"{SERVE_CH}x{SERVE_BLOCKS} "
@@ -1409,20 +1454,27 @@ def main():
     chunk8_ms = cuda_ms(lambda: in_chunks(P.pconv_chunk, state, blocks), warmup=1, reps=3)
     dec_ms = cuda_ms(lambda: stream_decomposed(cfg, state, blocks), reps=15)
     one_ms = cuda_ms(lambda: P.convolve_oneshot(x_d, ir_d), reps=9)
+    def mac_call(wname, xx, hh, nout):
+        if wname == "chunk_mac":
+            return SM.chunk_mac(xx, hh, 2.0)
+        if wname == "macflow_lti":
+            return SM.macflow_lti((xx[0][0], xx[1][0]), (hh[0][0], hh[1][0]), nout, 2.0)
+        return SM.macflow_lti_batched(xx, hh, nout, 2.0)
+
     mac_rows = []
     for wname, nch, nout in (("chunk_mac", 1, SCAN_BLOCKS), ("chunk_mac", 16, SERVE_BLOCKS),
                              ("macflow_lti_batched", SERVE_CH, SERVE_BLOCKS),
                              ("macflow_lti_batched", SERVE_CH, CHUNK_K),
                              ("macflow_lti", 1, SCAN_BLOCKS)):
         xm, hm = mac_inputs(nch, np_, b, nout)
-        if wname == "chunk_mac":
-            run = lambda: SM.chunk_mac(xm, hm, 2.0)  # noqa: E731
-        elif wname == "macflow_lti":
-            x1, h1 = (xm[0][0], xm[1][0]), (hm[0][0], hm[1][0])
-            run = lambda: SM.macflow_lti(x1, h1, nout, 2.0)  # noqa: E731
-        else:
-            run = lambda: SM.macflow_lti_batched(xm, hm, nout, 2.0)  # noqa: E731
+        run = lambda: mac_call(wname, xm, hm, nout)  # noqa: E731
         k_ms = cuda_ms(run, reps=9, calls=10 if nout == CHUNK_K else 1)
+        # from HBM: a CUDA graph over input sets that together outgrow the L2
+        sets_ = [(xm, hm)] + [mac_inputs(nch, np_, b, nout)
+                              for _ in range(-(-2 * L2_BYTES // nbytes(*xm, *hm)))]
+        k_hbm = graph_us(lambda i: mac_call(wname, *sets_[i], nout), len(sets_),
+                         calls=20 if nch * nout < 4096 else 5)
+        del sets_
         tw_ms = cuda_ms(lambda: SM.slide_mac_plain(xm, hm, nout, 2.0), warmup=1, reps=3)
         lib_call, lib_out = conv1d_yardstick(xm, hm, nout, 2.0)
         want = SM.slide_mac_plain(xm, hm, nout, 2.0)
@@ -1430,7 +1482,8 @@ def main():
                       for g, w_ in zip(lib_out, want))
         check(lib_err <= TOL, f"conv1d yardstick vs twin at {wname} C={nch}: {lib_err:.3e}")
         lib_ms = cuda_ms(lib_call, warmup=1, reps=3)
-        mac_rows.append((wname, nch, nout, k_ms, tw_ms, mac_bound(xm, hm, nout), lib_ms))
+        mac_rows.append((wname, nch, nout, k_ms, tw_ms, mac_bound(xm, hm, nout), lib_ms, k_hbm,
+                         SM.slide_route(nch, nout, b, np_, sms)[0]))
     del xm, hm, want, lib_out
     mac_by = {(r[0], r[1], r[2]): r for r in mac_rows}
     print(f"phase 23 offline timing [{card}]: pconv_offline_rt_factor "
@@ -1445,18 +1498,21 @@ def main():
           f"{audio_chk / (s8_ms / 1e3):.1f}); pconv_chunk8_rt_factor "
           f"{audio_s / (chunk8_ms / 1e3):.1f} ({SCAN_BLOCKS // CHUNK_K} pconv_chunk calls: "
           f"{chunk8_ms:.4f} ms); stream_decomposed {SCAN_BLOCKS} blocks {dec_ms:.4f} ms; "
-          f"convolve_oneshot({x.size} samples, {IR_LEN} taps) {one_ms:.4f} ms | kernels (ms; "
-          f"twin; bound; cuDNN conv1d): " + "; ".join(
-              f"{w_} C={c_}x{n_}: {k:.4f}; twin {tw:.4f}; bound {bd[0]:.4f} ({bd[1]}, "
-              f"{100 * bd[0] / k:.1f}% reached); conv1d {lib:.4f}"
-              for w_, c_, n_, k, tw, bd, lib in mac_rows), flush=True)
+          f"convolve_oneshot({x.size} samples, {IR_LEN} taps) {one_ms:.4f} ms | kernels (ms by "
+          f"events; device us from HBM by CUDA graph; twin; bound; cuDNN conv1d): " + "; ".join(
+              f"{w_} C={c_}x{n_} ({rt}): {k:.4f}, from HBM {hb:.1f} us ({100 * bd[0] * 1e3 / hb:.1f}% "
+              f"of the bound); twin {tw:.4f}; bound {bd[0]:.4f} ({bd[1]}, {100 * bd[0] / k:.1f}% "
+              f"reached by events); conv1d {lib:.4f}"
+              for w_, c_, n_, k, tw, bd, lib, hb, rt in mac_rows), flush=True)
 
     # phase 24: the block-step kernels (spectral_mac, block_step_fused,
     # block_step_fwd_fused, block_step_fwd_fused_tv, block_mac_unpack) vs
     # their twins on the card at one and 64 channels of the headline ring
     # (nparts 256, bins 512), at the ring boundaries (rp 0, 1, 255; wp2 0,
     # 255), both b0s, at one partition (the zero-latency doubling segments:
-    # nparts 1, bins 64 and 2048) and at odd shapes
+    # nparts 1, bins 64 and 2048), at pts 4096 and at odd shapes; each
+    # bit-equal on a second launch, and the fused step's output bit-equal to
+    # block_step_fused's on the ring it wrote (the crossfade's contract)
     def ring_inputs(nch, nparts, bins):
         """A doubled ring (both halves equal), h planes, a tail and the two
         operands' blocks; ``nch`` None for no channel axis."""
@@ -1484,7 +1540,7 @@ def main():
     bs_names = ("spectral_mac", "block_step_fused", "block_step_fwd_fused",
                 "block_step_fwd_fused_tv")
     bs_shapes = [(None, np_, b), (SERVE_CH, np_, b), (None, 1, 64), (None, 1, 2048),
-                 (None, 3, 16), (3, 3, 16)]
+                 (None, 8, LONG_PTS), (None, 3, 16), (3, 3, 16)]
     bs_err = {}
     worst = 0.0
     for nch, nparts, bins in bs_shapes:
@@ -1498,6 +1554,18 @@ def main():
                     check(step_counts() == tuple(n + 1 for n in n0)
                           and BS.MAC_UNPACK_LAUNCHES == u0 + 1,
                           "each block-step wrapper counts its launch")
+                    again = block_kernels(ring, h, tail, bl2, rp, wp2, b0, False)
+                    ring_n = got["block_step_fwd_fused"][2:]
+                    fused = BS.block_step_fused(ring_n, h, rp, b0, tail, bins)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(g, a_) for k_ in got for g, a_ in
+                              zip(got[k_], again[k_])),
+                          f"block-step kernels bit-equal on a second launch at C={nch} "
+                          f"nparts={nparts} bins={bins} rp={rp}")
+                    check(all(torch.equal(g, a_) for g, a_ in
+                              zip(got["block_step_fwd_fused"][:2], fused)),
+                          f"block_step_fwd_fused bit-equal to block_step_fused on its ring at "
+                          f"C={nch} nparts={nparts} bins={bins} rp={rp}")
                     want = block_kernels(ring, h, tail, bl2, rp, wp2, b0, True)
                     for kname in (*bs_names, "block_mac_unpack"):
                         for g in got[kname]:
@@ -1510,10 +1578,11 @@ def main():
                         bs_err[key] = max(bs_err.get(key, 0.0), *(
                             float((g - w_).abs().max()) for g, w_ in zip(got[kname],
                                                                          want[kname])))
-    del ring, h, tail, bl2, got, want
+    del ring, h, tail, bl2, got, want, again, ring_n, fused
     print(f"phase 24 block-step kernels vs twins: {', '.join(bs_names)}, block_mac_unpack at "
           f"(C,nparts,bins) {bs_shapes}, rp {{0, 1, nparts-1}}, wp2 {{0, nparts-1}}, b0 {{1,2}}; "
-          f"worst rel err {worst:.3e} (tol {TOL}); max_abs_err at C=1 / C={SERVE_CH} / nparts 1: "
+          f"worst rel err {worst:.3e} (tol {TOL}); bit-equal on a second launch, and the fused "
+          f"step to block_step_fused on its ring; max_abs_err at C=1 / C={SERVE_CH} / nparts 1: "
           + "; ".join(f"{k} {bs_err[(k, 1, np_)]:.3e} / {bs_err[(k, SERVE_CH, np_)]:.3e} / "
                       f"{bs_err[(k, 1, 1)]:.3e}" for k in (*bs_names, "block_mac_unpack")),
           flush=True)
@@ -1679,19 +1748,34 @@ def main():
           + "; ".join(f"{lab}: {ms:.4f} ms, device {dus:.1f} us, wall {wus:.1f} us"
                       for lab, ms, dus, wus in path_rows), flush=True)
 
-    def bs_bound(kname, nch):
-        """Least time of one call at the headline ring: each input read once,
-        each output written once; the MAC, and the post and forward
-        products as the dense table products the function is."""
-        plane, row = nch * np_ * b * 4, nch * b * 4     # a (nparts, bins) plane; a (bins,) row
-        nbytes_, flops = 4 * plane, 8.0 * nch * np_ * b  # the window and h, re and im; the MAC
+    def bs_bound(kname, nch, nparts=np_, bins=b):
+        """Least time of one call: the step's least work, whatever computes
+        it. Each input read once, each output written once (the window and
+        h, re and im; the tail in, out and the tail out; the blocks, the new
+        doubled input ring and the new h ring), and the operations of the
+        MAC and of one real transform of 2 pts points (rfft_flops) a frame
+        in and an output block out."""
+        plane, row = nch * nparts * bins * 4, nch * bins * 4   # a (nparts, bins) plane; a row
+        nbytes_, flops = 4 * plane, 8.0 * nch * nparts * bins  # the window and h; the MAC
         if kname == "spectral_mac":
-            return bound(flops, nbytes_ + 2 * row)       # the accumulators out
-        nbytes_ += (2 * b) ** 2 * 4 + 3 * row            # wpost, the tail in, out and tail out
+            return bound(flops, nbytes_ + 2 * row)             # the accumulators out
+        nbytes_ += 3 * row
+        flops += nch * rfft_flops(2 * bins)
+        if kname != "block_step_fused":
+            nfr = 2 if kname.endswith("_tv") else 1
+            nbytes_ += nfr * row + 4 * plane + (nfr - 1) * 2 * plane
+            flops += nfr * nch * rfft_flops(2 * bins)
+        return bound(flops, nbytes_)
+
+    def bs_bound_tables(kname, nch):
+        """The bound of the dense-table design, printed beside the least-work
+        one: the JAX kernels' table products (wfwd, wpost read once, their
+        GEMV operations) in place of the transforms."""
+        plane, row = nch * np_ * b * 4, nch * b * 4
+        nbytes_, flops = 4 * plane + (2 * b) ** 2 * 4 + 3 * row, 8.0 * nch * np_ * b
         flops += 2.0 * nch * (2 * b) ** 2
         if kname != "block_step_fused":
             nfr = 2 if kname.endswith("_tv") else 1
-            # wfwd, the blocks, the new doubled input ring and the new h ring
             nbytes_ += PTS * 2 * b * 4 + nfr * row + 4 * plane + (nfr - 1) * 2 * plane
             flops += 2.0 * nfr * nch * PTS * 2 * b
         return bound(flops, nbytes_)
@@ -1719,10 +1803,61 @@ def main():
                                             bs_bound(kname, nch or 1))
     del ring, h, tail, bl2
     print(f"phase 26 block-step kernels [{card}] (ms per call, CUDA events over 10 calls back "
-          f"to back; device us under torch.profiler; twin ms; bound ms): " + "; ".join(
+          f"to back; device us under torch.profiler; twin ms; least-work bound ms): " + "; ".join(
               f"{k} C={c}: {ms:.4f} (device {dus:.1f} us); twin {tw:.4f}; bound {bd[0]:.4f} "
               f"({bd[1]}, {100 * bd[0] / ms:.1f}% reached)"
-              for (k, c), (ms, dus, tw, bd) in kern_rows.items()), flush=True)
+              for (k, c), (ms, dus, tw, bd) in kern_rows.items())
+          + "; the dense-table bound before the redesign, for comparison: " + "; ".join(
+              f"{k} C={c} {bs_bound_tables(k, c)[0]:.4f}" for k in bs_names[1:]
+              for c in (1, SERVE_CH)), flush=True)
+
+    # each step's stages by shape (C = 1 without a channel axis): forward /
+    # MAC / inverse device us a call under the profiler (each kernel's mean
+    # a launch), the call from HBM by CUDA graph over rotating inputs, and
+    # the least-work bound
+    def stage_of(kname_):
+        return ("inverse" if "inv" in kname_ or "reduce" in kname_ or "ola" in kname_
+                else "forward" if "fwd" in kname_ else "MAC" if "mac" in kname_ else "rest")
+
+    stage_rows = []
+    for nch in (1, SERVE_CH):
+        lead = () if nch == 1 else (nch,)
+        for pts_ in (64, PTS, 2048):
+            for nparts in (1, np_):
+                def make():
+                    a_, b_ = f(*lead, nparts, pts_), f(*lead, nparts, pts_)
+                    return (torch.cat([a_, a_], -2), torch.cat([b_, b_], -2),
+                            f(*lead, nparts, pts_, s=0.05), f(*lead, nparts, pts_, s=0.05),
+                            f(*lead, pts_), f(2, *lead, pts_, s=0.1))
+
+                first = make()
+                sets_ = [first] + [make() for _ in range(min(
+                    47, -(-2 * L2_BYTES // nbytes(*first))))]
+                rp_, wp2_ = 1 % nparts, nparts - 1
+                steps = {
+                    "block_step_fused": lambda i: BS.block_step_fused(
+                        sets_[i][:2], sets_[i][2:4], rp_, 2.0, sets_[i][4], pts_),
+                    "block_step_fwd_fused": lambda i: BS.block_step_fwd_fused(
+                        sets_[i][5][0], sets_[i][:2], sets_[i][2:4], rp_, 2.0, sets_[i][4], pts_),
+                    "block_step_fwd_fused_tv": lambda i: BS.block_step_fwd_fused_tv(
+                        sets_[i][5], sets_[i][:2], sets_[i][2:4], rp_, wp2_, 2.0, sets_[i][4],
+                        pts_)}
+                for kname, fn in steps.items():
+                    parts = {"forward": 0.0, "MAC": 0.0, "inverse": 0.0, "rest": 0.0}
+                    launched = launch_us(lambda: fn(0))
+                    for kn, us in launched.items():
+                        parts[stage_of(kn)] += us
+                    hbm = graph_us(fn, len(sets_), calls=20 if nch == 1 else 5)
+                    stage_rows.append((kname, nch, pts_, nparts, parts, len(launched), hbm,
+                                       bs_bound(kname, nch, nparts, pts_)))
+                del first, sets_
+    torch.cuda.empty_cache()
+    print(f"phase 26 block-step stages [{card}] (device us a call: forward / MAC / inverse "
+          f"under the profiler, kernels a call; from HBM by CUDA graph; least-work bound): "
+          + "; ".join(f"{k} C={c} pts={pt} nparts={n}: {pa['forward']:.1f} / {pa['MAC']:.1f} / "
+                      f"{pa['inverse']:.1f} ({nk} kernels), from HBM {hb:.1f} us, bound "
+                      f"{1e3 * bd[0]:.2f} us ({bd[1]})"
+                      for k, c, pt, n, pa, nk, hb, bd in stage_rows), flush=True)
 
     # phase 27: the TV sliding-MAC kernel (macflow_tv, macflow_tv_batched:
     # one CUDA entry) vs its twin at every main-path shape (1 x 1880 of the

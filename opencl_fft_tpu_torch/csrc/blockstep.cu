@@ -1,6 +1,6 @@
 // Per-block partitioned-convolution steps on Hopper (sm_90a), for C channels
 // at once (C = 1 is the single stream): the frequency-delay-line MAC over
-// the doubled input ring, alone or fused with the inverse transform and the
+// the doubled input ring, alone or with the inverse transform and the
 // overlap-add, with or without the forward transform of the new block.
 //
 // Replaces five TPU kernels:
@@ -17,37 +17,42 @@
 //   acc[c, k] = sum_{q < nparts} X[c, rp + q, k] (*) H[c, q, k]
 // a complex product except at bin 0, the packed (DC/2, Nyq/2) pair, which
 // multiplies componentwise and is scaled by b0 (cl_conv_kernels.h:102-118).
-// block_step_fused then computes y = [acc_re | acc_im] @ wpost (the f64-built
-// (2b, 2b) table of unpack + inverse DFT + deinterleave), out = (y[:b] +
-// tail) / pts and new_tail = y[b:]. block_step_fwd_fused first computes the
-// new block's frame F = block @ wfwd (the (pts, 2b) forward table): F
-// replaces window row nparts-1 (ring slot wp = rp - 1 mod nparts, still
-// stale in the given ring), and is written with the given ring into a NEW
-// doubled ring at slots wp and wp + nparts (the given ring is not touched:
-// the per-block functions return new state). The TV form transforms both
-// operands as one 2-row product; the coefficient frame replaces H row wp2
-// and is written with H into a new coefficient ring. block_mac_unpack
-// returns z = unpack_inverse(acc) (ops/rfft.py): z[0] = (re + im, re - im),
-// z[M/2] = acc[M/2] and every other bin k mixes acc[k] with
-// acc[(M - k) mod M] and the twiddle exp(+i pi k / M), M = bins: the input
-// of the half-size inverse FFT, for partitions whose dense post table is
-// too large to build (pts > 2048).
+// block_step_fused then computes y, the inverse real transform of acc
+// (unpack + inverse DFT + deinterleave; the JAX kernel's product against
+// the (2b, 2b) wpost table), out = (y[:b] + tail) / pts and new_tail =
+// y[b:]. block_step_fwd_fused first computes the new block's frame F, the
+// packed forward transform of the zero-padded block (the JAX kernel's
+// product against the (pts, 2b) wfwd table): F replaces window row
+// nparts-1 (ring slot wp = rp - 1 mod nparts, still stale in the given
+// ring), and is written with the given ring into a NEW doubled ring at
+// slots wp and wp + nparts (the given ring is not touched: the per-block
+// functions return new state). The TV form transforms both operands; the
+// coefficient frame replaces H row wp2 and is written with H into a new
+// coefficient ring. block_mac_unpack returns z = unpack_inverse(acc)
+// (ops/rfft.py): z[0] = (re + im, re - im), z[M/2] = acc[M/2] and every
+// other bin k mixes acc[k] with acc[(M - k) mod M] and the twiddle
+// exp(+i pi k / M), M = bins: the input of the half-size inverse FFT,
+// where the per-block functions take that route (pts > 2048).
 //
 // What bounds it on the card. At the headline shape (nparts 256, bins 512)
 // one channel's MAC reads the 1 MiB window and the 1 MiB IR ring and does
-// 8 * 256 * 512 ~ 1 MFLOP; the post product reads the 4 MiB wpost table,
-// the forward product the 2 MiB wfwd table: ~2.5 us of bytes at 3.35 TB/s.
-// At that size launch latency and the serial depth of each stage, not
-// bytes, set the time. At 64 channels the window and IR ring are 134 MB and
-// the new input ring that the fused step writes another 134 MB: bound by
-// bytes (~80 us), with the tables read from L2.
+// 8 * 256 * 512 ~ 1 MFLOP, and the fused step writes a new 2 MiB ring; the
+// transforms are 5 m log2 m operations each on a few KiB: ~1.5 us of bytes
+// at 3.35 TB/s. At that size launch latency and the serial depth of each
+// stage, not bytes, set the time. At 64 channels the window and IR ring are
+// 134 MB and the new input ring that the fused step writes another 134 MB:
+// bound by bytes (~80 us).
 //
 // What the design does about it. The TPU kernels run each stage on one core
-// over VMEM-resident planes. Here each stage is spread over the card:
-//   1. fwd_kernel (fused step only): F = blocks (R*C, pts) @ wfwd, a GEMV
-//      parallel over output columns (one warp's 32 lanes on 32 consecutive
-//      columns of a table row, 16 warps on interleaved k) and over row tiles;
-//      the warps' sums are added in warp order.
+// over VMEM-resident planes and both transforms as products against dense
+// tables (6 MiB at pts 512, 96 MiB at 2048, more than the L2). Here a step
+// is at most three launches, spread over the card, and reads no table but
+// the transforms' twiddles and coefficient rows (a few KiB):
+//   1. fft_fwd_kernel<log2 pts> (frame_fft.cuh, the scans' forward, fused
+//      steps only): the frames of the R*C blocks (R = 2 operands in the TV
+//      step) as m-point FFTs inside a CTA and the pack, into F (C, R, 2b).
+//      A CTA takes 2^11 values (at least one row; rows past the last block
+//      are zero), so that 128 threads share one block's pack.
 //   2. mac_kernel: one thread per (channel, bin, partition slice): the
 //      partition range is cut into up to MAC_SLICES slices so that even one
 //      channel's 512 bins fill the card; each thread sums its slice with q
@@ -55,11 +60,23 @@
 //      the new rings from the same loads: window row q covers ring slot
 //      (rp + q) mod nparts once, and the slot's two doubled rows are written
 //      from it.
-//   3. reduce_kernel: the slices' partial sums added in slice order, bin 0
-//      times b0.
-//   4. post_ola_kernel: [acc_re | acc_im] @ wpost as the GEMV of stage 1,
-//      with the overlap-add and the 1/pts folded into its store.
-//   3'. reduce_unpack_kernel (block_mac_unpack, in place of 3 and 4): one
+//   3. step_inv_kernel<log2 pts> (block_step_fused and the fused steps):
+//      a CTA takes one channel: it adds each bin's slice partials in slice
+//      order (bin 0 times b0; 8 slices' loads in flight a thread) into
+//      shared memory, unpacks them with the inverse coefficient rows (one
+//      thread a bin pair (k, m - k)), runs the unnormalized m-point inverse
+//      FFT on the tile of fft_tile.cuh and stores y_j, deinterleaved, from
+//      registers: j < m/2 is out = (y + tail) / pts, j >= m/2 the new
+//      tail. One transform gives both halves: the second half of
+//      IFFT(U(acc)) is the first half of IFFT(U(pm acc)), pm = (-1)^k,
+//      which the scans' inverse folds in as the previous block's tail. The
+//      channel's row is row 0 of a tile of up to 16 rows and 2^13 values,
+//      the others zero: the slice partials (up to 32 slices of 2 m floats)
+//      take more loads than one row's m / 16 threads could issue, and 16
+//      rows give each bin a thread.
+//   2'. reduce_kernel (spectral_mac): the slices' partial sums added in
+//      slice order, bin 0 times b0.
+//   3'. reduce_unpack_kernel (block_mac_unpack, in place of 2'): one
 //      thread owns the bin pair (k, M - k), k <= M/2, because the unpack of
 //      either bin reads both accumulators, which exist only after the slice
 //      reduce. It reduces both bins as reduce_kernel does (so the
@@ -68,33 +85,19 @@
 //      into FMA) as the plain unpack rounds them.
 // No atomics anywhere: every sum is taken in a fixed order, so a call is
 // bitwise deterministic and one channel's result does not depend on the
-// others. block_step_fused and the fused steps run the same mac, reduce and
-// post kernels, so given the same ring contents they give the same bits
+// others. block_step_fused and the fused steps run the same mac and
+// inverse kernels, so given the same ring contents they give the same bits
 // (a crossfade's outgoing path is bit-equal to its incoming path where the
-// coefficients agree). Plain FP32 FMA, no TF32: the JAX tables run at
-// Precision.HIGHEST. wgmma/TMA and one persistent launch for the whole step
-// are later work.
+// coefficients agree). Plain FP32, no TF32. pts is a power of two in
+// [2, 2^14] for the steps with a transform (the in-CTA transform's range).
 
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "frame_fft.cuh"   // fft_fwd_kernel, kFwdLaunch, tile shapes; fft_tile.cuh, scan_mac.cuh
 
 namespace {
 
-constexpr int MAC_THREADS = 128;   // bins per MAC block
 constexpr int MAC_SLICES = 32;     // most partition slices per channel
-constexpr int ROW_THREADS = 256;   // bins per reduce block
-constexpr int GEMV_COLS = 32;      // output columns per GEMV block (one warp)
-constexpr int GEMV_WARPS = 16;     // k-lanes per GEMV block
-constexpr int GEMV_MT = 8;         // rows per GEMV block
-constexpr int GEMV_THREADS = GEMV_COLS * GEMV_WARPS;
-
-inline int cdiv(long long a, long long b) { return static_cast<int>((a + b - 1) / b); }
-
-#define BLOCKSTEP_RETURN_IF_ERROR(expr)                 \
-    do {                                                \
-        const cudaError_t err_ = (expr);                \
-        if (err_ != cudaSuccess) return err_;           \
-    } while (0)
+constexpr int RED_THREADS = 256;   // bins per reduce block
+constexpr int SLICE_LOADS = 8;     // slice partials a step-inverse thread loads at once
 
 // Sizes of one step: C channels, nparts partitions, bins == pts; the MAC
 // window starts at doubled-ring row rp; the partition range is cut into
@@ -108,69 +111,19 @@ Step make_step(int C, int nparts, int bins, int rp) {
     return Step{C, nparts, bins, rp, qchunk, cdiv(nparts, qchunk)};
 }
 
-// One GEMV tile: Y = A (M, K; row stride lda) @ B (K, N; row stride ldb) at
-// rows m0 .. m0 + GEMV_MT - 1 and columns n0 .. n0 + GEMV_COLS - 1. Lane l of
-// warp w sums k = w, w + GEMV_WARPS, ... ascending for column n0 + l; the
-// warps' sums are then added in warp order. Thread t < GEMV_MT * GEMV_COLS
-// gets Y[m0 + t / GEMV_COLS, n0 + t % GEMV_COLS] (0 outside the matrix);
-// every thread of the block must call it.
-__device__ __forceinline__ float gemv_tile(int M, int N, int K, const float* __restrict__ A,
-                                           int lda, const float* __restrict__ B, int ldb,
-                                           int m0, int n0) {
-    __shared__ float red[GEMV_WARPS][GEMV_MT][GEMV_COLS];
-    const int lane = threadIdx.x % GEMV_COLS, warp = threadIdx.x / GEMV_COLS;
-    const int n = n0 + lane;
-    float acc[GEMV_MT];
-#pragma unroll
-    for (int i = 0; i < GEMV_MT; ++i) acc[i] = 0.f;
-    if (n < N) {
-#pragma unroll 4
-        for (int k = warp; k < K; k += GEMV_WARPS) {
-            const float b = B[static_cast<size_t>(k) * ldb + n];
-#pragma unroll
-            for (int i = 0; i < GEMV_MT; ++i)
-                if (m0 + i < M)
-                    acc[i] = fmaf(A[static_cast<size_t>(m0 + i) * lda + k], b, acc[i]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < GEMV_MT; ++i) red[warp][i][lane] = acc[i];
-    __syncthreads();
-    float y = 0.f;
-    const int t = threadIdx.x;
-    if (t < GEMV_MT * GEMV_COLS) {
-        const int i = t / GEMV_COLS, l = t % GEMV_COLS;
-        for (int w = 0; w < GEMV_WARPS; ++w) y += red[w][i][l];
-    }
-    return y;
-}
-
-// F (M, 2*pts) = blocks (M, pts) @ wfwd (pts, 2*pts);
-// grid (cdiv(2*pts, GEMV_COLS), cdiv(M, GEMV_MT))
-__global__ void __launch_bounds__(GEMV_THREADS)
-fwd_kernel(int M, int pts, const float* __restrict__ blocks, const float* __restrict__ wfwd,
-           float* __restrict__ F) {
-    const int b2 = 2 * pts;
-    const int n0 = blockIdx.x * GEMV_COLS, m0 = blockIdx.y * GEMV_MT;
-    const float y = gemv_tile(M, b2, pts, blocks, pts, wfwd, b2, m0, n0);
-    const int t = threadIdx.x;
-    if (t >= GEMV_MT * GEMV_COLS) return;
-    const int m = m0 + t / GEMV_COLS, n = n0 + t % GEMV_COLS;
-    if (m < M && n < b2) F[static_cast<size_t>(m) * b2 + n] = y;
-}
-
 // Partial MAC sums of channel c = blockIdx.z, slice blockIdx.y, bin k:
 // part[c, slice] = [sum re | sum im] over the slice's partitions, q
 // ascending (bin 0 componentwise, not yet times b0).
-// x planes (C, 2*nparts, bins), h planes (C, nparts, bins). fx (row stride
-// 2b per channel), when given, replaces window row nparts-1; fh, when given,
-// replaces h row h_row. nxr/nxi (C, 2*nparts, bins), when given, receive the
-// new doubled input ring, nhr/nhi (C, nparts, bins) the new coefficient ring.
+// x planes (C, 2*nparts, bins), h planes (C, nparts, bins). fx (channel
+// stride f_cs), when given, replaces window row nparts-1; fh (the same
+// stride), when given, replaces h row h_row. nxr/nxi (C, 2*nparts, bins),
+// when given, receive the new doubled input ring, nhr/nhi (C, nparts, bins)
+// the new coefficient ring.
 // grid (cdiv(bins, MAC_THREADS), slices, C)
 __global__ void __launch_bounds__(MAC_THREADS)
 mac_kernel(Step s, const float* __restrict__ xr, const float* __restrict__ xi,
            const float* __restrict__ hr, const float* __restrict__ hi,
-           const float* __restrict__ fx, const float* __restrict__ fh, int h_row,
+           const float* __restrict__ fx, const float* __restrict__ fh, size_t f_cs, int h_row,
            float* __restrict__ nxr, float* __restrict__ nxi, float* __restrict__ nhr,
            float* __restrict__ nhi, float* __restrict__ part) {
     const int k = blockIdx.x * MAC_THREADS + threadIdx.x;
@@ -188,8 +141,8 @@ mac_kernel(Step s, const float* __restrict__ xr, const float* __restrict__ xi,
         const size_t row = s.rp + q;                    // < 2 * nparts
         float x_r, x_i;
         if (fx != nullptr && q == s.nparts - 1) {
-            x_r = fx[c * b2 + k];
-            x_i = fx[c * b2 + bins + k];
+            x_r = fx[c * f_cs + k];
+            x_i = fx[c * f_cs + bins + k];
         } else {
             x_r = xr[x0 + row * bins + k];
             x_i = xi[x0 + row * bins + k];
@@ -203,8 +156,8 @@ mac_kernel(Step s, const float* __restrict__ xr, const float* __restrict__ xi,
         }
         float h_r, h_i;
         if (fh != nullptr && q == h_row) {
-            h_r = fh[c * b2 + k];
-            h_i = fh[c * b2 + bins + k];
+            h_r = fh[c * f_cs + k];
+            h_i = fh[c * f_cs + bins + k];
         } else {
             h_r = hr[h0 + static_cast<size_t>(q) * bins + k];
             h_i = hi[h0 + static_cast<size_t>(q) * bins + k];
@@ -228,11 +181,11 @@ mac_kernel(Step s, const float* __restrict__ xr, const float* __restrict__ xi,
 
 // acc[c, k] = sum over slices of part[c, slice, k] (slice order), bin 0
 // times b0; re into outr[c * out_cs + k], im into outi[c * out_cs + k].
-// grid (cdiv(bins, ROW_THREADS), C)
-__global__ void __launch_bounds__(ROW_THREADS)
+// grid (cdiv(bins, RED_THREADS), C)
+__global__ void __launch_bounds__(RED_THREADS)
 reduce_kernel(Step s, float b0, const float* __restrict__ part, float* __restrict__ outr,
               float* __restrict__ outi, int out_cs) {
-    const int k = blockIdx.x * ROW_THREADS + threadIdx.x;
+    const int k = blockIdx.x * RED_THREADS + threadIdx.x;
     if (k >= s.bins) return;
     const size_t c = blockIdx.y, b2 = 2 * static_cast<size_t>(s.bins);
     const float* p = part + c * s.slices * b2;
@@ -282,13 +235,13 @@ __device__ __forceinline__ void unpack_bin(float re, float im, float fr, float f
 // [0, M/2] owns bins k and j = (M - k) mod M. Bin 0 is (re + im, re - im);
 // bin M/2 (k == M/2; for odd M the floor) passes through; every other bin is
 // unpack_bin against its mirror. twr/twi (M,) the twiddle exp(+i pi k / M).
-// grid (cdiv(M/2 + 1, ROW_THREADS), C)
-__global__ void __launch_bounds__(ROW_THREADS)
+// grid (cdiv(M/2 + 1, RED_THREADS), C)
+__global__ void __launch_bounds__(RED_THREADS)
 reduce_unpack_kernel(Step s, float b0, const float* __restrict__ part,
                      const float* __restrict__ twr, const float* __restrict__ twi,
                      float* __restrict__ zr, float* __restrict__ zi) {
     const int m = s.bins, half = m / 2;
-    const int k = blockIdx.x * ROW_THREADS + threadIdx.x;
+    const int k = blockIdx.x * RED_THREADS + threadIdx.x;
     if (k > half) return;
     const size_t c = blockIdx.y;
     const float* p = part + c * s.slices * 2 * static_cast<size_t>(m);
@@ -313,70 +266,181 @@ reduce_unpack_kernel(Step s, float b0, const float* __restrict__ part,
     if (j != k) unpack_bin(fr, fi, ar, ai, twr[j], twi[j], zr + j, zi + j);
 }
 
-// y = z (C, 2b) @ wpost (2b, 2b); out[c, n] = (y[c, n] + tail[c, n]) / pts
-// for n < b, new_tail[c, n - b] = y[c, n] for n >= b.
-// grid (cdiv(2b, GEMV_COLS), cdiv(C, GEMV_MT))
-__global__ void __launch_bounds__(GEMV_THREADS)
-post_ola_kernel(Step s, const float* __restrict__ z, const float* __restrict__ wpost,
-                const float* __restrict__ tail, float inv_pts, float* __restrict__ out,
-                float* __restrict__ new_tail) {
-    const int bins = s.bins, b2 = 2 * bins;
-    const int n0 = blockIdx.x * GEMV_COLS, m0 = blockIdx.y * GEMV_MT;
-    const float y = gemv_tile(s.C, b2, b2, z, b2, wpost, b2, m0, n0);
-    const int t = threadIdx.x;
-    if (t >= GEMV_MT * GEMV_COLS) return;
-    const int m = m0 + t / GEMV_COLS, n = n0 + t % GEMV_COLS;
-    if (m >= s.C || n >= b2) return;
-    const size_t ch = static_cast<size_t>(m) * bins;
-    if (n < bins)
-        out[ch + n] = (y + tail[ch + n]) * inv_pts;
-    else
-        new_tail[ch + n - bins] = y;
+// The step's inverse for channel c = blockIdx.x, on row 0 of a tile of
+// B = 2^log_b rows of m = 2^LOG_L (the other rows are zero):
+//   1. acc[c, k] = the slices' partials of part (C, slices, 2m) added in
+//      slice order, bin 0 times b0, into the tile at (0, k);
+//   2. in place, one thread a bin pair (k, m - k): U(acc) with the inverse
+//      coefficient rows [a1, b1, na2, nb2, c1, d1, nc2, nd2] (8, m):
+//      A = ar a1 + ai b1, Bv = ar na2 + ai nb2, D, E likewise,
+//      U_k = (A_k + Bv_(m-k), D_k + E_(m-k));
+//   3. y = IFFT_m(U) unnormalized (tw: the pass table of m, sign +1):
+//      out[c, 2j + i] = (y_j + tail[c, 2j + i]) * inv_pts for j < m/2 (i = 0
+//      the real part, 1 the imaginary), new_tail[c, 2j - m + i] = y_j
+//      above.
+template <int LOG_L>
+__global__ void __launch_bounds__(tile_threads<LOG_L>(), LOG_L == BIG_LOG2 ? 1 : MIN_BLOCKS)
+step_inv_kernel(Step s, float b0, const float* __restrict__ part, const float2* __restrict__ tw,
+                const float* __restrict__ icoef, const float* __restrict__ tail, float inv_pts,
+                float* __restrict__ out, float* __restrict__ new_tail, int log_b) {
+    constexpr int log_l = LOG_L;
+    extern __shared__ float smem[];
+    const Layout<false> lay{log_l, log_b, row_stride(log_l)};
+    const int m = 1 << log_l, half = m >> 1;
+    float* sr = smem;
+    float* si = smem + (1 << log_b) * lay.S;
+    const size_t c = blockIdx.x, b2 = 2 * static_cast<size_t>(m);
+    for (int k = threadIdx.x; k < m; k += blockDim.x) {
+        const float* p = part + c * s.slices * b2 + k;
+        float r = 0.f, i = 0.f;
+        for (int s0 = 0; s0 < s.slices; s0 += SLICE_LOADS) {
+            float vr[SLICE_LOADS], vi[SLICE_LOADS];
+#pragma unroll
+            for (int u = 0; u < SLICE_LOADS; ++u) {
+                const bool in = s0 + u < s.slices;
+                vr[u] = in ? p[(s0 + u) * b2] : 0.f;
+                vi[u] = in ? p[(s0 + u) * b2 + m] : 0.f;
+            }
+#pragma unroll
+            for (int u = 0; u < SLICE_LOADS; ++u) {
+                if (s0 + u < s.slices) {
+                    r += vr[u];
+                    i += vi[u];
+                }
+            }
+        }
+        if (k == 0) {
+            r *= b0;
+            i *= b0;
+        }
+        sr[lay.smem(0, k)] = r;
+        si[lay.smem(0, k)] = i;
+    }
+    __syncthreads();
+    for (int k = threadIdx.x; k <= half; k += blockDim.x) {
+        const int mk = (m - k) & (m - 1);
+        float a[2], bv[2], d[2], ee[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+            const int j = u ? mk : k;
+            const float wr = sr[lay.smem(0, j)], wi = si[lay.smem(0, j)];
+            a[u] = wr * __ldg(icoef + j) + wi * __ldg(icoef + m + j);
+            bv[u] = wr * __ldg(icoef + 2 * m + j) + wi * __ldg(icoef + 3 * m + j);
+            d[u] = wr * __ldg(icoef + 4 * m + j) + wi * __ldg(icoef + 5 * m + j);
+            ee[u] = wr * __ldg(icoef + 6 * m + j) + wi * __ldg(icoef + 7 * m + j);
+        }
+        sr[lay.smem(0, k)] = a[0] + bv[1];
+        si[lay.smem(0, k)] = d[0] + ee[1];
+        if (mk != k) {
+            sr[lay.smem(0, mk)] = a[1] + bv[0];
+            si[lay.smem(0, mk)] = d[1] + ee[0];
+        }
+    }
+    __syncthreads();
+    auto sload = [&](int b, int q, float& re, float& im) {
+        re = b == 0 ? sr[lay.smem(0, q)] : 0.f;
+        im = b == 0 ? si[lay.smem(0, q)] : 0.f;
+    };
+    auto gstore = [&](int b, int j, float re, float im) {
+        if (b != 0) return;
+        const size_t cm = c * m;
+        if (j < half) {
+            out[cm + 2 * j] = (re + tail[cm + 2 * j]) * inv_pts;
+            out[cm + 2 * j + 1] = (im + tail[cm + 2 * j + 1]) * inv_pts;
+        } else {
+            new_tail[cm + 2 * j - m] = re;
+            new_tail[cm + 2 * j - m + 1] = im;
+        }
+    };
+    fft_tile(lay, sr, si, sload, gstore, NoPre{}, false, tw, +1, true);
 }
 
-cudaError_t launch_mac(const Step& s, const float* xr, const float* xi, const float* hr,
-                       const float* hi, const float* fx, const float* fh, int h_row,
-                       float* nxr, float* nxi, float* nhr, float* nhi, float* part,
-                       cudaStream_t st) {
+size_t inv_granted[BIG_LOG2 + 1][64];   // [log2 m][device]
+
+// The launch of step_inv_kernel<LOG_L>: a CTA a channel, 2^log_b tile rows.
+template <int LOG_L>
+cudaError_t launch_step_inv(const Step& s, float b0, const float* part, const float2* tw,
+                            const float* icoef, const float* tail, float* out, float* new_tail,
+                            int log_b, int device, cudaStream_t st) {
+    const TileShape g = tile_shape(LOG_L, log_b);
+    RETURN_IF_ERROR(allow_smem(step_inv_kernel<LOG_L>, device, g.smem, inv_granted[LOG_L]));
+    step_inv_kernel<LOG_L><<<s.C, g.threads, g.smem, st>>>(
+        s, b0, part, tw, icoef, tail, 1.0f / static_cast<float>(s.bins), out, new_tail, log_b);
+    return cudaGetLastError();
+}
+
+using StepInvLaunch = decltype(&launch_step_inv<1>);
+
+template <int... L>
+constexpr std::array<StepInvLaunch, sizeof...(L)> step_inv_launches(
+    std::integer_sequence<int, L...>) {
+    return {&launch_step_inv<L + 1>...};
+}
+
+// entry log2 m - 1: the launch at m = 2^1 .. 2^14
+constexpr auto kStepInv = step_inv_launches(std::make_integer_sequence<int, BIG_LOG2>{});
+
+cudaError_t launch_step_mac(const Step& s, const float* xr, const float* xi, const float* hr,
+                            const float* hi, const float* fx, const float* fh, size_t f_cs,
+                            int h_row, float* nxr, float* nxi, float* nhr, float* nhi,
+                            float* part, cudaStream_t st) {
     mac_kernel<<<dim3(cdiv(s.bins, MAC_THREADS), s.slices, s.C), MAC_THREADS, 0, st>>>(
-        s, xr, xi, hr, hi, fx, fh, h_row, nxr, nxi, nhr, nhi, part);
+        s, xr, xi, hr, hi, fx, fh, f_cs, h_row, nxr, nxi, nhr, nhi, part);
     return cudaGetLastError();
 }
 
 cudaError_t launch_reduce(const Step& s, float b0, const float* part, float* outr,
                           float* outi, int out_cs, cudaStream_t st) {
-    reduce_kernel<<<dim3(cdiv(s.bins, ROW_THREADS), s.C), ROW_THREADS, 0, st>>>(
+    reduce_kernel<<<dim3(cdiv(s.bins, RED_THREADS), s.C), RED_THREADS, 0, st>>>(
         s, b0, part, outr, outi, out_cs);
     return cudaGetLastError();
 }
 
-// reduce into z (C, 2b) = [acc_re | acc_im], then the post product and OLA
-cudaError_t launch_post(const Step& s, float b0, const float* part, float* z,
-                        const float* wpost, const float* tail, float* out, float* new_tail,
-                        cudaStream_t st) {
-    BLOCKSTEP_RETURN_IF_ERROR(launch_reduce(s, b0, part, z, z + s.bins, 2 * s.bins, st));
-    post_ola_kernel<<<dim3(cdiv(2 * s.bins, GEMV_COLS), cdiv(s.C, GEMV_MT)), GEMV_THREADS, 0,
-                      st>>>(s, z, wpost, tail, 1.0f / static_cast<float>(s.bins), out,
-                            new_tail);
-    return cudaGetLastError();
+// The transform plan of a step at pts, as the caller gives it: log2 rows
+// a CTA of the forward tile (fwd_log_b, -1 for none) and of the inverse
+// tile; false where pts is not a power of two in [2, 2^14] or a tile is not
+// one the kernels take.
+bool step_plan_ok(int pts, int fwd_log_b, int inv_log_b) {
+    if (pts < 2 || (pts & (pts - 1)) != 0 || pts > (1 << BIG_LOG2)) return false;
+    const int log_l = ilog2(pts);
+    return (fwd_log_b < 0 || tile_ok(log_l, fwd_log_b)) && tile_ok(log_l, inv_log_b);
 }
 
-// The fused step, LTI (R = 1) or TV (R = 2): blocks (R, C, pts) rows r*C + c.
+// The MAC over the ring (with the fused steps' frames F and new rings) and
+// the inverse into out / new_tail.
+cudaError_t mac_inverse(const Step& s, const float* xr, const float* xi, const float* hr,
+                        const float* hi, const float* fx, const float* fh, size_t f_cs,
+                        int h_row, float* nxr, float* nxi, float* nhr, float* nhi, float* part,
+                        float b0, const float* twi, const float* icoef, const float* tail,
+                        float* out, float* new_tail, int inv_log_b, int device,
+                        cudaStream_t st) {
+    RETURN_IF_ERROR(launch_step_mac(s, xr, xi, hr, hi, fx, fh, f_cs, h_row, nxr, nxi, nhr, nhi,
+                                    part, st));
+    return kStepInv[ilog2(s.bins) - 1](s, b0, part, reinterpret_cast<const float2*>(twi), icoef,
+                                       tail, out, new_tail, inv_log_b, device, st);
+}
+
+// The fused step, LTI (R = 1) or TV (R = 2): blocks (R, C, pts) rows r*C + c
+// (8-byte aligned), frames into F (C, R, 2*pts).
 cudaError_t fwd_step(int R, const float* blocks, const float* xr, const float* xi,
-                     const float* hr, const float* hi, const float* wfwd, const float* wpost,
-                     const float* tail, float* out, float* new_tail, float* nxr, float* nxi,
-                     float* nhr, float* nhi, float* F, float* part, float* z, int C,
-                     int nparts, int pts, int rp, int wp2, float b0, int device,
-                     cudaStream_t st) {
-    BLOCKSTEP_RETURN_IF_ERROR(cudaSetDevice(device));
-    const Step s = make_step(C, nparts, pts, rp);
-    fwd_kernel<<<dim3(cdiv(2 * pts, GEMV_COLS), cdiv(static_cast<long long>(R) * C, GEMV_MT)),
-                 GEMV_THREADS, 0, st>>>(R * C, pts, blocks, wfwd, F);
-    BLOCKSTEP_RETURN_IF_ERROR(cudaGetLastError());
-    const float* fh = R == 2 ? F + static_cast<size_t>(C) * 2 * pts : nullptr;
-    BLOCKSTEP_RETURN_IF_ERROR(launch_mac(s, xr, xi, hr, hi, F, fh, wp2, nxr, nxi, nhr, nhi,
-                                         part, st));
-    return launch_post(s, b0, part, z, wpost, tail, out, new_tail, st);
+                     const float* hr, const float* hi, const float* twf, const float* fcoef,
+                     const float* twi, const float* icoef, const float* tail, float* out,
+                     float* new_tail, float* nxr, float* nxi, float* nhr, float* nhi, float* F,
+                     float* part, int C, int nparts, int pts, int rp, int wp2, int fwd_log_b,
+                     int inv_log_b, float b0, int device, cudaStream_t st) {
+    RETURN_IF_ERROR(cudaSetDevice(device));
+    if (fwd_log_b < 0 || !step_plan_ok(pts, fwd_log_b, inv_log_b)) return cudaErrorInvalidValue;
+    const int log_l = ilog2(pts);
+    const TileShape g = tile_shape(log_l, fwd_log_b);
+    const unsigned ctas = static_cast<unsigned>(cdiv(static_cast<long long>(R) * C,
+                                                     1LL << fwd_log_b));
+    const size_t f_cs = static_cast<size_t>(R) * 2 * pts;
+    RETURN_IF_ERROR(kFwdLaunch[log_l - 1](Scan{R, C, nparts, pts}, 0, blocks,
+                                          reinterpret_cast<const float2*>(twf), fcoef, F, f_cs,
+                                          g, ctas, device, st));
+    return mac_inverse(make_step(C, nparts, pts, rp), xr, xi, hr, hi, F,
+                       R == 2 ? F + 2 * pts : nullptr, f_cs, wp2, nxr, nxi, nhr, nhi, part, b0,
+                       twi, icoef, tail, out, new_tail, inv_log_b, device, st);
 }
 
 }  // namespace
@@ -385,8 +449,14 @@ cudaError_t fwd_step(int R, const float* blocks, const float* xr, const float* x
 // contiguous: x planes (C, 2*nparts, bins), h planes (C, nparts, bins),
 // tails and outputs (C, bins), bins == pts. rp in [0, nparts) is the window's
 // first doubled-ring row. Scratch, allocated by the caller:
-//   part (C, min(nparts, MAC_SLICES), 2*bins), z (C, 2*bins),
-//   F (R*C, 2*bins) for the fused steps.
+//   part (C, min(nparts, MAC_SLICES), 2*bins), F (C, R, 2*bins) for the
+//   fused steps (R operands).
+// The steps with a transform take a power-of-two pts in [2, 2^14], the
+// transforms' tables (ops/cuda/blockstep.py): twf / twi the pass tables of
+// pts for sign -1 / +1 (ops/cuda/vmemfft.py pass_twiddle_np), fcoef / icoef
+// the forward / inverse coefficient rows (8, pts) (ops/cuda/tables.py
+// _coef_stacks_np), and the plan: fwd_log_b / inv_log_b log2 rows a CTA of
+// the forward / inverse tiles (ops/cuda/blockstep.py step_plan).
 // Each entry launches on `stream` without synchronising and returns the
 // first CUDA error. block_mac_unpack_f32 takes any nparts >= 1 and bins >= 2.
 
@@ -396,38 +466,40 @@ extern "C" int spectral_mac_f32(const float* xr, const float* xi, const float* h
                                 int nparts, int bins, int rp, float b0, int device,
                                 void* stream_ptr) {
     cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
-    BLOCKSTEP_RETURN_IF_ERROR(cudaSetDevice(device));
+    RETURN_IF_ERROR(cudaSetDevice(device));
     const Step s = make_step(C, nparts, bins, rp);
-    BLOCKSTEP_RETURN_IF_ERROR(launch_mac(s, xr, xi, hr, hi, nullptr, nullptr, -1, nullptr,
-                                         nullptr, nullptr, nullptr, part, st));
+    RETURN_IF_ERROR(launch_step_mac(s, xr, xi, hr, hi, nullptr, nullptr, 0, -1, nullptr,
+                                    nullptr, nullptr, nullptr, part, st));
     return static_cast<int>(launch_reduce(s, b0, part, accr, acci, bins, st));
 }
 
-// out, new_tail (C, pts) = MAC at rp, post product and OLA with tail.
+// out, new_tail (C, pts) = MAC at rp, inverse transform and OLA with tail.
 extern "C" int block_step_fused_f32(const float* xr, const float* xi, const float* hr,
-                                    const float* hi, const float* wpost, const float* tail,
-                                    float* out, float* new_tail, float* part, float* z, int C,
-                                    int nparts, int pts, int rp, float b0, int device,
-                                    void* stream_ptr) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
-    BLOCKSTEP_RETURN_IF_ERROR(cudaSetDevice(device));
-    const Step s = make_step(C, nparts, pts, rp);
-    BLOCKSTEP_RETURN_IF_ERROR(launch_mac(s, xr, xi, hr, hi, nullptr, nullptr, -1, nullptr,
-                                         nullptr, nullptr, nullptr, part, st));
-    return static_cast<int>(launch_post(s, b0, part, z, wpost, tail, out, new_tail, st));
+                                    const float* hi, const float* twi, const float* icoef,
+                                    const float* tail, float* out, float* new_tail, float* part,
+                                    int C, int nparts, int pts, int rp, int inv_log_b, float b0,
+                                    int device, void* stream_ptr) {
+    RETURN_IF_ERROR(cudaSetDevice(device));
+    if (!step_plan_ok(pts, -1, inv_log_b)) return cudaErrorInvalidValue;
+    return static_cast<int>(mac_inverse(make_step(C, nparts, pts, rp), xr, xi, hr, hi, nullptr,
+                                        nullptr, 0, -1, nullptr, nullptr, nullptr, nullptr, part,
+                                        b0, twi, icoef, tail, out, new_tail, inv_log_b, device,
+                                        static_cast<cudaStream_t>(stream_ptr)));
 }
 
 // LTI fused step: block (C, pts); the new block's frame at ring slot
 // wp = (rp - 1) mod nparts in the new ring (nxr, nxi) (C, 2*nparts, bins).
 extern "C" int block_step_fwd_fused_f32(const float* block, const float* xr, const float* xi,
-                                        const float* hr, const float* hi, const float* wfwd,
-                                        const float* wpost, const float* tail, float* out,
+                                        const float* hr, const float* hi, const float* twf,
+                                        const float* fcoef, const float* twi,
+                                        const float* icoef, const float* tail, float* out,
                                         float* new_tail, float* nxr, float* nxi, float* F,
-                                        float* part, float* z, int C, int nparts, int pts,
-                                        int rp, float b0, int device, void* stream_ptr) {
-    return static_cast<int>(fwd_step(1, block, xr, xi, hr, hi, wfwd, wpost, tail, out,
-                                     new_tail, nxr, nxi, nullptr, nullptr, F, part, z, C,
-                                     nparts, pts, rp, -1, b0, device,
+                                        float* part, int C, int nparts, int pts, int rp,
+                                        int fwd_log_b, int inv_log_b, float b0, int device,
+                                        void* stream_ptr) {
+    return static_cast<int>(fwd_step(1, block, xr, xi, hr, hi, twf, fcoef, twi, icoef, tail,
+                                     out, new_tail, nxr, nxi, nullptr, nullptr, F, part, C,
+                                     nparts, pts, rp, -1, fwd_log_b, inv_log_b, b0, device,
                                      static_cast<cudaStream_t>(stream_ptr)));
 }
 
@@ -436,15 +508,16 @@ extern "C" int block_step_fwd_fused_f32(const float* block, const float* xr, con
 // (C, nparts, bins).
 extern "C" int block_step_fwd_fused_tv_f32(const float* blocks, const float* xr,
                                            const float* xi, const float* hr, const float* hi,
-                                           const float* wfwd, const float* wpost,
+                                           const float* twf, const float* fcoef,
+                                           const float* twi, const float* icoef,
                                            const float* tail, float* out, float* new_tail,
                                            float* nxr, float* nxi, float* nhr, float* nhi,
-                                           float* F, float* part, float* z, int C, int nparts,
-                                           int pts, int rp, int wp2, float b0, int device,
-                                           void* stream_ptr) {
-    return static_cast<int>(fwd_step(2, blocks, xr, xi, hr, hi, wfwd, wpost, tail, out,
-                                     new_tail, nxr, nxi, nhr, nhi, F, part, z, C, nparts, pts,
-                                     rp, wp2, b0, device,
+                                           float* F, float* part, int C, int nparts, int pts,
+                                           int rp, int wp2, int fwd_log_b, int inv_log_b,
+                                           float b0, int device, void* stream_ptr) {
+    return static_cast<int>(fwd_step(2, blocks, xr, xi, hr, hi, twf, fcoef, twi, icoef, tail,
+                                     out, new_tail, nxr, nxi, nhr, nhi, F, part, C, nparts, pts,
+                                     rp, wp2, fwd_log_b, inv_log_b, b0, device,
                                      static_cast<cudaStream_t>(stream_ptr)));
 }
 
@@ -455,11 +528,11 @@ extern "C" int block_mac_unpack_f32(const float* xr, const float* xi, const floa
                                     float* zr, float* zi, float* part, int C, int nparts,
                                     int bins, int rp, float b0, int device, void* stream_ptr) {
     cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
-    BLOCKSTEP_RETURN_IF_ERROR(cudaSetDevice(device));
+    RETURN_IF_ERROR(cudaSetDevice(device));
     const Step s = make_step(C, nparts, bins, rp);
-    BLOCKSTEP_RETURN_IF_ERROR(launch_mac(s, xr, xi, hr, hi, nullptr, nullptr, -1, nullptr,
-                                         nullptr, nullptr, nullptr, part, st));
-    reduce_unpack_kernel<<<dim3(cdiv(bins / 2 + 1, ROW_THREADS), C), ROW_THREADS, 0, st>>>(
+    RETURN_IF_ERROR(launch_step_mac(s, xr, xi, hr, hi, nullptr, nullptr, 0, -1, nullptr,
+                                    nullptr, nullptr, nullptr, part, st));
+    reduce_unpack_kernel<<<dim3(cdiv(bins / 2 + 1, RED_THREADS), C), RED_THREADS, 0, st>>>(
         s, b0, part, twr, twi, zr, zi);
     return static_cast<int>(cudaGetLastError());
 }

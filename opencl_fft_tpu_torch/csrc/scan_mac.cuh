@@ -1,10 +1,11 @@
 // The parts of the whole-scan partitioned convolution (streamstep.cu: TPU
 // kernels stream_steps_fused{,_tv,_batched,_batched_tv} and
 // stream_steps_fused_split{,_tv}) around its two transform steps, and the
-// timeline MAC that the TV sliding MAC (slidemac.cu: macflow_tv{,_batched})
-// runs too. streamstep.cu passes the transform steps (how a block becomes
-// its frame spectra and how an accumulator becomes its output block) to
-// run_scan / run_tv_scan as functors.
+// timeline MACs that the sliding MACs (slidemac.cu: chunk_mac,
+// macflow_lti{,_batched}, macflow_tv{,_batched}) run too. streamstep.cu
+// passes the transform steps (how a block becomes its frame spectra and how
+// an accumulator becomes its output block) to run_scan / run_tv_scan as
+// functors.
 //
 // A scan of nb blocks of C channels (pts = bins): per channel c a frame
 // timeline T_c (nparts + nb rows of [re | im], 2*bins wide) whose rows
@@ -40,7 +41,10 @@
 // CTA's outputs read (the row changes only where (t - wp2 + q) mod nparts
 // wraps, at most once in G * TT <= nparts outputs). The plan (G, TT, Q)
 // comes from the caller (ops/cuda/streamstep.py mac_plan); the TV scan
-// below MAC_TT partitions keeps the per-thread MAC (mac_tv_kernel).
+// below MAC_TT partitions keeps the per-thread MAC (mac_tv_kernel). The
+// tile reads and writes through a MacIO (split re / im planes at any row
+// and channel strides), so the LTI sliding MAC runs the same kernel on its
+// (C, rows, bins) timelines and (C, nout, bins) outputs.
 
 #pragma once
 
@@ -76,8 +80,8 @@ struct Scan {
 };
 
 // How a MAC thread finds the h row of each of its MAC_TT outputs at
-// partition q. H_LTI (the tiled MAC only): the IR ring, row q for every
-// output. H_TV: the
+// partition q. H_LTI (the tiled MAC and mac_rows_q): the IR ring, row q
+// for every output. H_TV: the
 // coefficient timeline, row t - ((t - wp2_0 + q) mod nparts) + nparts - 1
 // for output t, any nparts. H_TV_PAIR (nparts >= MAC_TT): with
 // m0 = (t0 - wp2_0 + q) mod nparts, outputs t0+j with m0 + j < nparts read
@@ -170,12 +174,13 @@ __device__ __forceinline__ void mac_rows(int nout, int nrows, int nparts, int k,
 
 // mac_rows over the partitions [q0, q1) only, into the caller's
 // accumulators (ar, ai) instead of the outputs, for a kernel that splits
-// the q range between threads and reduces their sums itself (slidemac.cu).
-// The MAC_TT window is preloaded at X row t0 + q0 and the H rows found from
-// the same hrow(t, q) at q = q0. Loads run one partition ahead: the H rows
-// and the incoming X row of q + 1 are requested before the products of q,
-// so two partitions' loads are in flight at once; the loop runs two
-// partitions a trip (faster on the H100 than one or four).
+// the q range between threads and reduces their sums itself (slidemac.cu),
+// in any HMode (H_LTI: H row h0 + q for every output). The MAC_TT window
+// is preloaded at X row t0 + q0 and the H rows found from the same
+// hrow(t, q) at q = q0. Loads run one partition ahead: the H rows and the
+// incoming X row of q + 1 are requested before the products of q, so two
+// partitions' loads are in flight at once; the loop runs two partitions a
+// trip (faster on the H100 than one or four).
 template <bool DC, HMode MODE>
 __device__ __forceinline__ void mac_rows_q(int nout, int nrows, int nparts, int k, int t0,
                                            int wp2_0, int q0, int q1,
@@ -184,7 +189,6 @@ __device__ __forceinline__ void mac_rows_q(int nout, int nrows, int nparts, int 
                                            const float* __restrict__ hr,
                                            const float* __restrict__ hi, size_t hs, size_t x0,
                                            size_t h0, float (&ar)[MAC_TT], float (&ai)[MAC_TT]) {
-    static_assert(MODE != H_LTI, "the q-range MAC is the TV sliding MAC's");
     float wr[MAC_TT], wi[MAC_TT];
     int m[MAC_TT];   // H_TV: (t0 + j - wp2_0 + q) mod nparts at the current q
     int m0 = MODE == H_TV_PAIR ? pmod(t0 - wp2_0 + q0, nparts) : 0;
@@ -214,6 +218,10 @@ __device__ __forceinline__ void mac_rows_q(int nout, int nrows, int nparts, int 
     float h_r = 0.f, h_i = 0.f, g_r = 0.f, g_i = 0.f;
     int jw = MAC_TT;
     if (MODE == H_TV_PAIR) pair(m0, h_r, h_i, g_r, g_i, jw);
+    if (MODE == H_LTI) {
+        h_r = hr[(h0 + q0) * hs + k];
+        h_i = hi[(h0 + q0) * hs + k];
+    }
 #pragma unroll 2
     for (int q = q0; q < q1; ++q) {
         // partition q + 1's loads first
@@ -224,6 +232,10 @@ __device__ __forceinline__ void mac_rows_q(int nout, int nrows, int nparts, int 
         int jw1 = MAC_TT;
         m0 = m0 + 1 == nparts ? 0 : m0 + 1;
         if (MODE == H_TV_PAIR && q + 1 < q1) pair(m0, h_r1, h_i1, g_r1, g_i1, jw1);
+        if (MODE == H_LTI && q + 1 < q1) {
+            h_r1 = hr[(h0 + q + 1) * hs + k];
+            h_i1 = hi[(h0 + q + 1) * hs + k];
+        }
 #pragma unroll
         for (int j = 0; j < MAC_TT; ++j) {
             float y_r = h_r, y_i = h_i;
@@ -330,16 +342,55 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Where the tiled MAC reads and writes: channel c's planes start at c times
+// the channel strides (xcs, hcs, ocs). X: the first row of output 0's
+// window, split (xr, xi) at row stride xs, xrows rows (later rows read as
+// zero); H: the IR planes (LTI, row q) or the coefficient timeline (TV),
+// (hr, hi) at row stride hs; the outputs: row t of (outr, outi) at row
+// stride os. The scans pass their [re | im] timelines and aext from row 1
+// (scan_io); the sliding MAC its split planes.
+struct MacIO {
+    const float* xr;
+    const float* xi;
+    size_t xs, xcs;
+    int xrows;
+    const float* hr;
+    const float* hi;
+    size_t hs, hcs;
+    float* outr;
+    float* outi;
+    size_t os, ocs;
+};
+
+// The MacIO of a scan's buffers: the timeline from row 1 (block t's window
+// starts at row t + 1), h the IR planes (LTI) or the [re | im] coefficient
+// timeline (TV), the outputs into aext from row 1.
+MacIO scan_io(const Scan& s, bool tv, const float* timeline, const float* hr,
+              const float* hi, float* aext) {
+    const size_t b2 = s.b2();
+    return {timeline + b2, timeline + b2 + s.bins, b2, s.tl(),
+            static_cast<int>(s.tl_rows()) - 1,
+            hr, tv ? hr + s.bins : hi, tv ? b2 : static_cast<size_t>(s.bins),
+            tv ? s.ht() : s.plane(),
+            aext + b2, aext + b2 + s.bins, b2, s.ax()};
+}
+
 // The CTA's view of its tile: channel c, outputs [t0, t0 + T), bins
-// [k0, k0 + 32); x rows relative to timeline row 1 + t0 of channel c
-// (rows >= xrows read as zero); h rows of (hrc, hic) at row stride hs.
+// [k0, k0 + 32); x rows relative to output t0's window of channel c (rows
+// >= xrows read as zero) at row stride xs; h rows of (hrc, hic) at row
+// stride hs; output t0's row of (outr, outi) at row stride os.
 struct MacTile {
     int t0, T, k, xrows, wp2_0, rmask;
     bool kin;
-    const float* xb;    // timeline row 1 + t0 of channel c, [re | im]
+    const float* xb;    // output t0's first window row of channel c, re
+    const float* xbi;   // and im
+    size_t xs;
     const float* hrc;   // channel c's h rows: IR planes (LTI) or HT_c (TV)
     const float* hic;
     size_t hs;
+    float* outr;        // channel c's output row t0
+    float* outi;
+    size_t os;
 };
 
 // The real and imaginary part of one element into (re, im) of a float2 in
@@ -361,8 +412,9 @@ __device__ __forceinline__ void mac_stage(const Scan& s, const MacPlan& p, const
     const int lo = ch == 0 ? 0 : q0 + m.T - 1, hi = q0 + qn + m.T - 1;
     for (int r = lo + threadIdx.y; r < hi; r += blockDim.y) {
         const bool v = m.kin && r < m.xrows;
-        const float* src = v ? m.xb + static_cast<size_t>(r) * s.b2() + m.k : m.xb;
-        cp_async_pair(sx + (r & m.rmask) * TILE_BINS + lane, src, v ? src + s.bins : src, v);
+        const size_t at = static_cast<size_t>(r) * m.xs + m.k;
+        cp_async_pair(sx + (r & m.rmask) * TILE_BINS + lane, v ? m.xb + at : m.xb,
+                      v ? m.xbi + at : m.xb, v);
     }
     constexpr int HR = MacPlan::hrows(MODE);
     float2* hb = sh + (ch & 1) * (HR * p.q * TILE_BINS);
@@ -498,7 +550,7 @@ __device__ __forceinline__ void mac_chunk(const Scan& s, const MacPlan& p, const
 
 template <HMode MODE, int TT, bool DC_TILE>
 __device__ __forceinline__ void mac_tile(const Scan& s, const MacPlan& p, const MacTile& m,
-                                         float b0, float* __restrict__ aext, float2* smem) {
+                                         float b0, float2* smem) {
     float2* sx = smem;
     float2* sh = sx + (m.rmask + 1) * TILE_BINS;
     const int gt = threadIdx.y * TT;
@@ -522,26 +574,24 @@ __device__ __forceinline__ void mac_tile(const Scan& s, const MacPlan& p, const 
         __syncthreads();   // before stage ch + 2 overwrites what ch read
     }
     if (!m.kin) return;
-    const size_t b2 = s.b2();
-    float* out = aext + (blockIdx.z * s.ax_rows() + 1 + m.t0 + gt) * b2 + m.k;
+    const size_t o = static_cast<size_t>(gt) * m.os + m.k;
 #pragma unroll
     for (int j = 0; j < TT; ++j) {
         if (m.t0 + gt + j >= s.nb) break;
-        out[j * b2] = dc ? b0 * ar[j] : ar[j];
-        out[j * b2 + s.bins] = dc ? b0 * ai[j] : ai[j];
+        m.outr[o + j * m.os] = dc ? b0 * ar[j] : ar[j];
+        m.outi[o + j * m.os] = dc ? b0 * ai[j] : ai[j];
     }
 }
 
-// The scan's MAC, H_LTI or H_TV_PAIR (p.outs() <= nparts), TT = p.tt: grid
+// The tiled MAC, H_LTI or H_TV_PAIR (p.outs() <= nparts), TT = p.tt: grid
 // (cdiv(nb, p.outs()), cdiv(bins, 32), C), block (32, p.groups), dynamic
-// shared memory p.smem_floats(MODE) floats. LTI: (hr, hi) the IR planes
-// (C, nparts, bins); TV: hr the coefficient timelines, hi unused; channel
-// c's ring pointer is wp2[c * wp2_stride]. Writes aext_c rows 1..nb.
+// shared memory p.smem_floats(MODE) floats; outputs t < s.nb of every
+// channel through io. TV: channel c's ring pointer is wp2[c * wp2_stride]
+// (LTI: unread).
 template <HMode MODE, int TT>
 __global__ void __launch_bounds__(TILE_BINS * TILE_MAX_GROUPS)
-mac_tile_kernel(Scan s, MacPlan p, const int* __restrict__ wp2, int wp2_stride,
-                const float* __restrict__ timeline, const float* __restrict__ hr,
-                const float* __restrict__ hi, float b0, float* __restrict__ aext) {
+mac_tile_kernel(Scan s, MacPlan p, MacIO io, const int* __restrict__ wp2, int wp2_stride,
+                float b0) {
     extern __shared__ float2 smem2[];
     const size_t c = blockIdx.z;
     MacTile m;
@@ -549,32 +599,47 @@ mac_tile_kernel(Scan s, MacPlan p, const int* __restrict__ wp2, int wp2_stride,
     m.t0 = blockIdx.x * m.T;
     m.k = blockIdx.y * TILE_BINS + threadIdx.x;
     m.kin = m.k < s.bins;
-    m.xrows = static_cast<int>(s.tl_rows()) - 1 - m.t0;
-    m.xb = timeline + (c * s.tl_rows() + 1 + m.t0) * s.b2();
+    m.xrows = io.xrows - m.t0;
+    const size_t xo = c * io.xcs + static_cast<size_t>(m.t0) * io.xs;
+    m.xb = io.xr + xo;
+    m.xbi = io.xi + xo;
+    m.xs = io.xs;
     m.wp2_0 = MODE == H_LTI ? 0 : wp2[c * wp2_stride];
     m.rmask = p.ring - 1;
-    m.hrc = MODE == H_LTI ? hr + c * s.plane() : hr + c * s.ht();
-    m.hic = MODE == H_LTI ? hi + c * s.plane() : m.hrc + s.bins;
-    m.hs = MODE == H_LTI ? s.bins : s.b2();
+    m.hrc = io.hr + c * io.hcs;
+    m.hic = io.hi + c * io.hcs;
+    m.hs = io.hs;
+    const size_t oo = c * io.ocs + static_cast<size_t>(m.t0) * io.os;
+    m.outr = io.outr + oo;
+    m.outi = io.outi + oo;
+    m.os = io.os;
     if (blockIdx.y == 0)
-        mac_tile<MODE, TT, true>(s, p, m, b0, aext, smem2);
+        mac_tile<MODE, TT, true>(s, p, m, b0, smem2);
     else
-        mac_tile<MODE, TT, false>(s, p, m, b0, aext, smem2);
+        mac_tile<MODE, TT, false>(s, p, m, b0, smem2);
 }
 
 size_t mac_granted[2][2][64];   // [TV][tt == TILE_TT_MAX][device]
 
 template <HMode MODE, int TT>
-cudaError_t launch_mac_tile(const Scan& s, const MacPlan& p, const int* wp2, int wp2_stride,
-                            const float* timeline, const float* hr, const float* hi, float b0,
-                            float* aext, int device, cudaStream_t st) {
+cudaError_t launch_mac_tile(const Scan& s, const MacPlan& p, const MacIO& io, const int* wp2,
+                            int wp2_stride, float b0, int device, cudaStream_t st) {
     const dim3 grid(cdiv(s.nb, p.outs()), cdiv(s.bins, TILE_BINS), s.C);
     const size_t smem = sizeof(float) * p.smem_floats(MODE);
     RETURN_IF_ERROR(allow_smem(mac_tile_kernel<MODE, TT>, device, smem,
                                mac_granted[MODE != H_LTI][TT == TILE_TT_MAX]));
     mac_tile_kernel<MODE, TT><<<grid, dim3(TILE_BINS, p.groups), smem, st>>>(
-        s, p, wp2, wp2_stride, timeline, hr, hi, b0, aext);
+        s, p, io, wp2, wp2_stride, b0);
     return cudaGetLastError();
+}
+
+// The LTI tiled MAC at plan p: outputs t < s.nb of every channel through io.
+cudaError_t launch_lti_tile(const Scan& s, const MacPlan& p, const MacIO& io, float b0,
+                            int device, cudaStream_t st) {
+    if (!p.ok()) return cudaErrorInvalidValue;
+    return p.tt == MAC_TT
+        ? launch_mac_tile<H_LTI, MAC_TT>(s, p, io, nullptr, 0, b0, device, st)
+        : launch_mac_tile<H_LTI, TILE_TT_MAX>(s, p, io, nullptr, 0, b0, device, st);
 }
 
 // The scan's MAC into aext: the tiled kernel at plan p, or mac_tv_kernel
@@ -588,16 +653,12 @@ cudaError_t launch_mac(const Scan& s, const MacPlan& p, const int* wp2, int wp2_
                         0, st>>>(s, wp2, wp2_stride, timeline, hr, b0, aext);
         return cudaGetLastError();
     }
-    if (!p.ok() || (tv && p.outs() > s.nparts)) return cudaErrorInvalidValue;
-    if (tv)
-        return p.tt == MAC_TT ? launch_mac_tile<H_TV_PAIR, MAC_TT>(
-                                    s, p, wp2, wp2_stride, timeline, hr, hi, b0, aext, device, st)
-                              : launch_mac_tile<H_TV_PAIR, TILE_TT_MAX>(
-                                    s, p, wp2, wp2_stride, timeline, hr, hi, b0, aext, device, st);
-    return p.tt == MAC_TT ? launch_mac_tile<H_LTI, MAC_TT>(s, p, wp2, wp2_stride, timeline, hr, hi,
-                                                           b0, aext, device, st)
-                          : launch_mac_tile<H_LTI, TILE_TT_MAX>(s, p, wp2, wp2_stride, timeline,
-                                                                hr, hi, b0, aext, device, st);
+    const MacIO io = scan_io(s, tv, timeline, hr, hi, aext);
+    if (!tv) return launch_lti_tile(s, p, io, b0, device, st);
+    if (!p.ok() || p.outs() > s.nparts) return cudaErrorInvalidValue;
+    return p.tt == MAC_TT
+        ? launch_mac_tile<H_TV_PAIR, MAC_TT>(s, p, io, wp2, wp2_stride, b0, device, st)
+        : launch_mac_tile<H_TV_PAIR, TILE_TT_MAX>(s, p, io, wp2, wp2_stride, b0, device, st);
 }
 
 // One row of each of two planes, dr[k] = sr[k] and di[k] = si[k] for k <

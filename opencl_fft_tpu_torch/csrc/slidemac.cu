@@ -18,101 +18,45 @@
 // nout = 470, nparts = 256, bins = 512) the MAC is
 // 8 * C * nout * nparts * bins ~ 31.5 GFLOP of FP32 (0.47 ms at 67
 // TFLOP/s) against ~380 MB of planes read and written once (0.11 ms at
-// 3.35 TB/s): bound by FP32 operations. At the K = 8 chunked serving shape
-// (nout = 8) the same planes are read for 1/59 of the work: bound by bytes.
+// 3.35 TB/s): bound by FP32 operations, and by how many FMAs each loaded
+// element feeds. At the K = 8 chunked serving shape (nout = 8) the same
+// planes are read for 1/59 of the work: bound by bytes, and by how many
+// loads are in flight.
 //
 // What the design does about it. The TPU kernels keep shifted,
 // column-0-adjusted h stacks resident in VMEM (chunk_mac) or stream
 // 8-row-aligned tiles by double-buffered DMA (macflow); both are VMEM
-// workarounds. Here one thread owns one bin and MAC_TT consecutive output
-// rows: it holds the MAC_TT timeline rows of the current partition q in
-// registers and slides them by one row per q, so each timeline element is
-// loaded once per MAC_TT outputs and each H element once per thread; the
-// row loads of a warp are 128 contiguous bytes. Bin 0 runs its own
-// (componentwise) instantiation. The channel is the slowest grid dimension,
-// so one channel's timeline and H (a few MB at the render shape) are read
-// from L2 by all of its blocks. Any nparts >= 1, bins >= 1 and nout >= 1
-// are taken: rows past the timeline read as zero. wgmma/TMA, and for this
-// LTI entry the split of the q range that the TV entry has at short nout,
-// are later work.
+// workarounds. Here the entry takes one of two routes, chosen by the
+// caller from the shape (ops/cuda/slidemac.py slide_route):
+//   - long timelines (1 x 1880, 16 x 470, 64 x 470): the scans' tiled MAC
+//     (scan_mac.cuh mac_tile_kernel<H_LTI, TT>, plan (G, TT, Q) from
+//     ops/cuda/streamstep.py mac_plan) on the split planes through a
+//     MacIO. A CTA of G warps slides G * TT outputs x 32 bins of a channel
+//     through registers and streams the partitions in stages of Q through
+//     shared memory by cp.async, so each h and timeline element crosses L2
+//     once per CTA and feeds G * TT outputs.
+//   - short timelines (a K = 8 chunk: 64 channels x 8 outputs, too few
+//     CTAs of the tiled or the per-thread grid to fill the card):
+//     slide_mac_split_kernel<H_LTI>, one thread a bin and MAC_TT outputs
+//     with the partitions split between `slices` q-slices of a CTA
+//     (mac_rows_q, loads one partition ahead); the slices' sums meet in
+//     shared memory and are added in slice order by one thread.
+// Bin 0 multiplies componentwise (a warp-uniform select in the tile, its
+// own instantiation in the split kernel). Any nparts >= 1, bins >= 1 and
+// nout >= 1 are taken: rows past the timeline read as zero. No atomics:
+// every sum is taken in a fixed order, so a launch is bitwise
+// deterministic.
 
-#include "scan_mac.cuh"   // MAC_TT (output rows per thread), MAC_THREADS (bins per block)
+#include "scan_mac.cuh"   // the tiled MAC, mac_rows_q, MAC_TT, MAC_THREADS
 
 namespace {
 
 // Sizes and per-channel strides: channel c of x starts at c * rows * bins,
-// of h at c * nparts * bins, of the outputs at c * nout * bins.
+// of h at c * hrows * bins (LTI: hrows = nparts), of the outputs at
+// c * nout * bins.
 struct Mac {
     int C, rows, nparts, bins, nout;
 };
-
-template <bool DC>
-__device__ __forceinline__ void slide_rows(const Mac& s, int k, int t0, size_t c,
-                                         const float* __restrict__ xr,
-                                         const float* __restrict__ xi,
-                                         const float* __restrict__ hr,
-                                         const float* __restrict__ hi, float b0,
-                                         float* __restrict__ outr, float* __restrict__ outi) {
-    const size_t bins = s.bins;
-    const size_t x0 = c * s.rows, h0 = c * s.nparts, o0 = c * s.nout;
-    float wr[MAC_TT], wi[MAC_TT], ar[MAC_TT], ai[MAC_TT];
-    // output t0+j at partition q reads timeline row t0+j+q
-#pragma unroll
-    for (int j = 0; j < MAC_TT; ++j) {
-        const int r = t0 + j;
-        wr[j] = r < s.rows ? xr[(x0 + r) * bins + k] : 0.f;
-        wi[j] = r < s.rows ? xi[(x0 + r) * bins + k] : 0.f;
-        ar[j] = 0.f;
-        ai[j] = 0.f;
-    }
-#pragma unroll 2
-    for (int q = 0; q < s.nparts; ++q) {
-        const float h_r = hr[(h0 + q) * bins + k];
-        const float h_i = hi[(h0 + q) * bins + k];
-        const int r = t0 + q + MAC_TT;   // the row that slides in for q + 1
-        const float nr = r < s.rows ? xr[(x0 + r) * bins + k] : 0.f;
-        const float ni = r < s.rows ? xi[(x0 + r) * bins + k] : 0.f;
-#pragma unroll
-        for (int j = 0; j < MAC_TT; ++j) {
-            if (DC) {
-                ar[j] += wr[j] * h_r;
-                ai[j] += wi[j] * h_i;
-            } else {
-                ar[j] += wr[j] * h_r - wi[j] * h_i;
-                ai[j] += wr[j] * h_i + wi[j] * h_r;
-            }
-        }
-#pragma unroll
-        for (int j = 0; j < MAC_TT - 1; ++j) {
-            wr[j] = wr[j + 1];
-            wi[j] = wi[j + 1];
-        }
-        wr[MAC_TT - 1] = nr;
-        wi[MAC_TT - 1] = ni;
-    }
-#pragma unroll
-    for (int j = 0; j < MAC_TT; ++j) {
-        const int t = t0 + j;
-        if (t >= s.nout) break;
-        outr[(o0 + t) * bins + k] = DC ? b0 * ar[j] : ar[j];
-        outi[(o0 + t) * bins + k] = DC ? b0 * ai[j] : ai[j];
-    }
-}
-
-// grid (cdiv(nout, MAC_TT), cdiv(bins, MAC_THREADS), C)
-__global__ void __launch_bounds__(MAC_THREADS)
-slide_mac_kernel(Mac s, const float* __restrict__ xr, const float* __restrict__ xi,
-                 const float* __restrict__ hr, const float* __restrict__ hi, float b0,
-                 float* __restrict__ outr, float* __restrict__ outi) {
-    const int k = blockIdx.y * MAC_THREADS + threadIdx.x;
-    if (k >= s.bins) return;
-    const int t0 = blockIdx.x * MAC_TT;
-    const size_t c = blockIdx.z;
-    if (k == 0)
-        slide_rows<true>(s, k, t0, c, xr, xi, hr, hi, b0, outr, outi);
-    else
-        slide_rows<false>(s, k, t0, c, xr, xi, hr, hi, b0, outr, outi);
-}
 
 // The TV sliding MAC. Replaces opencl_fft_tpu/ops/pallas/macflow.py
 // _tv_kernel (wrapper macflow_tv :498) and _tv_batched_kernel
@@ -129,7 +73,7 @@ slide_mac_kernel(Mac s, const float* __restrict__ xr, const float* __restrict__ 
 // registers, and for nparts >= MAC_TT reads two H rows per p for all of
 // them (H_TV_PAIR: the row changes only where the mod wraps, once in
 // MAC_TT consecutive outputs), one per output below (H_TV). Where that
-// grid is short (a K = 8 chunk), slide_mac_tv_split_kernel splits the
+// grid is short (a K = 8 chunk), slide_mac_split_kernel splits the
 // partitions between the threads of a CTA instead.
 //
 // What bounds it on the card: as the LTI MAC, FP32 operations at long
@@ -158,10 +102,11 @@ slide_mac_tv_kernel(Mac s, int hrows, int wp2, const float* __restrict__ xr,
                               bins, b0, outr, outi, bins, x0, h0, o0);
 }
 
-// The TV sliding MAC with the partitions split inside a CTA, for grids too
-// short to fill the card (a K = 8 chunk: 256 CTAs of 128 threads, each
-// walking 256 partitions with dependent loads at every one, reach 15% of
-// the bytes bound). `slices` q-slices work on the same MAC_THREADS bins x
+// The sliding MAC (LTI: H_LTI, hrows = nparts; TV: H_TV or H_TV_PAIR) with
+// the partitions split inside a CTA, for grids too short to fill the card
+// (a K = 8 chunk: 256 CTAs of 128 threads, each walking 256 partitions with
+// dependent loads at every one, reach 15% of the TV MAC's bytes bound and
+// 19% of the LTI MAC's). `slices` q-slices work on the same MAC_THREADS bins x
 // MAC_TT outputs: thread (slice, lane) takes partitions [q0, q1), q0 =
 // slice * nparts / slices (some slices may be empty), through mac_rows_q.
 // The partial sums then meet in shared memory ([2][slices][MAC_TT]
@@ -173,10 +118,10 @@ constexpr int MAX_SLICES = 8;
 
 template <HMode MODE>
 __global__ void __launch_bounds__(MAC_THREADS * MAX_SLICES)
-slide_mac_tv_split_kernel(Mac s, int hrows, int wp2, int slices, const float* __restrict__ xr,
-                          const float* __restrict__ xi, const float* __restrict__ hr,
-                          const float* __restrict__ hi, float b0, float* __restrict__ outr,
-                          float* __restrict__ outi) {
+slide_mac_split_kernel(Mac s, int hrows, int wp2, int slices, const float* __restrict__ xr,
+                       const float* __restrict__ xi, const float* __restrict__ hr,
+                       const float* __restrict__ hi, float b0, float* __restrict__ outr,
+                       float* __restrict__ outi) {
     extern __shared__ float part[];
     const int lane = threadIdx.x % MAC_THREADS, slice = threadIdx.x / MAC_THREADS;
     const int k = blockIdx.y * MAC_THREADS + lane;
@@ -211,32 +156,61 @@ slide_mac_tv_split_kernel(Mac s, int hrows, int wp2, int slices, const float* __
     }
 }
 
-size_t split_granted[2][64];
+size_t split_granted[3][64];   // [HMode][device]
+
+// The q-split kernel at `slices` slices a CTA, on the unsplit kernel's grid
+// of MAC_TT outputs x MAC_THREADS bins x C.
+template <HMode MODE>
+cudaError_t launch_split(const Mac& s, int hrows, int wp2, int slices, const float* xr,
+                         const float* xi, const float* hr, const float* hi, float b0,
+                         float* outr, float* outi, int device, cudaStream_t st) {
+    if (slices < 1 || slices > MAX_SLICES) return cudaErrorInvalidValue;
+    const size_t smem = sizeof(float) * 2 * slices * MAC_TT * MAC_THREADS;
+    RETURN_IF_ERROR(allow_smem(slide_mac_split_kernel<MODE>, device, smem, split_granted[MODE]));
+    slide_mac_split_kernel<MODE>
+        <<<dim3(cdiv(s.nout, MAC_TT), cdiv(s.bins, MAC_THREADS), s.C), MAC_THREADS * slices, smem,
+           st>>>(s, hrows, wp2, slices, xr, xi, hr, hi, b0, outr, outi);
+    return cudaGetLastError();
+}
 
 }  // namespace
 
 // acc[c, t] = sum_q x[c, t+q] (*) h[c, q] for t < nout, all C channels.
-// x planes (C, rows, bins), h planes (C, nparts, bins), outputs (C, nout,
-// bins); float32 device memory on `device`, each plane contiguous. Launches
-// on `stream` without synchronising; returns the first CUDA error.
+// x planes (C, rows, bins) (rows past the last window unread), h planes
+// (C, nparts, bins), outputs (C, nout, bins); float32 device memory on
+// `device`, each plane contiguous. The route (ops/cuda/slidemac.py
+// slide_route chooses): slices in [1, MAX_SLICES] runs the q-split kernel
+// with that many partition slices a CTA; slices = 0 the tiled MAC at
+// `plan`, a host array of 4 ints (warps a CTA, outputs a thread, partitions
+// a stage, ring rows: scan_mac.cuh MacPlan). Launches on `stream` without
+// synchronising; returns the first CUDA error.
 extern "C" int slide_mac_batched_f32(const float* xr, const float* xi, const float* hr,
                                      const float* hi, float* outr, float* outi, int C,
                                      int rows, int nparts, int bins, int nout, float b0,
-                                     int device, void* stream_ptr) {
+                                     int slices, const int* plan, int device,
+                                     void* stream_ptr) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     const Mac s{C, rows, nparts, bins, nout};
-    slide_mac_kernel<<<dim3(cdiv(nout, MAC_TT), cdiv(bins, MAC_THREADS), C), MAC_THREADS, 0,
-                       static_cast<cudaStream_t>(stream_ptr)>>>(s, xr, xi, hr, hi, b0, outr,
-                                                                 outi);
-    return static_cast<int>(cudaGetLastError());
+    cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
+    if (slices > 0)
+        return static_cast<int>(launch_split<H_LTI>(s, nparts, 0, slices, xr, xi, hr, hi, b0,
+                                                    outr, outi, device, st));
+    if (plan == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t b = bins;
+    const MacIO io{xr, xi, b, static_cast<size_t>(rows) * b, rows,
+                   hr, hi, b, static_cast<size_t>(nparts) * b,
+                   outr, outi, b, static_cast<size_t>(nout) * b};
+    return static_cast<int>(launch_lti_tile(Scan{nout, C, nparts, bins},
+                                            MacPlan{plan[0], plan[1], plan[2], plan[3]}, io, b0,
+                                            device, st));
 }
 
 // The TV sliding MAC of every channel for t < nout: x planes (C, rows,
 // bins) (rows >= nparts-1+nout; later rows unread), h planes (C, hrows,
 // bins) (hrows >= nparts-1+nout), outputs (C, nout, bins); phase in
 // [0, nparts). slices in [1, MAX_SLICES]: 1 runs slide_mac_tv_kernel,
-// more the q-split kernel with that many partition slices a CTA
+// more slide_mac_split_kernel with that many partition slices a CTA
 // (ops/cuda/slidemac.py tv_q_slices chooses). Float32 device memory on
 // `device`, each plane contiguous. Launches on `stream` without
 // synchronising; returns the first CUDA error.
@@ -252,22 +226,13 @@ extern "C" int slide_mac_tv_batched_f32(const float* xr, const float* xi, const 
     const int wp2 = (nparts - 1 - phase) % nparts;
     const dim3 grid(cdiv(nout, MAC_TT), cdiv(bins, MAC_THREADS), C);
     cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
-    if (slices > 1) {
-        const size_t smem = sizeof(float) * 2 * slices * MAC_TT * MAC_THREADS;
-        const int threads = MAC_THREADS * slices;
-        const bool pair = nparts >= MAC_TT;
-        err = pair ? allow_smem(slide_mac_tv_split_kernel<H_TV_PAIR>, device, smem,
-                                split_granted[0])
-                   : allow_smem(slide_mac_tv_split_kernel<H_TV>, device, smem, split_granted[1]);
-        if (err != cudaSuccess) return static_cast<int>(err);
-        if (pair)
-            slide_mac_tv_split_kernel<H_TV_PAIR><<<grid, threads, smem, st>>>(
-                s, hrows, wp2, slices, xr, xi, hr, hi, b0, outr, outi);
-        else
-            slide_mac_tv_split_kernel<H_TV><<<grid, threads, smem, st>>>(
-                s, hrows, wp2, slices, xr, xi, hr, hi, b0, outr, outi);
-        return static_cast<int>(cudaGetLastError());
-    }
+    if (slices > 1)
+        return static_cast<int>(
+            nparts >= MAC_TT
+                ? launch_split<H_TV_PAIR>(s, hrows, wp2, slices, xr, xi, hr, hi, b0, outr, outi,
+                                          device, st)
+                : launch_split<H_TV>(s, hrows, wp2, slices, xr, xi, hr, hi, b0, outr, outi,
+                                     device, st));
     if (nparts >= MAC_TT)
         slide_mac_tv_kernel<H_TV_PAIR><<<grid, MAC_THREADS, 0, st>>>(s, hrows, wp2, xr, xi, hr,
                                                                      hi, b0, outr, outi);

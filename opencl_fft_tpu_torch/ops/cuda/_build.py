@@ -88,6 +88,13 @@ def build_log(name: str) -> str:
     return log.read_text() if log.is_file() else ""
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA card ``index``: the kernels'
+    plans fill the card by it."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def launch_device(name: str, tensors) -> torch.device:
     """The one device of ``tensors``: the CPU (where the wrapper ``name``
     runs its plain twin), or a CUDA card whose tensors are all contiguous

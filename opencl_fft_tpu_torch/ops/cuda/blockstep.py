@@ -4,23 +4,37 @@ and their plain PyTorch twins.
 Counterparts of ``opencl_fft_tpu/ops/pallas/blockstep.py``:
 
 - ``block_step_fused``: the MAC of ``ops/cuda/mac.spectral_mac`` at ring
-  row ``rp``, then y = [acc_re | acc_im] @ wpost (the (2b, 2b) table of
-  unpack + inverse DFT + deinterleave), out = (y[:b] + tail) / pts and
-  new_tail = y[b:].
-- ``block_step_fwd_fused``: the new block's frame F = block @ wfwd (the
-  (pts, 2b) forward table), written into ring slot wp = (rp - 1) mod nparts
-  (both halves of the doubled ring), then ``block_step_fused`` at rp.
-- ``block_step_fwd_fused_tv``: both operands' frames from one 2-row product;
-  the input frame as above, the coefficient frame into h row ``wp2``.
+  row ``rp``, then y, the inverse real transform of the accumulator
+  (unpack + inverse DFT + deinterleave: the JAX kernel's product against
+  the (2b, 2b) ``wpost`` table), out = (y[:b] + tail) / pts and new_tail =
+  y[b:].
+- ``block_step_fwd_fused``: the new block's frame (its packed forward
+  transform: the JAX kernel's product against the (pts, 2b) ``wfwd``
+  table), written into ring slot wp = (rp - 1) mod nparts (both halves of
+  the doubled ring), then ``block_step_fused`` at rp.
+- ``block_step_fwd_fused_tv``: both operands' frames; the input frame as
+  above, the coefficient frame into h row ``wp2``.
 - ``block_mac_unpack``: z = ``rfft.unpack_inverse`` of the MAC at ring row
-  ``rp``, the input of the half-size inverse FFT. It serves partitions whose
-  dense post table is too large to build (pts > 2048). The MAC's kernel and
-  its slice-order reduce are ``spectral_mac``'s, so the accumulator is that
-  kernel's bit for bit; one thread unpacks each bin pair (k, M - k) with
-  the twiddle table of ``tables.unpack_twiddle``. The TPU kernel's one-hot
-  flip product, aligned DMA and rotate switch are VMEM workarounds and its
-  shape gates (nparts % 8, bins % 128) do not apply: any nparts >= 1 and
-  bins >= 2.
+  ``rp``, the input of the half-size inverse FFT, which the per-block
+  functions take above pts 2048 (``ops/pconv._mac_unpack_kernel``). The
+  MAC's kernel and its slice-order reduce are ``spectral_mac``'s, so the
+  accumulator is that kernel's bit for bit; one thread unpacks each bin
+  pair (k, M - k) with the twiddle table of ``tables.unpack_twiddle``. The
+  TPU kernel's one-hot flip product, aligned DMA and rotate switch are VMEM
+  workarounds and its shape gates (nparts % 8, bins % 128) do not apply:
+  any nparts >= 1 and bins >= 2.
+
+The kernels compute both transforms as m-point FFTs (m = pts) inside a CTA,
+the whole scans' chain (``ops/cuda/streamstep.py``): the forward is the
+scans' own kernel, the FFT of z_j = x_2j + i x_2j+1 and the pack with the
+forward coefficient stack; the inverse unpacks the accumulator with the
+inverse stack and transforms it once, its first m/2 values (deinterleaved)
+being y[:b] and the rest y[b:]. So they read no dense table, and take a
+power-of-two pts in [2, ``STEP_MAX_PTS``]; ``step_plan`` shapes their
+tiles. The twins follow the same chain in plain PyTorch (``torch.fft``:
+``streamstep._fft_frames``, ``streamstep._unpack_ifft``); the JAX kernels'
+dense-table chain stays as the tests' oracle (``tables._wfwd_np``,
+``_wpost_np``, ``streamstep._dense_frames``, ``_post_ola_plain``).
 
 Where the JAX kernels return the fresh frames for the caller to write, these
 return the new rings: the kernel writes the given ring with the fresh rows
@@ -39,18 +53,26 @@ tensors; anything else raises, and a build or launch failure raises.
 
 from __future__ import annotations
 
+import functools
+from typing import Tuple
+
 import torch
 
+from ...utils.numerics import is_pow2
 from ..cplx import Cplx
 from ..rfft import unpack_inverse
 from . import _build
 from .mac import check_ring, launch, part_scratch, spectral_mac_plain
-from .tables import fwd_table, post_table, unpack_twiddle
+from .streamstep import TILE_LOG2, _aligned8, _fft_frames, _unpack_ifft
+from .tables import coef_tables, unpack_twiddle
+from .vmemfft import pass_twiddle_np
 
 STEP_LAUNCHES = 0
 FWD_LAUNCHES = 0
 FWD_TV_LAUNCHES = 0
 MAC_UNPACK_LAUNCHES = 0
+
+STEP_MAX_PTS = 1 << (TILE_LOG2 + 1)   # the in-CTA transform's largest (one row a CTA)
 
 
 def _check_step(name: str, x2: Cplx, h: Cplx, rp: int, tail: torch.Tensor, pts: int):
@@ -65,19 +87,63 @@ def _check_step(name: str, x2: Cplx, h: Cplx, rp: int, tail: torch.Tensor, pts: 
     return nch, nparts
 
 
-def _scratch(nch: int, nparts: int, pts: int, dev: torch.device):
-    """The kernels' partial sums and (C, 2b) accumulator rows."""
-    return (part_scratch(nch, nparts, pts, dev),
-            torch.empty((nch, 2 * pts), dtype=torch.float32, device=dev))
+def step_plan(pts: int) -> Tuple[int, int]:
+    """log2 rows a CTA of the kernels' transform tiles: (forward, inverse).
+
+    The forward takes 2^11 values a CTA (at least one row; rows past the
+    last block are zero): 128 threads share a block's pack, and more rows
+    only add transforms. The inverse takes a channel a CTA on row 0 of a
+    tile of up to 16 rows and 2^13 values (one row of 2^14 at pts 2^14),
+    the other rows zero: its first step adds up to 32 slices' partials of
+    each bin, which one row's pts / 16 threads could not issue at once;
+    16 rows give each bin a thread. Chosen by timing on the H100 against
+    2^9 and 2^13 values a CTA and the scans' tile in the forward, 2^11 and
+    2^12 values and several channels a CTA in the inverse (PERF.md §6)."""
+    log_l = pts.bit_length() - 1
+    return max(11 - log_l, 0), max(min(TILE_LOG2 - log_l, 4), 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _pass_tables(pts: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The in-CTA transforms' pass tables of pts (``vmemfft.pass_twiddle_np``)
+    for sign -1 and +1 on ``device``."""
+    return tuple(torch.from_numpy(pass_twiddle_np(pts, sign)).to(device) for sign in (-1, 1))
+
+
+def _card_tables(name: str, pts: int, forward: bool, dev: torch.device):
+    """(tensors, ints) every step kernel takes after its own planes: the
+    forward (where it has one) and inverse pass tables and coefficient
+    stacks; the tiles of ``step_plan``."""
+    if not is_pow2(pts) or not 2 <= pts <= STEP_MAX_PTS:
+        raise ValueError(f"{name}: the kernels take a power-of-two pts in [2, "
+                         f"{STEP_MAX_PTS}], got {pts}")
+    (twf, twi), (fc, ic) = _pass_tables(pts, dev), coef_tables(pts, dev)
+    fwd, inv = step_plan(pts)
+    return ((twf, fc, twi, ic), (fwd, inv)) if forward else ((twi, ic), (inv,))
+
+
+def _frames(blocks: torch.Tensor, pts: int) -> Cplx:
+    """Forward frames of blocks (..., pts), the kernels' chain
+    (``streamstep._fft_frames``): split (..., bins)."""
+    fr, fi = _fft_frames(blocks.reshape(1, -1, pts), pts)          # (N, 1, bins)
+    return fr.reshape(blocks.shape), fi.reshape(blocks.shape)
+
+
+def _post(acc: Cplx, tail: torch.Tensor, pts: int):
+    """(out, new_tail) of an accumulator ([C,] bins), the kernels' chain:
+    y = IFFT_m(U(acc)) unnormalized (``streamstep._unpack_ifft``), all m
+    values deinterleaved into 2 pts samples; out = (y[:pts] + tail) / pts,
+    new_tail = y[pts:]."""
+    y = _unpack_ifft(*acc, pts)
+    time = torch.stack([y.real, y.imag], -1).reshape(*y.shape[:-1], 2 * pts)
+    return (time[..., :pts] + tail) / pts, time[..., pts:].contiguous()
 
 
 def block_step_fused_plain(x2: Cplx, h: Cplx, rp: int, b0_scale: float,
                            tail: torch.Tensor, pts: int):
     """Plain PyTorch twin of ``block_step_fused``: ``spectral_mac_plain``,
-    one product against the post table and the overlap-add."""
-    acc_r, acc_i = spectral_mac_plain(x2, h, rp, b0_scale)
-    y = torch.cat([acc_r, acc_i], -1) @ post_table(pts, acc_r.device)
-    return (y[..., :pts] + tail) / pts, y[..., pts:].contiguous()
+    then the inverse chain and the overlap-add (``_post``)."""
+    return _post(spectral_mac_plain(x2, h, rp, b0_scale), tail, pts)
 
 
 def block_step_fused(x2: Cplx, h: Cplx, rp: int, b0_scale: float, tail: torch.Tensor,
@@ -91,11 +157,11 @@ def block_step_fused(x2: Cplx, h: Cplx, rp: int, b0_scale: float, tail: torch.Te
     dev = _build.launch_device("block_step_fused", (*x2, *h, tail))
     if dev.type == "cpu":
         return block_step_fused_plain(x2, h, rp, b0_scale, tail, pts)
+    tabs, plan = _card_tables("block_step_fused", pts, False, dev)
     out, new_tail = torch.empty_like(tail), torch.empty_like(tail)
     launch("block_step_fused_f32",
-           (*x2, *h, post_table(pts, dev), tail, out, new_tail,
-            *_scratch(nch, nparts, pts, dev)),
-           (nch, nparts, pts, rp), b0_scale, dev)
+           (*x2, *h, *tabs, tail, out, new_tail, part_scratch(nch, nparts, pts, dev)),
+           (nch, nparts, pts, rp, *plan), b0_scale, dev)
     STEP_LAUNCHES += 1
     return out, new_tail
 
@@ -110,13 +176,12 @@ def _with_row(plane: torch.Tensor, row: torch.Tensor, *at: int) -> torch.Tensor:
 
 def block_step_fwd_fused_plain(block: torch.Tensor, x2: Cplx, h: Cplx, rp: int,
                                b0_scale: float, tail: torch.Tensor, pts: int):
-    """Plain PyTorch twin of ``block_step_fwd_fused``: the frame from the
-    forward table, the new ring, then ``block_step_fused_plain``."""
+    """Plain PyTorch twin of ``block_step_fwd_fused``: the frame by the
+    forward chain (``_frames``), the new ring, then
+    ``block_step_fused_plain``."""
     nparts = h[0].shape[-2]
-    f = block.to(torch.float32) @ fwd_table(pts, block.device)
     wp = (rp - 1) % nparts
-    x2n = tuple(_with_row(p, f[..., i * pts:(i + 1) * pts], wp, wp + nparts)
-                for i, p in enumerate(x2))
+    x2n = tuple(_with_row(p, f, wp, wp + nparts) for p, f in zip(x2, _frames(block, pts)))
     return (*block_step_fused_plain(x2n, h, rp, b0_scale, tail, pts), x2n)
 
 
@@ -135,28 +200,27 @@ def block_step_fwd_fused(block: torch.Tensor, x2: Cplx, h: Cplx, rp: int,
     dev = _build.launch_device("block_step_fwd_fused", (block, *x2, *h, tail))
     if dev.type == "cpu":
         return block_step_fwd_fused_plain(block, x2, h, rp, b0_scale, tail, pts)
+    tabs, plan = _card_tables("block_step_fwd_fused", pts, True, dev)
     out, new_tail = torch.empty_like(tail), torch.empty_like(tail)
     nx = torch.empty_like(x2[0]), torch.empty_like(x2[1])
-    frames = torch.empty((nch, 2 * pts), dtype=torch.float32, device=dev)
+    frames = torch.empty((nch, 1, 2 * pts), dtype=torch.float32, device=dev)
     launch("block_step_fwd_fused_f32",
-           (block, *x2, *h, fwd_table(pts, dev), post_table(pts, dev), tail, out, new_tail,
-            *nx, frames, *_scratch(nch, nparts, pts, dev)),
-           (nch, nparts, pts, rp), b0_scale, dev)
+           (_aligned8(block), *x2, *h, *tabs, tail, out, new_tail, *nx, frames,
+            part_scratch(nch, nparts, pts, dev)),
+           (nch, nparts, pts, rp, *plan), b0_scale, dev)
     FWD_LAUNCHES += 1
     return out, new_tail, nx
 
 
 def block_step_fwd_fused_tv_plain(blocks: torch.Tensor, x2: Cplx, h: Cplx, rp: int,
                                   wp2: int, b0_scale: float, tail: torch.Tensor, pts: int):
-    """Plain PyTorch twin of ``block_step_fwd_fused_tv``: both frames from
-    one product against the forward table, the new rings, then
-    ``block_step_fused_plain``."""
+    """Plain PyTorch twin of ``block_step_fwd_fused_tv``: both frames by the
+    forward chain, the new rings, then ``block_step_fused_plain``."""
     nparts = h[0].shape[-2]
-    f = blocks.to(torch.float32) @ fwd_table(pts, blocks.device)     # (2, [C,] 2b)
+    fr, fi = _frames(blocks, pts)                                    # (2, [C,] bins)
     wp = (rp - 1) % nparts
-    x2n = tuple(_with_row(p, f[0, ..., i * pts:(i + 1) * pts], wp, wp + nparts)
-                for i, p in enumerate(x2))
-    hn = tuple(_with_row(p, f[1, ..., i * pts:(i + 1) * pts], wp2) for i, p in enumerate(h))
+    x2n = tuple(_with_row(p, f[0], wp, wp + nparts) for p, f in zip(x2, (fr, fi)))
+    hn = tuple(_with_row(p, f[1], wp2) for p, f in zip(h, (fr, fi)))
     return (*block_step_fused_plain(x2n, hn, rp, b0_scale, tail, pts), x2n, hn)
 
 
@@ -179,14 +243,15 @@ def block_step_fwd_fused_tv(blocks: torch.Tensor, x2: Cplx, h: Cplx, rp: int, wp
     dev = _build.launch_device("block_step_fwd_fused_tv", (blocks, *x2, *h, tail))
     if dev.type == "cpu":
         return block_step_fwd_fused_tv_plain(blocks, x2, h, rp, wp2, b0_scale, tail, pts)
+    tabs, plan = _card_tables("block_step_fwd_fused_tv", pts, True, dev)
     out, new_tail = torch.empty_like(tail), torch.empty_like(tail)
     nx = torch.empty_like(x2[0]), torch.empty_like(x2[1])
     nh = torch.empty_like(h[0]), torch.empty_like(h[1])
-    frames = torch.empty((2 * nch, 2 * pts), dtype=torch.float32, device=dev)
+    frames = torch.empty((nch, 2, 2 * pts), dtype=torch.float32, device=dev)
     launch("block_step_fwd_fused_tv_f32",
-           (blocks, *x2, *h, fwd_table(pts, dev), post_table(pts, dev), tail, out, new_tail,
-            *nx, *nh, frames, *_scratch(nch, nparts, pts, dev)),
-           (nch, nparts, pts, rp, wp2), b0_scale, dev)
+           (_aligned8(blocks), *x2, *h, *tabs, tail, out, new_tail, *nx, *nh, frames,
+            part_scratch(nch, nparts, pts, dev)),
+           (nch, nparts, pts, rp, wp2, *plan), b0_scale, dev)
     FWD_TV_LAUNCHES += 1
     return out, new_tail, nx, nh
 

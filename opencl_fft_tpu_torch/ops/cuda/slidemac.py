@@ -11,10 +11,13 @@ Counterparts of ``opencl_fft_tpu/ops/pallas/chunkmac.py`` ``chunk_mac`` and
 a complex product per bin, except at bin 0 (the packed (DC/2, Nyq/2) pair),
 which multiplies componentwise and is scaled by ``b0``. All three wrappers
 run the one CUDA entry (the channel is a grid dimension; a single timeline
-is its C = 1 case). The TPU kernels' shapes rules (``nparts`` and the
-output count multiples of 8, ``bins`` of 128) are VMEM and DMA-alignment
-rules and do not apply: every ``nparts >= 1``, ``bins`` and output count
-is taken, and the wrappers return exactly the rows asked for.
+is its C = 1 case), on one of two routes that ``slide_route`` picks from
+the shape: the scans' tiled MAC for long timelines, the partitions split
+between the threads of a CTA (``tv_q_slices``' rule) for short ones. The
+TPU kernels' shapes rules (``nparts`` and the output count multiples of 8,
+``bins`` of 128) are VMEM and DMA-alignment rules and do not apply: every
+``nparts >= 1``, ``bins`` and output count is taken, and the wrappers
+return exactly the rows asked for.
 
 The time-varying form (``macflow_tv``, ``macflow_tv_batched``: the JAX
 ``macflow.py`` kernels of the same names) pairs each input frame with a
@@ -44,11 +47,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional, Tuple, Union
 
 import torch
 
 from ..cplx import Cplx
 from . import _build
+from .streamstep import TILE_BINS, TILE_MAX_GROUPS, MacPlan, mac_plan
 
 CHUNKMAC_LAUNCHES = 0
 MACFLOW_LAUNCHES = 0
@@ -67,7 +72,7 @@ CHUNKMAC_MAX_BATCH = 16
 # bounds its memory at any shape (64 MB a plane).
 _PLAIN_CHUNK_ELEMS = 1 << 24
 
-# The TV kernel's grid: MAC_TT outputs x MAC_THREADS bins a CTA of
+# The q-split kernels' grid: MAC_TT outputs x MAC_THREADS bins a CTA of
 # MAC_THREADS threads per q-slice (csrc/scan_mac.cuh, csrc/slidemac.cu).
 MAC_TT = 8
 MAC_THREADS = 128
@@ -81,7 +86,7 @@ _GROUPS_PER_SM = 8
 def _kernel():
     fn = _build.load("slidemac").slide_mac_batched_f32
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 6 + [i] * 5 + [ctypes.c_float, i, p]
+    fn.argtypes = [p] * 6 + [i] * 5 + [ctypes.c_float, i, p, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -113,22 +118,50 @@ def _check(name: str, x: Cplx, h: Cplx, nout: int):
                          f"timeline of >= {nout + hr.shape[1] - 1} rows, got {rows}")
 
 
+def slide_route(C: int, nout: int, bins: int, nparts: int, sms: int = 132,
+                force: Optional[str] = None) -> Tuple[str, Union[MacPlan, int]]:
+    """The LTI kernel's route at this shape: ("tiled", plan) or ("split",
+    slices).
+
+    "tiled", the scans' tiled MAC at ``streamstep.mac_plan``'s plan, where
+    the timeline fills the smallest full tile (nout >= TILE_MAX_GROUPS *
+    MAC_TT = 64 outputs, so that every staged h row feeds at least 64
+    outputs) and the tiled grid gives each of the card's ``sms`` SMs a CTA
+    (1 x 1880, 16 x 470, 64 x 470 at nparts 256, bins 512). Else "split":
+    the q-split kernel at ``tv_q_slices`` slices, the TV kernel's rule (the
+    K = 8 chunk of 64 channels: 256 CTAs of 4 slices). ``force`` names the
+    route to take regardless (the tests and the timing tools)."""
+    plan = mac_plan(C, nout, bins, nparts, False, sms)
+    grid = -(-nout // plan.outs) * -(-bins // TILE_BINS) * C
+    route = force or ("tiled" if nout >= TILE_MAX_GROUPS * MAC_TT and grid >= sms
+                      else "split")
+    if route == "tiled":
+        return route, plan
+    if route != "split":
+        raise ValueError(f"no sliding-MAC route {route!r}")
+    return route, tv_q_slices(C, nout, bins, nparts, sms)
+
+
 def _launch(x: Cplx, h: Cplx, nout: int, b0: float, dev: torch.device) -> Cplx:
     (xr, xi), (hr, hi) = x, h
     nch, rows, bins = xr.shape
+    route, how = slide_route(nch, nout, bins, hr.shape[1], _build.sm_count(dev.index))
+    slices, plan = (0, (ctypes.c_int * 4)(*how)) if route == "tiled" else (how, None)
     outr = torch.empty((nch, nout, bins), dtype=torch.float32, device=dev)
     outi = torch.empty_like(outr)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _kernel()(xr.data_ptr(), xi.data_ptr(), hr.data_ptr(), hi.data_ptr(),
                     outr.data_ptr(), outi.data_ptr(), nch, rows, hr.shape[1], bins, nout,
-                    float(b0), dev.index, stream)
+                    float(b0), slices, None if plan is None else ctypes.addressof(plan),
+                    dev.index, stream)
     if err != 0:
         raise RuntimeError(f"slide_mac_batched_f32: CUDA error {err} at launch")
     return outr, outi
 
 
 def _run(name: str, x: Cplx, h: Cplx, nout: int, b0: float):
-    """(acc planes, launched): the kernel on a card, the twin on the CPU."""
+    """(acc planes, launched): the kernel on a card (on ``slide_route``'s
+    route), the twin on the CPU."""
     _check(name, x, h, nout)
     dev = _build.launch_device(name, (*x, *h))
     if dev.type == "cpu":
@@ -225,7 +258,8 @@ def _check_tv(name: str, x: Cplx, h: Cplx, nout: int, nparts: int):
 
 
 def tv_q_slices(C: int, nout: int, bins: int, nparts: int, sms: int = 132) -> int:
-    """q-slices a CTA of the TV kernel at this shape. The unsplit grid has
+    """q-slices a CTA of the q-split kernels (TV, and LTI on ``slide_route``'s
+    "split" route) at this shape. The unsplit grid has
     cdiv(nout, MAC_TT) x cdiv(bins, MAC_THREADS) x C CTAs of MAC_TT outputs
     x MAC_THREADS bins; where more of them than the card's ``sms`` SMs hold
     at once, 1 (64 x 470: 15,104 CTAs). Else the largest power of two up to
@@ -251,11 +285,6 @@ def q_ranges(nparts: int, slices: int) -> list:
     return [(u * nparts // slices, (u + 1) * nparts // slices) for u in range(slices)]
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _run_tv(name: str, x: Cplx, h: Cplx, nout: int, nparts: int, b0: float, phase: int):
     """(acc planes (C, nout, bins), launched): the TV kernel on a card (at
     ``tv_q_slices`` of the shape), the twin on the CPU."""
@@ -264,7 +293,8 @@ def _run_tv(name: str, x: Cplx, h: Cplx, nout: int, nparts: int, b0: float, phas
     dev = _build.launch_device(name, (*x, *h))
     if dev.type == "cpu":
         return slide_mac_tv_plain(x, h, nout, nparts, b0, phase), False
-    slices = tv_q_slices(x[0].shape[0], nout, x[0].shape[2], nparts, _sms(dev.index))
+    slices = tv_q_slices(x[0].shape[0], nout, x[0].shape[2], nparts,
+                         _build.sm_count(dev.index))
     return _launch_tv(x, h, nout, nparts, b0, phase, slices, dev), True
 
 

@@ -56,7 +56,6 @@ import torch
 from ...utils.numerics import is_pow2
 from ..cplx import Cplx
 from . import _build
-from .slidemac import _sms
 from .tables import coef_tables, fwd_table, post_table
 from .vmemfft import (LEAF_PASS_MAX, SINGLE_PASS_MAX, four_step_log_a,
                       four_step_tables_np, pass_twiddle_np, two_pass_split)
@@ -280,7 +279,8 @@ def _launch(name, blocks, w0, h, b0_scale, tails, pts, dev):
     nb, nch, _ = blocks.shape
     nparts = hr.shape[1]
     plan, scratch = _kernel_args(pts, nb, nch, dev)
-    cut = (ctypes.c_int * 6)(*scan_plan(pts, nb, nch, nparts, False, _sms(dev.index)))
+    sms = _build.sm_count(dev.index)
+    cut = (ctypes.c_int * 6)(*scan_plan(pts, nb, nch, nparts, False, sms))
     f32 = dict(dtype=torch.float32, device=dev)
     outs = torch.empty((nb, nch, pts), **f32)
     wfr, wfi = (torch.empty((nch, nparts, pts), **f32) for _ in range(2))
@@ -309,7 +309,8 @@ def _launch_tv(name, blocks_x, blocks_h, w0, h0, wp2, b0_scale, tails, pts, dev)
     else:
         slots, offset, stride = _slot_table(nparts, dev), 4 * wp2, 0
     plan, scratch = _kernel_args(pts, nb, nch, dev)
-    cut = (ctypes.c_int * 6)(*scan_plan(pts, nb, nch, nparts, True, _sms(dev.index)))
+    sms = _build.sm_count(dev.index)
+    cut = (ctypes.c_int * 6)(*scan_plan(pts, nb, nch, nparts, True, sms))
     f32 = dict(dtype=torch.float32, device=dev)
     outs = torch.empty((nb, nch, pts), **f32)
     wfr, wfi, hfr, hfi = (torch.empty((nch, nparts, pts), **f32) for _ in range(4))
@@ -407,6 +408,15 @@ def _fft_frames(blocks: torch.Tensor, pts: int) -> Cplx:
     return re.transpose(0, 1), im.transpose(0, 1)
 
 
+def _unpack_ifft(wr: torch.Tensor, wi: torch.Tensor, pts: int) -> torch.Tensor:
+    """y = IFFT_m(U(w)) unnormalized, m = pts: the unpack of the split
+    spectrum (wr, wi) (..., m) with the inverse coefficient stack, then the
+    m-point inverse transform; complex (..., m)."""
+    _, ic = coef_tables(pts, wr.device)
+    a, bv, d, e = (wr * ic[2 * j] + wi * ic[2 * j + 1] for j in range(4))
+    return torch.fft.ifft(torch.complex(a + _nflip(bv), d + _nflip(e)), norm="forward")
+
+
 def _fft_post_ola(acc_r: torch.Tensor, acc_i: torch.Tensor, tails: torch.Tensor, pts: int):
     """The (C, nb, bins) accumulators to output blocks, the kernel's chain:
     row t (t = 0..nb) folds acc[t] + (-1)^k acc[t-1] (zero rows before and
@@ -415,13 +425,10 @@ def _fft_post_ola(acc_r: torch.Tensor, acc_i: torch.Tensor, tails: torch.Tensor,
     its first pts/2 values: out1[t] + out2[t-1]; the carried tails are added
     at t = 0 and the rows divided by pts, row nb is the final tails:
     (outs (nb, C, pts), final tails (C, pts))."""
-    _, ic = coef_tables(pts, acc_r.device)
     pm = torch.where(torch.arange(pts, device=acc_r.device) % 2 == 0, 1.0, -1.0)
     ar, ai = (torch.nn.functional.pad(a, (0, 0, 1, 1)) for a in (acc_r, acc_i))
     wr, wi = ar[:, 1:] + pm * ar[:, :-1], ai[:, 1:] + pm * ai[:, :-1]
-    a, bv, d, e = (wr * ic[2 * j] + wi * ic[2 * j + 1] for j in range(4))
-    y = torch.fft.ifft(torch.complex(a + _nflip(bv), d + _nflip(e)), norm="forward")
-    y = y[..., :pts // 2]
+    y = _unpack_ifft(wr, wi, pts)[..., :pts // 2]
     out = torch.stack([y.real, y.imag], -1).reshape(*y.shape[:-1], pts)   # (C, nb+1, pts)
     outs = out[:, :-1].clone()
     outs[:, 0] += tails

@@ -79,15 +79,16 @@ from .cuda.tables import fwd_table
 from .fft import _IMPLS, fft_split
 from .rfft import interleave, irfft_split, rfft_split
 
-# Largest partition size whose dense transform tables, (pts, 2*pts) forward
-# and (2*pts, 2*pts) inverse (96 MB at 2048), the engine builds. Up to it
-# the forward transform is one product against the forward table
-# (``_forward_partition``), the streams run the scan kernels through the
-# dense-table kernels' wrappers and a state on a card runs the per-block step
-# kernels (``_block_kernels``); above it the forward transform is the
-# transform chain, the streams run the split scans' wrappers (``_scans``)
-# and the per-block functions the
-# transform chain around the MAC-and-unpack kernel (``_mac_unpack_kernel``).
+# Largest partition size whose dense forward table, (pts, 2*pts), the engine
+# builds for ``_forward_partition``. Up to it the forward transform there is
+# one product against the table, the streams run the scan kernels through
+# the wrappers of the JAX dense-table kernels and a state on a card runs the
+# per-block step kernels (``_block_kernels``); above it the forward
+# transform is the transform chain, the streams run the split scans'
+# wrappers (``_scans``) and the per-block functions the transform chain
+# around the MAC-and-unpack kernel (``_mac_unpack_kernel``). Every scan and
+# step kernel computes its transforms by FFTs at any pts, so above 2048 the
+# split is a routing rule kept from the JAX package, not a table limit.
 _FWD_MM_MAX_PTS = 2048
 
 
@@ -230,9 +231,10 @@ def push_ir(cfg: PconvConfig, state: PconvState, ir: torch.Tensor) -> PconvState
 
 def _block_kernels(cfg: PconvConfig, device: torch.device) -> bool:
     """Whether the per-block functions launch the block-step kernels: for a
-    state on a CUDA card at pts <= _FWD_MM_MAX_PTS, the largest partition
-    whose (pts, 2*pts) forward and (2*pts, 2*pts) post tables the kernels
-    read. A larger pts on a card, and any state on the CPU, takes the plain
+    state on a CUDA card at pts <= _FWD_MM_MAX_PTS, the JAX package's
+    routing (the kernels transform by in-kernel FFTs and take pts up to
+    2^14; above 2048 the per-block functions keep ``block_mac_unpack``'s
+    route, ``_mac_unpack_kernel``). Any state on the CPU takes the plain
     composition (forward product or transform chain, MAC, inverse
     transform). A shape rule: nothing falls back on a failure."""
     return torch.device(device).type == "cuda" and cfg.pts <= _FWD_MM_MAX_PTS
@@ -240,9 +242,9 @@ def _block_kernels(cfg: PconvConfig, device: torch.device) -> bool:
 
 def _mac_unpack_kernel(cfg: PconvConfig, device: torch.device) -> bool:
     """Whether the per-block functions run their MAC and inverse through
-    ``_mac_unpack_inverse_ola`` (the ``block_mac_unpack`` kernel): for a
-    state on a CUDA card at pts > _FWD_MM_MAX_PTS, where no dense post
-    table is built. A shape rule, like ``_block_kernels``."""
+    ``_mac_unpack_inverse_ola`` (the ``block_mac_unpack`` kernel, then the
+    inverse FFT): for a state on a CUDA card at pts > _FWD_MM_MAX_PTS, the
+    complement of ``_block_kernels``. A shape rule, like it."""
     return torch.device(device).type == "cuda" and cfg.pts > _FWD_MM_MAX_PTS
 
 

@@ -4,12 +4,17 @@
 against the JAX Pallas kernels of ``ops/pallas/mac.py`` and
 ``ops/pallas/blockstep.py`` in interpret mode, on the same numpy-seeded
 inputs: atol 1e-5 * max|JAX| (both sum the partitions in float32 in other
-orders). The JAX kernels take nparts % 8 == 0 and bins % 128 == 0, so the
-comparison runs at (8, 128) and (16, 256); other shapes (nparts 3, bins 16)
-and a channel axis (C = 3) are held against a float64 numpy loop. The card
-route of ``pconv_step{,_tv}``, composed from the twins on the CPU, streams
-20 blocks against JAX's ``pallas="blockf"`` route at 2e-5 * max, JAX's own
-bound between its routes. The CUDA kernels are held against the twins on a
+orders; the twins transform by FFTs, the JAX kernels by dense tables). The
+JAX kernels take nparts % 8 == 0 and bins % 128 == 0, so the comparison
+runs at (8, 128), (16, 256) and (256, 128); other shapes (nparts 3, bins
+16) and a channel axis (C = 3) are held against a float64 numpy loop on the
+dense tables, and every pts 2..2048 at nparts 1, 3 and 256 against a
+float64 oracle from the packed real transforms (``ops/rfft.py`` in float64,
+itself pinned to the tables). The card route of ``pconv_step{,_tv}``,
+composed from the twins on the CPU, streams 20 blocks against JAX's
+``pallas="blockf"`` route at 2e-5 * max, JAX's own bound between its
+routes. The kernels' transform tiles (``step_plan``) are held to the tile
+shapes the kernels take; the CUDA kernels are held against the twins on a
 card.
 """
 
@@ -24,12 +29,14 @@ from opencl_fft_tpu.ops.pallas import mac as JMAC
 from opencl_fft_tpu_torch.ops import pconv as P
 from opencl_fft_tpu_torch.ops.cuda import blockstep as B
 from opencl_fft_tpu_torch.ops.cuda import mac as MAC
+from opencl_fft_tpu_torch.ops.cuda import streamstep as S
 from opencl_fft_tpu_torch.ops.cuda.tables import _wfwd_np, _wpost_np
+from opencl_fft_tpu_torch.ops.rfft import irfft_split, rfft_split
 
 torch.set_num_threads(1)
 
 TOL = 1e-5
-SHAPES = [(8, 128), (16, 256)]
+SHAPES = [(8, 128), (16, 256), (256, 128)]
 
 
 def _close(got, ref, rel=TOL):
@@ -198,6 +205,137 @@ def test_twins_match_float64_oracle(nparts, bins, lead, b0):
                 _close(g, r)
 
 
+def _frames64(blocks, pts):
+    """float64 packed frames of blocks (..., pts): the unnormalized packed
+    real transform (``rfft_split``) of the block zero-padded to 2 pts."""
+    frame = np.concatenate([blocks, np.zeros_like(blocks)], -1).astype(np.float64)
+    fr, fi = rfft_split(torch.from_numpy(frame), unnormalized=True)
+    return np.concatenate([fr.numpy(), fi.numpy()], -1)
+
+
+def _fft_oracle(ring, h, rp, b0, tail, pts, fresh_x=None, fresh_h=None, wp2=None):
+    """``_oracle_step`` with the inverse as the packed inverse real
+    transform (``irfft_split``) in float64, for pts whose dense table is
+    too large to build in a test."""
+    xr, xi = (a.astype(np.float64).copy() for a in ring)
+    hr, hi = (a.astype(np.float64).copy() for a in h)
+    nparts = hr.shape[-2]
+    if fresh_x is not None:
+        wp = (rp - 1) % nparts
+        for plane, f in zip((xr, xi), (fresh_x[..., :pts], fresh_x[..., pts:])):
+            plane[..., wp, :] = plane[..., wp + nparts, :] = f
+    if fresh_h is not None:
+        hr[..., wp2, :], hi[..., wp2, :] = fresh_h[..., :pts], fresh_h[..., pts:]
+    wr, wi = xr[..., rp:rp + nparts, :], xi[..., rp:rp + nparts, :]
+    acc_r = np.sum(wr * hr - wi * hi, axis=-2)
+    acc_i = np.sum(wr * hi + wi * hr, axis=-2)
+    acc_r[..., 0] = b0 * np.sum(wr[..., 0] * hr[..., 0], axis=-1)
+    acc_i[..., 0] = b0 * np.sum(wi[..., 0] * hi[..., 0], axis=-1)
+    y = irfft_split((torch.from_numpy(acc_r), torch.from_numpy(acc_i))).numpy()
+    return (acc_r, acc_i), (y[..., :pts] + tail) / pts, y[..., pts:], (xr, xi), (hr, hi)
+
+
+@pytest.mark.parametrize("pts", [2, 16, 128])
+def test_fft_oracle_matches_table_oracle(pts):
+    """The float64 transform oracle is the dense-table oracle (the tables
+    are float32, so within their rounding)."""
+    rng = np.random.default_rng(pts)
+    ring, h, tail, blocks = _inputs(rng, 3, pts, (2,))
+    frames = _frames64(blocks, pts)
+    np.testing.assert_allclose(frames, blocks.astype(np.float64) @ _wfwd_np(pts), rtol=0,
+                               atol=1e-6 * np.abs(frames).max())
+    got = _fft_oracle(ring, h, 1, 2.0, tail, pts, frames[0], frames[1], 2)
+    want = _oracle_step(ring, h, 1, 2.0, tail, pts, frames[0], frames[1], 2)
+    for g, w in zip(got[1:3], want[1:3]):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-6 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("pts", [2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048])
+@pytest.mark.parametrize("nparts", [1, 3, 256])
+def test_twins_match_float64_oracle_at_every_pts(pts, nparts):
+    """The FFT-chain twins at every pts the per-block kernels take on the
+    main paths, one partition (the zero-latency segments), three, and the
+    headline 256; rp at both ring ends, wp2 at both ends."""
+    rng = np.random.default_rng(pts + nparts)
+    ring, h, tail, blocks = _inputs(rng, nparts, pts)
+    frames = _frames64(blocks, pts)
+    for rp in sorted({0, nparts - 1}):
+        acc, out, ntail, _, _ = _fft_oracle(ring, h, rp, 2.0, tail, pts)
+        for g, r in zip(B.block_step_fused(_t(ring), _t(h), rp, 2.0, torch.from_numpy(tail),
+                                           pts), (out, ntail)):
+            _close(g, r)
+        _, out, ntail, x2, _ = _fft_oracle(ring, h, rp, 2.0, tail, pts, fresh_x=frames[0])
+        got = B.block_step_fwd_fused(torch.from_numpy(blocks[0]), _t(ring), _t(h), rp, 2.0,
+                                     torch.from_numpy(tail), pts)
+        for g, r in zip((got[0], got[1], *got[2]), (out, ntail, *x2)):
+            _close(g, r)
+        for wp2 in sorted({0, nparts - 1}):
+            _, out, ntail, x2, hn = _fft_oracle(ring, h, rp, 2.0, tail, pts, frames[0],
+                                                frames[1], wp2)
+            got = B.block_step_fwd_fused_tv(torch.from_numpy(blocks), _t(ring), _t(h), rp, wp2,
+                                            2.0, torch.from_numpy(tail), pts)
+            for g, r in zip((got[0], got[1], *got[2], *got[3]), (out, ntail, *x2, *hn)):
+                _close(g, r)
+
+
+@pytest.mark.parametrize("pts", [2, 64, 512])
+@pytest.mark.parametrize("lead", [(), (3,)])
+def test_twins_match_dense_table_chain(pts, lead):
+    """The FFT-chain twins against the JAX kernels' chain in float32 (the
+    scans' oracle: ``_dense_frames``, ``_post_ola_plain``, one block)."""
+    rng = np.random.default_rng(pts + len(lead))
+    ring, h, tail, blocks = _inputs(rng, 3, pts, lead)
+    tb = torch.from_numpy(blocks)
+    fr, fi = S._dense_frames(tb.reshape(1, -1, pts), pts)
+    frames = (fr.reshape(tb.shape), fi.reshape(tb.shape))
+    got = B.block_step_fwd_fused_tv(tb, _t(ring), _t(h), 1, 2, 2.0, torch.from_numpy(tail), pts)
+    x2 = tuple(B._with_row(p, f[0], 0, 3) for p, f in zip(_t(ring), frames))
+    hn = tuple(B._with_row(p, f[1], 2) for p, f in zip(_t(h), frames))
+    acc = MAC.spectral_mac_plain(x2, hn, 1, 2.0)
+    one = tuple(a.reshape(-1, 1, pts) for a in acc)
+    outs, tails = S._post_ola_plain(*one, torch.from_numpy(tail).reshape(-1, pts), pts)
+    for g, w in zip((got[0], got[1], *got[2], *got[3]),
+                    (outs[0].reshape(tail.shape), tails.reshape(tail.shape), *x2, *hn)):
+        _close(g, w.numpy())
+
+
+@pytest.mark.parametrize("pts", [2, 64, 512, 2048])
+def test_one_transform_gives_both_halves(pts):
+    """The kernels' inverse transforms U(acc) once: its second half is the
+    first half of the transform of U(pm acc), pm = (-1)^k, which the scans'
+    chain takes as the next block's tail (``streamstep._fft_post_ola``)."""
+    rng = np.random.default_rng(pts)
+    acc = tuple(torch.from_numpy(rng.standard_normal((3, pts)).astype(np.float32))
+                for _ in range(2))
+    tail = torch.from_numpy(rng.standard_normal((3, pts)).astype(np.float32))
+    out, new_tail = B._post(acc, tail, pts)
+    outs, tails = S._fft_post_ola(acc[0][:, None], acc[1][:, None], tail, pts)
+    _close(out, outs[0].numpy(), 1e-6)
+    _close(new_tail, tails.numpy(), 1e-6)
+
+
+def _log2(n):
+    return n.bit_length() - 1
+
+
+@pytest.mark.parametrize("pts", [2 ** k for k in range(1, 15)])
+def test_step_plan_tiles_are_ones_the_kernels_take(pts):
+    """Both tiles hold 16..2^13 values (one row of 2^14 at pts 2^14): the
+    forward 2^11 or one row, the inverse up to 16 rows (a thread a bin)."""
+    fwd, inv = B.step_plan(pts)
+    for log_b in (fwd, inv):
+        values = _log2(pts) + log_b
+        assert log_b >= 0 and 4 <= values and (values <= 13 or (values == 14 and log_b == 0))
+    assert (pts << fwd) == max(pts, 1 << 11)
+    assert 1 << inv == min(16, max(1, (1 << 13) // pts))
+
+
+@pytest.mark.parametrize("pts", [1, 24, 1 << 15])
+def test_card_route_takes_power_of_two_pts_up_to_2_14(pts):
+    with pytest.raises(ValueError, match="power-of-two pts in \\[2, 16384\\]"):
+        B._card_tables("block_step_fused", pts, False, torch.device("cpu"))
+
+
 def test_twin_outputs_are_contiguous_and_inputs_untouched():
     rng = np.random.default_rng(5)
     ring, h, tail, blocks = _inputs(rng, 4, 16, (3,))
@@ -269,8 +407,8 @@ def test_card_route_streams_like_jax_blockf(tv):
 
 def test_block_kernels_shape_rule():
     """On a card the per-block functions launch the kernels up to pts =
-    2048 (the largest forward and post tables built); beyond, and on the
-    CPU, the plain composition."""
+    2048 (the JAX package's routing; above it block_mac_unpack's route);
+    beyond, and on the CPU, the plain composition."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     assert P._block_kernels(P.PconvConfig(pts=2048, nparts=2), cuda)
     assert not P._block_kernels(P.PconvConfig(pts=4096, nparts=2), cuda)
@@ -332,3 +470,43 @@ def test_cuda_kernels_match_twins(cuda_device, nparts, bins, lead):
                 for g, w in zip(gs, ws):
                     assert g.is_contiguous()
                     _close(g, w.cpu(), 2e-5)
+
+
+def _flat(outputs):
+    """A step's (out, new_tail, *rings) as a list of tensors."""
+    return [outputs[0], outputs[1], *(t for ring in outputs[2:] for t in ring)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nparts,pts,lead", [(1, 2, ()), (3, 64, (3,)), (1, 2048, ()),
+                                             (256, 2048, ()), (8, 4096, ()), (2, 16384, ()),
+                                             (3, 16384, (2,)), (256, 512, (64,))])
+def test_cuda_steps_match_twins_at_every_tile_shape(cuda_device, nparts, pts, lead):
+    """The transform kernels at the ends of their range (pts 2, 2^14) and
+    at the main paths' shapes: within 2e-5 of the twins, bit-equal on a
+    second launch, and the fused step's output bit-equal to
+    ``block_step_fused`` on the ring it wrote (a crossfade's two paths)."""
+    rng = np.random.default_rng(nparts + pts)
+    ring, h, tail, blocks = _inputs(rng, nparts, pts, lead)
+    ring_d, h_d = _on(_t(ring), cuda_device), _on(_t(h), cuda_device)
+    tail_d = torch.from_numpy(tail).to(cuda_device)
+    blocks_d = torch.from_numpy(blocks).to(cuda_device)
+    rp, wp2 = 1 % nparts, nparts - 1
+    for kern, plain in (
+            (lambda: B.block_step_fused(ring_d, h_d, rp, 2.0, tail_d, pts),
+             lambda: B.block_step_fused_plain(ring_d, h_d, rp, 2.0, tail_d, pts)),
+            (lambda: B.block_step_fwd_fused(blocks_d[0], ring_d, h_d, rp, 2.0, tail_d, pts),
+             lambda: B.block_step_fwd_fused_plain(blocks_d[0], ring_d, h_d, rp, 2.0, tail_d,
+                                                  pts)),
+            (lambda: B.block_step_fwd_fused_tv(blocks_d, ring_d, h_d, rp, wp2, 2.0, tail_d, pts),
+             lambda: B.block_step_fwd_fused_tv_plain(blocks_d, ring_d, h_d, rp, wp2, 2.0,
+                                                     tail_d, pts))):
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        for g, a, w in zip(_flat(got), _flat(again), _flat(want)):
+            assert g.is_contiguous() and torch.equal(g, a)
+            _close(g, w.cpu(), 2e-5)
+    out, new_tail, x2 = B.block_step_fwd_fused(blocks_d[0], ring_d, h_d, rp, 2.0, tail_d, pts)
+    out2, tail2 = B.block_step_fused(x2, h_d, rp, 2.0, tail_d, pts)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(new_tail, tail2)

@@ -7,8 +7,10 @@ partitions in float32 in different orders). The JAX kernels take
 nparts % 8 == 0 and bins % 128 == 0 (chunk_mac also a multiple of 8
 outputs), so the comparison runs at bins 128 and nparts 8-64; other shapes
 (any nparts >= 1, bins, output count) are held against a float64 numpy
-loop at atol 1e-5 * max|oracle|. The CUDA kernel is held against the twin
-on a card.
+loop at atol 1e-5 * max|oracle|. The route rule (``slide_route``: the
+scans' tiled MAC for long timelines, the q-split kernel for short ones) is
+held to its rule and its split to every partition once; the CUDA kernel is
+held against the twin on a card, on both routes.
 """
 
 import jax.numpy as jnp
@@ -151,6 +153,59 @@ def test_wrappers_validate_shapes():
     assert S.chunk_mac((z(2, 5, 16), z(2, 5, 16)), h, 1.0)[0].shape == (2, 1, 16)
 
 
+@pytest.mark.parametrize("C,nout,bins,nparts,route,how", [
+    # the main-path shapes (nparts 256, bins 512): offline render 1 x 1880,
+    # 16 x 470 and 64 x 470 on the tiled MAC, the K = 8 chunk split in 4
+    (1, 1880, 512, 256, "tiled", S.MacPlan(8, 16, 64, 256)),
+    (16, 470, 512, 256, "tiled", S.MacPlan(8, 16, 64, 256)),
+    (64, 470, 512, 256, "tiled", S.MacPlan(8, 16, 64, 256)),
+    (64, 8, 512, 256, "split", 4),
+    # nout below one full tile (64 outputs), below MAC_TT, nparts below the
+    # slices, one partition, bins not a multiple of 32
+    (2, 40, 512, 256, "split", 8), (17, 8, 128, 8, "split", 8), (1, 7, 33, 3, "split", 2),
+    (1, 1, 16, 1, "split", 1), (3, 64, 100, 70, "split", 8),
+    # long enough for the tiled MAC at small widths (the grid still fills the
+    # card) and not (it does not)
+    (1, 1880, 16, 3, "tiled", S.MacPlan(1, 8, 8, 32)), (1, 1000, 16, 3, "split", 2)])
+def test_slide_route_by_shape(C, nout, bins, nparts, route, how):
+    assert S.slide_route(C, nout, bins, nparts) == (route, how)
+
+
+@pytest.mark.parametrize("C,nout,bins,nparts", [(64, 8, 512, 256), (2, 40, 512, 256),
+                                                (1, 7, 33, 3), (1, 1, 16, 1), (3, 9, 64, 5)])
+@pytest.mark.parametrize("route", ["tiled", "split"])
+def test_forced_routes_cover_every_output_bin_and_partition_once(C, nout, bins, nparts, route):
+    """Either route at any shape: the q-split grid (MAC_TT outputs x
+    MAC_THREADS bins a CTA, every slice's partitions) and the tiled grid
+    (the plan's G * TT outputs x TILE_BINS bins, the stages' partitions)
+    reach each (output, bin) once and each partition once a thread."""
+    got, how = S.slide_route(C, nout, bins, nparts, force=route)
+    assert got == route
+    if route == "split":
+        assert 1 <= how <= S.TV_MAX_SLICES
+        outs = [t for bx in range(-(-nout // S.MAC_TT)) for j in range(S.MAC_TT)
+                for t in (bx * S.MAC_TT + j,) if t < nout]
+        bins_ = [k for by in range(-(-bins // S.MAC_THREADS)) for lane in range(S.MAC_THREADS)
+                 for k in (by * S.MAC_THREADS + lane,) if k < bins]
+        parts = [q for q0, q1 in S.q_ranges(nparts, how) for q in range(q0, q1)]
+    else:
+        T = how.outs
+        outs = [t for bx in range(-(-nout // T)) for j in range(T) for t in (bx * T + j,)
+                if t < nout]
+        bins_ = [k for by in range(-(-bins // S.TILE_BINS)) for lane in range(S.TILE_BINS)
+                 for k in (by * S.TILE_BINS + lane,) if k < bins]
+        parts = [ch * how.q + u for ch in range(-(-nparts // how.q))
+                 for u in range(min(how.q, nparts - ch * how.q))]
+        assert how.ring & (how.ring - 1) == 0 and how.ring >= 2 * how.q + T - 1
+    assert outs == list(range(nout)) and bins_ == list(range(bins))
+    assert parts == list(range(nparts))
+
+
+def test_slide_route_rejects_unknown_route():
+    with pytest.raises(ValueError, match="no sliding-MAC route"):
+        S.slide_route(1, 8, 16, 4, force="dense")
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -178,3 +233,26 @@ def test_cuda_kernel_matches_twin(cuda_device, batch, nparts, bins, nout, b0):
         _close(g, w.cpu(), 2e-5)
         _close(gb, w.cpu(), 2e-5)
         _close(g1, w[0].cpu(), 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,nparts,bins,nout", [
+    (1, 1, 16, 1), (3, 37, 64, 21), (2, 256, 512, 40), (64, 256, 512, 8), (1, 5, 33, 70),
+    (2, 70, 100, 300), (1, 256, 512, 1880)])
+@pytest.mark.parametrize("route", ["tiled", "split"])
+def test_cuda_routes_match_twin(cuda_device, monkeypatch, batch, nparts, bins, nout, route):
+    """Both routes at edge shapes (nout below MAC_TT and not a multiple of
+    a tile, nparts below the slices, bins not a multiple of 32, one
+    partition), bit-equal on a second launch."""
+    rng = np.random.default_rng(nparts + nout + bins)
+    x = _t(_planes(rng, batch, nparts + nout, bins), cuda_device)
+    h = _t(_planes(rng, batch, nparts, bins), cuda_device)
+    own = S.slide_route
+    monkeypatch.setattr(S, "slide_route", lambda *a, **k: own(*a, **k, force=route))
+    got = S.macflow_lti_batched(x, h, nout, 2.0)
+    again = S.macflow_lti_batched(x, h, nout, 2.0)
+    torch.cuda.synchronize()
+    want = S.slide_mac_plain(x, h, nout, 2.0)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        _close(g, w.cpu(), 2e-5)

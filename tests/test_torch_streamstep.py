@@ -211,7 +211,10 @@ MAC_SHAPES = [
     # G * MAC_TT, nparts < MAC_TT, nparts not a multiple of the stage
     (64, 470, 512, 256), (1, 1880, 512, 256), (1, 470, 4096, 256), (16, 470, 4096, 256),
     (3, 21, 64, 5), (2, 70, 64, 37), (1, 130, 128, 3), (3, 65, 256, 63), (4, 9, 32, 7),
-    (1, 1, 16, 1), (2, 3, 128, 8), (1, 200, 8, 9), (64, 8, 512, 256), (1, 40, 64, 2048)]
+    (1, 1, 16, 1), (2, 3, 128, 8), (1, 200, 8, 9), (64, 8, 512, 256), (1, 40, 64, 2048),
+    # the LTI sliding MAC's tiled route (nb = its outputs): the 16-channel
+    # render, bins not a multiple of 32, few partitions
+    (16, 470, 512, 256), (2, 300, 100, 70), (1, 70, 33, 5)]
 
 
 def _mac_cover(plan, nb, bins, nparts):

@@ -1,7 +1,11 @@
-"""Device time of the whole-scan kernels by partition size, on one CUDA card.
+"""Device time of the whole-scan, per-block step and sliding-MAC kernels, on one
+CUDA card.
 
-    python3 tools/scan_timing.py [--root DIR] [--families S,SP] [--pts 64,128,512,2048]
-                                 [--channels 1,64] [--plans G/TT/Q,...] [--tile-log-b B,...]
+    python3 tools/scan_timing.py [--root DIR] [--families S,SP,STEP,SLIDE,PATHS]
+                                 [--pts 64,128,512,2048] [--channels 1,64]
+                                 [--plans G/TT/Q,...] [--tile-log-b B,...]
+                                 [--step-nparts 1,256] [--step-tiles F/I,...]
+                                 [--slide-routes tiled,split]
                                  [--out FILE]
 
 For each pts, times the LTI and TV scans of one channel (1880 * 512 / pts
@@ -23,9 +27,39 @@ rest, with the MAC's TFLOP/s. ``--plans`` times each scan again at other
 shapes of the tiled MAC (``streamstep.mac_plan``: G warps a CTA, TT outputs
 a thread, Q partitions a stage; a tree with a ``mac_plan``) in place of the
 plan's own, and ``--tile-log-b`` with 2^B transforms a CTA of the in-CTA
-transform kernels (``streamstep.fft_tile_log_b``). One JSON object a line on stdout (and into FILE), after a line
-with the card's name and power limit from nvidia-smi. Needs a CUDA card;
-exits non-zero without one.
+transform kernels (``streamstep.fft_tile_log_b``).
+
+``STEP`` times the per-block step kernels of ``ops/cuda/blockstep.py``
+(``block_step_fused``, ``block_step_fwd_fused``, ``block_step_fwd_fused_tv``)
+at every pts of ``--pts`` (4096 too where the tree's block step takes it),
+channel count of ``--channels`` (no channel axis at 1) and partition count
+of ``--step-nparts``: device microseconds from rotating input sets by CUDA
+graph (from HBM where the sets outgrow the L2), and by the profiler each
+kernel's mean a launch, summed into forward / MAC / inverse. Above pts 2048
+it also times one ``pconv_step`` of a card state through the
+``block_mac_unpack`` route beside the same step through the block-step
+kernel (``pconv._step_fused``), device microseconds under the profiler.
+``--step-tiles`` times each step again with its transform tiles forced to
+2^F values a CTA in the forward and 2^I in the inverse (at least one row;
+``blockstep.step_plan``, a tree with one).
+
+``SLIDE`` times the LTI sliding MAC (``ops/cuda/slidemac.py``, the entry of
+``chunk_mac``, ``macflow_lti`` and ``macflow_lti_batched``: one kernel a
+call) at its main-path shapes (nparts 256, bins 512: 1 x 1880, 16 x 470,
+64 x 470 and the K = 8 chunk's 64 x 8) from HBM by CUDA graph, with its
+TFLOP/s; ``--slide-routes`` times each shape again on each named route
+(``slidemac.slide_route``; a tree with one).
+
+``PATHS`` times host-bound entry points by CUDA events (the median of 31
+calls after 3): ``stream_decomposed`` and ``pconv_offline`` of 1880 blocks
+of 512 on a 2^17-tap IR, ``stft`` / ``istft`` of 20 s at nfft 1024, hop
+256, and ``pconv_step`` of one block. Run it from each of two trees in turn
+to compare the paths without the other phases of ``chip_smoke.py`` around
+them.
+
+One JSON object a line on stdout (and into FILE), after a line with the
+card's name and power limit from nvidia-smi. Needs a CUDA card; exits
+non-zero without one.
 """
 
 import argparse
@@ -73,23 +107,28 @@ def graph_us(fn, nsets, calls, reps=5):
 
 def launch_us(fn, calls=3):
     """Mean device microseconds of one launch of each kernel fn()
-    launches, and its launches a call, under torch.profiler."""
+    launches, and its launches a call, under torch.profiler (a session
+    that records no kernel is taken again, twice at most)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / e.count for e in prof.key_averages()
-            if e.self_device_time_total > 0}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = {e.key: e.self_device_time_total / e.count for e in prof.key_averages()
+              if e.self_device_time_total > 0}
+        if us:
+            return us
+    return us
 
 
 def part_of(kernel_name):
-    """forward / MAC / inverse / rest of a scan kernel's name."""
+    """forward / MAC / inverse / rest of a scan or block-step kernel's name."""
     k = kernel_name
-    if "inv" in k or "unpack" in k or "ola" in k:
+    if "inv" in k or "unpack" in k or "ola" in k or "reduce" in k:
         return "inverse"
     if "fwd" in k or "z_planes" in k or "pack" in k:
         return "forward"
@@ -119,6 +158,182 @@ def forced_plan(S, plan):
         setattr(S, name, own)
 
 
+def rotating_sets(make, cap=48):
+    """Input sets made by make(), enough that together they outgrow the L2
+    twice (at most ``cap``: smaller sets stay in the L2)."""
+    first = make()
+    size = sum(t.numel() * 4 for t in first)
+    return [first] + [make() for _ in range(min(cap, 1 + -(-2 * L2_BYTES // size)) - 1)]
+
+
+def parts_of(launched):
+    """forward / MAC / inverse / rest microseconds of one call, and each
+    kernel's mean a launch (name cut to 60 characters)."""
+    parts = {"forward": 0.0, "MAC": 0.0, "inverse": 0.0, "rest": 0.0}
+    for kn, k_us in launched.items():
+        parts[part_of(kn)] += k_us
+    return ({k: round(v, 3) for k, v in parts.items()},
+            {kn[:60]: round(k_us, 3) for kn, k_us in launched.items()})
+
+
+@contextlib.contextmanager
+def forced_tiles(B, tiles):
+    """The step kernels of module B with their transform tiles forced to
+    (F, I): 2^F values a CTA in the forward, 2^I in the inverse (at least
+    one row); None: the module's own plan."""
+    if tiles is None:
+        yield
+        return
+    own = B.step_plan
+
+    def plan(pts):
+        log_l = pts.bit_length() - 1
+        return max(tiles[0] - log_l, 0), max(tiles[1] - log_l, 0)
+
+    B.step_plan = plan
+    try:
+        yield
+    finally:
+        B.step_plan = own
+
+
+def step_rows(args, f, dev, emit):
+    """The STEP family: each per-block step kernel by (C, pts, nparts)."""
+    from opencl_fft_tpu_torch.ops import pconv as P
+    from opencl_fft_tpu_torch.ops.cuda import blockstep as B
+
+    tilings = [None] + [tuple(map(int, t.split("/"))) for t in args.step_tiles.split(",")
+                        if t and hasattr(B, "step_plan")]
+
+    most = getattr(B, "STEP_MAX_PTS", 2048)
+    for pts in sorted({*map(int, args.pts.split(",")), 4096}):
+        if pts > most:
+            continue
+        for nch in map(int, args.channels.split(",")):
+            lead = () if nch == 1 else (nch,)
+            for nparts in map(int, args.step_nparts.split(",")):
+                def make():
+                    a, b_ = f(*lead, nparts, pts), f(*lead, nparts, pts)
+                    return (torch.cat([a, a], -2), torch.cat([b_, b_], -2),
+                            f(*lead, nparts, pts, s=0.05), f(*lead, nparts, pts, s=0.05),
+                            f(*lead, pts), f(2, *lead, pts, s=0.1))
+
+                sets = rotating_sets(make)
+                rp, wp2 = 1 % nparts, nparts - 1
+                kernels = {
+                    "block_step_fused": lambda i: B.block_step_fused(
+                        sets[i][:2], sets[i][2:4], rp, 2.0, sets[i][4], pts),
+                    "block_step_fwd_fused": lambda i: B.block_step_fwd_fused(
+                        sets[i][5][0], sets[i][:2], sets[i][2:4], rp, 2.0, sets[i][4], pts),
+                    "block_step_fwd_fused_tv": lambda i: B.block_step_fwd_fused_tv(
+                        sets[i][5], sets[i][:2], sets[i][2:4], rp, wp2, 2.0, sets[i][4], pts)}
+                for (kname, fn), tiles in ((kf, t) for kf in kernels.items() for t in tilings):
+                    with forced_tiles(B, tiles):
+                        us = graph_us(fn, len(sets), 20 if nch == 1 else 5)
+                        parts, per = parts_of(launch_us(lambda: fn(0)))
+                    emit({"family": "STEP", "kernel": kname, "forced": tiles, "C": nch,
+                          "pts": pts, "nparts": nparts, "graph_us": round(us, 3),
+                          "sets_outgrow_l2": len(sets) < 48, "parts_us": parts,
+                          "kernels_us_a_launch": per})
+                del sets
+                torch.cuda.empty_cache()
+    # above pts 2048 the per-block functions take block_mac_unpack and the
+    # inverse FFT; the block-step kernel on the same state beside it
+    for pts in (4096,):
+        nparts = 8
+        cfg = P.PconvConfig(pts=pts, nparts=nparts)
+        st = P.push_ir(cfg, P.pconv_init(cfg, dev), f(cfg.cvs, s=0.05))
+        st = P.pconv_stream(cfg, st, f(nparts, pts, s=0.1))[0]
+        block = f(pts, s=0.1)
+        routes = {"block_mac_unpack route (pconv_step)": lambda: P.pconv_step(cfg, st, block)}
+        if pts <= most:
+            routes["block_step_fwd_fused"] = lambda: P._step_fused(cfg, st, block)
+        for label, fn in routes.items():
+            launched = launch_us(fn)
+            parts, per = parts_of(launched)
+            emit({"family": "STEP", "route": label, "C": 1, "pts": pts, "nparts": nparts,
+                  "device_us": round(sum(launched.values()), 3), "parts_us": parts,
+                  "kernels_us_a_launch": per})
+
+
+def event_ms(fn, warmup=3, reps=31):
+    """Median milliseconds of one fn() by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def path_rows(f, dev, emit):
+    """The PATHS family: host-bound entry points by CUDA events."""
+    import opencl_fft_tpu_torch as P
+    from opencl_fft_tpu_torch.ops.decomposed import stream_decomposed
+
+    cfg = P.PconvConfig.for_ir_length(IR_LEN, 512)
+    state = P.push_ir(cfg, P.pconv_init(cfg, dev), f(IR_LEN, s=0.05))
+    blocks = f(1880, 512, s=0.1)
+    x = f(960000, s=0.1)
+    spec = P.stft(x, 1024, 256)
+    block = f(512, s=0.1)
+    paths = {"stream_decomposed 1880x512": lambda: stream_decomposed(cfg, state, blocks),
+             "pconv_offline 1880x512": lambda: P.pconv_offline(cfg, state, blocks),
+             "stft 960000 nfft 1024": lambda: P.stft(x, 1024, 256),
+             "istft 960000 nfft 1024": lambda: P.istft(spec, 1024, 256, length=x.numel()),
+             "pconv_step 512": lambda: P.pconv_step(cfg, state, block)}
+    for label, fn in paths.items():
+        emit({"family": "PATHS", "path": label, "event_ms": round(event_ms(fn), 4)})
+
+
+@contextlib.contextmanager
+def forced_route(SM, route):
+    """The sliding MAC of module SM on ``route`` ("tiled" or "split", a tree
+    with ``slide_route``); None: the module's own choice."""
+    if route is None:
+        yield
+        return
+    own = SM.slide_route
+    SM.slide_route = lambda *a, **k: own(*a, **k, force=route)
+    try:
+        yield
+    finally:
+        SM.slide_route = own
+
+
+def slide_rows(args, f, emit):
+    """The SLIDE family: the LTI sliding MAC at its main-path shapes."""
+    from opencl_fft_tpu_torch.ops.cuda import slidemac as SM
+
+    nparts, bins = 256, 512
+    routes = [None] + [r for r in args.slide_routes.split(",")
+                       if r and hasattr(SM, "slide_route")]
+    for nch, nout in ((1, 1880), (16, 470), (64, 470), (64, 8)):
+        def make():
+            return (f(nch, nparts + nout, bins), f(nch, nparts + nout, bins),
+                    f(nch, nparts, bins, s=0.05), f(nch, nparts, bins, s=0.05))
+
+        sets = rotating_sets(make)
+        flops = 8.0 * nch * nout * nparts * bins
+        for route in routes:
+            def run(i):
+                return SM.macflow_lti_batched(sets[i][:2], sets[i][2:], nout, 2.0)
+
+            with forced_route(SM, route):
+                us = graph_us(run, len(sets), 20 if nout < 100 else 5)
+            emit({"family": "SLIDE", "forced": route, "C": nch, "nout": nout,
+                  "nparts": nparts, "bins": bins, "graph_us": round(us, 3),
+                  "tflops": round(flops / (us * 1e-6) / 1e12, 3)})
+        del sets
+        torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -127,6 +342,9 @@ def main():
     ap.add_argument("--channels", default="1,64")
     ap.add_argument("--plans", default="")
     ap.add_argument("--tile-log-b", default="")
+    ap.add_argument("--step-nparts", default="1,256")
+    ap.add_argument("--step-tiles", default="")
+    ap.add_argument("--slide-routes", default="")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -150,7 +368,22 @@ def main():
     def f(*shape, s=1.0):
         return torch.from_numpy((s * rng.standard_normal(shape)).astype(np.float32)).to(dev)
 
-    for pts in map(int, args.pts.split(",")):
+    def emit(row):
+        row.update(root=args.root, card=card)
+        line = json.dumps(row)
+        print(line, flush=True)
+        if out:
+            out.write(line + "\n")
+            out.flush()
+
+    chosen = args.families.split(",")
+    if "STEP" in chosen:
+        step_rows(args, f, dev, emit)
+    if "SLIDE" in chosen:
+        slide_rows(args, f, emit)
+    if "PATHS" in chosen:
+        path_rows(f, dev, emit)
+    for pts in map(int, args.pts.split(",")) if set(chosen) & set(families) else ():
         nparts = IR_LEN // pts
         for nch in map(int, args.channels.split(",")):
             nb = (1880 if nch == 1 else 470) * 512 // pts
@@ -170,7 +403,7 @@ def main():
             plans = [None] + [("mac", tuple(map(int, p.split("/"))))
                               for p in args.plans.split(",") if p] \
                 + [("tile", int(b)) for b in args.tile_log_b.split(",") if b]
-            for fam, plan in ((f_, p_) for f_ in args.families.split(",") for p_ in plans):
+            for fam, plan in ((f_, p_) for f_ in chosen if f_ in families for p_ in plans):
                 lti, tv = families[fam]
                 for mode, fn in (("LTI", lti), ("TV", tv)):
                     if plan and plan[0] == "mac" and mode == "TV" \
@@ -198,18 +431,12 @@ def main():
                         n = 2 if (mode == "TV" and part == "forward") else 1
                         parts[part] += k_us * n
                         kernels[kn[:60]] = round(k_us, 3)
-                    row = {"root": args.root, "family": fam, "forced": plan, "mode": mode,
-                           "C": nch,
-                           "pts": pts, "nparts": nparts, "nb": nb, "hbm_us": round(us, 3),
-                           "parts_us": {k: round(v, 3) for k, v in parts.items()},
-                           "mac_tflops": round(mac_flops / (parts["MAC"] * 1e-6) / 1e12, 3)
-                           if parts["MAC"] else None,
-                           "kernels_us_a_launch": kernels, "card": card}
-                    line = json.dumps(row)
-                    print(line, flush=True)
-                    if out:
-                        out.write(line + "\n")
-                        out.flush()
+                    emit({"family": fam, "forced": plan, "mode": mode, "C": nch,
+                          "pts": pts, "nparts": nparts, "nb": nb, "hbm_us": round(us, 3),
+                          "parts_us": {k: round(v, 3) for k, v in parts.items()},
+                          "mac_tflops": round(mac_flops / (parts["MAC"] * 1e-6) / 1e12, 3)
+                          if parts["MAC"] else None,
+                          "kernels_us_a_launch": kernels})
             del sets, first
             torch.cuda.empty_cache()
     if out:
