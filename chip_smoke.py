@@ -54,8 +54,9 @@ decomposed engine at pts 4096 and ``Convolver``/``TVConvolver`` of 16
 channels at pts 4096 against float64 scipy and the scans; and their times
 beside the paths they are alternatives to. Then the zero-latency and
 long-partition per-block paths: the MAC-and-unpack kernel
-(``block_mac_unpack``) against its twin and bit for bit against
-``unpack_inverse`` of the ``spectral_mac`` kernel; ``ClconvProcessor(parts=0,
+(``block_mac_unpack``, one launch, as ``spectral_mac`` is) against its twin,
+bit for bit against ``unpack_inverse`` of the ``spectral_mac`` kernel, on a
+second launch and channel by channel; ``ClconvProcessor(parts=0,
 pmax=4096)`` and ``ZeroLatencyConvolver.render`` on a 2^20-tap IR in 64-sample
 blocks, ``ClconvProcessor(parts=4096)``, ``pconv_step_tv`` and
 ``push_ir_xfade`` at pts 4096, ``Convolver(16).step`` chained into the scan and
@@ -69,6 +70,7 @@ without the port beside this script, it fails.
 """
 
 import contextlib
+import ctypes
 import json
 import math
 import re
@@ -101,6 +103,9 @@ TOL = 2e-5          # kernel vs twin, relative to max|twin| (JAX stream-vs-scan 
 # the pipelined single-pass FFT and the q-split TV sliding MAC vs their
 # twins: float32 sums in other orders, ~3e-7 measured
 NEW_TOL = 1e-6
+# the one-launch MACs (spectral_mac, block_mac_unpack) vs their twins: the
+# partitions summed in slices, ~4e-7 measured
+MAC_TOL = 3e-6
 ORACLE_TOL = 5e-5   # relative max error vs the float64 scipy/numpy oracle
 # H100 SXM published peaks at its full 700 W limit: FP32 outside the tensor
 # cores (the kernels run plain FP32 FMA, no TF32) and HBM3 bandwidth
@@ -175,10 +180,11 @@ def scan_design_flops(nb, nch, nparts, m, tv):
         + nf * 14.0 * m + ni * 18.0 * m
 
 
-def launch_us(fn, calls=3):
-    """Mean device microseconds of one launch of each kernel fn() launches,
-    under torch.profiler (a session that records no kernel is taken again,
-    twice at most)."""
+def launch_profile(fn, calls=3):
+    """Each kernel fn() launches: (mean device microseconds a launch,
+    launches a call) under torch.profiler (a session that records no kernel
+    is taken again, twice at most; a session can drop launches, so a count
+    is a lower bound)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -188,11 +194,67 @@ def launch_us(fn, calls=3):
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        us = {e.key: e.self_device_time_total / e.count for e in prof.key_averages()
-              if e.self_device_time_total > 0}
-        if us:
-            return us
-    return us
+        found = {e.key: (e.self_device_time_total / e.count, e.count / calls)
+                 for e in prof.key_averages() if e.self_device_time_total > 0}
+        if found:
+            return found
+    return {}
+
+
+def launch_us(fn, calls=3):
+    """Mean device microseconds of one launch of each kernel fn() launches."""
+    return {k: us for k, (us, _) in launch_profile(fn, calls).items()}
+
+
+def graph_kernel_nodes(fn):
+    """(kernel nodes, all nodes) of one fn() call captured into a CUDA graph,
+    read through the driver's graph API on torch's cudaGraph_t: the exact
+    launches of a call, where a profiler session can drop some."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0, "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType")
+        kinds.append(kind.value)
+    del graph
+    return sum(k == 0 for k in kinds), len(kinds)   # 0: CU_GRAPH_NODE_TYPE_KERNEL
+
+
+def check_one_launch(fn, counter, kernel, what):
+    """Check that a call of fn() makes one launch, of the __global__ kernel
+    named ``kernel``: the wrapper's launch counter (``counter()``) rises by
+    one a call, one call captured into a CUDA graph holds one kernel node,
+    and the profiler's __global__ list holds that kernel and no other (a
+    read that records no kernel is taken again, five reads at most; an empty
+    last read fails). Returns what was read, for the phase's line."""
+    before = counter()
+    fn()
+    torch.cuda.synchronize()
+    check(counter() - before == 1, f"{what}: the launch counter rose by {counter() - before}")
+    kernels, nodes = graph_kernel_nodes(fn)
+    check(kernels == 1, f"{what}: one call's CUDA graph holds {kernels} kernel nodes")
+    for _ in range(5):
+        names = [(re.search(r"\w+_kernel(?:<\w*>)?", k) or re.search(".{0,60}", k)).group(0)
+                 for k in launch_profile(fn, calls=10)]
+        if names:
+            break
+    check(len(names) == 1 and kernel in names[0],
+          f"{what} launches {kernel} alone, the profiler's __global__ list {names}")
+    return f"1 kernel node of {nodes} in one call's CUDA graph, the profiler's list {names}"
 
 
 def scan_parts(fn, tv):
@@ -1541,8 +1603,16 @@ def main():
                 "block_step_fwd_fused_tv")
     bs_shapes = [(None, np_, b), (SERVE_CH, np_, b), (None, 1, 64), (None, 1, 2048),
                  (None, 8, LONG_PTS), (None, 3, 16), (3, 3, 16)]
+    def mac_close(kname, got_, want_, where):
+        """The one-launch MAC's planes within MAC_TOL of the twin's max."""
+        rel_ = 0.0
+        for g, w_ in zip(got_, want_):
+            rel_ = max(rel_, float((g - w_).abs().max()) / max(float(w_.abs().max()), 1e-30))
+        check(rel_ <= MAC_TOL, f"{kname} vs twin at {where}: {rel_:.3e} > {MAC_TOL}")
+        return rel_
+
     bs_err = {}
-    worst = 0.0
+    worst = mac_worst = 0.0
     for nch, nparts, bins in bs_shapes:
         ring, h, tail, bl2 = ring_inputs(nch, nparts, bins)
         for rp in sorted({0, 1 % nparts, nparts - 1}):
@@ -1570,6 +1640,10 @@ def main():
                     for kname in (*bs_names, "block_mac_unpack"):
                         for g in got[kname]:
                             check(g.is_contiguous(), f"{kname} returns contiguous planes")
+                        if kname in ("spectral_mac", "block_mac_unpack"):
+                            mac_worst = max(mac_worst, mac_close(
+                                kname, got[kname], want[kname],
+                                f"C={nch} nparts={nparts} bins={bins} rp={rp} b0={b0}"))
                         worst = compare(tuple((f"{kname} {i}", g, w_) for i, (g, w_) in
                                               enumerate(zip(got[kname], want[kname]))),
                                         f"C={nch} nparts={nparts} bins={bins} rp={rp} "
@@ -1578,11 +1652,40 @@ def main():
                         bs_err[key] = max(bs_err.get(key, 0.0), *(
                             float((g - w_).abs().max()) for g, w_ in zip(got[kname],
                                                                          want[kname])))
-    del ring, h, tail, bl2, got, want, again, ring_n, fused
+    # the one-launch MAC alone at shapes the steps do not take (bins not a
+    # power of two, nparts below and just above the cluster's CTAs), bit-equal
+    # on a second launch; and each channel of the headline ring at C = 64
+    # bit-equal to the same channel alone (its plan takes no channel count)
+    mac_shapes = [(None, 7, 100), (2, 300, 33), (None, 65, 512), (None, 3, 2), (3, 9, 96)]
+    for nch, nparts, bins in mac_shapes:
+        ring, h, _, _ = ring_inputs(nch, nparts, bins)
+        for rp in sorted({0, 1 % nparts, nparts - 1}):
+            for b0 in (1.0, 2.0):
+                n0 = MC.LAUNCHES
+                got, again = MC.spectral_mac(ring, h, rp, b0), MC.spectral_mac(ring, h, rp, b0)
+                torch.cuda.synchronize()
+                check(MC.LAUNCHES == n0 + 2, "spectral_mac counts its launches")
+                where = f"C={nch} nparts={nparts} bins={bins} rp={rp} b0={b0}"
+                check(all(torch.equal(g, a_) for g, a_ in zip(got, again)),
+                      f"spectral_mac bit-equal on a second launch at {where}")
+                mac_worst = max(mac_worst, mac_close(
+                    "spectral_mac", got, MC.spectral_mac_plain(ring, h, rp, b0), where))
+    ring, h, _, _ = ring_inputs(SERVE_CH, np_, b)
+    many = MC.spectral_mac(ring, h, 1, 2.0)
+    for c in (0, 17, SERVE_CH - 1):
+        alone = MC.spectral_mac(tuple(p[c].contiguous() for p in ring),
+                                tuple(p[c].contiguous() for p in h), 1, 2.0)
+        torch.cuda.synchronize()
+        check(all(torch.equal(m_[c], a_) for m_, a_ in zip(many, alone)),
+              f"spectral_mac channel {c} of {SERVE_CH} bit-equal to the channel alone")
+    del ring, h, tail, bl2, got, want, again, ring_n, fused, many, alone
     print(f"phase 24 block-step kernels vs twins: {', '.join(bs_names)}, block_mac_unpack at "
           f"(C,nparts,bins) {bs_shapes}, rp {{0, 1, nparts-1}}, wp2 {{0, nparts-1}}, b0 {{1,2}}; "
           f"worst rel err {worst:.3e} (tol {TOL}); bit-equal on a second launch, and the fused "
-          f"step to block_step_fused on its ring; max_abs_err at C=1 / C={SERVE_CH} / nparts 1: "
+          f"step to block_step_fused on its ring; spectral_mac also at {mac_shapes}, bit-equal "
+          f"on a second launch, and channels 0/17/{SERVE_CH - 1} of the C={SERVE_CH} ring "
+          f"bit-equal alone; the one-launch MACs' worst rel err {mac_worst:.3e} (tol {MAC_TOL}); "
+          f"max_abs_err at C=1 / C={SERVE_CH} / nparts 1: "
           + "; ".join(f"{k} {bs_err[(k, 1, np_)]:.3e} / {bs_err[(k, SERVE_CH, np_)]:.3e} / "
                       f"{bs_err[(k, 1, 1)]:.3e}" for k in (*bs_names, "block_mac_unpack")),
           flush=True)
@@ -1802,6 +1905,23 @@ def main():
                                             cuda_ms(plain, warmup=1, reps=5, calls=3),
                                             bs_bound(kname, nch or 1))
     del ring, h, tail, bl2
+    # the one-launch MAC (spectral_mac) from HBM: a CUDA graph over scaled
+    # copies of the ring whose windows and h planes together read over twice
+    # the L2; and the __global__ kernels of a call under the profiler (one
+    # launch of one)
+    mac_hbm = {}
+    for nch in (None, SERVE_CH):
+        c_ = nch or 1
+        ring, h, _, _ = ring_inputs(nch, np_, b)
+        nsets = 1 + -(-2 * L2_BYTES // (4 * 4 * c_ * np_ * b))
+        sets = [tuple(tuple(p * (1.0 + 1e-3 * i) for p in planes) for planes in (ring, h))
+                for i in range(nsets)]
+        hbm_us = graph_us(lambda i: MC.spectral_mac(*sets[i], 1, 2.0), nsets)
+        kernels_ = check_one_launch(lambda: MC.spectral_mac(ring, h, 1, 2.0),
+                                    lambda: MC.LAUNCHES, "mac_cluster_kernel",
+                                    f"spectral_mac C={c_}")
+        mac_hbm[c_] = (hbm_us, bs_bound("spectral_mac", c_), kernels_)
+        del ring, h, sets
     print(f"phase 26 block-step kernels [{card}] (ms per call, CUDA events over 10 calls back "
           f"to back; device us under torch.profiler; twin ms; least-work bound ms): " + "; ".join(
               f"{k} C={c}: {ms:.4f} (device {dus:.1f} us); twin {tw:.4f}; bound {bd[0]:.4f} "
@@ -1809,7 +1929,11 @@ def main():
               for (k, c), (ms, dus, tw, bd) in kern_rows.items())
           + "; the dense-table bound before the redesign, for comparison: " + "; ".join(
               f"{k} C={c} {bs_bound_tables(k, c)[0]:.4f}" for k in bs_names[1:]
-              for c in (1, SERVE_CH)), flush=True)
+              for c in (1, SERVE_CH))
+          + f"; spectral_mac nparts {np_} bins {b} from HBM by CUDA graph: " + "; ".join(
+              f"C={c_} {us:.1f} us ({100 * bd[0] * 1e3 / us:.1f}% of the bound {1e3 * bd[0]:.2f} "
+              f"us, {bd[1]}), launches a call by kernel {kn}"
+              for c_, (us, bd, kn) in mac_hbm.items()), flush=True)
 
     # each step's stages by shape (C = 1 without a channel axis): forward /
     # MAC / inverse device us a call under the profiler (each kernel's mean
@@ -2275,9 +2399,12 @@ def main():
     from opencl_fft_tpu_torch.ops.rfft import unpack_inverse
     from opencl_fft_tpu_torch.ops.stft import hann_np
 
-    MU_TOL = 3e-6
+    # the main-path shapes, one partition, the JAX test's (8, 128), and odd
+    # shapes: bins not a power of two (odd bins too), nparts below the
+    # cluster's CTAs
     mu_shapes = [(None, long_np - 1, LONG_PTS), (None, long_np, LONG_PTS),
-                 (LONG_CH, long_np, LONG_PTS), (None, 1, LONG_PTS), (None, 8, 128), (3, 5, 96)]
+                 (LONG_CH, long_np, LONG_PTS), (None, 1, LONG_PTS), (None, 8, 128), (3, 5, 96),
+                 (None, 7, 100), (2, 300, 65), (None, 3, 2)]
     mu_err, worst, mu_bit = {}, 0.0, True
     for nch, nparts, bins in mu_shapes:
         ring, h, _, _ = ring_inputs(nch, nparts, bins)
@@ -2287,23 +2414,36 @@ def main():
                 got = BS.block_mac_unpack(ring, h, rp, b0)
                 torch.cuda.synchronize()
                 check(BS.MAC_UNPACK_LAUNCHES == u0 + 1, "block_mac_unpack counts its launch")
+                again = BS.block_mac_unpack(ring, h, rp, b0)
                 want = BS.block_mac_unpack_plain(ring, h, rp, b0)
                 same = unpack_inverse(MC.spectral_mac(ring, h, rp, b0))
                 where = f"C={nch} nparts={nparts} bins={bins} rp={rp} b0={b0}"
-                for g, w_, s_ in zip(got, want, same):
+                for g, a_, w_, s_ in zip(got, again, want, same):
                     check(g.is_contiguous() and bool(torch.isfinite(g).all()),
                           f"block_mac_unpack contiguous and finite at {where}")
+                    check(torch.equal(g, a_),
+                          f"block_mac_unpack bit-equal on a second launch at {where}")
                     rel = float((g - w_).abs().max()) / max(float(w_.abs().max()), 1e-30)
-                    check(rel <= MU_TOL, f"block_mac_unpack vs twin at {where}: {rel:.3e}")
+                    check(rel <= MAC_TOL, f"block_mac_unpack vs twin at {where}: {rel:.3e}")
                     worst = max(worst, rel)
                     mu_bit = mu_bit and bool(torch.equal(g, s_))
                     key = (nch or 1, nparts, bins)
                     mu_err[key] = max(mu_err.get(key, 0.0), float((g - w_).abs().max()))
     check(mu_bit, "block_mac_unpack equals unpack_inverse(spectral_mac) bit for bit")
-    del ring, h, got, want, same
+    # each channel of the Convolver(16) ring bit-equal to the same ring alone
+    ring, h, _, _ = ring_inputs(LONG_CH, long_np, LONG_PTS)
+    many = BS.block_mac_unpack(ring, h, 1, 2.0)
+    for c in range(LONG_CH):
+        alone = BS.block_mac_unpack(tuple(p[c:c + 1].contiguous() for p in ring),
+                                    tuple(p[c:c + 1].contiguous() for p in h), 1, 2.0)
+        torch.cuda.synchronize()
+        check(all(torch.equal(m_[c], a_[0]) for m_, a_ in zip(many, alone)),
+              f"block_mac_unpack channel {c} of {LONG_CH} bit-equal to the channel alone")
+    del ring, h, got, again, want, same, many, alone
     print(f"phase 31 MAC-and-unpack kernel vs twin: block_mac_unpack at (C,nparts,bins) "
           f"{mu_shapes}, rp {{0, 1, nparts-1}}, b0 {{1,2}}: worst rel err {worst:.3e} (tol "
-          f"{MU_TOL}); bit-equal to unpack_inverse(spectral_mac kernel) {mu_bit}; max_abs_err "
+          f"{MAC_TOL}); bit-equal on a second launch; bit-equal to unpack_inverse(spectral_mac "
+          f"kernel) {mu_bit}; each channel of C={LONG_CH} bit-equal alone; max_abs_err "
           + ", ".join(f"{k} {e:.3e}" for k, e in mu_err.items()), flush=True)
 
     # phase 32: this slice's main paths on the card against float64 scipy.
@@ -2508,8 +2648,8 @@ def main():
     cl_ms = cuda_ms(lambda: eng_b.convolution(out4, b4_blk), reps=7, calls=10)
     cl_dev = device_us(lambda: eng_b.convolution(out4, b4_blk))
     cl_wall = host_wall_us(lambda: eng_b.convolution(out4, b4_blk))
-    mu_rows = {}
-    for nch, nparts in ((None, long_np - 1), (LONG_CH, long_np)):
+    mu_rows, mu_kernels = {}, {}
+    for nch, nparts in ((None, long_np - 1), (None, long_np), (LONG_CH, long_np)):
         ring, h, _, _ = ring_inputs(nch, nparts, LONG_PTS)
         c_ = nch or 1
         k_ms = cuda_ms(lambda: BS.block_mac_unpack(ring, h, 1, 2.0), reps=9, calls=10)
@@ -2520,6 +2660,10 @@ def main():
                 for i in range(nsets)]
         k_dev = graph_us(lambda i: BS.block_mac_unpack(*sets[i], 1, 2.0), nsets)
         del sets
+        # the __global__ kernels of a call under the profiler: one launch of one
+        mu_kernels[(c_, nparts)] = check_one_launch(
+            lambda: BS.block_mac_unpack(ring, h, 1, 2.0), lambda: BS.MAC_UNPACK_LAUNCHES,
+            "mac_cluster_kernel", f"block_mac_unpack C={c_} nparts={nparts}")
         tw_ms = cuda_ms(lambda: BS.block_mac_unpack_plain(ring, h, 1, 2.0), warmup=1, reps=5,
                         calls=3)
         # least work: the MAC (8 operations a bin and partition) and the
@@ -2558,7 +2702,8 @@ def main():
           f"bound): " + "; ".join(
               f"C={c_} nparts={np__} bins={LONG_PTS}: {k_ms:.4f} (device {kd:.1f} us, "
               f"{100 * bd[0] * 1e3 / kd:.1f}% of the bound); twin {tw:.4f}; bound {bd[0]:.4f} "
-              f"({bd[1]}, {100 * bd[0] / k_ms:.1f}% reached by the event ms)"
+              f"({bd[1]}, {100 * bd[0] / k_ms:.1f}% reached by the event ms); launches a call "
+              f"by kernel {mu_kernels[(c_, np__)]}"
               for (c_, np__), (k_ms, tw, bd, kd) in mu_rows.items())
           + f"; stft {x.size} samples nfft 1024 hop 256: {st_ms:.4f} ms, istft {ist_ms:.4f} ms, "
           f"torch.stft {tst_ms:.4f} ms; fft_vmem {LONG_PTS} points, pipelined / earlier single "

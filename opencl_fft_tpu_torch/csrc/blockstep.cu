@@ -47,7 +47,11 @@
 // over VMEM-resident planes and both transforms as products against dense
 // tables (6 MiB at pts 512, 96 MiB at 2048, more than the L2). Here a step
 // is at most three launches, spread over the card, and reads no table but
-// the transforms' twiddles and coefficient rows (a few KiB):
+// the transforms' twiddles and coefficient rows (a few KiB), and
+// spectral_mac and block_mac_unpack are one launch each (4. below): #11 at
+// one channel (nparts 255, bins 4096) reads 16.7 MB, ~5 us of bytes, and at
+// that size two launches and a reduce over a few CTAs cost more than the
+// bytes:
 //   1. fft_fwd_kernel<log2 pts> (frame_fft.cuh, the scans' forward, fused
 //      steps only): the frames of the R*C blocks (R = 2 operands in the TV
 //      step) as m-point FFTs inside a CTA and the pack, into F (C, R, 2b).
@@ -74,15 +78,33 @@
 //      the others zero: the slice partials (up to 32 slices of 2 m floats)
 //      take more loads than one row's m / 16 threads could issue, and 16
 //      rows give each bin a thread.
-//   2'. reduce_kernel (spectral_mac): the slices' partial sums added in
-//      slice order, bin 0 times b0.
-//   3'. reduce_unpack_kernel (block_mac_unpack, in place of 2'): one
-//      thread owns the bin pair (k, M - k), k <= M/2, because the unpack of
-//      either bin reads both accumulators, which exist only after the slice
-//      reduce. It reduces both bins as reduce_kernel does (so the
-//      accumulator is spectral_mac's bit for bit) and writes both unpacked
-//      bins, with each product and sum rounded on its own (no contraction
-//      into FMA) as the plain unpack rounds them.
+//   4. mac_cluster_kernel<UNPACK> (spectral_mac, block_mac_unpack: one
+//      launch a call, no partial sums in device memory). A thread-block
+//      cluster of P.cluster CTAs takes a tile of P.tile columns of one
+//      channel; the partition range is cut into P.cluster * P.ways slices of
+//      P.qchunk partitions, slice rank * P.ways + way to the thread group
+//      `way` of CTA `rank`, each thread summing its slice of one column with
+//      q ascending as mac_kernel does (8 partitions' loads issued at once).
+//      Each CTA owns a share of the tile's columns: every thread stores its
+//      partials into the owner's shared memory over distributed shared
+//      memory, and after a cluster barrier each CTA adds its own columns'
+//      partials in slice order from its own shared memory (bin 0 times b0)
+//      and stores them. The stores wait on a split barrier, arrived at at
+//      entry and waited on after the MAC, so every CTA of the cluster has
+//      started before a peer touches its shared memory, and the wait
+//      overlaps the MAC. Nothing is read across the cluster after the
+//      second barrier, so no third one holds a CTA back before it exits.
+//      spectral_mac's column u of tile t is bin t * P.tile + u.
+//      block_mac_unpack's tile holds P.tile / 2 bin pairs: column u <
+//      P.tile / 2 is bin k = t * P.tile / 2 + u <= M / 2 and column P.tile
+//      / 2 + u its mirror (M - k) mod M (consecutive addresses in reverse
+//      order, so a warp's loads still coalesce); a pair's owner holds both
+//      accumulators on chip and unpacks them with each product and sum
+//      rounded on its own (no contraction into FMA) as the plain unpack
+//      rounds them. The plan (ops/cuda/mac.py mac_plan) depends on (nparts,
+//      bins) only, and both kernels run the same MAC and slice-order sum, so
+//      block_mac_unpack is unpack_inverse(spectral_mac) bit for bit and one
+//      channel's bits do not depend on C.
 // No atomics anywhere: every sum is taken in a fixed order, so a call is
 // bitwise deterministic and one channel's result does not depend on the
 // others. block_step_fused and the fused steps run the same mac and
@@ -91,12 +113,15 @@
 // coefficients agree). Plain FP32, no TF32. pts is a power of two in
 // [2, 2^14] for the steps with a transform (the in-CTA transform's range).
 
+#include <cooperative_groups.h>
+
 #include "frame_fft.cuh"   // fft_fwd_kernel, kFwdLaunch, tile shapes; fft_tile.cuh, scan_mac.cuh
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int MAC_SLICES = 32;     // most partition slices per channel
-constexpr int RED_THREADS = 256;   // bins per reduce block
+constexpr int MAC_SLICES = 32;     // most partition slices per channel (mac_kernel)
 constexpr int SLICE_LOADS = 8;     // slice partials a step-inverse thread loads at once
 
 // Sizes of one step: C channels, nparts partitions, bins == pts; the MAC
@@ -179,46 +204,6 @@ mac_kernel(Step s, const float* __restrict__ xr, const float* __restrict__ xi,
     p[bins + k] = ai;
 }
 
-// acc[c, k] = sum over slices of part[c, slice, k] (slice order), bin 0
-// times b0; re into outr[c * out_cs + k], im into outi[c * out_cs + k].
-// grid (cdiv(bins, RED_THREADS), C)
-__global__ void __launch_bounds__(RED_THREADS)
-reduce_kernel(Step s, float b0, const float* __restrict__ part, float* __restrict__ outr,
-              float* __restrict__ outi, int out_cs) {
-    const int k = blockIdx.x * RED_THREADS + threadIdx.x;
-    if (k >= s.bins) return;
-    const size_t c = blockIdx.y, b2 = 2 * static_cast<size_t>(s.bins);
-    const float* p = part + c * s.slices * b2;
-    float r = 0.f, i = 0.f;
-    for (int sl = 0; sl < s.slices; ++sl) {
-        r += p[sl * b2 + k];
-        i += p[sl * b2 + s.bins + k];
-    }
-    if (k == 0) {
-        r *= b0;
-        i *= b0;
-    }
-    outr[c * out_cs + k] = r;
-    outi[c * out_cs + k] = i;
-}
-
-// The slices' partial sums of bin k of one channel's part rows, added in
-// slice order as reduce_kernel adds them; bin 0 times b0.
-__device__ __forceinline__ void slice_sum(const Step& s, const float* __restrict__ p, int k,
-                                          float b0, float& r, float& i) {
-    const size_t b2 = 2 * static_cast<size_t>(s.bins);
-    r = 0.f;
-    i = 0.f;
-    for (int sl = 0; sl < s.slices; ++sl) {
-        r += p[sl * b2 + k];
-        i += p[sl * b2 + s.bins + k];
-    }
-    if (k == 0) {
-        r *= b0;
-        i *= b0;
-    }
-}
-
 // One generic bin of the inverse unpack (rfft.unpack_inverse): (re, im) the
 // bin's accumulator, (fr, fi) its mirror's, (wr, wi) its twiddle.
 __device__ __forceinline__ void unpack_bin(float re, float im, float fr, float fi, float wr,
@@ -231,39 +216,204 @@ __device__ __forceinline__ void unpack_bin(float re, float im, float fr, float f
     *zi = __fadd_rn(ei, __fadd_rn(__fmul_rn(wr, o_i), __fmul_rn(wi, o_r)));
 }
 
-// z[c] = unpack_inverse(acc[c]) from the MAC's partial sums: thread k in
-// [0, M/2] owns bins k and j = (M - k) mod M. Bin 0 is (re + im, re - im);
-// bin M/2 (k == M/2; for odd M the floor) passes through; every other bin is
-// unpack_bin against its mirror. twr/twi (M,) the twiddle exp(+i pi k / M).
-// grid (cdiv(M/2 + 1, RED_THREADS), C)
-__global__ void __launch_bounds__(RED_THREADS)
-reduce_unpack_kernel(Step s, float b0, const float* __restrict__ part,
-                     const float* __restrict__ twr, const float* __restrict__ twi,
-                     float* __restrict__ zr, float* __restrict__ zi) {
-    const int m = s.bins, half = m / 2;
-    const int k = blockIdx.x * RED_THREADS + threadIdx.x;
-    if (k > half) return;
-    const size_t c = blockIdx.y;
-    const float* p = part + c * s.slices * 2 * static_cast<size_t>(m);
-    zr += c * m;
-    zi += c * m;
-    float ar, ai;
-    slice_sum(s, p, k, b0, ar, ai);
-    if (k == 0) {
-        zr[0] = __fadd_rn(ar, ai);
-        zi[0] = __fsub_rn(ar, ai);
+// The plan of mac_cluster_kernel (ops/cuda/mac.py mac_plan): CTAs a
+// cluster, thread groups (slices) a CTA, partitions a slice, columns a CTA.
+struct ClusterPlan {
+    int cluster, ways, qchunk, tile;
+};
+
+constexpr int CLUSTER_MAX = 8;         // the portable cluster size of Hopper
+constexpr int CLUSTER_THREADS = 512;   // most threads a CTA: tile * ways
+
+// The halves of a split cluster barrier: every thread of every CTA of the
+// cluster arrives, and a wait returns once all have arrived (acquire
+// semantics). The arrive publishes nothing (relaxed): it only tells the
+// peers this CTA has started.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+    asm volatile("barrier.cluster.arrive.relaxed;\n" : : : "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait;\n" : : : "memory");
+}
+
+// Whether mac_cluster_kernel takes plan p at (nparts, bins): the slices
+// cover every partition (the cluster's last ones may be empty), a CTA has
+// at most CLUSTER_THREADS threads and an even tile of whole warps.
+bool cluster_plan_ok(const ClusterPlan& p, int nparts, int bins) {
+    return nparts >= 1 && bins >= 1 && p.cluster >= 1 && p.cluster <= CLUSTER_MAX &&
+           p.ways >= 1 && p.qchunk >= 1 && p.tile >= 32 && p.tile % 32 == 0 &&
+           p.tile * p.ways <= CLUSTER_THREADS &&
+           static_cast<long long>(p.cluster) * p.ways * p.qchunk >= nparts;
+}
+
+// One column's sum over partitions [q0, q1) of channel offsets x0 (doubled
+// ring) and h0, bin k, q ascending: mac_kernel's arithmetic (bin 0
+// componentwise). MAC_BATCH partitions' loads are issued before their FMAs.
+constexpr int MAC_BATCH = 8;
+
+template <bool DC>
+__device__ __forceinline__ void mac_slice(const float* __restrict__ xr,
+                                          const float* __restrict__ xi,
+                                          const float* __restrict__ hr,
+                                          const float* __restrict__ hi, size_t bins, int q0,
+                                          int q1, float& ar, float& ai) {
+    for (int qb = q0; qb < q1; qb += MAC_BATCH) {
+        float x_r[MAC_BATCH], x_i[MAC_BATCH], h_r[MAC_BATCH], h_i[MAC_BATCH];
+#pragma unroll
+        for (int u = 0; u < MAC_BATCH; ++u) {
+            if (qb + u < q1) {
+                const size_t o = static_cast<size_t>(qb + u) * bins;
+                x_r[u] = xr[o];
+                x_i[u] = xi[o];
+                h_r[u] = hr[o];
+                h_i[u] = hi[o];
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < MAC_BATCH; ++u) {
+            if (qb + u < q1) {
+                if (DC) {
+                    ar = fmaf(x_r[u], h_r[u], ar);
+                    ai = fmaf(x_i[u], h_i[u], ai);
+                } else {
+                    ar = fmaf(x_r[u], h_r[u], fmaf(-x_i[u], h_i[u], ar));
+                    ai = fmaf(x_r[u], h_i[u], fmaf(x_i[u], h_r[u], ai));
+                }
+            }
+        }
+    }
+}
+
+// The slice-order sum of one value's partials in this CTA's shared memory:
+// slice sl at part[sl * stride + off], sl < nslices.
+__device__ __forceinline__ float slice_order_sum(const float* part, int nslices, int stride,
+                                                 int off) {
+    float r = 0.f;
+#pragma unroll 8
+    for (int sl = 0; sl < nslices; ++sl) r += part[sl * stride + off];
+    return r;
+}
+
+// acc = the window MAC at rp of channel c = blockIdx.y (UNPACK false:
+// outr/outi (C, bins) = acc) or z = unpack_inverse(acc) (UNPACK true:
+// outr/outi (C, M) = z, M = bins; twr/twi (M,) exp(+i pi k / M)). A cluster
+// of p.cluster CTAs takes column tile blockIdx.x / p.cluster. CTA `rank`
+// owns `per` of the tile's columns (UNPACK: pairs, each a bin and its
+// mirror): once every CTA of the cluster has started (the split barrier
+// arrived at on entry, waited on after the MAC), every thread stores its
+// slice's partials of its column into the owner's shared memory
+// (distributed shared memory), at part[(slice * V + v) * per + slot], V = 2
+// values a column (re, im) or 4 a pair (the bin's re, im, the mirror's re,
+// im); after cluster.sync() each CTA sums its own columns in slice order
+// from its own shared memory, so no CTA reads a peer and none waits on a
+// third barrier before it exits.
+// Dynamic shared memory: p.cluster * p.ways * V * per floats.
+// grid (tiles * p.cluster, C), cluster (p.cluster), block p.tile * p.ways
+template <bool UNPACK>
+__global__ void __launch_bounds__(CLUSTER_THREADS)
+mac_cluster_kernel(ClusterPlan p, int nparts, int bins, int rp, float b0,
+                   const float* __restrict__ xr, const float* __restrict__ xi,
+                   const float* __restrict__ hr, const float* __restrict__ hi,
+                   const float* __restrict__ twr, const float* __restrict__ twi,
+                   float* __restrict__ outr, float* __restrict__ outi) {
+    extern __shared__ float part[];
+    cluster_arrive_relaxed();           // this CTA has started
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = static_cast<int>(cluster.block_rank());
+    const int tile = blockIdx.x / p.cluster, T = p.tile, pairs = T / 2;
+    const int col = threadIdx.x % T, slice = rank * p.ways + threadIdx.x / T;
+    const int m = bins, half = m / 2;
+    const size_t c = blockIdx.y, np = nparts;
+    constexpr int V = UNPACK ? 4 : 2;
+    const int per = cdiv(UNPACK ? pairs : T, p.cluster);
+    // the column's bin, whether the tile has it, and where its owner keeps
+    // its partials: column cu of the owned ones, value v0 (re) and v0 + 1
+    const bool mirror = UNPACK && col >= pairs;
+    const int cu = mirror ? col - pairs : col, v0 = mirror ? 2 : 0;
+    const int kk = tile * (UNPACK ? pairs : T) + cu;
+    const int k = mirror && kk != 0 ? m - kk : kk;
+    const bool live = UNPACK ? kk <= half : kk < m;
+    const int q0 = slice * p.qchunk, q1 = min(q0 + p.qchunk, nparts);
+    float ar = 0.f, ai = 0.f;
+    if (live) {
+        const size_t x0 = (c * 2 * np + rp) * m + k, h0 = c * np * m + k;
+        if (k == 0)
+            mac_slice<true>(xr + x0, xi + x0, hr + h0, hi + h0, m, q0, q1, ar, ai);
+        else
+            mac_slice<false>(xr + x0, xi + x0, hr + h0, hi + h0, m, q0, q1, ar, ai);
+    }
+    cluster_wait();                     // every CTA of the cluster has started
+    float* dst = cluster.map_shared_rank(part, cu / per) + (slice * V + v0) * per + cu % per;
+    dst[0] = ar;
+    dst[per] = ai;
+    cluster.sync();                     // every slice's partials are with their owners
+    const int nslices = cdiv(nparts, p.qchunk), stride = V * per;
+    if (!UNPACK) {
+        for (int i = threadIdx.x; i < 2 * per; i += blockDim.x) {
+            const int comp = i / per, slot = i % per, kb = tile * T + rank * per + slot;
+            if (rank * per + slot >= T || kb >= m) continue;
+            float r = slice_order_sum(part, nslices, stride, comp * per + slot);
+            if (kb == 0) r *= b0;
+            (comp ? outi : outr)[c * m + kb] = r;
+        }
         return;
     }
-    const int j = m - k;
-    float fr = ar, fi = ai;
-    if (j != k) slice_sum(s, p, j, b0, fr, fi);
-    if (k == half) {
-        zr[k] = ar;
-        zi[k] = ai;
-    } else {
-        unpack_bin(ar, ai, fr, fi, twr[k], twi[k], zr + k, zi + k);
+    float* zr = outr + c * m;
+    float* zi = outi + c * m;
+    for (int slot = threadIdx.x; slot < per; slot += blockDim.x) {
+        const int u = rank * per + slot, kp = tile * pairs + u;
+        if (u >= pairs || kp > half) continue;
+        float a_r = slice_order_sum(part, nslices, stride, slot);
+        float a_i = slice_order_sum(part, nslices, stride, per + slot);
+        if (kp == 0) {
+            a_r *= b0;
+            a_i *= b0;
+            zr[0] = __fadd_rn(a_r, a_i);
+            zi[0] = __fsub_rn(a_r, a_i);
+            continue;
+        }
+        const int j = m - kp;
+        float f_r = a_r, f_i = a_i;
+        if (j != kp) {
+            f_r = slice_order_sum(part, nslices, stride, 2 * per + slot);
+            f_i = slice_order_sum(part, nslices, stride, 3 * per + slot);
+        }
+        if (kp == half) {
+            zr[kp] = a_r;
+            zi[kp] = a_i;
+        } else {
+            unpack_bin(a_r, a_i, f_r, f_i, twr[kp], twi[kp], zr + kp, zi + kp);
+        }
+        if (j != kp) unpack_bin(f_r, f_i, a_r, a_i, twr[j], twi[j], zr + j, zi + j);
     }
-    if (j != k) unpack_bin(fr, fi, ar, ai, twr[j], twi[j], zr + j, zi + j);
+}
+
+// The launch of mac_cluster_kernel<UNPACK> for C channels at plan p.
+template <bool UNPACK>
+cudaError_t launch_mac_cluster(const ClusterPlan& p, int C, int nparts, int bins, int rp,
+                               float b0, const float* xr, const float* xi, const float* hr,
+                               const float* hi, const float* twr, const float* twi,
+                               float* outr, float* outi, cudaStream_t st) {
+    if (!cluster_plan_ok(p, nparts, bins) || C < 1 || (UNPACK && bins < 2))
+        return cudaErrorInvalidValue;
+    const int tiles = UNPACK ? cdiv(bins / 2 + 1, p.tile / 2) : cdiv(bins, p.tile);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(tiles * p.cluster), static_cast<unsigned>(C));
+    cfg.blockDim = dim3(static_cast<unsigned>(p.tile * p.ways));
+    cfg.dynamicSmemBytes = sizeof(float) * p.cluster * p.ways * (UNPACK ? 4 : 2) *
+                           cdiv(UNPACK ? p.tile / 2 : p.tile, p.cluster);
+    cfg.stream = st;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = static_cast<unsigned>(p.cluster);
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    RETURN_IF_ERROR(cudaLaunchKernelEx(&cfg, mac_cluster_kernel<UNPACK>, p, nparts, bins, rp,
+                                       b0, xr, xi, hr, hi, twr, twi, outr, outi));
+    return cudaGetLastError();
 }
 
 // The step's inverse for channel c = blockIdx.x, on row 0 of a tile of
@@ -389,13 +539,6 @@ cudaError_t launch_step_mac(const Step& s, const float* xr, const float* xi, con
     return cudaGetLastError();
 }
 
-cudaError_t launch_reduce(const Step& s, float b0, const float* part, float* outr,
-                          float* outi, int out_cs, cudaStream_t st) {
-    reduce_kernel<<<dim3(cdiv(s.bins, RED_THREADS), s.C), RED_THREADS, 0, st>>>(
-        s, b0, part, outr, outi, out_cs);
-    return cudaGetLastError();
-}
-
 // The transform plan of a step at pts, as the caller gives it: log2 rows
 // a CTA of the forward tile (fwd_log_b, -1 for none) and of the inverse
 // tile; false where pts is not a power of two in [2, 2^14] or a tile is not
@@ -448,9 +591,10 @@ cudaError_t fwd_step(int R, const float* blocks, const float* xr, const float* x
 // All pointers are float32 device memory on `device`, each plane
 // contiguous: x planes (C, 2*nparts, bins), h planes (C, nparts, bins),
 // tails and outputs (C, bins), bins == pts. rp in [0, nparts) is the window's
-// first doubled-ring row. Scratch, allocated by the caller:
+// first doubled-ring row. Scratch of the steps, allocated by the caller:
 //   part (C, min(nparts, MAC_SLICES), 2*bins), F (C, R, 2*bins) for the
-//   fused steps (R operands).
+//   fused steps (R operands); spectral_mac_f32 and block_mac_unpack_f32
+//   take none.
 // The steps with a transform take a power-of-two pts in [2, 2^14], the
 // transforms' tables (ops/cuda/blockstep.py): twf / twi the pass tables of
 // pts for sign -1 / +1 (ops/cuda/vmemfft.py pass_twiddle_np), fcoef / icoef
@@ -460,17 +604,17 @@ cudaError_t fwd_step(int R, const float* blocks, const float* xr, const float* x
 // Each entry launches on `stream` without synchronising and returns the
 // first CUDA error. block_mac_unpack_f32 takes any nparts >= 1 and bins >= 2.
 
-// acc planes (C, bins) = the window MAC at rp.
+// acc planes (C, bins) = the window MAC at rp, one mac_cluster_kernel
+// launch at the plan (cluster, ways, qchunk, tile) of ops/cuda/mac.py
+// mac_plan.
 extern "C" int spectral_mac_f32(const float* xr, const float* xi, const float* hr,
-                                const float* hi, float* accr, float* acci, float* part, int C,
-                                int nparts, int bins, int rp, float b0, int device,
-                                void* stream_ptr) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
+                                const float* hi, float* accr, float* acci, int C, int nparts,
+                                int bins, int rp, int cluster, int ways, int qchunk, int tile,
+                                float b0, int device, void* stream_ptr) {
     RETURN_IF_ERROR(cudaSetDevice(device));
-    const Step s = make_step(C, nparts, bins, rp);
-    RETURN_IF_ERROR(launch_step_mac(s, xr, xi, hr, hi, nullptr, nullptr, 0, -1, nullptr,
-                                    nullptr, nullptr, nullptr, part, st));
-    return static_cast<int>(launch_reduce(s, b0, part, accr, acci, bins, st));
+    return static_cast<int>(launch_mac_cluster<false>(
+        ClusterPlan{cluster, ways, qchunk, tile}, C, nparts, bins, rp, b0, xr, xi, hr, hi,
+        nullptr, nullptr, accr, acci, static_cast<cudaStream_t>(stream_ptr)));
 }
 
 // out, new_tail (C, pts) = MAC at rp, inverse transform and OLA with tail.
@@ -522,17 +666,15 @@ extern "C" int block_step_fwd_fused_tv_f32(const float* blocks, const float* xr,
 }
 
 // z planes (C, bins) = unpack_inverse of the window MAC at rp; twr/twi
-// (bins,) the twiddle exp(+i pi k / bins), built in float64 by the caller.
+// (bins,) the twiddle exp(+i pi k / bins), built in float64 by the caller;
+// one mac_cluster_kernel launch at spectral_mac_f32's plan.
 extern "C" int block_mac_unpack_f32(const float* xr, const float* xi, const float* hr,
                                     const float* hi, const float* twr, const float* twi,
-                                    float* zr, float* zi, float* part, int C, int nparts,
-                                    int bins, int rp, float b0, int device, void* stream_ptr) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
+                                    float* zr, float* zi, int C, int nparts, int bins, int rp,
+                                    int cluster, int ways, int qchunk, int tile, float b0,
+                                    int device, void* stream_ptr) {
     RETURN_IF_ERROR(cudaSetDevice(device));
-    const Step s = make_step(C, nparts, bins, rp);
-    RETURN_IF_ERROR(launch_step_mac(s, xr, xi, hr, hi, nullptr, nullptr, 0, -1, nullptr,
-                                    nullptr, nullptr, nullptr, part, st));
-    reduce_unpack_kernel<<<dim3(cdiv(bins / 2 + 1, RED_THREADS), C), RED_THREADS, 0, st>>>(
-        s, b0, part, twr, twi, zr, zi);
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(launch_mac_cluster<true>(
+        ClusterPlan{cluster, ways, qchunk, tile}, C, nparts, bins, rp, b0, xr, xi, hr, hi, twr,
+        twi, zr, zi, static_cast<cudaStream_t>(stream_ptr)));
 }

@@ -16,13 +16,14 @@ Counterparts of ``opencl_fft_tpu/ops/pallas/blockstep.py``:
   above, the coefficient frame into h row ``wp2``.
 - ``block_mac_unpack``: z = ``rfft.unpack_inverse`` of the MAC at ring row
   ``rp``, the input of the half-size inverse FFT, which the per-block
-  functions take above pts 2048 (``ops/pconv._mac_unpack_kernel``). The
-  MAC's kernel and its slice-order reduce are ``spectral_mac``'s, so the
-  accumulator is that kernel's bit for bit; one thread unpacks each bin
-  pair (k, M - k) with the twiddle table of ``tables.unpack_twiddle``. The
-  TPU kernel's one-hot flip product, aligned DMA and rotate switch are VMEM
-  workarounds and its shape gates (nparts % 8, bins % 128) do not apply:
-  any nparts >= 1 and bins >= 2.
+  functions take above pts 2048 (``ops/pconv._mac_unpack_kernel``). One
+  launch of ``spectral_mac``'s kernel at its plan (``mac.mac_plan``), so
+  the accumulator is that kernel's bit for bit: a cluster's tile holds bin
+  pairs (k, M - k), both accumulators of a pair stay on chip, and one
+  thread unpacks each pair with the twiddle table of
+  ``tables.unpack_twiddle``. The TPU kernel's one-hot flip product, aligned
+  DMA and rotate switch are VMEM workarounds and its shape gates (nparts %
+  8, bins % 128) do not apply: any nparts >= 1 and bins >= 2.
 
 The kernels compute both transforms as m-point FFTs (m = pts) inside a CTA,
 the whole scans' chain (``ops/cuda/streamstep.py``): the forward is the
@@ -62,7 +63,7 @@ from ...utils.numerics import is_pow2
 from ..cplx import Cplx
 from ..rfft import unpack_inverse
 from . import _build
-from .mac import check_ring, launch, part_scratch, spectral_mac_plain
+from .mac import check_ring, launch, mac_plan, part_scratch, spectral_mac_plain
 from .streamstep import TILE_LOG2, _aligned8, _fft_frames, _unpack_ifft
 from .tables import coef_tables, unpack_twiddle
 from .vmemfft import pass_twiddle_np
@@ -276,8 +277,7 @@ def block_mac_unpack(x2: Cplx, h: Cplx, rp: int, b0_scale: float) -> Cplx:
         return block_mac_unpack_plain(x2, h, rp, b0_scale)
     zr = torch.empty((*x2[0].shape[:-2], bins), dtype=torch.float32, device=dev)
     zi = torch.empty_like(zr)
-    launch("block_mac_unpack_f32",
-           (*x2, *h, *unpack_twiddle(bins, dev), zr, zi, part_scratch(nch, nparts, bins, dev)),
-           (nch, nparts, bins, rp), b0_scale, dev)
+    launch("block_mac_unpack_f32", (*x2, *h, *unpack_twiddle(bins, dev), zr, zi),
+           (nch, nparts, bins, rp, *mac_plan(nparts, bins)), b0_scale, dev)
     MAC_UNPACK_LAUNCHES += 1
     return zr, zi

@@ -14,6 +14,13 @@ ring, rows [rp, rp + nparts). Planes may carry a leading channel axis C
 the kernel. The TPU kernel's shape rules (nparts a multiple of 8, bins of
 128) are VMEM rules and do not apply.
 
+The kernel is one launch (``mac_cluster_kernel``): a thread-block cluster
+cuts the partitions of a tile of bins into slices, keeps each slice's
+partial sums in its CTAs' shared memory and adds them in slice order over
+distributed shared memory. ``mac_plan`` shapes it; ``block_mac_unpack``
+(``ops/cuda/blockstep.py``) runs the same kernel and plan with the inverse
+unpack after the sum.
+
 ``spectral_mac`` runs the CUDA kernel for CUDA tensors and the twin for CPU
 tensors; anything else raises, and a build or launch failure raises.
 ``LAUNCHES`` counts its kernel launches.
@@ -23,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -32,9 +39,53 @@ from . import _build
 
 LAUNCHES = 0
 
-# Most partition slices per channel in the kernel's MAC (``MAC_SLICES`` of
-# csrc/blockstep.cu): the partial-sum scratch holds this many rows a channel.
+# Most partition slices per channel in the block steps' MAC (``MAC_SLICES``
+# of csrc/blockstep.cu): the partial-sum scratch holds this many rows a
+# channel.
 MAC_SLICES = 32
+
+CLUSTER_PORTABLE = 8    # CTAs a cluster that every Hopper card launches
+CLUSTER_THREADS = 512   # most threads a CTA of mac_cluster_kernel
+SLICE_PARTS = 8         # fewest partitions a slice the plan aims at
+CHANNEL_THREADS = 1 << 16   # (bin, slice) threads the plan gives one channel
+CHANNEL_CTAS = 256      # CTAs of one channel a tile still leaves: ~2 an SM of 132
+
+
+class ClusterPlan(NamedTuple):
+    """The one-launch MAC's shape (``csrc/blockstep.cu`` ClusterPlan): a
+    cluster of ``cluster`` CTAs, each of ``ways`` thread groups of ``tile``
+    threads (one column of bins each); slice rank * ways + way of
+    ``qchunk`` partitions to group ``way`` of CTA ``rank``."""
+    cluster: int
+    ways: int
+    qchunk: int
+    tile: int
+
+
+@functools.lru_cache(maxsize=None)
+def mac_plan(nparts: int, bins: int) -> ClusterPlan:
+    """The plan of ``spectral_mac`` and ``block_mac_unpack`` at (nparts,
+    bins). It takes no channel count and no kernel, so the two kernels cut
+    the partitions alike (``block_mac_unpack`` is ``unpack_inverse`` of
+    ``spectral_mac`` bit for bit) and one channel's bits do not depend on
+    how many share the call.
+
+    Slices of at least ~SLICE_PARTS partitions, at most MAC_SLICES, and
+    about CHANNEL_THREADS (bin, slice) threads a channel: 32 slices of 8 at
+    bins 512, 16 of 16 at bins 4096. Up to CLUSTER_PORTABLE slices go to
+    the CTAs of a cluster, the rest to thread groups inside each CTA; the
+    tile of bins is the widest that still leaves CHANNEL_CTAS CTAs a
+    channel. Chosen on the H100 against 13–18 other plans at the main
+    paths' shapes (PERF.md §6, PR 14): more slices cost a channel-16 call
+    ~25% at bins 4096, fewer cost a one-channel call at bins 512 ~2x."""
+    slices = max(1, min(-(-nparts // SLICE_PARTS), MAC_SLICES, CHANNEL_THREADS // bins))
+    cluster = min(slices, CLUSTER_PORTABLE)
+    ways = -(-slices // cluster)
+    qchunk = -(-nparts // (cluster * ways))
+    tile = 32
+    while 2 * tile * ways <= CLUSTER_THREADS and -(-bins // (2 * tile)) * cluster >= CHANNEL_CTAS:
+        tile *= 2
+    return ClusterPlan(cluster, ways, qchunk, tile)
 
 
 @functools.lru_cache(maxsize=None)
@@ -77,7 +128,8 @@ def check_ring(name: str, x2: Cplx, h: Cplx, rp: int) -> Tuple[int, int, int]:
 
 
 def part_scratch(nch: int, nparts: int, bins: int, dev: torch.device) -> torch.Tensor:
-    """The kernel's partial-sum scratch (C, min(nparts, MAC_SLICES), 2*bins)."""
+    """The block steps' partial-sum scratch (C, min(nparts, MAC_SLICES),
+    2*bins)."""
     return torch.empty((nch, min(nparts, MAC_SLICES), 2 * bins), dtype=torch.float32,
                        device=dev)
 
@@ -107,7 +159,7 @@ def spectral_mac(x2: Cplx, h: Cplx, rp: int, b0_scale: float) -> Cplx:
         return spectral_mac_plain(x2, h, rp, b0_scale)
     accr = torch.empty((*x2[0].shape[:-2], bins), dtype=torch.float32, device=dev)
     acci = torch.empty_like(accr)
-    launch("spectral_mac_f32", (*x2, *h, accr, acci, part_scratch(nch, nparts, bins, dev)),
-           (nch, nparts, bins, rp), b0_scale, dev)
+    launch("spectral_mac_f32", (*x2, *h, accr, acci),
+           (nch, nparts, bins, rp, *mac_plan(nparts, bins)), b0_scale, dev)
     LAUNCHES += 1
     return accr, acci

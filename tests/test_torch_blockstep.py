@@ -18,6 +18,8 @@ shapes the kernels take; the CUDA kernels are held against the twins on a
 card.
 """
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -64,6 +66,30 @@ def _t(planes):
 
 def _j(planes):
     return tuple(jnp.asarray(p) for p in planes)
+
+
+def plan_slices(nparts, plan):
+    """The one-launch MAC's slices in slice order, as ``mac_cluster_kernel``
+    (csrc/blockstep.cu) cuts them: [q0, q1) partitions each, the cluster's
+    trailing empty ones left out."""
+    return [(q0, min(q0 + plan.qchunk, nparts)) for q0 in range(0, nparts, plan.qchunk)]
+
+
+def plan_tiles(bins, plan, unpack):
+    """Each cluster's bins, column by column, as ``mac_cluster_kernel`` maps
+    them: ``spectral_mac``'s column u of tile t is bin t * tile + u;
+    ``block_mac_unpack``'s column u < tile / 2 is bin k = t * tile / 2 + u
+    <= bins / 2 and column tile / 2 + u its mirror (bins - k) mod bins.
+    Columns past the last bin are left out."""
+    t, half = plan.tile, bins // 2
+    if not unpack:
+        return [list(range(i * t, min((i + 1) * t, bins))) for i in range(-(-bins // t))]
+    pairs = t // 2
+    tiles = []
+    for i in range(-(-(half + 1) // pairs)):
+        ks = [k for k in range(i * pairs, (i + 1) * pairs) if k <= half]
+        tiles.append(ks + [(bins - k) % bins for k in ks])
+    return tiles
 
 
 # ---------------------------------------------------------------------------
@@ -330,6 +356,61 @@ def test_step_plan_tiles_are_ones_the_kernels_take(pts):
     assert 1 << inv == min(16, max(1, (1 << 13) // pts))
 
 
+PLAN_NPARTS = [1, 3, 8, 255, 256, 1024]
+PLAN_BINS = [2, 16, 96, 512, 4096]
+
+
+@pytest.mark.parametrize("nparts", PLAN_NPARTS)
+@pytest.mark.parametrize("bins", PLAN_BINS)
+def test_mac_plan_covers_every_partition_and_bin_once(nparts, bins):
+    """The one-launch MAC's plan: its slices take every partition once, in
+    ascending order, none empty and no more than the cluster's CTAs times
+    their thread groups; its tiles take every bin once (``spectral_mac``);
+    a cluster the card launches and a CTA of whole warps."""
+    plan = MAC.mac_plan(nparts, bins)
+    slices = plan_slices(nparts, plan)
+    assert [q for q0, q1 in slices for q in range(q0, q1)] == list(range(nparts))
+    assert all(q1 > q0 for q0, q1 in slices)
+    assert len(slices) <= plan.cluster * plan.ways and plan.cluster * plan.ways * plan.qchunk \
+        >= nparts
+    assert 1 <= plan.cluster <= MAC.CLUSTER_PORTABLE
+    assert plan.tile % 32 == 0 and plan.tile * plan.ways <= MAC.CLUSTER_THREADS
+    tiles = plan_tiles(bins, plan, unpack=False)
+    assert all(len(t) <= plan.tile for t in tiles)
+    assert sorted(k for t in tiles for k in t) == list(range(bins))
+
+
+@pytest.mark.parametrize("nparts", PLAN_NPARTS)
+@pytest.mark.parametrize("bins", PLAN_BINS)
+def test_mac_plan_tiles_cover_every_pair_once(nparts, bins):
+    """``block_mac_unpack``'s tiles at ``spectral_mac``'s plan: every pair
+    k <= M/2 once, with its mirror (M - k) mod M in the same tile, so every
+    bin is on chip beside the accumulator its unpack reads; the slices take
+    every partition once in ascending order."""
+    plan = MAC.mac_plan(nparts, bins)
+    tiles = plan_tiles(bins, plan, unpack=True)
+    owners = []
+    for t in tiles:
+        assert len(t) <= plan.tile and len(t) % 2 == 0
+        ks, mirrors = t[:len(t) // 2], t[len(t) // 2:]
+        assert mirrors == [(bins - k) % bins for k in ks]
+        owners += ks
+    assert owners == list(range(bins // 2 + 1))
+    assert {k for t in tiles for k in t} == set(range(bins))
+    slices = plan_slices(nparts, plan)
+    assert [q for q0, q1 in slices for q in range(q0, q1)] == list(range(nparts))
+    assert len(slices) <= plan.cluster * plan.ways <= MAC.MAC_SLICES
+    assert plan.cluster <= MAC.CLUSTER_PORTABLE
+
+
+def test_mac_plan_takes_no_channel_count():
+    """The plan depends on (nparts, bins) only: one channel's bits do not
+    depend on how many share the call, and both kernels cut alike."""
+    assert list(inspect.signature(MAC.mac_plan).parameters) == ["nparts", "bins"]
+    assert MAC.mac_plan(256, 512) == MAC.ClusterPlan(8, 4, 8, 32)
+    assert MAC.mac_plan(255, 4096) == MAC.mac_plan(256, 4096) == MAC.ClusterPlan(8, 2, 16, 128)
+
+
 @pytest.mark.parametrize("pts", [1, 24, 1 << 15])
 def test_card_route_takes_power_of_two_pts_up_to_2_14(pts):
     with pytest.raises(ValueError, match="power-of-two pts in \\[2, 16384\\]"):
@@ -510,3 +591,47 @@ def test_cuda_steps_match_twins_at_every_tile_shape(cuda_device, nparts, pts, le
     out2, tail2 = B.block_step_fused(x2, h_d, rp, 2.0, tail_d, pts)
     torch.cuda.synchronize()
     assert torch.equal(out, out2) and torch.equal(new_tail, tail2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nparts,bins,lead", [(1, 64, ()), (3, 16, ()), (5, 96, (3,)),
+                                              (7, 100, ()), (255, 4096, ()), (256, 512, ()),
+                                              (300, 33, (2,))])
+def test_cuda_spectral_mac_one_launch_matches_twin(cuda_device, nparts, bins, lead):
+    """The one-launch MAC at nparts below the cluster size, odd bins and the
+    main paths' shapes: within 3e-6 of the twin and bit-equal on a second
+    launch."""
+    rng = np.random.default_rng(nparts * bins + len(lead))
+    ring, h, _, _ = _inputs(rng, nparts, bins, lead)
+    ring_d, h_d = _on(_t(ring), cuda_device), _on(_t(h), cuda_device)
+    for rp in sorted({0, 1 % nparts, nparts - 1}):
+        for b0 in (1.0, 2.0):
+            before = MAC.LAUNCHES
+            got = MAC.spectral_mac(ring_d, h_d, rp, b0)
+            again = MAC.spectral_mac(ring_d, h_d, rp, b0)
+            want = MAC.spectral_mac_plain(ring_d, h_d, rp, b0)
+            torch.cuda.synchronize()
+            assert MAC.LAUNCHES == before + 2
+            for g, a, w in zip(got, again, want):
+                assert g.is_contiguous() and torch.equal(g, a)
+                _close(g, w.cpu(), 3e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nparts,bins", [(256, 512), (3, 16)])
+def test_cuda_spectral_mac_channel_independent(cuda_device, nparts, bins):
+    """Channel c of a 16-channel call is bit-equal to the same ring alone
+    (no channel axis and a channel axis of 1)."""
+    rng = np.random.default_rng(nparts + bins)
+    ring, h, _, _ = _inputs(rng, nparts, bins, (16,))
+    ring_d, h_d = _on(_t(ring), cuda_device), _on(_t(h), cuda_device)
+    many = MAC.spectral_mac(ring_d, h_d, 1 % nparts, 2.0)
+    for c in (0, 7, 15):
+        ring_c = tuple(p[c].contiguous() for p in ring_d)
+        h_c = tuple(p[c].contiguous() for p in h_d)
+        alone = MAC.spectral_mac(ring_c, h_c, 1 % nparts, 2.0)
+        one = MAC.spectral_mac(tuple(p[None] for p in ring_c), tuple(p[None] for p in h_c),
+                               1 % nparts, 2.0)
+        torch.cuda.synchronize()
+        for m_, a, o in zip(many, alone, one):
+            assert torch.equal(m_[c], a) and torch.equal(m_[c], o[0])

@@ -275,20 +275,41 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nparts,bins,lead", [(1, 4096, ()), (255, 4096, ()), (5, 96, (3,)),
-                                              (3, 2, ()), (256, 4096, (4,))])
+                                              (3, 2, ()), (256, 4096, (4,)), (7, 100, ()),
+                                              (2, 33, (2,)), (8, 128, ()), (300, 65, ())])
 def test_cuda_kernel_matches_twin(cuda_device, nparts, bins, lead):
-    """Within 3e-6 of the twin, and bit-equal to ``unpack_inverse`` of the
-    ``spectral_mac`` kernel (the same MAC and slice-order reduce)."""
+    """Within 3e-6 of the twin, bit-equal on a second launch, and bit-equal
+    to ``unpack_inverse`` of the ``spectral_mac`` kernel (the same plan, MAC
+    and slice-order sum); nparts below the cluster size and odd bins
+    included."""
     ring, h = _ring(np.random.default_rng(nparts + bins), nparts, bins, lead)
     ring_d = tuple(p.to(cuda_device) for p in _t(ring))
     h_d = tuple(p.to(cuda_device) for p in _t(h))
     for rp in sorted({0, 1 % nparts, nparts - 1}):
         for b0 in (1.0, 2.0):
             got = B.block_mac_unpack(ring_d, h_d, rp, b0)
+            again = B.block_mac_unpack(ring_d, h_d, rp, b0)
             want = B.block_mac_unpack_plain(ring_d, h_d, rp, b0)
             same = unpack_inverse(MAC.spectral_mac(ring_d, h_d, rp, b0))
             torch.cuda.synchronize()
-            for g, w, s in zip(got, want, same):
+            for g, a, w, s in zip(got, again, want, same):
                 assert g.is_contiguous()
                 _close(g, w.cpu(), 3e-6)
-                assert torch.equal(g, s)
+                assert torch.equal(g, a) and torch.equal(g, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nparts,bins", [(256, 4096), (5, 96)])
+def test_cuda_kernel_channel_independent(cuda_device, nparts, bins):
+    """Channel c of a 16-channel call is bit-equal to the same ring alone
+    at C = 1 (the plan takes no channel count)."""
+    ring, h = _ring(np.random.default_rng(nparts * bins), nparts, bins, (16,))
+    ring_d = tuple(p.to(cuda_device) for p in _t(ring))
+    h_d = tuple(p.to(cuda_device) for p in _t(h))
+    many = B.block_mac_unpack(ring_d, h_d, nparts - 1, 2.0)
+    for c in (0, 9, 15):
+        alone = B.block_mac_unpack(tuple(p[c:c + 1].contiguous() for p in ring_d),
+                                   tuple(p[c:c + 1].contiguous() for p in h_d), nparts - 1, 2.0)
+        torch.cuda.synchronize()
+        for m_, a in zip(many, alone):
+            assert torch.equal(m_[c], a[0])

@@ -1,11 +1,12 @@
 """Device time of the whole-scan, per-block step and sliding-MAC kernels, on one
 CUDA card.
 
-    python3 tools/scan_timing.py [--root DIR] [--families S,SP,STEP,SLIDE,PATHS]
+    python3 tools/scan_timing.py [--root DIR] [--families S,SP,STEP,SLIDE,MAC,PATHS]
                                  [--pts 64,128,512,2048] [--channels 1,64]
                                  [--plans G/TT/Q,...] [--tile-log-b B,...]
                                  [--step-nparts 1,256] [--step-tiles F/I,...]
                                  [--slide-routes tiled,split]
+                                 [--mac-plans CL/W/T,...]
                                  [--out FILE]
 
 For each pts, times the LTI and TV scans of one channel (1880 * 512 / pts
@@ -50,10 +51,25 @@ call) at its main-path shapes (nparts 256, bins 512: 1 x 1880, 16 x 470,
 TFLOP/s; ``--slide-routes`` times each shape again on each named route
 (``slidemac.slide_route``; a tree with one).
 
+``MAC`` times the one-block MACs, ``spectral_mac`` (``ops/cuda/mac.py``)
+at C 1 and 64 and ``block_mac_unpack`` (``ops/cuda/blockstep.py``) at C 1
+(nparts 255 and 256) and 16, their main paths' shapes: device
+microseconds from HBM by CUDA graph beside the least-work bound (the
+window and h planes read once, the output written once), and by the
+profiler each kernel's mean a launch, summed into MAC and reduce (a tree
+whose MAC is one launch has no reduce part), with the kernels a call; and
+the method's floor, one launch a call of a one-float elementwise kernel.
+``--mac-plans`` times each shape again at other plans of the one-launch
+MAC (``mac.mac_plan``, a tree with one): CL CTAs a cluster (at most the
+portable 8), W slices a CTA, T bins a CTA, qchunk the fewest partitions a
+slice that cover them.
+
 ``PATHS`` times host-bound entry points by CUDA events (the median of 31
 calls after 3): ``stream_decomposed`` and ``pconv_offline`` of 1880 blocks
 of 512 on a 2^17-tap IR, ``stft`` / ``istft`` of 20 s at nfft 1024, hop
-256, and ``pconv_step`` of one block. Run it from each of two trees in turn
+256, ``pconv_step`` of one block, ``Clpconv.convolution`` of one block at
+pts 4096 on a 2^20-tap IR, and 64 blocks of 64 through the zero-latency
+processor on that IR (one terminal fire a call). Run it from each of two trees in turn
 to compare the paths without the other phases of ``chip_smoke.py`` around
 them.
 
@@ -256,6 +272,84 @@ def step_rows(args, f, dev, emit):
                   "kernels_us_a_launch": per})
 
 
+@contextlib.contextmanager
+def forced_mac_plan(M, B, plan):
+    """The one-launch MACs of modules M (mac) and B (blockstep) at plan
+    (cluster, ways, tile), qchunk the fewest partitions a slice that cover
+    nparts; None: the module's own plan."""
+    if plan is None:
+        yield
+        return
+    own = M.mac_plan
+    cl, ways, tile = plan
+
+    def forced(nparts, bins):
+        return M.ClusterPlan(cl, ways, -(-nparts // (cl * ways)), tile)
+
+    M.mac_plan = B.mac_plan = forced
+    try:
+        yield
+    finally:
+        M.mac_plan = B.mac_plan = own
+
+
+def mac_rows(args, f, emit):
+    """The MAC family: #7 and #11 at their main paths' shapes."""
+    from opencl_fft_tpu_torch.ops.cuda import blockstep as B
+    from opencl_fft_tpu_torch.ops.cuda import mac as M
+
+    plans = [None] + [tuple(map(int, p.split("/"))) for p in args.mac_plans.split(",")
+                      if p and hasattr(M, "mac_plan")]
+    kernels = {"spectral_mac": M.spectral_mac, "block_mac_unpack": B.block_mac_unpack}
+    # the floor of the method: one launch a call of a one-float elementwise
+    # kernel, timed the same way
+    one = [f(1) for _ in range(2)]
+    emit({"family": "MAC", "kernel": "floor: one elementwise launch a call",
+          "graph_us": round(graph_us(lambda i: one[i].add_(1.0), 2, 20), 3)})
+    for kname, nch, nparts, bins in (("block_mac_unpack", 1, 255, 4096),
+                                     ("block_mac_unpack", 1, 256, 4096),
+                                     ("block_mac_unpack", 16, 256, 4096),
+                                     ("spectral_mac", 1, 256, 512),
+                                     ("spectral_mac", 64, 256, 512)):
+        lead = () if nch == 1 else (nch,)
+
+        def make():
+            a, b_ = f(*lead, nparts, bins), f(*lead, nparts, bins)
+            return (torch.cat([a, a], -2), torch.cat([b_, b_], -2),
+                    f(*lead, nparts, bins, s=0.05), f(*lead, nparts, bins, s=0.05))
+
+        sets = rotating_sets(make)
+        fn = kernels[kname]
+
+        def run(i):
+            return fn(sets[i][:2], sets[i][2:], 1, 2.0)
+
+        # least work: the window and h planes in, the output planes out; the
+        # MAC's 8 operations a bin and partition (and ~10 a bin to unpack)
+        nbytes = 4 * (4 * nch * nparts * bins + 2 * nch * bins)
+        flops = 8.0 * nch * nparts * bins + (10.0 * nch * bins if "unpack" in kname else 0.0)
+        bound_us = 1e6 * max(nbytes / 3.35e12, flops / 67e12)
+        for plan in plans:
+            if plan is not None and (plan[2] * plan[1] > 512 or plan[0] > M.CLUSTER_PORTABLE):
+                continue
+            with forced_mac_plan(M, B, plan):
+                us = graph_us(run, len(sets), 20 if nch == 1 else 5)
+                launched = launch_us(lambda: run(0))
+            parts = {"MAC": 0.0, "reduce": 0.0}
+            for kn, k_us in launched.items():
+                parts["reduce" if "reduce" in kn else "MAC"] += k_us
+            emit({"family": "MAC", "kernel": kname, "forced": plan, "C": nch,
+                  "nparts": nparts, "bins": bins, "graph_us": round(us, 3),
+                  "bound_us": round(bound_us, 3), "of_bound": round(bound_us / us, 4),
+                  "sets_outgrow_l2": len(sets) < 48,
+                  "parts_us": {k: round(v, 3) for k, v in parts.items()},
+                  "kernels_a_call": len(launched),
+                  "kernels_us_a_launch": {kn[:60]: round(k_us, 3)
+                                          for kn, k_us in launched.items()}})
+        del sets
+        torch.cuda.empty_cache()
+
+
 def event_ms(fn, warmup=3, reps=31):
     """Median milliseconds of one fn() by CUDA events."""
     for _ in range(warmup):
@@ -283,11 +377,24 @@ def path_rows(f, dev, emit):
     x = f(960000, s=0.1)
     spec = P.stft(x, 1024, 256)
     block = f(512, s=0.1)
+    # cells 13/14: a 2^20-tap IR at pts 4096 (the block_mac_unpack route) and
+    # the zero-latency processor in 64-sample blocks, one terminal fire a call
+    quiet = lambda m, u: None  # noqa: E731
+    ir4 = (f(1 << 20, s=0.05)).cpu().numpy()
+    eng4 = P.Clpconv(0, 1 << 20, 4096, quiet, device="cuda")
+    eng4.push_ir(ir4)
+    out4, x4 = np.empty(4096, np.float32), f(4096, s=0.1).cpu().numpy()
+    zl = P.ClconvProcessor(ir4, parts=0, block_size=64, pmax=4096, device="cuda",
+                           on_message=quiet)
+    xz = f(64, 64, s=0.1).cpu().numpy()
     paths = {"stream_decomposed 1880x512": lambda: stream_decomposed(cfg, state, blocks),
              "pconv_offline 1880x512": lambda: P.pconv_offline(cfg, state, blocks),
              "stft 960000 nfft 1024": lambda: P.stft(x, 1024, 256),
              "istft 960000 nfft 1024": lambda: P.istft(spec, 1024, 256, length=x.numel()),
-             "pconv_step 512": lambda: P.pconv_step(cfg, state, block)}
+             "pconv_step 512": lambda: P.pconv_step(cfg, state, block),
+             "Clpconv.convolution pts 4096, 2^20 taps": lambda: eng4.convolution(out4, x4),
+             "ClconvProcessor(parts=0, pmax=4096) 64 blocks of 64":
+                 lambda: [zl.process(b) for b in xz]}
     for label, fn in paths.items():
         emit({"family": "PATHS", "path": label, "event_ms": round(event_ms(fn), 4)})
 
@@ -345,6 +452,7 @@ def main():
     ap.add_argument("--step-nparts", default="1,256")
     ap.add_argument("--step-tiles", default="")
     ap.add_argument("--slide-routes", default="")
+    ap.add_argument("--mac-plans", default="")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -381,6 +489,8 @@ def main():
         step_rows(args, f, dev, emit)
     if "SLIDE" in chosen:
         slide_rows(args, f, emit)
+    if "MAC" in chosen:
+        mac_rows(args, f, emit)
     if "PATHS" in chosen:
         path_rows(f, dev, emit)
     for pts in map(int, args.pts.split(",")) if set(chosen) & set(families) else ():
