@@ -2711,6 +2711,328 @@ def main():
               f"{r_} rows {a[0]:.4f} ({a[1]:.2f} us) / {o[0]:.4f} ({o[1]:.2f} us)"
               for r_, (a, o) in few_rows.items()), flush=True)
 
+    # phase 34: bf16 rings on the card at the JAX bench's shapes (2^17-tap
+    # IRs at pts 512). The config takes no kernel (PconvConfig.
+    # _kernel_eligible, the JAX rule): Convolver(64).stream of 470 blocks,
+    # pconv_chunk K = 8 and pconv_stream over 1880 blocks of one channel,
+    # each against float64 scipy (5e-3 of max|ref|, the JAX bound,
+    # tests/test_pconv.py:221) and the same call on f32 rings; the state's
+    # dtypes; no scan, step or sliding-MAC kernel launched on the bf16
+    # routes, while the f32 routes launch theirs; times by CUDA events under
+    # the JAX bench's names beside the f32 route's in the same call
+    from opencl_fft_tpu_torch.ops import pconv as PC
+
+    BF16_TOL = 5e-3
+
+    def path_kernels():
+        """Launches of every scan, step, MAC and FIR kernel (not the FFT's)."""
+        return (S.LAUNCHES, S.TV_LAUNCHES, S.BATCHED_LAUNCHES, S.BATCHED_TV_LAUNCHES,
+                SP.LAUNCHES, SP.TV_LAUNCHES, MC.LAUNCHES, BS.STEP_LAUNCHES, BS.FWD_LAUNCHES,
+                BS.FWD_TV_LAUNCHES, BS.MAC_UNPACK_LAUNCHES, SM.CHUNKMAC_LAUNCHES,
+                SM.MACFLOW_LAUNCHES, SM.MACFLOW_BATCHED_LAUNCHES, SM.MACFLOW_TV_LAUNCHES,
+                SM.MACFLOW_TV_BATCHED_LAUNCHES, K.LAUNCHES)
+
+    def stream_vs_steps(cfg_, st_, xb, stream=P.pconv_stream):
+        """A plain route's stream (``pconv_chunk`` over chunks of up to
+        nparts blocks) against sequential ``pconv_step`` calls on the card:
+        (bit-equal, max|diff| / max|steps|)."""
+        got_ = stream(cfg_, st_, xb)[1]
+        seq_ = []
+        for b_ in xb:
+            st_, o_ = P.pconv_step(cfg_, st_, b_)
+            seq_.append(o_)
+        want_ = torch.stack(seq_)
+        return bool(torch.equal(got_, want_)), rel_err(got_.cpu().numpy(), want_.cpu().numpy())
+
+    def chunked(cfg_, st_, xb, k=CHUNK_K):
+        outs_ = []
+        for c0 in range(0, xb.shape[0], k):
+            st_, o_ = PC.pconv_chunk(cfg_, st_, xb[c0:c0 + k])
+            outs_.append(o_)
+        return torch.cat(outs_)
+
+    decay34 = np.exp(-np.arange(IR_LEN) / (0.5 * SR))
+    irs34 = (0.05 * rng.standard_normal((SERVE_CH, IR_LEN)) * decay34).astype(np.float32)
+    sb34 = (0.1 * rng.standard_normal((SERVE_BLOCKS, SERVE_CH, PTS))).astype(np.float32)
+    x34 = (0.1 * rng.standard_normal((SCAN_BLOCKS, PTS))).astype(np.float32)
+    irs34_d, sb34_d, x34_d = (torch.from_numpy(a).to(dev) for a in (irs34, sb34, x34))
+    routes34 = {}
+    for ring in ("bf16", "f32"):
+        cfg34 = P.PconvConfig.for_ir_length(IR_LEN, PTS, ring_dtype=ring)
+        zero_counts()
+        conv34 = P.Convolver(cfg34, SERVE_CH, device=dev)
+        conv34.push_ir(irs34_d)
+        one34 = P.push_ir(cfg34, P.pconv_init(cfg34, dev), irs34_d[0])
+        y_serve = conv34.stream(sb34_d)
+        y_chunk = chunked(cfg34, one34, x34_d)
+        y_stream = P.pconv_stream(cfg34, one34, x34_d)[1]
+        torch.cuda.synchronize()
+        counts34 = path_kernels()
+        if ring == "bf16":
+            # two chunks of nparts blocks of one channel; four chunks of
+            # 4 blocks at 64 channels (the window budget's K there)
+            steps34 = (stream_vs_steps(cfg34, one34, x34_d[:2 * cfg34.nparts]),
+                       stream_vs_steps(cfg34, conv34.state, sb34_d[:16],
+                                       P.pconv_stream_batched))
+        dtypes34 = (conv34.state.spec_x_re.dtype, conv34.state.spec_h_im.dtype,
+                    conv34.state.tail.dtype, one34.spec_h_re.dtype)
+        serve_ms34 = cuda_ms(lambda: conv34.stream(sb34_d), warmup=1, reps=3)
+        chunk_ms34 = cuda_ms(lambda: chunked(cfg34, one34, x34_d), warmup=1, reps=3)
+        stream_ms34 = cuda_ms(lambda: P.pconv_stream(cfg34, one34, x34_d), warmup=1, reps=3)
+        if ring == "bf16":
+            profile_streams(((f"Convolver({SERVE_CH}).stream bf16, 16 blocks",
+                              lambda: conv34.stream(sb34_d[:16])),
+                             ("pconv_stream bf16, 64 blocks",
+                              lambda: P.pconv_stream(cfg34, one34, x34_d[:64]))),
+                            calls=2, phase=34)
+        routes34[ring] = ((y_serve.cpu().numpy(), y_chunk.cpu().numpy(),
+                           y_stream.cpu().numpy()), counts34, dtypes34,
+                          (serve_ms34, chunk_ms34, stream_ms34))
+        del conv34, one34, y_serve, y_chunk, y_stream
+    (bf_serve, bf_chunk, bf_stream), bf_counts, bf_dtypes, bf_ms = routes34["bf16"]
+    (f_serve, f_chunk, f_stream), f_counts, f_dtypes, f_ms = routes34["f32"]
+    check(bf_dtypes == (torch.bfloat16, torch.bfloat16, torch.float32, torch.bfloat16),
+          f"bf16 state dtypes (rings, tail): {bf_dtypes}")
+    check(f_dtypes == (torch.float32,) * 4, f"f32 state dtypes {f_dtypes}")
+    check(not any(bf_counts), f"the bf16 routes launched no scan/step/MAC kernel: {bf_counts}")
+    check(f_counts[2] > 0 and f_counts[0] > 0, f"the f32 routes launched #3 and #1: {f_counts}")
+    ref1 = sps.fftconvolve(x34.reshape(-1).astype(np.float64),
+                           irs34[0].astype(np.float64))[:SCAN_BLOCKS * PTS]
+    errs34 = {"serve": max(rel_err(bf_serve[:, c].reshape(-1), sps.fftconvolve(
+        sb34[:, c].reshape(-1).astype(np.float64), irs34[c].astype(np.float64))[
+            :SERVE_BLOCKS * PTS]) for c in range(SERVE_CH)),
+              "chunk": rel_err(bf_chunk.reshape(-1), ref1),
+              "stream": rel_err(bf_stream.reshape(-1), ref1)}
+    errs34_f32 = {"serve": rel_err(bf_serve, f_serve), "chunk": rel_err(bf_chunk, f_chunk),
+                  "stream": rel_err(bf_stream, f_stream)}
+    for what, e in (*errs34.items(), *((f"{k} vs f32", v) for k, v in errs34_f32.items()),
+                    *((f"stream vs steps {i}", v) for i, (_, v) in enumerate(steps34))):
+        check(bool(np.isfinite(e)) and e <= BF16_TOL, f"bf16 {what}: {e:.3e} > {BF16_TOL}")
+    chunk_audio_s = SCAN_BLOCKS * PTS / SR
+    print(f"phase 34 bf16 rings [{card}]: Convolver({SERVE_CH}).stream {SERVE_BLOCKS}x{PTS}, "
+          f"{IR_LEN} taps: serving_64ch_bf16_audio_seconds_per_second "
+          f"{serve_audio_s / (bf_ms[0] / 1e3):.1f} ({bf_ms[0]:.4f} ms/scan; f32 rings "
+          f"{serve_audio_s / (f_ms[0] / 1e3):.1f}, {f_ms[0]:.4f} ms: {bf_ms[0] / f_ms[0]:.1f}x "
+          f"faster than bf16); pconv_chunk K={CHUNK_K} over {SCAN_BLOCKS} blocks: "
+          f"pconv_chunk8_bf16_rt_factor {chunk_audio_s / (bf_ms[1] / 1e3):.1f} ({bf_ms[1]:.4f} "
+          f"ms; f32 {chunk_audio_s / (f_ms[1] / 1e3):.1f}, {f_ms[1]:.4f} ms); pconv_stream "
+          f"{SCAN_BLOCKS} blocks {chunk_audio_s / (bf_ms[2] / 1e3):.1f}x real time "
+          f"({bf_ms[2]:.4f} ms; f32 {chunk_audio_s / (f_ms[2] / 1e3):.1f}x, {f_ms[2]:.4f} ms); "
+          f"vs float64 scipy (worst channel) serve {errs34['serve']:.3e}, chunk "
+          f"{errs34['chunk']:.3e}, stream {errs34['stream']:.3e}; vs the f32 rings "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs34_f32.items())
+          + f" (tol {BF16_TOL}); pconv_stream vs sequential pconv_step on the card, "
+          f"{2 * (IR_LEN // PTS)} blocks of 1 channel: bit-equal {steps34[0][0]}, "
+          f"{steps34[0][1]:.3e}; pconv_stream_batched 16 blocks x {SERVE_CH}: bit-equal "
+          f"{steps34[1][0]}, {steps34[1][1]:.3e}; state (rings, tail) {bf_dtypes[0]}, "
+          f"{bf_dtypes[2]}; "
+          f"scan/step/MAC kernel launches on the bf16 routes {sum(bf_counts)}, on the f32 "
+          f"routes {sum(f_counts)} (#1 {f_counts[0]}, #3 {f_counts[2]}); CUDA events, median "
+          f"of 3", flush=True)
+    del routes34, bf_serve, f_serve
+
+    # phase 35: float64 on the card: pconv_stream at 2^17 taps over 1880
+    # blocks and dconv_stream at 512 taps, against float64 scipy/numpy at
+    # 1e-12 of max|ref| (the JAX bound, tests/test_f64.py:79-110); they take
+    # no kernel; times beside the f32 routes'. The float64 rounding scale
+    # printed beside the errors is eps * log2(2 pts) * sqrt(nparts)
+    F64_TOL = 1e-12
+    cfg35 = P.PconvConfig.for_ir_length(IR_LEN, PTS, dtype="f64")
+    dcfg35 = P.DconvConfig(irsize=DIRECT_TAPS, vsize=PTS, dtype="f64")
+    x35_d = torch.from_numpy(x34.astype(np.float64)).to(dev)
+    ir35 = irs34[0].astype(np.float64)
+    h35 = ir_d512.astype(np.float64)
+    zero_counts()
+    st35 = P.push_ir(cfg35, P.pconv_init(cfg35, dev), torch.from_numpy(ir35).to(dev))
+    dst35 = D.push_ir(dcfg35, D.dconv_init(dcfg35, dev), torch.from_numpy(h35).to(dev))
+    y35 = P.pconv_stream(cfg35, st35, x35_d)[1]
+    yd35 = D.dconv_stream(dcfg35, dst35, x35_d)[1]
+    steps35 = stream_vs_steps(cfg35, st35, x35_d[:2 * cfg35.nparts])
+    torch.cuda.synchronize()
+    counts35 = path_kernels()
+    check(not any(counts35), f"the float64 routes launched no scan/step/MAC/FIR kernel: "
+          f"{counts35}")
+    check(y35.dtype == torch.float64 and yd35.dtype == torch.float64, "float64 outputs")
+    x35 = x34.reshape(-1).astype(np.float64)
+    err35 = rel_err(y35.cpu().numpy().reshape(-1), ref1)
+    errd35 = rel_err(yd35.cpu().numpy().reshape(-1), np.convolve(x35, h35)[:x35.size])
+    scale35 = np.finfo(np.float64).eps * math.log2(2 * PTS) * math.sqrt(IR_LEN // PTS)
+    for what, e in (("pconv_stream", err35), ("dconv_stream", errd35),
+                    ("pconv_stream vs sequential pconv_step", steps35[1])):
+        check(bool(np.isfinite(e)) and e <= F64_TOL,
+              f"float64 {what} vs float64 numpy/scipy: {e:.3e} > {F64_TOL} (the float64 "
+              f"rounding scale eps log2(2 pts) sqrt(nparts) is {scale35:.3e})")
+    profile_streams((("pconv_stream float64, 64 blocks",
+                      lambda: P.pconv_stream(cfg35, st35, x35_d[:64])),
+                     ("dconv_stream float64, 64 blocks",
+                      lambda: D.dconv_stream(dcfg35, dst35, x35_d[:64]))), calls=2, phase=35)
+    p35_ms = cuda_ms(lambda: P.pconv_stream(cfg35, st35, x35_d), warmup=1, reps=3)
+    d35_ms = cuda_ms(lambda: D.dconv_stream(dcfg35, dst35, x35_d), warmup=1, reps=3)
+    st32 = P.push_ir(cfg, P.pconv_init(cfg, dev), irs34_d[0])
+    p32_ms = cuda_ms(lambda: P.pconv_stream(cfg, st32, x34_d), reps=7)
+    d32_ms = cuda_ms(lambda: D.dconv_stream(dcfg, dstate, x34_d), reps=7)
+    print(f"phase 35 float64 [{card}]: pconv_stream {SCAN_BLOCKS}x{PTS}, {IR_LEN} taps: vs "
+          f"float64 scipy {err35:.3e}; dconv_stream {DIRECT_TAPS} taps: vs float64 np.convolve "
+          f"{errd35:.3e} (tol {F64_TOL}; float64 rounding scale {scale35:.3e}); pconv_stream "
+          f"vs sequential pconv_step, {2 * cfg35.nparts} blocks: bit-equal {steps35[0]}, "
+          f"{steps35[1]:.3e}; "
+          f"{chunk_audio_s / (p35_ms / 1e3):.1f}x real time ({p35_ms:.4f} ms/scan; f32 "
+          f"{chunk_audio_s / (p32_ms / 1e3):.1f}x, {p32_ms:.4f} ms) and "
+          f"{chunk_audio_s / (d35_ms / 1e3):.1f}x ({d35_ms:.4f} ms; f32 "
+          f"{chunk_audio_s / (d32_ms / 1e3):.1f}x, {d32_ms:.4f} ms); scan/step/MAC/FIR kernel "
+          f"launches on the float64 routes {sum(counts35)}; CUDA events, median of 3", flush=True)
+    del st35, dst35, y35, yd35, x35_d, st32
+
+    # phase 36: scale-out on the card. One NCCL rank on cuda:0 (make_mesh()'s
+    # default), the file store in a temporary directory: the sharded LTI
+    # step with a crossfade of 16 of 64 channels at block 260 (8 fade
+    # blocks) and the sharded TV step, 64 channels, 2^17 taps, pts 512, for
+    # 2 nparts + 3 blocks, against the unsharded Convolver.step (and its
+    # set_ir fade) and TVConvolver.step at 1e-4 of the output scale, one
+    # all_reduce a block; sharded_fft at 2^13 x 512 rows (#18) and 2^18 x 16
+    # (#19) and dist_fft_split at 2^20 (two 1024-point passes of #18)
+    # against float64 numpy; the per-block times of the sharded step beside
+    # the unsharded step's. Then four gloo ranks sharing the card (gloo takes
+    # CUDA tensors for all_reduce, all_to_all_single and all_gather: found on
+    # this slice's first chip call) run the dry run at (dp 2, tp 2).
+    import importlib
+    import tempfile
+
+    import torch.distributed as dist
+
+    import opencl_fft_tpu_torch.parallel as PL
+    SHm = importlib.import_module("opencl_fft_tpu_torch.parallel.sharded")
+    DFm = importlib.import_module("opencl_fft_tpu_torch.parallel.dist_fft")
+    n36, sw36, fade36 = 2 * cfg.nparts + 3, 260, 8
+    bx36 = f(n36, SERVE_CH, PTS, s=0.1)
+    bh36 = f(n36, SERVE_CH, PTS, s=0.1)
+    swap36 = list(range(0, SERVE_CH, 4))
+    irs36_new = irs34_d.flip(0).contiguous()
+    mask36 = torch.zeros(SERVE_CH, dtype=torch.bool, device=dev)
+    mask36[swap36] = True
+    with tempfile.TemporaryDirectory() as store:
+        dist.init_process_group("nccl", init_method="file://" + store + "/store", rank=0,
+                                world_size=1)
+        try:
+            mesh = PL.make_mesh()
+            check((mesh.backend, mesh.device, mesh.shape) == ("nccl", dev, {"dp": 1, "tp": 1}),
+                  f"make_mesh() default: {mesh}")
+            zero_counts()
+            ar0, are0, a2a0 = SHm.ALL_REDUCES, SHm.ALL_REDUCE_ELEMENTS, DFm.ALL_TO_ALLS
+            step36 = PL.make_sharded_pconv_step(cfg, mesh, tv=False)
+            step36_tv = PL.make_sharded_pconv_step(cfg, mesh, tv=True)
+            begin36, step36_xf = PL.make_sharded_pconv_xfade(cfg, mesh)
+            st36 = PL.sharded_push_ir(cfg, mesh, PL.shard_state(
+                PL.sharded_pconv_init(cfg, SERVE_CH), mesh), irs34_d)
+            conv36 = P.Convolver(cfg, SERVE_CH, device=dev)
+            conv36.push_ir(irs34_d)
+            xf36, got36, want36 = None, [], []
+            for i in range(n36):
+                if i == sw36:
+                    xf36 = begin36(st36, irs36_new, mask36)
+                    conv36.set_ir(irs36_new[swap36], channels=swap36, fade_blocks=fade36)
+                if xf36 is not None:
+                    xf36, o_ = step36_xf(xf36, bx36[i], PC._xfade_ramp(cfg, i - sw36, fade36,
+                                                                        dev))
+                    if i - sw36 == fade36 - 1:
+                        st36, xf36 = {k_: xf36[k_] for k_ in st36}, None
+                else:
+                    st36, o_ = step36(st36, bx36[i])
+                got36.append(o_)
+                want36.append(conv36.step(bx36[i]))
+            sttv = PL.shard_state(PL.sharded_pconv_init(cfg, SERVE_CH), mesh)
+            tvc36 = P.TVConvolver(cfg, SERVE_CH, device=dev)
+            got36_tv, want36_tv = [], []
+            for i in range(n36):
+                sttv, o_ = step36_tv(sttv, bx36[i], bh36[i])
+                got36_tv.append(o_)
+                want36_tv.append(tvc36.step(bx36[i], bh36[i]))
+            xa = (f(512, 1 << 13), f(512, 1 << 13))
+            xb = (f(16, 1 << 18), f(16, 1 << 18))
+            xc = (f(1 << 20), f(1 << 20))
+            v_counts = [(V.LAUNCHES, V.FRONT2_LAUNCHES)]
+            ya = PL.sharded_fft(xa, mesh)
+            v_counts.append((V.LAUNCHES, V.FRONT2_LAUNCHES))
+            yb = PL.sharded_fft(xb, mesh)
+            v_counts.append((V.LAUNCHES, V.FRONT2_LAUNCHES))
+            yc = PL.dist_fft_split(xc, mesh)
+            torch.cuda.synchronize()
+            v_counts.append((V.LAUNCHES, V.FRONT2_LAUNCHES))
+            all_reduces36 = (SHm.ALL_REDUCES - ar0, SHm.ALL_REDUCE_ELEMENTS - are0)
+            a2a36 = DFm.ALL_TO_ALLS - a2a0
+            path36 = {"fft_vmem": V.LAUNCHES, "fft_vmem_front2": V.FRONT2_LAUNCHES,
+                      "block_step_fwd_fused (the unsharded reference)": BS.FWD_LAUNCHES,
+                      "block_step_fwd_fused_tv (the unsharded reference)": BS.FWD_TV_LAUNCHES}
+            # the checks, after the counts are read
+            err36 = rel_err(torch.stack(got36).cpu().numpy(), torch.stack(want36).cpu().numpy())
+            err36_tv = rel_err(torch.stack(got36_tv).cpu().numpy(),
+                               torch.stack(want36_tv).cpu().numpy())
+            fft_err36 = []
+            for (re_, im_), (gr, gi) in ((xa, ya), (xb, yb), (xc, yc)):
+                ref_ = np.fft.fft(re_.cpu().double().numpy() + 1j * im_.cpu().double().numpy())
+                fft_err36.append(rel_err(np.stack([gr.cpu().numpy(), gi.cpu().numpy()]),
+                                         np.stack([ref_.real, ref_.imag])))
+            for what, e, tol in (("sharded LTI step + crossfade vs Convolver.step", err36, 1e-4),
+                                 ("sharded TV step vs TVConvolver.step", err36_tv, 1e-4),
+                                 ("sharded_fft 2^13 x 512 vs float64 numpy", fft_err36[0],
+                                  ORACLE_TOL),
+                                 ("sharded_fft 2^18 x 16 vs float64 numpy", fft_err36[1],
+                                  ORACLE_TOL),
+                                 ("dist_fft_split 2^20 vs float64 numpy", fft_err36[2], 3e-5)):
+                check(bool(np.isfinite(e)) and e <= tol, f"{what}: {e:.3e} > {tol}")
+            check(all_reduces36[0] == 2 * n36 + 1,
+                  f"one all_reduce a sharded block (+1 for the fade's begin): {all_reduces36}")
+            check(v_counts[1][0] > v_counts[0][0] and v_counts[2][1] > v_counts[1][1]
+                  and v_counts[3][0] >= v_counts[2][0] + 2,
+                  f"#18 / #19 launched on the scale-out paths: {v_counts}")
+            check(a2a36 == 3, f"dist_fft_split: three all_to_all transposes, got {a2a36}")
+            b36, t36 = bx36[0], bh36[0]
+            un_st = conv36.state
+            times36 = {
+                "sharded LTI": (cuda_ms(lambda: step36(st36, b36), reps=7, calls=10),
+                                device_us(lambda: step36(st36, b36)),
+                                host_wall_us(lambda: step36(st36, b36))),
+                "unsharded pconv_step": (
+                    cuda_ms(lambda: P.pconv_step(cfg, un_st, b36), reps=7, calls=10),
+                    device_us(lambda: P.pconv_step(cfg, un_st, b36)),
+                    host_wall_us(lambda: P.pconv_step(cfg, un_st, b36))),
+                "sharded TV": (cuda_ms(lambda: step36_tv(sttv, b36, t36), reps=7, calls=10),
+                               device_us(lambda: step36_tv(sttv, b36, t36)),
+                               host_wall_us(lambda: step36_tv(sttv, b36, t36))),
+                "unsharded pconv_step_tv": (
+                    cuda_ms(lambda: P.pconv_step_tv(cfg, tvc36.state, b36, t36), reps=7,
+                            calls=10),
+                    device_us(lambda: P.pconv_step_tv(cfg, tvc36.state, b36, t36)),
+                    host_wall_us(lambda: P.pconv_step_tv(cfg, tvc36.state, b36, t36)))}
+            fft_ms36 = (cuda_ms(lambda: PL.sharded_fft(xa, mesh), reps=7),
+                        cuda_ms(lambda: PL.sharded_fft(xb, mesh), reps=7),
+                        cuda_ms(lambda: PL.dist_fft_split(xc, mesh), reps=7))
+        finally:
+            dist.destroy_process_group()
+    del got36, want36, got36_tv, want36_tv, conv36, tvc36, st36, sttv, xa, xb, xc, ya, yb, yc
+    t0 = time.perf_counter()
+    dry36 = PL.dryrun_multichip(4, backend="gloo", device="cuda", timeout=600)
+    dry36_s = time.perf_counter() - t0
+    print(f"phase 36 scale-out on {dev} [{card}]: one NCCL rank (make_mesh() default, mesh "
+          f"{mesh.shape}): the sharded LTI step with a crossfade of {len(swap36)} of {SERVE_CH} "
+          f"channels (fade {fade36} blocks at block {sw36}) vs Convolver.step / set_ir "
+          f"{err36:.3e}, the sharded TV step vs TVConvolver.step {err36_tv:.3e} ({n36} blocks, "
+          f"{SERVE_CH} channels, {IR_LEN} taps, pts {PTS}; tol 1e-4 of the output scale); "
+          f"all_reduces {all_reduces36[0]} of {all_reduces36[1]} elements; sharded_fft 2^13 x 512 "
+          f"{fft_err36[0]:.3e} ({fft_ms36[0]:.4f} ms), 2^18 x 16 {fft_err36[1]:.3e} "
+          f"({fft_ms36[1]:.4f} ms), dist_fft_split 2^20 {fft_err36[2]:.3e} ({fft_ms36[2]:.4f} "
+          f"ms; {a2a36} all_to_alls) vs float64 numpy; launches (fft_vmem, fft_vmem_front2) "
+          f"before / after each: {v_counts}; the phase's own launches {path36}; per block "
+          f"(events over 10 back to back ms; device us by the profiler; host wall us): "
+          + "; ".join(f"{k} {v[0]:.4f} ms, {v[1]:.1f} us, {v[2]:.1f} us"
+                      for k, v in times36.items())
+          + f" | four gloo ranks on the one card (gloo takes CUDA tensors for all_reduce, "
+          f"all_to_all_single and all_gather; NCCL takes one rank a card): "
+          f"dryrun_multichip(4) mesh {dry36['shape']}: "
+          f"sharded TV step vs the unsharded engine {dry36['err']:.3e} of scale "
+          f"{dry36['scale']:.3e} (tol 1e-4 of it), dist_fft over tp {dry36['dist_fft_err']:.3e} "
+          f"(tol 3e-5); {dry36_s:.1f} s with the spawn", flush=True)
+
     def kernel(name, source, replaces, launches, err, ms, plain, bnd, lib):
         return {"name": name, "route": "cuda", "source": f"opencl_fft_tpu_torch/csrc/{source}",
                 "replaces": f"opencl_fft_tpu/ops/pallas/{replaces}", "launches": launches,

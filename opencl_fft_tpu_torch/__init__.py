@@ -39,8 +39,13 @@ MAC-and-unpack entry of the same source (``block_mac_unpack``) before the
 inverse FFT; the zero-latency convolver (``models/lowlatency.py``:
 ``ZeroLatencyConvolver``, ``plan_segments``; ``ClconvProcessor(parts=0)``);
 the STFT layer (``ops/stft.py``: ``stft``, ``istft``, ``spectrogram``) on
-the FFT kernel; and state exchange with the JAX package (``interop.py``), a
-crossfade in progress and a zero-latency stream included.
+the FFT kernel; state exchange with the JAX package (``interop.py``), a
+crossfade in progress, a zero-latency stream, bf16-ring and float64 states
+and the sharded state included; and scale-out on ``torch.distributed``
+(``parallel/``: the (dp, tp) mesh, the sharded convolver, ``sharded_fft``,
+``dist_fft``, the multi-rank dry run). bf16 rings and float64 compute
+(``PconvConfig(ring_dtype="bf16")``, ``dtype="f64"``) take the plain
+composition on either device: only float32 reaches the kernels.
 
 Every engine takes an explicit device: a CUDA card, or the CPU when asked
 for by name, where each kernel's plain PyTorch twin runs.

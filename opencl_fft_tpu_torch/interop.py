@@ -12,18 +12,29 @@ state and per segment its pconv state (``eng``), input buffer (``buf``)
 and output queue (``queue``). The exchange format is numpy: a mapping (or
 NamedTuple) of field name -> array, nested for the crossfade and the
 zero-latency state.
+
+States of every ring and compute dtype cross: a float64 state as float64
+arrays, and a bf16 ring as float32 arrays (numpy has no bfloat16; the
+widening is exact). ``*_from_numpy(..., cfg)`` puts each plane in the
+config's dtype (a bf16 ring rounds back exactly); without a config the
+planes are float32. The JAX package hands out bf16 rings as
+``ml_dtypes.bfloat16`` arrays, which ``np.asarray(x, np.float32)`` widens
+the same way. The sharded convolver's state (``parallel/sharded.py``)
+crosses as the JAX package's global dict through ``shard_state`` and
+``gather_state``, re-exported here.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Union
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
 from .models.lowlatency import ZLState, _SegState
-from .ops.dconv import DconvState
-from .ops.pconv import PconvState, XfadeState
+from .ops.dconv import DconvConfig, DconvState
+from .ops.pconv import PconvConfig, PconvState, XfadeState
+from .parallel.sharded import gather_state, shard_state  # noqa: F401  (the sharded exchange)
 
 
 def _fields(fields, state_type) -> Mapping[str, Any]:
@@ -33,6 +44,19 @@ def _fields(fields, state_type) -> Mapping[str, Any]:
     if missing:
         raise ValueError(f"missing {state_type.__name__} fields: {sorted(missing)}")
     return fields
+
+
+def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
+    """A copy of array a on ``device`` in ``dtype``: float64 through float64
+    numpy, every other dtype (bf16 included) through float32."""
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    return torch.tensor(np.asarray(a, dtype=npdt), device=device).to(dtype)
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy: bf16 widened to float32, other dtypes kept."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def _pointers(value, nparts: int, nch: int):
@@ -47,11 +71,14 @@ def _pointers(value, nparts: int, nch: int):
 
 
 def pconv_state_from_numpy(fields: Union[Mapping[str, Any], tuple],
-                           device: Union[str, torch.device]) -> PconvState:
+                           device: Union[str, torch.device],
+                           cfg: Optional[PconvConfig] = None) -> PconvState:
     """Build a PconvState on ``device`` from numpy fields (for example the
     JAX package's ``PconvState`` mapped through ``np.asarray``). A batched
     state (``spec_h_re`` of rank 3, a leading channel axis) keeps that axis
-    on every plane; its pointers may be scalars or per-channel vectors."""
+    on every plane; its pointers may be scalars or per-channel vectors. The
+    rings take ``cfg``'s storage dtype and the tail its compute dtype
+    (float32 without a config)."""
     fields = _fields(fields, PconvState)
     hr = np.asarray(fields["spec_h_re"])
     if hr.ndim not in (2, 3):
@@ -62,20 +89,22 @@ def pconv_state_from_numpy(fields: Union[Mapping[str, Any], tuple],
               "tail": (bins,)}
     planes = {}
     for name, shape in shapes.items():
-        a = np.asarray(fields[name], dtype=np.float32)
+        a = np.asarray(fields[name])
         if a.shape != lead + shape:
             raise ValueError(f"{name} must be {lead + shape}, got {a.shape}")
-        planes[name] = torch.tensor(a, device=device)     # a copy
+        dtype = torch.float32 if cfg is None else \
+            cfg.compute_dtype if name == "tail" else cfg.storage_dtype
+        planes[name] = _tensor(a, dtype, device)
     nch = lead[0] if lead else 1
     return PconvState(**planes, wp=_pointers(fields["wp"], nparts, nch),
                       wp2=_pointers(fields["wp2"], nparts, nch))
 
 
 def pconv_state_to_numpy(state: PconvState) -> Dict[str, np.ndarray]:
-    """The state's fields as numpy arrays (ring pointers as int32 scalars,
-    or int32 (C,) vectors when they are per channel: the JAX package's
-    pointer type)."""
-    out = {name: getattr(state, name).detach().cpu().numpy()
+    """The state's fields as numpy arrays, bf16 rings as float32 (ring
+    pointers as int32 scalars, or int32 (C,) vectors when they are per
+    channel: the JAX package's pointer type)."""
+    out = {name: _array(getattr(state, name))
            for name in ("spec_x_re", "spec_x_im", "spec_h_re", "spec_h_im", "tail")}
     out["wp"] = np.asarray(state.wp, np.int32)
     out["wp2"] = np.asarray(state.wp2, np.int32)
@@ -83,21 +112,23 @@ def pconv_state_to_numpy(state: PconvState) -> Dict[str, np.ndarray]:
 
 
 def xfade_state_from_numpy(fields: Union[Mapping[str, Any], tuple],
-                           device: Union[str, torch.device]) -> XfadeState:
+                           device: Union[str, torch.device],
+                           cfg: Optional[PconvConfig] = None) -> XfadeState:
     """Build an XfadeState (a crossfade in progress) on ``device`` from
     numpy fields: ``state`` (the PconvState fields, as for
     ``pconv_state_from_numpy``) and the outgoing path's ``old_h_re``,
     ``old_h_im`` and ``old_tail``, for example the JAX package's
-    ``XfadeState`` mapped through ``np.asarray``."""
+    ``XfadeState`` mapped through ``np.asarray``; each plane in the dtype
+    of its counterpart in ``state``."""
     fields = _fields(fields, XfadeState)
-    state = pconv_state_from_numpy(fields["state"], device)
+    state = pconv_state_from_numpy(fields["state"], device, cfg)
     old = {}
     for name, like in (("old_h_re", state.spec_h_re), ("old_h_im", state.spec_h_im),
                        ("old_tail", state.tail)):
-        a = np.asarray(fields[name], dtype=np.float32)
+        a = np.asarray(fields[name])
         if a.shape != tuple(like.shape):
             raise ValueError(f"{name} must be {tuple(like.shape)}, got {a.shape}")
-        old[name] = torch.tensor(a, device=device)       # a copy
+        old[name] = _tensor(a, like.dtype, device)
     return XfadeState(state=state, **old)
 
 
@@ -106,22 +137,24 @@ def xfade_state_to_numpy(xf: XfadeState) -> Dict[str, Any]:
     ``pconv_state_to_numpy`` gives it, and the outgoing path's planes."""
     out: Dict[str, Any] = {"state": pconv_state_to_numpy(xf.state)}
     for name in ("old_h_re", "old_h_im", "old_tail"):
-        out[name] = getattr(xf, name).detach().cpu().numpy()
+        out[name] = _array(getattr(xf, name))
     return out
 
 
 def dconv_state_from_numpy(fields: Union[Mapping[str, Any], tuple],
-                           device: Union[str, torch.device]) -> DconvState:
+                           device: Union[str, torch.device],
+                           cfg: Optional[DconvConfig] = None) -> DconvState:
     """Build a DconvState on ``device`` from numpy fields (for example the
-    JAX package's ``DconvState`` mapped through ``np.asarray``)."""
+    JAX package's ``DconvState`` mapped through ``np.asarray``), in
+    ``cfg``'s dtype (float32 without a config)."""
     fields = _fields(fields, DconvState)
-    delay = np.asarray(fields["delay"], dtype=np.float32)
-    coefs = np.asarray(fields["coefs"], dtype=np.float32)
+    delay = np.asarray(fields["delay"])
+    coefs = np.asarray(fields["coefs"])
     if delay.ndim != 1 or coefs.shape != delay.shape:
         raise ValueError(f"delay and coefs must be one (ring,) shape, got "
                          f"{delay.shape} and {coefs.shape}")
-    return DconvState(delay=torch.tensor(delay, device=device),
-                      coefs=torch.tensor(coefs, device=device),
+    dtype = torch.float32 if cfg is None else cfg.compute_dtype
+    return DconvState(delay=_tensor(delay, dtype, device), coefs=_tensor(coefs, dtype, device),
                       wp=int(fields["wp"]) % delay.shape[0])
 
 

@@ -27,7 +27,10 @@ their outputs are bit-equal to an engine that never swapped).
 ``Convolver``; ``BatchedFFT`` is ``fft_split`` over leading axes.
 
 Every engine takes an explicit device: a CUDA card (the default), or the
-CPU when asked for by name, where each kernel's plain twin runs.
+CPU when asked for by name, where each kernel's plain twin runs. A config
+with bf16 rings or float64 compute keeps its rings and tails in those
+dtypes and takes the plain composition of ``ops/pconv.py`` on either device
+(``PconvConfig._kernel_eligible``).
 """
 
 from __future__ import annotations
@@ -50,8 +53,9 @@ def _device(device: Device) -> torch.device:
     return get_device(device=device, on_message=lambda msg, user_data: None)
 
 
-def _f32(x, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+def _cast(x, cfg: _p.PconvConfig, device: torch.device) -> torch.Tensor:
+    """x as a tensor in the config's compute dtype on ``device``."""
+    return torch.as_tensor(x, dtype=cfg.compute_dtype, device=device)
 
 
 def _check_shape(name: str, x: torch.Tensor, shape) -> None:
@@ -62,18 +66,20 @@ def _check_shape(name: str, x: torch.Tensor, shape) -> None:
 def batched_state(cfg: _p.PconvConfig, batch: int, device: Device = None) -> _p.PconvState:
     """Zero state of ``batch`` channels on ``device`` (default: the card):
     every plane gains a leading channel axis; the ring pointers are shared
-    (all channels advance in lockstep), wp = 0 and wp2 = nparts - 1."""
+    (all channels advance in lockstep), wp = 0 and wp2 = nparts - 1. The
+    rings are in the config's storage dtype (bf16 for ``ring_dtype="bf16"``)
+    and the tail in its compute dtype (JAX ``models/convolver.py:32-40``)."""
     if batch < 1:
         raise ValueError(f"need at least one channel, got {batch}")
     dev = _device(device)
 
-    def z(*shape):
-        return torch.zeros((batch, *shape), dtype=torch.float32, device=dev)
+    def z(*shape, dtype=cfg.storage_dtype):
+        return torch.zeros((batch, *shape), dtype=dtype, device=dev)
 
     return _p.PconvState(
         spec_x_re=z(2 * cfg.nparts, cfg.bins), spec_x_im=z(2 * cfg.nparts, cfg.bins),
         spec_h_re=z(cfg.nparts, cfg.bins), spec_h_im=z(cfg.nparts, cfg.bins),
-        tail=z(cfg.pts), wp=0, wp2=cfg.nparts - 1)
+        tail=z(cfg.pts, dtype=cfg.compute_dtype), wp=0, wp2=cfg.nparts - 1)
 
 
 def _masked(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
@@ -127,7 +133,7 @@ class Convolver:
         """irs: (batch, cvs). An instant swap; it ends any crossfade on the
         live input ring."""
         self._collapse_fade()
-        self.state = _p.push_ir(self.cfg, self.state, _f32(irs, self.device))
+        self.state = _p.push_ir(self.cfg, self.state, _cast(irs, self.cfg, self.device))
 
     def _collapse_fade(self) -> None:
         if self._xf is not None:
@@ -148,7 +154,7 @@ class Convolver:
         live stream). A second call mid-fade adopts the in-flight targets
         and fades to the new ones.
         """
-        irs = _f32(irs, self.device)
+        irs = _cast(irs, self.cfg, self.device)
         if irs.dim() != 2 or irs.shape[1] != self.cfg.cvs:
             raise ValueError(f"irs must be (k, {self.cfg.cvs}), got {tuple(irs.shape)}")
         if channels is None:
@@ -182,7 +188,7 @@ class Convolver:
     def step(self, blocks) -> torch.Tensor:
         """blocks: (batch, pts) -> (batch, pts). During a crossfade, one
         fade block (``pconv_step_xfade``)."""
-        blocks = _f32(blocks, self.device)
+        blocks = _cast(blocks, self.cfg, self.device)
         _check_shape("blocks", blocks, (self.batch, self.cfg.pts))
         if self._xf is None:
             self.state, out = _p.pconv_step(self.cfg, self.state, blocks)
@@ -206,7 +212,7 @@ class Convolver:
         of chunk and chunk <= nparts). Raises RuntimeError mid-fade."""
         if self._xf is not None:
             _mid_fade("bulk streaming")
-        blocks = _f32(blocks, self.device)
+        blocks = _cast(blocks, self.cfg, self.device)
         if chunk <= 1:
             self.state, out = _p.pconv_stream_batched(self.cfg, self.state, blocks)
             return out
@@ -230,7 +236,7 @@ class Convolver:
         if self._xf is not None:
             _mid_fade("bulk rendering")
         self.state, out = _p._offline_batched(self.cfg, self.state,
-                                              _f32(blocks, self.device))
+                                              _cast(blocks, self.cfg, self.device))
         return out
 
 
@@ -249,7 +255,7 @@ class TVConvolver:
 
     def step(self, blocks_x, blocks_h) -> torch.Tensor:
         """(batch, pts) x 2 -> (batch, pts)."""
-        bx, bh = _f32(blocks_x, self.device), _f32(blocks_h, self.device)
+        bx, bh = (_cast(b, self.cfg, self.device) for b in (blocks_x, blocks_h))
         _check_shape("blocks_x", bx, (self.batch, self.cfg.pts))
         _check_shape("blocks_h", bh, (self.batch, self.cfg.pts))
         self.state, out = _p.pconv_step_tv(self.cfg, self.state, bx, bh)
@@ -260,7 +266,7 @@ class TVConvolver:
         block of every channel through the batched whole-scan TV kernel
         (the split scan above pts 2048)."""
         self.state, out = _p.pconv_stream_batched_tv(
-            self.cfg, self.state, _f32(blocks_x, self.device), _f32(blocks_h, self.device))
+            self.cfg, self.state, *(_cast(b, self.cfg, self.device) for b in (blocks_x, blocks_h)))
         return out
 
     def stream_chunked(self, blocks_x, blocks_h, K: int = 8) -> torch.Tensor:
@@ -269,7 +275,7 @@ class TVConvolver:
         multiple of K). Within float32 reduction-order tolerance of
         ``stream``; the state chains exactly."""
         self.state, out = _p.pconv_stream_batched_tv_chunked(
-            self.cfg, self.state, _f32(blocks_x, self.device), _f32(blocks_h, self.device),
+            self.cfg, self.state, *(_cast(b, self.cfg, self.device) for b in (blocks_x, blocks_h)),
             K=K)
         return out
 
@@ -299,7 +305,7 @@ class MatrixConvolver:
 
     def push_ir(self, irs) -> None:
         """irs: (n_out, n_in, cvs)."""
-        irs = _f32(irs, self.device)
+        irs = _cast(irs, self.cfg, self.device)
         if irs.shape != (self.n_out, self.n_in, self.cfg.cvs):
             raise ValueError(
                 f"irs must be ({self.n_out}, {self.n_in}, {self.cfg.cvs}), "
@@ -314,7 +320,7 @@ class MatrixConvolver:
         ``entries=None`` for the whole matrix. Crossfaded as
         ``Convolver.set_ir`` (entries left alone are bit-exact)."""
         if entries is None:
-            irs = _f32(irs, self.device)
+            irs = _cast(irs, self.cfg, self.device)
             if irs.shape != (self.n_out, self.n_in, self.cfg.cvs):
                 raise ValueError(
                     f"irs must be ({self.n_out}, {self.n_in}, {self.cfg.cvs}), "
@@ -331,7 +337,7 @@ class MatrixConvolver:
 
     def step(self, blocks) -> torch.Tensor:
         """blocks: (n_in, pts) -> (n_out, pts)."""
-        blocks = _f32(blocks, self.device)
+        blocks = _cast(blocks, self.cfg, self.device)
         if blocks.shape != (self.n_in, self.cfg.pts):
             raise ValueError(
                 f"blocks must be ({self.n_in}, {self.cfg.pts}), "
@@ -341,7 +347,7 @@ class MatrixConvolver:
 
     def stream(self, blocks) -> torch.Tensor:
         """Scan (nblocks, n_in, pts) -> (nblocks, n_out, pts)."""
-        blocks = _f32(blocks, self.device)
+        blocks = _cast(blocks, self.cfg, self.device)
         if blocks.dim() != 3 or blocks.shape[1:] != (self.n_in, self.cfg.pts):
             raise ValueError(
                 f"blocks must be (nblocks, {self.n_in}, {self.cfg.pts}), "

@@ -172,14 +172,15 @@ def _run(name: str, x: Cplx, h: Cplx, nout: int, b0: float):
 def slide_mac_plain(x: Cplx, h: Cplx, nout: int, b0: float) -> Cplx:
     """Plain PyTorch twin of the sliding MAC (the JAX package's
     ``_lti_mac_xla`` over channels): x (C, rows, bins), h (C, nparts,
-    bins) -> (C, nout, bins). Outputs are taken in chunks of k rows whose
-    (C, k, nparts, bins) windows are gathered and summed over the
-    partitions."""
+    bins) -> (C, nout, bins), in the planes' dtype. Outputs are taken in
+    chunks of k rows whose (C, k, nparts, bins) windows are gathered and
+    summed over the partitions. The engines call it directly, on any device,
+    for a config the kernels do not take (bf16 rings, float64)."""
     (xr, xi), (hr, hi) = x, h
     nch, _, bins = xr.shape
     nparts = hr.shape[1]
     dev = xr.device
-    acc_r = torch.empty((nch, nout, bins), dtype=torch.float32, device=dev)
+    acc_r = torch.empty((nch, nout, bins), dtype=xr.dtype, device=dev)
     acc_i = torch.empty_like(acc_r)
     hr4, hi4 = hr[:, None], hi[:, None]                       # (C, 1, nparts, bins)
     step = max(1, _PLAIN_CHUNK_ELEMS // (nch * nparts * bins))
@@ -316,13 +317,14 @@ def slide_mac_tv_plain(x: Cplx, h: Cplx, nout: int, nparts: int, b0: float,
                        phase: int) -> Cplx:
     """Plain PyTorch twin of the TV sliding MAC (the JAX package's
     ``_tv_mac_xla`` over channels): x, h (C, rows, bins) timelines -> (C,
-    nout, bins). Outputs are taken in chunks of k rows whose (C, k, nparts,
-    bins) windows of both timelines are gathered and summed over the
-    partitions."""
+    nout, bins), in the planes' dtype. Outputs are taken in chunks of k rows
+    whose (C, k, nparts, bins) windows of both timelines are gathered and
+    summed over the partitions. Called directly, on any device, for a
+    config the kernels do not take."""
     (xr, xi), (hr, hi) = x, h
     nch, _, bins = xr.shape
     dev = xr.device
-    acc_r = torch.empty((nch, nout, bins), dtype=torch.float32, device=dev)
+    acc_r = torch.empty((nch, nout, bins), dtype=xr.dtype, device=dev)
     acc_i = torch.empty_like(acc_r)
     p = torch.arange(nparts, device=dev)
     step = max(1, _PLAIN_CHUNK_ELEMS // (nch * nparts * bins))

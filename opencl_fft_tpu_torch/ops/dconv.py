@@ -10,9 +10,11 @@ the same ring arithmetic (``cl_dconv.cpp:134-148``).
 
 The per-block steps are plain PyTorch. ``dconv_stream`` sends every block of
 a call through the whole-scan kernel (``ops/cuda/dstream.py``), for any
-irsize and vsize. State keeps the JAX package's field layout (``wp`` is a
-Python int), so a stream can cross packages (see ``interop.py``). Functions
-return new state and do not modify the state they are given.
+irsize and vsize, in float32; a float64 config (the reference's USE_DOUBLE
+build) runs the per-block steps in float64, as the JAX package does. State
+keeps the JAX package's field layout (``wp`` is a Python int), so a stream
+can cross packages (see ``interop.py``). Functions return new state and do
+not modify the state they are given.
 """
 
 from __future__ import annotations
@@ -35,7 +37,9 @@ class DconvConfig:
     input: the result is sum_k coefs[k] * x[n-1-k], one sample later than
     a standard FIR. Default False computes the standard alignment
     (== np.convolve); True reproduces the reference's extra sample of delay.
-    dtype: "f32" only so far.
+    dtype: "f32" or "f64" (the reference's USE_DOUBLE build,
+    macos-build.sh:5); only float32 reaches the kernel
+    (``_kernel_eligible``).
     """
 
     irsize: int
@@ -48,9 +52,16 @@ class DconvConfig:
             raise ValueError("irsize and vsize must be positive")
         if self.dtype not in ("f32", "f64"):
             raise ValueError(f"dtype must be 'f32'|'f64', got {self.dtype}")
-        if self.dtype == "f64":
-            raise NotImplementedError(
-                "dtype='f64' is not ported yet (ROADMAP queue 1 item 17)")
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The dtype of the delay line, the coefficients and the outputs."""
+        return torch.float64 if self.dtype == "f64" else torch.float32
+
+    def _kernel_eligible(self) -> bool:
+        """Whether ``dconv_stream`` takes the kernel: float32 only (JAX
+        ``dconv.py:64``)."""
+        return self.dtype == "f32"
 
     @property
     def ring(self) -> int:
@@ -77,8 +88,8 @@ class DconvState(NamedTuple):
 
 
 def dconv_init(cfg: DconvConfig, device: Union[str, torch.device]) -> DconvState:
-    """Zero state on ``device``, wp = 0."""
-    z = torch.zeros((cfg.ring,), dtype=torch.float32, device=device)
+    """Zero state on ``device`` in the config's dtype, wp = 0."""
+    z = torch.zeros((cfg.ring,), dtype=cfg.compute_dtype, device=device)
     return DconvState(delay=z, coefs=z.clone(), wp=0)
 
 
@@ -87,7 +98,7 @@ def push_ir(cfg: DconvConfig, state: DconvState, ir: torch.Tensor) -> DconvState
     if tuple(ir.shape) != (cfg.irsize,):
         raise ValueError(f"IR must have shape ({cfg.irsize},), got {tuple(ir.shape)}")
     coefs = state.coefs.clone()
-    coefs[:cfg.irsize] = ir.to(torch.float32)
+    coefs[:cfg.irsize] = ir.to(coefs.dtype)
     return state._replace(coefs=coefs)
 
 
@@ -138,16 +149,23 @@ def dconv_stream(cfg: DconvConfig, state: DconvState, blocks: torch.Tensor
     irsize samples, front-padded with zeros to P = ceil(irsize / vsize)
     blocks and laid end to end with the blocks in one sequence; the ring
     afterwards is the tail of that sequence (exactly the last irsize + vsize
-    samples). Same results as dconv_step per block.
+    samples). Same results as dconv_step per block. A float64 config runs
+    ``dconv_step`` block by block (the JAX package's scan).
     """
     v = cfg.vsize
     if blocks.dim() != 2 or blocks.shape[1] != v:
         raise ValueError(f"blocks must be (nblocks, {v}), got {tuple(blocks.shape)}")
-    if blocks.is_cuda and blocks.dtype != torch.float32:
+    if cfg._kernel_eligible() and blocks.is_cuda and blocks.dtype != torch.float32:
         raise TypeError(f"CUDA blocks must be float32, got {blocks.dtype}")
     nb = blocks.shape[0]
     if nb == 0:
-        return state, blocks.new_zeros((0, v), dtype=torch.float32)
+        return state, blocks.new_zeros((0, v), dtype=cfg.compute_dtype)
+    if not cfg._kernel_eligible():
+        outs = []
+        for blk in blocks:
+            state, out = dconv_step(cfg, state, blk)
+            outs.append(out)
+        return state, torch.stack(outs)
     p = context_blocks(cfg.irsize, v)
     # rotated ring, oldest -> newest; its last irsize samples are the
     # context, front-padded to P blocks and followed by the new blocks

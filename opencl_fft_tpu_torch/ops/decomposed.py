@@ -31,7 +31,12 @@ only c = 0 (mod 8) and sends other phases to XLA gathers; here every phase
 runs the kernel.
 
 Outputs match the sequential scan within float32 reduction-order
-tolerance, and chained calls match one call. These are explicit entry
+tolerance, and chained calls match one call. A config the kernels do not
+take (``PconvConfig._kernel_eligible``: bf16 rings, float64) runs the
+twins' plain MACs (the JAX package's ``_lti_mac_xla`` / ``_tv_mac_xla``)
+on any device, with the frames rounded through the ring's dtype and the
+rings widened, as the JAX engine does (``decomposed.py:199-216, 303-322,
+381-410``). These are explicit entry
 points: the streams keep their whole-scan kernels, which take every
 partition size on the card (the split scans above pts 2048).
 """
@@ -43,14 +48,23 @@ from typing import Optional, Tuple
 import torch
 
 from . import pconv as P
-from .cuda.slidemac import macflow_lti, macflow_tv, macflow_tv_batched
+from .cuda.slidemac import (macflow_lti, macflow_tv, macflow_tv_batched, slide_mac_plain,
+                            slide_mac_tv_plain)
 
 
 def _tv_frames(cfg: P.PconvConfig, blocks_x: torch.Tensor, blocks_h: torch.Tensor):
-    """Both operands' frames from one forward product: (fr, fi), each (nb,
-    2, [C,] bins) with operand 0 the input and 1 the coefficients."""
-    return P._forward_partition(cfg, torch.stack([blocks_x.to(torch.float32),
-                                                  blocks_h.to(torch.float32)], 1))
+    """Both operands' frames from one forward product (``P._frames``): (fr,
+    fi), each (nb, 2, [C,] bins) with operand 0 the input and 1 the
+    coefficients."""
+    return P._frames(cfg, torch.stack([blocks_x.to(cfg.compute_dtype),
+                                       blocks_h.to(cfg.compute_dtype)], 1))
+
+
+def _one(plain, x, h, *args):
+    """A plain twin of (C, rows, bins) planes applied to one timeline and
+    one coefficient plane pair."""
+    acc_r, acc_i = plain(tuple(p[None] for p in x), tuple(p[None] for p in h), *args)
+    return acc_r[0], acc_i[0]
 
 
 def _phase(cfg: P.PconvConfig, state: P.PconvState) -> int:
@@ -80,18 +94,25 @@ def stream_decomposed(cfg: P.PconvConfig, state: P.PconvState, blocks_x: torch.T
         P._check_pair(cfg, blocks_x, blocks_h)
     nb, pts = blocks_x.shape
     if nb == 0:
-        return state, blocks_x.new_zeros((0, pts), dtype=torch.float32)
+        return state, blocks_x.new_zeros((0, pts), dtype=cfg.compute_dtype)
     b0 = cfg.b0_scale
     if blocks_h is None:
-        fxr, fxi = P._forward_partition(cfg, blocks_x)        # (nb, bins)
-        h = (state.spec_h_re, state.spec_h_im)
-        return P._timeline_engine(cfg, state, fxr, fxi,
-                                  lambda tl: macflow_lti(tl, h, nb, b0))
+        fxr, fxi = P._frames(cfg, blocks_x)                   # (nb, bins)
+        h = P._widen(cfg, state.spec_h_re, state.spec_h_im)
+
+        def mac(tl):
+            if cfg._kernel_eligible():
+                return macflow_lti(tl, h, nb, b0)
+            return _one(slide_mac_plain, tl, h, nb, b0)
+        return P._timeline_engine(cfg, state, fxr, fxi, mac)
     fr, fi = _tv_frames(cfg, blocks_x, blocks_h)              # (nb, 2, bins)
     c = _phase(cfg, state)
-    return P._timeline_engine(cfg, state, fr[:, 0], fi[:, 0],
-                              lambda xtl, htl: macflow_tv(xtl, htl, nb, cfg.nparts, b0, c),
-                              (fr[:, 1], fi[:, 1]))
+
+    def tv_mac(xtl, htl):
+        if cfg._kernel_eligible():
+            return macflow_tv(xtl, htl, nb, cfg.nparts, b0, c)
+        return _one(slide_mac_tv_plain, xtl, htl, nb, cfg.nparts, b0, c)
+    return P._timeline_engine(cfg, state, fr[:, 0], fi[:, 0], tv_mac, (fr[:, 1], fi[:, 1]))
 
 
 def stream_batched_tv_decomposed(cfg: P.PconvConfig, state: P.PconvState,
@@ -111,10 +132,13 @@ def stream_batched_tv_decomposed(cfg: P.PconvConfig, state: P.PconvState,
     nb, nch, pts = blocks_x.shape
     c = _phase(cfg, state)
     if nb == 0:
-        return state, blocks_x.new_zeros((0, nch, pts), dtype=torch.float32)
+        return state, blocks_x.new_zeros((0, nch, pts), dtype=cfg.compute_dtype)
     fr, fi = (f.permute(1, 2, 0, 3) for f in _tv_frames(cfg, blocks_x, blocks_h))
+
+    def tv_mac(xtl, htl):
+        if cfg._kernel_eligible():
+            return macflow_tv_batched(xtl, htl, nb, cfg.nparts, cfg.b0_scale, c)
+        return slide_mac_tv_plain(xtl, htl, nb, cfg.nparts, cfg.b0_scale, c)
     state, outs = P._timeline_engine(                         # frames (2, C, nb, bins)
-        cfg, state, fr[0], fi[0],
-        lambda xtl, htl: macflow_tv_batched(xtl, htl, nb, cfg.nparts, cfg.b0_scale, c),
-        (fr[1], fi[1]))
+        cfg, state, fr[0], fi[0], tv_mac, (fr[1], fi[1]))
     return state, outs.transpose(0, 1).contiguous()

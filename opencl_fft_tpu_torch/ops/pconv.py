@@ -72,7 +72,7 @@ from .cuda.blockstep import (block_mac_unpack, block_step_fused, block_step_fwd_
 from .cuda.mac import spectral_mac
 from .cuda.streamstep import (Pointers, stream_steps_fused, stream_steps_fused_batched,
                               stream_steps_fused_batched_tv, stream_steps_fused_tv)
-from .cuda.slidemac import CHUNKMAC_MAX_BATCH, chunk_mac, macflow_lti_batched
+from .cuda.slidemac import CHUNKMAC_MAX_BATCH, chunk_mac, macflow_lti_batched, slide_mac_plain
 from .cuda.splitstep import (stream_steps_fused_split, stream_steps_fused_split_batched,
                              stream_steps_fused_split_batched_tv, stream_steps_fused_split_tv)
 from .cuda.tables import fwd_table
@@ -100,7 +100,16 @@ class PconvConfig:
     nparts: number of partitions (= cvs / pts).
     bin0_mode: "exact" (true convolution) or "compat" (reference artifact).
     impl:   FFT implementation (see ops/fft.py).
-    ring_dtype, dtype: "f32" only so far.
+    ring_dtype: storage of the spectral rings, "f32" or "bf16" (half the
+            ring bytes at ~1e-3 relative output error; products still
+            accumulate in the compute dtype).
+    dtype:  compute width, "f32" or "f64" (the reference's USE_DOUBLE
+            build, macos-build.sh:5).
+
+    Only float32 compute on float32 rings reaches the hand-written kernels
+    (``_kernel_eligible``, the JAX package's rule): any other config takes
+    the plain composition on the device its state lives on, decided from
+    the config before anything launches.
     """
 
     pts: int
@@ -123,12 +132,23 @@ class PconvConfig:
             raise ValueError(f"ring_dtype must be 'f32'|'bf16', got {self.ring_dtype}")
         if self.dtype not in ("f32", "f64"):
             raise ValueError(f"dtype must be 'f32'|'f64', got {self.dtype}")
-        if self.ring_dtype == "bf16":
-            raise NotImplementedError(
-                "ring_dtype='bf16' is not ported yet (ROADMAP queue 1 item 16)")
-        if self.dtype == "f64":
-            raise NotImplementedError(
-                "dtype='f64' is not ported yet (ROADMAP queue 1 item 17)")
+        if self.dtype == "f64" and self.ring_dtype != "f32":
+            raise ValueError("f64 compute cannot use a reduced-width ring")
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The dtype of the transforms, the MAC and the overlap-add tail."""
+        return torch.float64 if self.dtype == "f64" else torch.float32
+
+    @property
+    def storage_dtype(self) -> torch.dtype:
+        """The dtype of the spectral rings."""
+        return torch.bfloat16 if self.ring_dtype == "bf16" else self.compute_dtype
+
+    def _kernel_eligible(self) -> bool:
+        """Whether the hand-written kernels take this config: float32
+        compute on float32 rings."""
+        return self.ring_dtype == "f32" and self.dtype == "f32"
 
     @property
     def bins(self) -> int:
@@ -174,22 +194,40 @@ class PconvState(NamedTuple):
 
 
 def pconv_init(cfg: PconvConfig, device: Union[str, torch.device]) -> PconvState:
-    """Zero state on ``device``; wp = 0, wp2 = nparts - 1 (cl_conv.cpp:144)."""
-    def z(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=device)
+    """Zero state on ``device``; wp = 0, wp2 = nparts - 1 (cl_conv.cpp:144).
+    The rings are in the config's storage dtype, the tail in its compute
+    dtype."""
+    def z(*shape, dtype=cfg.storage_dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
 
     return PconvState(
         spec_x_re=z(2 * cfg.nparts, cfg.bins), spec_x_im=z(2 * cfg.nparts, cfg.bins),
         spec_h_re=z(cfg.nparts, cfg.bins), spec_h_im=z(cfg.nparts, cfg.bins),
-        tail=z(cfg.pts), wp=0, wp2=cfg.nparts - 1)
+        tail=z(cfg.pts, dtype=cfg.compute_dtype), wp=0, wp2=cfg.nparts - 1)
+
+
+def _widen(cfg: PconvConfig, *planes: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Ring planes in the compute dtype (the same tensors for float32
+    rings)."""
+    return tuple(p.to(cfg.compute_dtype) for p in planes)
+
+
+def _frames(cfg: PconvConfig, blocks: torch.Tensor) -> Cplx:
+    """``_forward_partition`` of blocks rounded through the ring's storage
+    dtype first, then widened: the values a per-block step reads back from
+    its ring, so a chunk's MAC sees what sequential steps see (JAX
+    ``pconv.py:580-584``; a no-op for rings in the compute dtype)."""
+    fr, fi = _forward_partition(cfg, blocks)
+    return _widen(cfg, fr.to(cfg.storage_dtype), fi.to(cfg.storage_dtype))
 
 
 def _forward_partition(cfg: PconvConfig, block: torch.Tensor) -> Cplx:
     """Zero-padded unnormalized forward real FFT of (..., pts) blocks.
 
-    Up to _FWD_MM_MAX_PTS the whole chain (zero-pad -> deinterleave ->
-    half-size DFT -> pack) is one matmul against the f64-built
-    (pts, 2*bins) table, as in the JAX package; beyond, the transform chain.
+    For float32 compute up to _FWD_MM_MAX_PTS the whole chain (zero-pad ->
+    deinterleave -> half-size DFT -> pack) is one matmul against the
+    f64-built (pts, 2*bins) table, as in the JAX package; beyond, and for
+    float64 compute (in float64), the transform chain.
     On the CPU the matmul is a 2-D product of at least two rows: a one-row
     product takes BLAS's matrix-vector route, which rounds differently, and
     a block's frame must not depend on how many blocks share the product
@@ -197,8 +235,8 @@ def _forward_partition(cfg: PconvConfig, block: torch.Tensor) -> Cplx:
     cuBLAS keeps no such promise between row counts, so on a card the
     product runs as given.
     """
-    block = block.to(torch.float32)
-    if cfg.pts <= _FWD_MM_MAX_PTS:
+    block = block.to(cfg.compute_dtype)
+    if cfg.pts <= _FWD_MM_MAX_PTS and block.dtype == torch.float32:
         rows = block.reshape(-1, cfg.pts)
         if rows.shape[0] == 1 and rows.device.type == "cpu":
             rows = torch.cat([rows, torch.zeros_like(rows)])
@@ -224,8 +262,8 @@ def push_ir(cfg: PconvConfig, state: PconvState, ir: torch.Tensor) -> PconvState
     slots = (state.wp2 - torch.arange(cfg.nparts, device=ir.device)) % cfg.nparts
     spec_h_re = torch.empty_like(state.spec_h_re)
     spec_h_im = torch.empty_like(state.spec_h_im)
-    spec_h_re[..., slots, :] = hr
-    spec_h_im[..., slots, :] = hi
+    spec_h_re[..., slots, :] = hr.to(spec_h_re.dtype)
+    spec_h_im[..., slots, :] = hi.to(spec_h_im.dtype)
     return state._replace(spec_h_re=spec_h_re, spec_h_im=spec_h_im)
 
 
@@ -236,16 +274,21 @@ def _block_kernels(cfg: PconvConfig, device: torch.device) -> bool:
     2^14; above 2048 the per-block functions keep ``block_mac_unpack``'s
     route, ``_mac_unpack_kernel``). Any state on the CPU takes the plain
     composition (forward product or transform chain, MAC, inverse
-    transform). A shape rule: nothing falls back on a failure."""
-    return torch.device(device).type == "cuda" and cfg.pts <= _FWD_MM_MAX_PTS
+    transform), as does a config the kernels do not take
+    (``_kernel_eligible``). A routing rule: nothing falls back on a
+    failure."""
+    return (cfg._kernel_eligible() and torch.device(device).type == "cuda"
+            and cfg.pts <= _FWD_MM_MAX_PTS)
 
 
 def _mac_unpack_kernel(cfg: PconvConfig, device: torch.device) -> bool:
     """Whether the per-block functions run their MAC and inverse through
     ``_mac_unpack_inverse_ola`` (the ``block_mac_unpack`` kernel, then the
     inverse FFT): for a state on a CUDA card at pts > _FWD_MM_MAX_PTS, the
-    complement of ``_block_kernels``. A shape rule, like it."""
-    return torch.device(device).type == "cuda" and cfg.pts > _FWD_MM_MAX_PTS
+    complement of ``_block_kernels`` among the configs the kernels take. A
+    routing rule, like it."""
+    return (cfg._kernel_eligible() and torch.device(device).type == "cuda"
+            and cfg.pts > _FWD_MM_MAX_PTS)
 
 
 def _rings(state: PconvState) -> Tuple[Cplx, Cplx]:
@@ -266,12 +309,13 @@ def _spectral_mac(cfg: PconvConfig, state: PconvState, rp: int) -> Cplx:
     """Frequency-delay-line MAC: sum over partitions of in[(rp+q) % np] *
     coef[q]; bin 0 (the packed (DC, Nyq) pair) multiplies componentwise
     (cl_conv_kernels.h:102-118). On a card (``_block_kernels``) the
-    ``spectral_mac`` kernel."""
+    ``spectral_mac`` kernel; else the rings widened to the compute dtype
+    (JAX ``pconv.py:361-368``)."""
     if _block_kernels(cfg, state.tail.device):
         return spectral_mac(*_rings(state), _shared(rp), cfg.b0_scale)
-    return _window_mac(cfg, state.spec_x_re[..., rp:rp + cfg.nparts, :],
-                       state.spec_x_im[..., rp:rp + cfg.nparts, :],
-                       state.spec_h_re, state.spec_h_im)
+    return _window_mac(cfg, *_widen(cfg, state.spec_x_re[..., rp:rp + cfg.nparts, :],
+                                    state.spec_x_im[..., rp:rp + cfg.nparts, :],
+                                    state.spec_h_re, state.spec_h_im))
 
 
 def _window_mac(cfg: PconvConfig, xr: torch.Tensor, xi: torch.Tensor,
@@ -329,7 +373,9 @@ def _mac_inverse_ola(cfg: PconvConfig, state: PconvState, rp: int
 
 def _ring_write2(ring: torch.Tensor, row: torch.Tensor, wp: int,
                  nparts: int) -> torch.Tensor:
-    """Write one frame into the doubled ring: at wp and wp + nparts."""
+    """Write one frame into the doubled ring: at wp and wp + nparts, in
+    the ring's dtype."""
+    row = row.to(ring.dtype)
     ring = ring.clone()
     ring[..., wp, :] = row
     ring[..., wp + nparts, :] = row
@@ -395,12 +441,12 @@ def pconv_step_tv(cfg: PconvConfig, state: PconvState, block_x: torch.Tensor,
     (``block_mac_unpack``)."""
     if _block_kernels(cfg, state.tail.device):
         return _step_tv_fused(cfg, state, block_x, block_h)
-    both = torch.stack([block_x.to(torch.float32), block_h.to(torch.float32)])
+    both = torch.stack([block_x.to(cfg.compute_dtype), block_h.to(cfg.compute_dtype)])
     fr, fi = _forward_partition(cfg, both)            # (2, [C,] bins)
     spec_h_re = state.spec_h_re.clone()
     spec_h_im = state.spec_h_im.clone()
-    spec_h_re[..., state.wp2, :] = fr[1]
-    spec_h_im[..., state.wp2, :] = fi[1]
+    spec_h_re[..., state.wp2, :] = fr[1].to(spec_h_re.dtype)
+    spec_h_im[..., state.wp2, :] = fi[1].to(spec_h_im.dtype)
     wp = (state.wp + 1) % cfg.nparts                  # cl_conv.cpp:516
     state = state._replace(
         spec_x_re=_ring_write2(state.spec_x_re, fr[0], state.wp, cfg.nparts),
@@ -515,10 +561,12 @@ def _x_prefix_rows(cfg: PconvConfig, state: PconvState) -> Cplx:
 def _rings_after(cfg: PconvConfig, state: PconvState, fr: torch.Tensor,
                  fi: torch.Tensor) -> Cplx:
     """The doubled input rings after nb blocks whose frames are fr, fi
-    ([C,] nb, bins), any nb: below nparts frame t lands at slot
-    (wp + t) mod nparts and its double; from nparts on slot s holds frame
-    t_s = nb-1 - ((wp + nb-1 - s) mod nparts), the last to land there."""
+    ([C,] nb, bins), any nb, in the rings' storage dtype: below nparts
+    frame t lands at slot (wp + t) mod nparts and its double; from nparts
+    on slot s holds frame t_s = nb-1 - ((wp + nb-1 - s) mod nparts), the
+    last to land there."""
     nb = fr.shape[-2]
+    fr, fi = fr.to(cfg.storage_dtype), fi.to(cfg.storage_dtype)
     if nb < cfg.nparts:
         slots = (state.wp + torch.arange(nb, device=fr.device)) % cfg.nparts
         rings = []
@@ -548,9 +596,10 @@ def _timeline_engine(cfg: PconvConfig, state: PconvState, fr: torch.Tensor,
     """The engine of every path whose blocks are known up front
     (``pconv_chunk{,_tv}``, ``_offline_batched``, ``ops/decomposed.py``).
 
-    fr, fi ([C,] nb, bins) are the frames of nb new blocks. They follow
-    the nparts-1 previous frames of the ring in a timeline ([C,] nparts +
-    nb, bins) whose last row is zero and feeds no output (``chunk_mac``'s
+    fr, fi ([C,] nb, bins) are the frames of nb new blocks (``_frames``:
+    in the compute dtype, rounded through the ring's). They follow the
+    nparts-1 previous frames of the ring, widened, in a timeline ([C,]
+    nparts + nb, bins) whose last row is zero and feeds no output (``chunk_mac``'s
     layout; the macflow wrappers read its first nparts-1+nb rows).
     ``mac(timeline)`` gives the nb accumulators ([C,] nb, bins); one
     inverse transform and the overlap-add give outs ([C,] nb, pts), each
@@ -563,14 +612,14 @@ def _timeline_engine(cfg: PconvConfig, state: PconvState, fr: torch.Tensor,
     state also gets the coefficient ring after the nb frames and wp2 - nb.
     """
     nb = fr.shape[-2]
-    old_r, old_i = _x_prefix_rows(cfg, state)
+    old_r, old_i = _widen(cfg, *_x_prefix_rows(cfg, state))
     pad = fr.new_zeros(fr.shape[:-2] + (1, cfg.bins))
     xtl = (torch.cat([old_r, fr, pad], -2), torch.cat([old_i, fi, pad], -2))
     if h_frames is None:
         acc = mac(xtl)
     else:
         htl = tuple(torch.cat([old, new], -2)
-                    for old, new in zip(_h_prefix_rows(cfg, state), h_frames))
+                    for old, new in zip(_widen(cfg, *_h_prefix_rows(cfg, state)), h_frames))
         acc = mac(xtl, htl)
     y = irfft_split(acc, cfg.impl)                    # ([C,] nb, 2*pts)
     tails = torch.cat([state.tail.unsqueeze(-2), y[..., :-1, cfg.pts:]], -2)
@@ -583,7 +632,8 @@ def _timeline_engine(cfg: PconvConfig, state: PconvState, fr: torch.Tensor,
         # t_q + nparts-1 (t_q < 0 lands in the prefix rows, same formula)
         q = torch.arange(cfg.nparts, device=fr.device)
         rows = nb - 1 - (nb - 1 - state.wp2 + q) % cfg.nparts + cfg.nparts - 1
-        new = new._replace(spec_h_re=htl[0][..., rows, :], spec_h_im=htl[1][..., rows, :],
+        new = new._replace(spec_h_re=htl[0][..., rows, :].to(cfg.storage_dtype),
+                           spec_h_im=htl[1][..., rows, :].to(cfg.storage_dtype),
                            wp2=(state.wp2 - nb) % cfg.nparts)
     return new, (y[..., :cfg.pts] + tails) / cfg.pts
 
@@ -614,13 +664,16 @@ def pconv_chunk(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor
     nparts-1 previous frames from the ring, then the K new ones), and
     every block's window is gathered from it and reduced as the step
     reduces its ring window. Latency becomes K blocks. Plain PyTorch on
-    either device (the JAX package has no kernel for it).
+    either device (the JAX package has no kernel for it). With bf16 rings
+    the fresh frames are rounded through bf16 before the MAC, as the steps
+    read them back (``_frames``).
     """
     _chunk_size(cfg, state, blocks)
-    fr, fi = _forward_partition(cfg, blocks)          # (K, [C,] bins)
+    fr, fi = _frames(cfg, blocks)                     # (K, [C,] bins)
     state, outs = _timeline_engine(
         cfg, state, fr.movedim(0, -2), fi.movedim(0, -2),
-        _gather_mac(cfg, state.spec_h_re.unsqueeze(-3), state.spec_h_im.unsqueeze(-3)))
+        _gather_mac(cfg, *_widen(cfg, state.spec_h_re.unsqueeze(-3),
+                                 state.spec_h_im.unsqueeze(-3))))
     return state, outs.movedim(-2, 0).contiguous()
 
 
@@ -640,19 +693,19 @@ def pconv_chunk_tv(cfg: PconvConfig, state: PconvState, blocks_x: torch.Tensor,
     if blocks_h.shape != blocks_x.shape:
         raise ValueError(f"blocks_h {tuple(blocks_h.shape)} must have the shape "
                          f"of blocks_x {tuple(blocks_x.shape)}")
-    both = torch.stack([blocks_x.to(torch.float32), blocks_h.to(torch.float32)], 1)
-    fr, fi = _forward_partition(cfg, both)            # (K, 2, [C,] bins)
+    both = torch.stack([blocks_x.to(cfg.compute_dtype), blocks_h.to(cfg.compute_dtype)], 1)
+    fr, fi = _frames(cfg, both)                       # (K, 2, [C,] bins)
     dev = fr.device
     d = (state.wp2 - torch.arange(cfg.nparts, device=dev)) % cfg.nparts
     dcl = d.clamp(max=k - 1)
     sel = (d[None] <= torch.arange(k, device=dev)[:, None])[..., None]    # (K, np, 1)
     hnew = tuple(f[:, 1].movedim(0, -2)[..., dcl, :] for f in (fr, fi))   # ([C,] np, b)
-    hold = (state.spec_h_re, state.spec_h_im)
+    hold = _widen(cfg, state.spec_h_re, state.spec_h_im)
     hk = [torch.where(sel, n.unsqueeze(-3), o.unsqueeze(-3)) for n, o in zip(hnew, hold)]
     last = (d <= k - 1)[:, None]
     state = state._replace(
-        spec_h_re=torch.where(last, hnew[0], state.spec_h_re),
-        spec_h_im=torch.where(last, hnew[1], state.spec_h_im),
+        spec_h_re=torch.where(last, hnew[0].to(cfg.storage_dtype), state.spec_h_re),
+        spec_h_im=torch.where(last, hnew[1].to(cfg.storage_dtype), state.spec_h_im),
         wp2=(state.wp2 - k) % cfg.nparts)
     state, outs = _timeline_engine(cfg, state, fr[:, 0].movedim(0, -2),
                                    fi[:, 0].movedim(0, -2), _gather_mac(cfg, *hk))
@@ -662,12 +715,13 @@ def pconv_chunk_tv(cfg: PconvConfig, state: PconvState, blocks_x: torch.Tensor,
 def _check_blocks(cfg: PconvConfig, blocks: torch.Tensor, name: str = "blocks",
                   channels: Optional[int] = None):
     """blocks must be (nblocks, pts), or (nblocks, channels, pts) for a
-    batched stream, and float32 on a card; every partition size runs."""
+    batched stream, and float32 on a card where the kernels take the config
+    (``_kernel_eligible``); every partition size runs."""
     shape = (cfg.pts,) if channels is None else (channels, cfg.pts)
     if blocks.dim() != len(shape) + 1 or tuple(blocks.shape[1:]) != shape:
         want = ", ".join(["nblocks", *map(str, shape)])
         raise ValueError(f"{name} must be ({want}), got {tuple(blocks.shape)}")
-    if blocks.is_cuda and blocks.dtype != torch.float32:
+    if cfg._kernel_eligible() and blocks.is_cuda and blocks.dtype != torch.float32:
         raise TypeError(f"CUDA {name} must be float32, got {blocks.dtype}")
 
 
@@ -725,6 +779,46 @@ def _advance(p: Pointers, n: int, nparts: int) -> Pointers:
     return (p + n) % nparts
 
 
+def _channel(state: PconvState, c: int) -> PconvState:
+    """Channel c of a batched state, with its own ring pointers."""
+    return state._replace(**{n: getattr(state, n)[c] for n in _PLANES},
+                          **{n: p[c] if isinstance(p, tuple) else p
+                             for n, p in (("wp", state.wp), ("wp2", state.wp2))})
+
+
+# the gathered MAC windows of one chunk of ``_plain_stream``, ([C,] K,
+# nparts, bins), in elements: 128 MiB of float32 a plane
+_CHUNK_WINDOW_ELEMENTS = 1 << 25
+
+
+def _plain_stream(cfg: PconvConfig, state: PconvState, *blocks: torch.Tensor
+                  ) -> Tuple[PconvState, torch.Tensor]:
+    """The stream of a config the kernels do not take (``_kernel_eligible``):
+    (nblocks, ...) blocks, or blocks_x and blocks_h for the TV streams,
+    through ``pconv_chunk`` / ``pconv_chunk_tv`` in chunks of at most nparts
+    blocks, each chunk's gathered windows held under
+    _CHUNK_WINDOW_ELEMENTS. The chunks are bit-equal to sequential steps on
+    the CPU (the JAX package scans the step), with one forward product and
+    one inverse transform a chunk. A batched state with per-channel ring
+    pointers runs channel by channel (the chunk engine takes shared
+    pointers; the JAX package vmaps the step over them)."""
+    if isinstance(state.wp, tuple) or isinstance(state.wp2, tuple):
+        per = [_plain_stream(cfg, _channel(state, c), *(b[:, c] for b in blocks))
+               for c in range(state.tail.shape[0])]
+        stacked = {n: torch.stack([getattr(st, n) for st, _ in per]) for n in _PLANES}
+        ptrs = {n: tuple(getattr(st, n) for st, _ in per) if isinstance(getattr(state, n), tuple)
+                else getattr(per[0][0], n) for n in ("wp", "wp2")}
+        return state._replace(**stacked, **ptrs), torch.stack([o for _, o in per], 1)
+    per_block = state.tail.numel() // cfg.pts * cfg.nparts * cfg.bins
+    k = max(1, min(cfg.nparts, _CHUNK_WINDOW_ELEMENTS // per_block))
+    chunk = pconv_chunk if len(blocks) == 1 else pconv_chunk_tv
+    outs = []
+    for c0 in range(0, blocks[0].shape[0], k):
+        state, out = chunk(cfg, state, *(b[c0:c0 + k] for b in blocks))
+        outs.append(out)
+    return state, torch.cat(outs)
+
+
 def _gather_rows(planes: torch.Tensor, first: Tuple[int, ...], n: int) -> torch.Tensor:
     """Rows (first_c + q) mod rows, q < n, of each channel c of (C, rows, bins)."""
     rows = planes.shape[-2]
@@ -760,12 +854,16 @@ def pconv_stream(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor
 
     Every block goes through one whole-scan kernel launch (``_scans``):
     its CUDA kernel for a CUDA tensor, its plain twin for a CPU tensor. Same
-    per-block results as pconv_step.
+    per-block results as pconv_step. A config the kernels do not take
+    (``_kernel_eligible``: bf16 rings, float64) runs ``_plain_stream``:
+    ``pconv_chunk`` over chunks of up to nparts blocks.
     """
     _check_blocks(cfg, blocks)
     nb = blocks.shape[0]
     if nb == 0:
-        return state, blocks.new_zeros((0, cfg.pts), dtype=torch.float32)
+        return state, blocks.new_zeros((0, cfg.pts), dtype=cfg.compute_dtype)
+    if not cfg._kernel_eligible():
+        return _plain_stream(cfg, state, blocks)
     outs, (wfr, wfi), tail = _scans(cfg).lti(
         blocks.to(torch.float32).contiguous(), _window(cfg, state),
         (state.spec_h_re, state.spec_h_im), cfg.b0_scale, state.tail, cfg.pts)
@@ -783,12 +881,15 @@ def pconv_stream_tv(cfg: PconvConfig, state: PconvState, blocks_x: torch.Tensor,
     Every block goes through one whole-scan TV kernel launch (``_scans``):
     its CUDA kernel for CUDA tensors, its plain twin for CPU tensors. Same
     per-block results as pconv_step_tv. The IR ring goes in and comes out
-    in place, in the state's layout.
+    in place, in the state's layout. A config the kernels do not take runs
+    ``_plain_stream`` (``pconv_chunk_tv`` a chunk), as ``pconv_stream`` does.
     """
     _check_pair(cfg, blocks_x, blocks_h)
     nb = blocks_x.shape[0]
     if nb == 0:
-        return state, blocks_x.new_zeros((0, cfg.pts), dtype=torch.float32)
+        return state, blocks_x.new_zeros((0, cfg.pts), dtype=cfg.compute_dtype)
+    if not cfg._kernel_eligible():
+        return _plain_stream(cfg, state, blocks_x, blocks_h)
     outs, (wfr, wfi), (hfr, hfi), tail = _scans(cfg).tv(
         blocks_x.to(torch.float32).contiguous(), blocks_h.to(torch.float32).contiguous(),
         _window(cfg, state), (state.spec_h_re, state.spec_h_im), state.wp2,
@@ -809,13 +910,16 @@ def pconv_stream_batched(cfg: PconvConfig, state: PconvState, blocks: torch.Tens
     Every block of every channel goes through one launch of the batched
     whole-scan kernel (``_scans``): its CUDA kernel for a CUDA tensor, its
     plain twin for a CPU tensor. Same per-block results as pconv_step on
-    each channel.
+    each channel. A config the kernels do not take runs ``_plain_stream``,
+    as ``pconv_stream`` does.
     """
     nch = _batched_channels(state)
     _check_blocks(cfg, blocks, channels=nch)
     nb = blocks.shape[0]
     if nb == 0:
-        return state, blocks.new_zeros((0, nch, cfg.pts), dtype=torch.float32)
+        return state, blocks.new_zeros((0, nch, cfg.pts), dtype=cfg.compute_dtype)
+    if not cfg._kernel_eligible():
+        return _plain_stream(cfg, state, blocks)
     outs, (wfr, wfi), tails = _scans(cfg).batched(
         blocks.to(torch.float32).contiguous(), _window(cfg, state),
         (state.spec_h_re, state.spec_h_im), cfg.b0_scale, state.tail, cfg.pts)
@@ -834,13 +938,16 @@ def pconv_stream_batched_tv(cfg: PconvConfig, state: PconvState, blocks_x: torch
     Every block of every channel goes through one launch of the batched
     whole-scan TV kernel (``_scans``): its CUDA kernel for CUDA tensors, its
     plain twin for CPU tensors. Same per-block results as pconv_step_tv on
-    each channel; the IR rings go in and come out in the state's layout.
+    each channel; the IR rings go in and come out in the state's layout. A
+    config the kernels do not take runs ``_plain_stream``.
     """
     nch = _batched_channels(state)
     _check_pair(cfg, blocks_x, blocks_h, nch)
     nb = blocks_x.shape[0]
     if nb == 0:
-        return state, blocks_x.new_zeros((0, nch, cfg.pts), dtype=torch.float32)
+        return state, blocks_x.new_zeros((0, nch, cfg.pts), dtype=cfg.compute_dtype)
+    if not cfg._kernel_eligible():
+        return _plain_stream(cfg, state, blocks_x, blocks_h)
     outs, (wfr, wfi), (hfr, hfi), tails = _scans(cfg).batched_tv(
         blocks_x.to(torch.float32).contiguous(), blocks_h.to(torch.float32).contiguous(),
         _window(cfg, state), (state.spec_h_re, state.spec_h_im), state.wp2,
@@ -867,14 +974,19 @@ def _offline_batched(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor
     CUDA entry under the JAX package's two names, on the same timeline
     (``ops/cuda/slidemac.py``: the kernel for CUDA tensors, the twin for
     CPU tensors). Outputs match per-block streaming within float32
-    reduction-order tolerance; the state chains exactly.
+    reduction-order tolerance; the state chains exactly. A config the
+    kernels do not take (``_kernel_eligible``) runs the twin's plain MAC
+    (the JAX package's ``_lti_mac_xla``) on any device, on the frames
+    rounded through the ring's dtype and the widened rings.
     """
     _check_offline(cfg, state, blocks)
     nb, nch = blocks.shape[:2]
-    fr, fi = _forward_partition(cfg, blocks)          # (nb, C, bins)
-    h = (state.spec_h_re, state.spec_h_im)
+    fr, fi = _frames(cfg, blocks)                     # (nb, C, bins)
+    h = _widen(cfg, state.spec_h_re, state.spec_h_im)
 
     def mac(tl: Cplx) -> Cplx:
+        if not cfg._kernel_eligible():
+            return slide_mac_plain(tl, h, nb, cfg.b0_scale)
         if nch <= CHUNKMAC_MAX_BATCH:
             return chunk_mac(tl, h, cfg.b0_scale)
         return macflow_lti_batched(tl, h, nb, cfg.b0_scale)
@@ -900,9 +1012,13 @@ def pconv_offline(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor
     Equals sequential ``pconv_step`` streaming within float32 tolerance
     (the kernel sums in another order); use ``pconv_stream`` or
     ``pconv_chunk`` where bit-equality with per-block streaming is needed.
-    Every shape takes the kernel: there is no fall back to the scan.
+    Every shape takes the kernel: there is no fall back to the scan. A
+    config the kernels do not take runs ``pconv_stream`` (equal to
+    sequential steps), as in the JAX package.
     """
     _check_blocks(cfg, blocks)
+    if not cfg._kernel_eligible():
+        return pconv_stream(cfg, state, blocks)
     one = state._replace(**{n: getattr(state, n)[None] for n in _PLANES})
     one, outs = _offline_batched(cfg, one, blocks[:, None])
     return state._replace(**{n: getattr(one, n)[0] for n in _PLANES}, wp=one.wp), outs[:, 0]
@@ -931,7 +1047,7 @@ def pconv_stream_batched_chunked(cfg: PconvConfig, state: PconvState,
     if isinstance(state.wp, tuple):
         return pconv_stream_batched(cfg, state, blocks)
     if nb == 0:
-        return state, blocks.new_zeros((0, nch, cfg.pts), dtype=torch.float32)
+        return state, blocks.new_zeros((0, nch, cfg.pts), dtype=cfg.compute_dtype)
     outs = []
     for c0 in range(0, nb, K):
         state, out = _offline_batched(cfg, state, blocks[c0:c0 + K])
@@ -965,7 +1081,7 @@ def pconv_stream_batched_tv_chunked(cfg: PconvConfig, state: PconvState,
     if isinstance(state.wp, tuple) or isinstance(state.wp2, tuple):
         return pconv_stream_batched_tv(cfg, state, blocks_x, blocks_h)
     if nb == 0:
-        return state, blocks_x.new_zeros((0, nch, cfg.pts), dtype=torch.float32)
+        return state, blocks_x.new_zeros((0, nch, cfg.pts), dtype=cfg.compute_dtype)
     outs = []
     for c0 in range(0, nb, K):
         state, out = stream_batched_tv_decomposed(cfg, state, blocks_x[c0:c0 + K],

@@ -17,3 +17,10 @@ def np2(n: int) -> int:
 
 def is_pow2(n: int) -> bool:
     return n > 0 and (n & (n - 1)) == 0
+
+
+def ilog2(n: int) -> int:
+    """log2 of a power of two; ValueError for anything else."""
+    if not is_pow2(n):
+        raise ValueError(f"size must be a power of two, got {n}")
+    return n.bit_length() - 1

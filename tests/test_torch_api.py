@@ -100,17 +100,29 @@ def test_device_selection():
 
 def test_unported_surfaces_raise():
     """parts=0 is ported (the zero-latency engine): it dispatches, with no
-    added latency. The surfaces still to port raise, naming their ROADMAP
-    item."""
+    added latency. bf16 rings and float64 compute are ported too: they
+    construct and stream, against the float32 engine at bf16's 5e-3 and
+    float32's 1e-5 of max|out|; only float64 on bf16 rings raises, as in the
+    JAX package. The name is kept from when these surfaces raised, so the
+    case keeps its identity across versions."""
     ir = np.ones(64, np.float32)
     p = tstream.ClconvProcessor(ir, 0, device="cpu", on_message=_quiet)
     assert p.zero_latency and p.latency == 0 and not p.dconv
     np.testing.assert_allclose(p.process(np.eye(1, 64, dtype=np.float32)[0]), ir,
                                atol=1e-6, rtol=0)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tpconv.PconvConfig(pts=64, nparts=1, ring_dtype="bf16")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tpconv.PconvConfig(pts=64, nparts=1, dtype="f64")
+    rng = np.random.default_rng(5)
+    h = torch.from_numpy(rng.standard_normal(128).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((6, 64)).astype(np.float32))
+    outs = {}
+    for kw in ({}, {"ring_dtype": "bf16"}, {"dtype": "f64"}):
+        cfg = tpconv.PconvConfig(pts=64, nparts=2, **kw)
+        st = tpconv.push_ir(cfg, tpconv.pconv_init(cfg, "cpu"), h)
+        outs[tuple(kw.values())] = tpconv.pconv_stream(cfg, st, x)[1].double().numpy()
+    ref = outs[()]
+    for key, tol in ((("bf16",), 5e-3), (("f64",), 1e-5)):
+        np.testing.assert_allclose(outs[key], ref, atol=tol * np.abs(ref).max(), rtol=0)
+    with pytest.raises(ValueError, match="reduced-width ring"):
+        tpconv.PconvConfig(pts=64, nparts=1, dtype="f64", ring_dtype="bf16")
 
 
 def test_constructor_records_bad_config():

@@ -183,8 +183,9 @@ def test_config_state_and_wrapper_checks():
         D.DconvConfig(irsize=0, vsize=4)
     with pytest.raises(ValueError, match="dtype"):
         D.DconvConfig(irsize=4, vsize=4, dtype="f16")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 17"):
-        D.DconvConfig(irsize=4, vsize=4, dtype="f64")
+    cfg64 = D.DconvConfig(irsize=4, vsize=4, dtype="f64")
+    assert cfg64.compute_dtype == torch.float64 and not cfg64._kernel_eligible()
+    assert D.dconv_init(cfg64, "cpu").coefs.dtype == torch.float64
     cfg = D.DconvConfig(irsize=6, vsize=4, delay_compat=True)
     assert (cfg.ring, cfg.off, K.context_blocks(6, 4)) == (10, 0, 2)
     st = D.dconv_init(cfg, "cpu")

@@ -193,10 +193,14 @@ def test_config_validation():
         P.PconvConfig(pts=64, nparts=2, ring_dtype="f16")
     with pytest.raises(ValueError, match="dtype"):
         P.PconvConfig(pts=64, nparts=2, dtype="f16")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 16"):
-        P.PconvConfig(pts=64, nparts=2, ring_dtype="bf16")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 17"):
-        P.PconvConfig(pts=64, nparts=2, dtype="f64")
+    bf16 = P.PconvConfig(pts=64, nparts=2, ring_dtype="bf16")
+    assert (bf16.storage_dtype, bf16.compute_dtype) == (torch.bfloat16, torch.float32)
+    f64 = P.PconvConfig(pts=64, nparts=2, dtype="f64")
+    assert (f64.storage_dtype, f64.compute_dtype) == (torch.float64, torch.float64)
+    assert not bf16._kernel_eligible() and not f64._kernel_eligible()
+    assert P.PconvConfig(pts=64, nparts=2)._kernel_eligible()
+    with pytest.raises(ValueError, match="reduced-width ring"):
+        P.PconvConfig(pts=64, nparts=2, dtype="f64", ring_dtype="bf16")
     with pytest.raises(ValueError, match="multiple"):
         P.PconvConfig.for_ir_length(100, 64)
     cfg = P.PconvConfig.for_ir_length(256, 64, bin0_mode="compat")
