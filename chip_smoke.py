@@ -62,7 +62,15 @@ blocks, ``ClconvProcessor(parts=4096)``, ``pconv_step_tv`` and
 ``push_ir_xfade`` at pts 4096, ``Convolver(16).step`` chained into the scan and
 the STFT round trip at 20 s against float64 scipy/numpy; and the
 zero-latency host wall per block against its budget, #11's and the STFT's
-times. Last, one JSON line with every kernel's launches, error,
+times. Then scale-out (the sharded engines on one NCCL rank,
+``dryrun_multichip(4)`` with its defaults), the precision fault's repair
+(``convolve`` and ``convolve_direct`` with TF32 switched on, against float64
+scipy; ``set_fast_math`` in every mode), the host layer (the native runtime,
+``RealtimePipeline`` paced by ``VirtualHost`` at 48 kHz for 5 s at the
+bench headline against the ``pconv_step`` chain, a TV pipeline,
+``ProcessorPipeline`` around the zero-latency processor, ``CsoundHost`` on a
+stub engine, a checkpoint on the card) and the sweep harness's quick grid.
+Last, one JSON line with every kernel's launches, error,
 time and bound, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Every phase prints one line; any
 failure exits non-zero before the last line. Without a CUDA card, or
@@ -71,6 +79,7 @@ without the port beside this script, it fails.
 
 import contextlib
 import ctypes
+import gc
 import json
 import math
 import re
@@ -2892,9 +2901,9 @@ def main():
     # all_reduce a block; sharded_fft at 2^13 x 512 rows (#18) and 2^18 x 16
     # (#19) and dist_fft_split at 2^20 (two 1024-point passes of #18)
     # against float64 numpy; the per-block times of the sharded step beside
-    # the unsharded step's. Then four gloo ranks sharing the card (gloo takes
-    # CUDA tensors for all_reduce, all_to_all_single and all_gather: found on
-    # this slice's first chip call) run the dry run at (dp 2, tp 2).
+    # the unsharded step's. Then dryrun_multichip(4) with its defaults: with
+    # fewer cards than ranks, four gloo ranks share the card (gloo takes CUDA
+    # tensors for all_reduce, all_to_all_single and all_gather) at (dp 2, tp 2).
     import importlib
     import tempfile
 
@@ -3011,7 +3020,7 @@ def main():
             dist.destroy_process_group()
     del got36, want36, got36_tv, want36_tv, conv36, tvc36, st36, sttv, xa, xb, xc, ya, yb, yc
     t0 = time.perf_counter()
-    dry36 = PL.dryrun_multichip(4, backend="gloo", device="cuda", timeout=600)
+    dry36 = PL.dryrun_multichip(4, timeout=600)       # its defaults (F2)
     dry36_s = time.perf_counter() - t0
     print(f"phase 36 scale-out on {dev} [{card}]: one NCCL rank (make_mesh() default, mesh "
           f"{mesh.shape}): the sharded LTI step with a crossfade of {len(swap36)} of {SERVE_CH} "
@@ -3026,12 +3035,384 @@ def main():
           f"(events over 10 back to back ms; device us by the profiler; host wall us): "
           + "; ".join(f"{k} {v[0]:.4f} ms, {v[1]:.1f} us, {v[2]:.1f} us"
                       for k, v in times36.items())
-          + f" | four gloo ranks on the one card (gloo takes CUDA tensors for all_reduce, "
-          f"all_to_all_single and all_gather; NCCL takes one rank a card): "
-          f"dryrun_multichip(4) mesh {dry36['shape']}: "
+          + f" | dryrun_multichip(4) with its defaults on {torch.cuda.device_count()} card(s): "
+          f"four gloo ranks share the card (gloo takes CUDA tensors for all_reduce, "
+          f"all_to_all_single and all_gather; NCCL takes one rank a card): mesh "
+          f"{dry36['shape']}: "
           f"sharded TV step vs the unsharded engine {dry36['err']:.3e} of scale "
           f"{dry36['scale']:.3e} (tol 1e-4 of it), dist_fft over tp {dry36['dist_fft_err']:.3e} "
           f"(tol 3e-5); {dry36_s:.1f} s with the spawn", flush=True)
+
+    # phase 37: precision (ROADMAP F1, item 18). With TF32 switched on the
+    # way many applications do (allow_tf32 and "high"), convolve on phase 4's
+    # 20 s and 2^17 taps at pts 512 and convolve_direct of 512 taps against
+    # float64 scipy: every float32 product of the port goes through
+    # exact_matmul (a float64 product, outside every float32 setting). The
+    # same convolve with the products sent straight to cuBLAS (the parent's
+    # route: the module global swapped for a float32 torch.matmul for one
+    # call) shows the fault. Then TF32 off again, and set_fast_math through every mode
+    # (the port's FFT is true float32 in all of them: the same bits).
+    import opencl_fft_tpu_torch.ops.dconv as Dm
+    import opencl_fft_tpu_torch.ops.pconv as PCm
+    import opencl_fft_tpu_torch.utils.numerics as NUM
+    ref37 = sps.fftconvolve(x.astype(np.float64), ir.astype(np.float64))
+    ref37d = sps.fftconvolve(x.astype(np.float64), ir_d512.astype(np.float64))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        tf32_state = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+        err37 = rel_err(P.convolve(x_d, ir_d, PTS).cpu().numpy(), ref37)
+        err37d = rel_err(P.convolve_direct(x_d, torch.from_numpy(ir_d512).to(dev),
+                                           vsize=PTS).cpu().numpy(), ref37d)
+        after37 = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+        def as_given(a_, b_):       # the float32 operands straight to cuBLAS
+            return torch.matmul(a_, b_.to(a_.dtype))
+
+        PCm.exact_matmul = Dm.exact_matmul = as_given
+        try:
+            err37_raw = rel_err(P.convolve(x_d, ir_d, PTS).cpu().numpy(), ref37)
+        finally:
+            PCm.exact_matmul = Dm.exact_matmul = NUM.exact_matmul
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    check(after37 == tf32_state == (True, "high"),
+          f"the caller's TF32 settings unchanged by the port: {tf32_state} -> {after37}")
+    for what, e in (("convolve", err37), ("convolve_direct", err37d)):
+        check(bool(np.isfinite(e)) and e <= ORACLE_TOL,
+              f"{what} with TF32 on vs float64 scipy {e:.3e} > {ORACLE_TOL}")
+    z37 = (f(4, 1 << 14), f(4, 1 << 14))
+    base37 = P.fft_split(z37, -1)
+    modes37 = ("turbo", "on", "off", "auto", True, False, None)
+    for m_ in modes37:
+        P.set_fast_math(m_)
+        with P.exact_precision():
+            y37 = P.fft_split(z37, -1)
+        y37b = P.fft_split(z37, -1)
+        check(all(torch.equal(a_, b_) for a_, b_ in zip(base37 + base37, y37 + y37b)),
+              f"set_fast_math({m_!r}) changes no bit of fft_split 2^14")
+    P.set_fast_math(None)
+    del base37, y37, y37b, z37
+    print(f"phase 37 precision [{card}]: with allow_tf32=True and "
+          f"set_float32_matmul_precision('high'): convolve({x.size} samples, {IR_LEN} taps, "
+          f"pts {PTS}) vs float64 scipy {err37:.3e}, convolve_direct({DIRECT_TAPS} taps) "
+          f"{err37d:.3e} (tol {ORACLE_TOL}); the same convolve with its products on cuBLAS as "
+          f"given (the parent's route) {err37_raw:.3e}; the caller's settings after the calls "
+          f"{after37}; TF32 off again; set_fast_math through {modes37}: fft_split 2^14 x 4 "
+          f"bit-equal in every mode", flush=True)
+
+    # phase 38: the host layer at full width. The native runtime (g++), the
+    # real-time pipeline at the bench headline (2^17 taps, pts 512) paced by
+    # the virtual sound card at 48 kHz through the PortAudio-convention
+    # callback for 5 s (output = the port's pconv_step chain sample for
+    # sample after the priming, and scipy; no underrun, overrun or late
+    # callback; #8 launched once a block), a TV pipeline (#9), the
+    # zero-latency processor behind ProcessorPipeline at 64-sample blocks on
+    # cell 12's 2^20-tap IR at prime 1 and 4 (underruns and the worker's time
+    # a block measured, not gated; its output = the processor's own run), the
+    # Csound host on a stub engine with a cltvconv insert, and a checkpoint
+    # taken mid-stream on the card.
+    import tempfile as tempfile38
+
+    from opencl_fft_tpu_torch import runtime as RT
+    from opencl_fft_tpu_torch.runtime import csound_host as CH
+    from opencl_fft_tpu_torch.runtime.hosts import PipelineCallback, VirtualHost
+    from opencl_fft_tpu_torch.runtime.pipeline import ProcessorPipeline, RealtimePipeline
+    from opencl_fft_tpu_torch.stream import make_accumulator
+    from opencl_fft_tpu_torch.utils import checkpoint as CK
+    t0 = time.perf_counter()
+    check(RT.native_available(), "the native runtime builds with g++")
+    rt_s = time.perf_counter() - t0
+    acc38 = make_accumulator(PTS, 2)
+    check(isinstance(acc38, RT.NativeBlockAccumulator),
+          f"make_accumulator returns the native class, got {type(acc38).__name__}")
+    host_s = 5.0
+    n38 = int(np.ceil(host_s * SR / PTS))
+    x38 = x[: n38 * PTS]
+    pos38 = [0]
+
+    def source38(n):
+        s_ = np.zeros(n, np.float32)
+        take = min(n, x38.size - pos38[0])
+        if take > 0:
+            s_[:take] = x38[pos38[0]:pos38[0] + take]
+            pos38[0] += take
+        return s_
+
+    def time_blocks(pipe):
+        """The worker's microseconds a processed block, recorded around the
+        pipeline's unit of work (ring read, copy to the card, engine, copy
+        back, ring write)."""
+        us, work = [], pipe._work_once
+
+        def timed():
+            t0_ = time.perf_counter()
+            done = work()
+            if done:
+                us.append((time.perf_counter() - t0_) * 1e6)
+            return done
+        pipe._work_once = timed
+        return us
+
+    prime38 = 2
+    zero_counts()
+    pipe38 = RealtimePipeline(cfg, ir=ir, prime_blocks=prime38)
+    us38 = time_blocks(pipe38)
+    # the host process as a real-time one is set up: no cyclic garbage
+    # collection during the paced run (collected just before) and a 0.5 ms
+    # thread switch interval, so the pacing thread waits at most that long
+    # for the interpreter lock (the default 5 ms, twice over with the worker
+    # and the main thread, comes close to the 10.67 ms period)
+    gc.collect()
+    gc.disable()
+    switch38 = sys.getswitchinterval()
+    sys.setswitchinterval(5e-4)
+    with pipe38:
+        pipe38.push(np.zeros(PTS, np.float32))
+        pipe38.wait_for_blocks(1, timeout=120)            # off the clock
+        cb38 = PipelineCallback(pipe38)
+        host38 = VirtualHost(cb38, sr=int(SR), frames=PTS, source=source38)
+        t0 = time.perf_counter()
+        with host38:
+            while len(host38.captured) < prime38 + 1 + n38:
+                time.sleep(0.005)
+        host_wall38 = time.perf_counter() - t0
+    sys.setswitchinterval(switch38)
+    gc.enable()
+    torch.cuda.synchronize()
+    fwd38, blocks38 = BS.FWD_LAUNCHES, pipe38.blocks_processed
+    under38, over38, late38 = (pipe38.underrun_samples, pipe38.overrun_samples,
+                               host38.late_callbacks)
+    out38 = host38.output()
+    st38 = P.push_ir(cfg, P.pconv_init(cfg, dev), ir_d)
+    chain38 = []
+    for blk in np.concatenate([np.zeros(PTS, np.float32), x38]).reshape(-1, PTS):
+        st38, o_ = P.pconv_step(cfg, st38, torch.from_numpy(blk).to(dev))
+        chain38.append(o_)
+    chain38 = torch.cat(chain38).cpu().numpy()
+    n_cmp = min(out38.size - prime38 * PTS, chain38.size)
+    check(n_cmp >= (n38 + 1) * PTS, f"the host captured the whole 5 s: {n_cmp}")
+    check(np.array_equal(out38[:prime38 * PTS], np.zeros(prime38 * PTS, np.float32))
+          and np.array_equal(out38[prime38 * PTS:prime38 * PTS + n_cmp], chain38[:n_cmp]),
+          "the paced pipeline's output is the pconv_step chain, sample for sample")
+    err38 = rel_err(chain38[PTS:], sps.fftconvolve(x38.astype(np.float64),
+                                                   ir.astype(np.float64))[:x38.size])
+    check(err38 <= ORACLE_TOL, f"the pipeline's stream vs float64 scipy {err38:.3e}")
+    check((under38, over38, late38) == (0, 0, 0),
+          f"no underrun, overrun or late callback in 5 s: {(under38, over38, late38)}")
+    check(fwd38 == blocks38, f"block_step_fwd_fused once a block: {fwd38} vs {blocks38}")
+    w38 = np.asarray(us38[1:])                            # the paced blocks
+    # TV: pushed, waited for, pulled (no pacing), 64 blocks
+    n38t = 64
+    bx38, bh38 = x[:n38t * PTS].reshape(n38t, PTS), x[-n38t * PTS:].reshape(n38t, PTS)
+    zero_counts()
+    with RealtimePipeline(cfg, tv=True, prime_blocks=1) as pt38:
+        pt38.push(bx38.reshape(-1), bh38.reshape(-1))
+        pt38.wait_for_blocks(n38t, timeout=120)
+        got38t = pt38.pull((1 + n38t) * PTS)
+    torch.cuda.synchronize()
+    fwdtv38 = BS.FWD_TV_LAUNCHES
+    st38t, want38t = P.pconv_init(cfg, dev), []
+    for a_, b_ in zip(bx38, bh38):
+        st38t, o_ = P.pconv_step_tv(cfg, st38t, torch.from_numpy(a_).to(dev),
+                                    torch.from_numpy(b_).to(dev))
+        want38t.append(o_)
+    want38t = torch.cat(want38t).cpu().numpy()
+    check(fwdtv38 == n38t and np.array_equal(got38t[PTS:], want38t),
+          f"the TV pipeline: block_step_fwd_fused_tv {fwdtv38} of {n38t} blocks, output = "
+          f"the pconv_step_tv chain")
+
+    zl_s = 2.0
+    nzl = int(zl_s * SR) // ZL_B
+    xzl = x[: nzl * ZL_B]
+    own38 = P.ClconvProcessor(ir4, parts=0, block_size=ZL_B, pmax=LONG_PTS, device="cuda",
+                              on_message=quiet)
+    want38z = np.concatenate([own38.process(b_) for b_ in
+                              np.concatenate([np.zeros(ZL_B, np.float32), xzl]).reshape(-1, ZL_B)])
+    zl_rows = []
+    ZL_RING = 64        # ProcessorPipeline's default ring capacity, in blocks
+    for prime_ in (1, 4):
+        proc38 = P.ClconvProcessor(ir4, parts=0, block_size=ZL_B, pmax=LONG_PTS, device="cuda",
+                                   on_message=quiet)
+        pos38[0] = 0
+        x38 = xzl
+        gc.collect()
+        gc.disable()
+        sys.setswitchinterval(5e-4)
+        pz = ProcessorPipeline(proc38, ZL_B, prime_blocks=prime_, capacity_blocks=ZL_RING)
+        zl_us = time_blocks(pz)
+        with pz:
+            pz.push(np.zeros(ZL_B, np.float32))
+            pz.wait_for_blocks(1, timeout=120)
+            hz = VirtualHost(PipelineCallback(pz), sr=int(SR), frames=ZL_B, source=source38)
+            with hz:
+                while len(hz.captured) < prime_ + 1 + nzl:
+                    time.sleep(0.005)
+        sys.setswitchinterval(switch38)
+        gc.enable()
+        us_ = np.asarray(zl_us[1:])
+        outz = hz.output()
+        same_ = (pz.underrun_samples == 0 and np.array_equal(
+            outz[prime_ * ZL_B:prime_ * ZL_B + want38z.size], want38z[:outz.size - prime_ * ZL_B]))
+        zl_rows.append((prime_, pz.underrun_samples, pz.overrun_samples, hz.late_callbacks,
+                        float(us_.mean()), float(np.median(us_)), float(us_.max()),
+                        float((us_ > ZL_B / SR * 1e6).mean()), same_))
+    # the output check without pacing: each block pushed while fewer than
+    # 32 are in flight (the rings hold 64), the output pulled as it comes
+    def drive(pipe, blocks_, timeout=300.0):
+        out_, i_, deadline = [], 0, time.monotonic() + timeout
+        while pipe.blocks_processed < len(blocks_) or pipe.pull_available():
+            while i_ < len(blocks_) and i_ - pipe.blocks_processed < 32:
+                pipe.push(blocks_[i_])
+                i_ += 1
+            k_ = pipe.pull_available()
+            if k_:
+                out_.append(pipe.pull(k_))
+            else:
+                time.sleep(1e-4)
+            check(time.monotonic() < deadline, f"the pipeline drained in {timeout} s")
+        check(pipe.underrun_samples == 0 and pipe.overrun_samples == 0,
+              "an unpaced pipeline neither underruns nor overruns")
+        return np.concatenate(out_)
+
+    proc38u = P.ClconvProcessor(ir4, parts=0, block_size=ZL_B, pmax=LONG_PTS, device="cuda",
+                                on_message=quiet)
+    with ProcessorPipeline(proc38u, ZL_B, prime_blocks=1) as pu:
+        gotz = drive(pu, np.concatenate([np.zeros(ZL_B, np.float32), xzl]).reshape(-1, ZL_B))
+    check(np.array_equal(gotz[ZL_B:], want38z),
+          "ProcessorPipeline(ClconvProcessor(parts=0)) = the processor's own run")
+    # the Csound host on a stub engine: a cltvconv insert (parts 2048, the
+    # reference demo's) at ksmps 64, the second operand looping
+    cparts, cks = 2048, 64
+    icsize, ccycles = cparts * 8, cparts * 10 // cks
+    beats38 = x[:icsize] * np.float32(2.0)
+    fox38 = x[icsize:icsize + ccycles * cks]
+    looped38 = beats38[np.arange(ccycles * cks) % icsize]
+
+    class StubCsound:
+        def __init__(self):
+            self.cycle, self.bus, self.heard = -1, {}, []
+
+        def setOption(self, opt):
+            pass
+
+        def compileCsdText(self, text):
+            return 0
+
+        def start(self):
+            return 0
+
+        def ksmps(self):
+            return cks
+
+        def performKsmps(self):
+            self.cycle += 1
+            if self.cycle >= ccycles:
+                return 1
+            self.heard.append(np.array(self.bus.get("cltvconv_out", np.zeros(cks)), np.float32))
+            sl = slice(self.cycle * cks, (self.cycle + 1) * cks)
+            self.bus["cltvconv_in1"], self.bus["cltvconv_in2"] = fox38[sl], looped38[sl]
+            return 0
+
+        def audioChannel(self, name):
+            return self.bus[name]
+
+        def setAudioChannel(self, name, data):
+            self.bus[name] = np.array(data, np.float32)
+
+        def cleanup(self):
+            pass
+
+    class StubModule:
+        made = []
+
+        @staticmethod
+        def Csound():
+            StubModule.made.append(StubCsound())
+            return StubModule.made[-1]
+
+    saved_cs, CH.ctcsound = CH.ctcsound, StubModule
+    try:
+        zero_counts()
+        cycles38 = CH.CsoundHost("<CsoundSynthesizer/>", [CH.cltvconv_insert(
+            parts=cparts, size=icsize, block_size=cks, device="cuda")]).run()
+        fwdcs38 = BS.FWD_TV_LAUNCHES
+    finally:
+        CH.ctcsound = saved_cs
+    heard = np.concatenate(StubModule.made[0].heard)
+    full38 = sps.fftconvolve(fox38.astype(np.float64), beats38.astype(np.float64))
+    want38c = np.concatenate([np.zeros(cks + cparts), full38])[:heard.size]
+    errcs38 = float(np.max(np.abs(heard - want38c)) / np.max(np.abs(full38)))
+    check(cycles38 == ccycles and fwdcs38 == ccycles * cks // cparts and errcs38 <= ORACLE_TOL,
+          f"CsoundHost.run: {cycles38} cycles, #9 launches {fwdcs38}, vs scipy {errcs38:.3e}")
+    # a checkpoint taken mid-stream on the card continues bit for bit
+    st_ck = P.push_ir(cfg, P.pconv_init(cfg, dev), ir_d)
+    blk38 = torch.from_numpy(x[:10 * PTS].reshape(10, PTS)).to(dev)
+    for i in range(5):
+        st_ck, _ = P.pconv_step(cfg, st_ck, blk38[i])
+    with tempfile38.TemporaryDirectory() as td:
+        CK.save_state(td + "/ck.npz", st_ck, meta={"blocks": 5})
+        back = CK.load_state(td + "/ck.npz", P.pconv_init(cfg, dev))
+    same_ck = True
+    for i in range(5, 10):
+        st_ck, o1 = P.pconv_step(cfg, st_ck, blk38[i])
+        back, o2 = P.pconv_step(cfg, back, blk38[i])
+        same_ck = same_ck and torch.equal(o1, o2)
+    check(same_ck and back.tail.device == dev, "a checkpoint on the card continues bit-equal")
+    del chain38, out38, want38z, gotz, heard, full38, want38c, blk38, st_ck, back
+    print(f"phase 38 host layer [{card}]: native runtime {RT.library_path().name} ready in "
+          f"{rt_s:.3f} s, make_accumulator -> {type(acc38).__name__}; RealtimePipeline("
+          f"{IR_LEN} taps, pts {PTS}, prime {prime38}) paced by VirtualHost at {int(SR)} Hz "
+          f"through PipelineCallback for {host_s} s ({n38} blocks + 1 warm-up, host wall "
+          f"{host_wall38:.3f} s; paced runs with gc off and a 0.5 ms switch interval): "
+          f"output = the pconv_step chain sample for sample, vs float64 "
+          f"scipy {err38:.3e}; underruns {under38}, overruns {over38}, late callbacks {late38}; "
+          f"the worker's time a block mean {w38.mean():.1f} us, median {np.median(w38):.1f}, "
+          f"worst {w38.max():.1f} against the {PTS / SR * 1e6:.1f} us period (busy "
+          f"{w38.sum() / 1e6 / host_wall38:.2%} of the paced run's wall); "
+          f"block_step_fwd_fused launches {fwd38} for {blocks38} blocks; TV pipeline {n38t} "
+          f"blocks = the pconv_step_tv chain, block_step_fwd_fused_tv {fwdtv38}; "
+          f"ProcessorPipeline(ClconvProcessor(parts=0, pmax={LONG_PTS}), {ZL_B}) on the "
+          f"{LONG_IR}-tap IR for {zl_s} s ({nzl} blocks, period {ZL_B / SR * 1e6:.1f} us): "
+          f"input ring {ZL_RING} blocks = {ZL_RING * ZL_B} samples ({ZL_RING * ZL_B / SR * 1e3:.1f}"
+          f" ms; past it input is dropped and counted as overruns), output ring {ZL_RING} "
+          f"blocks + the priming: "
+          + "; ".join(f"prime {p_}: underruns {u_} ({u_ / (nzl * ZL_B):.2%} of the "
+                      f"{nzl * ZL_B} samples), overruns {o_} ({o_ / (nzl * ZL_B):.2%}), late "
+                      f"callbacks {l_}, the "
+                      f"worker's time a block mean {m_:.1f} us, median {md_:.1f}, worst "
+                      f"{w_:.1f}, over the period {fr_:.3%}, pulled stream = own run {s_}"
+                      for p_, u_, o_, l_, m_, md_, w_, fr_, s_ in zl_rows)
+          + f"; unpaced: output = the processor's own run (bit-equal); CsoundHost.run on a "
+          f"stub engine, cltvconv_insert(parts {cparts}, size {icsize}) at ksmps {cks}: "
+          f"{cycles38} cycles, vs float64 scipy {errcs38:.3e}, block_step_fwd_fused_tv "
+          f"{fwdcs38}; checkpoint mid-stream on the card: continues bit-equal", flush=True)
+
+    # phase 39: the sweep harness on the card: the quick grid (M 2^9, 2^11 x
+    # L 2^16, 2^18, TV, one repeat) in a temporary directory, every point
+    # measured and above 100x real time; device_timer of pconv_step at one
+    # channel beside phase 26's event time
+    from opencl_fft_tpu_torch.bench import sweep as SW
+    from opencl_fft_tpu_torch.utils.profiling import device_timer
+    grid39 = ([1 << 9, 1 << 11], [1 << 16, 1 << 18])
+    t0 = time.perf_counter()
+    with tempfile38.TemporaryDirectory() as td:
+        res39 = SW.run_sweep(*grid39, tv=True, out_prefix=td + "/sweep", row_repeats=1)
+        table39 = open(td + "/sweep_table.tex").read()
+    sweep_s = time.perf_counter() - t0
+    keys39 = [f"M={m_},L=2^{int(np.log2(l_))}" for m_ in grid39[0] for l_ in grid39[1]]
+    check(sorted(res39) == sorted(keys39) and all(res39[k_] > 100 for k_ in keys39),
+          f"the quick sweep measured every point above 100x: {res39}")
+    check("\\begin{tabular}" in table39 and "--" not in table39, "the sweep's table is whole")
+    st39 = P.push_ir(cfg, P.pconv_init(cfg, dev), ir_d)
+    b39 = f(PTS, s=0.1)
+    dt39 = device_timer(lambda s_: P.pconv_step(cfg, s_, b39)[0], st39, iters=50)
+    ev26 = dict((lab, ms) for lab, ms, _, _ in path_rows)["pconv_step C=1"]
+    print(f"phase 39 sweep [{card}]: run_sweep quick grid (TV, one repeat, {sweep_s:.1f} s): "
+          + ", ".join(f"{k_} {res39[k_]:.1f}x" for k_ in keys39)
+          + f" real time (44.1 kHz); device_timer(pconv_step, C=1, 50 chained) "
+          f"{dt39 * 1e3:.4f} ms a step beside phase 26's events {ev26:.4f} ms", flush=True)
 
     def kernel(name, source, replaces, launches, err, ms, plain, bnd, lib):
         return {"name": name, "route": "cuda", "source": f"opencl_fft_tpu_torch/csrc/{source}",

@@ -46,6 +46,14 @@ and the sharded state included; and scale-out on ``torch.distributed``
 ``dist_fft``, the multi-rank dry run). bf16 rings and float64 compute
 (``PconvConfig(ring_dtype="bf16")``, ``dtype="f64"``) take the plain
 composition on either device: only float32 reaches the kernels.
+The host layer: the native C++ ring and accumulator (``runtime/``, built
+with g++ on first use), the real-time pipelines (``runtime/pipeline.py``),
+the audio hosts and the Csound bus inserts; state checkpoints
+(``utils/checkpoint.py``, the JAX package's file layout), profiling helpers
+(``utils/profiling.py``) and the sweep harness (``bench/sweep.py``). The
+precision API (``set_fast_math``, ``exact_precision``) is the JAX
+package's; every float32 product of the port is full f32 whatever torch's
+matmul settings (``utils.numerics.exact_matmul``).
 
 Every engine takes an explicit device: a CUDA card, or the CPU when asked
 for by name, where each kernel's plain PyTorch twin runs.
@@ -83,7 +91,8 @@ from .ops.dconv import (DconvConfig, DconvState, convolve_direct, dconv_init,
                         dconv_step, dconv_step_tv, dconv_stream)
 from .ops.cuda.vmemfft import (fft_vmem, fft_vmem_front2, fft_vmem_front2_plain,
                                fft_vmem_plain)
-from .ops.fft import cfft, cfft_split, fft, fft_split, fft_unnormalized, ifft
+from .ops.fft import (cfft, cfft_split, exact_precision, fft, fft_split, fft_unnormalized,
+                      ifft, set_fast_math)
 from .ops.pconv import (PconvConfig, PconvState, XfadeState, convolve, convolve_oneshot,
                         pconv_begin_xfade, pconv_chunk, pconv_chunk_tv, pconv_init,
                         pconv_offline, pconv_step, pconv_step_tv, pconv_step_xfade,
@@ -107,6 +116,7 @@ __all__ = [
     "ClfftProcessor", "ClrfftProcessor", "ClconvProcessor", "CltvconvProcessor",
     "fft_split", "cfft_split", "rfft_split", "irfft_split",
     "cfft", "fft", "ifft", "fft_unnormalized", "rfft", "irfft",
+    "set_fast_math", "exact_precision",
     "packed_to_standard", "standard_to_packed", "pack_forward", "unpack_inverse",
     "fft_vmem", "fft_vmem_plain", "fft_vmem_front2", "fft_vmem_front2_plain",
     "PconvConfig", "PconvState", "pconv_init", "push_ir", "pconv_step",

@@ -29,6 +29,7 @@ import functools
 
 import torch
 
+from ...utils.numerics import exact_matmul
 from . import _build
 
 LAUNCHES = 0
@@ -131,4 +132,4 @@ def dstream_steps_plain(seq: torch.Tensor, slabs: torch.Tensor, vsize: int) -> t
     _check_slabs(seq, slabs, vsize)
     p = slabs.shape[0] // vsize - 1
     seq = seq.to(torch.float32).contiguous()
-    return context_rows(seq, p, vsize) @ slabs.to(torch.float32)
+    return exact_matmul(context_rows(seq, p, vsize), slabs.to(torch.float32))

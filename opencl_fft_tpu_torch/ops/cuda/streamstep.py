@@ -53,7 +53,7 @@ from typing import NamedTuple, Sequence, Union
 import numpy as np
 import torch
 
-from ...utils.numerics import is_pow2
+from ...utils.numerics import exact_matmul, is_pow2
 from ..cplx import Cplx
 from . import _build
 from .tables import coef_tables, fwd_table, post_table
@@ -439,7 +439,8 @@ def _dense_frames(blocks: torch.Tensor, pts: int) -> Cplx:
     """The JAX kernels' forward chain, the tests' oracle for ``_fft_frames``:
     frames of blocks (nb, C, pts) as one product against the ``wfwd``
     table, split (C, nb, bins)."""
-    f = (blocks.to(torch.float32) @ fwd_table(pts, blocks.device)).transpose(0, 1)
+    f = exact_matmul(blocks.to(torch.float32),
+                     fwd_table(pts, blocks.device, torch.float64)).transpose(0, 1)
     return f[..., :pts], f[..., pts:]
 
 
@@ -448,7 +449,8 @@ def _post_ola_plain(acc_r, acc_i, tails, pts):
     ``_fft_post_ola``: [acc_r | acc_i] @ wpost per channel, overlap-add
     with the carried tail, / pts: (C, nb, bins) accumulators -> (outs (nb,
     C, pts), final tails (C, pts))."""
-    y = torch.cat([acc_r, acc_i], -1) @ post_table(pts, acc_r.device)   # (C, nb, 2b)
+    y = exact_matmul(torch.cat([acc_r, acc_i], -1),
+                     post_table(pts, acc_r.device, torch.float64))            # (C, nb, 2b)
     prev = torch.cat([tails[:, None], y[:, :-1, pts:]], 1)
     return ((y[..., :pts] + prev) / pts).transpose(0, 1).contiguous(), y[:, -1, pts:]
 

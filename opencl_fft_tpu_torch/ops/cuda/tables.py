@@ -108,15 +108,20 @@ def _deinterleave_np(b: int):
 
 
 @functools.lru_cache(maxsize=None)
-def fwd_table(pts: int, device: torch.device) -> torch.Tensor:
-    """``_wfwd_np(pts)`` as a float32 tensor on ``device``."""
-    return torch.from_numpy(_wfwd_np(pts)).to(device)
+def fwd_table(pts: int, device: torch.device,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``_wfwd_np(pts)`` (float32 values) as a ``dtype`` tensor on
+    ``device``; float64 is the exact widening that ``exact_matmul`` takes,
+    built once a device."""
+    return torch.from_numpy(_wfwd_np(pts)).to(device, dtype)
 
 
 @functools.lru_cache(maxsize=None)
-def post_table(bins: int, device: torch.device) -> torch.Tensor:
-    """``_wpost_np(bins)`` as a float32 tensor on ``device``."""
-    return torch.from_numpy(_wpost_np(bins)).to(device)
+def post_table(bins: int, device: torch.device,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``_wpost_np(bins)`` (float32 values) as a ``dtype`` tensor on
+    ``device``, as ``fwd_table``."""
+    return torch.from_numpy(_wpost_np(bins)).to(device, dtype)
 
 
 @functools.lru_cache(maxsize=None)

@@ -47,7 +47,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ...utils.numerics import is_pow2
+from ...utils.numerics import exact_matmul, is_pow2
 from ..cplx import Cplx
 from . import _build
 
@@ -199,9 +199,18 @@ def dft_matrix_np(n: int, sign: int) -> Tuple[np.ndarray, np.ndarray]:
 
 
 @functools.lru_cache(maxsize=None)
-def _table(kind: str, args: tuple, device: torch.device) -> Cplx:
-    builder = {"four": four_step_twiddle_np, "dft": dft_matrix_np}[kind]
-    wr, wi = builder(*args)
+def _dft_stack(n: int, sign: int, device: torch.device) -> torch.Tensor:
+    """[[wr, wi], [-wi, wr]] of ``dft_matrix_np(n, sign)`` in float64 on
+    ``device`` (the float32 values widened), so that [re | im] @ it is
+    [re wr - im wi | re wi + im wr]: the twins' leaf DFT as one
+    ``exact_matmul``."""
+    wr, wi = (torch.from_numpy(w).to(device, torch.float64) for w in dft_matrix_np(n, sign))
+    return torch.cat([torch.cat([wr, wi], 1), torch.cat([-wi, wr], 1)], 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _four_table(n1: int, n2: int, sign: int, device: torch.device) -> Cplx:
+    wr, wi = four_step_twiddle_np(n1, n2, sign)
     return torch.from_numpy(wr).to(device), torch.from_numpy(wi).to(device)
 
 
@@ -357,8 +366,8 @@ def _dft_plain(re: torch.Tensor, im: torch.Tensor, sign: int) -> Cplx:
     DFT_l1 over the columns)."""
     n = re.shape[-1]
     if n <= LEAF_MAX:
-        wr, wi = _table("dft", (n, sign), re.device)
-        return re @ wr - im @ wi, re @ wi + im @ wr
+        z = exact_matmul(torch.cat([re, im], -1), _dft_stack(n, sign, re.device))
+        return z[..., :n], z[..., n:]
     l1 = LEAF_MAX
     return _four_step_plain(re, im, sign, l1, n // l1)
 
@@ -370,7 +379,7 @@ def _four_step_plain(re, im, sign, n1, n2) -> Cplx:
     ar, ai = _dft_plain(re.reshape(lead + (n1, n2)).transpose(-1, -2),
                         im.reshape(lead + (n1, n2)).transpose(-1, -2), sign)
     ar, ai = ar.transpose(-1, -2), ai.transpose(-1, -2)        # (..., k1, j2)
-    tr, ti = _table("four", (n1, n2, sign), re.device)
+    tr, ti = _four_table(n1, n2, sign, re.device)
     br, bi = ar * tr - ai * ti, ar * ti + ai * tr
     zr, zi = _dft_plain(br, bi, sign)                          # (..., k1, k2)
     return (zr.transpose(-1, -2).reshape(lead + (n,)),

@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from ..utils.numerics import exact_matmul
 from .cuda.dstream import context_blocks, dstream_steps
 
 
@@ -124,7 +125,7 @@ def dconv_step(cfg: DconvConfig, state: DconvState, block: torch.Tensor
     wp = (state.wp + cfg.vsize) % cfg.ring            # cl_dconv.cpp:124
     d = torch.roll(delay, -wp)
     k = torch.flip(state.coefs[:cfg.irsize], (0,))
-    valid = d.unfold(0, cfg.irsize, 1) @ k            # (vsize + 1,)
+    valid = exact_matmul(d.unfold(0, cfg.irsize, 1), k)   # (vsize + 1,)
     out = valid[cfg.off:cfg.off + cfg.vsize]
     return state._replace(delay=delay, wp=wp), out
 

@@ -17,12 +17,27 @@ Routing of a power-of-two size (the JAX package's ``_fft_dispatch``):
 
 The JAX package's other impl names (``mm``, ``stockham``, ``flat``,
 ``xla``) are TPU plan choices and raise ``ValueError`` here.
+
+Precision. The JAX package's ``set_fast_math`` / ``exact_precision`` pick
+the matmul precision of its DFT leaves (bf16x3 or pure bf16 on the TPU's
+matrix unit for large leaves, full f32 otherwise). The port keeps both
+names and their semantics as a policy (``_fast_mode``), but no transform of
+the port runs on a matrix product: the CUDA FFT and ``torch.fft`` are true
+float32 in every mode, "turbo" included. The port's float32 products (the
+forward partition's table product, the direct FIR's dot products, the
+plain twins' DFT and table products) go through
+``utils.numerics.exact_matmul``, which gives full-f32 results whatever
+torch's process-wide matmul settings are (``set_float32_matmul_precision``,
+``allow_tf32``, ``fp32_precision``): the port's counterpart of the JAX
+package's ``Precision.HIGHEST``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Tuple
+import threading
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,6 +47,51 @@ from .cplx import Cplx, from_complex, to_complex
 from .cuda import vmemfft
 
 _IMPLS = ("auto", "vmem")
+
+_FAST_MODE = "auto"            # process-wide policy (set_fast_math)
+_FAST_TLS = threading.local()  # per-thread override (exact_precision): the
+#                                real-time pipeline runs the engine on a
+#                                worker thread beside the caller's thread
+_FAST_MODES = ("turbo", "on", "off", "auto")
+
+
+def _fast_mode() -> str:
+    return getattr(_FAST_TLS, "mode", None) or _FAST_MODE
+
+
+def set_fast_math(enabled: Union[Optional[bool], str]) -> None:
+    """The JAX package's leaf-precision policy: True ("on"), False ("off"),
+    None ("auto") or "turbo"; strings are case-insensitive and any other
+    string raises ValueError.
+
+    On the TPU the modes trade accuracy for the matrix unit's rate. The
+    port's transforms use no matrix product (the CUDA FFT and ``torch.fft``
+    compute in float32 FMA), so every mode gives the same true-f32 result
+    here; the mode is kept so that code written for the JAX package runs
+    unchanged, and ``_fast_mode()`` reports it."""
+    global _FAST_MODE
+    if isinstance(enabled, str):
+        mode = enabled.lower()
+        if mode not in _FAST_MODES:
+            raise ValueError(
+                f"set_fast_math: unknown mode {enabled!r} "
+                f"(expected True/False/None or one of {sorted(_FAST_MODES)})")
+        _FAST_MODE = mode
+        return
+    _FAST_MODE = "auto" if enabled is None else ("on" if enabled else "off")
+
+
+@contextlib.contextmanager
+def exact_precision():
+    """Force the "off" (full f32) policy inside the context; thread-local,
+    so a concurrent thread keeps its own policy (JAX ``ops/fft.py``). The
+    port's results are full f32 in every mode (``set_fast_math``)."""
+    old = getattr(_FAST_TLS, "mode", None)
+    _FAST_TLS.mode = "off"
+    try:
+        yield
+    finally:
+        _FAST_TLS.mode = old
 
 
 @functools.lru_cache(maxsize=None)

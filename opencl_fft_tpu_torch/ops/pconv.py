@@ -65,7 +65,7 @@ from typing import Callable, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..utils.numerics import is_pow2
+from ..utils.numerics import exact_matmul, is_pow2
 from .cplx import Cplx
 from .cuda.blockstep import (block_mac_unpack, block_step_fused, block_step_fwd_fused,
                               block_step_fwd_fused_tv)
@@ -240,7 +240,8 @@ def _forward_partition(cfg: PconvConfig, block: torch.Tensor) -> Cplx:
         rows = block.reshape(-1, cfg.pts)
         if rows.shape[0] == 1 and rows.device.type == "cpu":
             rows = torch.cat([rows, torch.zeros_like(rows)])
-        z = (rows @ fwd_table(cfg.pts, block.device))[:block.numel() // cfg.pts]
+        z = exact_matmul(rows, fwd_table(cfg.pts, block.device, torch.float64)
+                         )[:block.numel() // cfg.pts]
         z = z.reshape(block.shape[:-1] + (2 * cfg.bins,))
         return z[..., :cfg.bins], z[..., cfg.bins:]
     frame = torch.cat([block, torch.zeros_like(block)], dim=-1)

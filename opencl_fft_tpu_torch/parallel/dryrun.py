@@ -18,7 +18,7 @@ import os
 import pickle
 import tempfile
 import time
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -125,23 +125,32 @@ def _dryrun_rank(n: int, backend: str, device: str) -> Dict[str, Any]:
             "dist_fft_err": float(np.max(np.abs(y - ref)) / np.max(np.abs(ref)))}
 
 
-def dryrun_multichip(n: int, backend: str = "nccl", device: str = "cuda",
+def dryrun_multichip(n: int, backend: Optional[str] = None, device: str = "cuda",
                      timeout: float = 900.0) -> Dict[str, Any]:
-    """Start n ranks (by default NCCL, one card a rank; ``backend="gloo",
-    device="cpu"`` for the CPU), build the ``balanced_shape(n)`` mesh, run
-    one sharded TV step at the deployment shape and hold it against the
-    unsharded engine channel by channel, and a ``dist_fft`` over tp against
-    numpy. Raises on disagreement beyond 1e-4 of the output scale (3e-5 of
-    max|ref| for the transform); returns the mesh shape, the step's error
-    and scale and the transform's relative error. DeviceError when a card is
-    asked for and there is none, ValueError when NCCL is asked for more
-    ranks than there are cards (it takes one rank a card)."""
+    """Start n ranks, build the ``balanced_shape(n)`` mesh, run one sharded
+    TV step at the deployment shape and hold it against the unsharded engine
+    channel by channel, and a ``dist_fft`` over tp against numpy. Raises on
+    disagreement beyond 1e-4 of the output scale (3e-5 of max|ref| for the
+    transform); returns the mesh shape, the step's error and scale and the
+    transform's relative error.
+
+    By default the ranks run on the card: NCCL, one card a rank, when there
+    are at least n cards, else n gloo ranks sharing the cards with CUDA
+    tensors (gloo takes them), as the JAX entry point provisions virtual
+    devices when it has too few real ones. ``device="cpu"`` defaults to
+    gloo. DeviceError when a card is asked for and there is none,
+    ValueError when NCCL is asked for by name for more ranks than there are
+    cards (it takes one rank a card)."""
     if torch.device(device).type == "cuda":
         if not torch.cuda.is_available():
             raise DeviceError("failed to find a CUDA device!", Status.DEVICE_NOT_FOUND)
-        if backend == "nccl" and n > torch.cuda.device_count():
-            raise ValueError(f"NCCL takes one rank a card: {n} ranks, "
-                             f"{torch.cuda.device_count()} cards")
+        cards = torch.cuda.device_count()
+        if backend is None:
+            backend = "nccl" if n <= cards else "gloo"
+        elif backend == "nccl" and n > cards:
+            raise ValueError(f"NCCL takes one rank a card: {n} ranks, {cards} cards")
+    elif backend is None:
+        backend = "gloo"
     results = run_ranks(n, _dryrun_rank, n, backend, device, backend=backend, timeout=timeout)
     out = np.zeros((DRYRUN_BATCH, DRYRUN_PTS), np.float32)
     expect = np.zeros_like(out)

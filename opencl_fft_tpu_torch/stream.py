@@ -13,7 +13,8 @@ direct engine runs fixed-size blocks with none, and so does the
 zero-latency engine (``parts=0``, beyond the reference:
 ``models/lowlatency.ZeroLatencyConvolver``). ``ClconvProcessor``
 zero-pads the IR to whole partitions and applies the 0dbfs scale (:190-191)
-and table skip/size (:181-182).
+and table skip/size (:181-182). The partitioned processors shuttle samples
+through ``make_accumulator``: the native C++ accumulator of ``runtime/``.
 """
 
 from __future__ import annotations
@@ -93,6 +94,19 @@ class ClrfftProcessor:
         r = np.zeros(self.n, np.float32)
         self._fft.transform(c, r)
         return r[: self.length]
+
+
+def make_accumulator(parts: int, n_streams: int = 1, native: bool = True):
+    """Block accumulator factory (JAX ``stream.py:94-105``): the C++
+    runtime (``runtime/stream_rt.cpp``) when ``native``, else the numpy
+    implementation below; both have the same semantics (held equal in
+    ``tests/test_torch_runtime.py``). The numpy one is also taken when no
+    ``g++`` is on PATH to build the runtime; a failed build raises."""
+    if native:
+        from .runtime import NativeBlockAccumulator, native_available
+        if native_available():
+            return NativeBlockAccumulator(parts, n_streams)
+    return _BlockAccumulator(parts, n_streams)
 
 
 class _BlockAccumulator:
@@ -179,7 +193,7 @@ class ClconvProcessor:
         self._engine = _engine(Clpconv(device_index, cvs, parts, on_message, user_data,
                                        bin0_mode=bin0_mode, impl=impl, device=device))
         self._engine.push_ir(padded)
-        self._acc = _BlockAccumulator(parts)
+        self._acc = make_accumulator(parts)
 
     @property
     def latency(self) -> int:
@@ -283,7 +297,7 @@ class CltvconvProcessor:
             self._engine = _engine(Clpconv(device_index, size, parts, on_message,
                                            user_data, bin0_mode=bin0_mode, impl=impl,
                                            device=device))
-            self._acc = _BlockAccumulator(parts, n_streams=2)
+            self._acc = make_accumulator(parts, n_streams=2)
 
     def process(self, in1: np.ndarray, in2: np.ndarray,
                 freeze1: Optional[bool] = None,

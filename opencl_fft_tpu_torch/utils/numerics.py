@@ -1,10 +1,13 @@
 """Numeric helpers shared across the framework.
 
 ``np2`` — next power of two, reference ``csound/opcode.cpp:30-35`` (the
-reference returns at least 2 and rounds *up to or equal*).
+reference returns at least 2 and rounds *up to or equal*). ``exact_matmul``
+— the one route of the package's matrix products (``ops/fft.py``).
 """
 
 from __future__ import annotations
+
+import torch
 
 
 def np2(n: int) -> int:
@@ -24,3 +27,24 @@ def ilog2(n: int) -> int:
     if not is_pow2(n):
         raise ValueError(f"size must be a power of two, got {n}")
     return n.bit_length() - 1
+
+
+def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with full float32 accuracy, whatever torch's process-wide
+    matmul settings say (``torch.set_float32_matmul_precision``,
+    ``torch.backends.cuda.matmul.allow_tf32``, the ``fp32_precision``
+    flags), which would otherwise let cuBLAS use TF32 and the CPU bf16.
+
+    A float32 ``a`` is widened to float64, multiplied by ``b`` in float64
+    and the product rounded to float32 once: a float64 product is outside
+    every float32 precision setting, so the helper reads and sets no global
+    flag. It leaves the caller's settings as they were and changes nothing
+    for a concurrent thread's products (no set-and-restore, no lock). Each
+    float32 entry is the rounded float64 dot product, at least as exact as
+    a float32 GEMM at full precision. ``b`` is float32, or a constant
+    table's exact float64 widening built once a device (``fwd_table(...,
+    torch.float64)``), so that only ``a`` is widened a call. Float64
+    operands (the float64 configs) multiply as given."""
+    if a.dtype == torch.float32 and b.dtype in (torch.float32, torch.float64):
+        return torch.matmul(a.double(), b.double()).float()
+    return torch.matmul(a, b)

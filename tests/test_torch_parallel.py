@@ -12,6 +12,7 @@ theirs.
 """
 
 import functools
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -234,6 +235,34 @@ def test_dryrun_multichip_defaults_to_the_card():
     it raises DeviceError before any rank starts, as make_mesh() does."""
     with pytest.raises(DeviceError):
         dryrun_multichip(4)
+
+
+class _Picked(Exception):
+    pass
+
+
+@pytest.mark.parametrize("cards,n,backend,device,picked", [
+    (1, 4, None, "cuda", "gloo"), (4, 4, None, "cuda", "nccl"), (2, 8, None, "cuda", "gloo"),
+    (1, 4, "gloo", "cuda", "gloo"), (0, 4, None, "cpu", "gloo"), (8, 4, "gloo", "cpu", "gloo")])
+def test_dryrun_multichip_picks_its_backend(monkeypatch, cards, n, backend, device, picked):
+    """With no backend named, n ranks on the card take NCCL when there is a
+    card a rank, else gloo sharing the cards (the JAX entry point's virtual
+    devices); the CPU takes gloo. NCCL named for too few cards stays a
+    ValueError."""
+    dry = importlib.import_module("opencl_fft_tpu_torch.parallel.dryrun")
+    monkeypatch.setattr(dry.torch.cuda, "is_available", lambda: cards > 0)
+    monkeypatch.setattr(dry.torch.cuda, "device_count", lambda: cards)
+
+    def fake_run_ranks(n_, fn, *args, backend, timeout):
+        raise _Picked(backend, args[1:])
+
+    monkeypatch.setattr(dry, "run_ranks", fake_run_ranks)
+    with pytest.raises(_Picked) as e:
+        dry.dryrun_multichip(n, backend=backend, device=device)
+    assert e.value.args == (picked, (picked, device))
+    if device == "cuda":
+        with pytest.raises(ValueError, match="one rank a card"):
+            dry.dryrun_multichip(cards + 1, backend="nccl")
 
 
 def test_dist_serving_demo_runs(ranks):
