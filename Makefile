@@ -5,7 +5,7 @@ CXXFLAGS ?= -O2 -shared -fPIC
 RT_DIR    = opencl_fft_tpu/runtime
 RT_SO     = $(RT_DIR)/libstream_rt.so
 
-.PHONY: all native test bench sweep demo clean
+.PHONY: all native test bench sweep demo torch-test torch-demo smoke clean
 
 all: native
 
@@ -25,6 +25,16 @@ sweep: native
 
 demo: native
 	python examples/demo.py
+
+# the PyTorch/CUDA port: its CPU tests, its demo on the card, its chip smoke
+torch-test:
+	python -m pytest tests/test_torch_*.py -q
+
+torch-demo:
+	python -m opencl_fft_tpu_torch.examples.demo --device cuda
+
+smoke:
+	python3 chip_smoke.py
 
 clean:
 	rm -f $(RT_SO) bench_details.json demo_reverb.wav sweep*.json \

@@ -69,8 +69,10 @@ scipy; ``set_fast_math`` in every mode), the host layer (the native runtime,
 ``RealtimePipeline`` paced by ``VirtualHost`` at 48 kHz for 5 s at the
 bench headline against the ``pconv_step`` chain, a TV pipeline,
 ``ProcessorPipeline`` around the zero-latency processor, ``CsoundHost`` on a
-stub engine, a checkpoint on the card) and the sweep harness's quick grid.
-Last, one JSON line with every kernel's launches, error,
+stub engine, a checkpoint on the card), the sweep harness's quick grid, and
+the nine demo command lines of ``opencl_fft_tpu_torch/examples`` at their
+default sizes (exit codes, wavs, each render against float64 scipy or the
+CPU twins, each demo's launches by kernel). Last, one JSON line with every kernel's launches, error,
 time and bound, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Every phase prints one line; any
 failure exits non-zero before the last line. Without a CUDA card, or
@@ -3413,6 +3415,265 @@ def main():
           + ", ".join(f"{k_} {res39[k_]:.1f}x" for k_ in keys39)
           + f" real time (44.1 kHz); device_timer(pconv_step, C=1, 50 chained) "
           f"{dt39 * 1e3:.4f} ms a step beside phase 26's events {ev26:.4f} ms", flush=True)
+
+    # phase 40: the demo command lines (opencl_fft_tpu_torch/examples) on the
+    # card. Each runs at its full default size as `python -m
+    # opencl_fft_tpu_torch.examples.<name>` into a temporary directory (the
+    # seven unpaced ones side by side, then the two paced ones alone): exit
+    # codes, wavs (nonzero share > 0.4, peak within +-32767), the printed
+    # checks (zero added latency, the faded jump below the instant one, the
+    # farm's PASS, 0 underruns and overruns at pts 4096). In process, with
+    # the launch counts set to 0 just before each demo's path and read just
+    # after (the profiler's __global__ list beside them): demo, stereo_demo
+    # and zl_demo against float64 scipy aligned by their latency to 5e-5 of
+    # max|ref|, tvconv_demo and hotswap_demo against the same render on the
+    # CPU (the plain twins) to 1e-5, the csound inserts block by block
+    # against the CPU where ctcsound is absent, one rank of the farm in this
+    # process, realtime_pipeline's unpaced phases 1 and 3 and audio_host_demo
+    # for 1 s. Phase 3's pacing is recorded, not required.
+    import glob
+    import importlib.util
+    import os
+    import tempfile
+    import wave
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from opencl_fft_tpu_torch.examples import audio_host_demo as XA
+    from opencl_fft_tpu_torch.examples import csound_demo as XC
+    from opencl_fft_tpu_torch.examples import demo as XD
+    from opencl_fft_tpu_torch.examples import dist_serving_demo as XS
+    from opencl_fft_tpu_torch.examples import hotswap_demo as XH
+    from opencl_fft_tpu_torch.examples import realtime_pipeline as XR
+    from opencl_fft_tpu_torch.examples import stereo_demo as XST
+    from opencl_fft_tpu_torch.examples import tvconv_demo as XT
+    from opencl_fft_tpu_torch.examples import zl_demo as XZ
+    t40 = time.perf_counter()
+    root40 = os.path.dirname(os.path.abspath(__file__))
+    has_cs = importlib.util.find_spec("ctcsound") is not None
+    wavs40 = ("demo", "tvconv_demo", "hotswap_demo", "stereo_demo", "zl_demo")
+
+    def run_demo(name, *args):
+        t0_ = time.perf_counter()
+        p_ = subprocess.run([sys.executable, "-m", f"opencl_fft_tpu_torch.examples.{name}",
+                             *args], cwd=root40, capture_output=True, text=True, timeout=600)
+        return name, p_.returncode, p_.stdout, p_.stderr, time.perf_counter() - t0_
+
+    with tempfile.TemporaryDirectory() as td40:
+        unpaced40 = [(n_, f"{td40}/{n_}.wav") for n_ in wavs40] + [
+            ("csound_demo",), ("dist_serving_demo",)]
+        with ThreadPoolExecutor(len(unpaced40)) as ex:
+            cli40 = {r_[0]: r_[1:] for r_ in ex.map(lambda a_: run_demo(*a_), unpaced40)}
+        for n_ in ("realtime_pipeline", "audio_host_demo"):
+            cli40[n_] = run_demo(n_)[1:]
+        for n_, (rc_, out_, err_, _) in cli40.items():
+            want_rc = 1 if n_ == "csound_demo" and not has_cs else 0
+            check(rc_ == want_rc, f"{n_} exits {rc_} (want {want_rc}):\n{out_[-2000:]}\n"
+                                  f"{err_[-4000:]}")
+        wav_rows = {}
+        for n_ in wavs40:
+            with wave.open(f"{td40}/{n_}.wav") as w_:
+                pcm = np.frombuffer(w_.readframes(w_.getnframes()), np.int16)
+                wav_rows[n_] = (w_.getnchannels(), w_.getnframes() / w_.getframerate(),
+                                float(np.mean(pcm != 0)), int(np.abs(pcm.astype(np.int32)).max()))
+            check(wav_rows[n_][2] > 0.4 and 0 < wav_rows[n_][3] <= 32767,
+                  f"{n_}'s wav: nonzero share {wav_rows[n_][2]:.3f}, peak {wav_rows[n_][3]}")
+    out40 = {n_: v_[1] for n_, v_ in cli40.items()}
+    check("zero-latency engine = 0 samples" in out40["zl_demo"], out40["zl_demo"])
+    jm = re.search(r"instant ([\d.]+), faded ([\d.]+)", out40["hotswap_demo"])
+    check(jm is not None and float(jm.group(2)) < float(jm.group(1)),
+          f"hotswap_demo's faded jump below the instant one: {out40['hotswap_demo']}")
+    check(out40["dist_serving_demo"].rstrip().endswith("PASS"), out40["dist_serving_demo"])
+    check("underruns=0 overruns=0" in out40["realtime_pipeline"]
+          and "REALTIME OK" in out40["realtime_pipeline"].split("phase 3")[0],
+          f"realtime_pipeline phase 2 keeps up: {out40['realtime_pipeline']}")
+    check("underrun samples: 0; overrun samples: 0;" in out40["audio_host_demo"],
+          f"audio_host_demo: {out40['audio_host_demo']}")
+    check(has_cs or "ctcsound is not importable" in out40["csound_demo"], out40["csound_demo"])
+    cli_s40 = time.perf_counter() - t40
+
+    names40 = {"spectral_mac": lambda: MC.LAUNCHES, "block_step_fused": lambda: BS.STEP_LAUNCHES,
+               "block_step_fwd_fused": lambda: BS.FWD_LAUNCHES,
+               "block_step_fwd_fused_tv": lambda: BS.FWD_TV_LAUNCHES,
+               "block_mac_unpack": lambda: BS.MAC_UNPACK_LAUNCHES,
+               "stream_steps_fused": lambda: S.LAUNCHES,
+               "stream_steps_fused_batched": lambda: S.BATCHED_LAUNCHES,
+               "fft_vmem": lambda: V.LAUNCHES, "fft_vmem_front2": lambda: V.FRONT2_LAUNCHES,
+               "dstream_steps": lambda: K.LAUNCHES,
+               "stream_steps_fused_split": lambda: SP.LAUNCHES}
+
+    # the __global__ kernels of the port's sources, by name
+    csrc40 = "".join(open(p_).read() for p_ in sorted(
+        glob.glob(os.path.join(root40, "opencl_fft_tpu_torch", "csrc", "*.cu*"))))
+    ours40 = re.compile(r"\b(?:" + "|".join(sorted(set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s*)?(\w+_kernel)\s*\(",
+        csrc40)))) + r")\b(?:<[^>]*>)?")
+
+    def traced(fn):
+        """fn() with every launch count set to 0 just before and read just
+        after, under the profiler: (result, wall s, {wrapper: launches},
+        {our __global__: launches}, other kernel launches). The profiler's
+        counts are a lower bound (a session can drop launches)."""
+        zero_counts()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof_:
+            t0_ = time.perf_counter()
+            res_ = fn()
+            torch.cuda.synchronize()
+            wall_ = time.perf_counter() - t0_
+        counts_ = {k_: c_() for k_, c_ in names40.items() if c_()}
+        ours_, other_ = {}, 0
+        for e_ in prof_.key_averages():
+            if e_.self_device_time_total <= 0:
+                continue
+            k_ = None if "at::" in e_.key else ours40.search(e_.key)
+            if k_ is None:
+                other_ += e_.count
+            else:
+                ours_[k_.group(0)] = ours_.get(k_.group(0), 0) + e_.count
+        return res_, wall_, counts_, ours_, other_
+
+    rows40 = []
+
+    def row(name, audio_s, wall, counts, ours, other, note, need):
+        """Record a demo's run; its wrapper counts must hold ``need``
+        (other wrappers may appear, and are printed)."""
+        check(all(counts.get(k_) == v_ for k_, v_ in need.items()),
+              f"{name}: launches {counts}, need {need}")
+        rows40.append((name, audio_s, wall, counts, ours, other, note))
+
+    # demo: 64-sample host blocks into parts 1024, one partition of latency
+    dry40, irh40 = XD.inputs()
+    wet40, w_, c_, o_, n_ = traced(lambda: XD.render(dry40, irh40, dev))
+    full40 = sps.fftconvolve(dry40.astype(np.float64), irh40.astype(np.float64))
+    ref40 = np.zeros(wet40.size - XD.PARTS)
+    m_ = min(ref40.size, full40.size)
+    ref40[:m_] = full40[:m_]
+    e_demo = rel_err(wet40[XD.PARTS:], ref40)
+    steps40 = wet40.size // XD.PARTS
+    check(e_demo <= ORACLE_TOL and not wet40[:XD.PARTS].any(),
+          f"demo vs float64 scipy {e_demo:.3e}")
+    row("demo", wet40.size / 44100, w_, c_, o_, n_, f"vs scipy {e_demo:.3e}",
+        {"block_step_fwd_fused": steps40})
+
+    # tvconv_demo: against the same render on the CPU
+    a40, b40 = XT.inputs()
+    tvw40, w_, c_, o_, n_ = traced(lambda: XT.render(a40, b40, dev))
+    e_tv = rel_err(tvw40, XT.render(a40, b40, "cpu"))
+    tvsteps = tvw40.size // XT.PARTS
+    check(e_tv <= 1e-5, f"tvconv_demo card vs CPU {e_tv:.3e}")
+    row("tvconv_demo", tvw40.size / 44100, w_, c_, o_, n_, f"vs CPU {e_tv:.3e}",
+        {"block_step_fwd_fused_tv": tvsteps})
+
+    # hotswap_demo: the instant and the faded swap, against the CPU
+    dryh, small40, big40 = XH.inputs()
+    swap40 = int(1.2 * 44100) // XH.PARTS
+    hs40 = {}
+    for fade_ in (0, XH.FADE):
+        got_, w_, c_, o_, n_ = traced(lambda: XH.render(dryh, small40, big40, XH.PARTS, swap40,
+                                                        fade_, dev))
+        e_ = rel_err(got_, XH.render(dryh, small40, big40, XH.PARTS, swap40, fade_, "cpu"))
+        check(e_ <= 1e-5, f"hotswap_demo fade {fade_} card vs CPU {e_:.3e}")
+        hsteps = got_.size // XH.PARTS
+        hs40[fade_] = got_
+        # the fade: one #7 to rebuild the incoming tail, then #8 and #10 a
+        # faded block
+        row(f"hotswap_demo fade {fade_}", got_.size / 44100, w_, c_, o_, n_, f"vs CPU {e_:.3e}",
+            {"block_step_fwd_fused": hsteps} if not fade_ else
+            {"spectral_mac": 1, "block_step_fused": fade_, "block_step_fwd_fused": hsteps})
+    j40 = XH.jumps(hs40[0], hs40[XH.FADE], XH.PARTS, swap40)
+    check(j40[1] < j40[0], f"hotswap_demo on the card: faded jump {j40[1]} < instant {j40[0]}")
+
+    # stereo_demo: one (nblk, 4, 1024) scan, no latency
+    drys, cfgs, irss = XST.inputs()
+    (strm40, wets40), w_, c_, o_, n_ = traced(lambda: XST.render(drys, cfgs, irss, dev))
+    refs40 = np.stack([sum(sps.fftconvolve(strm40[i].astype(np.float64),
+                                           irss[o, i].astype(np.float64))[:strm40.shape[1]]
+                           for i in range(2)) for o in range(2)])
+    e_st = rel_err(wets40, refs40)
+    check(e_st <= ORACLE_TOL, f"stereo_demo vs float64 scipy {e_st:.3e}")
+    row("stereo_demo", wets40.shape[1] / 44100, w_, c_, o_, n_, f"vs scipy {e_st:.3e}",
+        {"stream_steps_fused_batched": 1})
+
+    # zl_demo: zero added latency, the reverb workload in 64-sample blocks
+    lat40 = XZ.latencies(irh40, dev)
+    check(lat40 == (0, XZ.PARTS), f"zl_demo latencies {lat40}")
+    (zw40, segs40), w_, c_, o_, n_ = traced(lambda: XZ.render(dry40, irh40, dev))
+    refz = np.zeros(zw40.size)
+    m_ = min(refz.size, full40.size)
+    refz[:m_] = full40[:m_]
+    e_zl = rel_err(zw40, refz)
+    nblk_z = zw40.size // XZ.BLOCK
+    fires = sum(nblk_z // (s_.pts // XZ.BLOCK) for s_ in segs40)
+    check(e_zl <= ORACLE_TOL, f"zl_demo vs float64 scipy {e_zl:.3e}")
+    row("zl_demo", zw40.size / 44100, w_, c_, o_, n_,
+        f"vs scipy {e_zl:.3e}, latency {lat40[0]} (uniform {lat40[1]})",
+        {"block_step_fwd_fused": fires})
+
+    # csound_demo's inserts, block by block, card against CPU
+    ins_d, ins_c = XC.inserts(dev), XC.inserts("cpu")
+    ncyc = 2 * 44100 // XC.KSMPS
+    sig40 = (0.3 * rng.standard_normal((ncyc, 2, XC.KSMPS))).astype(np.float32)
+
+    def inserts_run(ins):
+        return np.stack([np.stack([ins[0].process(s_[0]), ins[1].process(s_[0], s_[1])])
+                         for s_ in sig40])
+    csd_out, w_, c_, o_, n_ = traced(lambda: inserts_run(ins_d))
+    csc_out = inserts_run(ins_c)
+    e_cs = max(rel_err(csd_out[:, k_], csc_out[:, k_]) for k_ in range(2))
+    csteps = ncyc * XC.KSMPS // XC.PARTS
+    check(e_cs <= 1e-5, f"csound inserts card vs CPU {e_cs:.3e}")
+    row("csound_demo inserts", ncyc * XC.KSMPS / 44100, w_, c_, o_, n_,
+        f"vs CPU {e_cs:.3e}; ctcsound {'present: the demo ran' if has_cs else 'absent'}",
+        {"block_step_fwd_fused": csteps, "block_step_fwd_fused_tv": csteps})
+
+    # dist_serving_demo: one NCCL rank of the farm in this process
+    with tempfile.TemporaryDirectory() as store40:
+        dist.init_process_group("nccl", init_method="file://" + store40 + "/store", rank=0,
+                                world_size=1)
+        try:
+            rk40, w_, c_, o_, n_ = traced(lambda: XS.serve_rank((1, 1), 8, 32, 128, 16, "cuda"))
+        finally:
+            dist.destroy_process_group()
+    cfgd, irsd, blkd = XS.inputs(8, 32, 128, 16)
+    convd = P.Convolver(cfgd, 8, device=dev)
+    convd.push_ir(irsd)
+    refd = convd.stream(blkd).cpu().numpy()
+    e_ds = float(np.max(np.abs(rk40["out"] - refd))) / max(1.0, float(np.max(np.abs(refd))))
+    check(e_ds <= XS.TOL, f"the farm's rank vs Convolver.stream {e_ds:.3e}")
+    row("dist_serving_demo rank", 32 * 128 * 8 / 48000, w_, c_, o_, n_,
+        f"vs Convolver.stream {e_ds:.3e} of max(1, scale)", {})
+
+    # realtime_pipeline's unpaced phases 1 and 3, audio_host_demo for 1 s
+    cfgr, irr, blkr, blkr3 = XR.inputs(4096, 3.0)
+    r1_40, w_, c_, o_, n_ = traced(lambda: XR.phase1(cfgr, irr, blkr, dev))
+    check(c_.get("fft_vmem", 0) >= len(blkr), f"realtime_pipeline phase 1: #18 {c_}")
+    row("realtime_pipeline phase 1", (len(blkr) - 1) * 4096 / 48000, w_, c_, o_, n_,
+        f"unpaced {r1_40['rt']:.1f}x real time", {"block_mac_unpack": len(blkr)})
+    r3_40, w_, c_, o_, n_ = traced(lambda: XR.phase3(irr, blkr3, dev))
+    row("realtime_pipeline phase 3", None, w_, c_, o_, n_,
+        f"unpaced {r3_40['rt']:.2f}x real time, then paced if >= {XR.BUDGET3}x: "
+        f"(underruns, overruns) {r3_40['paced']}", {})
+    ra40, w_, c_, o_, n_ = traced(lambda: XA.run(1.0, 4096, dev, report=lambda m_: None))
+    row("audio_host_demo 1 s", 1.0, w_, c_, o_, n_,
+        f"{ra40['host']}: callbacks {ra40['callbacks']}, underruns {ra40['underruns']}, "
+        f"overruns {ra40['overruns']}, late {ra40['late']}", {})
+    print(f"phase 40 demos [{card}] in {time.perf_counter() - t40:.1f} s: python -m "
+          f"opencl_fft_tpu_torch.examples.<name> ({cli_s40:.1f} s; the seven unpaced side by "
+          f"side, then the paced two alone): "
+          + "; ".join(f"{n_} rc {v_[0]} in {v_[3]:.1f} s: "
+                      + " | ".join(ln_ for ln_ in v_[1].splitlines()
+                                   if not ln_.startswith("using device"))
+                      for n_, v_ in cli40.items())
+          + "; wavs (channels, s, nonzero share, peak): "
+          + ", ".join(f"{n_} {v_[0]}, {v_[1]:.2f}, {v_[2]:.3f}, {v_[3]}"
+                      for n_, v_ in wav_rows.items())
+          + ". In process (wall s, audio s / wall s, launches by wrapper | the profiler's "
+          "__global__ kernels | other kernels): "
+          + "; ".join(f"{n_}: {w_:.3f} s, " + (f"{a_ / w_:.1f}x" if a_ else "-")
+                      + f", {c_} | {o_} | {k_} ({note_})"
+                      for n_, a_, w_, c_, o_, k_, note_ in rows40), flush=True)
 
     def kernel(name, source, replaces, launches, err, ms, plain, bnd, lib):
         return {"name": name, "route": "cuda", "source": f"opencl_fft_tpu_torch/csrc/{source}",

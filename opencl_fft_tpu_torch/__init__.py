@@ -53,7 +53,9 @@ the audio hosts and the Csound bus inserts; state checkpoints
 (``utils/profiling.py``) and the sweep harness (``bench/sweep.py``). The
 precision API (``set_fast_math``, ``exact_precision``) is the JAX
 package's; every float32 product of the port is full f32 whatever torch's
-matmul settings (``utils.numerics.exact_matmul``).
+matmul settings (``utils.numerics.exact_matmul``). The demos of the JAX
+package's ``examples/`` run on the port as ``python -m
+opencl_fft_tpu_torch.examples.<name>`` (``examples/``).
 
 Every engine takes an explicit device: a CUDA card, or the CPU when asked
 for by name, where each kernel's plain PyTorch twin runs.

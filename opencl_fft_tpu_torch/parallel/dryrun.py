@@ -90,6 +90,24 @@ def run_ranks(n: int, fn: Callable, *args, backend: str = "gloo",
     return results
 
 
+def pick_backend(n: int, backend: Optional[str] = None, device: str = "cuda") -> str:
+    """The backend for n ranks on ``device``: on the card NCCL, one card a
+    rank, when there are at least n cards, else n gloo ranks sharing the
+    cards with CUDA tensors (gloo takes them); on the CPU gloo. A backend
+    named is taken as given. DeviceError when a card is asked for and there
+    is none, ValueError when NCCL is named for more ranks than cards."""
+    if torch.device(device).type == "cuda":
+        if not torch.cuda.is_available():
+            raise DeviceError("failed to find a CUDA device!", Status.DEVICE_NOT_FOUND)
+        cards = torch.cuda.device_count()
+        if backend is None:
+            return "nccl" if n <= cards else "gloo"
+        if backend == "nccl" and n > cards:
+            raise ValueError(f"NCCL takes one rank a card: {n} ranks, {cards} cards")
+        return backend
+    return backend or "gloo"
+
+
 def _dryrun_rank(n: int, backend: str, device: str) -> Dict[str, Any]:
     """One rank of the dry run: its channels' sharded TV step and the
     unsharded steps of the same channels, as numpy."""
@@ -134,23 +152,14 @@ def dryrun_multichip(n: int, backend: Optional[str] = None, device: str = "cuda"
     transform); returns the mesh shape, the step's error and scale and the
     transform's relative error.
 
-    By default the ranks run on the card: NCCL, one card a rank, when there
-    are at least n cards, else n gloo ranks sharing the cards with CUDA
-    tensors (gloo takes them), as the JAX entry point provisions virtual
+    By default the ranks run on the card, on ``pick_backend``'s choice:
+    NCCL, one card a rank, when there are at least n cards, else n gloo
+    ranks sharing the cards, as the JAX entry point provisions virtual
     devices when it has too few real ones. ``device="cpu"`` defaults to
     gloo. DeviceError when a card is asked for and there is none,
     ValueError when NCCL is asked for by name for more ranks than there are
     cards (it takes one rank a card)."""
-    if torch.device(device).type == "cuda":
-        if not torch.cuda.is_available():
-            raise DeviceError("failed to find a CUDA device!", Status.DEVICE_NOT_FOUND)
-        cards = torch.cuda.device_count()
-        if backend is None:
-            backend = "nccl" if n <= cards else "gloo"
-        elif backend == "nccl" and n > cards:
-            raise ValueError(f"NCCL takes one rank a card: {n} ranks, {cards} cards")
-    elif backend is None:
-        backend = "gloo"
+    backend = pick_backend(n, backend, device)
     results = run_ranks(n, _dryrun_rank, n, backend, device, backend=backend, timeout=timeout)
     out = np.zeros((DRYRUN_BATCH, DRYRUN_PTS), np.float32)
     expect = np.zeros_like(out)

@@ -9,12 +9,21 @@ fall back.
 
 from __future__ import annotations
 
-from typing import Any, Optional, Union
+from typing import Any, List, Optional, Union
 
 import torch
 
 from .errors import DeviceError, Status
 from .logging import MessageCallback, resolve_callback
+
+
+def list_devices() -> List[torch.device]:
+    """The CUDA cards, in index order (the ``clGetDeviceIDs`` analog); an
+    empty list without one. The CPU is never listed: it is used only when
+    asked for by name."""
+    if not torch.cuda.is_available():
+        return []
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def get_device(device_index: int = 0,

@@ -1,12 +1,16 @@
 """Numeric helpers shared across the framework.
 
 ``np2`` — next power of two, reference ``csound/opcode.cpp:30-35`` (the
-reference returns at least 2 and rounds *up to or equal*). ``exact_matmul``
-— the one route of the package's matrix products (``ops/fft.py``).
+reference returns at least 2 and rounds *up to or equal*).
+``bit_reverse_indices`` — the bit-reversal permutation table of
+``cl_fft.cpp:96-101`` (kept for parity tests; the port's FFTs are
+self-sorting). ``exact_matmul`` — the one route of the package's matrix
+products (``ops/fft.py``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -27,6 +31,21 @@ def ilog2(n: int) -> int:
     if not is_pow2(n):
         raise ValueError(f"size must be a power of two, got {n}")
     return n.bit_length() - 1
+
+
+def bit_reverse_indices(n: int) -> np.ndarray:
+    """Bit-reversed index table (int32), built as cl_fft.cpp:96-101 builds
+    it; ValueError unless n is a power of two."""
+    if not is_pow2(n):
+        raise ValueError(f"size must be a power of two, got {n}")
+    bp = np.zeros(n, dtype=np.int32)
+    i = 1
+    half = n // 2
+    while i < n:
+        bp[i:2 * i] = bp[:i] + half
+        i <<= 1
+        half >>= 1
+    return bp
 
 
 def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
