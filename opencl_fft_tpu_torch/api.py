@@ -21,6 +21,7 @@ from .ops import pconv as _pconv
 from .ops.cuda import _build
 from .ops.cuda import vmemfft as _vmemfft
 from .ops.rfft import irfft_split, rfft_split
+from .utils import profiling
 from .utils.devices import get_device
 from .utils.errors import ArgumentError, SizeError, Status
 from .utils.logging import MessageCallback, resolve_callback
@@ -255,14 +256,21 @@ class Clpconv:
         into the coefficient ring; undefined during a crossfade, where it
         raises ArgumentError. Writes pts samples into ``output`` and
         returns a status code.
+
+        Inside a traced request (a processor's ``fire``) its stages are the
+        spans ``upload`` (the blocks to the device), ``step`` (the
+        ``pconv_step{,_tv}`` enqueue) and ``download`` (the output read,
+        which waits for the device).
         """
         if self._err != Status.SUCCESS:
             return int(self._err)
-        b1 = _block(input1, self.cfg.pts, self.device)
         if self._xf is not None and input2 is not None:
             raise ArgumentError(
                 "time-varying streaming during an IR crossfade is undefined: let the "
                 "fade finish or use push_ir for an instant swap")
+        with profiling.span("upload"):
+            b1 = _block(input1, self.cfg.pts, self.device)
+            b2 = None if input2 is None else _block(input2, self.cfg.pts, self.device)
         if self._xf is not None:
             ramp = _pconv._xfade_ramp(self.cfg, self._fade_pos, self._fade_total,
                                       self.device)
@@ -270,12 +278,12 @@ class Clpconv:
             self._fade_pos += 1
             if self._fade_pos >= self._fade_total:      # the ramp reached 1
                 self._end_fade()
-        elif input2 is None:
+        elif b2 is None:
             self.state, out = _pconv.pconv_step(self.cfg, self.state, b1)
         else:
-            b2 = _block(input2, self.cfg.pts, self.device)
             self.state, out = _pconv.pconv_step_tv(self.cfg, self.state, b1, b2)
-        _copy_out(output, out, self.cfg.pts)
+        with profiling.span("download"):
+            _copy_out(output, out, self.cfg.pts)
         return int(Status.SUCCESS)
 
     def get_cl_err(self) -> int:

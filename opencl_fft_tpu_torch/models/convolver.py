@@ -44,6 +44,7 @@ import torch
 from ..ops import pconv as _p
 from ..ops.cplx import Cplx
 from ..ops.fft import fft_split
+from ..utils import profiling
 from ..utils.devices import get_device
 
 Device = Optional[Union[str, torch.device]]
@@ -209,21 +210,25 @@ class Convolver:
 
         chunk > 1 takes that many blocks per ``pconv_chunk`` call instead
         (bit-equal to per-block ``step`` calls; nblocks must be a multiple
-        of chunk and chunk <= nparts). Raises RuntimeError mid-fade."""
-        if self._xf is not None:
-            _mid_fade("bulk streaming")
-        blocks = _cast(blocks, self.cfg, self.device)
-        if chunk <= 1:
-            self.state, out = _p.pconv_stream_batched(self.cfg, self.state, blocks)
-            return out
-        _check_shape("blocks", blocks, (len(blocks), self.batch, self.cfg.pts))
-        if blocks.shape[0] % chunk:
-            raise ValueError(f"nblocks {blocks.shape[0]} must be a multiple of chunk {chunk}")
-        outs = []
-        for c0 in range(0, blocks.shape[0], chunk):
-            self.state, out = _p.pconv_chunk(self.cfg, self.state, blocks[c0:c0 + chunk])
-            outs.append(out)
-        return torch.cat(outs) if outs else blocks
+        of chunk and chunk <= nparts). Raises RuntimeError mid-fade.
+
+        While a torch profiler records, each call is a ``stream`` request of
+        ``utils.profiling``, the spans of the entry below it inside."""
+        with profiling.request("stream", profiling.enabled()):
+            if self._xf is not None:
+                _mid_fade("bulk streaming")
+            blocks = _cast(blocks, self.cfg, self.device)
+            if chunk <= 1:
+                self.state, out = _p.pconv_stream_batched(self.cfg, self.state, blocks)
+                return out
+            _check_shape("blocks", blocks, (len(blocks), self.batch, self.cfg.pts))
+            if blocks.shape[0] % chunk:
+                raise ValueError(f"nblocks {blocks.shape[0]} must be a multiple of chunk {chunk}")
+            outs = []
+            for c0 in range(0, blocks.shape[0], chunk):
+                self.state, out = _p.pconv_chunk(self.cfg, self.state, blocks[c0:c0 + chunk])
+                outs.append(out)
+            return torch.cat(outs) if outs else blocks
 
     def render(self, blocks) -> torch.Tensor:
         """Offline batched render: (nblocks, batch, pts) -> the same shape,
@@ -264,10 +269,12 @@ class TVConvolver:
     def stream(self, blocks_x, blocks_h) -> torch.Tensor:
         """Scan (nblocks, batch, pts) pairs -> (nblocks, batch, pts): every
         block of every channel through the batched whole-scan TV kernel
-        (the split scan above pts 2048)."""
-        self.state, out = _p.pconv_stream_batched_tv(
-            self.cfg, self.state, *(_cast(b, self.cfg, self.device) for b in (blocks_x, blocks_h)))
-        return out
+        (the split scan above pts 2048). Traced as ``Convolver.stream``."""
+        with profiling.request("stream", profiling.enabled()):
+            self.state, out = _p.pconv_stream_batched_tv(
+                self.cfg, self.state,
+                *(_cast(b, self.cfg, self.device) for b in (blocks_x, blocks_h)))
+            return out
 
     def stream_chunked(self, blocks_x, blocks_h, K: int = 8) -> torch.Tensor:
         """Latency-relaxed TV serving: (nblocks, batch, pts) pairs in K-block

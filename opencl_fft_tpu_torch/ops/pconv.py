@@ -65,6 +65,7 @@ from typing import Callable, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils import profiling
 from ..utils.numerics import exact_matmul, is_pow2
 from .cplx import Cplx
 from .cuda.blockstep import (block_mac_unpack, block_step_fused, block_step_fwd_fused,
@@ -378,6 +379,7 @@ def _ring_write2(ring: torch.Tensor, row: torch.Tensor, wp: int,
     the ring's dtype."""
     row = row.to(ring.dtype)
     ring = ring.clone()
+    profiling.add("step.ring_clone_bytes", ring.nbytes)
     ring[..., wp, :] = row
     ring[..., wp + nparts, :] = row
     return ring
@@ -417,17 +419,20 @@ def pconv_step(cfg: PconvConfig, state: PconvState, block: torch.Tensor
     block is one ``block_step_fwd_fused`` launch; above, the forward
     transform chain, the ring write and ``_mac_inverse_ola`` (one
     ``block_mac_unpack`` launch and the inverse FFT); on the CPU the plain
-    composition, which ``pconv_chunk`` reproduces bit for bit."""
-    if _block_kernels(cfg, state.tail.device):
-        return _step_fused(cfg, state, block)
-    xr, xi = _forward_partition(cfg, block)
-    wp = (state.wp + 1) % cfg.nparts                  # cl_conv.cpp:424
-    state = state._replace(
-        spec_x_re=_ring_write2(state.spec_x_re, xr, state.wp, cfg.nparts),
-        spec_x_im=_ring_write2(state.spec_x_im, xi, state.wp, cfg.nparts),
-        wp=wp)
-    out, tail = _mac_inverse_ola(cfg, state, wp)
-    return state._replace(tail=tail), out
+    composition, which ``pconv_chunk`` reproduces bit for bit. Traced as
+    the span ``step`` (counters ``step.blocks``, ``step.ring_clone_bytes``)."""
+    with profiling.span("step"):
+        profiling.add("step.blocks")
+        if _block_kernels(cfg, state.tail.device):
+            return _step_fused(cfg, state, block)
+        xr, xi = _forward_partition(cfg, block)
+        wp = (state.wp + 1) % cfg.nparts                  # cl_conv.cpp:424
+        state = state._replace(
+            spec_x_re=_ring_write2(state.spec_x_re, xr, state.wp, cfg.nparts),
+            spec_x_im=_ring_write2(state.spec_x_im, xi, state.wp, cfg.nparts),
+            wp=wp)
+        out, tail = _mac_inverse_ola(cfg, state, wp)
+        return state._replace(tail=tail), out
 
 
 def pconv_step_tv(cfg: PconvConfig, state: PconvState, block_x: torch.Tensor,
@@ -439,23 +444,26 @@ def pconv_step_tv(cfg: PconvConfig, state: PconvState, block_x: torch.Tensor,
     (C, pts) with a batched state. On a card at pts <= _FWD_MM_MAX_PTS one
     ``block_step_fwd_fused_tv`` launch, as ``pconv_step``; above, the
     coefficient frame is written before ``_mac_inverse_ola`` reads the ring
-    (``block_mac_unpack``)."""
-    if _block_kernels(cfg, state.tail.device):
-        return _step_tv_fused(cfg, state, block_x, block_h)
-    both = torch.stack([block_x.to(cfg.compute_dtype), block_h.to(cfg.compute_dtype)])
-    fr, fi = _forward_partition(cfg, both)            # (2, [C,] bins)
-    spec_h_re = state.spec_h_re.clone()
-    spec_h_im = state.spec_h_im.clone()
-    spec_h_re[..., state.wp2, :] = fr[1].to(spec_h_re.dtype)
-    spec_h_im[..., state.wp2, :] = fi[1].to(spec_h_im.dtype)
-    wp = (state.wp + 1) % cfg.nparts                  # cl_conv.cpp:516
-    state = state._replace(
-        spec_x_re=_ring_write2(state.spec_x_re, fr[0], state.wp, cfg.nparts),
-        spec_x_im=_ring_write2(state.spec_x_im, fi[0], state.wp, cfg.nparts),
-        spec_h_re=spec_h_re, spec_h_im=spec_h_im, wp=wp,
-        wp2=(state.wp2 - 1) % cfg.nparts)             # cl_conv.cpp:519
-    out, tail = _mac_inverse_ola(cfg, state, wp)
-    return state._replace(tail=tail), out
+    (``block_mac_unpack``). Traced as ``pconv_step``."""
+    with profiling.span("step"):
+        profiling.add("step.blocks")
+        if _block_kernels(cfg, state.tail.device):
+            return _step_tv_fused(cfg, state, block_x, block_h)
+        both = torch.stack([block_x.to(cfg.compute_dtype), block_h.to(cfg.compute_dtype)])
+        fr, fi = _forward_partition(cfg, both)            # (2, [C,] bins)
+        spec_h_re = state.spec_h_re.clone()
+        spec_h_im = state.spec_h_im.clone()
+        profiling.add("step.ring_clone_bytes", spec_h_re.nbytes + spec_h_im.nbytes)
+        spec_h_re[..., state.wp2, :] = fr[1].to(spec_h_re.dtype)
+        spec_h_im[..., state.wp2, :] = fi[1].to(spec_h_im.dtype)
+        wp = (state.wp + 1) % cfg.nparts                  # cl_conv.cpp:516
+        state = state._replace(
+            spec_x_re=_ring_write2(state.spec_x_re, fr[0], state.wp, cfg.nparts),
+            spec_x_im=_ring_write2(state.spec_x_im, fi[0], state.wp, cfg.nparts),
+            spec_h_re=spec_h_re, spec_h_im=spec_h_im, wp=wp,
+            wp2=(state.wp2 - 1) % cfg.nparts)             # cl_conv.cpp:519
+        out, tail = _mac_inverse_ola(cfg, state, wp)
+        return state._replace(tail=tail), out
 
 
 class XfadeState(NamedTuple):
@@ -573,6 +581,7 @@ def _rings_after(cfg: PconvConfig, state: PconvState, fr: torch.Tensor,
         rings = []
         for ring, f in ((state.spec_x_re, fr), (state.spec_x_im, fi)):
             ring = ring.clone()
+            profiling.add("step.ring_clone_bytes", ring.nbytes)
             ring[..., slots, :] = f
             ring[..., slots + cfg.nparts, :] = f
             rings.append(ring)
@@ -913,6 +922,10 @@ def pconv_stream_batched(cfg: PconvConfig, state: PconvState, blocks: torch.Tens
     plain twin for a CPU tensor. Same per-block results as pconv_step on
     each channel. A config the kernels do not take runs ``_plain_stream``,
     as ``pconv_stream`` does.
+
+    Traced as the spans ``window`` (``_window``), ``launch`` (the scan
+    wrapper's call, up to the return of its enqueue) and ``ring`` (the
+    doubled rings rebuilt).
     """
     nch = _batched_channels(state)
     _check_blocks(cfg, blocks, channels=nch)
@@ -921,13 +934,17 @@ def pconv_stream_batched(cfg: PconvConfig, state: PconvState, blocks: torch.Tens
         return state, blocks.new_zeros((0, nch, cfg.pts), dtype=cfg.compute_dtype)
     if not cfg._kernel_eligible():
         return _plain_stream(cfg, state, blocks)
-    outs, (wfr, wfi), tails = _scans(cfg).batched(
-        blocks.to(torch.float32).contiguous(), _window(cfg, state),
-        (state.spec_h_re, state.spec_h_im), cfg.b0_scale, state.tail, cfg.pts)
+    blocks = blocks.to(torch.float32).contiguous()
+    with profiling.span("window"):
+        window = _window(cfg, state)
+    with profiling.span("launch"):
+        outs, (wfr, wfi), tails = _scans(cfg).batched(
+            blocks, window, (state.spec_h_re, state.spec_h_im), cfg.b0_scale, state.tail,
+            cfg.pts)
     wp_out = _advance(state.wp, nb, cfg.nparts)
-    return state._replace(spec_x_re=_doubled_ring(wfr, wp_out),
-                          spec_x_im=_doubled_ring(wfi, wp_out),
-                          tail=tails, wp=wp_out), outs
+    with profiling.span("ring"):
+        xr, xi = _doubled_ring(wfr, wp_out), _doubled_ring(wfi, wp_out)
+    return state._replace(spec_x_re=xr, spec_x_im=xi, tail=tails, wp=wp_out), outs
 
 
 def pconv_stream_batched_tv(cfg: PconvConfig, state: PconvState, blocks_x: torch.Tensor,
@@ -940,7 +957,8 @@ def pconv_stream_batched_tv(cfg: PconvConfig, state: PconvState, blocks_x: torch
     whole-scan TV kernel (``_scans``): its CUDA kernel for CUDA tensors, its
     plain twin for CPU tensors. Same per-block results as pconv_step_tv on
     each channel; the IR rings go in and come out in the state's layout. A
-    config the kernels do not take runs ``_plain_stream``.
+    config the kernels do not take runs ``_plain_stream``. Traced as
+    ``pconv_stream_batched``.
     """
     nch = _batched_channels(state)
     _check_pair(cfg, blocks_x, blocks_h, nch)
@@ -949,14 +967,19 @@ def pconv_stream_batched_tv(cfg: PconvConfig, state: PconvState, blocks_x: torch
         return state, blocks_x.new_zeros((0, nch, cfg.pts), dtype=cfg.compute_dtype)
     if not cfg._kernel_eligible():
         return _plain_stream(cfg, state, blocks_x, blocks_h)
-    outs, (wfr, wfi), (hfr, hfi), tails = _scans(cfg).batched_tv(
-        blocks_x.to(torch.float32).contiguous(), blocks_h.to(torch.float32).contiguous(),
-        _window(cfg, state), (state.spec_h_re, state.spec_h_im), state.wp2,
-        cfg.b0_scale, state.tail, cfg.pts)
+    blocks_x = blocks_x.to(torch.float32).contiguous()
+    blocks_h = blocks_h.to(torch.float32).contiguous()
+    with profiling.span("window"):
+        window = _window(cfg, state)
+    with profiling.span("launch"):
+        outs, (wfr, wfi), (hfr, hfi), tails = _scans(cfg).batched_tv(
+            blocks_x, blocks_h, window, (state.spec_h_re, state.spec_h_im), state.wp2,
+            cfg.b0_scale, state.tail, cfg.pts)
     wp_out = _advance(state.wp, nb, cfg.nparts)
-    return state._replace(spec_x_re=_doubled_ring(wfr, wp_out),
-                          spec_x_im=_doubled_ring(wfi, wp_out),
-                          spec_h_re=hfr, spec_h_im=hfi, tail=tails, wp=wp_out,
+    with profiling.span("ring"):
+        xr, xi = _doubled_ring(wfr, wp_out), _doubled_ring(wfi, wp_out)
+    return state._replace(spec_x_re=xr, spec_x_im=xi, spec_h_re=hfr, spec_h_im=hfi,
+                          tail=tails, wp=wp_out,
                           wp2=_advance(state.wp2, -nb, cfg.nparts)), outs
 
 

@@ -15,10 +15,16 @@ zero-latency engine (``parts=0``, beyond the reference:
 zero-pads the IR to whole partitions and applies the 0dbfs scale (:190-191)
 and table skip/size (:181-182). The partitioned processors shuttle samples
 through ``make_accumulator``: the native C++ accumulator of ``runtime/``.
+
+While a torch profiler records (``utils.profiling.enabled``, asked once a
+callback), the partitioned processors count their callbacks and time those
+that fire no block (``_feed``), and each firing is a ``fire`` request of
+``utils.profiling`` with the engine's stages inside.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Optional, Union
 
 import numpy as np
@@ -26,6 +32,7 @@ import torch
 
 from .api import Clcfft, Cldconv, Clpconv, Clrfft
 from .models.lowlatency import ZeroLatencyConvolver
+from .utils import profiling
 from .utils.devices import get_device
 from .utils.errors import ArgumentError
 from .utils.logging import MessageCallback
@@ -107,6 +114,32 @@ def make_accumulator(parts: int, n_streams: int = 1, native: bool = True):
         if native_available():
             return NativeBlockAccumulator(parts, n_streams)
     return _BlockAccumulator(parts, n_streams)
+
+
+def _feed(acc, blocks: np.ndarray, run_engine, on: bool, t0: int,
+          scale: Optional[np.float32] = None) -> np.ndarray:
+    """``acc.feed(blocks, run_engine)`` (times ``scale`` if given): a
+    partitioned processor's callback after its argument handling. With
+    tracing ``on`` (the callback's ``profiling.enabled()``; ``t0`` its
+    entry by ``time.time_ns()``) the callback counts in ``process.callbacks``
+    and, if it fires no block, in ``process.accumulate_callbacks``, its host
+    ns from entry to return in ``process.accumulate_ns`` and the
+    accumulator's in ``feed.accumulate_ns``."""
+    if not on:
+        out = acc.feed(blocks, run_engine)
+        return out if scale is None else out * scale
+    t1 = time.time_ns()
+    out = acc.feed(blocks, run_engine)
+    t2 = time.time_ns()
+    if scale is not None:
+        out = out * scale
+    t3 = time.time_ns()
+    if acc.cnt >= blocks.shape[-1]:          # no block fired: the count only grew
+        profiling.count(("process.callbacks", 1), ("process.accumulate_callbacks", 1),
+                        ("process.accumulate_ns", t3 - t0), ("feed.accumulate_ns", t2 - t1))
+    else:
+        profiling.count(("process.callbacks", 1))
+    return out
 
 
 class _BlockAccumulator:
@@ -235,6 +268,8 @@ class ClconvProcessor:
 
     def process(self, block: np.ndarray) -> np.ndarray:
         """One audio block in, one out (the aperf body, opcode.cpp:229-252)."""
+        on = profiling.enabled()
+        t0 = time.time_ns() if on else 0
         block = np.asarray(block, np.float32).reshape(-1)
         if self.zero_latency:
             if block.size != self.block_size:
@@ -251,10 +286,11 @@ class ClconvProcessor:
 
         def run(bufin):
             out = np.empty(self.parts, np.float32)
-            self._engine.convolution(out, bufin[0])
+            with profiling.request("fire", on):
+                self._engine.convolution(out, bufin[0])
             return out
 
-        return self._acc.feed(block[None, :], run)
+        return _feed(self._acc, block[None, :], run, on, t0)
 
 
 class CltvconvProcessor:
@@ -303,6 +339,8 @@ class CltvconvProcessor:
                 freeze1: Optional[bool] = None,
                 freeze2: Optional[bool] = None) -> np.ndarray:
         """One audio block of both operands -> one output block."""
+        on = profiling.enabled()
+        t0 = time.time_ns() if on else 0
         if freeze1 is not None:
             self.freeze1 = bool(freeze1)
         if freeze2 is not None:
@@ -323,7 +361,8 @@ class CltvconvProcessor:
 
         def run(bufin):
             out = np.empty(self.parts, np.float32)
-            self._engine.convolution(out, bufin[0], bufin[1])
+            with profiling.request("fire", on):
+                self._engine.convolution(out, bufin[0], bufin[1])
             return out
 
         # freeze: a frozen operand's buffer keeps its previous contents —
@@ -333,7 +372,7 @@ class CltvconvProcessor:
         blocks = np.empty((2, k), np.float32)
         blocks[0] = a if self.freeze1 else self._acc.bufin[0][idx]
         blocks[1] = b if self.freeze2 else self._acc.bufin[1][idx]
-        return self._acc.feed(blocks, run) * self.scale
+        return _feed(self._acc, blocks, run, on, t0, self.scale)
 
 
 def _engine(engine):

@@ -10,7 +10,6 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
 from opencl_fft_tpu.bench import sweep as JS
 from opencl_fft_tpu_torch.bench import sweep as S
@@ -222,13 +221,3 @@ def test_command_line_makes_the_out_directory(tmp_path, monkeypatch):
                                       "--device", "cpu"])
     S.main()
     assert (out.parent / "sw.json").is_file() and (out.parent / "sw_table.tex").is_file()
-
-
-@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a card")
-def test_paths_timer_needs_a_card():
-    """``bench/paths.py`` times on the card only: without one its worker
-    refuses before building or timing anything."""
-    from opencl_fft_tpu_torch.bench import paths
-
-    with pytest.raises(RuntimeError, match="no CUDA card"):
-        paths.worker(str(paths.ROOT), 1)
