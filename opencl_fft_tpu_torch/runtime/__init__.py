@@ -81,6 +81,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.acc_free.argtypes = [ctypes.c_void_p]
     lib.acc_cnt.restype = ctypes.c_int
     lib.acc_cnt.argtypes = [ctypes.c_void_p]
+    lib.acc_set_cnt.restype = None
+    lib.acc_set_cnt.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.acc_bufin.restype = fp
     lib.acc_bufin.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.acc_bufout.restype = fp
@@ -168,7 +170,14 @@ class NativeRingBuffer:
 
 
 class NativeBlockAccumulator:
-    """C++ partition accumulator; the contract of ``stream._BlockAccumulator``."""
+    """C++ partition accumulator; the contract of ``stream._BlockAccumulator``.
+
+    ``bufin`` ((n_streams, parts)), its ``rows`` and ``bufout`` ((parts,))
+    are numpy views of the native buffers, bound once (valid while the
+    accumulator lives),
+    and ``cnt`` is kept here, so that a callback that cannot fill the
+    partition (``stream._accumulate``) crosses into C++ not at all; ``feed``
+    hands the count to C++ and takes it back."""
 
     def __init__(self, parts: int, n_streams: int = 1):
         lib = _require()
@@ -178,16 +187,10 @@ class NativeBlockAccumulator:
         self._h = lib.acc_new(parts, n_streams)
         if not self._h:
             raise MemoryError("acc_new failed")
-
-    @property
-    def cnt(self) -> int:
-        return self._lib.acc_cnt(self._h)
-
-    @property
-    def bufin(self) -> np.ndarray:
-        """Zero-copy (n_streams, parts) view of the native input buffer."""
-        base = self._lib.acc_bufin(self._h, 0)
-        return np.ctypeslib.as_array(base, shape=(self.n_streams, self.parts))
+        self.cnt = 0
+        self.bufin = np.ctypeslib.as_array(lib.acc_bufin(self._h, 0), shape=(n_streams, parts))
+        self.rows = tuple(self.bufin)
+        self.bufout = np.ctypeslib.as_array(lib.acc_bufout(self._h), shape=(parts,))
 
     def feed(self, blocks: np.ndarray, run_engine) -> np.ndarray:
         """blocks: (n_streams, k). run_engine(bufin) -> (parts,) output."""
@@ -198,12 +201,16 @@ class NativeBlockAccumulator:
         ins = (fp * self.n_streams)(*[blocks[s].ctypes.data_as(fp)
                                       for s in range(self.n_streams)])
         outp = out.ctypes.data_as(fp)
+        self._lib.acc_set_cnt(self._h, self.cnt)
         pos = 0
-        while pos < k:
-            pos += self._lib.acc_feed(self._h, ins, outp, pos, k)
-            if self._lib.acc_full(self._h):
-                result = np.ascontiguousarray(run_engine(self.bufin), np.float32)
-                self._lib.acc_set_bufout(self._h, result.ctypes.data_as(fp))
+        try:
+            while pos < k:
+                pos += self._lib.acc_feed(self._h, ins, outp, pos, k)
+                if self._lib.acc_full(self._h):
+                    result = np.ascontiguousarray(run_engine(self.bufin), np.float32)
+                    self._lib.acc_set_bufout(self._h, result.ctypes.data_as(fp))
+        finally:
+            self.cnt = self._lib.acc_cnt(self._h)
         return out
 
     def __del__(self):

@@ -128,6 +128,9 @@ void acc_free(void* p) {
 }
 
 int acc_cnt(void* p) { return static_cast<BlockAcc*>(p)->cnt; }
+// The count, for a caller that fills bufin and reads bufout through views
+// of its own while a callback cannot fill the partition (0 <= cnt < parts).
+void acc_set_cnt(void* p, int cnt) { static_cast<BlockAcc*>(p)->cnt = cnt; }
 float* acc_bufin(void* p, int stream) {
     BlockAcc* a = static_cast<BlockAcc*>(p);
     return a->bufin + static_cast<size_t>(stream) * a->parts;

@@ -16,10 +16,15 @@ zero-pads the IR to whole partitions and applies the 0dbfs scale (:190-191)
 and table skip/size (:181-182). The partitioned processors shuttle samples
 through ``make_accumulator``: the native C++ accumulator of ``runtime/``.
 
+A callback that cannot fill the partition, on 1-D float32 arrays of one
+length, takes ``_accumulate``: numpy slice operations on the accumulator's
+buffers, no copy of its arguments and no call into the native runtime;
+every other callback takes ``_feed``.
+
 While a torch profiler records (``utils.profiling.enabled``, asked once a
 callback), the partitioned processors count their callbacks and time those
-that fire no block (``_feed``), and each firing is a ``fire`` request of
-``utils.profiling`` with the engine's stages inside.
+that fire no block (``_accumulate``, ``_feed``), and each firing is a
+``fire`` request of ``utils.profiling`` with the engine's stages inside.
 """
 
 from __future__ import annotations
@@ -116,6 +121,51 @@ def make_accumulator(parts: int, n_streams: int = 1, native: bool = True):
     return _BlockAccumulator(parts, n_streams)
 
 
+_F32 = np.dtype(np.float32)
+
+
+def _accumulate(acc, ins: tuple, keep: tuple, on: bool, t0: int,
+                scale: Optional[np.float32] = None) -> Optional[np.ndarray]:
+    """The callback that cannot fill the partition (``acc.cnt + k <
+    acc.parts``) on ``ins``, 1-D float32 ndarrays of one length ``k``;
+    None, having done nothing, for any other. Writes each operand whose
+    ``keep`` is set into its row of ``acc.bufin`` (``acc.rows``) at the
+    count, divided by ``scale`` if given (a frozen operand's slice already
+    holds what the accumulator would write back); returns a copy of
+    ``acc.bufout`` there, times ``scale`` (never a view: the next firing
+    overwrites it); advances the count. That is ``_feed``'s result bit for
+    bit; a scale of 1 is passed as None (x / 1 and x * 1 are x). With
+    tracing ``on`` it counts as ``_feed`` counts a callback that fires no
+    block, and in ``process.direct_callbacks``."""
+    x = ins[0]
+    if type(x) is not np.ndarray or x.ndim != 1:
+        return None
+    shape = x.shape
+    cnt = acc.cnt
+    end = cnt + shape[0]
+    if end >= acc.parts:
+        return None
+    for y in ins:
+        if type(y) is not np.ndarray or y.dtype is not _F32 or y.shape != shape:
+            return None
+    t1 = time.time_ns() if on else 0
+    for row, y, k in zip(acc.rows, ins, keep):
+        if k:
+            if scale is None:
+                row[cnt:end] = y
+            else:
+                np.divide(y, scale, out=row[cnt:end])
+    out = acc.bufout[cnt:end]
+    out = out.copy() if scale is None else out * scale
+    acc.cnt = end
+    if on:
+        t2 = time.time_ns()
+        profiling.count(("process.callbacks", 1), ("process.accumulate_callbacks", 1),
+                        ("process.direct_callbacks", 1), ("process.accumulate_ns", t2 - t0),
+                        ("feed.accumulate_ns", t2 - t1))
+    return out
+
+
 def _feed(acc, blocks: np.ndarray, run_engine, on: bool, t0: int,
           scale: Optional[np.float32] = None) -> np.ndarray:
     """``acc.feed(blocks, run_engine)`` (times ``scale`` if given): a
@@ -151,6 +201,7 @@ class _BlockAccumulator:
         self.parts = parts
         self.cnt = 0
         self.bufin = np.zeros((n_streams, parts), np.float32)
+        self.rows = tuple(self.bufin)      # views of bufin's rows, bound once
         self.bufout = np.zeros(parts, np.float32)
 
     def feed(self, blocks: np.ndarray, run_engine) -> np.ndarray:
@@ -270,6 +321,10 @@ class ClconvProcessor:
         """One audio block in, one out (the aperf body, opcode.cpp:229-252)."""
         on = profiling.enabled()
         t0 = time.time_ns() if on else 0
+        if not (self.dconv or self.zero_latency):
+            out = _accumulate(self._acc, (block,), (True,), on, t0)
+            if out is not None:
+                return out
         block = np.asarray(block, np.float32).reshape(-1)
         if self.zero_latency:
             if block.size != self.block_size:
@@ -345,6 +400,12 @@ class CltvconvProcessor:
             self.freeze1 = bool(freeze1)
         if freeze2 is not None:
             self.freeze2 = bool(freeze2)
+        if not self.dconv:
+            scale = self.scale
+            out = _accumulate(self._acc, (in1, in2), (self.freeze1, self.freeze2), on, t0,
+                              None if scale == 1 else scale)
+            if out is not None:
+                return out
         a = np.asarray(in1, np.float32).reshape(-1) / self.scale
         b = np.asarray(in2, np.float32).reshape(-1) / self.scale
         if self.dconv:

@@ -144,6 +144,28 @@ def test_processor_counters_add_up(tv, k, pts):
         assert f.start_ns <= kids[0].start_ns and kids[-1].end_ns <= f.end_ns
 
 
+@pytest.mark.parametrize("tv", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_direct_callbacks_are_the_accumulate_callbacks(tv, dtype):
+    """At ksmps 64, float32 callbacks that fire no block all take the
+    direct path (``process.direct_callbacks``); float64 ones none. Either
+    way they count and are timed as accumulate callbacks."""
+    pts = 256
+    proc = _processor(tv, pts, 4 * pts)
+    x = np.random.default_rng(4).standard_normal(40 * pts).astype(dtype)
+    calls = 3 * (pts // 64) + 1
+    with _user_scope():
+        for i in range(calls):
+            blk = x[i * 64:(i + 1) * 64]
+            proc.process(blk, blk[::-1]) if tv else proc.process(blk)
+    c = _program_counters()
+    fired = calls // (pts // 64)
+    assert c["process.callbacks"] == calls
+    assert c["process.accumulate_callbacks"] == calls - fired
+    assert c.get("process.direct_callbacks", 0) == (calls - fired if dtype is np.float32 else 0)
+    assert c["process.accumulate_ns"] >= c["feed.accumulate_ns"] > 0
+
+
 @pytest.mark.parametrize("tv,nch,pts,nparts", [(True, None, 32, 8), (True, 2, 16, 5),
                                                (False, None, 64, 3), (False, 3, 16, 4)])
 def test_ring_clone_bytes_are_the_planes(tv, nch, pts, nparts):
