@@ -30,11 +30,22 @@ engine output blocks realize the consumption delays, with the JAX rows:
 row 1 is read, a firing engine rolls the queue by one and writes row d.
 State keeps the JAX package's field layout (``ZLState``) so a stream can
 cross packages (``interop.zl_state_{to,from}_numpy``).
+
+While a torch profiler records (``utils.profiling``; ``process`` and
+``render`` ask ``enabled()`` once a call unless given the answer), each
+step is a ``zl`` request holding the spans ``head`` (the direct engine),
+``segments`` (the accumulate, consume and queue bookkeeping, with each
+firing's ``step`` inside) and, in ``process``, ``download`` (the output's
+copy to the host), and counts ``zl.steps``, ``zl.fires`` (engine
+firings), ``zl.terminal_fires`` (those of the last segment), ``zl.step_ns``
+(host ns in the step) and ``zl.download_ns``. Off, a step records nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from typing import List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -42,10 +53,13 @@ import torch
 
 from ..ops import dconv as _d
 from ..ops import pconv as _p
+from ..utils import profiling
 from ..utils.devices import get_device
 from ..utils.numerics import is_pow2
 
 Device = Optional[Union[str, torch.device]]
+
+_NULL = contextlib.nullcontext()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,38 +166,60 @@ class ZeroLatencyConvolver:
 
     # -- functional core ---------------------------------------------------
 
-    def _step(self, state: ZLState, x: torch.Tensor) -> Tuple[ZLState, torch.Tensor]:
+    def _step(self, state: ZLState, x: torch.Tensor, on: bool = False
+              ) -> Tuple[ZLState, torch.Tensor]:
         """One base block x (B,) on the device -> (new state, y (B,)); the
-        given state is left as it is."""
+        given state is left as it is. ``on``: traced (inside a ``zl``
+        request), see the module's docstring."""
+        t0 = time.time_ns() if on else 0
         B, t = self.block, state.t
-        head, y = _d.dconv_step(self._head_cfg, state.head, x)
+        with profiling.span("head") if on else _NULL:
+            head, y = _d.dconv_step(self._head_cfg, state.head, x)
         new_segs = []
-        for s, cfg, st in zip(self.segments, self._seg_cfgs, state.segs):
-            r = s.pts // B
-            m = t % r
-            # 1) accumulate this base block into the engine buffer
-            buf = st.buf.clone()
-            buf[m * B:(m + 1) * B] = x
-            # 2) consume: queue row 1 holds engine block t//r - delay
-            y = y + st.queue[1, m * B:(m + 1) * B]
-            # 3) fire on the engine's cadence
-            eng, queue = st.eng, st.queue
-            if m == r - 1:
-                eng, z = _p.pconv_step(cfg, eng, buf)
-                queue = torch.roll(queue, -1, 0)
-                queue[s.delay] = z
-            new_segs.append(_SegState(eng=eng, buf=buf, queue=queue))
+        fires, fired = 0, False
+        with profiling.span("segments") if on else _NULL:
+            for s, cfg, st in zip(self.segments, self._seg_cfgs, state.segs):
+                r = s.pts // B
+                m = t % r
+                # 1) accumulate this base block into the engine buffer
+                buf = st.buf.clone()
+                buf[m * B:(m + 1) * B] = x
+                # 2) consume: queue row 1 holds engine block t//r - delay
+                y = y + st.queue[1, m * B:(m + 1) * B]
+                # 3) fire on the engine's cadence
+                eng, queue = st.eng, st.queue
+                fired = m == r - 1
+                if fired:
+                    eng, z = _p.pconv_step(cfg, eng, buf)
+                    queue = torch.roll(queue, -1, 0)
+                    queue[s.delay] = z
+                    fires += 1
+                new_segs.append(_SegState(eng=eng, buf=buf, queue=queue))
+        if on:          # ``fired``: the last segment's
+            profiling.count(("zl.steps", 1), ("zl.fires", fires), ("zl.terminal_fires", fired),
+                            ("zl.step_ns", time.time_ns() - t0))
         return ZLState(t=t + 1, head=head, segs=tuple(new_segs)), y
 
     # -- host surface -------------------------------------------------------
 
-    def process(self, block) -> np.ndarray:
-        """One base block in, one base block out: zero added latency."""
+    def process(self, block, on: Optional[bool] = None) -> np.ndarray:
+        """One base block in, one base block out: zero added latency.
+        ``on``: whether a profiler records (``profiling.enabled()``), if
+        the caller has asked already."""
         x = np.asarray(block, np.float32).reshape(-1)
         if x.shape != (self.block,):
             raise ValueError(f"expected a ({self.block},) block, got {x.shape}")
-        self.state, y = self._step(self.state, torch.from_numpy(x).to(self.device))
-        return y.cpu().numpy()
+        if on is None:
+            on = profiling.enabled()
+        with profiling.request("zl", on):
+            self.state, y = self._step(self.state, torch.from_numpy(x).to(self.device), on)
+            if not on:
+                return y.cpu().numpy()
+            t0 = time.time_ns()
+            with profiling.span("download"):
+                out = y.cpu().numpy()
+            profiling.count(("zl.download_ns", time.time_ns() - t0))
+        return out
 
     def render(self, signal) -> np.ndarray:
         """Offline convenience: stream a whole signal (padded to blocks)
@@ -196,9 +232,11 @@ class ZeroLatencyConvolver:
         pad = np.zeros(nblocks * self.block, np.float32)
         pad[:sig.size] = sig
         blocks = torch.from_numpy(pad.reshape(nblocks, self.block)).to(self.device)
+        on = profiling.enabled()
         ys = []
         for blk in blocks:
-            self.state, y = self._step(self.state, blk)
+            with profiling.request("zl", on):
+                self.state, y = self._step(self.state, blk, on)
             ys.append(y)
         return torch.stack(ys).reshape(-1)[:total].cpu().numpy()
 

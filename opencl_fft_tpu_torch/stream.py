@@ -24,7 +24,8 @@ every other callback takes ``_feed``.
 While a torch profiler records (``utils.profiling.enabled``, asked once a
 callback), the partitioned processors count their callbacks and time those
 that fire no block (``_accumulate``, ``_feed``), and each firing is a
-``fire`` request of ``utils.profiling`` with the engine's stages inside.
+``fire`` request of ``utils.profiling`` with the engine's stages inside;
+the zero-latency engine is handed the answer and records its own (``zl``).
 """
 
 from __future__ import annotations
@@ -330,7 +331,7 @@ class ClconvProcessor:
             if block.size != self.block_size:
                 raise ArgumentError(
                     f"zero-latency engine is fixed at {self.block_size}-sample blocks")
-            return self._engine.process(block)
+            return self._engine.process(block, on)
         if self.dconv:
             if block.size != self.block_size:
                 raise ArgumentError(
