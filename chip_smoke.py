@@ -396,6 +396,24 @@ def direct_tv_model(irsize, vsize, xs, hs, off=1):
     return np.concatenate(outs)
 
 
+def zl_replayed_fires(segments, block, nblocks):
+    """Each zero-latency segment's step-wrapper launches over nblocks
+    callbacks of ``process`` from t = 0 on a card, whose graph path
+    (``models/lowlatency._Phases``) fires the segments of one partition
+    inside replayed graphs: theirs are the launches of the first, eager
+    cycle of P blocks and of the capture (one cycle's more); a terminal
+    segment of several partitions fires eagerly on its cadence."""
+    period = max([s_.pts // block for s_ in segments] + [2])
+    out = []
+    for s_ in segments:
+        r_ = s_.pts // block
+        if s_.nparts > 1:
+            out.append(nblocks // r_)
+        else:
+            out.append(min(nblocks, period) // r_ + (period // r_ if nblocks > period else 0))
+    return out
+
+
 def main():
     # phase 1: the card
     check(torch.cuda.is_available(), "torch.cuda.is_available()")
@@ -2510,6 +2528,11 @@ def main():
         fired = [nblocks // (sg.pts // ZL_B) for sg in zl_a.segments]
         return fired[-1], sum(fired[:-1])
 
+    def zl_replayed_counts(nblocks):
+        """zl_counts of ``process`` on the card's graph path."""
+        fired = zl_replayed_fires(zl_a.segments, ZL_B, nblocks)
+        return fired[-1], sum(fired[:-1])
+
     def tv_run():
         st_, y_ = st4, []
         for t in range(nb32):
@@ -2555,7 +2578,7 @@ def main():
     POS = "> 0"
     nb_r = -(-(n32 + LONG_IR - 1) // ZL_B)
     want_counts = (
-        ("ClconvProcessor(parts=0)", cnt_a, (*zl_counts(n32 // ZL_B), POS, 0)),
+        ("ClconvProcessor(parts=0)", cnt_a, (*zl_replayed_counts(n32 // ZL_B), POS, 0)),
         ("ZeroLatencyConvolver.render", cnt_r, (*zl_counts(nb_r), POS, 0)),
         ("unit impulse", cnt_imp, (*zl_counts(imp.size // ZL_B), None, 0)),
         (f"ClconvProcessor(parts={LONG_PTS})", cnt_b, (n32 // LONG_PTS, 0, POS, 0)),
@@ -3605,7 +3628,9 @@ def main():
     refz[:m_] = full40[:m_]
     e_zl = rel_err(zw40, refz)
     nblk_z = zw40.size // XZ.BLOCK
-    fires = sum(nblk_z // (s_.pts // XZ.BLOCK) for s_ in segs40)
+    # every segment of this plan (pmax 1024) fires block_step_fwd_fused,
+    # the terminal too; process replays graphs on the card
+    fires = sum(zl_replayed_fires(segs40, XZ.BLOCK, nblk_z))
     check(e_zl <= ORACLE_TOL, f"zl_demo vs float64 scipy {e_zl:.3e}")
     row("zl_demo", zw40.size / 44100, w_, c_, o_, n_,
         f"vs scipy {e_zl:.3e}, latency {lat40[0]} (uniform {lat40[1]})",

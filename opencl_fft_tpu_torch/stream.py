@@ -41,7 +41,7 @@ from .models.lowlatency import ZeroLatencyConvolver
 from .utils import profiling
 from .utils.devices import get_device
 from .utils.errors import ArgumentError
-from .utils.logging import MessageCallback
+from .utils.logging import MessageCallback, resolve_callback
 from .utils.numerics import np2
 
 Device = Optional[Union[str, torch.device]]
@@ -265,6 +265,8 @@ class ClconvProcessor:
                     coefs, block=block_size, pmax=max(pmax, block_size), impl=impl, device=dev)
             except ValueError as e:   # plan validation speaks this surface's dialect
                 raise ArgumentError(str(e)) from e
+            self._engine.on_message = resolve_callback(on_message)
+            self._engine.user_data = user_data
             return
         if self.dconv:
             self.block_size = block_size
