@@ -44,8 +44,9 @@ entry swap against float64 scipy blends; and their per-block times, each
 step's forward / MAC / inverse stages by shape and its least-work bound. Then
 the time-varying decomposed engine and the long-partition streams: the TV
 sliding-MAC kernel (``macflow_tv``, ``macflow_tv_batched``; at the
-q-slices its plan picks and at forced ones) and the split-scan kernels
-(``stream_steps_fused_split{,_tv}``, in-kernel FFTs) against their twins at their
+q-slices its plan picks and at forced ones) and the scan kernels above pts 2048
+(``stream_steps_fused_batched{,_tv}``, in-kernel FFTs, standing for the JAX
+split scans ``stream_steps_fused_split{,_tv}``) against their twins at their
 main-path shapes (the headline TV scan and the K = 8 chunk of 64 channels;
 pts 4096 with a 2^20-tap IR, one and 16 channels) and at odd shapes; TV ``stream_decomposed``,
 ``TVConvolver.stream_chunked`` (K = 8, 64 channels, from the start and off
@@ -439,17 +440,15 @@ def main():
     from opencl_fft_tpu_torch.ops.cuda import dstream as K
     from opencl_fft_tpu_torch.ops.cuda import mac as MC
     from opencl_fft_tpu_torch.ops.cuda import slidemac as SM
-    from opencl_fft_tpu_torch.ops.cuda import splitstep as SP
     from opencl_fft_tpu_torch.ops.cuda import streamstep as S
     from opencl_fft_tpu_torch.ops.cuda import vmemfft as V
 
     def zero_counts():
-        S.LAUNCHES = S.TV_LAUNCHES = S.BATCHED_LAUNCHES = S.BATCHED_TV_LAUNCHES = 0
+        S.BATCHED_LAUNCHES = S.BATCHED_TV_LAUNCHES = 0
         K.LAUNCHES = 0
         V.LAUNCHES = V.FRONT2_LAUNCHES = 0
         SM.CHUNKMAC_LAUNCHES = SM.MACFLOW_LAUNCHES = SM.MACFLOW_BATCHED_LAUNCHES = 0
         SM.MACFLOW_TV_LAUNCHES = SM.MACFLOW_TV_BATCHED_LAUNCHES = 0
-        SP.LAUNCHES = SP.TV_LAUNCHES = 0
         MC.LAUNCHES = BS.STEP_LAUNCHES = BS.FWD_LAUNCHES = BS.FWD_TV_LAUNCHES = 0
         BS.MAC_UNPACK_LAUNCHES = 0
 
@@ -504,11 +503,11 @@ def main():
     for pts, nparts, nb in shapes:
         blocks, w0, h, tail = scan_inputs(pts, nparts, nb)
         for b0 in (1.0, 2.0):
-            n0 = S.LAUNCHES
+            n0 = S.BATCHED_LAUNCHES
             got = S.stream_steps_fused(blocks, w0, h, b0, tail, pts)
             again = S.stream_steps_fused(blocks, w0, h, b0, tail, pts)
             torch.cuda.synchronize()
-            check(S.LAUNCHES == n0 + 2, "LAUNCHES counts the kernel launch")
+            check(S.BATCHED_LAUNCHES == n0 + 2, "BATCHED_LAUNCHES counts the kernel launch")
             check(all(torch.equal(a_, b_) for a_, b_ in zip((got[0], *got[1], got[2]),
                                                            (again[0], *again[1], again[2]))),
                   f"the LTI scan repeats its bits at pts={pts} nparts={nparts} nb={nb}")
@@ -531,7 +530,7 @@ def main():
     zero_counts()
     y = P.convolve(x_d, ir_d, PTS)
     torch.cuda.synchronize()
-    main_launches = S.LAUNCHES
+    main_launches = S.BATCHED_LAUNCHES
     check(main_launches > 0, "the main path launched the stream kernel")
     y = y.cpu().numpy()
     ref = sps.fftconvolve(x.astype(np.float64), ir.astype(np.float64))
@@ -615,11 +614,11 @@ def main():
         bx, w0_, h0_, tail = scan_inputs(pts, nparts, nb_)
         bh = f(nb_, pts, s=0.1)
         for b0 in (1.0, 2.0):
-            n0 = S.TV_LAUNCHES
+            n0 = S.BATCHED_TV_LAUNCHES
             got = S.stream_steps_fused_tv(bx, bh, w0_, h0_, wp2, b0, tail, pts)
             again = S.stream_steps_fused_tv(bx, bh, w0_, h0_, wp2, b0, tail, pts)
             torch.cuda.synchronize()
-            check(S.TV_LAUNCHES == n0 + 2, "TV_LAUNCHES counts the kernel launch")
+            check(S.BATCHED_TV_LAUNCHES == n0 + 2, "BATCHED_TV_LAUNCHES counts the kernel launch")
             check(all(torch.equal(a_, b_) for a_, b_ in zip((got[0], *got[1], *got[2], got[3]),
                                                            (again[0], *again[1], *again[2],
                                                             again[3]))),
@@ -671,7 +670,7 @@ def main():
     zero_counts()
     _, y_tv = P.pconv_stream_tv(cfg, state, x_p, h_cyc.contiguous())
     torch.cuda.synchronize()
-    tv_launches = S.TV_LAUNCHES
+    tv_launches = S.BATCHED_TV_LAUNCHES
     check(tv_launches > 0, "the TV main path launched the TV kernel")
     y_tv = y_tv.reshape(-1)[:ref.size].cpu().numpy()
     check(bool(np.isfinite(y_tv).all()), "pconv_stream_tv finite")
@@ -2085,11 +2084,10 @@ def main():
           f"{SERVE_CH}x{SERVE_BLOCKS} "
           f"{tvm_err[('macflow_tv_batched', SERVE_CH, SERVE_BLOCKS)]:.3e}", flush=True)
 
-    # phase 28: the split-scan kernels (stream_steps_fused_split{,_tv}: C = 1
-    # and batched wrappers, one entry each) vs their twins at the long-IR
+    # phase 28: the scan entries above pts 2048, where they stand for the JAX
+    # split scans (stream_steps_fused_split{,_tv}), vs their twins at the long-IR
     # shape (pts 4096, 2^20 taps: nparts 256, 470 blocks) at one and 16
-    # channels (TV pointers shared and per channel), at pts 512 against the
-    # wrappers of #3/#4 on the same scan (one CUDA entry: bit-equal), at odd
+    # channels (TV pointers shared and per channel), at pts 512, at odd
     # shapes, and at pts 8192 and 2^14 (the largest transforms inside a CTA)
     # and 2^15 (the four-step on scratch planes)
     long_np = LONG_IR // LONG_PTS
@@ -2102,37 +2100,33 @@ def main():
         px, ph, w0_, h0_, tails = batched_inputs(pts, nparts, nb_, nch)
         where = f"pts={pts} nparts={nparts} nb={nb_} C={nch}"
         for b0 in ((2.0,) if pts == LONG_PTS else (1.0, 2.0)):
-            n0 = SP.LAUNCHES
-            got = SP.stream_steps_fused_split_batched(px, w0_, h0_, b0, tails, pts)
+            n0 = S.BATCHED_LAUNCHES
+            got = S.stream_steps_fused_batched(px, w0_, h0_, b0, tails, pts)
             torch.cuda.synchronize()
-            check(SP.LAUNCHES == n0 + 1, "split LAUNCHES counts the kernel launch")
-            again = SP.stream_steps_fused_split_batched(px, w0_, h0_, b0, tails, pts)
+            check(S.BATCHED_LAUNCHES == n0 + 1, "BATCHED_LAUNCHES counts the kernel launch")
+            again = S.stream_steps_fused_batched(px, w0_, h0_, b0, tails, pts)
             check(torch.equal(got[0], again[0]) and torch.equal(got[2], again[2]),
                   f"the split scan repeats its bits at {where}")
-            want = SP.stream_steps_fused_split_batched_plain(px, w0_, h0_, b0, tails, pts)
+            want = S.stream_steps_fused_batched_plain(px, w0_, h0_, b0, tails, pts)
             worst = compare((("out", got[0], want[0]), ("window re", got[1][0], want[1][0]),
                              ("window im", got[1][1], want[1][1]), ("tails", got[2], want[2])),
                             f"{where} b0={b0}", worst)
             key = ("split", nch, pts)
             split_err[key] = max(split_err.get(key, 0.0), float((got[0] - want[0]).abs().max()))
-            if pts == PTS:
-                same = S.stream_steps_fused_batched(px, w0_, h0_, b0, tails, pts)
-                check(torch.equal(got[0], same[0]), f"#5 and #3 run one entry at {where}")
             ptrs = [nparts - 1]
             if nch > 1:
                 ptrs.append(tuple((7 * c + 3) % nparts for c in range(nch)))
             for wp2 in ptrs:
-                n0 = SP.TV_LAUNCHES
-                got = SP.stream_steps_fused_split_batched_tv(px, ph, w0_, h0_, wp2, b0, tails,
-                                                             pts)
+                n0 = S.BATCHED_TV_LAUNCHES
+                got = S.stream_steps_fused_batched_tv(px, ph, w0_, h0_, wp2, b0, tails, pts)
                 torch.cuda.synchronize()
-                check(SP.TV_LAUNCHES == n0 + 1, "split TV_LAUNCHES counts the kernel launch")
-                again = SP.stream_steps_fused_split_batched_tv(px, ph, w0_, h0_, wp2, b0, tails,
-                                                               pts)
+                check(S.BATCHED_TV_LAUNCHES == n0 + 1,
+                      "BATCHED_TV_LAUNCHES counts the kernel launch")
+                again = S.stream_steps_fused_batched_tv(px, ph, w0_, h0_, wp2, b0, tails, pts)
                 check(torch.equal(got[0], again[0]) and torch.equal(got[3], again[3]),
                       f"the split TV scan repeats its bits at {where}")
-                want = SP.stream_steps_fused_split_batched_tv_plain(px, ph, w0_, h0_, wp2, b0,
-                                                                    tails, pts)
+                want = S.stream_steps_fused_batched_tv_plain(px, ph, w0_, h0_, wp2, b0, tails,
+                                                             pts)
                 worst = compare((("out", got[0], want[0]), ("window re", got[1][0], want[1][0]),
                                  ("h ring re", got[2][0], want[2][0]),
                                  ("h ring im", got[2][1], want[2][1]),
@@ -2142,14 +2136,11 @@ def main():
                 key = ("split_tv", nch, pts)
                 split_err[key] = max(split_err.get(key, 0.0),
                                      float((got[0] - want[0]).abs().max()))
-                if pts == PTS:
-                    same = S.stream_steps_fused_batched_tv(px, ph, w0_, h0_, wp2, b0, tails, pts)
-                    check(torch.equal(got[0], same[0]), f"#6 and #4 run one entry at {where}")
-    del px, ph, w0_, h0_, tails, got, again, want, same
+    del px, ph, w0_, h0_, tails, got, again, want
     print(f"phase 28 split-scan kernels vs twins: shapes (pts,nparts,nb,C) {split_shapes} "
           f"(b0 2 at pts {LONG_PTS}, {{1,2}} elsewhere), TV wp2 shared and per channel, "
           f"bit-equal on a second launch; worst rel "
-          f"err {worst:.3e} (tol {TOL}); at pts {PTS} bit-equal to the #3/#4 wrappers; "
+          f"err {worst:.3e} (tol {TOL}); "
           f"out max_abs_err at pts {LONG_PTS}: LTI C=1 {split_err[('split', 1, LONG_PTS)]:.3e} "
           f"C={LONG_CH} {split_err[('split', LONG_CH, LONG_PTS)]:.3e}, TV C=1 "
           f"{split_err[('split_tv', 1, LONG_PTS)]:.3e} C={LONG_CH} "
@@ -2196,6 +2187,9 @@ def main():
                       tvk3.stream_chunked(chk_blocks[3:CHUNK_BLOCKS - 5],
                                           h_chk[3:CHUNK_BLOCKS - 5], K=CHUNK_K),
                       tvk3.stream(chk_blocks[CHUNK_BLOCKS - 5:], h_chk[CHUNK_BLOCKS - 5:])])
+    # the scan launches of the pts-4096 calls alone (tvk3.stream above ran the
+    # TV scan at pts 512); stream_decomposed launches no scan
+    S.BATCHED_LAUNCHES = S.BATCHED_TV_LAUNCHES = 0
     y_c4 = P.convolve(x_d, ir4_d, LONG_PTS)
     y_tv4 = P.pconv_stream_tv(cfg4, st4, x_p4, h_cyc4)[1]
     y_d4 = SD(cfg4, st4, x_p4)[1]
@@ -2203,8 +2197,8 @@ def main():
     y_s4 = conv4.stream(b4)
     y_t4 = tvc4.stream(b4, h4)
     torch.cuda.synchronize()
-    new_launches = (SM.MACFLOW_TV_LAUNCHES, SM.MACFLOW_TV_BATCHED_LAUNCHES, SP.LAUNCHES,
-                    SP.TV_LAUNCHES)
+    new_launches = (SM.MACFLOW_TV_LAUNCHES, SM.MACFLOW_TV_BATCHED_LAUNCHES, S.BATCHED_LAUNCHES,
+                    S.BATCHED_TV_LAUNCHES)
     check(min(new_launches) > 0, f"the new main paths launched every new kernel {new_launches}")
     # the checks, after the counts are read
     y_tvs = P.pconv_stream_tv(cfg, st_ir, x_p, h_cyc)[1]
@@ -2336,10 +2330,10 @@ def main():
         nsets = 1 + -(-2 * L2_BYTES // nbytes(px, ph, *w0_, *h0_, tails))
         sets = [batched_inputs(LONG_PTS, long_np, LONG_BLOCKS, nch) for _ in range(nsets)]
         for kname, fn, plain, args, ntr, hio in (
-                ("stream_steps_fused_split", SP.stream_steps_fused_split_batched,
-                 SP.stream_steps_fused_split_batched_plain, la, 2, 1),
-                ("stream_steps_fused_split_tv", SP.stream_steps_fused_split_batched_tv,
-                 SP.stream_steps_fused_split_batched_tv_plain, ta, 3, 2)):
+                ("stream_steps_fused_split", S.stream_steps_fused_batched,
+                 S.stream_steps_fused_batched_plain, la, 2, 1),
+                ("stream_steps_fused_split_tv", S.stream_steps_fused_batched_tv,
+                 S.stream_steps_fused_batched_tv_plain, ta, 3, 2)):
             k_ms = cuda_ms(lambda: fn(*args), reps=5 if nch == 1 else 3)
             tw_ms = cuda_ms(lambda: plain(*args), warmup=1, reps=3)
             # least work: the MAC and 2 (LTI) or 3 (TV) real transforms a
@@ -2362,7 +2356,7 @@ def main():
             torch.cuda.synchronize()
             base_mem = torch.cuda.memory_allocated(dev)
             torch.cuda.reset_peak_memory_stats(dev)
-            SP.stream_steps_fused_split_batched(*la)
+            S.stream_steps_fused_batched(*la)
             torch.cuda.synchronize()
             split_peak = torch.cuda.max_memory_allocated(dev) - base_mem
     split_tables_bytes = sum(nbytes(t) for t in S._plan(LONG_PTS, dev).tables if t is not None) \
@@ -2514,11 +2508,11 @@ def main():
     def path_counts(fn):
         """fn() with every count set to 0 just before it and read just after:
         (its result, launches of block_mac_unpack, block_step_fwd_fused,
-        fft_vmem and stream_steps_fused_split)."""
+        fft_vmem and the LTI scan entry stream_steps_fused_batched)."""
         zero_counts()
         out = fn()
         torch.cuda.synchronize()
-        return out, (BS.MAC_UNPACK_LAUNCHES, BS.FWD_LAUNCHES, V.LAUNCHES, SP.LAUNCHES)
+        return out, (BS.MAC_UNPACK_LAUNCHES, BS.FWD_LAUNCHES, V.LAUNCHES, S.BATCHED_LAUNCHES)
 
     def zl_counts(nblocks):
         """(block_mac_unpack, block_step_fwd_fused) launches of nblocks
@@ -2592,7 +2586,7 @@ def main():
     for what, got_c, want_c in want_counts:
         check(all(w is None or (g > 0 if w == POS else g == w) for g, w in zip(got_c, want_c)),
               f"{what}: launches (block_mac_unpack, block_step_fwd_fused, fft_vmem, "
-              f"stream_steps_fused_split) {got_c}, want {want_c}")
+              f"stream_steps_fused_batched) {got_c}, want {want_c}")
     # the checks, after the counts are read
     ref_a = sps.fftconvolve(xs.astype(np.float64), ir4.astype(np.float64))
     check(y_a.shape == (n32,) and y_ar.shape == ref_a.shape, "zero-latency output shapes")
@@ -2648,7 +2642,7 @@ def main():
               f"nfft {n_} spectrum {e_[0]:.3e}, round trip {e_[1]:.3e}, deterministic {e_[2]}"
               for n_, e_ in stft_err.items())
           + f" (tol {TOL} between paths, {ORACLE_TOL} vs float64); each path's own launches "
-          f"(block_mac_unpack, block_step_fwd_fused, fft_vmem, stream_steps_fused_split): "
+          f"(block_mac_unpack, block_step_fwd_fused, fft_vmem, stream_steps_fused_batched): "
           + "; ".join(f"{what} {got_c}" for what, got_c, _ in want_counts), flush=True)
     del y_cs, y_cs1, y_cs2, stft_out, spec, y1, y2, y_tv32, conv_b, conv_ref
 
@@ -2760,9 +2754,8 @@ def main():
 
     def path_kernels():
         """Launches of every scan, step, MAC and FIR kernel (not the FFT's)."""
-        return (S.LAUNCHES, S.TV_LAUNCHES, S.BATCHED_LAUNCHES, S.BATCHED_TV_LAUNCHES,
-                SP.LAUNCHES, SP.TV_LAUNCHES, MC.LAUNCHES, BS.STEP_LAUNCHES, BS.FWD_LAUNCHES,
-                BS.FWD_TV_LAUNCHES, BS.MAC_UNPACK_LAUNCHES, SM.CHUNKMAC_LAUNCHES,
+        return (S.BATCHED_LAUNCHES, S.BATCHED_TV_LAUNCHES, MC.LAUNCHES, BS.STEP_LAUNCHES,
+                BS.FWD_LAUNCHES, BS.FWD_TV_LAUNCHES, BS.MAC_UNPACK_LAUNCHES, SM.CHUNKMAC_LAUNCHES,
                 SM.MACFLOW_LAUNCHES, SM.MACFLOW_BATCHED_LAUNCHES, SM.MACFLOW_TV_LAUNCHES,
                 SM.MACFLOW_TV_BATCHED_LAUNCHES, K.LAUNCHES)
 
@@ -2798,9 +2791,15 @@ def main():
         conv34.push_ir(irs34_d)
         one34 = P.push_ir(cfg34, P.pconv_init(cfg34, dev), irs34_d[0])
         y_serve = conv34.stream(sb34_d)
+        torch.cuda.synchronize()
+        serve_scans = S.BATCHED_LAUNCHES
         y_chunk = chunked(cfg34, one34, x34_d)
+        torch.cuda.synchronize()
+        n0 = S.BATCHED_LAUNCHES
         y_stream = P.pconv_stream(cfg34, one34, x34_d)[1]
         torch.cuda.synchronize()
+        # LTI scan launches of the serving call (#3) and of pconv_stream (#1)
+        scans34 = (serve_scans, S.BATCHED_LAUNCHES - n0)
         counts34 = path_kernels()
         if ring == "bf16":
             # two chunks of nparts blocks of one channel; four chunks of
@@ -2820,16 +2819,16 @@ def main():
                               lambda: P.pconv_stream(cfg34, one34, x34_d[:64]))),
                             calls=2, phase=34)
         routes34[ring] = ((y_serve.cpu().numpy(), y_chunk.cpu().numpy(),
-                           y_stream.cpu().numpy()), counts34, dtypes34,
+                           y_stream.cpu().numpy()), counts34, scans34, dtypes34,
                           (serve_ms34, chunk_ms34, stream_ms34))
         del conv34, one34, y_serve, y_chunk, y_stream
-    (bf_serve, bf_chunk, bf_stream), bf_counts, bf_dtypes, bf_ms = routes34["bf16"]
-    (f_serve, f_chunk, f_stream), f_counts, f_dtypes, f_ms = routes34["f32"]
+    (bf_serve, bf_chunk, bf_stream), bf_counts, _, bf_dtypes, bf_ms = routes34["bf16"]
+    (f_serve, f_chunk, f_stream), f_counts, f_scans, f_dtypes, f_ms = routes34["f32"]
     check(bf_dtypes == (torch.bfloat16, torch.bfloat16, torch.float32, torch.bfloat16),
           f"bf16 state dtypes (rings, tail): {bf_dtypes}")
     check(f_dtypes == (torch.float32,) * 4, f"f32 state dtypes {f_dtypes}")
     check(not any(bf_counts), f"the bf16 routes launched no scan/step/MAC kernel: {bf_counts}")
-    check(f_counts[2] > 0 and f_counts[0] > 0, f"the f32 routes launched #3 and #1: {f_counts}")
+    check(f_scans == (1, 1), f"the f32 routes launched #3 and #1 once each: {f_scans}")
     ref1 = sps.fftconvolve(x34.reshape(-1).astype(np.float64),
                            irs34[0].astype(np.float64))[:SCAN_BLOCKS * PTS]
     errs34 = {"serve": max(rel_err(bf_serve[:, c].reshape(-1), sps.fftconvolve(
@@ -2861,7 +2860,7 @@ def main():
           f"{steps34[1][0]}, {steps34[1][1]:.3e}; state (rings, tail) {bf_dtypes[0]}, "
           f"{bf_dtypes[2]}; "
           f"scan/step/MAC kernel launches on the bf16 routes {sum(bf_counts)}, on the f32 "
-          f"routes {sum(f_counts)} (#1 {f_counts[0]}, #3 {f_counts[2]}); CUDA events, median "
+          f"routes {sum(f_counts)} (#3 {f_scans[0]}, #1 {f_scans[1]}); CUDA events, median "
           f"of 3", flush=True)
     del routes34, bf_serve, f_serve
 
@@ -3520,11 +3519,10 @@ def main():
                "block_step_fwd_fused": lambda: BS.FWD_LAUNCHES,
                "block_step_fwd_fused_tv": lambda: BS.FWD_TV_LAUNCHES,
                "block_mac_unpack": lambda: BS.MAC_UNPACK_LAUNCHES,
-               "stream_steps_fused": lambda: S.LAUNCHES,
                "stream_steps_fused_batched": lambda: S.BATCHED_LAUNCHES,
+               "stream_steps_fused_batched_tv": lambda: S.BATCHED_TV_LAUNCHES,
                "fft_vmem": lambda: V.LAUNCHES, "fft_vmem_front2": lambda: V.FRONT2_LAUNCHES,
-               "dstream_steps": lambda: K.LAUNCHES,
-               "stream_steps_fused_split": lambda: SP.LAUNCHES}
+               "dstream_steps": lambda: K.LAUNCHES}
 
     # the __global__ kernels of the port's sources, by name
     csrc40 = "".join(open(p_).read() for p_ in sorted(
@@ -3743,10 +3741,10 @@ def main():
         *(kernel(k, "streamstep.cu", src, n,
                  max(split_err[(ek, c_, LONG_PTS)] for c_ in (1, LONG_CH)),
                  *new_rows[(k, 1, LONG_BLOCKS)], None)
-          for k, ek, src, n in (("stream_steps_fused_split", "split", "splitstep.py:367",
-                                 new_launches[2]),
-                                ("stream_steps_fused_split_tv", "split_tv", "splitstep.py:493",
-                                 new_launches[3]))),
+          for k, ek, src, n in (("stream_steps_fused_split", "split",
+                                 "splitstep.py:367", new_launches[2]),
+                                ("stream_steps_fused_split_tv", "split_tv",
+                                 "splitstep.py:493", new_launches[3]))),
         kernel("macflow_tv", "slidemac.cu", "macflow.py:498", new_launches[0],
                tvm_err[("macflow_tv", 1, SCAN_BLOCKS)],
                *new_rows[("macflow_tv", 1, SCAN_BLOCKS)], None),

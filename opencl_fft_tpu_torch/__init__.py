@@ -1,6 +1,6 @@
 """opencl_fft_tpu_torch — the PyTorch/CUDA port of opencl_fft_tpu.
 
-It mirrors the JAX package's module layout. So far it holds the FFT surface
+It mirrors the JAX package's module layout and holds the FFT surface
 and the streaming convolution paths: complex and packed real FFTs
 (``ops/fft.py``, ``ops/rfft.py``), whose power-of-two sizes 2^10..2^20 run
 on a hand-written CUDA FFT on the card (``csrc/fft.cu``, wrapped by
@@ -9,7 +9,9 @@ on a hand-written CUDA FFT on the card (``csrc/fft.cu``, wrapped by
 ``Clcfft`` and ``Clrfft`` classes and the ``ClfftProcessor`` and
 ``ClrfftProcessor`` opcode layers; the partitioned
 engine (``ops/pconv.py``), LTI and time-varying, whose whole-scan streams
-run on hand-written CUDA kernels for Hopper (``csrc/streamstep.cu``); the
+run on hand-written CUDA kernels for Hopper (``csrc/streamstep.cu``,
+through ``ops/cuda/streamstep.py``: ``stream_steps_fused_batched{,_tv}``,
+one-channel views ``stream_steps_fused{,_tv}``) at every partition size; the
 direct FIR engine (``ops/dconv.py``), whose whole-scan stream runs on
 ``csrc/dstream.cu``; the ``Clpconv`` and ``Cldconv`` classes; the
 ``ClconvProcessor`` and ``CltvconvProcessor`` opcode layers; the batched
@@ -24,10 +26,7 @@ engines (``pconv_chunk{,_tv}``, ``pconv_offline``, ``Convolver.render``,
 engine (``stream_decomposed`` with ``blocks_h``,
 ``stream_batched_tv_decomposed``, ``pconv_stream_batched_tv_chunked``,
 ``TVConvolver.stream_chunked``), whose TV sliding MAC runs on the same
-source (``macflow_tv``, ``macflow_tv_batched``); the streams at partitions
-above 2048, through the same whole-scan kernels under the split scans'
-wrappers (``ops/cuda/splitstep.py``:
-``stream_steps_fused_split{,_batched}{,_tv}``); the per-block steps
+source (``macflow_tv``, ``macflow_tv_batched``); the per-block steps
 (``pconv_step{,_tv}``, ``Clpconv.convolution``, the opcode processors,
 ``Convolver.step``) and the crossfaded IR replacement (``XfadeState``,
 ``pconv_begin_xfade``, ``pconv_step_xfade``, ``Clpconv.push_ir_xfade``,
@@ -74,12 +73,6 @@ from .ops.cuda.mac import spectral_mac, spectral_mac_plain
 from .ops.cuda.dstream import dstream_steps, dstream_steps_plain, toeplitz_slabs
 from .ops.cuda.slidemac import (chunk_mac, macflow_lti, macflow_lti_batched, macflow_tv,
                                 macflow_tv_batched, slide_mac_plain, slide_mac_tv_plain)
-from .ops.cuda.splitstep import (stream_steps_fused_split, stream_steps_fused_split_batched,
-                                 stream_steps_fused_split_batched_plain,
-                                 stream_steps_fused_split_batched_tv,
-                                 stream_steps_fused_split_batched_tv_plain,
-                                 stream_steps_fused_split_plain, stream_steps_fused_split_tv,
-                                 stream_steps_fused_split_tv_plain)
 from .models import (BatchedFFT, Convolver, MatrixConvolver, TVConvolver,
                      ZeroLatencyConvolver, batched_state, plan_segments)
 from .ops.cuda.streamstep import (stream_steps_fused, stream_steps_fused_batched,
@@ -139,10 +132,6 @@ __all__ = [
     "dstream_steps", "dstream_steps_plain", "toeplitz_slabs",
     "chunk_mac", "macflow_lti", "macflow_lti_batched", "slide_mac_plain",
     "macflow_tv", "macflow_tv_batched", "slide_mac_tv_plain",
-    "stream_steps_fused_split", "stream_steps_fused_split_plain",
-    "stream_steps_fused_split_tv", "stream_steps_fused_split_tv_plain",
-    "stream_steps_fused_split_batched", "stream_steps_fused_split_batched_plain",
-    "stream_steps_fused_split_batched_tv", "stream_steps_fused_split_batched_tv_plain",
     "spectral_mac", "spectral_mac_plain", "block_step_fused", "block_step_fused_plain",
     "block_step_fwd_fused", "block_step_fwd_fused_plain",
     "block_step_fwd_fused_tv", "block_step_fwd_fused_tv_plain",

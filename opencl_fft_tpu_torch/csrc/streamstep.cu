@@ -6,9 +6,9 @@
 // (_stream_kernel, wrapper stream_steps_fused; _stream_tv_kernel,
 // stream_steps_fused_tv; _stream_batched_kernel :447,
 // stream_steps_fused_batched; _stream_batched_tv_kernel :607,
-// stream_steps_fused_batched_tv) and of splitstep.py (_split_stream_kernel,
-// stream_steps_fused_split :367; _split_stream_tv_kernel,
-// stream_steps_fused_split_tv :493). They compute one function: for every
+// stream_steps_fused_batched_tv) and of ops/pallas/splitstep.py
+// (_split_stream_kernel, stream_steps_fused_split :367;
+// _split_stream_tv_kernel, stream_steps_fused_split_tv :493). They compute one function: for every
 // input block t of every channel c, the forward rFFT of the zero-padded
 // block, a one-frame slide of the channel's spectral window, the
 // frequency-delay-line complex MAC against the channel's IR spectra (bin 0
@@ -17,8 +17,8 @@
 // are a ring too, block t's coefficient frame written at slot (wp2_c - t)
 // mod nparts before its MAC. streamstep.py's kernels take both transform
 // chains as dense DFT products against (pts, 2 pts) and (2 pts, 2 pts)
-// tables, splitstep.py's factor them through one (m, m) cos/sin table (m =
-// pts = bins; JAX splitstep.py fwd_ref / inv_ref). Here each block's chain
+// tables, ops/pallas/splitstep.py's factor them through one (m, m) cos/sin
+// table (m = pts = bins; its fwd_ref / inv_ref). Here each block's chain
 // is the same function computed by an m-point complex FFT:
 //   forward: the zero-padded 2m-sample frame of block x is the half-size
 //     sequence z_j = x_2j + i x_2j+1 (nonzero for j < m/2); Z = FFT_m(z)

@@ -9,8 +9,8 @@ through the per-block functions of ``ops/pconv.py``, which broadcast over
 the channel axis (the JAX package vmaps them; on a card one block-step
 kernel launch of ``ops/cuda/blockstep.py`` for all channels); ``stream``
 sends a whole (nblocks, C, pts) scan through the batched whole-scan kernel
-(``csrc/streamstep.cu``, through ``ops/cuda/streamstep.py``'s wrappers,
-or ``ops/cuda/splitstep.py``'s above pts 2048), one launch sequence for
+(``csrc/streamstep.cu``, through ``ops/cuda/streamstep.py``'s
+``stream_steps_fused_batched{,_tv}`` at every pts), one launch sequence for
 all channels, or with
 ``chunk > 1`` K blocks at a time through ``pconv_chunk`` (bit-equal to
 per-block steps); ``TVConvolver.stream_chunked`` runs K-block chunks through

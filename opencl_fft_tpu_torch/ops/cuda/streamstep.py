@@ -17,10 +17,12 @@ z_j = x_2j + i x_2j+1, then the pack with the forward coefficient stack,
 and each output row's inverse chain is the unpack (inverse stack) of
 acc[t] + (-1)^k acc[t-1], an unnormalized m-point inverse FFT and a
 deinterleave of its first m/2 values, which is the overlap-added block
-(``tables._coef_stacks_np`` holds both stacks). The same CUDA entries run
-the split scans of ``ops/cuda/splitstep.py``: the kernels take any
+(``tables._coef_stacks_np`` holds both stacks). The kernels take any
 power-of-two pts >= 2 up to ``MAX_PTS``, transforming up to 2^14 points
-inside a CTA and larger sizes by the four-step of ``csrc/fft_tile.cuh``.
+inside a CTA and larger sizes by the four-step of ``csrc/fft_tile.cuh``, so
+the same functions also stand for the JAX package's split scans
+(``ops/pallas/splitstep.py`` ``stream_steps_fused_split{,_tv}``), which it
+runs above pts 2048 where its dense tables grow large.
 
 The batched scans take blocks (nblocks, C, pts): block t of channel c is
 row t*C + c of the (nblocks*C, pts) matrix, the row order of the JAX
@@ -36,12 +38,14 @@ The TV scan's coefficient frames form a second timeline (see
 ``stream_steps_fused_batched_tv_plain``). How the kernels split the work
 between CTAs is planned here by shape (``scan_plan``).
 
-Each wrapper runs its CUDA kernel for CUDA tensors and its twin for CPU
-tensors; anything else raises. The twins are the kernels' chains in plain
-PyTorch (``torch.fft``); ``_dense_frames`` and ``_post_ola_plain`` keep the
-JAX kernels' dense-table chains as the tests' oracle. ``LAUNCHES`` counts
-launches of the LTI scan, ``TV_LAUNCHES`` of the TV scan,
-``BATCHED_LAUNCHES`` and ``BATCHED_TV_LAUNCHES`` of their batched forms.
+Each CUDA entry has one wrapper that checks its arguments, runs the
+kernel for CUDA tensors and its twin for CPU tensors (anything else raises)
+and counts: ``stream_steps_fused_batched`` (``BATCHED_LAUNCHES``) and
+``stream_steps_fused_batched_tv`` (``BATCHED_TV_LAUNCHES``), each counter
+every launch of its entry at any C and pts. The single-channel scans are
+their C = 1 views. The twins are the kernels' chains in plain PyTorch
+(``torch.fft``); ``_dense_frames`` and ``_post_ola_plain`` keep the JAX
+kernels' dense-table chains as the tests' oracle.
 """
 
 from __future__ import annotations
@@ -60,8 +64,6 @@ from .tables import coef_tables, fwd_table, post_table
 from .vmemfft import (LEAF_PASS_MAX, SINGLE_PASS_MAX, four_step_log_a,
                       four_step_tables_np, pass_twiddle_np, two_pass_split)
 
-LAUNCHES = 0
-TV_LAUNCHES = 0
 BATCHED_LAUNCHES = 0
 BATCHED_TV_LAUNCHES = 0
 
@@ -338,7 +340,8 @@ def _one(planes: Cplx) -> Cplx:
 
 def stream_steps_fused(blocks: torch.Tensor, w0: Cplx, h: Cplx,
                        b0_scale: float, tail: torch.Tensor, pts: int):
-    """Run an entire LTI streaming scan in one call.
+    """Run an entire LTI streaming scan in one call: the C = 1 view of
+    ``stream_steps_fused_batched``.
 
     blocks: (nblocks, pts); w0: split (nparts, bins) initial window (row q
     = frame wp0+q, i.e. doubled-ring rows [wp0, wp0+nparts)); h: split
@@ -346,16 +349,9 @@ def stream_steps_fused(blocks: torch.Tensor, w0: Cplx, h: Cplx,
     Returns (outs (nblocks, pts), (wfr, wfi), tail_fin (bins,)); final
     window row q holds frame wp0 + nblocks + q.
     """
-    global LAUNCHES
-    w0r, w0i = w0
-    hr, hi = h
-    _check(blocks, w0r, w0i, hr, hi, tail, pts)
-    dev = _build.launch_device("stream_steps_fused", (blocks, w0r, w0i, hr, hi, tail))
-    if dev.type == "cpu":
-        return stream_steps_fused_plain(blocks, w0, h, b0_scale, tail, pts)
-    outs, (wfr, wfi), tailf = _launch("stream_steps_fused", blocks[:, None], _one(w0),
-                                      _one(h), b0_scale, tail[None], pts, dev)
-    LAUNCHES += 1
+    _check(blocks, *w0, *h, tail, pts)
+    outs, (wfr, wfi), tailf = stream_steps_fused_batched(
+        blocks[:, None], _one(w0), _one(h), b0_scale, tail[None], pts)
     return outs[:, 0], (wfr[0], wfi[0]), tailf[0]
 
 
@@ -494,7 +490,8 @@ def _lti_scan_plain(blocks, w0: Cplx, h: Cplx, b0_scale: float, tails, pts: int,
 def stream_steps_fused_tv(blocks_x: torch.Tensor, blocks_h: torch.Tensor,
                           w0: Cplx, h0: Cplx, wp2: int, b0_scale: float,
                           tail: torch.Tensor, pts: int):
-    """Run an entire time-varying streaming scan in one call.
+    """Run an entire time-varying streaming scan in one call: the C = 1
+    view of ``stream_steps_fused_batched_tv``.
 
     blocks_x, blocks_h: (nblocks, pts) input and coefficient operands;
     w0 as in ``stream_steps_fused``; h0: split (nparts, bins) coefficient
@@ -503,20 +500,11 @@ def stream_steps_fused_tv(blocks_x: torch.Tensor, blocks_h: torch.Tensor,
     final window, the final coefficient ring (its pointer is
     (wp2 - nblocks) mod nparts) and the final tail.
     """
-    global TV_LAUNCHES
-    w0r, w0i = w0
-    h0r, h0i = h0
-    _check(blocks_x, w0r, w0i, h0r, h0i, tail, pts)
+    _check(blocks_x, *w0, *h0, tail, pts)
     _check_tv_blocks(blocks_x, blocks_h)
-    dev = _build.launch_device("stream_steps_fused_tv",
-                               (blocks_x, blocks_h, w0r, w0i, h0r, h0i, tail))
-    if dev.type == "cpu":
-        return stream_steps_fused_tv_plain(blocks_x, blocks_h, w0, h0, wp2, b0_scale,
-                                           tail, pts)
-    outs, (wfr, wfi), (hfr, hfi), tailf = _launch_tv(
-        "stream_steps_fused_tv", blocks_x[:, None], blocks_h[:, None], _one(w0), _one(h0),
-        int(wp2) % h0r.shape[0], b0_scale, tail[None], pts, dev)
-    TV_LAUNCHES += 1
+    outs, (wfr, wfi), (hfr, hfi), tailf = stream_steps_fused_batched_tv(
+        blocks_x[:, None], blocks_h[:, None], _one(w0), _one(h0), int(wp2), b0_scale,
+        tail[None], pts)
     return outs[:, 0], (wfr[0], wfi[0]), (hfr[0], hfi[0]), tailf[0]
 
 

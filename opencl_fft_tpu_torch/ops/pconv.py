@@ -31,9 +31,9 @@ two exact convolutions are blended sample by sample (``XfadeState``).
 
 The streams (``pconv_stream{,_tv}``, ``pconv_stream_batched{,_tv}``,
 ``convolve``) send every block through one whole-scan kernel launch
-(``csrc/streamstep.cu``, in-kernel FFTs at every pts): through the
-wrappers of ``ops/cuda/streamstep.py`` up to ``_FWD_MM_MAX_PTS``, of
-``ops/cuda/splitstep.py`` above (``_scans``).
+(``csrc/streamstep.cu``, in-kernel FFTs at every pts) through the
+wrappers ``stream_steps_fused_batched{,_tv}`` of ``ops/cuda/streamstep.py``;
+the single-channel streams are the C = 1 view of the batched ones.
 
 Batched serving (``models/convolver.py``) runs C channels in lockstep on a
 state whose planes have a leading channel axis (``models.batched_state``):
@@ -71,25 +71,21 @@ from .cplx import Cplx
 from .cuda.blockstep import (block_mac_unpack, block_step_fused, block_step_fwd_fused,
                               block_step_fwd_fused_tv)
 from .cuda.mac import spectral_mac
-from .cuda.streamstep import (Pointers, stream_steps_fused, stream_steps_fused_batched,
-                              stream_steps_fused_batched_tv, stream_steps_fused_tv)
+from .cuda.streamstep import Pointers, stream_steps_fused_batched, stream_steps_fused_batched_tv
 from .cuda.slidemac import CHUNKMAC_MAX_BATCH, chunk_mac, macflow_lti_batched, slide_mac_plain
-from .cuda.splitstep import (stream_steps_fused_split, stream_steps_fused_split_batched,
-                             stream_steps_fused_split_batched_tv, stream_steps_fused_split_tv)
 from .cuda.tables import fwd_table
 from .fft import _IMPLS, fft_split
 from .rfft import interleave, irfft_split, rfft_split
 
 # Largest partition size whose dense forward table, (pts, 2*pts), the engine
 # builds for ``_forward_partition``. Up to it the forward transform there is
-# one product against the table, the streams run the scan kernels through
-# the wrappers of the JAX dense-table kernels and a state on a card runs the
-# per-block step kernels (``_block_kernels``); above it the forward
-# transform is the transform chain, the streams run the split scans'
-# wrappers (``_scans``) and the per-block functions the transform chain
-# around the MAC-and-unpack kernel (``_mac_unpack_kernel``). Every scan and
-# step kernel computes its transforms by FFTs at any pts, so above 2048 the
-# split is a routing rule kept from the JAX package, not a table limit.
+# one product against the table and a state on a card runs the per-block
+# step kernels (``_block_kernels``); above it the forward transform is the
+# transform chain and the per-block functions run it around the
+# MAC-and-unpack kernel (``_mac_unpack_kernel``). Every step kernel computes
+# its transforms by FFTs at any pts, so above 2048 the split is a routing
+# rule kept from the JAX package, not a table limit; the streams run one
+# scan route at every pts.
 _FWD_MM_MAX_PTS = 2048
 
 
@@ -746,29 +742,6 @@ def _check_pair(cfg: PconvConfig, blocks_x: torch.Tensor, blocks_h: torch.Tensor
                          f"of blocks_x {tuple(blocks_x.shape)}")
 
 
-class _Scans(NamedTuple):
-    lti: Callable
-    tv: Callable
-    batched: Callable
-    batched_tv: Callable
-
-
-_DENSE_SCANS = _Scans(stream_steps_fused, stream_steps_fused_tv, stream_steps_fused_batched,
-                      stream_steps_fused_batched_tv)
-_SPLIT_SCANS = _Scans(stream_steps_fused_split, stream_steps_fused_split_tv,
-                      stream_steps_fused_split_batched, stream_steps_fused_split_batched_tv)
-
-
-def _scans(cfg: PconvConfig) -> _Scans:
-    """The whole-scan kernel wrappers of cfg's partition size. Both families
-    launch the same CUDA entries (in-kernel FFTs at every pts) and take the
-    same arguments; they differ in the JAX kernels they stand for, and so in
-    their launch counters: the dense-table kernels' (``ops/cuda/
-    streamstep.py``) up to _FWD_MM_MAX_PTS, the split kernels'
-    (``ops/cuda/splitstep.py``) above, as in the JAX package."""
-    return _DENSE_SCANS if cfg.pts <= _FWD_MM_MAX_PTS else _SPLIT_SCANS
-
-
 def _batched_channels(state: PconvState) -> int:
     """Channel count of a batched state; per-channel pointers must match."""
     if state.spec_h_re.dim() != 3:
@@ -787,6 +760,13 @@ def _advance(p: Pointers, n: int, nparts: int) -> Pointers:
     if isinstance(p, tuple):
         return tuple((x + n) % nparts for x in p)
     return (p + n) % nparts
+
+
+def _as_batch(state: PconvState) -> PconvState:
+    """A single-channel state as a batched state of one channel (its planes
+    views with a leading axis of 1, its int pointers shared); ``_channel(.,
+    0)`` is the way back."""
+    return state._replace(**{n: getattr(state, n)[None] for n in _PLANES})
 
 
 def _channel(state: PconvState, c: int) -> PconvState:
@@ -862,25 +842,20 @@ def pconv_stream(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor
                  ) -> Tuple[PconvState, torch.Tensor]:
     """Run many LTI blocks, blocks: (nblocks, pts) -> outs (nblocks, pts).
 
-    Every block goes through one whole-scan kernel launch (``_scans``):
-    its CUDA kernel for a CUDA tensor, its plain twin for a CPU tensor. Same
-    per-block results as pconv_step. A config the kernels do not take
+    The one-channel case of ``pconv_stream_batched``: every block goes
+    through one whole-scan kernel launch, its CUDA kernel for a CUDA tensor,
+    its plain twin for a CPU tensor, and is traced as there. Same per-block
+    results as pconv_step. A config the kernels do not take
     (``_kernel_eligible``: bf16 rings, float64) runs ``_plain_stream``:
     ``pconv_chunk`` over chunks of up to nparts blocks.
     """
     _check_blocks(cfg, blocks)
-    nb = blocks.shape[0]
-    if nb == 0:
+    if blocks.shape[0] == 0:
         return state, blocks.new_zeros((0, cfg.pts), dtype=cfg.compute_dtype)
     if not cfg._kernel_eligible():
         return _plain_stream(cfg, state, blocks)
-    outs, (wfr, wfi), tail = _scans(cfg).lti(
-        blocks.to(torch.float32).contiguous(), _window(cfg, state),
-        (state.spec_h_re, state.spec_h_im), cfg.b0_scale, state.tail, cfg.pts)
-    wp_out = (state.wp + nb) % cfg.nparts
-    return state._replace(spec_x_re=_doubled_ring(wfr, wp_out),
-                          spec_x_im=_doubled_ring(wfi, wp_out),
-                          tail=tail, wp=wp_out), outs
+    one, outs = pconv_stream_batched(cfg, _as_batch(state), blocks[:, None])
+    return _channel(one, 0), outs[:, 0]
 
 
 def pconv_stream_tv(cfg: PconvConfig, state: PconvState, blocks_x: torch.Tensor,
@@ -888,27 +863,21 @@ def pconv_stream_tv(cfg: PconvConfig, state: PconvState, blocks_x: torch.Tensor,
     """Run many time-varying blocks: blocks_x (input) and blocks_h
     (coefficient operand), both (nblocks, pts) -> outs (nblocks, pts).
 
-    Every block goes through one whole-scan TV kernel launch (``_scans``):
-    its CUDA kernel for CUDA tensors, its plain twin for CPU tensors. Same
+    The one-channel case of ``pconv_stream_batched_tv``: every block goes
+    through one whole-scan TV kernel launch, its CUDA kernel for CUDA
+    tensors, its plain twin for CPU tensors, and is traced as there. Same
     per-block results as pconv_step_tv. The IR ring goes in and comes out
     in place, in the state's layout. A config the kernels do not take runs
     ``_plain_stream`` (``pconv_chunk_tv`` a chunk), as ``pconv_stream`` does.
     """
     _check_pair(cfg, blocks_x, blocks_h)
-    nb = blocks_x.shape[0]
-    if nb == 0:
+    if blocks_x.shape[0] == 0:
         return state, blocks_x.new_zeros((0, cfg.pts), dtype=cfg.compute_dtype)
     if not cfg._kernel_eligible():
         return _plain_stream(cfg, state, blocks_x, blocks_h)
-    outs, (wfr, wfi), (hfr, hfi), tail = _scans(cfg).tv(
-        blocks_x.to(torch.float32).contiguous(), blocks_h.to(torch.float32).contiguous(),
-        _window(cfg, state), (state.spec_h_re, state.spec_h_im), state.wp2,
-        cfg.b0_scale, state.tail, cfg.pts)
-    wp_out = (state.wp + nb) % cfg.nparts
-    return state._replace(spec_x_re=_doubled_ring(wfr, wp_out),
-                          spec_x_im=_doubled_ring(wfi, wp_out),
-                          spec_h_re=hfr, spec_h_im=hfi, tail=tail, wp=wp_out,
-                          wp2=(state.wp2 - nb) % cfg.nparts), outs
+    one, outs = pconv_stream_batched_tv(cfg, _as_batch(state), blocks_x[:, None],
+                                        blocks_h[:, None])
+    return _channel(one, 0), outs[:, 0]
 
 
 def pconv_stream_batched(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor
@@ -918,14 +887,14 @@ def pconv_stream_batched(cfg: PconvConfig, state: PconvState, blocks: torch.Tens
     ring pointers are shared ints or length-C tuples.
 
     Every block of every channel goes through one launch of the batched
-    whole-scan kernel (``_scans``): its CUDA kernel for a CUDA tensor, its
-    plain twin for a CPU tensor. Same per-block results as pconv_step on
-    each channel. A config the kernels do not take runs ``_plain_stream``,
-    as ``pconv_stream`` does.
+    whole-scan kernel (``stream_steps_fused_batched``): its CUDA kernel for
+    a CUDA tensor, its plain twin for a CPU tensor. Same per-block results
+    as pconv_step on each channel. A config the kernels do not take runs
+    ``_plain_stream``, as ``pconv_stream`` does.
 
     Traced as the spans ``window`` (``_window``), ``launch`` (the scan
     wrapper's call, up to the return of its enqueue) and ``ring`` (the
-    doubled rings rebuilt).
+    doubled rings rebuilt), as is ``pconv_stream``, its one-channel case.
     """
     nch = _batched_channels(state)
     _check_blocks(cfg, blocks, channels=nch)
@@ -938,7 +907,7 @@ def pconv_stream_batched(cfg: PconvConfig, state: PconvState, blocks: torch.Tens
     with profiling.span("window"):
         window = _window(cfg, state)
     with profiling.span("launch"):
-        outs, (wfr, wfi), tails = _scans(cfg).batched(
+        outs, (wfr, wfi), tails = stream_steps_fused_batched(
             blocks, window, (state.spec_h_re, state.spec_h_im), cfg.b0_scale, state.tail,
             cfg.pts)
     wp_out = _advance(state.wp, nb, cfg.nparts)
@@ -954,11 +923,11 @@ def pconv_stream_batched_tv(cfg: PconvConfig, state: PconvState, blocks_x: torch
     ring pointers are shared ints or length-C tuples.
 
     Every block of every channel goes through one launch of the batched
-    whole-scan TV kernel (``_scans``): its CUDA kernel for CUDA tensors, its
-    plain twin for CPU tensors. Same per-block results as pconv_step_tv on
-    each channel; the IR rings go in and come out in the state's layout. A
-    config the kernels do not take runs ``_plain_stream``. Traced as
-    ``pconv_stream_batched``.
+    whole-scan TV kernel (``stream_steps_fused_batched_tv``): its CUDA kernel
+    for CUDA tensors, its plain twin for CPU tensors. Same per-block results
+    as pconv_step_tv on each channel; the IR rings go in and come out in the
+    state's layout. A config the kernels do not take runs ``_plain_stream``.
+    Traced as ``pconv_stream_batched``.
     """
     nch = _batched_channels(state)
     _check_pair(cfg, blocks_x, blocks_h, nch)
@@ -972,7 +941,7 @@ def pconv_stream_batched_tv(cfg: PconvConfig, state: PconvState, blocks_x: torch
     with profiling.span("window"):
         window = _window(cfg, state)
     with profiling.span("launch"):
-        outs, (wfr, wfi), (hfr, hfi), tails = _scans(cfg).batched_tv(
+        outs, (wfr, wfi), (hfr, hfi), tails = stream_steps_fused_batched_tv(
             blocks_x, blocks_h, window, (state.spec_h_re, state.spec_h_im), state.wp2,
             cfg.b0_scale, state.tail, cfg.pts)
     wp_out = _advance(state.wp, nb, cfg.nparts)
@@ -1043,9 +1012,8 @@ def pconv_offline(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor
     _check_blocks(cfg, blocks)
     if not cfg._kernel_eligible():
         return pconv_stream(cfg, state, blocks)
-    one = state._replace(**{n: getattr(state, n)[None] for n in _PLANES})
-    one, outs = _offline_batched(cfg, one, blocks[:, None])
-    return state._replace(**{n: getattr(one, n)[0] for n in _PLANES}, wp=one.wp), outs[:, 0]
+    one, outs = _offline_batched(cfg, _as_batch(state), blocks[:, None])
+    return _channel(one, 0), outs[:, 0]
 
 
 def pconv_stream_batched_chunked(cfg: PconvConfig, state: PconvState,

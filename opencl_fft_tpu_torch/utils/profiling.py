@@ -171,8 +171,7 @@ def spans() -> list:
     return list(_spans)
 
 
-_LAUNCH_MODULES = ("blockstep", "dstream", "mac", "slidemac", "splitstep", "streamstep",
-                   "vmemfft")
+_LAUNCH_MODULES = ("blockstep", "dstream", "mac", "slidemac", "streamstep", "vmemfft")
 
 
 def counters() -> dict:

@@ -397,13 +397,11 @@ def test_cuda_dtype_routes_take_no_kernel(cuda_device, kw):
     from opencl_fft_tpu_torch.ops.cuda import dstream as K
     from opencl_fft_tpu_torch.ops.cuda import mac as MC
     from opencl_fft_tpu_torch.ops.cuda import slidemac as SM
-    from opencl_fft_tpu_torch.ops.cuda import splitstep as SP
     from opencl_fft_tpu_torch.ops.cuda import streamstep as S
 
     def counts():
-        return (S.LAUNCHES, S.TV_LAUNCHES, S.BATCHED_LAUNCHES, S.BATCHED_TV_LAUNCHES,
-                SP.LAUNCHES, SP.TV_LAUNCHES, MC.LAUNCHES, BS.STEP_LAUNCHES, BS.FWD_LAUNCHES,
-                BS.FWD_TV_LAUNCHES, BS.MAC_UNPACK_LAUNCHES, SM.CHUNKMAC_LAUNCHES,
+        return (S.BATCHED_LAUNCHES, S.BATCHED_TV_LAUNCHES, MC.LAUNCHES, BS.STEP_LAUNCHES,
+                BS.FWD_LAUNCHES, BS.FWD_TV_LAUNCHES, BS.MAC_UNPACK_LAUNCHES, SM.CHUNKMAC_LAUNCHES,
                 SM.MACFLOW_LAUNCHES, SM.MACFLOW_BATCHED_LAUNCHES, SM.MACFLOW_TV_LAUNCHES,
                 SM.MACFLOW_TV_BATCHED_LAUNCHES, K.LAUNCHES)
 

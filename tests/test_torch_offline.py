@@ -285,10 +285,11 @@ def _steps(step, st, *ops):
 @pytest.mark.parametrize("path", ["chunk", "chunk_tv", "offline", "render", "chunked",
                                   "decomposed", "step", "step_tv", "decomposed_tv",
                                   "tv_chunked", "split_scan"])
-def test_engine_states_chain_into_the_scan(path, monkeypatch):
+def test_engine_states_chain_into_the_scan(path):
     """Every path of the timeline engine, the per-block steps on a batched
-    state and the split scan (``split_scan``: the streams' kernel
-    above pts 2048, taken here at pts 16) leave contiguous state planes
+    state and the batched TV scan (``split_scan``: the streams' one scan
+    route, the JAX package's split kernel above pts 2048) leave contiguous
+    state planes
     (the card's whole-scan kernels take no others) that chain into the scan
     as the scan's own state does."""
     cfg = P.PconvConfig(pts=16, nparts=4)
@@ -311,10 +312,7 @@ def test_engine_states_chain_into_the_scan(path, monkeypatch):
            "tv_chunked": lambda s: P.pconv_stream_batched_tv_chunked(cfg, s, blocks[:3],
                                                                      blocks[3:], K=1),
            "split_scan": lambda s: P.pconv_stream_batched_tv(cfg, s, blocks[:3], blocks[3:])}[path]
-    with monkeypatch.context() as m:
-        if path == "split_scan":
-            m.setattr(P, "_scans", lambda cfg_: P._SPLIT_SCANS)
-        st = run(st0)[0]
+    st = run(st0)[0]
     for name in RINGS + ("tail",):
         assert getattr(st, name).is_contiguous(), name
     scan = P.pconv_stream if nch is None else P.pconv_stream_batched

@@ -221,6 +221,45 @@ def test_stream_and_push_ir_validate_shapes():
     assert out.shape == (1, 4096) and not out.any()
 
 
+@pytest.mark.parametrize("tv", [False, True])
+@pytest.mark.parametrize("pts,nparts", [(16, 5), (2048, 2)])
+def test_stream_is_the_scan_twin_bit_for_bit(pts, nparts, tv):
+    """Up to pts 2048, where the JAX package runs its dense-table scans,
+    ``pconv_stream{,_tv}`` (the one-channel view of the batched streams)
+    give the single-channel scan twin's bits: outputs, window, IR ring and
+    tail, from a state whose pointers have moved."""
+    from opencl_fft_tpu_torch.ops.cuda import streamstep as S
+
+    cfg = P.PconvConfig(pts=pts, nparts=nparts)
+    rng = np.random.default_rng(pts + tv)
+
+    def f32(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    st = P.push_ir(cfg, P.pconv_init(cfg, "cpu"), f32(cfg.cvs))
+    st = P.pconv_stream_tv(cfg, st, f32(3, pts), f32(3, pts))[0] if tv else \
+        P.pconv_stream(cfg, st, f32(3, pts))[0]
+    bx, bh = f32(7, pts), f32(7, pts)
+    window = (st.spec_x_re[st.wp:st.wp + nparts], st.spec_x_im[st.wp:st.wp + nparts])
+    h = (st.spec_h_re, st.spec_h_im)
+    if tv:
+        got_s, got = P.pconv_stream_tv(cfg, st, bx, bh)
+        want, (wr, wi), (hr, hi), tail = S.stream_steps_fused_tv_plain(
+            bx, bh, window, h, st.wp2, cfg.b0_scale, st.tail, pts)
+    else:
+        got_s, got = P.pconv_stream(cfg, st, bx)
+        want, (wr, wi), tail = S.stream_steps_fused_plain(bx, window, h, cfg.b0_scale,
+                                                         st.tail, pts)
+        hr, hi = h
+    wp = got_s.wp
+    for g, w in ((got, want), (got_s.spec_x_re[wp:wp + nparts], wr),
+                 (got_s.spec_x_im[wp:wp + nparts], wi), (got_s.spec_h_re, hr),
+                 (got_s.spec_h_im, hi), (got_s.tail, tail)):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    assert (got_s.wp, got_s.wp2) == ((st.wp + 7) % nparts,
+                                     (st.wp2 - 7 * tv) % nparts)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -240,11 +279,11 @@ def test_cuda_stream_matches_cpu_twin(cuda_device):
     blocks = torch.from_numpy(rng.standard_normal((2, 21, 128)).astype(np.float32))
     tc = P.push_ir(cfg, P.pconv_init(cfg, "cpu"), ir)
     tg = P.push_ir(cfg, P.pconv_init(cfg, cuda_device), ir.to(cuda_device))
-    before = S.LAUNCHES
+    before = S.BATCHED_LAUNCHES
     for call in range(2):
         tc, oc = P.pconv_stream(cfg, tc, blocks[call])
         tg, og = P.pconv_stream(cfg, tg, blocks[call].to(cuda_device))
         _assert_out_close(og.cpu(), oc)
-    assert S.LAUNCHES == before + 2
+    assert S.BATCHED_LAUNCHES == before + 2
     with pytest.raises(TypeError):
         P.pconv_stream(cfg, tg, blocks[0].double().to(cuda_device))

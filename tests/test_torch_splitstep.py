@@ -1,7 +1,8 @@
-"""Port parity: the split-scan kernels of opencl_fft_tpu_torch
-(``ops/cuda/splitstep.py``: ``stream_steps_fused_split{,_batched}{,_tv}``
-and their twins) and the streams that run them above pts 2048, against
-opencl_fft_tpu on the same numpy-seeded inputs.
+"""Port parity: the whole-scan kernels of opencl_fft_tpu_torch
+(``ops/cuda/streamstep.py``: ``stream_steps_fused{,_batched}{,_tv}`` and
+their twins) as the counterparts of the JAX package's split scans, and the
+streams above pts 2048, against opencl_fft_tpu on the same numpy-seeded
+inputs.
 
 The port's coefficient stacks (``ops/cuda/tables.py``) are bit-identical to
 the JAX package's (``ops/pallas/splitstep.py``). The twins' FFT chains are
@@ -29,7 +30,6 @@ from opencl_fft_tpu.ops.pallas import splitstep as JS
 from opencl_fft_tpu_torch import models as M
 from opencl_fft_tpu_torch.interop import pconv_state_from_numpy, pconv_state_to_numpy
 from opencl_fft_tpu_torch.ops import pconv as P
-from opencl_fft_tpu_torch.ops.cuda import splitstep as SP
 from opencl_fft_tpu_torch.ops.cuda import streamstep as S
 from opencl_fft_tpu_torch.ops.cuda import tables as T
 from opencl_fft_tpu_torch.ops.cuda import vmemfft as V
@@ -221,9 +221,9 @@ def test_split_twin_matches_pallas_kernel_and_dense_twin(nb, b0):
                                              _pair(d["h"], jnp.asarray), b0,
                                              jnp.asarray(d["tail"]), pts, interpret=True)
     args = (_t(d["bx"]), _pair(d["w0"]), _pair(d["h"]), b0, _t(d["tail"]), pts)
-    before = SP.LAUNCHES
-    got = SP.stream_steps_fused_split(*args)
-    assert SP.LAUNCHES == before                   # the CPU runs the twin
+    before = S.BATCHED_LAUNCHES
+    got = S.stream_steps_fused(*args)
+    assert S.BATCHED_LAUNCHES == before                   # the CPU runs the twin
     dense = _dense_oracle(*args)
     for ref in ((jo, jw, jt), dense):
         _close(got[0], ref[0], 2e-5)
@@ -243,7 +243,7 @@ def test_split_tv_twin_matches_pallas_kernel_and_dense_twin(nb, wp2, b0):
         jnp.asarray(d["tail"]), pts, interpret=True)
     args = (_t(d["bx"]), _t(d["bh"]), _pair(d["w0"]), _pair(d["h"]), wp2, b0, _t(d["tail"]),
             pts)
-    got = SP.stream_steps_fused_split_tv(*args)
+    got = S.stream_steps_fused_tv(*args)
     dense = _dense_tv_oracle(*args)
     for ref in ((jo, jw, jh, jt), dense):
         _close(got[0], ref[0], 2e-5)
@@ -258,23 +258,21 @@ def test_split_batched_twin_channels_match_single_channel(tv):
     d = _scan_inputs(7, pts, nparts, nb, nch)
     wp2 = (2, 0, 1)
     if tv:
-        got = SP.stream_steps_fused_split_batched_tv(_t(d["bx"]), _t(d["bh"]), _pair(d["w0"]),
-                                                     _pair(d["h"]), wp2, 2.0, _t(d["tail"]),
-                                                     pts)
+        got = S.stream_steps_fused_batched_tv(_t(d["bx"]), _t(d["bh"]), _pair(d["w0"]),
+                                              _pair(d["h"]), wp2, 2.0, _t(d["tail"]), pts)
     else:
-        got = SP.stream_steps_fused_split_batched(_t(d["bx"]), _pair(d["w0"]), _pair(d["h"]),
-                                                  2.0, _t(d["tail"]), pts)
+        got = S.stream_steps_fused_batched(_t(d["bx"]), _pair(d["w0"]), _pair(d["h"]), 2.0,
+                                           _t(d["tail"]), pts)
     for c in range(nch):
         one = lambda planes: tuple(_t(p[c]) for p in planes)  # noqa: E731
         if tv:
-            ref = SP.stream_steps_fused_split_tv(_t(d["bx"][:, c]), _t(d["bh"][:, c]),
-                                                 one(d["w0"]), one(d["h"]), wp2[c], 2.0,
-                                                 _t(d["tail"][c]), pts)
+            ref = S.stream_steps_fused_tv(_t(d["bx"][:, c]), _t(d["bh"][:, c]), one(d["w0"]),
+                                          one(d["h"]), wp2[c], 2.0, _t(d["tail"][c]), pts)
             pairs = [(got[0][:, c], ref[0]), (got[3][c], ref[3])] + [
                 (g[c], r) for g, r in zip((*got[1], *got[2]), (*ref[1], *ref[2]))]
         else:
-            ref = SP.stream_steps_fused_split(_t(d["bx"][:, c]), one(d["w0"]), one(d["h"]),
-                                              2.0, _t(d["tail"][c]), pts)
+            ref = S.stream_steps_fused(_t(d["bx"][:, c]), one(d["w0"]), one(d["h"]), 2.0,
+                                       _t(d["tail"][c]), pts)
             pairs = [(got[0][:, c], ref[0]), (got[2][c], ref[2])] + [
                 (g[c], r) for g, r in zip(got[1], ref[1])]
         for g, r in pairs:
@@ -285,15 +283,15 @@ def test_split_wrappers_validate():
     z = torch.zeros
     w = (z(2, 16), z(2, 16))
     with pytest.raises(ValueError, match="power-of-two pts"):
-        SP.stream_steps_fused_split(z(3, 12), (z(2, 12), z(2, 12)), (z(2, 12), z(2, 12)), 2.0,
-                                    z(12), 12)
+        S.stream_steps_fused(z(3, 12), (z(2, 12), z(2, 12)), (z(2, 12), z(2, 12)), 2.0, z(12),
+                             12)
     with pytest.raises(ValueError, match="blocks must be"):
-        SP.stream_steps_fused_split(z(3, 8), w, w, 2.0, z(16), 16)
+        S.stream_steps_fused(z(3, 8), w, w, 2.0, z(16), 16)
     with pytest.raises(ValueError, match="blocks_h must have the shape"):
-        SP.stream_steps_fused_split_tv(z(3, 16), z(2, 16), w, w, 0, 2.0, z(16), 16)
+        S.stream_steps_fused_tv(z(3, 16), z(2, 16), w, w, 0, 2.0, z(16), 16)
     with pytest.raises(ValueError, match="one pointer per channel"):
-        SP.stream_steps_fused_split_batched_tv(z(3, 2, 16), z(3, 2, 16), (z(2, 2, 16),) * 2,
-                                               (z(2, 2, 16),) * 2, (0, 1, 1), 2.0, z(2, 16), 16)
+        S.stream_steps_fused_batched_tv(z(3, 2, 16), z(3, 2, 16), (z(2, 2, 16),) * 2,
+                                        (z(2, 2, 16),) * 2, (0, 1, 1), 2.0, z(2, 16), 16)
 
 
 # ---------------------------------------------------------------------------
@@ -324,7 +322,7 @@ def test_pconv_stream_above_2048_runs_the_split_scan_and_matches_jax_and_scipy()
     _close(y2, jy2, 2e-5)
     ref = sps.fftconvolve(x.reshape(-1).astype(np.float64), ir.astype(np.float64))
     _close(torch.cat([y1, y2]).reshape(-1), ref[:2 * NB * PTS], 3e-5)
-    twin = SP.stream_steps_fused_split_plain(
+    twin = S.stream_steps_fused_plain(
         _t(x[:NB]), (st.spec_x_re[:NPARTS], st.spec_x_im[:NPARTS]),
         (st.spec_h_re, st.spec_h_im), cfg.b0_scale, st.tail, PTS)[0]
     np.testing.assert_array_equal(y1.numpy(), twin.numpy())
@@ -413,7 +411,7 @@ def test_models_stream_above_2048_match_single_channel_scans():
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the split-scan kernels have no CPU mode)")
+        pytest.skip("needs a CUDA card (the scan kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -426,19 +424,21 @@ def test_cuda_split_kernels_match_twins(cuda_device, pts, nparts, nb, nch):
     d = _scan_inputs(pts + nb, pts, nparts, nb, nch)
     dev = lambda a: _t(a, cuda_device)  # noqa: E731
     args = (dev(d["bx"]), _pair(d["w0"], dev), _pair(d["h"], dev), 2.0, dev(d["tail"]), pts)
-    n0 = SP.LAUNCHES
-    got = SP.stream_steps_fused_split_batched(*args)
+    n0 = S.BATCHED_LAUNCHES
+    got = S.stream_steps_fused_batched(*args)
     torch.cuda.synchronize()
-    assert SP.LAUNCHES == n0 + 1
-    want = SP.stream_steps_fused_split_batched_plain(*args)
+    assert S.BATCHED_LAUNCHES == n0 + 1
+    want = S.stream_steps_fused_batched_plain(*args)
     for g, w in ((got[0], want[0]), (got[2], want[2]), *zip(got[1], want[1])):
         _close(g, w, 2e-5)
     wp2 = tuple((3 * c + 1) % nparts for c in range(nch))
     targs = (dev(d["bx"]), dev(d["bh"]), _pair(d["w0"], dev), _pair(d["h"], dev), wp2, 1.0,
              dev(d["tail"]), pts)
-    got = SP.stream_steps_fused_split_batched_tv(*targs)
+    n0 = S.BATCHED_TV_LAUNCHES
+    got = S.stream_steps_fused_batched_tv(*targs)
     torch.cuda.synchronize()
-    want = SP.stream_steps_fused_split_batched_tv_plain(*targs)
+    assert S.BATCHED_TV_LAUNCHES == n0 + 1
+    want = S.stream_steps_fused_batched_tv_plain(*targs)
     for g, w in ((got[0], want[0]), (got[3], want[3]), *zip(got[1], want[1]),
                  *zip(got[2], want[2])):
         _close(g, w, 2e-5)

@@ -89,12 +89,12 @@ def test_library_path_hashes_shared_headers(tmp_path, monkeypatch):
 
 def test_wrapper_runs_twin_on_cpu_without_counting():
     d = _inputs(1, 16, 3, 5)
-    before = S.LAUNCHES
+    before = S.BATCHED_LAUNCHES
     got = _run_plain(d, 2.0, 16, fn=S.stream_steps_fused)
     want = _run_plain(d, 2.0, 16)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
-    assert S.LAUNCHES == before
+    assert S.BATCHED_LAUNCHES == before
 
 
 def test_wrapper_checks_arguments():
@@ -143,10 +143,10 @@ def test_cuda_kernel_matches_twin_at_edge_shapes(cuda_device, pts, nparts, nb):
 @pytest.mark.parametrize("b0", [1.0, 2.0])
 def test_cuda_kernel_matches_twin(cuda_device, pts, nparts, nb, b0):
     d = _inputs(7 * nb + nparts, pts, nparts, nb)
-    before = S.LAUNCHES
+    before = S.BATCHED_LAUNCHES
     got = _run_plain(d, b0, pts, fn=S.stream_steps_fused, device=cuda_device)
     torch.cuda.synchronize()
-    assert S.LAUNCHES == before + 1
+    assert S.BATCHED_LAUNCHES == before + 1
     want = _run_plain(d, b0, pts, device=cuda_device)
     _assert_stream_close(got, want)
 

@@ -68,19 +68,41 @@ def _stream(eng, tv: bool, nb: int = 5):
         else eng.stream(x)
 
 
-@pytest.mark.parametrize("tv", [False, True])
+def _single_stream(tv: bool, pts: int = 16, taps: int = 128, nb: int = 5):
+    """A caller of the single-channel ``pconv_stream{,_tv}``: one call a
+    ``stream`` request, opened as the models open theirs."""
+    cfg = port.PconvConfig.for_ir_length(taps, pts)
+    gen = torch.Generator().manual_seed(nb)
+    st = P.push_ir(cfg, P.pconv_init(cfg, "cpu"), torch.randn(taps, generator=gen))
+    x, h = torch.randn(2, nb, pts, generator=gen)
+
+    def call():
+        with PF.request("stream", PF.enabled()):
+            return P.pconv_stream_tv(cfg, st, x, h) if tv else P.pconv_stream(cfg, st, x)
+    return call
+
+
+@pytest.mark.parametrize("tv,single", [pytest.param(False, False, id="False"),
+                                       pytest.param(True, False, id="True"),
+                                       pytest.param(False, True, id="pconv_stream"),
+                                       pytest.param(True, True, id="pconv_stream_tv")])
 @pytest.mark.parametrize("profiler", ["user_scope", "torch.profiler"])
-def test_stream_records_its_stages(tv, profiler):
-    """Each stream call is a request holding window, launch and ring, in
-    that order, inside its span."""
-    eng = _engine(tv)
-    _stream(eng, tv)                                 # untraced: nothing
+def test_stream_records_its_stages(tv, single, profiler):
+    """Each stream call, of the models or of the single-channel streams
+    (the one-channel view of the batched ones), is a request holding
+    window, launch and ring, in that order, inside its span."""
+    if single:
+        call = _single_stream(tv)
+    else:
+        eng = _engine(tv)
+        call = lambda: _stream(eng, tv)  # noqa: E731
+    call()                                           # untraced: nothing
     assert PF.spans() == []
     ctx = _user_scope() if profiler == "user_scope" else \
         torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
     with ctx:
         for _ in range(3):
-            _stream(eng, tv)
+            call()
     sp = PF.spans()
     requests = [s for s in sp if s.parent is None]
     assert [s.name for s in requests] == ["stream"] * 3
@@ -209,7 +231,8 @@ def test_counters_show_the_launch_counts(monkeypatch):
     from opencl_fft_tpu_torch.ops.cuda import blockstep, slidemac, streamstep
     c = PF.counters()
     names = {k for k in c if k.endswith("LAUNCHES")}
-    assert len(names) == 19
+    assert len(names) == 15
+    assert "opencl_fft_tpu_torch.ops.cuda.streamstep.LAUNCHES" not in names
     assert "opencl_fft_tpu_torch.ops.cuda.streamstep.BATCHED_TV_LAUNCHES" in names
     assert "opencl_fft_tpu_torch.ops.cuda.vmemfft.LAUNCHES" in names
     monkeypatch.setattr(streamstep, "BATCHED_LAUNCHES", 41)

@@ -194,9 +194,9 @@ def test_stream_tv_equals_steps_and_validates():
                    torch.from_numpy(rng.standard_normal(48).astype(np.float32)))
     bx = torch.from_numpy(rng.standard_normal((7, 16)).astype(np.float32))
     bh = torch.from_numpy(rng.standard_normal((7, 16)).astype(np.float32))
-    before = S.TV_LAUNCHES
+    before = S.BATCHED_TV_LAUNCHES
     s_stream, outs = P.pconv_stream_tv(cfg, st, bx, bh)
-    assert S.TV_LAUNCHES == before                      # the CPU runs the twin
+    assert S.BATCHED_TV_LAUNCHES == before              # the CPU runs the twin
     steps = []
     for x, h in zip(bx, bh):
         st, o = P.pconv_step_tv(cfg, st, x, h)
@@ -356,10 +356,10 @@ def cuda_device():
 @pytest.mark.parametrize("b0", [1.0, 2.0])
 def test_cuda_tv_kernel_matches_twin(cuda_device, pts, nparts, nb, wp2, b0):
     d = _inputs(7 * nb + nparts, pts, nparts, nb)
-    before = S.TV_LAUNCHES
+    before = S.BATCHED_TV_LAUNCHES
     got = _run_tv(d, wp2, b0, pts, fn=S.stream_steps_fused_tv, device=cuda_device)
     torch.cuda.synchronize()
-    assert S.TV_LAUNCHES == before + 1
+    assert S.BATCHED_TV_LAUNCHES == before + 1
     _assert_tv_close(got, _run_tv(d, wp2, b0, pts, device=cuda_device))
 
 
@@ -388,13 +388,13 @@ def test_cuda_stream_tv_matches_cpu_twin(cuda_device):
     bh = torch.from_numpy(rng.standard_normal((2, 11, 64)).astype(np.float32))
     tc = P.push_ir(cfg, P.pconv_init(cfg, "cpu"), ir)
     tg = P.push_ir(cfg, P.pconv_init(cfg, cuda_device), ir.to(cuda_device))
-    before = S.TV_LAUNCHES
+    before = S.BATCHED_TV_LAUNCHES
     for call in range(2):
         tc, oc = P.pconv_stream_tv(cfg, tc, bx[call], bh[call])
         tg, og = P.pconv_stream_tv(cfg, tg, bx[call].to(cuda_device),
                                    bh[call].to(cuda_device))
         _close(og, oc, 2e-5)
-    assert S.TV_LAUNCHES == before + 2
+    assert S.BATCHED_TV_LAUNCHES == before + 2
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Device time of the whole-scan, per-block step and sliding-MAC kernels, on one
 CUDA card.
 
-    python3 tools/scan_timing.py [--root DIR] [--families S,SP,STEP,SLIDE,MAC,PATHS]
+    python3 tools/scan_timing.py [--root DIR] [--families S,STEP,SLIDE,MAC,PATHS]
                                  [--pts 64,128,512,2048] [--channels 1,64]
                                  [--plans G/TT/Q,...] [--tile-log-b B,...]
                                  [--step-nparts 1,256] [--step-tiles F/I,...]
@@ -14,9 +14,9 @@ blocks) and of 64 channels (470 * 512 / pts blocks), both of a 2^17-tap IR
 (nparts = 2^17 / pts): the same audio and IR at every pts, so the MAC does
 the same 1.97 / 31.5 GFLOP throughout. The scans are those of the package
 ``opencl_fft_tpu_torch`` found under DIR (default: this checkout), through
-the wrapper families ``S`` (``ops/cuda/streamstep.py``,
-``stream_steps_fused_batched{,_tv}``) and ``SP`` (``ops/cuda/splitstep.py``,
-``stream_steps_fused_split_batched{,_tv}``). Run it from another checkout
+the family ``S``: the scan entries' wrappers ``stream_steps_fused_batched{,_tv}``
+of ``ops/cuda/streamstep.py``, at every pts (above 2048 they stand for the
+JAX package's split scans). Run it from another checkout
 (``--root``) to time an older tree's kernels on the same card in the same
 call.
 
@@ -444,7 +444,7 @@ def slide_rows(args, f, emit):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
-    ap.add_argument("--families", default="S,SP")
+    ap.add_argument("--families", default="S")
     ap.add_argument("--pts", default="64,128,512,2048")
     ap.add_argument("--channels", default="1,64")
     ap.add_argument("--plans", default="")
@@ -459,7 +459,6 @@ def main():
         print("no CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(args.root).resolve()))
-    from opencl_fft_tpu_torch.ops.cuda import splitstep as SP
     from opencl_fft_tpu_torch.ops.cuda import streamstep as S
 
     dev = torch.device("cuda", 0)
@@ -468,9 +467,7 @@ def main():
                           check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     out = open(args.out, "a") if args.out else None
-    families = {"S": (S.stream_steps_fused_batched, S.stream_steps_fused_batched_tv),
-                "SP": (SP.stream_steps_fused_split_batched,
-                       SP.stream_steps_fused_split_batched_tv)}
+    families = {"S": (S.stream_steps_fused_batched, S.stream_steps_fused_batched_tv)}
     rng = np.random.default_rng(0)
 
     def f(*shape, s=1.0):
