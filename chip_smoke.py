@@ -103,6 +103,7 @@ SERVE_CH = 64        # the JAX bench's serving shape (bench.py:314-371)
 SERVE_BLOCKS = 470
 DIRECT_TAPS = 512
 LONG_PTS = 4096      # a hall IR at a long partition (ROADMAP 15b's grid)
+OPCODE_PTS, OPCODE_TAPS = 8192, 1 << 22   # CltvconvProcessor(8192, 2^22): the opcode's engine
 LONG_IR = 1 << 20
 LONG_BLOCKS = 470
 LONG_CH = 16
@@ -403,13 +404,19 @@ def zl_replayed_fires(segments, block, nblocks):
     (``models/lowlatency._Phases``) fires the segments of one partition
     inside replayed graphs: theirs are the launches of the first, eager
     cycle of P blocks and of the capture (one cycle's more); a terminal
-    segment of several partitions fires eagerly on its cadence."""
+    segment of several partitions fires on its cadence, above pts 2048 by
+    its step graph (``ops/pconv.StepGraph``: the eager cycle's firing, the
+    graph's eager first and its capture launch, its replays do not), else
+    eagerly."""
+    from opencl_fft_tpu_torch.ops import pconv as PC
+
     period = max([s_.pts // block for s_ in segments] + [2])
     out = []
     for s_ in segments:
         r_ = s_.pts // block
         if s_.nparts > 1:
-            out.append(nblocks // r_)
+            fires_ = nblocks // r_
+            out.append(min(fires_, 3) if s_.pts > PC._FWD_MM_MAX_PTS else fires_)
         else:
             out.append(min(nblocks, period) // r_ + (period // r_ if nblocks > period else 0))
     return out
@@ -2462,12 +2469,38 @@ def main():
         torch.cuda.synchronize()
         check(all(torch.equal(m_[c], a_[0]) for m_, a_ in zip(many, alone)),
               f"block_mac_unpack channel {c} of {LONG_CH} bit-equal to the channel alone")
-    del ring, h, got, again, want, same, many, alone
+    # rp read from device memory (rp_at: the step graphs' route) at the
+    # zero-latency terminal's shape and the opcode engine's (nparts 512,
+    # bins 8192), given another int rp: bit-equal to the int launch at the
+    # row held, within MAC_TOL of the twin there
+    at_shapes = [(long_np - 1, LONG_PTS), (OPCODE_TAPS // OPCODE_PTS, OPCODE_PTS)]
+    worst_at = 0.0
+    for nparts, bins in at_shapes:
+        ring, h, _, _ = ring_inputs(None, nparts, bins)
+        for held in sorted({0, 1, nparts // 3, nparts - 1}):
+            at = torch.tensor([held], dtype=torch.int32, device=dev)
+            u0 = BS.MAC_UNPACK_LAUNCHES
+            got = BS.block_mac_unpack(ring, h, (held + 1) % nparts, 2.0, at)
+            want_k = BS.block_mac_unpack(ring, h, held, 2.0)
+            want = BS.block_mac_unpack_plain(ring, h, held, 2.0)
+            torch.cuda.synchronize()
+            check(BS.MAC_UNPACK_LAUNCHES == u0 + 2, "block_mac_unpack counts its launch with rp_at")
+            where = f"nparts={nparts} bins={bins} rp_at={held} rp={(held + 1) % nparts}"
+            for g, k_, w_ in zip(got, want_k, want):
+                check(torch.equal(g, k_),
+                      f"block_mac_unpack reading rp from device memory vs the int launch at {where}")
+                rel = float((g - w_).abs().max()) / max(float(w_.abs().max()), 1e-30)
+                check(rel <= MAC_TOL, f"block_mac_unpack with rp_at vs twin at {where}: {rel:.3e}")
+                worst_at = max(worst_at, rel)
+    del ring, h, got, again, want, same, many, alone, want_k
     print(f"phase 31 MAC-and-unpack kernel vs twin: block_mac_unpack at (C,nparts,bins) "
           f"{mu_shapes}, rp {{0, 1, nparts-1}}, b0 {{1,2}}: worst rel err {worst:.3e} (tol "
           f"{MAC_TOL}); bit-equal on a second launch; bit-equal to unpack_inverse(spectral_mac "
           f"kernel) {mu_bit}; each channel of C={LONG_CH} bit-equal alone; max_abs_err "
-          + ", ".join(f"{k} {e:.3e}" for k, e in mu_err.items()), flush=True)
+          + ", ".join(f"{k} {e:.3e}" for k, e in mu_err.items())
+          + f"; rp read from device memory at (nparts,bins) {at_shapes}, rp {{0, 1, nparts/3, "
+          f"nparts-1}}, another int given: bit-equal to the int launch, worst rel err vs twin "
+          f"{worst_at:.3e}", flush=True)
 
     # phase 32: this slice's main paths on the card against float64 scipy.
     # A, zero-latency reverb of the 2^20-tap hall IR: ClconvProcessor(parts=0,
@@ -2479,9 +2512,15 @@ def main():
     # per-block step at pts 4096 on the same IR: ClconvProcessor(parts=4096)
     # for 2 s, pconv_step_tv with the IR fed cyclically, Clpconv.push_ir_xfade
     # against the float64 blend, Convolver(16).step x 3 then stream(8)
-    # against the split scan. And the STFT layer on phase 4's 20 s at nfft
-    # 1024 / hop 256 and 4096 / 1024: stft against float64 numpy, istft back
-    # to the input, twice (deterministic)
+    # against the split scan. C, the opcode cell's engine: a TV Clpconv at
+    # pts 8192 fed the 2^22-tap operand cyclically (the LTI convolution by
+    # it) for 2 nparts + 3 blocks, so both ring pointers wrap, by its step
+    # graph, against the functional pconv_step_tv bit for bit and scipy. And
+    # the STFT layer on phase 4's 20 s at nfft 1024 / hop 256 and 4096 /
+    # 1024: stft against float64 numpy, istft back to the input, twice
+    # (deterministic)
+    from opencl_fft_tpu_torch.utils import profiling as PF
+
     ZL_B = 64
     n32 = xs.size
     proc_a = P.ClconvProcessor(ir4, parts=0, block_size=ZL_B, pmax=LONG_PTS, device="cuda",
@@ -2504,15 +2543,28 @@ def main():
     imp[0] = 1.0
     out4 = np.empty(LONG_PTS, np.float32)
     STFT_SIZES = ((1024, 256), (4096, 1024))
+    op_np = OPCODE_TAPS // OPCODE_PTS
+    n_op = 2 * op_np + 3
+    ir_op = (rng.standard_normal(OPCODE_TAPS)
+             * np.exp(-np.arange(OPCODE_TAPS) / (2.0 * SR))).astype(np.float32)
+    h_op = ir_op.reshape(op_np, OPCODE_PTS)
+    x_op = (0.1 * rng.standard_normal((n_op, OPCODE_PTS))).astype(np.float32)
+    eng_op = P.Clpconv(0, OPCODE_TAPS, OPCODE_PTS, quiet, device="cuda")
+    y_op = np.empty_like(x_op)
 
     def path_counts(fn):
-        """fn() with every count set to 0 just before it and read just after:
-        (its result, launches of block_mac_unpack, block_step_fwd_fused,
-        fft_vmem and the LTI scan entry stream_steps_fused_batched)."""
+        """fn() with every count set to 0 just before it and read just after,
+        inside one request, so the firings count: (its result, launches of
+        block_mac_unpack, block_step_fwd_fused, fft_vmem and the LTI scan
+        entry stream_steps_fused_batched, and the firings that step graphs
+        replayed, whose #11 launches the wrapper does not count)."""
         zero_counts()
-        out = fn()
+        PF.reset()
+        with PF.request("phase32", True):
+            out = fn()
         torch.cuda.synchronize()
-        return out, (BS.MAC_UNPACK_LAUNCHES, BS.FWD_LAUNCHES, V.LAUNCHES, S.BATCHED_LAUNCHES)
+        return out, (BS.MAC_UNPACK_LAUNCHES, BS.FWD_LAUNCHES, V.LAUNCHES, S.BATCHED_LAUNCHES,
+                     PF.counters().get("step.replays", 0))
 
     def zl_counts(nblocks):
         """(block_mac_unpack, block_step_fwd_fused) launches of nblocks
@@ -2543,6 +2595,18 @@ def main():
             y_.append(out4.copy())
         return y_
 
+    def opcode_run():
+        for t in range(n_op):
+            eng_op.convolution(y_op[t], x_op[t], h_op[t % op_np])
+
+    def opcode_eager():
+        st_, y_ = P.pconv_init(eng_op.cfg, dev), []
+        xo, ho = (torch.from_numpy(a_).to(dev) for a_ in (x_op, h_op))
+        for t in range(n_op):
+            st_, o = P.pconv_step_tv(eng_op.cfg, st_, xo[t], ho[t % op_np])
+            y_.append(o)
+        return torch.stack(y_).cpu().numpy()
+
     # every path counted on its own
     t_a = time.perf_counter()
     y_a, cnt_a = path_counts(lambda: np.concatenate(
@@ -2559,6 +2623,10 @@ def main():
     y_xf, cnt_xf = path_counts(xfade_run)
     y_cs1, cnt_cs1 = path_counts(lambda: torch.stack([conv_b.step(b4[i]) for i in range(3)]))
     y_cs2, cnt_cs2 = path_counts(lambda: conv_b.stream(b4[3:11]))
+    t_op = time.perf_counter()
+    _, cnt_op = path_counts(opcode_run)
+    t_op = time.perf_counter() - t_op
+    y_op_eager, cnt_ope = path_counts(opcode_eager)
     y_cs = torch.cat([y_cs1, y_cs2])
     stft_out, cnt_st = {}, {}
     for nfft, hop in STFT_SIZES:
@@ -2567,26 +2635,35 @@ def main():
             lambda: (P.istft(spec, nfft, hop, length=x.size),
                      P.istft(spec, nfft, hop, length=x.size)))
         stft_out[nfft] = (spec, y1, y2)
-    # what each path must launch, in the order of path_counts: an int is the
-    # exact count, POS any positive one, None any
+    # what each path must launch and replay, in the order of path_counts:
+    # an int is the exact count, POS any positive one, None any. A step
+    # graph launches #11 through the wrapper at its eager first firing and
+    # at its capture; the capture's firing and every later one are replays
     POS = "> 0"
     nb_r = -(-(n32 + LONG_IR - 1) // ZL_B)
+    zl_term = n32 // ZL_B // (zl_a.segments[-1].pts // ZL_B)
+    n_b = n32 // LONG_PTS
     want_counts = (
-        ("ClconvProcessor(parts=0)", cnt_a, (*zl_replayed_counts(n32 // ZL_B), POS, 0)),
-        ("ZeroLatencyConvolver.render", cnt_r, (*zl_counts(nb_r), POS, 0)),
-        ("unit impulse", cnt_imp, (*zl_counts(imp.size // ZL_B), None, 0)),
-        (f"ClconvProcessor(parts={LONG_PTS})", cnt_b, (n32 // LONG_PTS, 0, POS, 0)),
-        (f"pconv_step_tv pts {LONG_PTS}", cnt_tv, (nb32, 0, POS, 0)),
-        # one a block, one to rebuild the incoming tail, and through the
-        # fade one more a block for the outgoing path
-        (f"push_ir_xfade pts {LONG_PTS}", cnt_xf, (N_XF + 1 + FADE, 0, POS, 0)),
-        (f"Convolver({LONG_CH}).step x 3", cnt_cs1, (3, 0, POS, 0)),
-        (f"Convolver({LONG_CH}).stream(8)", cnt_cs2, (0, 0, None, POS)),
-        *((what, c_, (0, 0, POS, 0)) for what, c_ in cnt_st.items()))
+        # the terminal: the eager cycle's firing by _step, then its graph's
+        ("ClconvProcessor(parts=0)", cnt_a,
+         (*zl_replayed_counts(n32 // ZL_B), POS, 0, max(zl_term - 2, 0))),
+        ("ZeroLatencyConvolver.render", cnt_r, (*zl_counts(nb_r), POS, 0, 0)),
+        ("unit impulse", cnt_imp, (*zl_counts(imp.size // ZL_B), None, 0, 0)),
+        (f"ClconvProcessor(parts={LONG_PTS})", cnt_b, (min(n_b, 2), 0, POS, 0, n_b - 1)),
+        (f"pconv_step_tv pts {LONG_PTS}", cnt_tv, (nb32, 0, POS, 0, 0)),
+        # the step graph's two before the fade, one to rebuild the incoming
+        # tail, two a fade block (both paths, eager), none after it (replays)
+        (f"push_ir_xfade pts {LONG_PTS}", cnt_xf,
+         (min(SW4, 2) + 1 + 2 * FADE, 0, POS, 0, N_XF - FADE - 1)),
+        (f"Convolver({LONG_CH}).step x 3", cnt_cs1, (3, 0, POS, 0, 0)),
+        (f"Convolver({LONG_CH}).stream(8)", cnt_cs2, (0, 0, None, POS, 0)),
+        (f"TV Clpconv pts {OPCODE_PTS} on its step graph", cnt_op, (2, 0, POS, 0, n_op - 1)),
+        (f"pconv_step_tv pts {OPCODE_PTS}", cnt_ope, (n_op, 0, POS, 0, 0)),
+        *((what, c_, (0, 0, POS, 0, 0)) for what, c_ in cnt_st.items()))
     for what, got_c, want_c in want_counts:
         check(all(w is None or (g > 0 if w == POS else g == w) for g, w in zip(got_c, want_c)),
               f"{what}: launches (block_mac_unpack, block_step_fwd_fused, fft_vmem, "
-              f"stream_steps_fused_batched) {got_c}, want {want_c}")
+              f"stream_steps_fused_batched) and step-graph replays {got_c}, want {want_c}")
     # the checks, after the counts are read
     ref_a = sps.fftconvolve(xs.astype(np.float64), ir4.astype(np.float64))
     check(y_a.shape == (n32,) and y_ar.shape == ref_a.shape, "zero-latency output shapes")
@@ -2602,6 +2679,11 @@ def main():
     err_xf = rel_err(np.concatenate(y_xf), blend(x[:n_xf], ir4, h_new4, SW4 * LONG_PTS,
                                                  (SW4 + FADE) * LONG_PTS, n_xf))
     err_cs = worst_channel(y_cs, conv_ref.stream(b4[:11]))
+    check(np.array_equal(y_op, y_op_eager),
+          f"TV Clpconv pts {OPCODE_PTS} on its step graph bit-equal to pconv_step_tv over "
+          f"{n_op} blocks")
+    err_op = rel_err(y_op.reshape(-1), sps.fftconvolve(
+        x_op.reshape(-1).astype(np.float64), ir_op.astype(np.float64))[:n_op * OPCODE_PTS])
     stft_err = {}
     for nfft, hop in STFT_SIZES:
         (sr_, si_), y1, y2 = stft_out[nfft]
@@ -2623,6 +2705,8 @@ def main():
                          ("pconv_step_tv at pts 4096 vs scipy", err_tv32, ORACLE_TOL),
                          ("push_ir_xfade at pts 4096 vs the float64 blend", err_xf, ORACLE_TOL),
                          ("Convolver(16) 3 step() + stream(8) vs stream", err_cs, TOL),
+                         (f"TV Clpconv pts {OPCODE_PTS} on its step graph vs scipy", err_op,
+                          ORACLE_TOL),
                          *((f"stft nfft {n_} vs float64 numpy", e_[0], ORACLE_TOL)
                            for n_, e_ in stft_err.items()),
                          *((f"stft -> istft nfft {n_} vs the input", e_[1], ORACLE_TOL)
@@ -2638,13 +2722,17 @@ def main():
           f"{lat_b}, vs scipy {err_b:.3e}; pconv_step_tv {nb32}x{LONG_PTS} (IR cyclic) vs scipy "
           f"{err_tv32:.3e}; Clpconv.push_ir_xfade ({FADE} blocks at block {SW4} of {N_XF}) vs "
           f"the float64 blend {err_xf:.3e}; Convolver({LONG_CH}) 3 step() + stream(8) vs the "
-          f"split scan {err_cs:.3e}; stft/istft of {x.size} samples: " + "; ".join(
+          f"split scan {err_cs:.3e}; TV Clpconv({OPCODE_TAPS}, {OPCODE_PTS}) {n_op} blocks "
+          f"(operand cyclic) on its step graph ({t_op:.3f} s): bit-equal to pconv_step_tv, vs "
+          f"scipy {err_op:.3e}; stft/istft of {x.size} samples: " + "; ".join(
               f"nfft {n_} spectrum {e_[0]:.3e}, round trip {e_[1]:.3e}, deterministic {e_[2]}"
               for n_, e_ in stft_err.items())
           + f" (tol {TOL} between paths, {ORACLE_TOL} vs float64); each path's own launches "
-          f"(block_mac_unpack, block_step_fwd_fused, fft_vmem, stream_steps_fused_batched): "
+          f"(block_mac_unpack, block_step_fwd_fused, fft_vmem, stream_steps_fused_batched) "
+          f"and step-graph replays: "
           + "; ".join(f"{what} {got_c}" for what, got_c, _ in want_counts), flush=True)
     del y_cs, y_cs1, y_cs2, stft_out, spec, y1, y2, y_tv32, conv_b, conv_ref
+    del eng_op, y_op, y_op_eager, x_op, ir_op, h_op
 
     # phase 33: timing. The zero-latency processor's host wall per 64-sample
     # block (process() ends in the copy to the host) over 512 blocks, 8 of
@@ -3753,12 +3841,15 @@ def main():
                    for n_ in (CHUNK_K, SERVE_BLOCKS)),
                *new_rows[("macflow_tv_batched", SERVE_CH, CHUNK_K)], None),
         # times at one channel, 255 partitions (the zero-latency terminal
-        # segment); launches of ClconvProcessor(parts=0)'s own run; the error
-        # over the main-path shapes
-        kernel("block_mac_unpack", "blockstep.cu", "blockstep.py:484", cnt_a[0],
-               max(mu_err[(1, long_np - 1, LONG_PTS)], mu_err[(1, long_np, LONG_PTS)],
-                   mu_err[(LONG_CH, long_np, LONG_PTS)]),
-               *mu_rows[(1, long_np - 1)][:3], None)]}))
+        # segment); launches of ClconvProcessor(parts=0)'s own run through
+        # the wrapper, and beside them the terminal firings that replayed
+        # the captured launch (graph_replays); the error over the main-path
+        # shapes
+        {**kernel("block_mac_unpack", "blockstep.cu", "blockstep.py:484", cnt_a[0],
+                  max(mu_err[(1, long_np - 1, LONG_PTS)], mu_err[(1, long_np, LONG_PTS)],
+                      mu_err[(LONG_CH, long_np, LONG_PTS)]),
+                  *mu_rows[(1, long_np - 1)][:3], None),
+         "graph_replays": cnt_a[4]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

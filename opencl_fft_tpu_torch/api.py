@@ -10,7 +10,7 @@ Construction places the streaming state on the chosen device.
 
 from __future__ import annotations
 
-from typing import Any, Optional, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -185,6 +185,12 @@ class Clpconv:
 
     Like the reference, the constructor records a failure (``get_cl_err``)
     instead of raising; the methods then return that status.
+
+    On a card above pts 2048 (``ops/pconv._mac_unpack_kernel``) and out of
+    a crossfade, ``convolution`` replays the engine's step graph
+    (``ops/pconv.StepGraph``, one for each form) over state it writes in
+    place: ``state`` then holds tensors that the next block overwrites, so
+    copy it to keep it.
     """
 
     def __init__(self, device_index: int = 0, cvs: int = 1024, pts: int = 64,
@@ -197,6 +203,7 @@ class Clpconv:
         self._user_data = user_data
         self._xf: Optional[_pconv.XfadeState] = None   # an IR crossfade in progress
         self._fade_pos = self._fade_total = 0
+        self._graphs: Dict[bool, _pconv.StepGraph] = {}   # by form: TV or not
         try:
             self.cfg = _pconv.PconvConfig.for_ir_length(
                 cvs, pts, bin0_mode=bin0_mode, impl=impl)
@@ -258,9 +265,10 @@ class Clpconv:
         returns a status code.
 
         Inside a traced request (a processor's ``fire``) its stages are the
-        spans ``upload`` (the blocks to the device), ``step`` (the
-        ``pconv_step{,_tv}`` enqueue) and ``download`` (the output read,
-        which waits for the device).
+        spans ``upload`` (the blocks to the device, or into the step graph's
+        pinned buffer), ``step`` (the ``pconv_step{,_tv}`` enqueue, or the
+        graph's replay) and ``download`` (the output read, which waits for
+        the device).
         """
         if self._err != Status.SUCCESS:
             return int(self._err)
@@ -268,6 +276,15 @@ class Clpconv:
             raise ArgumentError(
                 "time-varying streaming during an IR crossfade is undefined: let the "
                 "fade finish or use push_ir for an instant swap")
+        if self._xf is None and _pconv._mac_unpack_kernel(self.cfg, self.device):
+            return self._replay(output, input1, input2)
+        return self._eager(output, input1, input2)
+
+    def _eager(self, output: np.ndarray, input1: np.ndarray,
+               input2: Optional[np.ndarray]) -> int:
+        """``convolution`` by the functional steps: the blocks to the
+        device, ``pconv_step{,_tv}`` (a fade block during a crossfade), the
+        output back."""
         with profiling.span("upload"):
             b1 = _block(input1, self.cfg.pts, self.device)
             b2 = None if input2 is None else _block(input2, self.cfg.pts, self.device)
@@ -283,7 +300,26 @@ class Clpconv:
         else:
             self.state, out = _pconv.pconv_step_tv(self.cfg, self.state, b1, b2)
         with profiling.span("download"):
-            _copy_out(output, out, self.cfg.pts)
+            _copy_out(output, out.cpu().numpy(), self.cfg.pts)
+        return int(Status.SUCCESS)
+
+    def _replay(self, output: np.ndarray, input1: np.ndarray,
+                input2: Optional[np.ndarray]) -> int:
+        """``convolution`` through the step graph of its form: the blocks
+        into its pinned buffer, its firing, the output out of its pinned
+        buffer."""
+        tv = input2 is not None
+        graph = self._graphs.get(tv)
+        if graph is None:
+            graph = self._graphs[tv] = _pconv.StepGraph(
+                self.cfg, self.device, tv, on_message=lambda msg: self._msg(msg, self._user_data))
+        with profiling.span("upload"):
+            graph.x_np[0] = _samples(input1, self.cfg.pts)
+            if tv:
+                graph.x_np[1] = _samples(input2, self.cfg.pts)
+        self.state = graph.step(self.state)
+        with profiling.span("download"):
+            _copy_out(output, graph.output(), self.cfg.pts)
         return int(Status.SUCCESS)
 
     def get_cl_err(self) -> int:
@@ -340,23 +376,28 @@ class Cldconv:
         else:
             b2 = _block(input2, self.cfg.vsize, self.device)
             self.state, out = _dconv.dconv_step_tv(self.cfg, self.state, b1, b2)
-        _copy_out(output, out, self.cfg.vsize)
+        _copy_out(output, out.cpu().numpy(), self.cfg.vsize)
         return int(Status.SUCCESS)
 
     def get_cl_err(self) -> int:
         return int(self._err)
 
 
-def _block(samples: np.ndarray, n: int, device: torch.device,
-           what: str = "block") -> torch.Tensor:
-    """``samples`` as a float32 tensor of n samples on ``device``;
-    SizeError for any other length."""
+def _samples(samples: np.ndarray, n: int, what: str = "block") -> np.ndarray:
+    """``samples`` as a flat float32 array of n samples; SizeError for any
+    other length."""
     b = np.asarray(samples, dtype=np.float32).reshape(-1)
     if b.size != n:
         raise SizeError(f"{what} must have {n} samples, got {b.size}")
-    return torch.from_numpy(b).to(device)
+    return b
 
 
-def _copy_out(output: np.ndarray, out: torch.Tensor, n: int) -> None:
+def _block(samples: np.ndarray, n: int, device: torch.device,
+           what: str = "block") -> torch.Tensor:
+    """``_samples`` as a tensor on ``device``."""
+    return torch.from_numpy(_samples(samples, n, what)).to(device)
+
+
+def _copy_out(output: np.ndarray, out: np.ndarray, n: int) -> None:
     dst = np.asarray(output)
-    np.copyto(dst.reshape(-1)[:n], out.cpu().numpy().astype(dst.dtype))
+    np.copyto(dst.reshape(-1)[:n], out, casting="unsafe")

@@ -295,7 +295,9 @@ __device__ __forceinline__ float slice_order_sum(const float* part, int nslices,
     return r;
 }
 
-// acc = the window MAC at rp of channel c = blockIdx.y (UNPACK false:
+// acc = the window MAC at rp (at *rp_at where rp_at is not null: a CUDA
+// graph's replay reads the pointer of the replay) of channel c = blockIdx.y
+// (UNPACK false:
 // outr/outi (C, bins) = acc) or z = unpack_inverse(acc) (UNPACK true:
 // outr/outi (C, M) = z, M = bins; twr/twi (M,) exp(+i pi k / M)). A cluster
 // of p.cluster CTAs takes column tile blockIdx.x / p.cluster. CTA `rank`
@@ -312,13 +314,14 @@ __device__ __forceinline__ float slice_order_sum(const float* part, int nslices,
 // grid (tiles * p.cluster, C), cluster (p.cluster), block p.tile * p.ways
 template <bool UNPACK>
 __global__ void __launch_bounds__(CLUSTER_THREADS)
-mac_cluster_kernel(ClusterPlan p, int nparts, int bins, int rp, float b0,
-                   const float* __restrict__ xr, const float* __restrict__ xi,
+mac_cluster_kernel(ClusterPlan p, int nparts, int bins, int rp, const int* __restrict__ rp_at,
+                   float b0, const float* __restrict__ xr, const float* __restrict__ xi,
                    const float* __restrict__ hr, const float* __restrict__ hi,
                    const float* __restrict__ twr, const float* __restrict__ twi,
                    float* __restrict__ outr, float* __restrict__ outi) {
     extern __shared__ float part[];
     cluster_arrive_relaxed();           // this CTA has started
+    if (rp_at != nullptr) rp = __ldg(rp_at);
     cg::cluster_group cluster = cg::this_cluster();
     const int rank = static_cast<int>(cluster.block_rank());
     const int tile = blockIdx.x / p.cluster, T = p.tile, pairs = T / 2;
@@ -392,7 +395,8 @@ mac_cluster_kernel(ClusterPlan p, int nparts, int bins, int rp, float b0,
 // The launch of mac_cluster_kernel<UNPACK> for C channels at plan p.
 template <bool UNPACK>
 cudaError_t launch_mac_cluster(const ClusterPlan& p, int C, int nparts, int bins, int rp,
-                               float b0, const float* xr, const float* xi, const float* hr,
+                               const int* rp_at, float b0, const float* xr, const float* xi,
+                               const float* hr,
                                const float* hi, const float* twr, const float* twi,
                                float* outr, float* outi, cudaStream_t st) {
     if (!cluster_plan_ok(p, nparts, bins) || C < 1 || (UNPACK && bins < 2))
@@ -412,7 +416,7 @@ cudaError_t launch_mac_cluster(const ClusterPlan& p, int C, int nparts, int bins
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
     RETURN_IF_ERROR(cudaLaunchKernelEx(&cfg, mac_cluster_kernel<UNPACK>, p, nparts, bins, rp,
-                                       b0, xr, xi, hr, hi, twr, twi, outr, outi));
+                                       rp_at, b0, xr, xi, hr, hi, twr, twi, outr, outi));
     return cudaGetLastError();
 }
 
@@ -613,8 +617,8 @@ extern "C" int spectral_mac_f32(const float* xr, const float* xi, const float* h
                                 float b0, int device, void* stream_ptr) {
     RETURN_IF_ERROR(cudaSetDevice(device));
     return static_cast<int>(launch_mac_cluster<false>(
-        ClusterPlan{cluster, ways, qchunk, tile}, C, nparts, bins, rp, b0, xr, xi, hr, hi,
-        nullptr, nullptr, accr, acci, static_cast<cudaStream_t>(stream_ptr)));
+        ClusterPlan{cluster, ways, qchunk, tile}, C, nparts, bins, rp, nullptr, b0, xr, xi, hr,
+        hi, nullptr, nullptr, accr, acci, static_cast<cudaStream_t>(stream_ptr)));
 }
 
 // out, new_tail (C, pts) = MAC at rp, inverse transform and OLA with tail.
@@ -667,14 +671,16 @@ extern "C" int block_step_fwd_fused_tv_f32(const float* blocks, const float* xr,
 
 // z planes (C, bins) = unpack_inverse of the window MAC at rp; twr/twi
 // (bins,) the twiddle exp(+i pi k / bins), built in float64 by the caller;
-// one mac_cluster_kernel launch at spectral_mac_f32's plan.
+// one mac_cluster_kernel launch at spectral_mac_f32's plan. rp_at, where
+// not null, is a device int in [0, nparts) that the kernel reads in rp's
+// place when it runs (the per-block step's graph, ops/pconv.py StepGraph).
 extern "C" int block_mac_unpack_f32(const float* xr, const float* xi, const float* hr,
                                     const float* hi, const float* twr, const float* twi,
-                                    float* zr, float* zi, int C, int nparts, int bins, int rp,
-                                    int cluster, int ways, int qchunk, int tile, float b0,
-                                    int device, void* stream_ptr) {
+                                    float* zr, float* zi, const int* rp_at, int C, int nparts,
+                                    int bins, int rp, int cluster, int ways, int qchunk,
+                                    int tile, float b0, int device, void* stream_ptr) {
     RETURN_IF_ERROR(cudaSetDevice(device));
     return static_cast<int>(launch_mac_cluster<true>(
-        ClusterPlan{cluster, ways, qchunk, tile}, C, nparts, bins, rp, b0, xr, xi, hr, hi, twr,
-        twi, zr, zi, static_cast<cudaStream_t>(stream_ptr)));
+        ClusterPlan{cluster, ways, qchunk, tile}, C, nparts, bins, rp, rp_at, b0, xr, xi, hr,
+        hi, twr, twi, zr, zi, static_cast<cudaStream_t>(stream_ptr)));
 }

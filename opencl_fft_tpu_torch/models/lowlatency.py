@@ -50,13 +50,14 @@ callback's whole stream of ops on tensors the path owns: the input's copy
 from a pinned buffer, the head, every segment's accumulate and consume,
 the firings of the segments of one partition, the output's copy into
 pinned memory. A terminal segment of several partitions walks its ring
-pointer, so it fires eagerly after the replay, on the same stream, while
-the host waits for the output alone. The path engages on a card whose plan
-has P <= ``MAX_PHASES``. It takes a state assigned from outside
-(``reset``, a checkpoint, ``interop``) into its own tensors before the
-next replay, and leaves the work to the eager step for a state whose head
-pointer is off the cadence and, for good, once a capture fails (said once
-through ``on_message``). A state it publishes holds tensors that later
+pointer, so it fires after the replay, on the same stream, while the host
+waits for the output alone: above pts 2048 by the replay of its own graph,
+which reads the pointer from device memory (``ops/pconv.StepGraph``), else
+eagerly. The path engages on a card whose plan has P <= ``MAX_PHASES``. It
+takes a state assigned from outside (``reset``, a checkpoint, ``interop``)
+into its own tensors before the next replay, and leaves the work to the
+eager step for a state whose head pointer is off the cadence and, for
+good, once a capture fails (said once through ``on_message``). A state it publishes holds tensors that later
 replays overwrite: copy it (``interop.zl_state_to_numpy``, a checkpoint)
 to keep it. There a step is a ``zl`` request holding ``replay`` (the
 terminal firing's ``step`` inside) and ``download``; the counters are
@@ -69,6 +70,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import time
 from typing import List, NamedTuple, Optional, Tuple, Union
 
@@ -379,6 +381,7 @@ class _Phases:
         self.buf_rows: Optional[torch.Tensor] = None    # the buffers' one tensor, (rows, B)
         self.rows: Optional[torch.Tensor] = None        # (P, segments): the rows a phase writes
         self.term_eng: Optional[_p.PconvState] = None
+        self.term_graph: Optional[_p.StepGraph] = None  # the terminal's, above pts 2048
         self.published: Optional[ZLState] = None
         pin = dev.type == "cuda"
         self.x_host = torch.zeros(B, dtype=torch.float32, pin_memory=pin)
@@ -511,13 +514,22 @@ class _Phases:
         return self.static
 
     def _fire_terminal(self) -> None:
-        """The terminal segment's firing, eagerly after the phase: its
-        engine's functional step on the path's buffer, the output into the
-        path's queue."""
+        """The terminal segment's firing after the phase, on the path's
+        buffer, its output into the path's queue: above pts 2048
+        (``_mac_unpack_kernel``) its engine's step graph (``pconv.
+        StepGraph``: the buffer its source, the queue's update its sink),
+        else its engine's functional step, eagerly."""
         i = self.terminal
-        st = self.static.segs[i]
-        self.term_eng, z = _p.pconv_step(self.zl._seg_cfgs[i], self.term_eng, st.buf)
-        _push(st.queue, z)
+        st, cfg, dev = self.static.segs[i], self.zl._seg_cfgs[i], self.zl.device
+        if not _p._mac_unpack_kernel(cfg, dev):
+            self.term_eng, z = _p.pconv_step(cfg, self.term_eng, st.buf)
+            _push(st.queue, z)
+            return
+        if self.term_graph is None:
+            self.term_graph = _p.StepGraph(
+                cfg, dev, False, source=st.buf, sink=functools.partial(_push, st.queue),
+                on_message=lambda msg: self.zl.on_message(msg, self.zl.user_data))
+        self.term_eng = self.term_graph.step(self.term_eng)
 
     def _capture_all(self) -> bool:
         """Capture every phase's body into its graph, in phase order, each
@@ -539,6 +551,7 @@ class _Phases:
                     self.captures += 1
         except RuntimeError as e:
             self.failed = f"capture of phase {self.captures} failed: {e}"
+            _p.settle_failed_capture(self.stream)
             self.graphs = [None] * self.period
             self.zl.on_message(f"zero-latency graph path off: {self.failed}", self.zl.user_data)
             return False

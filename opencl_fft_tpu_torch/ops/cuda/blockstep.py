@@ -55,7 +55,7 @@ tensors; anything else raises, and a build or launch failure raises.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -263,21 +263,31 @@ def block_mac_unpack_plain(x2: Cplx, h: Cplx, rp: int, b0_scale: float) -> Cplx:
     return unpack_inverse(spectral_mac_plain(x2, h, rp, b0_scale))
 
 
-def block_mac_unpack(x2: Cplx, h: Cplx, rp: int, b0_scale: float) -> Cplx:
+def block_mac_unpack(x2: Cplx, h: Cplx, rp: int, b0_scale: float,
+                     rp_at: Optional[torch.Tensor] = None) -> Cplx:
     """The MAC of one block and the inverse unpack: x2 split doubled ring
     ([C,] 2*nparts, bins), h split ([C,] nparts, bins), rp an int in [0,
     nparts), bins >= 2. Returns split ([C,] bins), the input of the
-    half-size inverse FFT (``fft_split(z, +1)``, then ``interleave``)."""
+    half-size inverse FFT (``fft_split(z, +1)``, then ``interleave``).
+
+    ``rp_at``: an int32 tensor of one element on the planes' device, or
+    None. Where given, the window starts at the row it holds when the
+    kernel runs (the twin reads it at the call), so a CUDA graph that
+    captured the launch reads the row of each replay; rp is then only
+    checked."""
     global MAC_UNPACK_LAUNCHES
     nch, nparts, bins = check_ring("block_mac_unpack", x2, h, rp)
     if bins < 2:
         raise ValueError(f"block_mac_unpack: bins must be >= 2, got {bins}")
+    if rp_at is not None and (rp_at.dtype != torch.int32 or rp_at.numel() != 1
+                              or rp_at.device != x2[0].device):
+        raise ValueError("block_mac_unpack: rp_at must be one int32 on the planes' device")
     dev = _build.launch_device("block_mac_unpack", (*x2, *h))
     if dev.type == "cpu":
-        return block_mac_unpack_plain(x2, h, rp, b0_scale)
+        return block_mac_unpack_plain(x2, h, rp if rp_at is None else int(rp_at), b0_scale)
     zr = torch.empty((*x2[0].shape[:-2], bins), dtype=torch.float32, device=dev)
     zi = torch.empty_like(zr)
-    launch("block_mac_unpack_f32", (*x2, *h, *unpack_twiddle(bins, dev), zr, zi),
+    launch("block_mac_unpack_f32", (*x2, *h, *unpack_twiddle(bins, dev), zr, zi, rp_at),
            (nch, nparts, bins, rp, *mac_plan(nparts, bins)), b0_scale, dev)
     MAC_UNPACK_LAUNCHES += 1
     return zr, zi

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -97,14 +97,14 @@ def _entry(name: str, npointers: int, nints: int):
     return fn
 
 
-def launch(name: str, tensors: Sequence[torch.Tensor], ints: Sequence[int],
+def launch(name: str, tensors: Sequence[Optional[torch.Tensor]], ints: Sequence[int],
            b0_scale: float, dev: torch.device) -> None:
     """Call the C entry ``name`` of csrc/blockstep.cu on the current stream
-    of ``dev``: the tensors' pointers, the ints, b0, the device; raise on a
-    CUDA error at launch."""
+    of ``dev``: the tensors' pointers (null for None), the ints, b0, the
+    device; raise on a CUDA error at launch."""
     fn = _entry(name, len(tensors), len(ints))
-    err = fn(*(t.data_ptr() for t in tensors), *ints, float(b0_scale), dev.index,
-             torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(*(None if t is None else t.data_ptr() for t in tensors), *ints,
+             float(b0_scale), dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 

@@ -25,7 +25,10 @@ of ``ops/cuda/blockstep.py`` and ``ops/cuda/mac.py`` on a state on a card
 (``_block_kernels``), and above pts 2048 the MAC-and-unpack kernel
 ``block_mac_unpack`` before the inverse FFT (``_mac_unpack_kernel``); on
 the CPU they keep the plain composition, which ``pconv_chunk{,_tv}``
-reproduce bit for bit. A crossfade replaces the IR
+reproduce bit for bit. An engine that owns its state runs the route above
+pts 2048 as one replayed CUDA graph instead (``StepGraph``: the same
+arithmetic over rings written in place, ring pointers read from device
+memory). A crossfade replaces the IR
 of a live stream without a click: both coefficient rings are kept and the
 two exact convolutions are blended sample by sample (``XfadeState``).
 
@@ -59,6 +62,7 @@ the MAC they give it; the TV paths give it their coefficient frames too.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, NamedTuple, Optional, Tuple, Union
 
@@ -345,13 +349,16 @@ def _ola(cfg: PconvConfig, state: PconvState, y: torch.Tensor
     return (y[..., :cfg.pts] + state.tail) / cfg.pts, y[..., cfg.pts:].contiguous()
 
 
-def _mac_unpack_inverse_ola(cfg: PconvConfig, state: PconvState, rp: int
+def _mac_unpack_inverse_ola(cfg: PconvConfig, state: PconvState, rp: int,
+                            rp_at: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``_inverse_and_ola`` of the MAC at rp with the MAC and the inverse
     unpack in one ``block_mac_unpack`` launch (its twin for CPU tensors),
     then the half-size inverse FFT (``fft_vmem`` on a card at 2^10..2^20
-    bins), the interleave and the overlap-add; the tail is contiguous."""
-    z = block_mac_unpack(*_rings(state), _shared(rp), cfg.b0_scale)
+    bins), the interleave and the overlap-add; the tail is contiguous.
+    ``rp_at``: rp in device memory, read when the kernel runs
+    (``StepGraph``)."""
+    z = block_mac_unpack(*_rings(state), _shared(rp), cfg.b0_scale, rp_at)
     return _ola(cfg, state, interleave(fft_split(z, +1, cfg.impl)))
 
 
@@ -460,6 +467,179 @@ def pconv_step_tv(cfg: PconvConfig, state: PconvState, block_x: torch.Tensor,
             wp2=(state.wp2 - 1) % cfg.nparts)             # cl_conv.cpp:519
         out, tail = _mac_inverse_ola(cfg, state, wp)
         return state._replace(tail=tail), out
+
+
+def settle_failed_capture(stream: "torch.cuda.Stream") -> None:
+    """After a CUDA graph capture on ``stream`` failed: take the card's
+    default random generator out of its capture state. PyTorch raises from
+    ``capture_end`` before the generator's epilogue, and every later random
+    draw on the card would then raise; a capture that succeeds runs it."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        graph.capture_begin(capture_error_mode="thread_local")
+        torch.zeros(1, device=stream.device)
+        graph.capture_end()
+
+
+class StepGraph:
+    """The per-block step of one engine above pts 2048
+    (``_mac_unpack_kernel``) as the replay of one captured CUDA graph, over
+    ring planes that the graph owns and writes in place.
+
+    An engine that owns its state (``api.Clpconv``, the zero-latency
+    engine's terminal segment) hands ``step`` its state and keeps the state
+    it returns (``published``): the same tensors at every firing,
+    overwritten by the next, with the ring pointers as ints that the host
+    advances as ``pconv_step{,_tv}`` do. A state other than the one it
+    published last (the first, a ``push_ir``, a finished crossfade, a state
+    set from outside) is copied into its planes first.
+
+    The body is ``pconv_step`` (``tv``: ``pconv_step_tv``), in its order
+    and without a clone: the input block(s) and the pointers (rp, wp, wp +
+    nparts, wp2) copied in from pinned buffers (``x_np``, ``p_np``), the
+    forward transform chain, the ring rows written at the pointers read
+    from device memory, ``block_mac_unpack`` reading rp there, the inverse
+    FFT and the overlap-add into the owned tail, the output copied into
+    pinned memory (``output`` waits for it). A ``source`` (a device tensor
+    whose address stays) stands in for the upload; a ``sink(out)``, enqueued
+    in the body, for the output's copy.
+
+    On a card the first firing runs the body eagerly, so the C entries'
+    one-time set-up and the cached tables come before any capture; the
+    second captures it, and every firing from then on replays it. Off a
+    card the body runs eagerly at every firing (the CPU tests hold it
+    bit-equal to ``pconv_step{,_tv}`` on their ``block_mac_unpack`` route).
+    A capture that fails leaves the eager body for good, said once through
+    ``on_message(msg)``.
+
+    Each firing is the span ``step`` and counts ``step.blocks``, 0
+    ``step.ring_clone_bytes`` and ``step.replays`` (1 for a replay).
+    """
+
+    def __init__(self, cfg: PconvConfig, device: Union[str, torch.device], tv: bool,
+                 source: Optional[torch.Tensor] = None,
+                 sink: Optional[Callable[[torch.Tensor], None]] = None,
+                 on_message: Optional[Callable[[str], None]] = None):
+        dev = torch.device(device)
+        self.cfg, self.device, self.tv = cfg, dev, tv
+        self.capture = pin = dev.type == "cuda"
+        self.source, self.sink = source, sink
+        self.on_message = on_message or (lambda msg: None)
+        self.x_host = torch.zeros((2 if tv else 1, cfg.pts), dtype=torch.float32, pin_memory=pin)
+        self.y_host = torch.zeros(cfg.pts, dtype=torch.float32, pin_memory=pin)
+        self.p_host = torch.zeros(4, dtype=torch.int32, pin_memory=pin)
+        self.x_np, self.y_np, self.p_np = self.x_host.numpy(), self.y_host.numpy(), \
+            self.p_host.numpy()
+        self.x_dev = torch.zeros(self.x_host.shape, dtype=torch.float32, device=dev)
+        self.ptr = torch.zeros(4, dtype=torch.int32, device=dev)
+        self.published: Optional[PconvState] = None
+        self.graph: Optional["torch.cuda.CUDAGraph"] = None
+        self.warm = self.capture            # an eager firing before the capture
+        self.failed: Optional[str] = None
+        self.done = torch.cuda.Event() if pin else None
+        # the graph replays on the current stream of the current device
+        self.on_device = torch.cuda.device(dev) if pin else contextlib.nullcontext()
+        if self.capture:
+            self.stream = torch.cuda.Stream(dev)
+
+    def step(self, state: PconvState) -> PconvState:
+        """Fire one block from ``state``; returns the state after it."""
+        with profiling.span("step"), self.on_device:
+            if state is not self.published:
+                self._adopt(state)
+            st, n = self.published, self.cfg.nparts
+            rp = (st.wp + 1) % n
+            self.p_np[:] = (rp, st.wp, st.wp + n, st.wp2)
+            replayed = 0
+            if self.graph is not None:
+                self.graph.replay()
+                replayed = 1
+            elif self.capture and not self.warm and self.failed is None:
+                replayed = self._capture(rp)
+            else:
+                self.warm = False
+                self._body(rp)
+            if self.done is not None:
+                self.done.record()
+            self.published = st._replace(wp=rp, wp2=(st.wp2 - 1) % n if self.tv else st.wp2)
+            profiling.add("step.blocks")
+            profiling.add("step.ring_clone_bytes", 0)
+            profiling.add("step.replays", replayed)
+        return self.published
+
+    def output(self) -> np.ndarray:
+        """The last firing's output block (pts,), once the device has
+        written it: a view of the pinned buffer, valid until the next
+        firing."""
+        if self.done is not None:
+            self.done.synchronize()
+        return self.y_np
+
+    def _adopt(self, state: PconvState) -> None:
+        """Copy ``state``'s planes into the graph's own (allocated like them
+        the first time) and take its pointers."""
+        given = [getattr(state, k) for k in _PLANES]
+        if self.published is None:
+            mine = [torch.empty_like(p, memory_format=torch.contiguous_format) for p in given]
+        else:
+            mine = [getattr(self.published, k) for k in _PLANES]
+        for m, g in zip(mine, given):
+            if (m.shape, m.dtype, m.device) != (g.shape, g.dtype, g.device):
+                raise ValueError(f"a step graph takes states of its own shapes, got "
+                                 f"{tuple(g.shape)} {g.dtype} for {tuple(m.shape)} {m.dtype}")
+            if m is not g:
+                m.copy_(g)
+        self.published = PconvState(*mine, wp=_shared(state.wp), wp2=_shared(state.wp2))
+
+    def _body(self, rp: int) -> None:
+        """One firing on the published planes, in place; rp the host's value
+        of the pointer that the MAC reads from device memory."""
+        cfg, st = self.cfg, self.published
+        self.ptr.copy_(self.p_host, non_blocking=True)
+        if self.source is None:
+            self.x_dev.copy_(self.x_host, non_blocking=True)
+            x = self.x_dev if self.tv else self.x_dev[0]
+        else:
+            x = self.source
+        fr, fi = _forward_partition(cfg, x)
+        rows = self.ptr.long()                                  # rp, wp, wp + nparts, wp2
+        if self.tv:
+            for ring, row in ((st.spec_h_re, fr[1]), (st.spec_h_im, fi[1])):
+                ring.index_copy_(0, rows[3:], row.to(ring.dtype)[None])
+            fr, fi = fr[0], fi[0]
+        for ring, row in ((st.spec_x_re, fr), (st.spec_x_im, fi)):
+            ring.index_copy_(0, rows[1:3], row.to(ring.dtype).expand(2, -1))
+        out, tail = _mac_unpack_inverse_ola(cfg, st, rp, self.ptr[:1])
+        st.tail.copy_(tail)
+        if self.sink is None:
+            self.y_host.copy_(out, non_blocking=True)
+        else:
+            self.sink(out)
+
+    def _capture(self, rp: int) -> int:
+        """Capture the body into the graph and replay it: 1. Where the
+        capture fails, the body runs eagerly (now and from then on): 0."""
+        here = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(here)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.stream(self.stream):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self._body(rp)
+                finally:
+                    graph.capture_end()
+        except RuntimeError as e:
+            self.failed = f"capture failed: {e}"
+            settle_failed_capture(self.stream)
+            self.on_message(f"per-block step graph off: {self.failed}")
+            here.wait_stream(self.stream)
+            self._body(rp)
+            return 0
+        here.wait_stream(self.stream)
+        self.graph = graph
+        graph.replay()
+        return 1
 
 
 class XfadeState(NamedTuple):

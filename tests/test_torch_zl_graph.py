@@ -1,11 +1,11 @@
 """The zero-latency engine's graph path (``models/lowlatency._Phases``): one
 captured CUDA graph a cadence phase on a card, the terminal segment fired
-eagerly after the replay. On the CPU the phases' bodies run eagerly in
-place of their graphs (``capture=False``), the same ops on the same
-tensors, and are held bit-equal to the functional ``_step`` through a
-``reset`` and a state assigned from ``interop``; on a card (``cuda``
-marker) the replays themselves, their counters and spans. No JAX here: the
-card's tests run in this file."""
+after the replay (above pts 2048 by its own step graph). On the CPU the
+phases' bodies run eagerly in place of their graphs (``capture=False``),
+the same ops on the same tensors, and are held bit-equal to the functional
+``_step`` through a ``reset`` and a state assigned from ``interop``; on a
+card (``cuda`` marker) the replays themselves, their counters and spans. No
+JAX here: the card's tests run in this file."""
 
 from __future__ import annotations
 
@@ -263,6 +263,34 @@ def test_card_replays_match_the_eager_step():
 
 
 @pytest.mark.cuda
+def test_card_terminal_step_graph_matches_the_eager_terminal():
+    """At pmax 4096 the terminal segment (15 partitions on the #11 route)
+    fires by its step graph (``ops/pconv.StepGraph``), whose MAC reads the
+    ring pointer from device memory: over 4 cycles the outputs equal the
+    eager steps' bit for bit, the terminal's engine state too, and each
+    terminal firing of the graph path but its first (eager) one is a
+    replay (``step.replays``: 2 of 4, the first cycle's being the eager
+    step's)."""
+    dev = _card()
+    ir = _ir(CARD_TAPS)
+    a = ZeroLatencyConvolver(ir, block=B, pmax=CARD_PMAX, device=dev)
+    b = _eager_beside(ir, dev)
+    n = 4 * 64
+    with _profiled():
+        outs = _run_beside(a, b, _blocks(n, seed=4))
+    for t, (got, kept, want) in enumerate(outs):
+        np.testing.assert_array_equal(got, want, err_msg=f"callback {t}")
+    graph = a._phases.term_graph
+    assert graph is not None and graph.graph is not None and graph.failed is None
+    assert a.state.segs[-1].eng is graph.published
+    for k in ("spec_x_re", "spec_x_im", "spec_h_re", "spec_h_im", "tail"):
+        assert torch.equal(getattr(a.state.segs[-1].eng, k), getattr(b.state.segs[-1].eng, k))
+    assert (a.state.segs[-1].eng.wp, a.state.segs[-1].eng.wp2) == (
+        b.state.segs[-1].eng.wp, b.state.segs[-1].eng.wp2)
+    assert PF.counters()["step.replays"] == n // 64 - 2
+
+
+@pytest.mark.cuda
 def test_card_counters_count_the_cadence():
     """Traced from t = 0 over 3 x 64 callbacks: ``zl.replays`` is
     ``zl.steps`` less the eager cycle; ``zl.fires``, ``zl.terminal_fires``
@@ -315,7 +343,7 @@ def test_card_spans_nest_as_stated():
 def test_a_failed_capture_leaves_the_eager_step_and_says_so_once(monkeypatch):
     """A body that the capture refuses (a host sync): the path goes off for
     good, says why once, and the eager step serves every callback with
-    the same answers."""
+    the same answers; random draws on the card work after it."""
     dev = _card()
     ir = _ir(1 << 12)
     said = []
@@ -335,3 +363,4 @@ def test_a_failed_capture_leaves_the_eager_step_and_says_so_once(monkeypatch):
         np.testing.assert_array_equal(got, want, err_msg=f"callback {t}")
     assert a._phases.failed and a._phases.captures == 0
     assert len(said) == 1 and "graph path off" in said[0]
+    assert torch.randn(4, device=dev).isfinite().all()      # the generator is settled
