@@ -73,8 +73,11 @@ bench headline against the ``pconv_step`` chain, a TV pipeline,
 stub engine, a checkpoint on the card), the sweep harness's quick grid, and
 the nine demo command lines of ``opencl_fft_tpu_torch/examples`` at their
 default sizes (exit codes, wavs, each render against float64 scipy or the
-CPU twins, each demo's launches by kernel). Last, one JSON line with every kernel's launches, error,
-time and bound, the card's name and power limit, and
+CPU twins, each demo's launches by kernel), and a third-order Ambisonic
+reverb matrix at full size (``MatrixConvolver(16, 16)`` of 2^17-tap IRs,
+one batched-scan launch a call at C = 256) against its 256 pairs'
+single-channel scans and float64 scipy. Last, one JSON line with every
+kernel's launches, error, time and bound, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Every phase prints one line; any
 failure exits non-zero before the last line. Without a CUDA card, or
 without the port beside this script, it fails.
@@ -3785,6 +3788,57 @@ def main():
           + "; ".join(f"{n_}: {w_:.3f} s, " + (f"{a_ / w_:.1f}x" if a_ else "-")
                       + f", {c_} | {o_} | {k_} ({note_})"
                       for n_, a_, w_, c_, o_, k_, note_ in rows40), flush=True)
+
+    # phase 41: a third-order Ambisonic reverb matrix at its full size, the
+    # shape of the benchmark cell mimo16x16_stream470: MatrixConvolver(16, 16)
+    # of 2^17-tap IRs in 512-sample partitions, 256 pairs through the batched
+    # scan wrapper at C = 256, two chained 470-block stream calls, each one
+    # launch of it. Against each pair's single-channel pconv_stream (the same
+    # CUDA entry at C = 1), chained the same way and summed over the inputs,
+    # on every output; against float64 scipy on four outputs
+    amb, rng41 = 16, np.random.default_rng(41)
+    acfg = P.PconvConfig.for_ir_length(IR_LEN, PTS)
+    a_irs = (rng41.standard_normal((amb, amb, IR_LEN))
+             * np.exp(-np.arange(IR_LEN) / (0.5 * SR))).astype(np.float32)
+    a_x = (0.1 * rng41.standard_normal((2 * SERVE_BLOCKS, amb, PTS))).astype(np.float32)
+    a_irs_d, a_x_d = torch.from_numpy(a_irs).to(dev), torch.from_numpy(a_x).to(dev)
+    amat = P.MatrixConvolver(acfg, amb, amb, device=dev)
+    amat.push_ir(a_irs_d)
+    y41, launches41 = [], []
+    calls41 = [slice(k_ * SERVE_BLOCKS, (k_ + 1) * SERVE_BLOCKS) for k_ in range(2)]
+    for seg_ in calls41:
+        S.BATCHED_LAUNCHES = 0
+        y41.append(amat.stream(a_x_d[seg_]))
+        torch.cuda.synchronize()
+        launches41.append(S.BATCHED_LAUNCHES)
+    check(launches41 == [1, 1], f"MatrixConvolver(16, 16).stream launches of the batched "
+                                f"kernel a call {launches41} (want [1, 1])")
+    y41 = torch.cat(y41)
+    check(tuple(y41.shape) == (2 * SERVE_BLOCKS, amb, PTS) and bool(torch.isfinite(y41).all()),
+          "MatrixConvolver(16, 16).stream shape/finite")
+    del amat
+    pairs41 = torch.zeros_like(y41)
+    for o_ in range(amb):
+        for i_ in range(amb):
+            st_ = P.push_ir(acfg, P.pconv_init(acfg, dev), a_irs_d[o_, i_])
+            for seg_ in calls41:
+                st_, yk_ = P.pconv_stream(acfg, st_, a_x_d[seg_, i_])
+                pairs41[seg_, o_] += yk_
+    err41 = worst_channel(y41, pairs41)
+    check(err41 <= TOL, f"MatrixConvolver(16, 16) vs the pairs' pconv_stream {err41:.3e} > {TOL}")
+    n41, oracle41 = 2 * SERVE_BLOCKS * PTS, (0, 5, 10, amb - 1)
+    ax64 = a_x.transpose(1, 0, 2).reshape(amb, -1).astype(np.float64)
+    y41_np = y41.cpu().numpy()
+    err41o = max(rel_err(y41_np[:, o_].reshape(-1),
+                         sum(sps.fftconvolve(ax64[i_], a_irs[o_, i_].astype(np.float64))[:n41]
+                             for i_ in range(amb))) for o_ in oracle41)
+    check(err41o <= ORACLE_TOL, f"MatrixConvolver(16, 16) vs scipy {err41o:.3e} > {ORACLE_TOL}")
+    print(f"phase 41 Ambisonic matrix: MatrixConvolver({amb}, {amb}).push_ir({amb}x{amb}x"
+          f"{IR_LEN}) + 2 chained stream({SERVE_BLOCKS}x{amb}x{PTS}) on {dev}: batched kernel "
+          f"launches a call {launches41}; vs the {amb * amb} pairs' pconv_stream summed over "
+          f"inputs on all outputs {err41:.3e} (tol {TOL}); vs float64 scipy on outputs "
+          f"{oracle41} {err41o:.3e} (tol {ORACLE_TOL})", flush=True)
+    del y41, pairs41, y41_np, a_irs_d, a_x_d
 
     def kernel(name, source, replaces, launches, err, ms, plain, bnd, lib):
         return {"name": name, "route": "cuda", "source": f"opencl_fft_tpu_torch/csrc/{source}",

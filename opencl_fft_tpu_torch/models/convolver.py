@@ -35,6 +35,7 @@ dtypes and takes the plain composition of ``ops/pconv.py`` on either device
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Optional, Sequence, Tuple, Union
 
@@ -48,6 +49,7 @@ from ..utils import profiling
 from ..utils.devices import get_device
 
 Device = Optional[Union[str, torch.device]]
+_NULL = contextlib.nullcontext()
 
 
 def _device(device: Device) -> torch.device:
@@ -299,6 +301,14 @@ class MatrixConvolver:
     pair, channel o*n_in + i: the input block is tiled across the n_out
     axis and the outputs are summed over n_in, so the whole matrix runs as
     one batched step or scan.
+
+    While a torch profiler records, each ``step`` or ``stream`` call is a
+    ``matrix`` request of ``utils.profiling``: a span ``fanout`` around the
+    tiling, the inner ``Convolver`` call (``stream`` is a request of its
+    own), a span ``fanin`` around the sum over inputs, and the counters
+    ``matrix.calls``, ``matrix.blocks``, ``matrix.pairs`` (n_out * n_in a
+    block) and ``matrix.fan_bytes`` (the tiled input written and the
+    per-pair output reduced). Off, the layer asks ``enabled()`` once a call.
     """
 
     def __init__(self, cfg: _p.PconvConfig, n_in: int, n_out: int, device: Device = None):
@@ -344,23 +354,44 @@ class MatrixConvolver:
 
     def step(self, blocks) -> torch.Tensor:
         """blocks: (n_in, pts) -> (n_out, pts)."""
-        blocks = _cast(blocks, self.cfg, self.device)
-        if blocks.shape != (self.n_in, self.cfg.pts):
-            raise ValueError(
-                f"blocks must be ({self.n_in}, {self.cfg.pts}), "
-                f"got {tuple(blocks.shape)}")
-        out = self._conv.step(blocks.repeat(self.n_out, 1))
-        return out.reshape(self.n_out, self.n_in, self.cfg.pts).sum(dim=1)
+        on = profiling.enabled()
+        with profiling.request("matrix", on):
+            blocks = _cast(blocks, self.cfg, self.device)
+            if blocks.shape != (self.n_in, self.cfg.pts):
+                raise ValueError(
+                    f"blocks must be ({self.n_in}, {self.cfg.pts}), "
+                    f"got {tuple(blocks.shape)}")
+            with profiling.span("fanout") if on else _NULL:
+                tiled = blocks.repeat(self.n_out, 1)
+            out = self._conv.step(tiled)
+            with profiling.span("fanin") if on else _NULL:
+                y = out.reshape(self.n_out, self.n_in, self.cfg.pts).sum(dim=1)
+            if on:
+                self._count(1, tiled, out)
+            return y
 
     def stream(self, blocks) -> torch.Tensor:
         """Scan (nblocks, n_in, pts) -> (nblocks, n_out, pts)."""
-        blocks = _cast(blocks, self.cfg, self.device)
-        if blocks.dim() != 3 or blocks.shape[1:] != (self.n_in, self.cfg.pts):
-            raise ValueError(
-                f"blocks must be (nblocks, {self.n_in}, {self.cfg.pts}), "
-                f"got {tuple(blocks.shape)}")
-        out = self._conv.stream(blocks.repeat(1, self.n_out, 1))
-        return out.reshape(-1, self.n_out, self.n_in, self.cfg.pts).sum(dim=2)
+        on = profiling.enabled()
+        with profiling.request("matrix", on):
+            blocks = _cast(blocks, self.cfg, self.device)
+            if blocks.dim() != 3 or blocks.shape[1:] != (self.n_in, self.cfg.pts):
+                raise ValueError(
+                    f"blocks must be (nblocks, {self.n_in}, {self.cfg.pts}), "
+                    f"got {tuple(blocks.shape)}")
+            with profiling.span("fanout") if on else _NULL:
+                tiled = blocks.repeat(1, self.n_out, 1)
+            out = self._conv.stream(tiled)
+            with profiling.span("fanin") if on else _NULL:
+                y = out.reshape(-1, self.n_out, self.n_in, self.cfg.pts).sum(dim=2)
+            if on:
+                self._count(len(blocks), tiled, out)
+            return y
+
+    def _count(self, nblocks: int, tiled: torch.Tensor, out: torch.Tensor) -> None:
+        profiling.count(("matrix.calls", 1), ("matrix.blocks", nblocks),
+                        ("matrix.pairs", self.n_out * self.n_in * nblocks),
+                        ("matrix.fan_bytes", tiled.nbytes + out.nbytes))
 
 
 class BatchedFFT:
