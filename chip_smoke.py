@@ -75,8 +75,8 @@ the nine demo command lines of ``opencl_fft_tpu_torch/examples`` at their
 default sizes (exit codes, wavs, each render against float64 scipy or the
 CPU twins, each demo's launches by kernel), and a third-order Ambisonic
 reverb matrix at full size (``MatrixConvolver(16, 16)`` of 2^17-tap IRs,
-one batched-scan launch a call at C = 256) against its 256 pairs'
-single-channel scans and float64 scipy. Last, one JSON line with every
+one matrix-scan launch a call) against its 256 pairs' single-channel scans
+and float64 scipy. Last, one JSON line with every
 kernel's launches, error, time and bound, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Every phase prints one line; any
 failure exits non-zero before the last line. Without a CUDA card, or
@@ -454,7 +454,7 @@ def main():
     from opencl_fft_tpu_torch.ops.cuda import vmemfft as V
 
     def zero_counts():
-        S.BATCHED_LAUNCHES = S.BATCHED_TV_LAUNCHES = 0
+        S.BATCHED_LAUNCHES = S.BATCHED_TV_LAUNCHES = S.MATRIX_LAUNCHES = 0
         K.LAUNCHES = 0
         V.LAUNCHES = V.FRONT2_LAUNCHES = 0
         SM.CHUNKMAC_LAUNCHES = SM.MACFLOW_LAUNCHES = SM.MACFLOW_BATCHED_LAUNCHES = 0
@@ -927,9 +927,10 @@ def main():
     mx = (0.1 * rng.standard_normal((m_blocks, 2, PTS))).astype(np.float32)
     mconv = P.MatrixConvolver(mcfg, 2, 2, device=dev)
     mconv.push_ir(m_irs)
-    n0 = S.BATCHED_LAUNCHES
+    n0 = (S.MATRIX_LAUNCHES, S.BATCHED_LAUNCHES)
     y_m = mconv.stream(torch.from_numpy(mx).to(dev)).cpu().numpy()
-    check(S.BATCHED_LAUNCHES == n0 + 1, "MatrixConvolver.stream launched the batched kernel")
+    check((S.MATRIX_LAUNCHES, S.BATCHED_LAUNCHES) == (n0[0] + 1, n0[1]),
+          "MatrixConvolver.stream launched the matrix scan entry once, the batched one never")
     mxs = mx.transpose(1, 0, 2).reshape(2, -1).astype(np.float64)
     err14m = max(rel_err(y_m[:, o].reshape(-1),
                          sum(sps.fftconvolve(mxs[i], m_irs[o, i].astype(np.float64))
@@ -3612,6 +3613,7 @@ def main():
                "block_mac_unpack": lambda: BS.MAC_UNPACK_LAUNCHES,
                "stream_steps_fused_batched": lambda: S.BATCHED_LAUNCHES,
                "stream_steps_fused_batched_tv": lambda: S.BATCHED_TV_LAUNCHES,
+               "stream_steps_fused_matrix": lambda: S.MATRIX_LAUNCHES,
                "fft_vmem": lambda: V.LAUNCHES, "fft_vmem_front2": lambda: V.FRONT2_LAUNCHES,
                "dstream_steps": lambda: K.LAUNCHES}
 
@@ -3697,7 +3699,7 @@ def main():
     j40 = XH.jumps(hs40[0], hs40[XH.FADE], XH.PARTS, swap40)
     check(j40[1] < j40[0], f"hotswap_demo on the card: faded jump {j40[1]} < instant {j40[0]}")
 
-    # stereo_demo: one (nblk, 4, 1024) scan, no latency
+    # stereo_demo: one matrix scan of (nblk, 2, 1024) blocks, no latency
     drys, cfgs, irss = XST.inputs()
     (strm40, wets40), w_, c_, o_, n_ = traced(lambda: XST.render(drys, cfgs, irss, dev))
     refs40 = np.stack([sum(sps.fftconvolve(strm40[i].astype(np.float64),
@@ -3706,7 +3708,7 @@ def main():
     e_st = rel_err(wets40, refs40)
     check(e_st <= ORACLE_TOL, f"stereo_demo vs float64 scipy {e_st:.3e}")
     row("stereo_demo", wets40.shape[1] / 44100, w_, c_, o_, n_, f"vs scipy {e_st:.3e}",
-        {"stream_steps_fused_batched": 1})
+        {"stream_steps_fused_matrix": 1})
 
     # zl_demo: zero added latency, the reverb workload in 64-sample blocks
     lat40 = XZ.latencies(irh40, dev)
@@ -3791,11 +3793,15 @@ def main():
 
     # phase 41: a third-order Ambisonic reverb matrix at its full size, the
     # shape of the benchmark cell mimo16x16_stream470: MatrixConvolver(16, 16)
-    # of 2^17-tap IRs in 512-sample partitions, 256 pairs through the batched
-    # scan wrapper at C = 256, two chained 470-block stream calls, each one
-    # launch of it. Against each pair's single-channel pconv_stream (the same
-    # CUDA entry at C = 1), chained the same way and summed over the inputs,
-    # on every output; against float64 scipy on four outputs
+    # of 2^17-tap IRs in 512-sample partitions through the matrix scan entry
+    # (16 inputs' transforms and rings, 256 pairs' MAC, 16 outputs'
+    # transforms), two chained 470-block stream calls, each one launch of it
+    # and none of the batched scan. Against each pair's single-channel
+    # pconv_stream (the batched entry at C = 1), chained the same way and
+    # summed over the inputs, on every output; against float64 scipy on four
+    # outputs. Then the entry against its plain twin on the same card
+    # tensors, at the MAC width the cell runs (TILE_TT_MAX): the first call's
+    # blocks, the windows and tails the two calls left, the pairs' IR planes
     amb, rng41 = 16, np.random.default_rng(41)
     acfg = P.PconvConfig.for_ir_length(IR_LEN, PTS)
     a_irs = (rng41.standard_normal((amb, amb, IR_LEN))
@@ -3807,16 +3813,32 @@ def main():
     y41, launches41 = [], []
     calls41 = [slice(k_ * SERVE_BLOCKS, (k_ + 1) * SERVE_BLOCKS) for k_ in range(2)]
     for seg_ in calls41:
-        S.BATCHED_LAUNCHES = 0
+        S.MATRIX_LAUNCHES = S.BATCHED_LAUNCHES = 0
         y41.append(amat.stream(a_x_d[seg_]))
         torch.cuda.synchronize()
-        launches41.append(S.BATCHED_LAUNCHES)
-    check(launches41 == [1, 1], f"MatrixConvolver(16, 16).stream launches of the batched "
-                                f"kernel a call {launches41} (want [1, 1])")
+        launches41.append((S.MATRIX_LAUNCHES, S.BATCHED_LAUNCHES))
+    check(launches41 == [(1, 0), (1, 0)],
+          f"MatrixConvolver(16, 16).stream launches of the matrix and batched scan entries a "
+          f"call {launches41} (want [(1, 0), (1, 0)])")
     y41 = torch.cat(y41)
     check(tuple(y41.shape) == (2 * SERVE_BLOCKS, amb, PTS) and bool(torch.isfinite(y41).all()),
           "MatrixConvolver(16, 16).stream shape/finite")
-    del amat
+    st41 = amat._compact
+    tt41 = S.matrix_plan(amb, amb, SERVE_BLOCKS, PTS, acfg.nparts, _build.sm_count(0))[3]
+    check(tt41 == S.TILE_TT_MAX,
+          f"matrix_plan at the cell's shape: {tt41} outputs a thread (want {S.TILE_TT_MAX})")
+    args41 = (a_x_d[calls41[0]], PC._window(acfg, st41), (st41.spec_h_re, st41.spec_h_im),
+              acfg.b0_scale, st41.tail, PTS)
+    got41 = S.stream_steps_fused_matrix(*args41)
+    want41 = S.stream_steps_fused_matrix_plain(*args41)
+    torch.cuda.synchronize()
+    err41t = max(worst_channel(got41[0], want41[0]),
+                 *(rel_err(g_.cpu(), w_.cpu()) for g_, w_ in
+                   ((got41[1][0], want41[1][0]), (got41[1][1], want41[1][1]),
+                    (got41[2], want41[2]))))
+    check(err41t <= TOL, f"stream_steps_fused_matrix vs its twin at the cell's shape "
+          f"{err41t:.3e} > {TOL}")
+    del amat, st41, args41, got41, want41
     pairs41 = torch.zeros_like(y41)
     for o_ in range(amb):
         for i_ in range(amb):
@@ -3834,10 +3856,11 @@ def main():
                              for i_ in range(amb))) for o_ in oracle41)
     check(err41o <= ORACLE_TOL, f"MatrixConvolver(16, 16) vs scipy {err41o:.3e} > {ORACLE_TOL}")
     print(f"phase 41 Ambisonic matrix: MatrixConvolver({amb}, {amb}).push_ir({amb}x{amb}x"
-          f"{IR_LEN}) + 2 chained stream({SERVE_BLOCKS}x{amb}x{PTS}) on {dev}: batched kernel "
-          f"launches a call {launches41}; vs the {amb * amb} pairs' pconv_stream summed over "
+          f"{IR_LEN}) + 2 chained stream({SERVE_BLOCKS}x{amb}x{PTS}) on {dev}: (matrix, batched) "
+          f"scan launches a call {launches41}; vs the {amb * amb} pairs' pconv_stream summed over "
           f"inputs on all outputs {err41:.3e} (tol {TOL}); vs float64 scipy on outputs "
-          f"{oracle41} {err41o:.3e} (tol {ORACLE_TOL})", flush=True)
+          f"{oracle41} {err41o:.3e} (tol {ORACLE_TOL}); the entry (tt {tt41}) vs its twin on "
+          f"the card, outputs, windows and tails {err41t:.3e} (tol {TOL})", flush=True)
     del y41, pairs41, y41_np, a_irs_d, a_x_d
 
     def kernel(name, source, replaces, launches, err, ms, plain, bnd, lib):

@@ -17,7 +17,8 @@ direct FIR engine (``ops/dconv.py``), whose whole-scan stream runs on
 ``ClconvProcessor`` and ``CltvconvProcessor`` opcode layers; the batched
 serving models (``models/``: ``Convolver``, ``TVConvolver``,
 ``MatrixConvolver``, ``BatchedFFT``), whose scans run on the batched
-entries of ``csrc/streamstep.cu``; the chunked, offline and decomposed
+entries of ``csrc/streamstep.cu`` (``MatrixConvolver.stream`` on its
+matrix entry: one transform and ring an input, one an output); the chunked, offline and decomposed
 engines (``pconv_chunk{,_tv}``, ``pconv_offline``, ``Convolver.render``,
 ``pconv_stream_batched_chunked``, ``convolve_oneshot``, the LTI
 ``stream_decomposed`` of ``ops/decomposed.py``), whose sliding MAC runs on

@@ -77,6 +77,11 @@
 // 2^14 the same pack and unpack run as kernels of their own around fft.cu's
 // four-step (front then leaf, in fft_tile.cuh) on scratch planes. No
 // atomics: every output is written by one thread, in a fixed order.
+//
+// The last entry, stream_steps_fused_matrix_f32, is the port's own: a
+// convolution matrix's scan from the same steps at the channel count each
+// needs, its MAC (mac_matrix_kernel) summing the (out, in) pairs over the
+// inputs in the kernel. It replaces no TPU kernel.
 
 #include <array>
 #include <utility>
@@ -380,6 +385,180 @@ cudaError_t plans(const float* const* tabs, int pts, int log_n1, int log_a, cons
     return mac.ok() ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The matrix MAC of stream_steps_fused_matrix_f32: output o of n_out sums,
+// for each input i in ascending order, the tiled LTI MAC of input i's
+// timeline against pair (o, i)'s IR planes over the partitions, and gives
+// aext's zero rows 0 and nb + 1 of output o. The stages of all inputs run
+// through scan_mac.cuh's mac_stage / mac_chunk as one cp.async pipeline:
+// input i + 1's first stage is copied after input i's last one is
+// multiplied. Copying it during that last stage takes a second ring and so
+// twice the LTI MAC's shared memory, one CTA an SM instead of two; it was
+// measured slower on the H100 (the MAC 3,637 against 3,518 us at 16 x 16,
+// 74.4 against 70.3 at 2 x 2, pts 512 and 470 blocks): two CTAs an SM hide
+// each other's first-stage copies. A CTA's MacTile serves the copies only
+// (mac_chunk reads its ring mask), so it is pointed at input i + 1 before
+// that input's first copy.
+//
+// The sums. A thread sums MATRIX_GROUP inputs' products from zero in its
+// registers, then adds that group's sum (bin 0 times b0) into its output
+// rows of aext: the first group stores, the others add by atomicAdd with
+// no return (one RED a value; each value has one writer, whose adds land in
+// program order, so the result is the same every launch). One sum over all
+// 16 x 256 products of an output loses several times more to rounding
+// (1.7e-6 of the float64 reference against 2.8e-7 for the pair route, H100,
+// 16 x 16, 256 partitions); from HBM the entry took 3,429-3,435 us a call
+// so, against 3,528-3,559 for groups of 2 (3.2e-7 on the CPU twin), 3,663-
+// 3,678 for groups of 1 and 3,608 for groups of 4 added by plain loads and
+// stores. The adds' addresses are made from pointers hidden from the
+// compiler in each flush: hoisted out of the input loop they held 4 TT
+// registers through the MAC (202 a thread, one CTA an SM).
+constexpr int MATRIX_GROUP = 2;
+
+template <int TT, bool DC_TILE>
+__device__ __forceinline__ void mac_matrix_tile(const Scan& s, const MacPlan& p,
+                                                const MacIO& io, MacTile& m, int o, int n_in,
+                                                float b0, float2* smem) {
+    float2* sx = smem;
+    float2* sh = sx + (m.rmask + 1) * TILE_BINS;
+    const int gt = threadIdx.y * TT;
+    const bool dc = DC_TILE && m.k == 0;
+    float ar[TT], ai[TT];   // the sums of a group of inputs
+#pragma unroll
+    for (int j = 0; j < TT; ++j) ar[j] = ai[j] = 0.f;
+    const int chunks = cdiv(s.nparts, p.q);
+    const float* xr0 = m.xb;
+    const float* xi0 = m.xbi;
+    auto point = [&](int i) {                          // the copies of input i
+        m.xb = xr0 + i * io.xcs;
+        m.xbi = xi0 + i * io.xcs;
+        const size_t pair = static_cast<size_t>(o) * n_in + i;
+        m.hrc = io.hr + pair * io.hcs;
+        m.hic = io.hi + pair * io.hcs;
+    };
+    point(0);
+    mac_stage<H_LTI>(s, p, m, 0, sx, sh);
+    cp_async_commit();
+    for (int i = 0; i < n_in; ++i) {
+        for (int ch = 0; ch < chunks; ++ch) {
+            if (ch + 1 < chunks) {
+                mac_stage<H_LTI>(s, p, m, ch + 1, sx, sh);
+                cp_async_commit();
+                cp_async_wait<1>();
+            } else {
+                cp_async_wait<0>();
+            }
+            __syncthreads();
+            mac_chunk<H_LTI, TT, DC_TILE>(s, p, m, ch, gt, dc, sx, sh, ar, ai);
+            __syncthreads();   // before a later stage overwrites what this one read
+        }
+        if (i + 1 < n_in) {
+            point(i + 1);
+            mac_stage<H_LTI>(s, p, m, 0, sx, sh);
+            cp_async_commit();
+        }
+        if (i + 1 < n_in && (i + 1) % MATRIX_GROUP) continue;
+        float* yr = m.outr + static_cast<size_t>(gt) * m.os + m.k;
+        float* yi = m.outi + static_cast<size_t>(gt) * m.os + m.k;
+        asm volatile("" : "+l"(yr), "+l"(yi));
+        const bool first = i < MATRIX_GROUP;
+#pragma unroll
+        for (int j = 0; j < TT; ++j) {
+            if (m.kin && m.t0 + gt + j < s.nb) {
+                const float vr = dc ? b0 * ar[j] : ar[j], vi = dc ? b0 * ai[j] : ai[j];
+                if (first) {
+                    *yr = vr;
+                    *yi = vi;
+                } else {
+                    atomicAdd(yr, vr);
+                    atomicAdd(yi, vi);
+                }
+            }
+            yr += m.os;
+            yi += m.os;
+            ar[j] = ai[j] = 0.f;
+        }
+    }
+    if (!m.kin || threadIdx.y != 0) return;
+    if (m.t0 == 0) (m.outr - m.os)[m.k] = (m.outi - m.os)[m.k] = 0.f;
+    if (m.t0 + m.T >= s.nb) {
+        const size_t last = static_cast<size_t>(s.nb - m.t0) * m.os + m.k;
+        m.outr[last] = m.outi[last] = 0.f;
+    }
+}
+
+// grid (cdiv(nb, p.outs()), cdiv(bins, 32), n_out), block (32, p.groups),
+// the LTI MAC's p.smem_floats(H_LTI) floats of dynamic shared memory: io's
+// x planes are the n_in timelines, its h planes the n_out n_in pairs (pair
+// o n_in + i), its outputs the n_out channels of aext. Bounded to two CTAs
+// an SM (128 registers), as the LTI MAC reaches by itself. The TILE_TT_MAX
+// form takes 128 registers without the bound too: on the H100 the entry
+// ran 3,563-3,566 us at 16 x 16 (pts 512, 470 blocks) with it and
+// 3,583-3,589 without; the bound holds two CTAs an SM against later edits.
+template <int TT>
+__global__ void __launch_bounds__(TILE_BINS * TILE_MAX_GROUPS, 2)
+mac_matrix_kernel(Scan s, MacPlan p, MacIO io, int n_in, float b0) {
+    extern __shared__ float2 smem2[];
+    const int o = blockIdx.z;
+    MacTile m;
+    m.T = p.outs();
+    m.t0 = blockIdx.x * m.T;
+    m.k = blockIdx.y * TILE_BINS + threadIdx.x;
+    m.kin = m.k < s.bins;
+    m.xrows = io.xrows - m.t0;
+    m.xb = io.xr + static_cast<size_t>(m.t0) * io.xs;
+    m.xbi = io.xi + static_cast<size_t>(m.t0) * io.xs;
+    m.xs = io.xs;
+    m.wp2_0 = 0;
+    m.rmask = p.ring - 1;
+    m.hs = io.hs;
+    const size_t oo = static_cast<size_t>(o) * io.ocs + static_cast<size_t>(m.t0) * io.os;
+    m.outr = io.outr + oo;
+    m.outi = io.outi + oo;
+    m.os = io.os;
+    if (blockIdx.y == 0)
+        mac_matrix_tile<TT, true>(s, p, io, m, o, n_in, b0, smem2);
+    else
+        mac_matrix_tile<TT, false>(s, p, io, m, o, n_in, b0, smem2);
+}
+
+size_t matrix_granted[2][64];   // [tt == TILE_TT_MAX][device]
+
+template <int TT>
+cudaError_t launch_matrix_tile(const Scan& so, const MacPlan& p, const MacIO& io, int n_in,
+                               float b0, int device, cudaStream_t st) {
+    const dim3 grid(cdiv(so.nb, p.outs()), cdiv(so.bins, TILE_BINS), so.C);
+    const size_t smem = sizeof(float) * p.smem_floats(H_LTI);
+    RETURN_IF_ERROR(allow_smem(mac_matrix_kernel<TT>, device, smem,
+                               matrix_granted[TT == TILE_TT_MAX]));
+    mac_matrix_kernel<TT><<<grid, dim3(TILE_BINS, p.groups), smem, st>>>(so, p, io, n_in, b0);
+    return cudaGetLastError();
+}
+
+// run_scan's steps at the channel count each needs: the window and the
+// forward transform at the n_in inputs (si), the matrix MAC and the inverse
+// transform at the n_out outputs (so), the final windows at the inputs.
+// aext holds max(n_in, n_out) channels: window_in_kernel zeroes the rows of
+// the first n_in, the matrix MAC those of the n_out it writes.
+cudaError_t run_matrix_scan(const Scan& si, const Scan& so, const float* blocks,
+                            const float* w0r, const float* w0i, const float* hr,
+                            const float* hi, const FftFwd& fwd, const FftPost& post,
+                            const MacPlan& mac, const float* tail0, float* outs, float* wfr,
+                            float* wfi, float* tailf, float* timeline, float* aext,
+                            float b0_scale, int device, cudaStream_t st) {
+    const dim3 rows(si.nparts, si.C);
+    window_in_kernel<<<rows, ROW_THREADS, 0, st>>>(si, w0r, w0i, timeline, aext);
+    RETURN_IF_ERROR(cudaGetLastError());
+    RETURN_IF_ERROR(fwd(si, blocks, timeline, si.tl(), si.nparts, st));
+    const MacIO io = scan_io(so, false, timeline, hr, hi, aext);
+    RETURN_IF_ERROR(mac.tt == MAC_TT
+                        ? launch_matrix_tile<MAC_TT>(so, mac, io, si.C, b0_scale, device, st)
+                        : launch_matrix_tile<TILE_TT_MAX>(so, mac, io, si.C, b0_scale, device,
+                                                          st));
+    RETURN_IF_ERROR(post(so, aext, tail0, outs, tailf, st));
+    window_out_kernel<<<rows, ROW_THREADS, 0, st>>>(si, timeline, wfr, wfi);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 // One LTI scan of nb blocks of C channels. All pointers but tabs and plan
@@ -437,4 +616,38 @@ extern "C" int stream_steps_fused_batched_tv_f32(
                        FftFwd{fwd, fcoef, scratch, device}, FftPost{inv, icoef, scratch, device},
                        mac, tail0, outs, wfr, wfi, hfr, hfi, tailf, timeline, htimeline, aext,
                        b0_scale, device, static_cast<cudaStream_t>(stream_ptr));
+}
+
+// One scan of a convolution matrix: nb blocks of n_in inputs through n_out
+// x n_in IRs into n_out outputs, out[o] = sum_i in[i] * ir[o, i]. A new
+// design, not a port (the JAX package runs the matrix as n_out n_in
+// channels of the batched scan): one forward transform and one window an
+// input, the MAC of every pair summed over the inputs inside the kernel
+// (mac_matrix_kernel), one inverse transform and tail an output. At 16 x 16,
+// pts 512, nparts 256 and 470 blocks the MAC's 126.2 GFLOP (126.5 with the
+// 32 transforms a block) bound it: 1.89 ms at 67 TFLOP/s, where the bytes
+// (the 268 MB of IR spectra read once) take 0.1 ms. blocks (nb, n_in, pts)
+// and outs (nb, n_out, pts); w0 and the final windows (n_in, nparts, pts);
+// hr, hi (n_out n_in, nparts, pts), pair (o, i) at o n_in + i; tail0 and
+// tailf (n_out, pts). Tables and scratch as the LTI scan's, the scratch 4
+// max(n_in, n_out) (nb+1) pts floats above 2^14; timeline (n_in, nparts+nb,
+// 2*pts), aext (max(n_in, n_out), nb+2, 2*pts). plan: 6 host ints, as the
+// LTI scan's (the forward transform's rows a CTA planned over nb n_in rows,
+// the inverse's over n_out sequences of nb+1, the MAC's at n_out channels).
+extern "C" int stream_steps_fused_matrix_f32(
+    const float* blocks, const float* w0r, const float* w0i, const float* hr, const float* hi,
+    const float* const* tabs, const float* fcoef, const float* icoef, const float* tail0,
+    float* outs, float* wfr, float* wfi, float* tailf, float* timeline, float* aext,
+    float* scratch, int nb, int n_in, int n_out, int nparts, int pts, int log_n1, int log_a,
+    const int* plan, float b0_scale, int device, void* stream_ptr) {
+    RETURN_IF_ERROR(cudaSetDevice(device));
+    Plan fwd, inv;
+    MacPlan mac;
+    RETURN_IF_ERROR(plans(tabs, pts, log_n1, log_a, plan, scratch, fwd, inv, mac));
+    if (n_in < 1 || n_out < 1) return cudaErrorInvalidValue;
+    const Scan si{nb, n_in, nparts, pts}, so{nb, n_out, nparts, pts};
+    return run_matrix_scan(si, so, blocks, w0r, w0i, hr, hi, FftFwd{fwd, fcoef, scratch, device},
+                           FftPost{inv, icoef, scratch, device}, mac, tail0, outs, wfr, wfi,
+                           tailf, timeline, aext, b0_scale, device,
+                           static_cast<cudaStream_t>(stream_ptr));
 }

@@ -24,7 +24,8 @@ next steps (``pconv_begin_xfade`` / ``pconv_step_xfade`` on the whole
 batch, the other channels' coefficients and tails left as they are, so
 their outputs are bit-equal to an engine that never swapped).
 ``MatrixConvolver`` (true stereo and other matrices) rides on
-``Convolver``; ``BatchedFFT`` is ``fft_split`` over leading axes.
+``Convolver``, its ``stream`` on the matrix scan entry; ``BatchedFFT`` is
+``fft_split`` over leading axes.
 
 Every engine takes an explicit device: a CUDA card (the default), or the
 CPU when asked for by name, where each kernel's plain twin runs. A config
@@ -44,6 +45,7 @@ import torch
 
 from ..ops import pconv as _p
 from ..ops.cplx import Cplx
+from ..ops.cuda.streamstep import stream_steps_fused_matrix
 from ..ops.fft import fft_split
 from ..utils import profiling
 from ..utils.devices import get_device
@@ -298,17 +300,33 @@ class MatrixConvolver:
     """True-stereo / matrix convolution: ``out[o] = sum_i in[i] * ir[o, i]``.
 
     Built on the batched ``Convolver`` with one channel per (out, in) IR
-    pair, channel o*n_in + i: the input block is tiled across the n_out
-    axis and the outputs are summed over n_in, so the whole matrix runs as
-    one batched step or scan.
+    pair, channel o*n_in + i (the pair state): ``step``, ``push_ir``,
+    ``set_ir`` and the crossfade tile the input block across the n_out axis
+    and sum the outputs over n_in, so the whole matrix runs as one batched
+    step. ``stream`` of a config the kernels take (``_kernel_eligible``)
+    runs the matrix scan entry (``stream_steps_fused_matrix`` through
+    ``ops/pconv._stream_scan``) on a compact state: one doubled input ring
+    an input, one tail an output, the pairs' IR planes read from the pair
+    state, which meanwhile holds no rings or tails. The two layouts convert
+    when a caller switches between ``stream`` and the others: an input's
+    ring is pair (0, i)'s (every output's copy is equal), output o's tail
+    the sum of its pairs' tails; back, each ring is copied to its n_out
+    pairs and each pair's tail is rebuilt from its ring and IR, as a
+    crossfade rebuilds its incoming path's (after a scan of at least one
+    block the tail is the last block's MAC and inverse transform, and a
+    crossfade of one entry needs that entry's own tail). Any other config
+    streams on the pair state, as ``step`` does.
 
     While a torch profiler records, each ``step`` or ``stream`` call is a
-    ``matrix`` request of ``utils.profiling``: a span ``fanout`` around the
-    tiling, the inner ``Convolver`` call (``stream`` is a request of its
-    own), a span ``fanin`` around the sum over inputs, and the counters
+    ``matrix`` request of ``utils.profiling`` with the counters
     ``matrix.calls``, ``matrix.blocks``, ``matrix.pairs`` (n_out * n_in a
     block) and ``matrix.fan_bytes`` (the tiled input written and the
-    per-pair output reduced). Off, the layer asks ``enabled()`` once a call.
+    per-pair output reduced; 0 on the matrix scan, which moves neither).
+    On the pair routes it holds a span ``fanout`` around the tiling, the
+    inner ``Convolver`` call (``stream`` is a request of its own) and a span
+    ``fanin`` around the sum over inputs; on the matrix scan a ``stream``
+    request of its own with the entry's spans inside. Off, the layer asks
+    ``enabled()`` once a call.
     """
 
     def __init__(self, cfg: _p.PconvConfig, n_in: int, n_out: int, device: Device = None):
@@ -319,6 +337,7 @@ class MatrixConvolver:
         self.n_out = n_out
         self._conv = Convolver(cfg, n_out * n_in, device)
         self.device = self._conv.device
+        self._compact: Optional[_p.PconvState] = None   # the current state, when compact
 
     def push_ir(self, irs) -> None:
         """irs: (n_out, n_in, cvs)."""
@@ -327,6 +346,7 @@ class MatrixConvolver:
             raise ValueError(
                 f"irs must be ({self.n_out}, {self.n_in}, {self.cfg.cvs}), "
                 f"got {tuple(irs.shape)}")
+        self._to_pairs()
         self._conv.push_ir(irs.reshape(self.n_out * self.n_in, self.cfg.cvs))
 
     def set_ir(self, irs, entries: Optional[Sequence[Tuple[int, int]]] = None,
@@ -342,6 +362,7 @@ class MatrixConvolver:
                 raise ValueError(
                     f"irs must be ({self.n_out}, {self.n_in}, {self.cfg.cvs}), "
                     f"got {tuple(irs.shape)}")
+            self._to_pairs()
             self._conv.set_ir(irs.reshape(self.n_out * self.n_in, self.cfg.cvs),
                               fade_blocks=fade_blocks)
             return
@@ -349,6 +370,7 @@ class MatrixConvolver:
             if not (0 <= o < self.n_out and 0 <= i < self.n_in):
                 raise ValueError(f"entry ({o}, {i}) out of range "
                                  f"({self.n_out} x {self.n_in})")
+        self._to_pairs()
         self._conv.set_ir(irs, channels=[o * self.n_in + i for o, i in entries],
                           fade_blocks=fade_blocks)
 
@@ -361,17 +383,19 @@ class MatrixConvolver:
                 raise ValueError(
                     f"blocks must be ({self.n_in}, {self.cfg.pts}), "
                     f"got {tuple(blocks.shape)}")
+            self._to_pairs()
             with profiling.span("fanout") if on else _NULL:
                 tiled = blocks.repeat(self.n_out, 1)
             out = self._conv.step(tiled)
             with profiling.span("fanin") if on else _NULL:
                 y = out.reshape(self.n_out, self.n_in, self.cfg.pts).sum(dim=1)
             if on:
-                self._count(1, tiled, out)
+                self._count(1, tiled.nbytes + out.nbytes)
             return y
 
     def stream(self, blocks) -> torch.Tensor:
-        """Scan (nblocks, n_in, pts) -> (nblocks, n_out, pts)."""
+        """Scan (nblocks, n_in, pts) -> (nblocks, n_out, pts). Raises
+        RuntimeError mid-fade."""
         on = profiling.enabled()
         with profiling.request("matrix", on):
             blocks = _cast(blocks, self.cfg, self.device)
@@ -379,19 +403,64 @@ class MatrixConvolver:
                 raise ValueError(
                     f"blocks must be (nblocks, {self.n_in}, {self.cfg.pts}), "
                     f"got {tuple(blocks.shape)}")
-            with profiling.span("fanout") if on else _NULL:
-                tiled = blocks.repeat(1, self.n_out, 1)
-            out = self._conv.stream(tiled)
-            with profiling.span("fanin") if on else _NULL:
-                y = out.reshape(-1, self.n_out, self.n_in, self.cfg.pts).sum(dim=2)
+            if self._compact is None and not self._scannable():
+                with profiling.span("fanout") if on else _NULL:
+                    tiled = blocks.repeat(1, self.n_out, 1)
+                out = self._conv.stream(tiled)
+                with profiling.span("fanin") if on else _NULL:
+                    y = out.reshape(-1, self.n_out, self.n_in, self.cfg.pts).sum(dim=2)
+                if on:
+                    self._count(len(blocks), tiled.nbytes + out.nbytes)
+                return y
+            with profiling.request("stream", on):
+                if self._conv._xf is not None:
+                    _mid_fade("bulk streaming")
+                if len(blocks):
+                    self._compact, y = _p._stream_scan(self.cfg, self._to_compact(), blocks,
+                                                       stream_steps_fused_matrix)
+                else:
+                    y = blocks.new_zeros((0, self.n_out, self.cfg.pts))
             if on:
-                self._count(len(blocks), tiled, out)
+                self._count(len(blocks), 0)
             return y
 
-    def _count(self, nblocks: int, tiled: torch.Tensor, out: torch.Tensor) -> None:
+    def _scannable(self) -> bool:
+        """Whether ``stream`` takes the matrix scan from the pair state."""
+        return self.cfg._kernel_eligible()
+
+    def _to_compact(self) -> _p.PconvState:
+        """Make the compact state the current one, converted from the pair
+        state if that is the current one, and return it. Its IR planes are
+        the pair state's (only ``push_ir`` and ``set_ir`` change them, after
+        ``_to_pairs``); the pair state keeps nothing else (its rings and
+        tails are ``None``: ``_to_pairs`` rebuilds them)."""
+        if self._compact is None:
+            st = self._conv.state
+            tail = st.tail.reshape(self.n_out, self.n_in, -1).sum(dim=1)
+            self._compact = st._replace(spec_x_re=st.spec_x_re[:self.n_in].clone(),
+                                        spec_x_im=st.spec_x_im[:self.n_in].clone(), tail=tail)
+            self._conv.state = st._replace(spec_x_re=None, spec_x_im=None, tail=None)
+        return self._compact
+
+    def _to_pairs(self) -> None:
+        """Make the pair state the current one, if the compact state is."""
+        cm = self._compact
+        if cm is None:
+            return
+        # the tail a pair had before is read only into the discarded block
+        st = self._conv.state._replace(spec_x_re=cm.spec_x_re.repeat(self.n_out, 1, 1),
+                                       spec_x_im=cm.spec_x_im.repeat(self.n_out, 1, 1),
+                                       tail=cm.tail.new_zeros((self.n_out * self.n_in,
+                                                               self.cfg.pts)),
+                                       wp=cm.wp)
+        _, tail = _p._mac_inverse_ola(self.cfg, st, st.wp)
+        self._conv.state = st._replace(tail=tail)
+        self._compact = None
+
+    def _count(self, nblocks: int, fan_bytes: int) -> None:
         profiling.count(("matrix.calls", 1), ("matrix.blocks", nblocks),
                         ("matrix.pairs", self.n_out * self.n_in * nblocks),
-                        ("matrix.fan_bytes", tiled.nbytes + out.nbytes))
+                        ("matrix.fan_bytes", fan_bytes))
 
 
 class BatchedFFT:

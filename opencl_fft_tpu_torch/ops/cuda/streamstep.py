@@ -38,13 +38,22 @@ The TV scan's coefficient frames form a second timeline (see
 ``stream_steps_fused_batched_tv_plain``). How the kernels split the work
 between CTAs is planned here by shape (``scan_plan``).
 
+The matrix scan (``stream_steps_fused_matrix``, a design of the port's
+own: the JAX package runs a convolution matrix as n_out n_in channels of
+the batched scan) takes blocks (nblocks, n_in, pts), one window an input,
+the IR planes of the n_out n_in (out, in) pairs and one tail an output,
+and sums every pair's MAC over the inputs inside the kernel: one forward
+transform an input and one inverse transform an output a block
+(``matrix_plan``).
+
 Each CUDA entry has one wrapper that checks its arguments, runs the
 kernel for CUDA tensors and its twin for CPU tensors (anything else raises)
-and counts: ``stream_steps_fused_batched`` (``BATCHED_LAUNCHES``) and
-``stream_steps_fused_batched_tv`` (``BATCHED_TV_LAUNCHES``), each counter
-every launch of its entry at any C and pts. The single-channel scans are
-their C = 1 views. The twins are the kernels' chains in plain PyTorch
-(``torch.fft``); ``_dense_frames`` and ``_post_ola_plain`` keep the JAX
+and counts: ``stream_steps_fused_batched`` (``BATCHED_LAUNCHES``),
+``stream_steps_fused_batched_tv`` (``BATCHED_TV_LAUNCHES``) and
+``stream_steps_fused_matrix`` (``MATRIX_LAUNCHES``), each counter every
+launch of its entry at any shape. The single-channel scans are the
+batched scans' C = 1 views. The twins are the kernels' chains in plain
+PyTorch (``torch.fft``); ``_dense_frames`` and ``_post_ola_plain`` keep the JAX
 kernels' dense-table chains as the tests' oracle.
 """
 
@@ -66,6 +75,7 @@ from .vmemfft import (LEAF_PASS_MAX, SINGLE_PASS_MAX, four_step_log_a,
 
 BATCHED_LAUNCHES = 0
 BATCHED_TV_LAUNCHES = 0
+MATRIX_LAUNCHES = 0
 
 MAX_PTS = LEAF_PASS_MAX ** 2   # the four-step's factors are at most 2^13 each
 
@@ -76,6 +86,7 @@ TILE_BINS = 32          # bins a MAC CTA: a warp's lanes
 TILE_MAX_GROUPS = 8     # warps a MAC CTA
 TILE_TT_MAX = 16        # outputs a MAC thread: MAC_TT or this
 MAC_STAGE = 32          # partitions a MAC stage
+MATRIX_GROUP = 2        # inputs the matrix MAC sums in registers before adding to its output
 
 Pointers = Union[int, Sequence[int]]
 
@@ -94,6 +105,14 @@ def _kernel():
 def _tv_kernel():
     fn = _build.load("streamstep").stream_steps_fused_batched_tv_f32
     fn.argtypes = [_P] * 7 + [_I] + [_P] * 14 + [_I] * 6 + [_P, ctypes.c_float, _I, _P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _matrix_kernel():
+    fn = _build.load("streamstep").stream_steps_fused_matrix_f32
+    fn.argtypes = [_P] * 16 + [_I] * 7 + [_P, ctypes.c_float, _I, _P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -228,6 +247,17 @@ def scan_plan(pts: int, nb: int, nch: int, nparts: int, tv: bool, sms: int = 132
     (groups, tt, q, ring) (``mac_plan``)."""
     return (fft_tile_log_b(pts, nb * nch, 1, sms), fft_tile_log_b(pts, nb + 1, nch, sms),
             *mac_plan(nch, nb, pts, nparts, tv, sms))
+
+
+def matrix_plan(n_in: int, n_out: int, nb: int, bins: int, nparts: int, sms: int = 132
+                ) -> tuple:
+    """The 6 ints the matrix entry takes: the forward transform's log2
+    rows a CTA over the n_in inputs' nb blocks, the inverse's over the
+    n_out outputs' nb + 1 rows, and the matrix MAC's (groups, tt, q, ring),
+    planned as the LTI MAC's at n_out channels (``mac_plan``: a CTA's
+    outputs are one output's, as an LTI scan's are one channel's)."""
+    return (fft_tile_log_b(bins, nb * n_in, 1, sms), fft_tile_log_b(bins, nb + 1, n_out, sms),
+            *mac_plan(n_out, nb, bins, nparts, False, sms))
 
 
 class _Plan(NamedTuple):
@@ -484,6 +514,112 @@ def _lti_scan_plain(blocks, w0: Cplx, h: Cplx, b0_scale: float, tails, pts: int,
     acc_r[..., 0] = b0_scale * (tr[:, 1:, 0].unfold(1, nparts, 1) * hr[:, None, :, 0]).sum(-1)
     acc_i[..., 0] = b0_scale * (ti[:, 1:, 0].unfold(1, nparts, 1) * hi[:, None, :, 0]).sum(-1)
     outs, tailf = post_ola(acc_r, acc_i, tails, pts)
+    return outs, (tr[:, nb:nb + nparts], ti[:, nb:nb + nparts]), tailf
+
+
+def _check_matrix(blocks, w0r, w0i, hr, hi, tails, pts):
+    """The matrix scan's shapes."""
+    _check_pts(pts)
+    if blocks.dim() != 3 or blocks.shape[0] < 1 or blocks.shape[1] < 1 \
+            or blocks.shape[2] != pts:
+        raise ValueError(f"blocks must be (nblocks >= 1, inputs >= 1, {pts}), "
+                         f"got {tuple(blocks.shape)}")
+    n_in = blocks.shape[1]
+    if hr.dim() != 3 or hr.shape[0] < n_in or hr.shape[0] % n_in or hr.shape[2] != pts:
+        raise ValueError(f"h planes must be (outputs * {n_in}, nparts, {pts}), "
+                         f"got {tuple(hr.shape)}")
+    n_out, nparts = hr.shape[0] // n_in, hr.shape[1]
+    for name, t, shape in (("w0 re", w0r, (n_in, nparts, pts)),
+                           ("w0 im", w0i, (n_in, nparts, pts)), ("h im", hi, hr.shape),
+                           ("tails", tails, (n_out, pts))):
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def _launch_matrix(name, blocks, w0, h, b0_scale, tails, pts, dev):
+    """The matrix CUDA entry on (nb, n_in, pts) blocks."""
+    (w0r, w0i), (hr, hi) = w0, h
+    nb, n_in, _ = blocks.shape
+    n_out, nparts = tails.shape[0], hr.shape[1]
+    plan, scratch = _kernel_args(pts, nb, max(n_in, n_out), dev)
+    sms = _build.sm_count(dev.index)
+    cut = (ctypes.c_int * 6)(*matrix_plan(n_in, n_out, nb, pts, nparts, sms))
+    f32 = dict(dtype=torch.float32, device=dev)
+    outs = torch.empty((nb, n_out, pts), **f32)
+    wfr, wfi = (torch.empty((n_in, nparts, pts), **f32) for _ in range(2))
+    tailf = torch.empty((n_out, pts), **f32)
+    timeline = torch.empty((n_in, nparts + nb, 2 * pts), **f32)
+    aext = torch.empty((max(n_in, n_out), nb + 2, 2 * pts), **f32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _matrix_kernel()(
+        *_ptrs(_aligned8(blocks), w0r, w0i, hr, hi), ctypes.addressof(plan.tabs),
+        *_ptrs(*coef_tables(pts, dev), tails, outs, wfr, wfi, tailf, timeline, aext),
+        None if scratch is None else scratch.data_ptr(),
+        nb, n_in, n_out, nparts, pts, plan.log_n1, plan.log_a, ctypes.addressof(cut),
+        float(b0_scale), dev.index, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    return outs, (wfr, wfi), tailf
+
+
+def stream_steps_fused_matrix(blocks: torch.Tensor, w0: Cplx, h: Cplx, b0_scale: float,
+                              tails: torch.Tensor, pts: int):
+    """Run an entire LTI streaming scan of a convolution matrix in one call,
+    out[o] = sum_i in[i] * ir[o, i].
+
+    blocks: (nblocks, n_in, pts); w0: split (n_in, nparts, bins) windows,
+    one an input; h: split (n_out * n_in, nparts, bins) IR spectra, pair
+    (o, i) at o * n_in + i, each in the single-channel layout; tails:
+    (n_out, bins), one an output. Returns (outs (nblocks, n_out, pts), (wfr,
+    wfi) (n_in, nparts, bins), tails_fin (n_out, bins)): the scan of the
+    n_out n_in pairs summed over the inputs, with one forward transform and
+    window an input and one inverse transform and tail an output.
+    """
+    global MATRIX_LAUNCHES
+    w0r, w0i = w0
+    hr, hi = h
+    _check_matrix(blocks, w0r, w0i, hr, hi, tails, pts)
+    dev = _build.launch_device("stream_steps_fused_matrix", (blocks, w0r, w0i, hr, hi, tails))
+    if dev.type == "cpu":
+        return stream_steps_fused_matrix_plain(blocks, w0, h, b0_scale, tails, pts)
+    got = _launch_matrix("stream_steps_fused_matrix", blocks, w0, h, b0_scale, tails, pts, dev)
+    MATRIX_LAUNCHES += 1
+    return got
+
+
+def stream_steps_fused_matrix_plain(blocks: torch.Tensor, w0: Cplx, h: Cplx,
+                                    b0_scale: float, tails: torch.Tensor, pts: int):
+    """Plain PyTorch twin of the matrix scan, in the kernel's blocking and
+    order: the forward frames and timelines of the n_in inputs; every
+    output's MAC over the inputs (ascending), each over the partitions
+    (ascending), summed from zero in groups of ``MATRIX_GROUP`` inputs (bin
+    0 componentwise, then times b0_scale), the groups' sums added in order
+    into the outputs' accumulators; the inverse transforms and tails of the
+    n_out outputs."""
+    hr, hi = h
+    nb, n_in, _ = blocks.shape
+    n_out, nparts = hr.shape[0] // n_in, hr.shape[1]
+    tr, ti = _timeline(_fft_frames(blocks, pts), w0)           # (n_in, nparts+nb, b)
+    hr4, hi4 = (p.reshape(n_out, n_in, nparts, 1, pts) for p in h)
+    acc_r = torch.zeros((n_out, nb, pts), dtype=torch.float32, device=blocks.device)
+    acc_i = torch.zeros_like(acc_r)
+    for i0 in range(0, n_in, MATRIX_GROUP):
+        sr, si = torch.zeros_like(acc_r), torch.zeros_like(acc_r)
+        dc_r = torch.zeros((n_out, nb), dtype=torch.float32, device=blocks.device)
+        dc_i = torch.zeros_like(dc_r)
+        for i in range(i0, min(i0 + MATRIX_GROUP, n_in)):
+            for q in range(nparts):
+                xr, xi = tr[i, 1 + q:1 + q + nb], ti[i, 1 + q:1 + q + nb]   # (nb, b)
+                yr, yi = hr4[:, i, q], hi4[:, i, q]                        # (n_out, 1, b)
+                sr += xr * yr - xi * yi
+                si += xr * yi + xi * yr
+                dc_r += xr[:, 0] * yr[..., 0]
+                dc_i += xi[:, 0] * yi[..., 0]
+        sr[..., 0] = b0_scale * dc_r
+        si[..., 0] = b0_scale * dc_i
+        acc_r += sr
+        acc_i += si
+    outs, tailf = _fft_post_ola(acc_r, acc_i, tails, pts)
     return outs, (tr[:, nb:nb + nparts], ti[:, nb:nb + nparts]), tailf
 
 

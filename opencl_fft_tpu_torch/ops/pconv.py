@@ -44,7 +44,9 @@ the per-block functions broadcast over it with shared int ring pointers
 (the JAX package vmaps them; the block-step kernels take the channel as a
 grid dimension), and ``pconv_stream_batched{,_tv}`` send every block of
 every channel through one batched whole-scan kernel launch, with ring
-pointers shared or one per channel.
+pointers shared or one per channel. ``MatrixConvolver.stream`` runs
+``_stream_scan`` with the matrix entry ``stream_steps_fused_matrix`` on a
+state of one input ring an input and one tail an output.
 
 When several blocks are known at once the frequency-delay-line MAC is a
 sliding correlation over the frame timeline (the previous nparts-1 frames,
@@ -1083,14 +1085,26 @@ def pconv_stream_batched(cfg: PconvConfig, state: PconvState, blocks: torch.Tens
         return state, blocks.new_zeros((0, nch, cfg.pts), dtype=cfg.compute_dtype)
     if not cfg._kernel_eligible():
         return _plain_stream(cfg, state, blocks)
+    return _stream_scan(cfg, state, blocks, stream_steps_fused_batched)
+
+
+def _stream_scan(cfg: PconvConfig, state: PconvState, blocks: torch.Tensor, scan
+                 ) -> Tuple[PconvState, torch.Tensor]:
+    """The kernel route of the LTI streams on a state with shared int
+    pointers or (``pconv_stream_batched``) one per channel: the window,
+    ``scan(blocks, window, h, b0_scale, tails, pts)`` (an LTI scan entry's
+    wrapper: ``stream_steps_fused_batched``, or for a matrix state of n_in
+    rings, the n_out n_in pairs' IR planes and n_out tails,
+    ``stream_steps_fused_matrix``) and the doubled rings rebuilt from its
+    final windows, traced as the spans ``window``, ``launch`` (up to the
+    return of the wrapper's enqueue) and ``ring``."""
     blocks = blocks.to(torch.float32).contiguous()
     with profiling.span("window"):
         window = _window(cfg, state)
     with profiling.span("launch"):
-        outs, (wfr, wfi), tails = stream_steps_fused_batched(
-            blocks, window, (state.spec_h_re, state.spec_h_im), cfg.b0_scale, state.tail,
-            cfg.pts)
-    wp_out = _advance(state.wp, nb, cfg.nparts)
+        outs, (wfr, wfi), tails = scan(blocks, window, (state.spec_h_re, state.spec_h_im),
+                                       cfg.b0_scale, state.tail, cfg.pts)
+    wp_out = _advance(state.wp, blocks.shape[0], cfg.nparts)
     with profiling.span("ring"):
         xr, xi = _doubled_ring(wfr, wp_out), _doubled_ring(wfi, wp_out)
     return state._replace(spec_x_re=xr, spec_x_im=xi, tail=tails, wp=wp_out), outs

@@ -182,16 +182,15 @@ def test_cell_is_correct_against_the_reference(lines):
 
 def test_traced_run_reads_the_matrix_metrics(lines):
     """The CPU has no device trace, so the device readers find nothing;
-    the program's counters read 2 n_out n_in pts 4 bytes a block, and its
-    spans the inner scan's host time up to the launch."""
+    the program's counters read no fan-out or fan-in bytes (every block
+    takes the matrix scan), and its spans the inner scan's host time up to
+    the launch."""
     rc, line = lines["traced"]
     assert rc == 0 and line["correct"]
     got = line["metrics"]
     assert set(got) == {"fan_mb_per_block.matrix", "prelaunch_us_per_call.batch"}
     assert got["prelaunch_us_per_call.batch"]["value"] > 0
-    c = TINY_CONFIG
-    want = 2 * c["outputs"] * c["inputs"] * c["partition"] * F32 * 1e-6
-    assert got["fan_mb_per_block.matrix"] == {"value": pytest.approx(want), "unit": "MB"}
+    assert got["fan_mb_per_block.matrix"] == {"value": 0.0, "unit": "MB"}
 
 
 def test_control_fails_its_limit(lines):
@@ -252,6 +251,8 @@ def _within(inner, outer) -> bool:
 
 @pytest.mark.parametrize("sizes", [(4, 3), (7, 1), (2, 5)])
 def test_stream_counters_are_exact(sizes):
+    """The matrix scan tiles nothing and sums no per-pair output: 0 fan
+    bytes."""
     nblocks, calls = sizes
     m, _ = _matrix(PTS, NPARTS, 6)
     with _profiled():
@@ -260,7 +261,7 @@ def test_stream_counters_are_exact(sizes):
     n = nblocks * calls
     assert _matrix_counters() == {
         "matrix.calls": calls, "matrix.blocks": n, "matrix.pairs": N_OUT * N_IN * n,
-        "matrix.fan_bytes": 2 * N_OUT * N_IN * PTS * F32 * n}
+        "matrix.fan_bytes": 0}
 
 
 def test_step_counters_are_exact():
@@ -276,9 +277,10 @@ def test_step_counters_are_exact():
 
 @pytest.mark.parametrize("via", ["stream", "step"])
 def test_spans_nest_as_stated(via):
-    """Each call is a ``matrix`` request: ``fanout``, the inner call,
-    ``fanin``, in that order; ``stream``'s inner call is a ``stream``
-    request of its own, inside the matrix request's time."""
+    """Each call is a ``matrix`` request. ``step``: ``fanout``, the inner
+    step, ``fanin``, in that order. ``stream`` (the matrix scan): no fan
+    spans, and a ``stream`` request of its own inside the matrix request's
+    time, with the entry's ``window``, ``launch`` and ``ring`` spans."""
     m, _ = _matrix(PTS, NPARTS, 8)
     x = _blocks(5, PTS, 8)
     with _profiled():
@@ -294,19 +296,18 @@ def test_spans_nest_as_stated(via):
         kids = sorted((s for s in sp if s.request == top.request and s.parent == "matrix"),
                       key=lambda s: s.start_ns)
         names = [s.name for s in kids]
-        assert names == (["fanout", "fanin"] if via == "stream"
-                         else ["fanout", "step", "fanin"])
+        assert names == ([] if via == "stream" else ["fanout", "step", "fanin"])
         assert all(_within(s, top) for s in kids)
     inner = [s for s in sp if s.parent is None and s.name == "stream"]
     if via == "stream":
         assert len(inner) == 3
         for top, s in zip(sorted(tops, key=lambda s: s.start_ns),
                           sorted(inner, key=lambda s: s.start_ns)):
-            kids = sorted((k for k in sp if k.request == top.request and k.parent == "matrix"),
+            assert _within(s, top)
+            kids = sorted((k for k in sp if k.request == s.request and k.parent == "stream"),
                           key=lambda k: k.start_ns)
-            assert _within(s, top) and kids[0].end_ns <= s.start_ns <= s.end_ns <= kids[1].start_ns
-            assert {k.name for k in sp if k.request == s.request and k.parent == "stream"} >= {
-                "launch"}
+            assert [k.name for k in kids] == ["window", "launch", "ring"]
+            assert all(_within(k, s) for k in kids)
     else:
         assert inner == []
 
@@ -333,11 +334,11 @@ def test_nothing_is_recorded_with_the_profiler_off():
     assert PF.spans() == [] and _matrix_counters() == {}
 
 
-@pytest.mark.parametrize("via, asked_a_call", [("step", 1), ("stream", 2)])
+@pytest.mark.parametrize("via, asked_a_call", [("step", 1), ("stream", 1)])
 def test_each_layer_asks_once_a_call(monkeypatch, via, asked_a_call):
-    """The matrix layer asks ``enabled()`` once a call, traced or not;
-    ``stream``'s inner ``Convolver.stream`` asks once more for its own
-    request, ``step``'s inner step does not ask."""
+    """The matrix layer asks ``enabled()`` once a call, traced or not, and
+    hands its answer to the inner ``stream`` request of the matrix scan;
+    ``step``'s inner step does not ask."""
     asked = []
     real = PF.enabled
 

@@ -231,9 +231,10 @@ def test_counters_show_the_launch_counts(monkeypatch):
     from opencl_fft_tpu_torch.ops.cuda import blockstep, slidemac, streamstep
     c = PF.counters()
     names = {k for k in c if k.endswith("LAUNCHES")}
-    assert len(names) == 15
+    assert len(names) == 16
     assert "opencl_fft_tpu_torch.ops.cuda.streamstep.LAUNCHES" not in names
     assert "opencl_fft_tpu_torch.ops.cuda.streamstep.BATCHED_TV_LAUNCHES" in names
+    assert "opencl_fft_tpu_torch.ops.cuda.streamstep.MATRIX_LAUNCHES" in names
     assert "opencl_fft_tpu_torch.ops.cuda.vmemfft.LAUNCHES" in names
     monkeypatch.setattr(streamstep, "BATCHED_LAUNCHES", 41)
     monkeypatch.setattr(blockstep, "MAC_UNPACK_LAUNCHES", 7)

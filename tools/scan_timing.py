@@ -1,12 +1,14 @@
 """Device time of the whole-scan, per-block step and sliding-MAC kernels, on one
 CUDA card.
 
-    python3 tools/scan_timing.py [--root DIR] [--families S,STEP,SLIDE,MAC,PATHS]
+    python3 tools/scan_timing.py [--root DIR] [--families S,STEP,SLIDE,MAC,PATHS,MATRIX]
                                  [--pts 64,128,512,2048] [--channels 1,64]
                                  [--plans G/TT/Q,...] [--tile-log-b B,...]
                                  [--step-nparts 1,256] [--step-tiles F/I,...]
                                  [--slide-routes tiled,split]
                                  [--mac-plans CL/W/T,...]
+                                 [--matrix-plans G/TT/Q,...]
+                                 [--matrix-shapes IN/OUT/PTS/NB,...]
                                  [--out FILE]
 
 For each pts, times the LTI and TV scans of one channel (1880 * 512 / pts
@@ -72,6 +74,19 @@ pts 4096 on a 2^20-tap IR, and 64 blocks of 64 through the zero-latency
 processor on that IR (one terminal fire a call). Run it from each of two trees in turn
 to compare the paths without the other phases of ``chip_smoke.py`` around
 them.
+
+``MATRIX`` times the matrix scan entry (``stream_steps_fused_matrix``)
+at each shape of ``--matrix-shapes`` (default the Ambisonic shape of
+``mimo16x16_stream470``: 16 inputs x 16 outputs, pts 512, 470 blocks; a
+2^17-tap IR) beside the route it replaced, the n_out n_in (out, in) pairs
+through the batched scan with the input tiled before it and the outputs
+summed over the inputs after it: device microseconds from HBM by CUDA
+graph, each kernel's mean a launch by the profiler summed into forward /
+MAC / inverse / rest, the MAC's TFLOP/s.
+``--matrix-plans`` times the entry again at other plans of its MAC
+(``streamstep.matrix_plan``: G warps a CTA, TT outputs a thread, Q
+partitions a stage, the ring the smallest that holds a stage and the
+next).
 
 One JSON object a line on stdout (and into FILE), after a line with the
 card's name and power limit from nvidia-smi. Needs a CUDA card; exits
@@ -172,6 +187,23 @@ def forced_plan(S, plan):
         yield
     finally:
         setattr(S, name, own)
+
+
+@contextlib.contextmanager
+def forced_matrix_plan(S, plan):
+    """The matrix scan of module S at its MAC plan (G, TT, Q); None: the
+    module's own."""
+    if plan is None:
+        yield
+        return
+    own = S.matrix_plan
+    g, tt, q = plan
+    S.matrix_plan = lambda *a, **k: (*own(*a, **k)[:2], g, tt, q,
+                                      1 << (2 * q + g * tt - 2).bit_length())
+    try:
+        yield
+    finally:
+        S.matrix_plan = own
 
 
 def rotating_sets(make, cap=48):
@@ -441,6 +473,52 @@ def slide_rows(args, f, emit):
         torch.cuda.empty_cache()
 
 
+def matrix_rows(args, S, f, emit):
+    """The MATRIX family (see the module's doc)."""
+    for shape in args.matrix_shapes.split(","):
+        matrix_shape_rows(args, S, f, emit, *map(int, shape.split("/")))
+
+
+def matrix_shape_rows(args, S, f, emit, n_in, n_out, pts, nb):
+    nparts = IR_LEN // pts
+
+    def make():
+        return (f(nb, n_in, pts, s=0.1), f(n_in, nparts, pts), f(n_in, nparts, pts),
+                f(n_out * n_in, nparts, pts, s=0.05), f(n_out * n_in, nparts, pts, s=0.05),
+                f(n_out, pts))
+
+    sets = rotating_sets(make)
+    mac_flops = 8.0 * n_out * n_in * nb * nparts * pts
+
+    def entry(i):
+        blocks, wr, wi, hr, hi, tails = sets[i]
+        return S.stream_steps_fused_matrix(blocks, (wr, wi), (hr, hi), 2.0, tails, pts)
+
+    def pairs(i):
+        blocks, wr, wi, hr, hi, tails = sets[i]
+        outs, _, tf = S.stream_steps_fused_batched(
+            blocks.repeat(1, n_out, 1), (wide[i][0], wide[i][1]), (hr, hi), 2.0, wide[i][2],
+            pts)
+        return outs.reshape(nb, n_out, n_in, pts).sum(2), tf
+
+    wide = [(wr.repeat(n_out, 1, 1), wi.repeat(n_out, 1, 1), tails.repeat_interleave(n_in, 0))
+            for _, wr, wi, _, _, tails in sets]
+    plans = [("entry", None)] + [("entry", tuple(map(int, p.split("/"))))
+                                 for p in args.matrix_plans.split(",") if p] + [("pairs", None)]
+    for route, plan in plans:
+        fn = entry if route == "entry" else pairs
+        with forced_matrix_plan(S, plan):
+            us = graph_us(fn, len(sets), 3)
+            parts, kernels = parts_of(launch_us(lambda: fn(0)))
+        emit({"family": "MATRIX", "route": route, "forced": plan, "n_in": n_in, "n_out": n_out,
+              "pts": pts, "nparts": nparts, "nb": nb, "hbm_us": round(us, 3),
+              "parts_us": parts,
+              "mac_tflops": round(mac_flops / (parts["MAC"] * 1e-6) / 1e12, 3)
+              if parts["MAC"] else None, "kernels_us_a_launch": kernels})
+    del sets, wide
+    torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
@@ -453,6 +531,8 @@ def main():
     ap.add_argument("--step-tiles", default="")
     ap.add_argument("--slide-routes", default="")
     ap.add_argument("--mac-plans", default="")
+    ap.add_argument("--matrix-plans", default="")
+    ap.add_argument("--matrix-shapes", default="16/16/512/470")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -490,6 +570,8 @@ def main():
         mac_rows(args, f, emit)
     if "PATHS" in chosen:
         path_rows(f, dev, emit)
+    if "MATRIX" in chosen and hasattr(S, "stream_steps_fused_matrix"):
+        matrix_rows(args, S, f, emit)
     for pts in map(int, args.pts.split(",")) if set(chosen) & set(families) else ():
         nparts = IR_LEN // pts
         for nch in map(int, args.channels.split(",")):
