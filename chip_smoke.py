@@ -76,7 +76,12 @@ default sizes (exit codes, wavs, each render against float64 scipy or the
 CPU twins, each demo's launches by kernel), and a third-order Ambisonic
 reverb matrix at full size (``MatrixConvolver(16, 16)`` of 2^17-tap IRs,
 one matrix-scan launch a call) against its 256 pairs' single-channel scans
-and float64 scipy. Last, one JSON line with every
+and float64 scipy, and head-tracked binaural room synthesis at full width
+(``MatrixConvolver(24, 2)`` of 2^16-tap BRIRs: a bank of orientations,
+a ``switch`` and a ``step`` every block, one launch each of
+``spectral_mac``, ``block_step_fwd_fused`` and ``block_step_fused`` a
+block) against the float64 blends of ``tests/brs_reference.py``, and the
+three kernels against their twins at its 48 pairs. Last, one JSON line with every
 kernel's launches, error, time and bound, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Every phase prints one line; any
 failure exits non-zero before the last line. Without a CUDA card, or
@@ -3862,6 +3867,99 @@ def main():
           f"{oracle41} {err41o:.3e} (tol {ORACLE_TOL}); the entry (tt {tt41}) vs its twin on "
           f"the card, outputs, windows and tails {err41t:.3e} (tol {TOL})", flush=True)
     del y41, pairs41, y41_np, a_irs_d, a_x_d
+
+    # phase 42: head-tracked binaural room synthesis at the shape of the
+    # benchmark cell brs24x2_headturn: MatrixConvolver(24, 2) of 2^16-tap
+    # BRIRs in 512-sample partitions (48 pairs, nparts 128, bins 512) with a
+    # bank of 4 orientations (fill_bank), a switch before every block (each
+    # input's orientation changes, every fourth block only the even inputs':
+    # the switch's row route) and one step. Each block counts one
+    # spectral_mac (the incoming tail's rebuild), one block_step_fwd_fused
+    # (the incoming path) and one block_step_fused (the outgoing path)
+    # launch, the first block (an instant swap) one block_step_fwd_fused.
+    # Against the float64 blends of tests/brs_reference.py. Then the three
+    # wrappers against their twins on the same card tensors at C = 48,
+    # nparts 128, bins 512, the plan of mac_plan(128, 512)
+    import importlib.util
+    import os
+    spec42 = importlib.util.spec_from_file_location(
+        "brs_reference", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                      "brs_reference.py"))
+    brs_ref = importlib.util.module_from_spec(spec42)
+    spec42.loader.exec_module(brs_ref)
+    n_src, n_ear, n_or, brs_taps, brs_blocks = 24, 2, 4, 1 << 16, 16
+    bcfg = P.PconvConfig.for_ir_length(brs_taps, PTS)
+    rng42 = np.random.default_rng(42)
+    b_irs = (rng42.standard_normal((n_src, n_or, n_ear, brs_taps))
+             * np.exp(-np.arange(brs_taps) / (0.3 * SR))).astype(np.float32)
+    b_x = (0.1 * rng42.standard_normal((brs_blocks, n_src, PTS))).astype(np.float32)
+    b_irs_d, b_x_d = torch.from_numpy(b_irs).to(dev), torch.from_numpy(b_x).to(dev)
+    brs = P.MatrixConvolver(bcfg, n_src, n_ear, device=dev)
+    for s_ in range(0, n_src, 8):
+        brs.fill_bank(b_irs_d[s_:s_ + 8], first=s_)
+    src42 = np.arange(n_src)
+    index42, switches42, y42, launches42 = src42 % n_or, {}, [], []
+    for t_ in range(brs_blocks):
+        nxt = (src42 + t_) % n_or
+        if t_ % 4 == 3:
+            nxt = np.where(src42 % 2 == 0, nxt, index42)
+        index42 = nxt
+        fade_ = 0 if t_ == 0 else 1
+        switches42[t_] = (index42.copy(), fade_)
+        zero_counts()
+        brs.switch(index42, fade_)
+        y42.append(brs.step(b_x_d[t_]))
+        torch.cuda.synchronize()
+        launches42.append(step_counts()[:3] + (BS.MAC_UNPACK_LAUNCHES, BS.FWD_TV_LAUNCHES,
+                                               S.BATCHED_LAUNCHES, S.MATRIX_LAUNCHES))
+    want42 = [(0, 0, 1, 0, 0, 0, 0)] + [(1, 1, 1, 0, 0, 0, 0)] * (brs_blocks - 1)
+    check(launches42 == want42,
+          f"MatrixConvolver(24, 2) switch + step launches of (spectral_mac, "
+          f"block_step_fused, block_step_fwd_fused, block_mac_unpack, block_step_fwd_fused_tv, "
+          f"batched scan, matrix scan) a block {launches42} (want {want42})")
+    y42 = torch.stack(y42)
+    check(tuple(y42.shape) == (brs_blocks, n_ear, PTS) and bool(torch.isfinite(y42).all()),
+          "MatrixConvolver(24, 2) switch + step shape/finite")
+    ref42 = brs_ref.render(torch.from_numpy(b_x).permute(1, 0, 2).reshape(n_src, -1),
+                           torch.from_numpy(b_irs), switches42, brs_blocks, PTS)
+    err42 = rel_err(y42.cpu().numpy(), ref42.numpy())
+    check(err42 <= ORACLE_TOL, f"MatrixConvolver(24, 2) bank switches vs the float64 "
+          f"blends {err42:.3e} > {ORACLE_TOL}")
+    del brs, b_irs_d, b_x_d, y42, ref42
+    plan42 = MC.mac_plan(bcfg.nparts, bcfg.bins)
+    pair42 = n_src * n_ear
+    ring, h, tail, bl2 = ring_inputs(pair42, bcfg.nparts, bcfg.bins)
+    worst42 = mac42 = 0.0
+    for rp in (0, 1, bcfg.nparts - 1):
+        for b0 in (1.0, 2.0):
+            where = f"C={pair42} nparts={bcfg.nparts} bins={bcfg.bins} rp={rp} b0={b0}"
+            planes42 = []
+            for twin in (False, True):
+                mac_, fused_, fwd_ = ((MC.spectral_mac_plain, BS.block_step_fused_plain,
+                                       BS.block_step_fwd_fused_plain) if twin else
+                                      (MC.spectral_mac, BS.block_step_fused,
+                                       BS.block_step_fwd_fused))
+                fwd = fwd_(bl2[0], ring, h, rp, b0, tail, bcfg.pts)
+                planes42.append({"spectral_mac": mac_(ring, h, rp, b0),
+                                 "block_step_fused": fused_(ring, h, rp, b0, tail, bcfg.pts),
+                                 "block_step_fwd_fused": (fwd[0], fwd[1], *fwd[2])})
+            got, want = planes42
+            torch.cuda.synchronize()
+            mac42 = max(mac42, mac_close("spectral_mac", got["spectral_mac"],
+                                         want["spectral_mac"], where))
+            worst42 = compare(tuple((f"{k_} {i}", g, w_) for k_ in got for i, (g, w_) in
+                                    enumerate(zip(got[k_], want[k_]))), where, worst42)
+    del ring, h, tail, bl2, got, want, planes42
+    print(f"phase 42 binaural room synthesis: MatrixConvolver({n_src}, {n_ear}) of {brs_taps}"
+          f"-tap BRIRs, a bank of {n_or} orientations, switch + step on each of {brs_blocks} "
+          f"blocks on {dev}: (spectral_mac, block_step_fused, block_step_fwd_fused) launches "
+          f"{launches42[0][:3]} on the first block (an instant swap), {launches42[1][:3]} on "
+          f"each other, no other counted launch; vs the float64 "
+          f"blends {err42:.3e} (tol {ORACLE_TOL}); spectral_mac, block_step_fused and "
+          f"block_step_fwd_fused vs their twins at C={pair42} nparts={bcfg.nparts} "
+          f"bins={bcfg.bins} (mac_plan {tuple(plan42)}) rp {{0, 1, {bcfg.nparts - 1}}} b0 "
+          f"{{1, 2}}: worst rel err {worst42:.3e} (tol {TOL}), the MAC {mac42:.3e} "
+          f"(tol {MAC_TOL})", flush=True)
 
     def kernel(name, source, replaces, launches, err, ms, plain, bnd, lib):
         return {"name": name, "route": "cuda", "source": f"opencl_fft_tpu_torch/csrc/{source}",

@@ -20,12 +20,17 @@ TV sliding-MAC launch of ``ops/cuda/slidemac.py`` a chunk);
 (``_offline_batched``: one forward product, the sliding-MAC kernel of
 ``ops/cuda/slidemac.py``, one inverse transform). ``Convolver.set_ir`` is
 the serving hot-swap: the chosen channels crossfade to new IRs over the
-next steps (``pconv_begin_xfade`` / ``pconv_step_xfade`` on the whole
-batch, the other channels' coefficients and tails left as they are, so
-their outputs are bit-equal to an engine that never swapped).
-``MatrixConvolver`` (true stereo and other matrices) rides on
-``Convolver``, its ``stream`` on the matrix scan entry; ``BatchedFFT`` is
-``fft_split`` over leading axes.
+next steps. It analyses the IRs (``ir_planes``) and switches to their
+coefficient planes (``Convolver._switch``: ``pconv_begin_xfade_planes`` /
+``pconv_step_xfade`` on the whole batch, the other channels' coefficients
+and tails left as they are, so their outputs are bit-equal to an engine
+that never swapped). ``MatrixConvolver`` (true stereo and other matrices)
+rides on ``Convolver``, its ``stream`` on the matrix scan entry; with a
+bank of IRs analysed once on the device (``fill_bank``: a binaural
+renderer's BRIRs, a head orientation each) its ``switch`` selects each
+input's IRs by index and crossfades to them through the same
+``_switch``, with no IR analysed. ``BatchedFFT`` is ``fft_split`` over
+leading axes.
 
 Every engine takes an explicit device: a CUDA card (the default), or the
 CPU when asked for by name, where each kernel's plain twin runs. A config
@@ -52,6 +57,7 @@ from ..utils.devices import get_device
 
 Device = Optional[Union[str, torch.device]]
 _NULL = contextlib.nullcontext()
+_FILL_ROWS = 1 << 13      # partition rows ``fill_bank`` analyses at a time
 
 
 def _device(device: Device) -> torch.device:
@@ -85,34 +91,6 @@ def batched_state(cfg: _p.PconvConfig, batch: int, device: Device = None) -> _p.
         spec_x_re=z(2 * cfg.nparts, cfg.bins), spec_x_im=z(2 * cfg.nparts, cfg.bins),
         spec_h_re=z(cfg.nparts, cfg.bins), spec_h_im=z(cfg.nparts, cfg.bins),
         tail=z(cfg.pts, dtype=cfg.compute_dtype), wp=0, wp2=cfg.nparts - 1)
-
-
-def _masked(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
-    """Per channel (the leading axis): ``new`` where ``mask``, else ``old``."""
-    return torch.where(mask.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
-
-
-def _xfade_begin(cfg: _p.PconvConfig, state: _p.PconvState, irs: torch.Tensor,
-                 mask: torch.Tensor) -> _p.XfadeState:
-    """Batched ``pconv_begin_xfade`` that starts a fade only on the channels
-    where ``mask`` (C,) is True (``models/convolver.py:269-278``): the
-    others keep their coefficient ring and tail on both paths, so their
-    blend is exactly a no-op. irs: (C, cvs); rows outside the mask are
-    unused."""
-    xf = _p.pconv_begin_xfade(cfg, state, irs)
-    st = state._replace(spec_h_re=_masked(mask, xf.state.spec_h_re, state.spec_h_re),
-                        spec_h_im=_masked(mask, xf.state.spec_h_im, state.spec_h_im),
-                        tail=_masked(mask, xf.state.tail, state.tail))
-    return xf._replace(state=st)
-
-
-def _push_masked(cfg: _p.PconvConfig, state: _p.PconvState, irs: torch.Tensor,
-                 mask: torch.Tensor) -> _p.PconvState:
-    """Batched ``push_ir`` on the channels where ``mask`` is True: an
-    instant swap (``models/convolver.py:285-290``)."""
-    new = _p.push_ir(cfg, state, irs)
-    return state._replace(spec_h_re=_masked(mask, new.spec_h_re, state.spec_h_re),
-                          spec_h_im=_masked(mask, new.spec_h_im, state.spec_h_im))
 
 
 def _mid_fade(what: str):
@@ -162,12 +140,11 @@ class Convolver:
         irs = _cast(irs, self.cfg, self.device)
         if irs.dim() != 2 or irs.shape[1] != self.cfg.cvs:
             raise ValueError(f"irs must be (k, {self.cfg.cvs}), got {tuple(irs.shape)}")
+        rows = None
         if channels is None:
             if irs.shape[0] != self.batch:
                 raise ValueError(f"channels=None needs (batch={self.batch}, cvs) irs, "
                                  f"got {tuple(irs.shape)}")
-            full = irs
-            mask = torch.ones(self.batch, dtype=torch.bool, device=self.device)
         else:
             idx = np.asarray(channels, np.int64).reshape(-1)
             if idx.size != irs.shape[0]:
@@ -177,17 +154,31 @@ class Convolver:
             if idx.size and (idx.min() < 0 or idx.max() >= self.batch):
                 raise ValueError(f"channel indices out of range [0, {self.batch})")
             rows = torch.from_numpy(idx).to(self.device)
-            full = irs.new_zeros((self.batch, self.cfg.cvs))
-            full[rows] = irs
-            mask = torch.zeros(self.batch, dtype=torch.bool, device=self.device)
-            mask[rows] = True
         if fade_blocks < 0:
             raise ValueError(f"fade_blocks must be >= 0, got {fade_blocks}")
+        self._switch(*_p.ir_planes(self.cfg, irs, self.state.wp2), rows, fade_blocks)
+
+    def _switch(self, h_re: torch.Tensor, h_im: torch.Tensor, rows: Optional[torch.Tensor],
+                fade_blocks: int) -> None:
+        """``set_ir`` of coefficient planes already analysed, (k, nparts,
+        bins) each in the ring's slot order: the channels ``rows`` (k,) on
+        the device, or every channel for None. Their coefficient rings take
+        the planes and their tails are rebuilt (``pconv_begin_xfade_planes``);
+        the other channels keep both, so their blend is exactly a no-op."""
         self._collapse_fade()
+        st = self.state
+        if rows is not None:
+            h_re = st.spec_h_re.index_copy(0, rows, h_re)
+            h_im = st.spec_h_im.index_copy(0, rows, h_im)
+        profiling.add("xfade.switches", self.batch if rows is None else len(rows))
         if fade_blocks == 0:
-            self.state = _push_masked(self.cfg, self.state, full, mask)
+            self.state = st._replace(spec_h_re=h_re, spec_h_im=h_im)
             return
-        self._xf = _xfade_begin(self.cfg, self.state, full, mask)
+        xf = _p.pconv_begin_xfade_planes(self.cfg, st, h_re, h_im)
+        if rows is not None:
+            tail = st.tail.index_copy(0, rows, xf.state.tail.index_select(0, rows))
+            xf = xf._replace(state=xf.state._replace(tail=tail))
+        self._xf = xf
         self._fade_pos, self._fade_total = 0, int(fade_blocks)
 
     def step(self, blocks) -> torch.Tensor:
@@ -200,8 +191,10 @@ class Convolver:
             return out
         # pconv_step_xfade broadcasts over the channels; one ramp for the
         # batch (every channel of a set_ir call fades on the same schedule)
-        ramp = _p._xfade_ramp(self.cfg, self._fade_pos, self._fade_total, self.device)
-        self._xf, out = _p.pconv_step_xfade(self.cfg, self._xf, blocks, ramp)
+        with profiling.span("xfade"):
+            profiling.add("xfade.blocks")
+            ramp = _p._xfade_ramp(self.cfg, self._fade_pos, self._fade_total, self.device)
+            self._xf, out = _p.pconv_step_xfade(self.cfg, self._xf, blocks, ramp)
         self._fade_pos += 1
         if self._fade_pos >= self._fade_total:
             self._collapse_fade()
@@ -327,6 +320,14 @@ class MatrixConvolver:
     ``fanin`` around the sum over inputs; on the matrix scan a ``stream``
     request of its own with the entry's spans inside. Off, the layer asks
     ``enabled()`` once a call.
+
+    A bank of IRs (``fill_bank``: D orientations of every (in, out) pair,
+    analysed once into coefficient planes on the device) lets ``switch``
+    move each input's pairs to another orientation's IRs by index, every
+    block if need be, as a head-tracked binaural renderer does: a gather of
+    planes and ``set_ir``'s crossfade begin, no IR analysed. While a fade
+    runs, each ``step`` holds an ``xfade`` span (``Convolver.step``) and
+    counts ``xfade.blocks``.
     """
 
     def __init__(self, cfg: _p.PconvConfig, n_in: int, n_out: int, device: Device = None):
@@ -338,6 +339,10 @@ class MatrixConvolver:
         self._conv = Convolver(cfg, n_out * n_in, device)
         self.device = self._conv.device
         self._compact: Optional[_p.PconvState] = None   # the current state, when compact
+        self._bank: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        # the bank orientation whose planes each input's pairs hold (or fade
+        # to); -1 where they hold others
+        self._held = np.full(n_in, -1, np.int64)
 
     def push_ir(self, irs) -> None:
         """irs: (n_out, n_in, cvs)."""
@@ -348,6 +353,7 @@ class MatrixConvolver:
                 f"got {tuple(irs.shape)}")
         self._to_pairs()
         self._conv.push_ir(irs.reshape(self.n_out * self.n_in, self.cfg.cvs))
+        self._held[:] = -1
 
     def set_ir(self, irs, entries: Optional[Sequence[Tuple[int, int]]] = None,
                fade_blocks: int = 8) -> None:
@@ -365,6 +371,7 @@ class MatrixConvolver:
             self._to_pairs()
             self._conv.set_ir(irs.reshape(self.n_out * self.n_in, self.cfg.cvs),
                               fade_blocks=fade_blocks)
+            self._held[:] = -1
             return
         for o, i in entries:
             if not (0 <= o < self.n_out and 0 <= i < self.n_in):
@@ -373,6 +380,99 @@ class MatrixConvolver:
         self._to_pairs()
         self._conv.set_ir(irs, channels=[o * self.n_in + i for o, i in entries],
                           fade_blocks=fade_blocks)
+        self._held[[i for _, i in entries]] = -1
+
+    def fill_bank(self, irs, first: int = 0) -> None:
+        """Analyse time-domain IRs into the bank of coefficient planes that
+        ``switch`` selects from, kept on the engine's device: irs (k, D,
+        n_out, cvs), the D orientations' IRs of inputs first .. first+k-1
+        (a binaural room synthesis renderer's BRIRs: D head orientations of
+        n_out ears a source). The bank, (n_in, D, n_out, nparts, bins) re and
+        im planes in the ring's slot order (for the coefficient pointer
+        nparts - 1, which no LTI step moves), is allocated (zeroed) by the
+        first call and again when D changes, so a bank too large to analyse
+        at once is filled in chunks of inputs. Each IR is analysed as
+        ``push_ir`` analyses it (``ops/pconv.ir_planes``), once. While a
+        torch profiler records, the allocation counts its bytes as
+        ``bank.bytes``."""
+        irs = _cast(irs, self.cfg, self.device)
+        if irs.dim() != 4 or irs.shape[2:] != (self.n_out, self.cfg.cvs):
+            raise ValueError(f"irs must be (k, D, {self.n_out}, {self.cfg.cvs}), "
+                             f"got {tuple(irs.shape)}")
+        k, d = irs.shape[:2]
+        if d < 1 or not 0 <= first <= first + k <= self.n_in:
+            raise ValueError(f"inputs {first} .. {first + k - 1} of D={d} orientations "
+                             f"out of range ({self.n_in} inputs)")
+        if self._bank is None or self._bank[0].shape[1] != d:
+            self._bank = None       # the old bank's memory first
+            shape = (self.n_in, d, self.n_out, self.cfg.nparts, self.cfg.bins)
+            self._bank = tuple(torch.zeros(shape, dtype=self.cfg.storage_dtype,
+                                           device=self.device) for _ in range(2))
+            self._held[:] = -1
+            if profiling.enabled():
+                profiling.count(("bank.bytes", 2 * self._bank[0].nbytes))
+        # a few orientations at a time: the analysis holds a float64 product
+        # of 2·bins a partition row (``_forward_partition``)
+        step = max(1, _FILL_ROWS // (self.n_out * self.cfg.nparts))
+        for j in range(k):
+            for d0 in range(0, d, step):
+                hr, hi = _p.ir_planes(self.cfg, irs[j, d0:d0 + step], self.cfg.nparts - 1)
+                self._bank[0][first + j, d0:d0 + step] = hr
+                self._bank[1][first + j, d0:d0 + step] = hi
+        self._held[first:first + k] = -1
+
+    def switch(self, index, fade_blocks: int = 1) -> None:
+        """Select each input's IRs from the bank (``fill_bank``): index
+        (n_in,) ints, input i's orientation in [0, D). The pairs of every
+        input whose index changed crossfade from their current planes to
+        the bank's over the next ``fade_blocks`` ``step`` calls, as
+        ``set_ir`` does (``fade_blocks=0`` swaps at once; a switch mid-fade
+        adopts the targets in flight); the pairs of the others are left
+        alone, bit-exactly, and a switch that changes no index does
+        nothing. No IR is analysed and no IR data crosses from the host:
+        the planes are gathered from the bank on the device. A switch on
+        the compact state converts to the pair state first.
+
+        While a torch profiler records, each call is a ``switch`` request
+        with a span ``gather`` (the bank to planes selection) inside, and
+        counts ``xfade.switches`` (pairs switched) and
+        ``bank.gather_bytes`` (coefficient bytes written)."""
+        if self._bank is None:
+            raise RuntimeError("no IR bank: fill_bank() first")
+        d = self._bank[0].shape[1]
+        idx = np.asarray(index)
+        if idx.shape != (self.n_in,) or not np.issubdtype(idx.dtype, np.integer):
+            raise ValueError(f"index must be {self.n_in} ints, got {idx.dtype} {idx.shape}")
+        if idx.min() < 0 or idx.max() >= d:
+            raise ValueError(f"index out of range [0, {d})")
+        if fade_blocks < 0:
+            raise ValueError(f"fade_blocks must be >= 0, got {fade_blocks}")
+        changed = np.flatnonzero(idx != self._held)
+        if not changed.size:
+            return
+        on = profiling.enabled()
+        with profiling.request("switch", on):
+            self._to_pairs()
+            n = self.n_in * self.n_out
+            # pair o*n_in + i takes bank row ((i*D + index_i)*n_out + o)
+            o, i = np.divmod(np.arange(n), self.n_in)
+            src = (i * d + idx[i]) * self.n_out + o
+            if changed.size < self.n_in:
+                pairs = np.flatnonzero(np.isin(i, changed))
+                sel = torch.from_numpy(np.stack([src[pairs], pairs])).to(self.device)
+                src_t, rows = sel[0], sel[1]
+            else:
+                src_t, rows = torch.from_numpy(src).to(self.device), None
+            with profiling.span("gather") if on else _NULL:
+                planes = [bank.view(-1, self.cfg.nparts, self.cfg.bins).index_select(0, src_t)
+                          for bank in self._bank]
+            written = sum(p.nbytes for p in planes)
+            if rows is not None:        # the switched rows' ring copies, written whole
+                written += 2 * n * planes[0][0].nbytes
+            self._conv._switch(*planes, rows, fade_blocks)
+            self._held[changed] = idx[changed]
+            if on:
+                profiling.count(("bank.gather_bytes", written))
 
     def step(self, blocks) -> torch.Tensor:
         """blocks: (n_in, pts) -> (n_out, pts)."""

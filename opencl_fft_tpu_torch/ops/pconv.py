@@ -30,7 +30,9 @@ pts 2048 as one replayed CUDA graph instead (``StepGraph``: the same
 arithmetic over rings written in place, ring pointers read from device
 memory). A crossfade replaces the IR
 of a live stream without a click: both coefficient rings are kept and the
-two exact convolutions are blended sample by sample (``XfadeState``).
+two exact convolutions are blended sample by sample (``XfadeState``);
+``pconv_begin_xfade_planes`` begins one from coefficient planes already
+analysed (``ir_planes``, ``push_ir``'s analysis).
 
 The streams (``pconv_stream{,_tv}``, ``pconv_stream_batched{,_tv}``,
 ``convolve``) send every block through one whole-scan kernel launch
@@ -262,13 +264,20 @@ def push_ir(cfg: PconvConfig, state: PconvState, ir: torch.Tensor) -> PconvState
     shape = tuple(state.spec_h_re.shape[:-2]) + (cfg.cvs,)
     if tuple(ir.shape) != shape:
         raise ValueError(f"IR must have shape {shape}, got {tuple(ir.shape)}")
-    hr, hi = _forward_partition(cfg, ir.reshape(shape[:-1] + (cfg.nparts, cfg.pts)))
-    slots = (state.wp2 - torch.arange(cfg.nparts, device=ir.device)) % cfg.nparts
-    spec_h_re = torch.empty_like(state.spec_h_re)
-    spec_h_im = torch.empty_like(state.spec_h_im)
-    spec_h_re[..., slots, :] = hr.to(spec_h_re.dtype)
-    spec_h_im[..., slots, :] = hi.to(spec_h_im.dtype)
+    spec_h_re, spec_h_im = ir_planes(cfg, ir, state.wp2)
     return state._replace(spec_h_re=spec_h_re, spec_h_im=spec_h_im)
+
+
+def ir_planes(cfg: PconvConfig, ir: torch.Tensor, wp2: int) -> Cplx:
+    """The coefficient planes of (..., cvs) impulse responses, (...,
+    nparts, bins) each in the ring's storage dtype, in the ring's slot
+    order for the coefficient pointer ``wp2``: partition j at slot
+    wp2 - j (``push_ir``'s analysis, without a state)."""
+    hr, hi = _forward_partition(cfg, ir.reshape(ir.shape[:-1] + (cfg.nparts, cfg.pts)))
+    slots = (wp2 - torch.arange(cfg.nparts, device=ir.device)) % cfg.nparts
+    # the map j -> (wp2 - j) mod nparts is its own inverse: gathering
+    # partition slots[s] into slot s puts partition j at slot wp2 - j
+    return hr[..., slots, :].to(cfg.storage_dtype), hi[..., slots, :].to(cfg.storage_dtype)
 
 
 def _block_kernels(cfg: PconvConfig, device: torch.device) -> bool:
@@ -676,6 +685,16 @@ def pconv_begin_xfade(cfg: PconvConfig, state: PconvState, new_ir: torch.Tensor
     (``pconv.py:506-527``).
     """
     new_state = push_ir(cfg, state, new_ir)
+    return pconv_begin_xfade_planes(cfg, state, new_state.spec_h_re, new_state.spec_h_im)
+
+
+def pconv_begin_xfade_planes(cfg: PconvConfig, state: PconvState, h_re: torch.Tensor,
+                             h_im: torch.Tensor) -> XfadeState:
+    """``pconv_begin_xfade`` to coefficient planes already analysed (each
+    ([C,] nparts, bins) in the ring's slot order for ``state.wp2``, as
+    ``ir_planes`` gives them): no IR is transformed here. The incoming
+    path's tail is rebuilt as there."""
+    new_state = state._replace(spec_h_re=h_re, spec_h_im=h_im)
     if _block_kernels(cfg, state.tail.device):
         _, tail_new = _inverse_and_ola(cfg, new_state,
                                        _spectral_mac(cfg, new_state, _shared(state.wp)))
